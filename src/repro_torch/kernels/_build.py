@@ -1,0 +1,136 @@
+"""Build and bind the hand-written CUDA kernels in ``repro_torch/csrc``.
+
+Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
+``nvcc`` on first use into ``build/repro_torch_kernels/`` at the root of
+the checkout (``.gitignore`` lists ``build/``), as
+``lib<name>-<hash>.so`` where the hash covers the source and the flags,
+and loaded with ``ctypes``. ``build()`` compiles several sources at once,
+one ``nvcc`` each, all started together.
+
+``-fmad=false``: the plain versions (``kernels/ref.py``) round every
+product before the add, as ``repro`` does with ``laws._nofma``; an FMA
+would move the law kernels off them.
+
+``LAUNCHES`` counts the launches of each kernel; a wrapper adds one
+where it launches its kernel and nowhere else, so a run can show that it
+went through the kernels (``reset_launches`` zeroes the counts).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("powertcp_step", "queue_arrivals")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+LAUNCHES = {"powertcp_step": 0, "theta_powertcp_step": 0,
+            "queue_arrivals": 0}
+
+_LIBS: dict = {}
+_LOCK = threading.Lock()
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
+                           "are built with the CUDA toolkit's nvcc")
+    return path
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD / f"lib{name}-{digest[:16]}.so"
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` per source, all at once. Returns ``{name: compiler output}``
+    for the sources compiled (the ``-Xptxas -v`` register and spill
+    report); raises with the compiler output if any build fails."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n"
+                           + "\n".join(logs[n] for n in failed))
+    return logs
+
+
+def library(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (built if needed), with
+    ``argtypes`` set from ``signatures`` ({function: [ctypes types]}) and
+    every function returning its ``cudaError_t`` as an int."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build((name,))
+                lib = ctypes.CDLL(str(library_path(name)))
+                for fn, argtypes in signatures.items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+                _LIBS[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def check_tensors(what: str, tensors: dict, shapes: dict, device) -> None:
+    """Validate what a kernel takes: every tensor on ``device`` (a CUDA
+    device), contiguous, with its dtype (float32, or bool for masks) and
+    shape."""
+    if device.type != "cuda":
+        raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, got "
+                         f"{device}")
+    for key, x in tensors.items():
+        want = torch.bool if key in ("valid", "upd") else torch.float32
+        if x.device != device:
+            raise ValueError(f"{what}: {key} is on {x.device}, not {device}")
+        if x.dtype != want:
+            raise TypeError(f"{what}: {key} has dtype {x.dtype}, not {want}")
+        if tuple(x.shape) != shapes[key]:
+            raise ValueError(f"{what}: {key} has shape {tuple(x.shape)}, "
+                             f"not {shapes[key]}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {key} is not contiguous")

@@ -1,0 +1,193 @@
+"""The port's kernels against the JAX reference (CPU) and on the card.
+
+On the CPU the kernels' plain PyTorch versions (``repro_torch.kernels.ref``)
+are held against ``repro.kernels.ref`` and against the Pallas kernels in
+interpret mode, on the same numpy inputs:
+
+* K1 ``powertcp_step`` and K2 ``theta_powertcp_step``: bit for bit
+  against ``repro.kernels.ref`` (the same association, every op rounded);
+  against the interpret-mode Pallas kernel at rtol 1e-5 (atol 1e-6 on
+  the smoothed power), the tolerance ``tests/test_kernels.py`` holds that
+  kernel to against ``repro.kernels.ref``: under XLA the kernel's
+  products may be contracted into FMAs, and where the smoothing cancels
+  (a falling RTT) the last bit grows to a few 1e-6 — the JAX kernel and
+  the JAX oracle differ by as much.
+* K3 ``queue_arrivals``: rtol 1e-5 against both (every form sums the
+  arrivals in its own order).
+* the reference backend's in-order sparse helpers (``build_csr_gather``,
+  ``csr_gather_arrivals``, ``ordered_scatter_add``), ``update_incidence``
+  and ``types.pad_hops``: bit for bit against ``repro``'s.
+
+``tests/test_torch_cuda.py`` holds the CUDA kernels themselves against
+these plain versions on the card.
+"""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import test_torch_support as sup
+
+from repro_torch.kernels import ops, ref
+
+jcore, jkernels = sup.import_repro()
+import jax.numpy as jnp  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.powertcp_step import (  # noqa: E402
+    powertcp_step as j_powertcp_step,
+    theta_powertcp_step as j_theta_powertcp_step)
+from repro.kernels.queue_arrivals import (  # noqa: E402
+    queue_arrivals as j_queue_arrivals)
+
+SIZES_F = (1, 7, 256, 300)
+SIZES_H = (1, 3, 5)
+SIZES_Q = (2, 17, 289)
+
+
+def _torch(kw, device="cpu"):
+    return {k: torch.as_tensor(v, device=device) for k, v in kw.items()}
+
+
+def _jax(kw):
+    return {k: jnp.asarray(v) for k, v in kw.items()}
+
+
+@pytest.mark.parametrize("H", SIZES_H)
+@pytest.mark.parametrize("F", SIZES_F)
+def test_powertcp_step_plain_matches_jax(F, H):
+    kw = sup.law_inputs(F, H, seed=F * 10 + H)
+    w, gs = ref.powertcp_step_ref(**_torch(kw), gamma=0.9, w_min=1000.0)
+    wr, gr = jref.powertcp_step_ref(**_jax(kw), gamma=0.9, w_min=1000.0)
+    np.testing.assert_array_equal(w.numpy(), np.asarray(wr))
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(gr))
+    wk, gk = j_powertcp_step(**_jax(kw), interpret=True)
+    np.testing.assert_allclose(w.numpy(), np.asarray(wk), rtol=1e-5)
+    np.testing.assert_allclose(gs.numpy(), np.asarray(gk), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("F", SIZES_F)
+def test_theta_powertcp_step_plain_matches_jax(F):
+    kw = sup.theta_inputs(F, seed=F)
+    w, gs, pv = ref.theta_powertcp_step_ref(**_torch(kw), gamma=0.9,
+                                            w_min=1000.0)
+    wr, gr, pr = jref.theta_powertcp_step_ref(**_jax(kw), gamma=0.9,
+                                              w_min=1000.0)
+    np.testing.assert_array_equal(w.numpy(), np.asarray(wr))
+    np.testing.assert_array_equal(gs.numpy(), np.asarray(gr))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(pr))
+    wk, gk, pk = j_theta_powertcp_step(**_jax(kw), interpret=True)
+    np.testing.assert_allclose(w.numpy(), np.asarray(wk), rtol=1e-5)
+    np.testing.assert_allclose(gs.numpy(), np.asarray(gk), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(pk))
+
+
+@pytest.mark.parametrize("Q", SIZES_Q)
+@pytest.mark.parametrize("H,F", [(1, 1), (3, 7), (5, 256), (3, 300)])
+def test_queue_arrivals_plain_matches_jax(H, F, Q):
+    kw, dt = sup.queue_inputs(H, F, Q, seed=H * 1000 + F + Q), sup.QUEUE_DT
+    arr, qn = ref.queue_arrivals_ref(**_torch(kw), dt=dt)
+    ar, qr = jref.queue_arrivals_ref(**_jax(kw), dt=dt)
+    np.testing.assert_allclose(arr.numpy(), np.asarray(ar), rtol=1e-5)
+    np.testing.assert_allclose(qn.numpy(), np.asarray(qr), rtol=1e-5)
+    ak, qk = j_queue_arrivals(**_jax(kw), dt=dt, interpret=True)
+    np.testing.assert_allclose(arr.numpy(), np.asarray(ak), rtol=1e-5)
+    np.testing.assert_allclose(qn.numpy(), np.asarray(qk), rtol=1e-5)
+
+
+def test_ops_dispatch_cpu_tensors_to_plain_versions():
+    kw = sup.law_inputs(9, 3)
+    got = ops.powertcp_step(**{k: v for k, v in _torch(kw).items()},
+                            gamma=0.9, w_min=1000.0)
+    want = ref.powertcp_step_ref(**_torch(kw), gamma=0.9, w_min=1000.0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_cuda_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels import powertcp_step, queue_arrivals
+    kw = sup.law_inputs(4, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        powertcp_step(**_torch(kw))
+    qkw, dt = sup.queue_inputs(1, 3, 2), sup.QUEUE_DT
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        queue_arrivals(**_torch(qkw), dt=dt)
+
+
+# -------------------------------------------------------------------------
+# the reference backend's in-order sparse helpers, bit for bit
+# -------------------------------------------------------------------------
+
+def _queue_modules():
+    """The two ``kernels/queue_arrivals.py`` modules (each package's
+    ``kernels`` re-exports the K3 function under the module's name)."""
+    return (importlib.import_module("repro.kernels.queue_arrivals"),
+            importlib.import_module("repro_torch.kernels.queue_arrivals"))
+
+
+def _hop_table(S, H, Q, seed):
+    """An [S, H] hop table with ~25% sentinel (== Q) hops, int32."""
+    rng = np.random.default_rng(seed)
+    path = rng.integers(0, Q, (S, H)).astype(np.int32)
+    path[rng.random((S, H)) < 0.25] = Q
+    return path
+
+
+@pytest.mark.parametrize("S,H,Q", [(1, 1, 2), (40, 3, 17), (300, 5, 17)])
+def test_csr_gather_matches_jax(S, H, Q):
+    jqa, tqa = _queue_modules()
+    path = _hop_table(S, H, Q, seed=S + H)
+    rng = np.random.default_rng(S * H)
+    contrib = (np.abs(rng.standard_normal((S, H))) * 3e9).astype(np.float32)
+    contrib[path == Q] = 0.0
+    exact = tqa.max_degree(torch.as_tensor(path), Q)
+    for maxdeg in (exact, max(exact // 2, 1)):
+        inv, over = tqa.build_csr_gather(torch.as_tensor(path), Q, maxdeg)
+        jinv, jover = jqa.build_csr_gather(jnp.asarray(path), Q, maxdeg)
+        np.testing.assert_array_equal(inv.numpy(), np.asarray(jinv))
+        assert bool(over) == bool(jover)
+    inv, _ = tqa.build_csr_gather(torch.as_tensor(path), Q, exact)
+    zero = np.zeros(Q + 1, np.float32)
+    got = tqa.csr_gather_arrivals(torch.as_tensor(contrib), inv,
+                                  torch.as_tensor(zero))
+    want = jqa.csr_gather_arrivals(jnp.asarray(contrib), jnp.asarray(
+        inv.numpy().astype(np.int32)), jnp.asarray(zero))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # the port's ordered_scatter_add == repro's at every row count (repro
+    # unrolls up to 128 rows and scatters above)
+    got = tqa.ordered_scatter_add(torch.as_tensor(zero),
+                                  torch.as_tensor(path),
+                                  torch.as_tensor(contrib))
+    want = jqa.ordered_scatter_add(jnp.asarray(zero), jnp.asarray(path),
+                                   jnp.asarray(contrib))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("S,H,Q", [(1, 1, 2), (33, 3, 17)])
+def test_update_incidence_matches_jax(S, H, Q):
+    jqa, tqa = _queue_modules()
+    path = _hop_table(S, H, Q, seed=7 * S + H)
+    rng = np.random.default_rng(S)
+    inc = (rng.random((H, S, Q + 1)) < 0.1).astype(np.float32)
+    changed = rng.random(S) < 0.5
+    got = tqa.update_incidence(torch.as_tensor(inc), torch.as_tensor(path),
+                               torch.as_tensor(changed), Q)
+    want = jqa.update_incidence(jnp.asarray(inc), jnp.asarray(path),
+                                jnp.asarray(changed), Q)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_pad_hops_matches_jax():
+    from repro_torch.core import Flows, pad_hops
+    kw = sup.golden_scenario(jcore)[1]._asdict()
+    jflows = jcore.pad_hops(jcore.Flows(**kw), 4, 1)
+    tflows = pad_hops(Flows(**{k: torch.as_tensor(np.array(v))
+                               for k, v in kw.items()}), 4, 1)
+    for f in jflows._fields:
+        np.testing.assert_array_equal(getattr(tflows, f).numpy(),
+                                      np.asarray(getattr(jflows, f)),
+                                      err_msg=f)
+    with pytest.raises(ValueError, match="shrink"):
+        pad_hops(tflows, 2, 1)
