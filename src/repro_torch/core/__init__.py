@@ -8,8 +8,10 @@ from .laws import (LAWS, LAW_BACKENDS, Law, LawConfig, get_law,
                    register_backend, register_law)
 from .fluid import (FluidSim, SlotSim, audit_carry_dtypes, build_incidence,
                     default_law_config, init_slot_state, init_state,
-                    simulate, simulate_slots, slot_step, step)
+                    make_slot_sim, simulate, simulate_slots, slot_step,
+                    step)
 from . import backends  # noqa: F401  (registers the fused kernel backends)
+from .megakernel import MegaCarry, PendingFCT, make_tick, simulate_slots_mega
 from .network import (LeafSpine, make_flows_single, make_schedule,
                       schedule_as_flows, single_bottleneck)
 from .fabric import (CompiledPaths, Fabric, FabricBuilder, FabricRoutes,
@@ -27,8 +29,10 @@ __all__ = [
     "norm_power_int", "norm_power_theta", "register_backend",
     "register_law",
     "FluidSim", "SlotSim", "audit_carry_dtypes", "build_incidence",
-    "default_law_config", "init_slot_state", "init_state", "simulate",
+    "default_law_config", "init_slot_state", "init_state",
+    "make_slot_sim", "simulate",
     "simulate_slots", "slot_step", "step",
+    "MegaCarry", "PendingFCT", "make_tick", "simulate_slots_mega",
     "LeafSpine", "make_flows_single", "make_schedule", "schedule_as_flows",
     "single_bottleneck",
     "CompiledPaths", "Fabric", "FabricBuilder", "FabricRoutes",

@@ -16,9 +16,12 @@ slot engine reproduces the padded engine's trajectories bit for bit.
 
 Backends: ``"reference"`` (plain PyTorch, with the queue arrivals summed in
 ascending flat order — bitwise ``repro``'s scatter, see
-``kernels/queue_arrivals.py``) or ``"fused"``, which sends the law update
+``kernels/queue_arrivals.py``), ``"fused"``, which sends the law update
 through K1/K2 and the queue update through K3, one launch each per tick
-on the card.
+on the card, or ``"megakernel"``: on the slot engine the whole-tick
+engine of ``core/megakernel.py`` (K4, one launch per 64 ticks on the
+card; its plain tick on the CPU), bit for bit the reference backend; on
+the padded engine, as in ``repro``, the reference ops.
 
 The tick loop is a Python loop of eager PyTorch ops: ``repro``'s
 ``lax.scan`` has no counterpart. Tick counters live on the host, so the
@@ -37,8 +40,8 @@ those ticks too, reading back the largest live queue degree.
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
 item that brings it): time-varying bandwidth (``bw_fn``), allocators
 (``alloc_fn``), impairments, chunk streaming, checkpoints, fault
-injection, divergence guards, the megakernel backend, and laws that need
-the hop-feedback, pause or incast channels.
+injection, divergence guards, and laws that need the hop-feedback, pause
+or incast channels.
 """
 from __future__ import annotations
 
@@ -49,8 +52,8 @@ import torch
 
 from ..kernels import ops
 from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
-                                      max_degree, one_hot_incidence,
-                                      update_incidence)
+                                      integrate_arrivals, max_degree,
+                                      one_hot_incidence, update_incidence)
 from .laws import Law, LawConfig, get_law
 from .types import (MTU, Flows, FlowSchedule, PathObs, Record, SimConfig,
                     SimState, SlotState, Topology, resolve_device)
@@ -222,13 +225,12 @@ def _queue_update(topo: Topology, dt: float, backend: str, incidence, inv,
     if backend == "fused":
         arr, q_new = ops.queue_arrivals(lam_del.t().contiguous(), incidence,
                                         q, bw, caps, dt=dt)
-    else:
-        contrib = torch.where(valid, lam_del, 0.0)
-        arr = csr_gather_arrivals(contrib, inv, torch.zeros_like(q))
-        q_new = torch.minimum(torch.clamp_min(q + (arr - bw) * dt, 0.0),
-                              caps)
-    out = torch.where(q > 0.0, bw, torch.minimum(arr, bw))
-    q_new[-1] = 0.0
+        out = torch.where(q > 0.0, bw, torch.minimum(arr, bw))
+        q_new[-1] = 0.0
+        return arr, out, q_new
+    contrib = torch.where(valid, lam_del, 0.0)
+    arr = csr_gather_arrivals(contrib, inv, torch.zeros_like(q))
+    out, q_new = integrate_arrivals(arr, q, bw, caps, dt=dt)
     return arr, out, q_new
 
 
@@ -387,9 +389,7 @@ def _resolve_law(law: Union[str, Law], backend: str) -> Law:
 
 
 def _check_backend(backend: str):
-    if backend == "megakernel":
-        _unported("backend='megakernel'", 6)
-    if backend not in ("reference", "fused"):
+    if backend not in ("reference", "fused", "megakernel"):
         raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -734,6 +734,25 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     return new_state, rec
 
 
+def make_slot_sim(topo: Topology, sched: FlowSchedule,
+                  law_name: Union[str, Law], slots: int,
+                  law_cfg: Optional[LawConfig] = None,
+                  cfg: Optional[SimConfig] = None,
+                  backend: str = "reference", device="cuda") -> SlotSim:
+    """Bind a schedule to a pool of ``slots`` and a backend on ``device``
+    (the ``SlotSim`` that ``simulate_slots`` runs)."""
+    _check_backend(backend)
+    cfg = cfg or SimConfig()
+    dev = resolve_device(device)
+    law = _resolve_law(law_name, backend)
+    topo, sched = _to(topo, dev), _to(sched, dev)
+    law_cfg = _to(law_cfg, dev) if law_cfg is not None \
+        else default_law_config(sched)
+    return SlotSim(topo, sched, law, law_cfg, cfg, int(slots), backend,
+                   _make_static(topo, cfg.dt),
+                   sched.start.cpu().numpy().astype(np.float32))
+
+
 def simulate_slots(topo: Topology, sched: FlowSchedule,
                    law_name: Union[str, Law], slots: int,
                    law_cfg: Optional[LawConfig] = None,
@@ -757,18 +776,14 @@ def simulate_slots(topo: Topology, sched: FlowSchedule,
         _unported("chunk streaming (chunk=)", 11)
     if checkpoint is not None or faults is not None or guard:
         _unported("checkpoint / faults / guard", 11)
-    _check_backend(backend)
-    cfg = cfg or SimConfig()
-    dev = resolve_device(device)
-    law = _resolve_law(law_name, backend)
-    topo, sched = _to(topo, dev), _to(sched, dev)
-    law_cfg = _to(law_cfg, dev) if law_cfg is not None \
-        else default_law_config(sched)
-    sim = SlotSim(topo, sched, law, law_cfg, cfg, int(slots), backend,
-                  _make_static(topo, cfg.dt),
-                  sched.start.cpu().numpy().astype(np.float32))
+    sim = make_slot_sim(topo, sched, law_name, slots, law_cfg, cfg, backend,
+                        device)
     with torch.no_grad():
-        state = init_slot_state(sim)
-        audit_carry_dtypes(state)
-        state, recs = _run(sim, state, slot_step, record)
+        if backend == "megakernel":
+            from .megakernel import simulate_slots_mega
+            state, recs = simulate_slots_mega(sim, record=record)
+        else:
+            state = init_slot_state(sim)
+            audit_carry_dtypes(state)
+            state, recs = _run(sim, state, slot_step, record)
     return state._replace(fct=state.fct[:_slot_n(sim)]), recs

@@ -170,9 +170,10 @@ def theta_powertcp_update(state, obs, w, rate_cap, upd_mask, cfg, t):
 class Law(NamedTuple):
     """A congestion-control law bound to one concrete backend (see
     ``repro.core.laws.Law`` for the full contract). ``backend`` names the
-    implementation bound to ``update``: ``"reference"`` (plain PyTorch) or
+    implementation bound to ``update``: ``"reference"`` (plain PyTorch),
     ``"fused"`` (the hand-written CUDA kernels on the card, their plain
-    versions on the CPU; ``core/backends.py``). The ``uses_*`` flags
+    versions on the CPU; ``core/backends.py``) or ``"megakernel"`` (the
+    reference update, composed into the whole-tick engine). The ``uses_*`` flags
     declare the ``PathObs`` telemetry a law reads; ``feedback`` names the
     feedback-path delay model."""
     name: str
@@ -198,9 +199,13 @@ LAWS = {
 }
 
 # law name -> {backend name -> update callable}. ``"fused"`` entries are
-# registered on import of ``core.backends``. ``get_law`` is the single
-# dispatch point; it never falls back silently.
-LAW_BACKENDS: dict = {name: {"reference": law.update}
+# registered on import of ``core.backends``. Every law also carries a
+# ``"megakernel"`` entry, its reference update: the whole-tick engine
+# (``core/megakernel.py``) composes it into its plain tick, and K4 carries
+# the same arithmetic for the laws it implements. ``get_law`` is the
+# single dispatch point; it never falls back silently.
+LAW_BACKENDS: dict = {name: {"reference": law.update,
+                             "megakernel": law.update}
                       for name, law in LAWS.items()}
 
 # Telemetry channels and feedback-path models a law may declare
@@ -228,10 +233,12 @@ def _validate_law(law) -> None:
 
 def register_law(law: Law) -> None:
     """Add a law to the registry; its ``update`` becomes the
-    ``"reference"`` backend. Re-registering a name resets its backends."""
+    ``"reference"`` and ``"megakernel"`` backends. Re-registering a name
+    resets its backends."""
     _validate_law(law)
     LAWS[law.name] = law
-    LAW_BACKENDS[law.name] = {"reference": law.update}
+    LAW_BACKENDS[law.name] = {"reference": law.update,
+                              "megakernel": law.update}
 
 
 def register_backend(law_name: str, backend: str, update: Callable) -> None:

@@ -1,0 +1,464 @@
+"""Whole-tick megakernel backend of the flow-slot engine (twin of
+``repro.core.megakernel``).
+
+``simulate_slots(..., backend="megakernel")`` runs the slot engine in
+blocks of K ticks (``kernels.fused_tick.DEFAULT_BLOCK``). The tick is
+``repro``'s ``make_tick``, with the same restructurings of the slot tick:
+
+  * the admit/retire pass is gated: it runs only on ticks where an arrival
+    is due and not yet admitted, or a slot is freeable; the due counts of
+    the whole trace come from one host ``searchsorted`` (``_due_table``);
+  * completions park in a per-slot pending buffer (``PendingFCT``) and go
+    to the [N] FCT table when their slot is recycled, or at the end;
+  * Dynamic-Thresholds caps fold each switch's queues in ascending order
+    over a static table (``fluid._buffer_caps``, the port's form of
+    ``repro``'s ``build_switch_csr``/``_buffer_caps_csr``);
+  * the queue arrivals sum through an in-order gather table over the hop
+    list of the pool, rebuilt only when the admission cursor moves, with
+    an in-order walk of the hop list for a queue whose degree outgrows the
+    table's width (``build_csr_gather``'s overflow flag);
+  * queue length, egress rate and queue gradient share one packed
+    telemetry ring row ``[q | out | qdot]``, the gradient computed when
+    the row is written, so the delayed observation reads one ring.
+
+Two lowerings, chosen by ``impl``:
+
+  * ``"torch"``: the plain version, the tick below as eager PyTorch ops,
+    looped per tick (``kernels.ref.fused_tick_block_ref``). It is the
+    counterpart of ``repro``'s XLA lowering, and what the CPU runs;
+  * ``"cuda"``: K4 (``kernels/fused_tick.py``, ``csrc/fused_tick.cu``), one
+    launch per block of K ticks, with the gated busy tick and the law's
+    arithmetic written by hand for PowerTCP and theta-PowerTCP. The host
+    uploads the due table once and reads nothing back between blocks.
+
+Both produce the reference backend's trajectories bit for bit: queue
+trace, FCTs, windows, per-slot rates and rings
+(``tests/test_torch_megakernel.py``; K4 on the card in ``chip_smoke.py``).
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..kernels import ops, ref
+from ..kernels.fused_tick import DEFAULT_BLOCK, TickParams
+from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
+                                      integrate_arrivals,
+                                      ordered_scatter_add, suggest_maxdeg)
+from . import fluid
+from . import laws as _laws
+from .types import MTU, PathObs, Record, SlotState
+
+_INT32_MAX = np.iinfo(np.int32).max
+
+# laws with a K4 path: name -> (reference update K4 carries, law id)
+K4_LAWS = {"powertcp": (_laws.powertcp_update, 0),
+           "theta_powertcp": (_laws.theta_powertcp_update, 1)}
+
+
+class PendingFCT(NamedTuple):
+    """Completions awaiting their write into the FCT table; ``flow == N``
+    marks an empty lane."""
+    flow: torch.Tensor              # [S] int32 schedule index (N = empty)
+    val: torch.Tensor               # [S] float32 completion time
+
+
+class MegaCarry(NamedTuple):
+    """Carry of the megakernel: the ``SlotState`` (its ``hist_q`` holds the
+    packed [D, 3(Q+1)] ring ``[q | out | qdot]``; ``hist_out`` and the
+    reference backend's ``inv`` ride as None), the pending FCTs, the
+    per-slot drain hold, and the in-order gather table with its overflow
+    flag. The hold and the table change only on admit/retire ticks."""
+    state: SlotState
+    pend: PendingFCT
+    hold: torch.Tensor              # [S] int32 largest valid hop delay
+    inv: torch.Tensor               # [Q+1, maxdeg] int32 gather table
+    ovf: torch.Tensor               # bool: some queue exceeds maxdeg
+
+
+def _due_table(sched, steps: int, dt: float) -> np.ndarray:
+    """[T] int32 due-arrival counts on the host: ``due[t]`` is the number
+    of schedule entries with ``start <= t*dt`` (float32), the count the
+    slot engine's admission takes at tick t."""
+    start = sched.start.cpu().numpy().astype(np.float32)
+    t_sec = np.arange(steps, dtype=np.int32).astype(np.float32) \
+        * np.float32(dt)
+    return np.searchsorted(start, t_sec, side="right").astype(np.int32)
+
+
+def _flush_pending(fct: torch.Tensor, pend: PendingFCT, mask, N: int):
+    """Write the masked pending completions into ``fct`` (in place; [N+1],
+    other rows land on the drop cell N) and empty their lanes."""
+    fct[torch.where(mask, pend.flow, N)] = torch.where(mask, pend.val,
+                                                       float("nan"))
+    pend = PendingFCT(torch.where(mask, N, pend.flow),
+                      torch.where(mask, float("nan"), pend.val))
+    return fct, pend
+
+
+def _per_flow(x, n: int, dev) -> torch.Tensor:
+    """A law-config field as a contiguous float32 [n] tensor."""
+    if isinstance(x, torch.Tensor) and x.dim() == 1 and x.shape[0] == n:
+        return x.to(device=dev, dtype=torch.float32).contiguous()
+    return torch.full((n,), float(x), dtype=torch.float32, device=dev)
+
+
+def _k4_gamma(gamma):
+    """(gamma, 1 - gamma) as the float32 values the plain law uses: a
+    Python gamma enters as float32(gamma) and float32(1.0 - gamma); a
+    one-element tensor computes 1 - gamma in float32."""
+    if isinstance(gamma, torch.Tensor):
+        if gamma.numel() != 1:
+            raise ValueError("the megakernel's K4 needs one concrete gamma; "
+                             "use backend='reference' for gamma sweeps")
+        g = np.float32(gamma.item())
+        return float(g), float(np.float32(1.0) - g)
+    return float(np.float32(gamma)), float(np.float32(1.0 - gamma))
+
+
+def _k4_params(sim, maxdeg: int) -> TickParams:
+    """The read-only inputs of K4 for one run."""
+    law = sim.law
+    entry = K4_LAWS.get(law.name)
+    if entry is None or law.update is not entry[0]:
+        raise NotImplementedError(
+            f"law '{law.name}' has no K4 path (the CUDA megakernel carries "
+            f"{sorted(K4_LAWS)}); the other laws come with ROADMAP.md, "
+            f"Queue 1 item 8")
+    topo, sched, cfg, static = sim.topo, sim.sched, sim.cfg, sim.static
+    dev = sched.start.device
+    N = fluid._slot_n(sim)
+    gamma, one_minus_gamma = _k4_gamma(sim.law_cfg.gamma)
+
+    def i32(x):
+        return x.to(device=dev, dtype=torch.int32).contiguous()
+
+    def f32(x):
+        return x.to(device=dev, dtype=torch.float32).contiguous()
+
+    sw_table = static.sw_table
+    if sw_table is not None:
+        sw_table = sw_table.to(torch.int32).contiguous()
+    return TickParams(
+        law=entry[1], N=N, Q=int(topo.num_queues), D=int(cfg.hist),
+        maxdeg=int(maxdeg),
+        nsw=0 if sw_table is None else sw_table.shape[0],
+        swdeg=0 if sw_table is None else sw_table.shape[1],
+        dt=float(np.float32(cfg.dt)),
+        inv_dt=float(np.float32(1.0 / cfg.dt)),
+        dt_alpha=float(np.float32(topo.dt_alpha)),
+        gamma=gamma, one_minus_gamma=one_minus_gamma,
+        update_period=float(np.float32(cfg.update_period)),
+        s_path=i32(sched.path), s_tf=i32(sched.tf_steps),
+        s_rtt=i32(sched.rtt_steps), s_tau=f32(sched.tau),
+        s_nic=f32(sched.nic_rate), s_start=f32(sched.start),
+        s_stop=f32(sched.stop), s_size=f32(sched.size),
+        c_beta=_per_flow(sim.law_cfg.beta, N, dev),
+        c_tau=_per_flow(sim.law_cfg.tau, N, dev),
+        bw=f32(static.bw), buf=f32(static.buf), sw_table=sw_table,
+        switch_buffer=f32(topo.switch_buffer),
+        switch_of_queue=i32(topo.switch_of_queue))
+
+
+def make_tick(sim, gate: bool = True, quiet: bool = False,
+              maxdeg: Optional[int] = None) -> Callable:
+    """Build the plain megakernel tick: ``tick(carry, due_t) -> (carry',
+    Record)``, ``due_t`` the due count of the tick (an int).
+
+    The arithmetic is ``fluid.slot_step``'s, with the restructurings of
+    the module docstring; the law runs through ``sim.law.update`` against
+    the slot-gathered config. ``gate`` runs the admit/retire pass only on
+    ticks with an arrival due and not yet admitted or a slot freeable
+    (without it, every tick). ``quiet`` short-circuits ticks with an empty
+    pool and nothing due to the queue drain and the ring writes (exact
+    for laws with ``masked_updates``). ``maxdeg`` overrides the gather
+    table's width (default ``suggest_maxdeg`` of the schedule).
+
+    ``tick.init_carry(state0)`` builds the matching ``MegaCarry``;
+    ``tick.k4_params()`` the inputs of K4 (raises for a law without a K4
+    path).
+    """
+    topo, cfg, law, static = sim.topo, sim.cfg, sim.law, sim.static
+    sched = sim.sched
+    dev = sched.start.device
+    S = int(sim.slots)
+    N = fluid._slot_n(sim)
+    Q = int(topo.num_queues)
+    Q1 = Q + 1
+    D = int(cfg.hist)
+    dt = cfg.dt
+    if maxdeg is None:
+        maxdeg = suggest_maxdeg(sched.path.cpu().numpy(), Q, S)
+    sidx = torch.arange(S, device=dev)
+    bw, buf = static.bw, static.buf
+
+    def slot_hold(st):
+        return torch.amax(torch.where(st.path < Q, st.tf_steps, 0), dim=1)
+
+    def init_carry(state0: SlotState) -> MegaCarry:
+        inv0, ovf0 = build_csr_gather(state0.path, Q, maxdeg)
+        return MegaCarry(
+            state=state0._replace(
+                hist_q=torch.zeros((D, 3 * Q1), dtype=torch.float32,
+                                   device=dev),
+                hist_out=None, inv=None, incidence=None),
+            pend=PendingFCT(
+                torch.full((S,), N, dtype=torch.int32, device=dev),
+                torch.full((S,), float("nan"), dtype=torch.float32,
+                           device=dev)),
+            hold=slot_hold(state0), inv=inv0.to(torch.int32), ovf=ovf0)
+
+    def admit_retire(st, pend, inv, ovf, due_t: int):
+        """Retire drained slots (flushing their parked FCTs), admit due
+        arrivals, and rebuild the gather table if the cursor moved."""
+        freeable = ((st.slot_flow < N) & (st.t >= st.free_at) &
+                    (pend.flow < N))
+        fct, pend = _flush_pending(st.fct, pend, freeable, N)
+        st2, occupied = fluid._admit_retire(sim, st._replace(fct=fct), due_t)
+        if bool(st2.cursor > st.cursor):
+            inv, ovf = build_csr_gather(st2.path, Q, maxdeg)
+            inv = inv.to(torch.int32)
+        return st2, pend, occupied, slot_hold(st2), inv, ovf
+
+    def integrate_queues(st, arr):
+        """The queue integration and the packed telemetry row, the
+        gradient computed over the operands the slot engine subtracts
+        when it reads the ring."""
+        caps = fluid._buffer_caps(topo, st.q, static)
+        out, q_new = integrate_arrivals(arr, st.q, bw, caps, dt=dt)
+        row = torch.cat([q_new, out, (q_new - st.q) * (1.0 / dt)])
+        return q_new, out, row
+
+    def window_clamp(w, nic, tau, theta_now):
+        return torch.minimum(torch.clamp_min(w, MTU),
+                             8.0 * nic * tau + 8.0 * nic * theta_now)
+
+    def theta_of(st, q):
+        valid = st.path < Q
+        return st.tau + fluid._hop_sum(
+            torch.where(valid, q[st.path] / bw[st.path], 0.0))
+
+    def quiet_tick(c, ptr):
+        """Empty pool, nothing due: the queues drain, the rings advance
+        and the window clamp runs; nothing else can change."""
+        st, pend, hold, inv, ovf = c
+        q_new, out, row = integrate_queues(st, torch.zeros_like(st.q))
+        w = window_clamp(st.w, st.nic_rate, st.tau, theta_of(st, st.q))
+        lam = torch.zeros_like(st.w)
+        st.hist_lam[ptr] = lam
+        st.hist_w[ptr] = st.w
+        st.hist_q[ptr] = row
+        st = st._replace(t=st.t + 1, w=w, q=q_new, out_rate=out)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        return (st, pend, hold, inv, ovf, zero, zero,
+                torch.zeros((), dtype=torch.int32, device=dev), lam)
+
+    def busy_tick(c, ptr, due_t: int):
+        st, pend, hold, inv, ovf = c
+        t = st.t
+        t_sec = fluid._tick_time(t, dt)
+        need = (not gate) or bool(
+            (due_t > st.cursor) |
+            torch.any((st.slot_flow < N) & (t >= st.free_at)))
+        if need:
+            st, pend, occupied, hold, inv, ovf = admit_retire(
+                st, pend, inv, ovf, due_t)
+        else:
+            occupied = st.slot_flow < N
+        path, tf_steps, tau, nic = (st.path, st.tf_steps, st.tau,
+                                    st.nic_rate)
+        gf = torch.clamp(st.slot_flow, 0, N - 1)
+        cfg_slot = fluid._gather_law_cfg(sim.law_cfg, gf, N)
+
+        active = (occupied & (t_sec >= st.start) & (st.remaining > 0.0) &
+                  (t_sec < st.stop))
+        valid = path < Q
+        b_hop = bw[path]
+        theta_now = theta_of(st, st.q)
+        lam = torch.where(active, torch.minimum(
+            torch.minimum(st.w / theta_now, st.rate_cap), nic), 0.0)
+        hist_lam, hist_w, hist_q = st.hist_lam, st.hist_w, st.hist_q
+        hist_lam[ptr] = lam
+        hist_w[ptr] = st.w
+
+        # -- queue update: in-order gather table, or the in-order walk of
+        #    the hop list when a queue outgrows the table -----------------
+        lam_del = hist_lam[torch.remainder(ptr - tf_steps, D), sidx[:, None]]
+        lam_del = torch.where(t - tf_steps >= st.admit_t[:, None], lam_del,
+                              0.0)
+        contrib = torch.where(valid, lam_del, 0.0)
+        if bool(ovf):
+            arr = ordered_scatter_add(torch.zeros_like(st.q), path, contrib)
+        else:
+            arr = csr_gather_arrivals(contrib, inv, torch.zeros_like(st.q))
+        q_new, out, row = integrate_queues(st, arr)
+        hist_q[ptr] = row
+
+        # -- delayed observation: one packed ring --------------------------
+        tb_steps = torch.clamp(st.rtt_steps[:, None] - tf_steps, 1, D - 2)
+        ohidx = torch.remainder(ptr - tb_steps, D)
+        q_obs = hist_q[ohidx, path]
+        mu = hist_q[ohidx, path + Q1] if law.uses_mu else None
+        qdot = hist_q[ohidx, path + 2 * Q1] if law.uses_qdot else None
+        ecn = (torch.amax(torch.where(
+            valid, fluid._marking(q_obs, buf[path], cfg_slot), 0.0), dim=1)
+            if law.uses_ecn else None)
+        theta_obs = tau + fluid._hop_sum(torch.where(valid, q_obs / b_hop,
+                                                     0.0))
+        wold_delay = torch.clamp(torch.round(theta_obs / static.dt)
+                                 .to(torch.int32), 1, D - 2)
+        w_old = hist_w[torch.remainder(ptr - wold_delay, D), sidx]
+        w_old = torch.where(t - wold_delay >= st.admit_t, w_old, nic * tau)
+        upd = active & (t_sec >= st.next_update)
+        dt_obs = torch.clamp_min(t_sec - st.last_update, dt)
+        obs = PathObs(q=q_obs, qdot=qdot, mu=mu, b=b_hop, valid=valid,
+                      theta=theta_obs, w_old=w_old, dt_obs=dt_obs,
+                      ecn_frac=ecn)
+
+        # -- control law (the registered reference update) ----------------
+        law_state, w, rate_cap = law.update(
+            st.law, obs, st.w, st.rate_cap, upd, cfg_slot, t_sec)
+        w = window_clamp(w, nic, tau, theta_now)
+        next_update = fluid._next_update(cfg, upd, t_sec, theta_now,
+                                         st.next_update)
+        last_update = torch.where(upd, t_sec, st.last_update)
+
+        # -- progress; completions park in the pending buffer -------------
+        remaining = torch.where(active, st.remaining - lam * dt,
+                                st.remaining)
+        done = active & (remaining <= 0.0)
+        pend = PendingFCT(
+            torch.where(done, st.slot_flow, pend.flow),
+            torch.where(done, t_sec + tau / 2.0 - st.start, pend.val))
+        expire = (occupied & (t_sec >= st.stop) &
+                  (st.free_at == _INT32_MAX) & ~done)
+        free_at = torch.where(done | expire, t + hold + 1, st.free_at)
+
+        st = st._replace(
+            t=t + 1, w=w, rate_cap=rate_cap, q=q_new, out_rate=out,
+            remaining=remaining, free_at=free_at, next_update=next_update,
+            last_update=last_update, law=law_state)
+        return (st, pend, hold, inv, ovf,
+                torch.sum(torch.where(active, w, 0.0)), torch.sum(lam),
+                torch.sum(active, dtype=torch.int32), lam)
+
+    def tick(carry: MegaCarry, due_t: int):
+        st = carry.state
+        t_sec = fluid._tick_time(st.t, dt)
+        ptr = st.t % D
+        c = tuple(carry)
+        if (gate and quiet and law.masked_updates and due_t == int(st.cursor)
+                and not bool(torch.any(st.slot_flow < N))):
+            out = quiet_tick(c, ptr)
+        else:
+            out = busy_tick(c, ptr, due_t)
+        st, pend, hold, inv, ovf, w_sum, lam_sum, n_act, lam = out
+        rec = Record(t=torch.tensor(t_sec, dtype=torch.float32, device=dev),
+                     q=st.q, w_sum=w_sum, thru=st.out_rate, lam=lam_sum,
+                     lam_f=lam, n_active=n_act)
+        return MegaCarry(st, pend, hold, inv, ovf), rec
+
+    k4 = []
+
+    def k4_params() -> TickParams:
+        if not k4:
+            k4.append(_k4_params(sim, maxdeg))
+        return k4[0]
+
+    tick.init_carry = init_carry
+    tick.k4_params = k4_params
+    tick.maxdeg = maxdeg
+    return tick
+
+
+def default_impl(device) -> str:
+    """K4 (``"cuda"``) on the card, the plain tick (``"torch"``) on the
+    CPU."""
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+def _unpack_state(carry: MegaCarry, N: int, Q1: int) -> SlotState:
+    """Final flush of the pending FCTs and the packed ring split back into
+    the ``SlotState`` layout."""
+    st, pend = carry.state, carry.pend
+    fct, _ = _flush_pending(st.fct, pend, pend.flow < N, N)
+    return st._replace(fct=fct, admitted=int(st.cursor),
+                       hist_q=st.hist_q[:, :Q1].contiguous(),
+                       hist_out=st.hist_q[:, Q1:2 * Q1].contiguous())
+
+
+def block_size(steps: int, record_every: int = 1,
+               block: Optional[int] = None) -> int:
+    """Ticks per block: ``block`` (default ``DEFAULT_BLOCK``) clamped to the
+    trace, and a multiple of ``record_every`` so every block records whole
+    rows."""
+    K = max(1, min(int(block) if block else DEFAULT_BLOCK, int(steps)))
+    re = max(int(record_every), 1)
+    if re > 1:
+        K = max(re, K - K % re)
+    return K
+
+
+def simulate_slots_mega(sim, record: bool = True,
+                        impl: Optional[str] = None,
+                        block: Optional[int] = None,
+                        gate: Optional[bool] = None,
+                        quiet: bool = False):
+    """Run one schedule through the megakernel backend; the return contract
+    of the slot engine: ``(final SlotState, Record or None)``, the FCT
+    table still [N+1] (``fluid.simulate_slots`` trims it).
+
+    ``impl`` is ``"cuda"`` (K4, on CUDA tensors only) or ``"torch"`` (the
+    plain tick); the default follows the device. ``block`` sets the ticks
+    per block; ``T // K`` full blocks run, then one remainder block.
+    ``gate`` and ``quiet`` go to the plain tick (``make_tick``); K4 always
+    runs the gated busy tick, whose results are the same.
+    """
+    cfg = sim.cfg
+    T = int(cfg.steps)
+    re = max(int(cfg.record_every), 1) if record else 1
+    if record and re > 1 and T % re:
+        raise ValueError(f"steps ({T}) must be divisible by "
+                         f"record_every ({re})")
+    dev = sim.sched.start.device
+    impl = impl or default_impl(dev)
+    if impl not in ("cuda", "torch"):
+        raise ValueError(f"unknown megakernel impl {impl!r}")
+    if impl == "cuda" and dev.type != "cuda":
+        raise ValueError("impl='cuda' runs K4 and needs CUDA tensors; use "
+                         "impl='torch' on the CPU")
+    tick = make_tick(sim, gate=True if gate is None else gate, quiet=quiet)
+    state0 = fluid.init_slot_state(sim)
+    fluid.audit_carry_dtypes(state0)
+    due = torch.as_tensor(_due_table(sim.sched, T, cfg.dt), device=dev)
+    carry, recs = run_blocks(tick, tick.init_carry(state0), due,
+                             block_size(T, re, block), impl, record, re)
+    final = _unpack_state(carry, fluid._slot_n(sim),
+                          int(sim.topo.num_queues) + 1)
+    return final, recs
+
+
+def run_blocks(tick, carry: MegaCarry, due: torch.Tensor, block: int,
+               impl: str, record: bool = True, record_every: int = 1):
+    """Advance ``carry`` over the ticks of ``due`` (the device due table
+    from the carry's tick on) in blocks of ``block`` ticks, the last block
+    the remainder: K4 per block for ``impl="cuda"`` (``kernels.ops``),
+    the plain block for ``"torch"``. Returns (carry', Record or None)."""
+    run_block = (ops.fused_tick_block if impl == "cuda"
+                 else ref.fused_tick_block_ref)
+    recs = []
+    for lo in range(0, int(due.shape[0]), block):
+        carry, r = run_block(tick, carry, due[lo:lo + block], record=record,
+                             record_every=record_every)
+        if record:
+            recs.append(r)
+    if not record:
+        return carry, None
+    return carry, Record(*[torch.cat(list(x)) for x in zip(*recs)])
+
+
+__all__ = ["DEFAULT_BLOCK", "K4_LAWS", "MegaCarry", "PendingFCT",
+           "block_size", "default_impl", "make_tick",
+           "run_blocks", "simulate_slots_mega"]

@@ -29,13 +29,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("powertcp_step", "queue_arrivals")
+SOURCES = ("powertcp_step", "queue_arrivals", "fused_tick")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 LAUNCHES = {"powertcp_step": 0, "theta_powertcp_step": 0,
-            "queue_arrivals": 0}
+            "queue_arrivals": 0, "fused_tick_block": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
@@ -116,15 +116,17 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
-def check_tensors(what: str, tensors: dict, shapes: dict, device) -> None:
+def check_tensors(what: str, tensors: dict, shapes: dict, device,
+                  dtypes: dict = None) -> None:
     """Validate what a kernel takes: every tensor on ``device`` (a CUDA
-    device), contiguous, with its dtype (float32, or bool for masks) and
-    shape."""
+    device), contiguous, with its dtype (``dtypes[key]``; by default
+    float32, or bool for the masks ``valid`` and ``upd``) and shape."""
     if device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, got "
                          f"{device}")
     for key, x in tensors.items():
-        want = torch.bool if key in ("valid", "upd") else torch.float32
+        want = (dtypes or {}).get(key) or (
+            torch.bool if key in ("valid", "upd") else torch.float32)
         if x.device != device:
             raise ValueError(f"{what}: {key} is on {x.device}, not {device}")
         if x.dtype != want:

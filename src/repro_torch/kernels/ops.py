@@ -8,6 +8,7 @@ CUDA tensor a kernel that fails to build or launch raises.
 from __future__ import annotations
 
 from . import ref
+from . import fused_tick as _tick
 from . import powertcp_step as _law
 from . import queue_arrivals as _queue
 
@@ -42,3 +43,14 @@ def queue_arrivals(lam_del, onehot, q, out_rate, caps, *, dt):
         return _queue.queue_arrivals(lam_del, onehot, q, out_rate, caps,
                                      dt=dt)
     return ref.queue_arrivals_ref(lam_del, onehot, q, out_rate, caps, dt)
+
+
+def fused_tick_block(tick, carry, due_block, *, record=True, record_every=1):
+    """K ticks of the megakernel: K4 on CUDA tensors (with
+    ``tick.k4_params()``), the plain tick loop on CPU tensors."""
+    if _on_cuda(carry.state.w):
+        return _tick.fused_tick_block(tick.k4_params(), carry, due_block,
+                                      record=record,
+                                      record_every=record_every)
+    return ref.fused_tick_block_ref(tick, carry, due_block, record=record,
+                                    record_every=record_every)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -55,6 +56,41 @@ def queue_arrivals(lam_del, onehot, q, out_rate, caps, *, dt):
     return arr, q_new
 
 
+def suggest_maxdeg(path, num_queues: int, slots: int, cap: int = 64,
+                   default: int = 32) -> int:
+    """Static width of the megakernel's gather table from a schedule's hop
+    table (host numpy, as ``repro``): the largest number of schedule
+    entries on one real queue, at most ``slots`` (no more flows than slots
+    are resident at once). Degrees above ``cap`` fall back to ``default``
+    and rely on the in-order overflow path."""
+    flat = np.asarray(path).reshape(-1)
+    flat = flat[(flat >= 0) & (flat < num_queues)]
+    d = int(np.bincount(flat, minlength=1).max()) if flat.size else 1
+    d = max(d, 1)
+    if d > cap:
+        d = default
+    return max(1, min(d, int(slots)))
+
+
+def stable_sort_ids(ids: torch.Tensor, bound: int):
+    """Stable ascending sort of int ids in ``[0, bound]``: returns
+    ``(sorted_ids, order)`` as int32, ``order`` the stable argsort (the
+    values of ``repro``'s packed-key sort, which is a stable sort too)."""
+    sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
+    return sorted_ids.to(torch.int32), order.to(torch.int32)
+
+
+def seg_ranks(sorted_ids: torch.Tensor) -> torch.Tensor:
+    """Rank of each element within its run of equal ids (ids ascending):
+    the index minus the running max of the run starts."""
+    n = int(sorted_ids.shape[0])
+    idx = torch.arange(n, dtype=torch.int32, device=sorted_ids.device)
+    change = torch.ones(n, dtype=torch.bool, device=sorted_ids.device)
+    change[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    zero = torch.zeros((), dtype=torch.int32, device=sorted_ids.device)
+    return idx - torch.cummax(torch.where(change, idx, zero), dim=0).values
+
+
 def build_csr_gather(path: torch.Tensor, num_queues: int, maxdeg: int):
     """Invert a hop table into a per-queue gather table.
 
@@ -67,24 +103,19 @@ def build_csr_gather(path: torch.Tensor, num_queues: int, maxdeg: int):
     (a bool tensor) is True when some queue has more than ``maxdeg``
     contributors and the table is truncated.
     """
-    flat_q = path.reshape(-1)
-    nnz = int(flat_q.shape[0])
-    dev = path.device
-    sorted_q, order = torch.sort(flat_q, stable=True)
+    nnz = int(path.numel())
+    sorted_q, order = stable_sort_ids(path, num_queues)
     sorted_q = sorted_q.to(torch.int64)
-    idx = torch.arange(nnz, device=dev)
-    change = torch.ones(nnz, dtype=torch.bool, device=dev)
-    change[1:] = sorted_q[1:] != sorted_q[:-1]
     # rank of each contributor within its queue (ascending flat index,
     # because the sort is stable)
-    rank = idx - torch.cummax(torch.where(change, idx, 0), dim=0).values
+    rank = seg_ranks(sorted_q).to(torch.int64)
     real = sorted_q < num_queues
     overflow = torch.any(real & (rank >= maxdeg))
     drop = (num_queues + 1) * maxdeg
     cell = torch.where(real & (rank < maxdeg),
                        sorted_q * maxdeg + rank.clamp_max(maxdeg - 1), drop)
-    inv = torch.full((drop + 1,), nnz, dtype=torch.int64, device=dev)
-    inv[cell] = order
+    inv = torch.full((drop + 1,), nnz, dtype=torch.int64, device=path.device)
+    inv[cell] = order.to(torch.int64)
     return inv[:-1].reshape(num_queues + 1, maxdeg), overflow
 
 
@@ -120,6 +151,32 @@ def ordered_scatter_add(zero: torch.Tensor, idx: torch.Tensor,
     n = int(zero.shape[0])
     inv, _ = build_csr_gather(idx, n, max_degree(idx, n))
     return csr_gather_arrivals(vals, inv[:n], zero)
+
+
+def integrate_arrivals(arr: torch.Tensor, q: torch.Tensor, bw: torch.Tensor,
+                       caps: torch.Tensor, *, dt: float):
+    """The fluid-queue integration shared by the sparse queue forms:
+    ``q' = min(max(q + (arr - bw) dt, 0), caps)`` with the sentinel queue
+    pinned to 0, and the egress rate ``out = bw`` where the queue was
+    backlogged, else ``min(arr, bw)``. Returns (out, q_new)."""
+    q_new = torch.minimum(torch.clamp_min(q + (arr - bw) * dt, 0.0), caps)
+    q_new[-1] = 0.0
+    out = torch.where(q > 0.0, bw, torch.minimum(arr, bw))
+    return out, q_new
+
+
+def queue_arrivals_sparse(lam_del: torch.Tensor, path: torch.Tensor,
+                          valid: torch.Tensor, q: torch.Tensor,
+                          bw: torch.Tensor, caps: torch.Tensor, *,
+                          dt: float):
+    """Sparse queue update in one call: the pool's [S, H] delayed rates
+    summed per queue in ascending flat order (``ordered_scatter_add``),
+    then ``integrate_arrivals``. Returns (arrivals, out, q_new), bit for
+    bit the reference backend's ``fluid._queue_update``."""
+    contrib = torch.where(valid, lam_del, 0.0)
+    arr = ordered_scatter_add(torch.zeros_like(q), path, contrib)
+    out, q_new = integrate_arrivals(arr, q, bw, caps, dt=dt)
+    return arr, out, q_new
 
 
 def update_incidence(incidence: torch.Tensor, path: torch.Tensor,

@@ -5,7 +5,9 @@ Each is written the most obvious way. They are what a wrapper runs on a
 CPU tensor, and what ``chip_smoke.py`` holds each CUDA kernel against on
 the card: K1 and K2 bit for bit (the kernels are built with
 ``-fmad=false`` and round every product the way these do), K3 at rtol
-1e-5 (its arrival sum runs in another order).
+1e-5 (its arrival sum runs in another order), K4 bit for bit on every
+carry leaf (the per-tick record sums ``w_sum`` and ``lam`` at rtol 1e-5:
+``torch.sum`` adds in its own order).
 """
 from __future__ import annotations
 
@@ -58,3 +60,20 @@ def queue_arrivals_ref(lam_del, onehot, q, out_rate, caps, dt):
     q_new = torch.minimum(torch.clamp_min(q + (arr - out_rate) * dt, 0.0),
                           caps)
     return arr, q_new
+
+
+def fused_tick_block_ref(tick, carry, due_block, record=True,
+                         record_every=1):
+    """K whole ticks of the megakernel (``core.megakernel.make_tick``'s
+    plain tick) looped one by one, K the length of ``due_block`` (the due
+    counts of the block's ticks). Returns (carry', records stacked over
+    the block's recorded ticks — every ``record_every``-th — or None)."""
+    re = max(int(record_every), 1)
+    recs = []
+    for k, due_t in enumerate(due_block.tolist()):
+        carry, rec = tick(carry, int(due_t))
+        if record and (k + 1) % re == 0:
+            recs.append(rec)
+    if not record:
+        return carry, None
+    return carry, type(recs[0])(*[torch.stack(list(x)) for x in zip(*recs)])

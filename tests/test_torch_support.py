@@ -182,6 +182,117 @@ def queue_inputs(H, F, Q, seed=0):
                 caps=np.full(Q, 6e6, f32))
 
 
+# the megakernel's anchors (tests/test_megakernel.py)
+
+def staggered(core, n=12, steps=4000, seed=0, **dev):
+    """``tests/test_megakernel.py::_staggered`` in either package: n flows
+    of 80-400 kB on one 100 Gbps bottleneck, starting in the first 1.5 ms
+    (numpy draws from ``seed``)."""
+    B, tau = 100 * core.GBPS, 20 * core.US
+    topo = core.single_bottleneck(bandwidth=B, buffer=16e6, **dev)
+    rng = np.random.default_rng(seed)
+    flows = core.make_flows_single(n, tau=tau, nic=B,
+                                   sizes=rng.uniform(8e4, 4e5, n),
+                                   starts=rng.uniform(0.0, 1.5e-3, n),
+                                   sim_dt=1e-6, **dev)
+    return topo, core.make_schedule(flows), core.SimConfig(dt=1e-6,
+                                                           steps=steps,
+                                                           hist=256)
+
+
+def single_slot(core, **dev):
+    """``tests/test_megakernel.py::test_single_slot_pool``'s scenario:
+    three 100 kB flows, 4 000 ticks (run with one slot)."""
+    B, tau = 100 * core.GBPS, 20 * core.US
+    topo = core.single_bottleneck(bandwidth=B, buffer=16e6, **dev)
+    flows = core.make_flows_single(3, tau=tau, nic=B, sizes=[1e5] * 3,
+                                   starts=[0.0, 1e-5, 2e-5], sim_dt=1e-6,
+                                   **dev)
+    return topo, core.make_schedule(flows), core.SimConfig(dt=1e-6,
+                                                           steps=4000,
+                                                           hist=256)
+
+
+def tree_leaves(x, name="carry"):
+    """(name, tensor) of every tensor in nested NamedTuples."""
+    if isinstance(x, torch.Tensor):
+        return [(name, x)]
+    if isinstance(x, tuple):
+        fields = getattr(x, "_fields", [str(i) for i in range(len(x))])
+        return [p for f, v in zip(fields, x)
+                for p in tree_leaves(v, f"{name}.{f}")]
+    return []
+
+
+def tree_clone(x):
+    """A copy of nested NamedTuples of tensors (other leaves shared)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        vals = [tree_clone(v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
+
+
+def plain_ticks(tick, carry, due):
+    """The plain megakernel tick looped over the due counts ``due``.
+    Returns (carry', records stacked over the ticks, the number of ticks
+    that ended with the gather table overflowed, so that a queue's
+    arrivals came from the in-order walk of the hop list)."""
+    recs, n_ovf = [], 0
+    for due_t in due.tolist():
+        carry, rec = tick(carry, int(due_t))
+        recs.append(rec)
+        n_ovf += bool(carry.ovf)
+    return (carry, type(recs[0])(*[torch.stack(list(x)) for x in zip(*recs)]),
+            n_ovf)
+
+
+def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
+                     expected_flows=8.0, maxdeg=None):
+    """K4 against the plain megakernel tick on the card, from the same
+    initial carry, for each K in ``blocks``: every carry leaf bit for bit,
+    and the records; their per-tick sums ``w_sum`` and ``lam`` at rtol
+    1e-5, because K4 adds them in its own fixed order and the plain tick
+    with ``torch.sum``. ``maxdeg`` narrows the gather table (default
+    ``suggest_maxdeg``); a narrowed table must overflow on some tick, so
+    that K4's walk of the hop list is held too. Returns (the largest
+    absolute difference in the two sums — every other value is equal —,
+    the number of ticks with the table overflowed)."""
+    from repro_torch.core import fluid, megakernel as mk
+    dev = sched.start.device
+    lcfg = tc.default_law_config(sched, expected_flows=expected_flows)
+    sim = fluid.make_slot_sim(topo, sched, law, slots, lcfg, cfg,
+                              "megakernel", dev)
+    tick = mk.make_tick(sim, maxdeg=maxdeg)
+    carry0 = tick.init_carry(fluid.init_slot_state(sim))
+    due = torch.as_tensor(mk._due_table(sim.sched, int(cfg.steps), cfg.dt),
+                          device=dev)
+    want, wrec, n_ovf = plain_ticks(tick, tree_clone(carry0), due)
+    if maxdeg is not None:
+        assert n_ovf > 0, f"a gather table of width {maxdeg} never overflowed"
+    err = 0.0
+    for K in blocks:
+        got, grec = mk.run_blocks(tick, tree_clone(carry0), due, K, "cuda")
+        torch.cuda.synchronize()
+        assert got.state.t == want.state.t, (K, got.state.t, want.state.t)
+        for (name, g), (_, w) in zip(tree_leaves(got), tree_leaves(want)):
+            torch.testing.assert_close(
+                g, w, rtol=0, atol=0, equal_nan=True,
+                msg=lambda m, n=name: f"K4 K={K} {n}: {m}")
+        for f in grec._fields:
+            g = getattr(grec, f)
+            w = getattr(wrec, f).to(g.dtype)
+            tol = 1e-5 if f in ("w_sum", "lam") else 0.0
+            torch.testing.assert_close(
+                g, w, rtol=tol, atol=0, equal_nan=True,
+                msg=lambda m, n=f: f"K4 K={K} rec.{n}: {m}")
+            if tol and g.numel():
+                err = max(err, float(torch.max(torch.abs(g.double()
+                                                         - w.double()))))
+    return err, n_ovf
+
+
 @pytest.fixture
 def cuda_device():
     """The CUDA device for card-only tests; skips here without a card."""
