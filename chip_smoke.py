@@ -9,8 +9,8 @@ CUDA toolkit (``nvcc``). Phases, each of which fails the script (non-zero
 exit, traceback) if anything in it is wrong:
 
 1. probe: the card's name, and its name and power limit from nvidia-smi;
-2. build: the CUDA kernels from ``src/repro_torch/csrc`` (K1/K2, K3, K4),
-   one nvcc per source, all at once;
+2. build: the CUDA kernels from ``src/repro_torch/csrc`` (K1/K2, K3, K4,
+   K5, K6), one nvcc per source, all at once;
 3. kernels: K1 ``powertcp_step`` and K2 ``theta_powertcp_step`` against
    their plain PyTorch versions bit for bit, K3 ``queue_arrivals`` at
    rtol 1e-5 / atol 1e-3 bytes, at the main path's shapes and ragged
@@ -46,13 +46,36 @@ exit, traceback) if anything in it is wrong:
    (``tests/golden/torch_port_paper_seed1.json``): the same completion
    set, and a short-flow (< 10 kB) p99.9 FCT within 1e-3.
 
-``--profile`` adds a last phase: each main-path run under
+7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
+   plain PyTorch versions at the serve run's shapes (K5: prefill q
+   [4,40,512,128] over k/v [4,8,512,128], decode q [4,40,1,128] over the
+   first 513 and 543 positions of a [4,544,8,128] cache, read in place;
+   K6: the layer norms' [2048,5120] and [4,5120] rows, the qk-norms'
+   [81920,128], [16384,128] and [160,128]), K5 at 2e-2 and K6 within one
+   bfloat16 ulp; then each timed beside its plain version and one PyTorch
+   call for the same function (``F.scaled_dot_product_attention`` with
+   ``enable_gqa``, ``F.rms_norm``; the library yardstick, used nowhere in
+   the port);
+8. serve: qwen3-14b at full width (40 layers, d_model 5120, float32
+   params drawn on the card from a ``torch.Generator`` seeded 0) through
+   ``repro_torch.serve.decode_loop``: 4 prompts of 512 tokens from a seed,
+   32 greedy tokens each (one prefill and 31 decode steps), cache of 544
+   positions. The launch counts are zeroed just before and read just
+   after: K5 once per layer per forward (1 280), K6 four times per layer
+   plus the final norm per forward (5 152), no other kernel. Every
+   logit finite, every token below the vocabulary. Prints the prefill
+   time, ms per decode step, tokens/s and the peak device memory. The
+   memory is freed before and after, so that the ~60 GB of params never
+   meet another phase's tensors.
+
+``--profile`` adds a phase after 6: each main-path run under
 ``torch.profiler`` (the first 200 ticks of the eager runs, the whole
 40 000 ticks of the megakernel runs), with the device time and device
 launches per tick, the device-busy share and the kernels that take the
-most device time.
+most device time; and phase 8 runs the serve run a second time under
+``torch.profiler``, with K5's and K6's share of its device time.
 
-It prints one ``{"kernels": [...]}`` line (K1-K4), the nvidia-smi line,
+It prints one ``{"kernels": [...]}`` line (K1-K6), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
 no result, when CUDA is not available or the checkout's sources are
 missing.
@@ -69,23 +92,30 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate, float32 outside the
-# tensor cores
+# tensor cores, dense bf16 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_BF16_S = 989e12
 
-KERNELS = ("powertcp_step", "theta_powertcp_step", "queue_arrivals",
-           "fused_tick_block")
+SIM_KERNELS = ("powertcp_step", "theta_powertcp_step", "queue_arrivals",
+               "fused_tick_block")
+LM_KERNELS = ("flash_attention", "rmsnorm")
+KERNELS = SIM_KERNELS + LM_KERNELS
 REPLACES = {
     "powertcp_step": "src/repro/kernels/powertcp_step.py:51",
     "theta_powertcp_step": "src/repro/kernels/powertcp_step.py:101",
     "queue_arrivals": "src/repro/kernels/queue_arrivals.py:312",
     "fused_tick_block": "src/repro/kernels/fused_tick.py:74",
+    "flash_attention": "src/repro/kernels/flash_attention.py:98",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:26",
 }
 SOURCES = {
     "powertcp_step": "src/repro_torch/csrc/powertcp_step.cu",
     "theta_powertcp_step": "src/repro_torch/csrc/powertcp_step.cu",
     "queue_arrivals": "src/repro_torch/csrc/queue_arrivals.cu",
     "fused_tick_block": "src/repro_torch/csrc/fused_tick.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
 }
 
 
@@ -125,9 +155,9 @@ def graph_ms(torch, fn, reps=100, rounds=7):
     return float(np.median(times))
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak_ops=PEAK_F32_S):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_S * 1e3
+    t_ops = flops / peak_ops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -148,6 +178,22 @@ def queue_cost(H, F, Q):
     """K3: lam [H,F] + incidence [H,F,Q] + q/out/caps [Q] read, arr and
     q_new [Q] written; 2 flops per incidence entry + 5 per queue."""
     return 4 * (H * F + H * F * Q + 3 * Q + 2 * Q), 2 * H * F * Q + 5 * Q
+
+
+def flash_cost(B, H, KV, T, S, D, itemsize=2):
+    """K5, causal with the queries at the last T of S positions: q, k, v
+    read once and the output written once; 4·D flops (two products, each
+    a multiply and an add) per visible query-key pair."""
+    pairs = sum(min(S, t + S - T + 1) for t in range(T))
+    return (2 * B * H * T * D + 2 * B * KV * S * D) * itemsize, \
+        4 * B * H * D * pairs
+
+
+def rmsnorm_cost(N, D, itemsize=2):
+    """K6: x read and y written once, the float32 scale read once; per
+    element a square-add, a multiply by the inverse root and one by the
+    scale (4 flops)."""
+    return 2 * N * D * itemsize + 4 * D, 4 * N * D
 
 
 # -------------------------------------------------------------------------
@@ -679,6 +725,235 @@ def phase_profile(torch, tc, sup, dev, summaries, ticks=200):
                 f" us/tick  {e.count / n:6.2f} calls/tick  {e.key[:90]}")
 
 
+# -------------------------------------------------------------------------
+# the LM slice: K5, K6 and the qwen3-14b serve run
+# -------------------------------------------------------------------------
+
+def free_memory(torch):
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_lm_kernels(torch, sup, dev):
+    """K5 and K6 against their plain versions at the serve run's shapes,
+    then timed beside the plain version and the PyTorch call for the same
+    function. Returns {name: row} for the kernels line (K5 at the prefill
+    shape with its decode shape under ``decode_*``; K6 at the prefill
+    layer norm's rows with the qk-norm's and the decode rows beside)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref, rmsnorm
+    bf = torch.bfloat16
+    B, H, KV, D = (sup.SERVE_BATCH, 40, 8, 128)
+    P, C = sup.SERVE_PROMPT, sup.SERVE_CACHE
+
+    def flash_case(T, S, seed):
+        q, k, v = (torch.as_tensor(a, device=dev).to(bf) for a in
+                   sup.flash_inputs(B, H, KV, T, S, D, seed=seed))
+        if T == 1:      # the decode reads the cache in place: [B,S,KV,D]
+            cache = torch.zeros(B, C, KV, D, dtype=bf, device=dev)
+            cache[:, :S] = k.permute(0, 2, 1, 3)
+            k = v = cache[:, :S].permute(0, 2, 1, 3)
+            q = q.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+        return q, k, v
+
+    err = {"flash_attention": 0.0, "rmsnorm": 0.0}
+    cases = {"prefill": (P, P), "decode_first": (1, P + 1),
+             "decode": (1, C - 1)}
+    for tag, (T, S) in cases.items():
+        q, k, v = flash_case(T, S, seed=T + S)
+        got = flash_attention(q, k, v, causal=True)
+        want = ref.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        e = float((got.float() - want.float()).abs().max())
+        err["flash_attention"] = max(err["flash_attention"], e)
+        log(f"[lm] flash_attention {tag} q {list(q.shape)} k/v "
+            f"{list(k.shape)}: max abs err {e!r} (rtol/atol 2e-2)")
+    norm_rows = {"ln prefill": B * P, "qk prefill": B * P * H,
+                 "k prefill": B * P * KV, "ln decode": B, "qk decode": B * H}
+    for tag, N in norm_rows.items():
+        Dn = 5120 if tag.startswith("ln") else D
+        x, s = (torch.as_tensor(a, device=dev)
+                for a in sup.rmsnorm_inputs(N, Dn, seed=N))
+        x = x.to(bf)
+        got = rmsnorm(x, s, eps=1e-6)
+        want = ref.rmsnorm_ref(x, s, eps=1e-6)
+        torch.cuda.synchronize()
+        ulps = sup.bf16_ulps(got, want)
+        if ulps > 1.0:
+            raise AssertionError(f"rmsnorm {tag}: {ulps} bfloat16 ulps off")
+        e = float((got.float() - want.float()).abs().max())
+        err["rmsnorm"] = max(err["rmsnorm"], e)
+        log(f"[lm] rmsnorm {tag} [{N}, {Dn}]: max abs err {e!r}, "
+            f"{ulps!r} bfloat16 ulps (at most 1)")
+
+    rows = {}
+    for tag, (T, S) in (("", cases["prefill"]), ("decode_", cases["decode"])):
+        q, k, v = flash_case(T, S, seed=1)
+        nbytes, flops = flash_cost(B, H, KV, T, S, D)
+        b, by = bound_ms(nbytes, flops, PEAK_BF16_S)
+        lib = (lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)) if T == S else (
+            lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True))
+        rows[tag] = dict(
+            shape=f"q [{B},{H},{T},{D}] k/v [{B},{KV},{S},{D}] bf16",
+            ms=graph_ms(torch, lambda: flash_attention(q, k, v)),
+            plain_ms=graph_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v)),
+            bound_ms=b, bound_by=by, library_ms=graph_ms(torch, lib))
+    k5 = dict(rows[""], max_abs_err=err["flash_attention"])
+    for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        k5["decode_" + key] = rows["decode_"][key]
+    rows = {}
+    for tag, (N, Dn) in (("", (B * P, 5120)), ("qk_", (B * P * H, D)),
+                         ("decode_", (B, 5120))):
+        x, s = (torch.as_tensor(a, device=dev)
+                for a in sup.rmsnorm_inputs(N, Dn, seed=1))
+        x = x.to(bf)
+        sb = s.to(bf)
+        nbytes, flops = rmsnorm_cost(N, Dn)
+        b, by = bound_ms(nbytes, flops)
+        rows[tag] = dict(
+            shape=f"x [{N},{Dn}] bf16, scale f32",
+            ms=graph_ms(torch, lambda: rmsnorm(x, s)),
+            plain_ms=graph_ms(torch, lambda: ref.rmsnorm_ref(x, s)),
+            bound_ms=b, bound_by=by,
+            library_ms=graph_ms(torch, lambda: F.rms_norm(x, (Dn,), sb,
+                                                          1e-6)))
+    k6 = dict(rows[""], max_abs_err=err["rmsnorm"])
+    for pre in ("qk_", "decode_"):
+        for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms"):
+            k6[pre + key] = rows[pre][key]
+    out = {"flash_attention": k5, "rmsnorm": k6}
+    for name, row in out.items():
+        log(f"[lm] time {name}: " + json.dumps(row))
+    return out
+
+
+def serve_expected_launches(cfg, forwards):
+    """Per forward: K5 once per layer, K6 for ln1, ln2, q_norm and k_norm
+    of each layer plus the final norm; no other kernel."""
+    L = cfg.num_layers
+    return {"flash_attention": L * forwards,
+            "rmsnorm": (4 * L + 1) * forwards}
+
+
+def phase_serve(torch, kernels, sup, dev, profile=False):
+    """qwen3-14b at full width through ``decode_loop`` (see the module
+    docstring). Returns (launches, summary)."""
+    from repro_torch import configs, models, serve
+    free_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config("qwen3-14b")
+    specs = models.lm_specs(cfg)
+    t0 = time.perf_counter()
+    params = models.init_params(
+        specs, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tv = cfg.true_vocab or cfg.vocab_size
+    prompt = torch.randint(0, tv, (sup.SERVE_BATCH, sup.SERVE_PROMPT),
+                           generator=gen, device=dev)
+    log(f"[serve] {cfg.name}: {models.num_params(specs)} params "
+        f"({models.num_bytes(specs) / 1e9:.2f} GB float32) drawn on the card"
+        f" in {init_s:.2f} s; prompts {list(prompt.shape)}, "
+        f"{sup.SERVE_STEPS} greedy tokens, cache {sup.SERVE_CACHE}")
+
+    stamps, finite = [], []
+
+    def on_logits(lg):
+        finite.append(torch.isfinite(lg).all())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    def run():
+        stamps.clear()
+        finite.clear()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        toks = serve.decode_loop(params, cfg, prompt, sup.SERVE_STEPS,
+                                 cache_len=sup.SERVE_CACHE,
+                                 on_logits=on_logits)
+        torch.cuda.synchronize()
+        return toks
+
+    kernels.reset_launches()
+    toks = run()
+    launches = dict(kernels.LAUNCHES)
+    want = serve_expected_launches(cfg, sup.SERVE_STEPS)
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"serve: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    if len(finite) != sup.SERVE_STEPS or not all(bool(f) for f in finite):
+        raise AssertionError("serve: non-finite logits")
+    if tuple(toks.shape) != (sup.SERVE_BATCH, sup.SERVE_STEPS) or not bool(
+            ((toks >= 0) & (toks < tv)).all()):
+        raise AssertionError(f"serve: tokens {toks.shape} outside "
+                             f"[0, {tv})")
+    steps = np.diff(stamps)
+    summ = dict(prefill_s=float(steps[0]),
+                decode_ms_per_step=float(steps[1:].mean() * 1e3),
+                decode_ms_min=float(steps[1:].min() * 1e3),
+                decode_ms_max=float(steps[1:].max() * 1e3),
+                total_s=float(stamps[-1] - stamps[0]),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                launches=launches)
+    summ["decode_tokens_per_s"] = sup.SERVE_BATCH / (
+        summ["decode_ms_per_step"] / 1e3)
+    summ["tokens_per_s"] = sup.SERVE_BATCH * sup.SERVE_STEPS / summ["total_s"]
+    log(f"[serve] prefill {summ['prefill_s']!r} s, decode "
+        f"{summ['decode_ms_per_step']!r} ms/step (min "
+        f"{summ['decode_ms_min']!r}, max {summ['decode_ms_max']!r}), "
+        f"{summ['decode_tokens_per_s']!r} tokens/s in decode, "
+        f"{summ['tokens_per_s']!r} tokens/s end to end, peak "
+        f"{summ['peak_gb']!r} GB; launches {launches}; all logits finite; "
+        f"first tokens {toks[:, :6].tolist()}")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            run()
+        avgs = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(_self_device_us(e) for e in avgs)
+        share = {k: sum(_self_device_us(e) for e in avgs
+                        if k in e.key) / max(total, 1e-9)
+                 for k in ("flash_tiled", "flash_split", "rmsnorm_kernel")}
+        wall = stamps[-1] - stamps[0]
+        log(f"[profile] (g) serve: device {total / 1e3:.1f} ms of "
+            f"{wall * 1e3:.1f} ms wall (busy share {total / 1e6 / wall!r}); "
+            f"share of device time: K5 prefill {share['flash_tiled']!r}, "
+            f"K5 decode {share['flash_split']!r}, K6 "
+            f"{share['rmsnorm_kernel']!r}")
+        for e in sorted(avgs, key=_self_device_us, reverse=True)[:10]:
+            log(f"[profile] (g)   {_self_device_us(e) / 1e3:9.3f} ms  "
+                f"{e.count:6d} calls  {e.key[:90]}")
+    del params, prompt, toks
+    free_memory(torch)
+    return launches, summ
+
+
+def kernels_line(rows, launches):
+    line = []
+    for k in KERNELS:
+        row = rows[k]
+        entry = {"name": k, "route": "cuda", "source": SOURCES[k],
+                 "replaces": REPLACES[k], "launches": launches[k]}
+        entry.update({key: val for key, val in row.items()})
+        if k + "@padded" in rows:
+            entry.update(padded_ms=rows[k + "@padded"]["ms"],
+                         padded_shape=rows[k + "@padded"]["shape"])
+        line.append(entry)
+    return line
+
+
 def main():
     import torch
     name, smi = phase_probe(torch)
@@ -688,6 +963,7 @@ def main():
     from repro_torch import kernels
 
     dev = "cuda"
+    profile = "--profile" in sys.argv[1:]
     t0 = time.perf_counter()
     phase_build(kernels)
     rows = phase_kernels(torch, sup, dev)
@@ -698,26 +974,22 @@ def main():
     log(f"[time] + goldens: {time.perf_counter() - t0:.1f} s")
     launches, summaries = phase_main(torch, tc, kernels, sup, dev)
     log(f"[time] + main path: {time.perf_counter() - t0:.1f} s")
-    if "--profile" in sys.argv[1:]:
+    if profile:
         phase_profile(torch, tc, sup, dev, summaries)
         log(f"[time] + profile: {time.perf_counter() - t0:.1f} s")
+    rows.update(phase_lm_kernels(torch, sup, dev))
+    log(f"[time] + LM kernels: {time.perf_counter() - t0:.1f} s")
+    serve_launches, serve_summ = phase_serve(torch, kernels, sup, dev,
+                                             profile)
+    log("[serve] " + json.dumps({"serve": serve_summ}))
+    log(f"[time] + serve: {time.perf_counter() - t0:.1f} s")
+    for k in LM_KERNELS:
+        launches[k] = serve_launches[k]
 
     for k in KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"the main path never launched {k}")
-    line = []
-    for k in KERNELS:
-        row = rows[k]
-        entry = {"name": k, "route": "cuda", "source": SOURCES[k],
-                 "replaces": REPLACES[k], "launches": launches[k],
-                 "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-                 "bound_by": row["bound_by"],
-                 "library_ms": row["library_ms"], "shape": row["shape"]}
-        if k + "@padded" in rows:
-            entry.update(padded_ms=rows[k + "@padded"]["ms"],
-                         padded_shape=rows[k + "@padded"]["shape"])
-        line.append(entry)
+    line = kernels_line(rows, launches)
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ f32 policy: every simulator carry is float32 or int32
 (``core.fluid.audit_carry_dtypes``). TensorFloat-32 is switched off here
 so that no float32 product on the card silently drops to a 10-bit
 mantissa; the simulator itself does no matrix product outside its own
-kernels, but a caller that does gets full float32.
+kernels, but a caller that does gets full float32. The LM stack's
+bfloat16 products (``models/layers.py``) accumulate in float32 to the
+end, as ``repro``'s do: cuBLAS's reduced-precision reduction is off too.
 
 Eager PyTorch rounds every operation on its own, so the XLA guards of
 ``repro`` (``laws._pin``, ``laws._nofma``) have no counterpart here; the
@@ -22,3 +24,4 @@ import torch as _torch
 
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+_torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False

@@ -9,7 +9,8 @@ one ``nvcc`` each, all started together.
 
 ``-fmad=false``: the plain versions (``kernels/ref.py``) round every
 product before the add, as ``repro`` does with ``laws._nofma``; an FMA
-would move the law kernels off them.
+would move the law kernels off them. The LM kernels (K5, K6) are built
+the same way.
 
 ``LAUNCHES`` counts the launches of each kernel; a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
@@ -29,13 +30,15 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("powertcp_step", "queue_arrivals", "fused_tick")
+SOURCES = ("powertcp_step", "queue_arrivals", "fused_tick", "rmsnorm",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 LAUNCHES = {"powertcp_step": 0, "theta_powertcp_step": 0,
-            "queue_arrivals": 0, "fused_tick_block": 0}
+            "queue_arrivals": 0, "fused_tick_block": 0, "rmsnorm": 0,
+            "flash_attention": 0}
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

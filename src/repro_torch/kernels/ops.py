@@ -8,9 +8,11 @@ CUDA tensor a kernel that fails to build or launch raises.
 from __future__ import annotations
 
 from . import ref
+from . import flash_attention as _flash
 from . import fused_tick as _tick
 from . import powertcp_step as _law
 from . import queue_arrivals as _queue
+from . import rmsnorm as _rmsnorm
 
 
 def _on_cuda(x) -> bool:
@@ -54,3 +56,19 @@ def fused_tick_block(tick, carry, due_block, *, record=True, record_every=1):
                                       record_every=record_every)
     return ref.fused_tick_block_ref(tick, carry, due_block, record=record,
                                     record_every=record_every)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0):
+    """q: [B,H,T,D]; k, v: [B,KV,S,D]. K5 on CUDA tensors, the plain
+    attention on CPU tensors."""
+    if _on_cuda(q):
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+
+
+def rmsnorm(x, scale, *, eps=1e-6):
+    """RMSNorm over the last dim: K6 on CUDA tensors, the plain version on
+    CPU tensors."""
+    if _on_cuda(x):
+        return _rmsnorm.rmsnorm(x, scale, eps=eps)
+    return ref.rmsnorm_ref(x, scale, eps=eps)

@@ -7,11 +7,49 @@ the card: K1 and K2 bit for bit (the kernels are built with
 ``-fmad=false`` and round every product the way these do), K3 at rtol
 1e-5 (its arrival sum runs in another order), K4 bit for bit on every
 carry leaf (the per-tick record sums ``w_sum`` and ``lam`` at rtol 1e-5:
-``torch.sum`` adds in its own order).
+``torch.sum`` adds in its own order), K5 at 2e-5 in float32 and 2e-2 in
+bfloat16 (the tolerances ``tests/test_kernels.py`` holds the Pallas
+kernel to: the online softmax adds in another order and rescales), K6 at
+rtol 1e-5 in float32 and one bfloat16 ulp in bfloat16 (its square sum
+runs in its own fixed order).
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
+    """q: [B,H,T,D]; k,v: [B,KV,S,D]; GQA via H % KV == 0 (query head h
+    reads kv head h // (H/KV)). float32 scores and softmax; the queries are
+    the last T of the S positions. Returns [B,H,T,D] in q's dtype."""
+    B, H, T, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    kk = k[:, :, None].expand(B, KV, G, S, D).reshape(B, H, S, D)
+    vv = v[:, :, None].expand(B, KV, G, S, D).reshape(B, H, S, D)
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(), kk.float()) * scale
+    qi = torch.arange(T, device=q.device)[:, None]
+    kj = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+    if causal:
+        off = S - T          # queries are the last T positions of S
+        mask &= kj <= qi + off
+        if window > 0:
+            mask &= kj > qi + off - window
+    s = torch.where(mask[None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bhsd->bhtd", p, vv.float()).to(q.dtype)
+
+
+def rmsnorm_ref(x, scale, eps=1e-6):
+    """``x·rsqrt(mean(x²)+eps)·scale`` over the last dim, float32
+    statistics, out in x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
 def powertcp_step_ref(q, qdot, mu, b, valid, tau, w, w_old, gs_prev,

@@ -9,12 +9,20 @@ or 2 406 padded flows, H = 3, Q+1 = 289) and ragged ones; K4
 leaf bit for bit (the records' ``w_sum``/``lam`` sums at rtol 1e-5) at
 the anchor shapes of ``tests/test_megakernel.py``, with the gather table
 at its suggested width and narrowed until it overflows, and the
-megakernel backend's launches. Every test takes the ``cuda_device``
+megakernel backend's launches; K5 ``flash_attention`` against its plain
+version at 2e-5 in float32 and 2e-2 in bfloat16 on the shapes of
+``tests/test_kernels.py``'s ``FLASH_CASES`` and the serve run's prefill
+and decode shapes (the decode reading strided views of a cache), K6
+``rmsnorm`` within one bfloat16 ulp in bfloat16 and at rtol 1e-5 in
+float32 on the serve run's rows; and the REDUCED qwen3-14b model on the
+card against the port on the CPU at the tight bar of
+``tests/test_torch_lm.py``. Every test takes the ``cuda_device``
 fixture and skips without a card; this module imports neither JAX nor
 ``repro``, so it runs where only PyTorch is:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import numpy as np
 import pytest
 import torch
 
@@ -110,7 +118,8 @@ def test_megakernel_backend_launches_only_k4(cuda_device):
         out.append((st.fct.cpu(), rec.q.cpu(), dict(LAUNCHES)))
     (fg, qg, lg), (fc, qc, lc) = out
     assert lg == {"powertcp_step": 0, "theta_powertcp_step": 0,
-                  "queue_arrivals": 0, "fused_tick_block": 63}
+                  "queue_arrivals": 0, "fused_tick_block": 63, "rmsnorm": 0,
+                  "flash_attention": 0}
     assert sum(lc.values()) == 0
     torch.testing.assert_close(fg, fc, rtol=0, atol=0, equal_nan=True)
     torch.testing.assert_close(qg, qc, rtol=0, atol=0)
@@ -125,3 +134,122 @@ def test_megakernel_law_without_k4_raises_on_cuda(cuda_device):
     with pytest.raises(NotImplementedError, match="item 8"):
         tc.simulate_slots(topo, sched, other, 6, backend="megakernel",
                           device=cuda_device)
+
+
+# -------------------------------------------------------------------------
+# K5 flash_attention, K6 rmsnorm and the LM slice
+# -------------------------------------------------------------------------
+
+# B, H, KV, T, S, D, causal, window, bf16: tests/test_kernels.py's
+# FLASH_CASES, the serve run's prefill and decode shapes, decode (T <= 4,
+# the split form) with a window, without causal, at D = 256, and the
+# REDUCED model's head dim 16
+FLASH_SHAPES = [
+    (2, 4, 2, 128, 128, 64, True, 0, False),
+    (1, 4, 4, 100, 100, 64, True, 0, False),
+    (2, 2, 1, 64, 256, 32, True, 0, False),
+    (1, 4, 2, 128, 128, 64, True, 48, False),
+    (1, 2, 2, 96, 160, 128, False, 0, False),
+    (1, 2, 2, 128, 128, 64, True, 0, True),
+    (1, 1, 1, 8, 8, 256, True, 0, False),
+    (1, 2, 1, 33, 77, 64, True, 16, True),
+    (4, 40, 8, 512, 512, 128, True, 0, True),      # serve prefill
+    (4, 40, 8, 1, 513, 128, True, 0, True),        # serve decode, first
+    (4, 40, 8, 1, 543, 128, True, 0, True),        # serve decode, last
+    (2, 4, 2, 1, 300, 128, True, 64, False),
+    (2, 4, 2, 3, 77, 256, False, 0, True),
+    (1, 2, 1, 4, 4, 32, True, 0, False),
+    (4, 4, 2, 24, 24, 16, True, 0, True),          # REDUCED qwen3-14b
+    (4, 4, 2, 1, 31, 16, True, 0, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,S,D,causal,window,bf16", FLASH_SHAPES)
+def test_flash_attention_kernel(cuda_device, B, H, KV, T, S, D, causal,
+                                window, bf16):
+    from repro_torch.kernels import flash_attention
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v = (torch.as_tensor(a, device=cuda_device).to(dt)
+               for a in sup.flash_inputs(B, H, KV, T, S, D, seed=T + S))
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == dt and tuple(got.shape) == (B, H, T, D)
+    tol = 2e-2 if bf16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_reads_a_strided_cache(cuda_device):
+    """The model's decode: q a [B,H,1,D] view of [B,1,H,D], k/v the first
+    index+1 positions of a [B,S,KV,D] cache seen as [B,KV,S,D]; against
+    the plain version on contiguous copies, bit for bit with the kernel
+    on those copies."""
+    from repro_torch.kernels import flash_attention
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    cache = torch.randn(4, 544, 8, 128, generator=g, device=cuda_device,
+                        dtype=torch.float32).to(torch.bfloat16)
+    q = torch.randn(4, 1, 40, 128, generator=g, device=cuda_device,
+                    dtype=torch.float32).to(torch.bfloat16)
+    qv, kv = q.permute(0, 2, 1, 3), cache[:, :520].permute(0, 2, 1, 3)
+    got = flash_attention(qv, kv, kv)
+    same = flash_attention(qv.contiguous(), kv.contiguous(), kv.contiguous())
+    torch.testing.assert_close(got, same, rtol=0, atol=0)
+    want = ref.flash_attention_ref(qv.contiguous(), kv.contiguous(),
+                                   kv.contiguous())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(4 * 512, 5120), (4, 5120),
+                                 (4 * 512 * 40, 128), (4 * 512 * 8, 128),
+                                 (4 * 40, 128), (7, 64), (513, 128)])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_rmsnorm_kernel(cuda_device, N, D, bf16):
+    from repro_torch.kernels import rmsnorm
+    x, s = (torch.as_tensor(a, device=cuda_device)
+            for a in sup.rmsnorm_inputs(N, D, seed=N + D))
+    if bf16:
+        x = x.to(torch.bfloat16)
+    got = rmsnorm(x, s, eps=1e-6)
+    want = ref.rmsnorm_ref(x, s, eps=1e-6)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if bf16:
+        assert sup.bf16_ulps(got, want) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_reduced_model_on_card_matches_cpu(cuda_device):
+    """REDUCED qwen3-14b, params from a seeded generator: prefill + 8
+    teacher-forced decode steps on the card against the port on the CPU
+    at the tight bar, with K5 once and K6 4L + 1 times per forward."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    cfg = configs.reduced_config("qwen3-14b")
+    params = models.init_params(models.lm_specs(cfg),
+                                torch.Generator().manual_seed(0), "cpu")
+    gpu = models.params_from_numpy(_to_numpy(params), cuda_device)
+    rng = np.random.default_rng(0)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 24)))
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 8)))
+    want = sup.lm_teacher_forced(params, cfg, prompt, toks, 40)
+    reset_launches()
+    got = sup.lm_teacher_forced(gpu, cfg, prompt.to(cuda_device),
+                                toks.to(cuda_device), 40)
+    L = cfg.num_layers
+    assert LAUNCHES["flash_attention"] == 9 * L
+    assert LAUNCHES["rmsnorm"] == 9 * (4 * L + 1)
+    for (what, g), (_, w) in zip(got, want):
+        d = (g.float() - w.float()).abs()
+        assert float(d.max()) <= sup.LM_TIGHT_MAX, what
+        assert float(d.mean()) <= sup.LM_TIGHT_MEAN, what
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return tree.numpy()

@@ -217,19 +217,35 @@ def _imports(path):
     return out
 
 
-def test_port_imports_neither_jax_nor_repro():
-    files = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, names in os.walk(os.path.join(REPO, "src", "repro_torch")):
+PORT_SUBPACKAGES = ("core", "kernels", "configs", "models", "serve")
+
+
+@pytest.mark.parametrize("sub", PORT_SUBPACKAGES)
+def test_port_imports_neither_jax_nor_repro(sub):
+    """Every file of the subpackage (and ``chip_smoke.py``, checked with
+    ``core``) imports neither jax nor ``repro``, and importing the
+    subpackage loads neither."""
+    files = [os.path.join(REPO, "chip_smoke.py")] if sub == "core" else []
+    pkg = os.path.join(REPO, "src", "repro_torch", sub)
+    for root, _, names in os.walk(pkg):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert files
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path} imports {bad}"
-    # and at run time: importing the port loads neither
-    code = ("import sys; import repro_torch.core, repro_torch.kernels; "
+    code = (f"import sys; import repro_torch.{sub}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env)
+
+
+def test_port_subpackages_are_all_checked():
+    pkg = os.path.join(REPO, "src", "repro_torch")
+    subs = {n for n in os.listdir(pkg)
+            if os.path.isfile(os.path.join(pkg, n, "__init__.py"))}
+    assert subs == set(PORT_SUBPACKAGES)
+    assert _imports(os.path.join(pkg, "__init__.py")) <= {"torch"}
 
 
 # -------------------------------------------------------------------------

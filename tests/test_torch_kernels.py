@@ -17,6 +17,12 @@ interpret mode, on the same numpy inputs:
 * the reference backend's in-order sparse helpers (``build_csr_gather``,
   ``csr_gather_arrivals``, ``ordered_scatter_add``), ``update_incidence``
   and ``types.pad_hops``: bit for bit against ``repro``'s.
+* K5 ``flash_attention`` and K6 ``rmsnorm``: on every case of
+  ``tests/test_kernels.py`` (``FLASH_CASES``, its rmsnorm cases), against
+  ``repro.kernels.ref`` and the interpret-mode Pallas kernels at that
+  file's tolerances, 2e-5 in float32 and 2e-2 in bfloat16 (the plain
+  versions and ``repro``'s oracles compute the same thing, but sum in
+  another order and round their bfloat16 outputs once).
 
 ``tests/test_torch_cuda.py`` holds the CUDA kernels themselves against
 these plain versions on the card.
@@ -39,6 +45,9 @@ from repro.kernels.powertcp_step import (  # noqa: E402
     theta_powertcp_step as j_theta_powertcp_step)
 from repro.kernels.queue_arrivals import (  # noqa: E402
     queue_arrivals as j_queue_arrivals)
+from repro.kernels.flash_attention import (  # noqa: E402
+    flash_attention as j_flash_attention)
+from repro.kernels.rmsnorm import rmsnorm as j_rmsnorm  # noqa: E402
 
 SIZES_F = (1, 7, 256, 300)
 SIZES_H = (1, 3, 5)
@@ -97,6 +106,91 @@ def test_queue_arrivals_plain_matches_jax(H, F, Q):
     np.testing.assert_allclose(qn.numpy(), np.asarray(qk), rtol=1e-5)
 
 
+# B, H, KV, T, S, D, causal, window, bf16 — tests/test_kernels.py's
+# FLASH_CASES
+FLASH_CASES = [
+    (2, 4, 2, 128, 128, 64, True, 0, False),
+    (1, 4, 4, 100, 100, 64, True, 0, False),      # ragged T
+    (2, 2, 1, 64, 256, 32, True, 0, False),       # MQA + T<S offset
+    (1, 4, 2, 128, 128, 64, True, 48, False),     # sliding window
+    (1, 2, 2, 96, 160, 128, False, 0, False),     # bidirectional
+    (1, 2, 2, 128, 128, 64, True, 0, True),
+    (1, 1, 1, 8, 8, 256, True, 0, False),         # tiny + head_dim 256
+    (1, 2, 1, 33, 77, 64, True, 16, True),        # ragged everything
+]
+# N, D, bf16 — tests/test_kernels.py's rmsnorm cases
+RMSNORM_CASES = [(64, 128, False), (100, 256, True), (7, 64, False),
+                 (1, 512, False), (513, 128, True)]
+
+
+def _bf16_pair(a, bf16):
+    """The same values as a JAX array and a torch tensor (float32, or
+    bfloat16 rounded once by JAX and carried across bit for bit)."""
+    if not bf16:
+        return jnp.asarray(a), torch.as_tensor(a)
+    j = jnp.asarray(a).astype(jnp.bfloat16)
+    t = torch.as_tensor(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
+    return j, t
+
+
+def _close(got, want, bf16):
+    tol = 2e-2 if bf16 else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,D,causal,window,bf16", FLASH_CASES)
+def test_flash_attention_plain_matches_jax(B, H, KV, T, S, D, causal,
+                                           window, bf16):
+    rng = np.random.default_rng(B * 1000 + T + S + D)
+    (jq, tq), (jk, tk), (jv, tv) = (
+        _bf16_pair(rng.standard_normal(shape).astype(np.float32), bf16)
+        for shape in ((B, H, T, D), (B, KV, S, D), (B, KV, S, D)))
+    got = ref.flash_attention_ref(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (B, H, T, D)
+    _close(got, jref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                         window=window), bf16)
+    _close(got, j_flash_attention(jq, jk, jv, causal=causal, window=window,
+                                  bq=32, bk=32, interpret=True), bf16)
+
+
+@pytest.mark.parametrize("N,D,bf16", RMSNORM_CASES)
+def test_rmsnorm_plain_matches_jax(N, D, bf16):
+    rng = np.random.default_rng(N + D)
+    jx, tx = _bf16_pair(rng.standard_normal((N, D)).astype(np.float32), bf16)
+    js, ts = _bf16_pair(rng.standard_normal((D,)).astype(np.float32), bf16)
+    got = ref.rmsnorm_ref(tx, ts)
+    assert got.dtype == tx.dtype
+    _close(got, jref.rmsnorm_ref(jx, js), bf16)
+    _close(got, j_rmsnorm(jx, js, interpret=True), bf16)
+
+
+def test_rmsnorm_plain_3d_matches_jax():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 16, 128)).astype(np.float32)
+    s = rng.standard_normal((128,)).astype(np.float32)
+    got = ref.rmsnorm_ref(torch.as_tensor(x), torch.as_tensor(s))
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        j_rmsnorm(jnp.asarray(x), jnp.asarray(s), interpret=True)),
+        atol=1e-5, rtol=1e-5)
+
+
+def test_ops_dispatch_lm_kernels_on_cpu():
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+               for s in ((1, 4, 6, 32), (1, 2, 9, 32), (1, 2, 9, 32)))
+    torch.testing.assert_close(
+        ops.flash_attention(q, k, v, causal=True, window=4),
+        ref.flash_attention_ref(q, k, v, causal=True, window=4),
+        rtol=0, atol=0)
+    x, s = torch.as_tensor(rng.standard_normal((3, 32)).astype(np.float32)), \
+        torch.ones(32)
+    torch.testing.assert_close(ops.rmsnorm(x, s, eps=1e-5),
+                               ref.rmsnorm_ref(x, s, eps=1e-5), rtol=0,
+                               atol=0)
+
+
 def test_ops_dispatch_cpu_tensors_to_plain_versions():
     kw = sup.law_inputs(9, 3)
     got = ops.powertcp_step(**{k: v for k, v in _torch(kw).items()},
@@ -114,6 +208,15 @@ def test_cuda_wrappers_reject_cpu_tensors():
     qkw, dt = sup.queue_inputs(1, 3, 2), sup.QUEUE_DT
     with pytest.raises(ValueError, match="CUDA tensors"):
         queue_arrivals(**_torch(qkw), dt=dt)
+
+
+def test_lm_wrappers_reject_cpu_tensors():
+    from repro_torch.kernels import flash_attention, rmsnorm
+    q = torch.zeros(1, 2, 3, 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rmsnorm(q, torch.ones(32))
 
 
 # -------------------------------------------------------------------------

@@ -12,7 +12,9 @@
   rebuilds its scenario (the constants of ``tools/gen_golden.py``) in
   either package.
 * seeded kernel inputs and the paper scenario's constants, shared by the
-  tests and ``chip_smoke.py``, and the ``cuda_device`` fixture that
+  tests and ``chip_smoke.py``; the LM slice's shapes and bars
+  (``SERVE_*``, ``LM_TIGHT_*``, ``lm_teacher_forced``); and the
+  ``cuda_device`` fixture that
   card-only tests take (it skips without a card; the decision is made
   when the test runs, never at import).
 
@@ -291,6 +293,57 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
                 err = max(err, float(torch.max(torch.abs(g.double()
                                                          - w.double()))))
     return err, n_ovf
+
+
+# -------------------------------------------------------------------------
+# the LM slice: K5/K6 inputs, the serve run's shape, the tight bar
+# -------------------------------------------------------------------------
+
+# chip_smoke.py's serve run: 4 requests of 512 tokens, 32 greedy tokens
+# each (one prefill + 31 decode steps) into a cache of 544 positions
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_CACHE = 4, 512, 32, 544
+# the tight bar of tests/test_torch_lm.py (bfloat16 compute): the largest
+# and the mean absolute difference of logits and caches
+LM_TIGHT_MAX, LM_TIGHT_MEAN = 0.0625, 0.01
+
+
+def flash_inputs(B, H, KV, T, S, D, seed=0):
+    """q [B,H,T,D], k/v [B,KV,S,D], float32 standard normal."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, H, T, D), (B, KV, S, D), (B, KV, S, D)))
+
+
+def rmsnorm_inputs(N, D, seed=0):
+    """x [N,D] and scale [D] (around 1, as a trained norm's), float32."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((N, D)).astype(np.float32) * 3.0,
+            (1.0 + 0.1 * rng.standard_normal(D)).astype(np.float32))
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| in units of bfloat16's spacing at want."""
+    w = want.float()
+    spacing = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+    return float(torch.max(torch.abs(got.float() - w) / spacing))
+
+
+def lm_teacher_forced(params, cfg, prompt, tokens, cache_len):
+    """The port's prefill of ``prompt`` [B,P], then one decode step per
+    column of ``tokens`` [B,N] (teacher forced). Returns [(what, tensor on
+    the CPU)]: the logits of each forward and the first block's cache."""
+    from repro_torch.models.lm import lm_decode_step, lm_prefill
+    P = prompt.shape[1]
+    out = []
+    logits, cache = lm_prefill(params, {"tokens": prompt}, cfg, cache_len)
+    out.append(("prefill logits", logits.cpu()))
+    for i in range(tokens.shape[1]):
+        logits, cache = lm_decode_step(params, tokens[:, i:i + 1], cache,
+                                       P + i, cfg)
+        out.append((f"decode {i} logits", logits.cpu()))
+    for n in ("k", "v"):
+        out.append((f"cache {n}", cache["b0_attn"][n].cpu()))
+    return out
 
 
 @pytest.fixture
