@@ -13,10 +13,13 @@ exit, traceback) if anything in it is wrong:
    K5, K6), one nvcc per source, all at once;
 3. kernels: K1 ``powertcp_step`` and K2 ``theta_powertcp_step`` against
    their plain PyTorch versions bit for bit, K3 ``queue_arrivals`` at
-   rtol 1e-5 / atol 1e-3 bytes, at the main path's shapes and ragged
-   ones; then each timed (CUDA graph replays of many launches, median of
-   rounds) beside its plain version and, for K3, ``torch.einsum`` (the
-   library yardstick, used nowhere in the port);
+   rtol 1e-5 / atol 1e-3 bytes, at the main path's shapes, ragged ones
+   and the edges of K3's row chunks and column tiles; K3 also bit for
+   bit against its own sum order spelled in torch and against itself
+   run twice (its elected combine); then each timed (CUDA graph replays
+   of many launches, median of rounds) beside its plain version and, for
+   K3, ``torch.einsum`` (the library yardstick, used nowhere in the
+   port);
 4. K4 ``fused_tick_block`` (the megakernel, 64 ticks per launch) against
    its plain version from the same initial carry, every carry leaf bit
    for bit (the records' per-tick sums at rtol 1e-5): the 12-flow anchor
@@ -52,7 +55,12 @@ exit, traceback) if anything in it is wrong:
    first 513 and 543 positions of a [4,544,8,128] cache, read in place;
    K6: the layer norms' [2048,5120] and [4,5120] rows, the qk-norms'
    [81920,128], [16384,128] and [160,128]), K5 at 2e-2 and K6 within one
-   bfloat16 ulp; then each timed beside its plain version and one PyTorch
+   bfloat16 ulp; K5 also at the edges of its query tiles, key tiles and
+   decode splits (``test_torch_support.FLASH_EDGE_SHAPES``: T and S of
+   63-129, a window across a tile, decode at S = 1, below one split and
+   with a partial one, T = 2..4 over a GQA group of 5, D = 16 and 256),
+   and bit for bit against itself run twice at the serve shapes; then
+   each timed beside its plain version and one PyTorch
    call for the same function (``F.scaled_dot_product_attention`` with
    ``enable_gqa``, ``F.rms_norm``; the library yardstick, used nowhere in
    the port);
@@ -74,6 +82,16 @@ exit, traceback) if anything in it is wrong:
 launches per tick, the device-busy share and the kernels that take the
 most device time; and phase 8 runs the serve run a second time under
 ``torch.profiler``, with K5's and K6's share of its device time.
+
+The redesigned kernels (``src/repro_torch/csrc``): K3 is a split
+reduction over 64-row chunks of the incidence on a grid of 64-column
+tiles, whose last block per tile (elected by a counter) adds the chunks'
+partials in chunk order and integrates the queues; K5 runs bf16 on the
+tensor cores (``mma.sync``, P split into bf16 halves), prefill in
+64-row query tiles over ``cp.async`` double-buffered key tiles, decode
+split over 64-key ranges with one block per (b, kv head, split) serving
+the whole GQA group and the last block merging the splits in order. Both
+keep one launch per call and sum in a fixed order.
 
 It prints one ``{"kernels": [...]}`` line (K1-K6), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
@@ -265,18 +283,23 @@ def phase_kernels(torch, sup, dev):
         errs["theta_powertcp_step"] = max(errs["theta_powertcp_step"],
                                           maxerr(got, want))
         log(f"[kernels] theta_powertcp_step F={F}: bitwise equal")
-    for H, F, Q in ((3, 2406, 289), (3, 384, 289), (1, 1, 2), (5, 257, 129),
-                    (1, 257, 2), (5, 1, 129)):
+    for H, F, Q in [(3, 2406, 289), (3, 384, 289), (1, 1, 2), (5, 257, 129),
+                    (1, 257, 2), (5, 1, 129)] + sup.QUEUE_EDGE_SHAPES:
         kw = on(sup.queue_inputs(H, F, Q, seed=H + F + Q))
         got = queue_arrivals(**kw, dt=sup.QUEUE_DT)
         want = ref.queue_arrivals_ref(**kw, dt=sup.QUEUE_DT)
+        again = queue_arrivals(**kw, dt=sup.QUEUE_DT)
+        spelled = sup.queue_arrivals_in_k3_order(**kw, dt=sup.QUEUE_DT)
         torch.cuda.synchronize()
-        for g, w in zip(got, want):
+        for g, w, a, o in zip(got, want, again, spelled):
             torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+            torch.testing.assert_close(a, g, rtol=0, atol=0)
+            torch.testing.assert_close(g, o, rtol=0, atol=0)
         e = maxerr(got, want)
         errs["queue_arrivals"] = max(errs["queue_arrivals"], e)
         log(f"[kernels] queue_arrivals H={H} F={F} Q={Q}: max abs err "
-            f"{e!r} (rtol 1e-5, atol 1e-3)")
+            f"{e!r} (rtol 1e-5, atol 1e-3); bitwise equal to its order "
+            f"spelled in torch and to a second run")
 
     rows = {}
     for tag, F in (("", 384), ("@padded", 2406)):
@@ -765,13 +788,31 @@ def phase_lm_kernels(torch, sup, dev):
         q, k, v = flash_case(T, S, seed=T + S)
         got = flash_attention(q, k, v, causal=True)
         want = ref.flash_attention_ref(q, k, v, causal=True)
+        again = flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+        e = float((got.float() - want.float()).abs().max())
+        err["flash_attention"] = max(err["flash_attention"], e)
+        log(f"[lm] flash_attention {tag} q {list(q.shape)} k/v "
+            f"{list(k.shape)}: max abs err {e!r} (rtol/atol 2e-2); "
+            f"bitwise equal to a second run")
+    for (Be, He, KVe, T, S, De, causal, window,
+         _) in sup.FLASH_EDGE_SHAPES:
+        q, k, v = (torch.as_tensor(a, device=dev).to(bf) for a in
+                   sup.flash_inputs(Be, He, KVe, T, S, De, seed=T + S))
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2)
         e = float((got.float() - want.float()).abs().max())
         err["flash_attention"] = max(err["flash_attention"], e)
-        log(f"[lm] flash_attention {tag} q {list(q.shape)} k/v "
-            f"{list(k.shape)}: max abs err {e!r} (rtol/atol 2e-2)")
+        log(f"[lm] flash_attention edge q {list(q.shape)} k/v "
+            f"{list(k.shape)} causal {causal} window {window}: max abs err "
+            f"{e!r} (rtol/atol 2e-2)")
     norm_rows = {"ln prefill": B * P, "qk prefill": B * P * H,
                  "k prefill": B * P * KV, "ln decode": B, "qk decode": B * H}
     for tag, N in norm_rows.items():
@@ -925,12 +966,13 @@ def phase_serve(torch, kernels, sup, dev, profile=False):
         total = sum(_self_device_us(e) for e in avgs)
         share = {k: sum(_self_device_us(e) for e in avgs
                         if k in e.key) / max(total, 1e-9)
-                 for k in ("flash_tiled", "flash_split", "rmsnorm_kernel")}
+                 for k in ("flash_tiled_mma", "flash_split_mma",
+                           "rmsnorm_kernel")}
         wall = stamps[-1] - stamps[0]
         log(f"[profile] (g) serve: device {total / 1e3:.1f} ms of "
             f"{wall * 1e3:.1f} ms wall (busy share {total / 1e6 / wall!r}); "
-            f"share of device time: K5 prefill {share['flash_tiled']!r}, "
-            f"K5 decode {share['flash_split']!r}, K6 "
+            f"share of device time: K5 prefill {share['flash_tiled_mma']!r},"
+            f" K5 decode {share['flash_split_mma']!r}, K6 "
             f"{share['rmsnorm_kernel']!r}")
         for e in sorted(avgs, key=_self_device_us, reverse=True)[:10]:
             log(f"[profile] (g)   {_self_device_us(e) / 1e3:9.3f} ms  "

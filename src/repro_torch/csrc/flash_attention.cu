@@ -11,38 +11,76 @@
 // running max m, denominator l and accumulator, finalized as
 // acc / max(l, 1e-30) with masked probabilities zeroed, so a row whose
 // every key is masked gives 0 (as the TPU kernel does). Head dims 16 and
-// the multiples of 32 up to 256 are built. Inputs float32 or
-// bfloat16 (widened to float32 on load); every tensor may be strided
+// the multiples of 32 up to 256 are built. Every tensor may be strided
 // except along D (the wrapper passes element strides), so the model's
 // [B, T, H, D] activations and its [B, S, KV, D] cache are read in place.
 //
-// Two forms, chosen by the wrapper's T:
+// Bound: bytes at the serving shapes. The prefill (T = S = 512, head_dim
+// 128) does 4 * D flops per visible query-key pair, about 214 flops per
+// byte of q, k, v and output, below the ~295 at which the bf16 tensor
+// cores rather than the memory would limit; the decode reads the visible
+// part of the cache once for 4 * D * S flops per kv head group.
 //
-// * tiled (prefill, T > kSplitMaxT): one block of kBQ = 16 warps per
-//   (b, h, tile of 16 query rows), one warp per query row. Key tiles of
-//   kBK = 32 keys are staged in shared memory as float32 (K rows padded
-//   to D + 1 floats so that lane j reading key j's row hits 32 banks);
-//   lane j scores key j against the warp's query row, the warp takes the
-//   tile's max and sum by a fixed xor butterfly, and each lane then owns
-//   D / 32 columns of the accumulator, adding p_j * v_j over j = 0..31 in
-//   order (p_j broadcast by a shuffle). Only the key tiles some row of the
-//   block can see are loaded (causal and window skip), and a warp skips a
-//   loaded tile its own row cannot see.
-// * split (decode, T <= kSplitMaxT): one block of kSplitWarps = 8 warps
-//   per (b, h, query row). The visible keys go in chunks of 32 to the
-//   warps in turn; lane l owns columns l, l + 32, ... of q, k and v, so a
-//   warp reads each key row with consecutive addresses. A warp scores its
-//   chunk one key at a time (partial dot, butterfly sum) and then updates
-//   its own m, l and accumulator as the tiled form does; the warps' states
-//   are merged in warp order at the end.
+// bfloat16 inputs (the serve path) run on the tensor cores, in two forms
+// chosen by the wrapper's T:
 //
-// Every sum runs in a fixed order, so the result is the same from run to
-// run. No tensor cores, TMA or wgmma: this form is meant to be right and
-// simple. Bound: bytes at the serving shapes. The prefill (T = S = 512,
-// head_dim 128) does 4 * D flops per visible query-key pair, about 214
-// flops per byte of q, k, v and output, below the ~295 at which the bf16
-// tensor cores rather than the memory would limit; the decode reads the
-// visible part of the cache once for 4 * D * S flops per head.
+// * tiled_mma (prefill, T > kSplitMaxT), the FlashAttention-2 pattern on
+//   mma.sync m16n8k16 (bf16 in, float32 accumulate): a block of 4 warps
+//   takes 64 query rows, 16 a warp; its Q tile stays in shared memory and
+//   each tile reads its A fragments by ldmatrix. Tiles of 32 keys of K
+//   and V are staged as bf16 by 16-byte cp.async copies, double
+//   buffered, so the next tile's load overlaps this tile's products; each
+//   shared row is padded by 16 bytes (an odd number of 16-byte units), so
+//   ldmatrix reads 8 rows on 8 distinct bank groups. S = Q K^T comes from
+//   ldmatrix'd K; the products of bf16 values are exact in float32, so
+//   only the sum order differs from the plain version. The online softmax
+//   runs on the accumulator fragments (2^x by ex2.approx): a row's max and
+//   sum are reduced over its 4-thread quad with two shuffles each. P V
+//   takes P from registers as the A operand and V through ldmatrix.trans;
+//   P is split into p_hi = bf16(p) and p_lo = bf16(p - p_hi) and two
+//   mma's add p_hi V + p_lo V, so P keeps ~16 bits of its float32
+//   precision. Only the key tiles some row of the block sees are loaded,
+//   a warp skips a tile its 16 rows do not see, the element mask runs
+//   only on tiles that straddle a row's visible-range edge, and the query
+//   tiles with the most keys are launched first, so causal imbalance
+//   leaves no tail. At the serve shape the tensor cores (with the second
+//   P V product) and the exp2 of the scores, not the bytes, set the time:
+//   32-key tiles (52 KB of shared memory) and at most 170 registers (Q
+//   read from shared memory, not held in registers) let three blocks
+//   share an SM, which measured faster on the H100 than 64-key tiles or
+//   Q fragments in registers with two.
+// * split_mma (decode, T <= kSplitMaxT), split-KV over the whole GQA
+//   group: one block per (b, kv head, split of kSplitKeys = 64 keys)
+//   serves all G * T query rows of the group (padded to 16-row mma
+//   tiles), so each cached key is read once per group, not once per
+//   query head; at the serve shape (543 positions) that is 9 splits and
+//   288 blocks. It stages its keys by cp.async, each warp scores 16 keys
+//   against all rows at once on the tensor cores (no per-key dependent
+//   chain), takes their softmax and p_hi/p_lo P V, the block merges its
+//   4 warps in warp order and writes a partial (m, l, acc) per row to a
+//   scratch buffer. The last block of each (b, kv head) to finish,
+//   elected by a counter taken with atomicAdd after __threadfence (the
+//   block resets it to 0, so launches and CUDA graph replays find it
+//   zeroed), merges the splits in split order and writes the output;
+//   its loads are spread over eight elements a thread so that many are
+//   in flight, since this combine is a chain of L2 round trips at the
+//   end of the launch (PERF.md).
+//
+// float32 inputs keep the first port's scalar forms, tiled and split
+// below, held to the plain version at 2e-5. This is a dispatch on dtype,
+// not a fallback: the serve path is bf16 and never reaches them, and
+// float32 on the tensor cores would mean TF32, which would break that
+// bar.
+//   - tiled: one block of kBQ = 16 warps per (b, h, tile of 16 query
+//     rows), one warp per query row; key tiles of kBK = 32 keys staged as
+//     float32, lane j scores key j, each lane then owns D / 32 columns
+//     of the accumulator (p_j broadcast by a shuffle).
+//   - split: one block of kSplitWarps = 8 warps per (b, h, query row);
+//     the visible keys go in chunks of 32 to the warps in turn, each warp
+//     keeps its own m, l and accumulator, merged in warp order.
+//
+// Every sum runs in a fixed order and the only atomic elects a block, so
+// the result is the same from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +100,8 @@ struct FlashArgs {
   int B, H, KV, T, S, D;
   int causal, window;
   float scale;
+  float* part;            // split_mma's partials: [rows, D] then [rows, 2]
+  unsigned int* count;    // split_mma's B * KV zeroed election counters
 };
 
 namespace {
@@ -319,19 +359,617 @@ int launch_d(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename Tin>
-int launch(const Args* a, void* stream) {
+// ---------------------------------------------------------------------
+// bfloat16 on the tensor cores
+// ---------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTileQ = 64;        // query rows per tiled_mma block
+constexpr int kTiledWarps = kTileQ / 16;       // 16 query rows a warp
+constexpr int kSplitKeys = 64;    // keys per split_mma block
+constexpr int kSplitMmaWarps = kSplitKeys / 16;   // 16 keys a warp
+constexpr int kCombine = 8;       // elements a combining thread sums at once
+constexpr int kLanesPerRow = 8;   // lanes a row in the combine's (M, L)
+constexpr int kRowsPerWarp = 32 / kLanesPerRow;
+
+// 2^x by the MUFU unit (relative error ~2^-22; results below 2^-126 flush
+// to 0, which only the probabilities of keys far below the row's max
+// reach).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared, or 16 zero bytes where !ok (src is then
+// not read, but must be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate.
+__device__ __forceinline__ void mma16816(float* c, const unsigned* a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<unsigned*>(&x);
+}
+
+// p_hi = bf16(p) and p_lo = bf16(p - p_hi) of two neighbouring p's.
+__device__ __forceinline__ void split_pair(float x, float y, unsigned* hi,
+                                           unsigned* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  *hi = bits(h);
+  *lo = bits(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// The A fragments p_hi and p_lo of a 16 x 16 block of P held as two
+// 16 x 8 accumulator fragments (keys 0-7 and 8-15).
+__device__ __forceinline__ void split_p(const float (&s0)[4],
+                                        const float (&s1)[4], unsigned* hi,
+                                        unsigned* lo) {
+  split_pair(s0[0], s0[1], hi + 0, lo + 0);
+  split_pair(s0[2], s0[3], hi + 1, lo + 1);
+  split_pair(s1[0], s1[1], hi + 2, lo + 2);
+  split_pair(s1[2], s1[3], hi + 3, lo + 3);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The A fragment of rows 0-15, columns 16 kk .. 16 kk + 15 of a bf16 tile
+// in shared memory with row stride LD.
+template <int LD>
+__device__ __forceinline__ void load_a(unsigned* a, const bf16* tile,
+                                       int kk, int lane) {
+  ldsm_x4(a, tile + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + 16 * kk +
+                 ((lane >> 4) & 1) * 8);
+}
+
+// s[0..1] += A (16 x 16) * K^T for keys key0 .. key0 + 15 of a K tile,
+// columns 16 kk .. 16 kk + 15.
+template <int LD>
+__device__ __forceinline__ void mma_qk(float (*s)[4], const unsigned* a,
+                                       const bf16* ks, int key0, int kk,
+                                       int lane) {
+  unsigned b[4];
+  ldsm_x4(b, ks + (key0 + ((lane >> 4) & 1) * 8 + (lane & 7)) * LD +
+                 16 * kk + ((lane >> 3) & 1) * 8);
+  mma16816(s[0], a, b[0], b[1]);
+  mma16816(s[1], a, b[2], b[3]);
+}
+
+// o += (p_hi + p_lo) (16 x 16) * V for keys key0 .. key0 + 15 of a V
+// tile, every column.
+template <int D, int LD>
+__device__ __forceinline__ void mma_pv(float (*o)[4], const unsigned* hi,
+                                       const unsigned* lo, const bf16* vs,
+                                       int key0, int lane) {
+#pragma unroll
+  for (int np = 0; np < D / 16; ++np) {
+    unsigned b[4];
+    ldsm_x4_trans(b, vs + (key0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                         16 * np + ((lane >> 4) & 1) * 8);
+    mma16816(o[2 * np], hi, b[0], b[1]);
+    mma16816(o[2 * np + 1], hi, b[2], b[3]);
+    mma16816(o[2 * np], lo, b[0], b[1]);
+    mma16816(o[2 * np + 1], lo, b[2], b[3]);
+  }
+}
+
+template <int D>
+struct TiledMma {
+  static constexpr int BK = 32;                  // keys per tile
+  static constexpr int LD = D + 8;               // shared row stride
+  static constexpr int kSmem = (kTileQ + 4 * BK) * LD * 2;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kTiledWarps * 32, 3)
+    flash_tiled_mma(const Args a) {
+  using C = TiledMma<D>;
+  constexpr int BK = C::BK, LD = C::LD, NS = BK / 8, ND = D / 8;
+  constexpr int KD = D / 16, CH = D / 8;      // k steps, 16-byte chunks
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);    // [kTileQ][LD]
+  bf16* ks = qs + kTileQ * LD;                      // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                      // [2][BK][LD]
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTileQ;   // heaviest first
+  const int kvh = h / (a.H / a.KV);
+  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb +
+                   kvh * a.k_sh;
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb +
+                   kvh * a.v_sh;
+  const float sc = a.scale * kLog2e;
+
+  // the keys some row of the block sees, and those of this warp's rows
+  int blo, bhi, lo, hi;
+  visible(a, q0, &blo, &hi);
+  visible(a, min(q0 + kTileQ, a.T) - 1, &lo, &bhi);
+  const int r0 = q0 + 16 * w;
+  const bool active = r0 < a.T;
+  int lo_min, hi_min, lo_max, hi_max;
+  visible(a, min(r0, a.T - 1), &lo_min, &hi_min);
+  visible(a, min(r0 + 15, a.T - 1), &lo_max, &hi_max);
+  int rlo[2], rhi[2];
+  visible(a, r0 + g, &rlo[0], &rhi[0]);
+  visible(a, r0 + g + 8, &rlo[1], &rhi[1]);
+
+  for (int i = tid; i < kTileQ * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH, t = q0 + r;
+    const bool ok = t < a.T;
+    cp_async16(qs + r * LD + c * 8,
+               ok ? qg + static_cast<long long>(t) * a.q_st + c * 8 : qg,
+               ok);
+  }
+  auto load_kv = [&](int k0, int buf) {
+    bf16* kd = ks + buf * BK * LD;
+    bf16* vd = vs + buf * BK * LD;
+    for (int i = tid; i < BK * CH; i += blockDim.x) {
+      const int r = i / CH, c = i % CH, key = k0 + r;
+      const bool ok = key < a.S;
+      const long long kk = static_cast<long long>(key);
+      cp_async16(kd + r * LD + c * 8, ok ? kg + kk * a.k_ss + c * 8 : kg,
+                 ok);
+      cp_async16(vd + r * LD + c * 8, ok ? vg + kk * a.v_ss + c * 8 : vg,
+                 ok);
+    }
+  };
+  // the first group holds Q and the first tile, then one group a tile
+  const int kbeg = (blo / BK) * BK;
+  load_kv(kbeg, 0);
+  cp_async_commit();
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+  int buf = 0;
+  for (int k0 = kbeg; k0 < bhi; k0 += BK, buf ^= 1) {
+    if (k0 + BK < bhi) load_kv(k0 + BK, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();        // this tile (and, at the first, Q) is staged
+    if (active && k0 < hi_max && k0 + BK > lo_min) {
+      const bf16* kt = ks + buf * BK * LD;
+      const bf16* vt = vs + buf * BK * LD;
+      float s[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned qa[4];
+        load_a<LD>(qa, qs + 16 * w * LD, kk, lane);
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {
+          mma_qk<LD>(s + j, qa, kt, 8 * j, kk, lane);
+        }
+      }
+      // scale; the element mask only where the tile crosses an edge of
+      // some row's visible range
+      const bool full = k0 >= lo_max && k0 + BK <= hi_min;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * tig + (e & 1);
+          const int r = e >> 1;
+          const bool ok = full || (key >= rlo[r] && key < rhi[r]);
+          s[j][e] = ok ? s[j][e] * sc : kNegInf;
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int j = 0; j < NS; ++j) {
+          mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+        }
+        mx = quad_max(mx);
+        alpha[r] = exp2_approx(m[r] - mx);
+        m[r] = mx;
+      }
+      float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[j][e];
+          const float p = x == kNegInf ? 0.0f : exp2_approx(x - m[e >> 1]);
+          s[j][e] = p;
+          ps[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ps[r];
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        unsigned phi[4], plo[4];
+        split_p(s[2 * kk], s[2 * kk + 1], phi, plo);
+        mma_pv<D, LD>(o, phi, plo, vt, 16 * kk, lane);
+      }
+    }
+    __syncthreads();        // the tile is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  bf16* og = static_cast<bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = r0 + g + 8 * r;
+    const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+    if (t >= a.T) continue;
+    bf16* orow = og + static_cast<long long>(t) * a.o_st + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+          __floats2bfloat162_rn(o[n][2 * r] / denom, o[n][2 * r + 1] / denom);
+    }
+  }
+}
+
+template <int D>
+struct SplitMma {
+  static constexpr int LD = D + 8;
+  // Q, K and V tiles; the warps' partials, their (m, l) and the block's
+  // (the launch adds the combine's (M, L) per row)
+  static constexpr int kSmem =
+      (16 + 2 * kSplitKeys) * LD * 2 +
+      (kSplitMmaWarps * 16 * (D + 2) + 2 * 16) * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kSplitMmaWarps * 32)
+    flash_split_mma(const Args a) {
+  constexpr int LD = SplitMma<D>::LD, ND = D / 8, KD = D / 16, CH = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);     // [16][LD]
+  bf16* ks = qs + 16 * LD;                           // [kSplitKeys][LD]
+  bf16* vs = ks + kSplitKeys * LD;                   // [kSplitKeys][LD]
+  float* red_acc = reinterpret_cast<float*>(vs + kSplitKeys * LD);
+  float* red_m = red_acc + kSplitMmaWarps * 16 * D;  // [warp][16]
+  float* red_l = red_m + kSplitMmaWarps * 16;        // [warp][16]
+  float* row_m = red_l + kSplitMmaWarps * 16;        // [16]: block max
+  float* row_l = row_m + 16;                         // [16]: block sum
+  float* comb_m = row_l + 16;                        // [R]: combine's M
+  float* comb_l = comb_m + a.H / a.KV * a.T;         // [R]: combine's L
+  __shared__ bool last_s;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x;
+  const int G = a.H / a.KV, R = G * a.T;
+  const int k0 = split * kSplitKeys;
+  const int bk = b * a.KV + kvh;
+  float* part_acc = a.part;                               // [rows][D]
+  float* part_ml = a.part + static_cast<long long>(a.B) * a.KV * nsplit *
+                                R * D;                    // [rows][2]
+  const long long prow = (static_cast<long long>(bk) * nsplit + split) * R;
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb +
+                   kvh * a.k_sh;
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb +
+                   kvh * a.v_sh;
+  const float sc = a.scale * kLog2e;
+
+  // the keys some row sees: from query 0's first to query T-1's last
+  int ulo, uhi, lo, hi;
+  visible(a, 0, &ulo, &hi);
+  visible(a, a.T - 1, &lo, &uhi);
+  if (k0 < uhi && k0 + kSplitKeys > ulo) {
+    for (int i = tid; i < kSplitKeys * CH; i += blockDim.x) {
+      const int r = i / CH, c = i % CH, key = k0 + r;
+      const bool ok = key < a.S;
+      const long long kk = static_cast<long long>(key);
+      cp_async16(ks + r * LD + c * 8, ok ? kg + kk * a.k_ss + c * 8 : kg,
+                 ok);
+      cp_async16(vs + r * LD + c * 8, ok ? vg + kk * a.v_ss + c * 8 : vg,
+                 ok);
+    }
+    for (int rg = 0; rg < R; rg += 16) {
+      // rows rg .. rg + 15 of the group: row r is (head kvh * G + r / T,
+      // query r % T); rows past R are zeros
+      for (int i = tid; i < 16 * CH; i += blockDim.x) {
+        const int r = rg + i / CH, c = i % CH;
+        const bool ok = r < R;
+        const bf16* src = static_cast<const bf16*>(a.q) + b * a.q_sb;
+        if (ok) {
+          src += (kvh * G + r / a.T) * a.q_sh +
+                 static_cast<long long>(r % a.T) * a.q_st + c * 8;
+        }
+        cp_async16(qs + (i / CH) * LD + c * 8, src, ok);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+
+      // warp w: keys k0 + 16 w .. k0 + 16 w + 15 against the 16 rows
+      float s[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned qa[4];
+        load_a<LD>(qa, qs, kk, lane);
+        mma_qk<LD>(s, qa, ks, 16 * w, kk, lane);
+      }
+      int rlo[2], rhi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rg + g + 8 * r;
+        if (row < R) {
+          visible(a, row % a.T, &rlo[r], &rhi[r]);
+        } else {
+          rlo[r] = rhi[r] = 0;
+        }
+      }
+      float mw[2], lw[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            const int key = k0 + 16 * w + 8 * j + 2 * tig + (e & 1);
+            const bool ok = key >= rlo[r] && key < rhi[r];
+            s[j][e] = ok ? s[j][e] * sc : kNegInf;
+            mx = fmaxf(mx, s[j][e]);
+          }
+        }
+        mw[r] = quad_max(mx);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            const float x = s[j][e];
+            s[j][e] = x == kNegInf ? 0.0f : exp2_approx(x - mw[r]);
+            lw[r] += s[j][e];
+          }
+        }
+        lw[r] = quad_sum(lw[r]);
+      }
+      float o[ND][4];
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+      }
+      unsigned phi[4], plo[4];
+      split_p(s[0], s[1], phi, plo);
+      mma_pv<D, LD>(o, phi, plo, vs, 16 * w, lane);
+
+      // the block's 4 warps merged in warp order
+      if (tig == 0) {
+        red_m[w * 16 + g] = mw[0];
+        red_m[w * 16 + g + 8] = mw[1];
+        red_l[w * 16 + g] = lw[0];
+        red_l[w * 16 + g + 8] = lw[1];
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        float* dst = red_acc + (w * 16 + g) * D + 8 * n + 2 * tig;
+        dst[0] = o[n][0];
+        dst[1] = o[n][1];
+        dst[8 * D] = o[n][2];
+        dst[8 * D + 1] = o[n][3];
+      }
+      __syncthreads();
+      if (tid < 16) {
+        float mx = kNegInf;
+        for (int u = 0; u < kSplitMmaWarps; ++u) {
+          mx = fmaxf(mx, red_m[u * 16 + tid]);
+        }
+        float ls = 0.0f;
+        for (int u = 0; u < kSplitMmaWarps; ++u) {
+          const float f = exp2_approx(red_m[u * 16 + tid] - mx);
+          red_m[u * 16 + tid] = f;         // now the warp's factor
+          ls += red_l[u * 16 + tid] * f;
+        }
+        row_m[tid] = mx;
+        row_l[tid] = ls;
+      }
+      __syncthreads();
+      for (int i = tid; i < 16 * D; i += blockDim.x) {
+        const int r = i / D, d = i % D;
+        if (rg + r >= R) break;
+        float acc = 0.0f;
+        for (int u = 0; u < kSplitMmaWarps; ++u) {
+          acc += red_acc[(u * 16 + r) * D + d] * red_m[u * 16 + r];
+        }
+        part_acc[(prow + rg + r) * D + d] = acc;
+        if (d == 0) {
+          part_ml[(prow + rg + r) * 2] = row_m[r];
+          part_ml[(prow + rg + r) * 2 + 1] = row_l[r];
+        }
+      }
+      __syncthreads();      // qs and the merge buffers are reused
+    }
+  } else {                  // no row sees this split: an empty partial
+    for (int i = tid; i < R * D; i += blockDim.x) {
+      part_acc[prow * D + i] = 0.0f;
+      if (i % D == 0) {
+        part_ml[(prow + i / D) * 2] = kNegInf;
+        part_ml[(prow + i / D) * 2 + 1] = 0.0f;
+      }
+    }
+  }
+
+  // the last block of (b, kv head) to finish merges the splits: eight
+  // lanes a row take the row's max M and sum L over the splits (then a
+  // fixed butterfly), then each thread adds its elements' partials
+  // weighted by 2^(m - M) in split order
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    last_s = atomicAdd(a.count + bk, 1u) == static_cast<unsigned>(nsplit - 1);
+  }
+  __syncthreads();
+  if (!last_s) return;
+  __threadfence();
+  const long long base = static_cast<long long>(bk) * nsplit * R;
+  for (int r0 = w * kRowsPerWarp; r0 < R;
+       r0 += kSplitMmaWarps * kRowsPerWarp) {
+    // kLanesPerRow lanes a row: each folds its splits' (m, l) into a
+    // running (max, sum), one load of each, and the lanes' pairs are
+    // merged by a butterfly
+    const int r = r0 + lane / kLanesPerRow, sub = lane % kLanesPerRow;
+    float mx = kNegInf, ls = 0.0f;
+    for (int sp = sub; r < R && sp < nsplit; sp += kLanesPerRow) {
+      const float* ml = part_ml + (base + sp * R + r) * 2;
+      const float m = __ldcg(ml), l = __ldcg(ml + 1);
+      const float top = fmaxf(mx, m);
+      ls = ls * exp2_approx(mx - top) + l * exp2_approx(m - top);
+      mx = top;
+    }
+#pragma unroll
+    for (int off = kLanesPerRow / 2; off > 0; off >>= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, mx, off);
+      const float lo = __shfl_xor_sync(0xffffffffu, ls, off);
+      const float top = fmaxf(mx, mo);
+      ls = ls * exp2_approx(mx - top) + lo * exp2_approx(mo - top);
+      mx = top;
+    }
+    if (sub == 0 && r < R) {
+      comb_m[r] = mx;
+      comb_l[r] = fmaxf(ls, 1e-30f);
+    }
+  }
+  __syncthreads();
+  // kCombine elements a thread at once, four splits' loads in flight
+  for (int i0 = tid; i0 < R * D; i0 += kCombine * blockDim.x) {
+    float acc[kCombine];
+    int row[kCombine], col[kCombine];
+#pragma unroll
+    for (int j = 0; j < kCombine; ++j) {
+      const int i = min(i0 + j * static_cast<int>(blockDim.x), R * D - 1);
+      row[j] = i / D;
+      col[j] = i % D;
+      acc[j] = 0.0f;
+    }
+#pragma unroll 4
+    for (int sp = 0; sp < nsplit; ++sp) {
+#pragma unroll
+      for (int j = 0; j < kCombine; ++j) {
+        const long long pr = base + sp * R + row[j];
+        acc[j] += __ldcg(part_acc + pr * D + col[j]) *
+                  exp2_approx(__ldcg(part_ml + pr * 2) - comb_m[row[j]]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCombine; ++j) {
+      if (i0 + j * static_cast<int>(blockDim.x) >= R * D) break;
+      const int r = row[j];
+      bf16* og = static_cast<bf16*>(a.o) + b * a.o_sb +
+                 (kvh * G + r / a.T) * a.o_sh +
+                 static_cast<long long>(r % a.T) * a.o_st;
+      og[col[j]] = __float2bfloat16_rn(acc[j] / comb_l[r]);
+    }
+  }
+  if (tid == 0) a.count[bk] = 0u;
+}
+
+int set_smem(void (*kernel)(Args), int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+}
+
+int splits(int S) { return S > 0 ? (S + kSplitKeys - 1) / kSplitKeys : 1; }
+
+template <int D>
+int launch_mma(const Args& a, cudaStream_t stream) {
+  if (a.T <= kSplitMaxT) {
+    const int smem = SplitMma<D>::kSmem + 2 * (a.H / a.KV) * a.T * 4;
+    const int e = set_smem(flash_split_mma<D>, smem);
+    if (e != 0) return e;
+    flash_split_mma<D><<<dim3(splits(a.S), a.KV, a.B), kSplitMmaWarps * 32,
+                         smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int smem = TiledMma<D>::kSmem;
+  const int e = set_smem(flash_tiled_mma<D>, smem);
+  if (e != 0) return e;
+  flash_tiled_mma<D><<<dim3(a.H, a.B, (a.T + kTileQ - 1) / kTileQ),
+                       kTiledWarps * 32, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dtype(const Args& a, cudaStream_t stream, bool bf) {
+  return bf ? launch_mma<D>(a, stream) : launch_d<float, D>(a, stream);
+}
+
+int launch(const Args* a, void* stream, bool bf) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a->D) {
-    case 16: return launch_d<Tin, 16>(*a, s);
-    case 32: return launch_d<Tin, 32>(*a, s);
-    case 64: return launch_d<Tin, 64>(*a, s);
-    case 96: return launch_d<Tin, 96>(*a, s);
-    case 128: return launch_d<Tin, 128>(*a, s);
-    case 160: return launch_d<Tin, 160>(*a, s);
-    case 192: return launch_d<Tin, 192>(*a, s);
-    case 224: return launch_d<Tin, 224>(*a, s);
-    case 256: return launch_d<Tin, 256>(*a, s);
+    case 16: return launch_dtype<16>(*a, s, bf);
+    case 32: return launch_dtype<32>(*a, s, bf);
+    case 64: return launch_dtype<64>(*a, s, bf);
+    case 96: return launch_dtype<96>(*a, s, bf);
+    case 128: return launch_dtype<128>(*a, s, bf);
+    case 160: return launch_dtype<160>(*a, s, bf);
+    case 192: return launch_dtype<192>(*a, s, bf);
+    case 224: return launch_dtype<224>(*a, s, bf);
+    case 256: return launch_dtype<256>(*a, s, bf);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -339,9 +977,18 @@ int launch(const Args* a, void* stream) {
 }  // namespace
 
 extern "C" int flash_attention_f32(const FlashArgs* a, void* stream) {
-  return launch<float>(a, stream);
+  return launch(a, stream, false);
 }
 
+// bf16: where T <= flash_attention_split_max_t(), a->part holds
+// B * KV * max(1, ceil(S / flash_attention_split_keys())) * H / KV * T *
+// (D + 2)
+// floats of scratch (a partial m, l, acc[D] per query row of each split)
+// and a->count B * KV zeroed counters.
 extern "C" int flash_attention_bf16(const FlashArgs* a, void* stream) {
-  return launch<__nv_bfloat16>(a, stream);
+  return launch(a, stream, true);
 }
+
+extern "C" int flash_attention_split_max_t() { return kSplitMaxT; }
+
+extern "C" int flash_attention_split_keys() { return kSplitKeys; }

@@ -12,6 +12,9 @@ product before the add, as ``repro`` does with ``laws._nofma``; an FMA
 would move the law kernels off them. The LM kernels (K5, K6) are built
 the same way.
 
+``counters`` hands a kernel that combines across blocks its per-device
+block of zeroed election counters (the electing block resets its own).
+
 ``LAUNCHES`` counts the launches of each kernel; a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
 went through the kernels (``reset_launches`` zeroes the counts).
@@ -41,6 +44,7 @@ LAUNCHES = {"powertcp_step": 0, "theta_powertcp_step": 0,
             "flash_attention": 0}
 
 _LIBS: dict = {}
+_COUNTERS: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -111,6 +115,20 @@ def library(name: str, signatures: dict) -> ctypes.CDLL:
                     getattr(lib, fn).restype = ctypes.c_int
                 _LIBS[name] = lib
     return lib
+
+
+def counters(name: str, n: int, device) -> torch.Tensor:
+    """At least ``n`` int32 election counters for kernel ``name`` on
+    ``device``, all zero between launches: made zeroed on first use (or
+    when more are needed) and kept, since each kernel's electing block
+    sets its counter back to 0. Launches of one kernel on one device share
+    them, so they must not run concurrently on two streams."""
+    key = (name, str(device))
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
+        _COUNTERS[key] = cnt
+    return cnt
 
 
 def check(err: int, what: str) -> None:

@@ -5,9 +5,11 @@ Dense (``queue_arrivals``, the ``"fused"`` backend): K3 replaces
 ``repro/kernels/queue_arrivals.py::queue_arrivals``. Per tick it sums the
 delayed per-hop rates through the [H, F, Q+1] one-hot incidence and
 integrates the queues, ``q' = clip(q + (arr - out) dt, 0, caps)``, in one
-launch of ``csrc/queue_arrivals.cu``. Its sum runs in a fixed order that
-is not the reference scatter's, so the fused backend is close to (not
-bitwise equal with) the reference backend.
+launch of ``csrc/queue_arrivals.cu``: a split reduction over row chunks
+of the incidence whose last block per column tile adds the chunks'
+partials in chunk order and integrates. Its sum runs in that fixed order,
+which is not the reference scatter's, so the fused backend is close to
+(not bitwise equal with) the reference backend.
 
 Sparse (the ``"reference"`` backend): ``repro`` accumulates queue
 arrivals with a scatter-add that XLA runs in ascending flat order. On the
@@ -27,7 +29,8 @@ import torch
 from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"queue_arrivals_f32": [_P] * 7 + [_I, _I, _I, _F, _P]}
+_SIGNATURES = {"queue_arrivals_f32": [_P] * 9 + [_I, _I, _I, _F, _P],
+               "queue_arrivals_tiles": [_I], "queue_arrivals_chunks": [_I]}
 
 
 def queue_arrivals(lam_del, onehot, q, out_rate, caps, *, dt):
@@ -45,12 +48,20 @@ def queue_arrivals(lam_del, onehot, q, out_rate, caps, *, dt):
     if Q == 0:
         return arr, q_new
     lib = _build.library("queue_arrivals", _SIGNATURES)
+    chunks = lib.queue_arrivals_chunks(H * F)
+    if chunks > 65535:
+        raise ValueError(f"queue_arrivals: {H * F} incidence rows are more "
+                         f"than the grid's 65 535 row chunks hold")
+    part = torch.empty((chunks, Q), dtype=torch.float32, device=q.device)
+    count = _build.counters("queue_arrivals", lib.queue_arrivals_tiles(Q),
+                            q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.queue_arrivals_f32(
             lam_del.data_ptr(), onehot.data_ptr(), q.data_ptr(),
             out_rate.data_ptr(), caps.data_ptr(), arr.data_ptr(),
-            q_new.data_ptr(), H, F, Q, dt, stream)
+            q_new.data_ptr(), part.data_ptr(), count.data_ptr(), H, F, Q,
+            dt, stream)
     _build.check(err, "queue_arrivals")
     _build.LAUNCHES["queue_arrivals"] += 1
     return arr, q_new

@@ -4,15 +4,20 @@ K1 ``powertcp_step`` and K2 ``theta_powertcp_step`` bit for bit (built
 with ``-fmad=false``, they round every product as the plain versions do),
 K3 ``queue_arrivals`` at rtol 1e-5 / atol 1e-3 bytes (its arrival sum
 runs in its own fixed order), at the main path's shapes (F = 384 slots
-or 2 406 padded flows, H = 3, Q+1 = 289) and ragged ones; K4
+or 2 406 padded flows, H = 3, Q+1 = 289), ragged ones and the edges of
+its row chunks and column tiles, and bit for bit against its order
+spelled in torch and against itself run twice (the elected combine); K4
 ``fused_tick_block`` against the plain megakernel block on every carry
 leaf bit for bit (the records' ``w_sum``/``lam`` sums at rtol 1e-5) at
 the anchor shapes of ``tests/test_megakernel.py``, with the gather table
 at its suggested width and narrowed until it overflows, and the
 megakernel backend's launches; K5 ``flash_attention`` against its plain
 version at 2e-5 in float32 and 2e-2 in bfloat16 on the shapes of
-``tests/test_kernels.py``'s ``FLASH_CASES`` and the serve run's prefill
-and decode shapes (the decode reading strided views of a cache), K6
+``tests/test_kernels.py``'s ``FLASH_CASES``, the serve run's prefill
+and decode shapes (the decode reading strided views of a cache) and the
+edges of its query tiles, key tiles and decode splits, bit for bit
+against itself run twice, and raising on views ``cp.async`` cannot
+copy; K6
 ``rmsnorm`` within one bfloat16 ulp in bfloat16 and at rtol 1e-5 in
 float32 on the serve run's rows; and the REDUCED qwen3-14b model on the
 card against the port on the CPU at the tight bar of
@@ -59,13 +64,29 @@ def test_theta_powertcp_step_kernel(cuda_device, F):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,F,Q", [(1, 1, 2), (5, 257, 129), (3, 384, 289),
-                                   (3, 2406, 289)])
+                                   (3, 2406, 289)] + sup.QUEUE_EDGE_SHAPES)
 def test_queue_arrivals_kernel(cuda_device, H, F, Q):
     kw = _on(sup.queue_inputs(H, F, Q), cuda_device)
     got = queue_arrivals(**kw, dt=sup.QUEUE_DT)
     want = ref.queue_arrivals_ref(**kw, dt=sup.QUEUE_DT)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,F,Q", [(3, 384, 289), (3, 2406, 289),
+                                   (1, 20, 70), (5, 1000, 300)])
+def test_queue_arrivals_kernel_is_its_order_run_to_run(cuda_device, H, F,
+                                                       Q):
+    """K3 twice on the same inputs gives the same bits, and those of its
+    sum order spelled in torch (elementwise float32 ops on the card)."""
+    kw = _on(sup.queue_inputs(H, F, Q, seed=7), cuda_device)
+    first = queue_arrivals(**kw, dt=sup.QUEUE_DT)
+    again = queue_arrivals(**kw, dt=sup.QUEUE_DT)
+    spelled = sup.queue_arrivals_in_k3_order(**kw, dt=sup.QUEUE_DT)
+    for f, a, s in zip(first, again, spelled):
+        torch.testing.assert_close(a, f, rtol=0, atol=0)
+        torch.testing.assert_close(f, s, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -161,7 +182,7 @@ FLASH_SHAPES = [
     (1, 2, 1, 4, 4, 32, True, 0, False),
     (4, 4, 2, 24, 24, 16, True, 0, True),          # REDUCED qwen3-14b
     (4, 4, 2, 1, 31, 16, True, 0, True),
-]
+] + sup.FLASH_EDGE_SHAPES
 
 
 @pytest.mark.cuda
@@ -200,6 +221,41 @@ def test_flash_attention_kernel_reads_a_strided_cache(cuda_device):
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
     assert got.permute(0, 2, 1, 3).is_contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,S,D", [(4, 40, 8, 512, 512, 128),
+                                          (4, 40, 8, 1, 543, 128),
+                                          (1, 10, 2, 4, 130, 128),
+                                          (1, 2, 1, 129, 129, 256)])
+def test_flash_attention_kernel_is_the_same_run_to_run(cuda_device, B, H,
+                                                       KV, T, S, D):
+    from repro_torch.kernels import flash_attention
+    q, k, v = (torch.as_tensor(a, device=cuda_device).to(torch.bfloat16)
+               for a in sup.flash_inputs(B, H, KV, T, S, D, seed=3))
+    first = flash_attention(q, k, v)
+    for _ in range(3):
+        torch.testing.assert_close(flash_attention(q, k, v), first, rtol=0,
+                                   atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_raises_on_a_misaligned_view(cuda_device):
+    """bfloat16 K5 stages q, k and v with 16-byte cp.async copies: a base
+    that is not 16-byte aligned or a stride that is not a multiple of 8
+    elements is refused, not read some other way."""
+    from repro_torch.kernels import flash_attention
+    bf = torch.bfloat16
+    q = torch.zeros(1, 2, 8, 64, dtype=bf, device=cuda_device)
+    k = torch.zeros(1, 1, 8, 64, dtype=bf, device=cuda_device)
+    shifted = torch.zeros(2 * 8 * 64 + 1, dtype=bf,
+                          device=cuda_device)[1:].view(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(shifted, k, k)
+    wide = torch.zeros(1, 1, 8, 68, dtype=bf, device=cuda_device)[..., :64]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        flash_attention(q, wide, wide)
+    flash_attention(q, k, k)        # the aligned views go through
 
 
 @pytest.mark.cuda

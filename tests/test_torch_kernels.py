@@ -13,7 +13,10 @@ interpret mode, on the same numpy inputs:
   (a falling RTT) the last bit grows to a few 1e-6 — the JAX kernel and
   the JAX oracle differ by as much.
 * K3 ``queue_arrivals``: rtol 1e-5 against both (every form sums the
-  arrivals in its own order).
+  arrivals in its own order); and the CUDA kernel's own order spelled in
+  torch (``test_torch_support.queue_arrivals_in_k3_order``: 64-row
+  chunks summed in chunk order) against the interpret-mode Pallas kernel
+  at the kernel's bar, rtol 1e-5 / atol 1e-3.
 * the reference backend's in-order sparse helpers (``build_csr_gather``,
   ``csr_gather_arrivals``, ``ordered_scatter_add``), ``update_incidence``
   and ``types.pad_hops``: bit for bit against ``repro``'s.
@@ -22,7 +25,12 @@ interpret mode, on the same numpy inputs:
   ``repro.kernels.ref`` and the interpret-mode Pallas kernels at that
   file's tolerances, 2e-5 in float32 and 2e-2 in bfloat16 (the plain
   versions and ``repro``'s oracles compute the same thing, but sum in
-  another order and round their bfloat16 outputs once).
+  another order and round their bfloat16 outputs once). K5's tensor-core
+  arithmetic (P split into bf16 halves p_hi + p_lo, 64-key splits merged
+  in split order; ``test_torch_support.flash_in_k5_order``) against the
+  plain version and ``repro.kernels.ref`` within 1e-4 in float32 compute
+  on the REDUCED qwen3-14b attention shapes, so that a tolerance fault
+  shows before a chip run.
 
 ``tests/test_torch_cuda.py`` holds the CUDA kernels themselves against
 these plain versions on the card.
@@ -104,6 +112,48 @@ def test_queue_arrivals_plain_matches_jax(H, F, Q):
     ak, qk = j_queue_arrivals(**_jax(kw), dt=dt, interpret=True)
     np.testing.assert_allclose(arr.numpy(), np.asarray(ak), rtol=1e-5)
     np.testing.assert_allclose(qn.numpy(), np.asarray(qk), rtol=1e-5)
+
+
+@pytest.mark.parametrize("H,F,Q", [(1, 1, 2), (3, 300, 289),
+                                   (5, 257, 129), (3, 257, 289),
+                                   (1, 20, 70), (4, 16, 64)])
+def test_queue_arrivals_k3_order_matches_jax(H, F, Q):
+    kw, dt = sup.queue_inputs(H, F, Q, seed=H + F + Q), sup.QUEUE_DT
+    arr, qn = sup.queue_arrivals_in_k3_order(**_torch(kw), dt=dt)
+    ak, qk = j_queue_arrivals(**_jax(kw), dt=dt, interpret=True)
+    np.testing.assert_allclose(arr.numpy(), np.asarray(ak), rtol=1e-5,
+                               atol=1e-3)
+    np.testing.assert_allclose(qn.numpy(), np.asarray(qk), rtol=1e-5,
+                               atol=1e-3)
+    ar, qr = ref.queue_arrivals_ref(**_torch(kw), dt=dt)
+    torch.testing.assert_close(arr, ar, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(qn, qr, rtol=1e-5, atol=1e-3)
+
+
+# B, H, KV, T, S, D, causal, window: the REDUCED qwen3-14b attention
+# (prefill of 24 tokens, decode into a cache of 40) and decode with T > 1
+K5_ORDER_CASES = [(4, 4, 2, 24, 24, 16, True, 0),
+                  (4, 4, 2, 1, 31, 16, True, 0),
+                  (4, 4, 2, 3, 40, 16, True, 0),
+                  (2, 4, 2, 1, 40, 16, True, 12),
+                  (2, 4, 2, 24, 24, 16, False, 0)]
+
+
+@pytest.mark.parametrize("split", [sup.K5_SPLIT_KEYS, 8])
+@pytest.mark.parametrize("B,H,KV,T,S,D,causal,window", K5_ORDER_CASES)
+def test_flash_k5_order_matches_plain_and_jax(B, H, KV, T, S, D, causal,
+                                              window, split):
+    q, k, v = (torch.as_tensor(a).to(torch.bfloat16).float() for a in
+               sup.flash_inputs(B, H, KV, T, S, D, seed=T + S + split))
+    got = sup.flash_in_k5_order(q, k, v, causal=causal, window=window,
+                                split=split)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    jwant = jref.flash_attention_ref(*(jnp.asarray(x.numpy())
+                                       for x in (q, k, v)),
+                                     causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=1e-4,
+                               atol=1e-4)
 
 
 # B, H, KV, T, S, D, causal, window, bf16 — tests/test_kernels.py's

@@ -12,7 +12,9 @@
   rebuilds its scenario (the constants of ``tools/gen_golden.py``) in
   either package.
 * seeded kernel inputs and the paper scenario's constants, shared by the
-  tests and ``chip_smoke.py``; the LM slice's shapes and bars
+  tests and ``chip_smoke.py``; the sum orders of K3 and K5 spelled in
+  torch (``queue_arrivals_in_k3_order``, ``flash_in_k5_order``) and the
+  edge shapes the kernels are held at; the LM slice's shapes and bars
   (``SERVE_*``, ``LM_TIGHT_*``, ``lm_teacher_forced``); and the
   ``cuda_device`` fixture that
   card-only tests take (it skips without a card; the decision is made
@@ -23,6 +25,7 @@ card-only tests and ``chip_smoke.py`` can use it where JAX is absent.
 """
 import hashlib
 import json
+import math
 import os
 
 import numpy as np
@@ -184,6 +187,48 @@ def queue_inputs(H, F, Q, seed=0):
                 caps=np.full(Q, 6e6, f32))
 
 
+# K3's split reduction (csrc/queue_arrivals.cu): rows of the [H*F, Q]
+# incidence in chunks of 64, each chunk 4 groups of 16 rows
+K3_GROUPS, K3_GROUP_ROWS = 4, 16
+
+# H, F, Q+1 beyond the main path's: H*F not a multiple of the 64-row
+# chunk, Q+1 not a multiple of the 64-column tile, a single chunk (R < 64
+# and R = 64), and many chunks
+QUEUE_EDGE_SHAPES = [(3, 257, 289), (1, 20, 70), (4, 16, 64), (5, 1000, 300)]
+
+
+def queue_arrivals_in_k3_order(lam_del, onehot, q, out_rate, caps, dt):
+    """K3's arithmetic in torch, in its order: the products lam * onehot
+    (each rounded), summed within each group of 16 rows from 0 in row
+    order, the 4 groups of a 64-row chunk added in order, the chunks'
+    partials summed in 4 contiguous runs of ceil(chunks / 4) in chunk
+    order, the runs added in order; then the integration. Elementwise
+    float32 ops, so on the card too it rounds as the kernel does."""
+    H, F, Q = onehot.shape
+    R = H * F
+    rows = K3_GROUPS * K3_GROUP_ROWS
+    chunks = max(1, -(-R // rows))
+    prod = lam_del.reshape(R, 1) * onehot.reshape(R, Q)
+    prod = torch.cat([prod, prod.new_zeros(chunks * rows - R, Q)])
+    prod = prod.reshape(chunks, K3_GROUPS, K3_GROUP_ROWS, Q)
+    grp = torch.zeros_like(prod[:, :, 0])
+    for i in range(K3_GROUP_ROWS):
+        grp = grp + prod[:, :, i]
+    part = grp[:, 0]
+    for j in range(1, K3_GROUPS):
+        part = part + grp[:, j]
+    per = -(-chunks // K3_GROUPS)
+    arr = None
+    for j in range(K3_GROUPS):
+        run = torch.zeros_like(part[0])
+        for k in range(min(chunks, j * per), min(chunks, (j + 1) * per)):
+            run = run + part[k]
+        arr = run if arr is None else arr + run
+    q_new = torch.minimum(torch.clamp_min(q + (arr - out_rate) * dt, 0.0),
+                          caps)
+    return arr, q_new
+
+
 # the megakernel's anchors (tests/test_megakernel.py)
 
 def staggered(core, n=12, steps=4000, seed=0, **dev):
@@ -312,6 +357,82 @@ def flash_inputs(B, H, KV, T, S, D, seed=0):
     rng = np.random.default_rng(seed)
     return tuple(rng.standard_normal(shape).astype(np.float32)
                  for shape in ((B, H, T, D), (B, KV, S, D), (B, KV, S, D)))
+
+
+# B, H, KV, T, S, D, causal, window, bf16: K5's tile and split edges.
+# Prefill tiles hold 64 query rows and 64 keys (32 where D > 128), decode
+# splits 64 keys; decode serves the G * T rows of a GQA group in 16-row
+# mma tiles.
+FLASH_EDGE_SHAPES = [
+    (1, 4, 2, 63, 63, 64, True, 0, True),
+    (1, 4, 2, 65, 65, 128, True, 0, True),
+    (1, 2, 1, 127, 127, 64, True, 0, True),
+    (1, 2, 1, 129, 129, 128, True, 0, True),
+    (1, 4, 2, 65, 129, 64, True, 0, True),          # T < S
+    (1, 2, 2, 127, 63, 128, False, 0, True),        # bidirectional
+    (1, 4, 2, 200, 200, 128, True, 70, True),       # window over a tile
+    (2, 10, 2, 1, 200, 128, True, 70, True),        # ... and in decode
+    (2, 10, 2, 1, 1, 128, True, 0, True),           # decode S = 1
+    (2, 10, 2, 1, 40, 128, True, 0, True),          # S below one split
+    (2, 10, 2, 1, 130, 128, True, 0, True),         # a partial split
+    (2, 10, 2, 2, 70, 128, True, 0, True),          # T = 2..4, G = 5
+    (2, 10, 2, 3, 129, 64, True, 0, True),
+    (1, 10, 2, 4, 65, 128, True, 0, True),          # 20 rows: 2 mma tiles
+    (2, 4, 2, 70, 70, 16, True, 0, True),           # D = 16
+    (2, 4, 2, 4, 100, 16, True, 0, True),
+    (1, 2, 1, 100, 100, 256, True, 0, True),        # D = 256
+    (1, 10, 2, 4, 100, 256, True, 0, True),
+]
+
+# keys per decode split of K5's split_mma (csrc/flash_attention.cu)
+K5_SPLIT_KEYS = 64
+
+
+def flash_in_k5_order(q, k, v, *, causal=True, window=0,
+                      split=K5_SPLIT_KEYS):
+    """K5's bf16 arithmetic spelled in float32 torch: the keys in splits
+    of ``split``; per split and query row the max m of the visible scores,
+    p = exp(s - m) (0 where masked), l = sum(p), and acc = p_hi V + p_lo V
+    with p_hi = bf16(p) and p_lo = bf16(p - p_hi); then the splits merged
+    in split order, out = sum(acc e^(m - M)) / max(sum(l e^(m - M)),
+    1e-30). q [B,H,T,D], k/v [B,KV,S,D] (bf16 values); returns float32."""
+    B, H, T, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    q, k, v = q.float(), k.float(), v.float()
+    kk = k[:, :, None].expand(B, KV, G, S, D).reshape(B, H, S, D)
+    vv = v[:, :, None].expand(B, KV, G, S, D).reshape(B, H, S, D)
+    qi = torch.arange(T)[:, None] + (S - T)
+    kj = torch.arange(S)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool)
+    if causal:
+        mask &= kj <= qi
+        if window > 0:
+            mask &= kj > qi - window
+    parts = []
+    for k0 in range(0, max(S, 1), split):
+        sl = slice(k0, min(k0 + split, S))
+        s = torch.einsum("bhtd,bhsd->bhts", q, kk[:, :, sl]) / math.sqrt(D)
+        vis = mask[:, sl]
+        s = torch.where(vis, s, -1e30)
+        m = s.amax(-1, keepdim=True) if s.shape[-1] else torch.full(
+            (B, H, T, 1), -1e30)
+        p = torch.where(vis, torch.exp(s - m), 0.0)
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        acc = (torch.einsum("bhts,bhsd->bhtd", hi, vv[:, :, sl])
+               + torch.einsum("bhts,bhsd->bhtd", lo, vv[:, :, sl]))
+        parts.append((m, p.sum(-1, keepdim=True), acc))
+    M = parts[0][0]
+    for m, _, _ in parts[1:]:
+        M = torch.maximum(M, m)
+    L = torch.zeros_like(M)
+    A = torch.zeros_like(parts[0][2])
+    for m, l, acc in parts:
+        f = torch.exp(m - M)
+        L = L + l * f
+        A = A + acc * f
+    return A / torch.clamp_min(L, 1e-30)
 
 
 def rmsnorm_inputs(N, D, seed=0):
