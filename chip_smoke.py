@@ -27,11 +27,13 @@ exit, traceback) if anything in it is wrong:
    laws, S = 1, and the first 2 000 ticks of the paper scenario for both
    laws, each with the gather table at its suggested width, and the
    anchor and the paper ticks again with the table narrowed until it
-   overflows (K4 then walks the hop list); then timed over the whole
-   40 000-tick paper run, every launch (CUDA events between back-to-back
-   launches), with a bound counted from each launch's data, and the
-   plain block run from the same carry at five launches of that run,
-   timed and held bit for bit;
+   overflows (the plain tick then walks the hop list; K4's contributor
+   lists are never truncated, and it writes the table and its flag as
+   the plain tick does); then timed over the whole 40 000-tick paper
+   run, every launch (CUDA events between back-to-back launches), with a
+   bound counted from each launch's data, the plain block run from the
+   same carry at five launches of that run, timed and held bit for bit,
+   and a pass of one tick per launch that counts the admit ticks;
 5. goldens: the ``powertcp`` and ``theta_powertcp`` legs of
    ``tests/golden/golden_laws.json`` through the port's ``simulate`` on
    the card, both backends, at ``tests/test_golden_traces.py``'s
@@ -63,7 +65,8 @@ exit, traceback) if anything in it is wrong:
    each timed beside its plain version and one PyTorch
    call for the same function (``F.scaled_dot_product_attention`` with
    ``enable_gqa``, ``F.rms_norm``; the library yardstick, used nowhere in
-   the port);
+   the port; ``F.rms_norm`` takes the scale in bf16, as its fused path
+   needs, and is also timed with the same float32 scale K6 reads);
 8. serve: qwen3-14b at full width (40 layers, d_model 5120, float32
    params drawn on the card from a ``torch.Generator`` seeded 0) through
    ``repro_torch.serve.decode_loop``: 4 prompts of 512 tokens from a seed,
@@ -91,7 +94,18 @@ tensor cores (``mma.sync``, P split into bf16 halves), prefill in
 64-row query tiles over ``cp.async`` double-buffered key tiles, decode
 split over 64-key ranges with one block per (b, kv head, split) serving
 the whole GQA group and the last block merging the splits in order. Both
-keep one launch per call and sum in a fixed order.
+keep one launch per call and sum in a fixed order. K6 holds each row in
+registers as 16-byte vectors, a block of 128 threads per wide row and 16
+lanes per 128-wide row, with a fixed-order butterfly and warp-order sum
+(phase 7 also holds it bit for bit against that order spelled in torch,
+in bfloat16 and float32, and against a second run, and prints its time
+beside ``F.rms_norm`` at each serve shape). K4 stages its carry, the
+topology it indexes and its temporaries in shared memory for the launch,
+with each queue's full contributor list (a CSR rebuilt by a block-wide
+stable counting sort on admit ticks) in place of the truncated gather
+table and its overflow walk; ``k4_timing`` splits its launch times by
+the table's overflow flag and by the launch's admit ticks (counted by a
+third pass of one tick per launch).
 
 It prints one ``{"kernels": [...]}`` line (K1-K6), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
@@ -471,13 +485,14 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
             ("theta_powertcp", 6, (64,), None),
             ("powertcp", 16, (1, 64), 2),       # the table overflows
             ("theta_powertcp", 6, (64,), 2)):
-        e, n_ovf = check(tc, topo, sched, cfg, law, slots, blocks,
-                         maxdeg=maxdeg)
+        e, n_ovf, _ = check(tc, topo, sched, cfg, law, slots, blocks,
+                            maxdeg=maxdeg)
         err = max(err, e)
         log(f"[k4] {law}: anchor 12 flows x 4000 ticks, S={slots}, K in "
             f"{blocks}, table width {maxdeg or 'suggested'} (overflowed on "
             f"{n_ovf} ticks): bitwise equal")
-    e, _ = check(tc, *sup.single_slot(tc, device=dev), "powertcp", 1, (64,))
+    e, _, _ = check(tc, *sup.single_slot(tc, device=dev), "powertcp", 1,
+                    (64,))
     err = max(err, e)
     log("[k4] S=1, 3 flows x 4000 ticks: bitwise equal")
 
@@ -488,28 +503,34 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
                         update_period=ref["update_period_s"])
     for law, maxdeg in (("powertcp", None), ("theta_powertcp", None),
                         ("powertcp", 4), ("theta_powertcp", 4)):
-        e, n_ovf = check(tc, ptopo, psched, pcfg, law, ref["slots"], (64,),
-                         expected_flows=ref["expected_flows"], maxdeg=maxdeg)
+        e, n_ovf, deg = check(tc, ptopo, psched, pcfg, law, ref["slots"],
+                              (64,), expected_flows=ref["expected_flows"],
+                              maxdeg=maxdeg)
         err = max(err, e)
         log(f"[k4] {law}: paper scenario, first {paper_ticks} ticks, "
             f"S={ref['slots']}, table width {maxdeg or 'suggested'} "
-            f"(overflowed on {n_ovf} ticks): bitwise equal")
+            f"(overflowed on {n_ovf} ticks, busiest queue {deg} "
+            f"contributors): bitwise equal")
     row = k4_timing(torch, tc, sup, dev, ref, ptopo, psched)
     row["max_abs_err"] = err
     return row
 
 
 def k4_timing(torch, tc, sup, dev, ref, topo, sched, law="powertcp"):
-    """K4 over the whole 40 000-tick paper run, launch by launch, twice
-    from the same initial carry. Pass 1 times every launch: the launches
-    go back to back with a CUDA event after each, the queue kept ahead of
-    the host, so each interval is one launch's device time. Pass 2 counts
-    each launch's data for its bound (``k4_pool``, read between
+    """K4 over the whole 40 000-tick paper run, launch by launch, three
+    times from the same initial carry. Pass 1 times every launch: the
+    launches go back to back with a CUDA event after each, the queue kept
+    ahead of the host, so each interval is one launch's device time. Pass
+    2 counts each launch's data for its bound (``k4_pool``, read between
     launches), and at five launches spread over the run also runs the
     plain block from the same carry, timed by the host clock and held
-    bit for bit against K4's. The two passes must end on the same carry.
-    The kernels line takes the mean launch time and the mean bound over
-    the run."""
+    bit for bit against K4's. Pass 3 runs one tick per launch and logs
+    the admission cursor on the card after each tick, which gives each
+    64-tick launch's admit ticks (the ticks that rebuild the contributor
+    lists). The three passes must end on the same carry. The kernels line
+    takes the mean launch time and the mean bound over the run; the log
+    splits the launch times by the gather table's overflow flag and by
+    admit ticks."""
     from repro_torch.core import fluid, megakernel as mk
     from repro_torch.kernels import ops, ref as kref
     cfg = tc.SimConfig(dt=ref["dt_s"], steps=ref["steps"], hist=ref["hist"],
@@ -567,13 +588,24 @@ def k4_timing(torch, tc, sup, dev, ref, topo, sched, law="powertcp"):
         bounds.append(bound_ms(nbytes, flops))
         pools.append(post)
         pre = post
-    for (name, g), (_, w) in zip(sup.tree_leaves(carry),
-                                 sup.tree_leaves(end1)):
-        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
-                                   msg=lambda m, nm=name: f"K4 pass 2 {nm}: "
-                                   f"{m}")
+    end2 = carry
+    carry = sup.tree_clone(carry0)
+    cursors = torch.empty(n * K, dtype=torch.int32, device=dev)
+    for t in range(n * K):
+        carry, _ = ops.fused_tick_block(tick, carry, due[t:t + 1],
+                                        record=False)
+        cursors[t] = carry.state.cursor
+    for end, what in ((end2, "pass 2"), (carry, "pass 3 (one tick a launch)")):
+        for (name, g), (_, w) in zip(sup.tree_leaves(end),
+                                     sup.tree_leaves(end1)):
+            torch.testing.assert_close(
+                g, w, rtol=0, atol=0, equal_nan=True,
+                msg=lambda m, nm=name, wh=what: f"K4 {wh} {nm}: {m}")
+    cur = np.concatenate([[int(carry0.state.cursor)],
+                          cursors.cpu().numpy().astype(np.int64)])
+    admit = (np.diff(cur) > 0).reshape(n, K).sum(1)
     log(f"[k4] plain block at launches {sorted(samples)} of the paper run: "
-        f"bitwise equal to K4; the two K4 passes end on the same carry")
+        f"bitwise equal to K4; the three K4 passes end on the same carry")
 
     bms = np.array([b for b, _ in bounds])
     by = max(set(b for _, b in bounds), key=[b for _, b in bounds].count)
@@ -582,10 +614,15 @@ def k4_timing(torch, tc, sup, dev, ref, topo, sched, law="powertcp"):
     adm = np.array([b["cursor"] - a["cursor"]
                     for a, b in zip(pools, pools[1:])])
     q10, q50, q90 = (float(x) for x in np.percentile(ms, [10, 50, 90]))
+    def mean(sel):
+        return float(ms[sel].mean()) if sel.any() else float("nan")
+
     row = dict(shape=f"S={S} H={H} Q+1={Q1} D={ref['hist']} K={K}",
                ms=float(ms.mean()), plain_ms=float(np.mean(plain)),
                bound_ms=float(bms.mean()), bound_by=by, library_ms=None,
-               us_per_tick=float(ms.mean()) / K * 1e3)
+               us_per_tick=float(ms.mean()) / K * 1e3,
+               ms_overflowed=mean(ovf), ms_not_overflowed=mean(~ovf),
+               admit_ticks=int(admit.sum()))
     log(f"[k4] time fused_tick_block ({row['shape']}, {law}, {n} launches "
         f"over the whole run): mean {row['ms']!r} ms per launch "
         f"({row['us_per_tick']!r} us/tick), median {q50!r}, p10 {q10!r}, "
@@ -594,14 +631,20 @@ def k4_timing(torch, tc, sup, dev, ref, topo, sched, law="powertcp"):
         f"({by}), min {float(bms.min())!r}, max {float(bms.max())!r}")
     log(f"[k4] table width {tick.maxdeg}: overflowed at the start of "
         f"{int(ovf.sum())} of {n} launches; mean ms per launch with it "
-        f"{float(ms[ovf].mean()) if ovf.any() else float('nan')!r}, without"
-        f" {float(ms[~ovf].mean()) if (~ovf).any() else float('nan')!r}")
+        f"{row['ms_overflowed']!r}, without {row['ms_not_overflowed']!r}")
+    log(f"[k4] admit ticks (the cursor moved; the contributor lists are "
+        f"rebuilt): {row['admit_ticks']} of {n * K} ticks; mean ms per "
+        f"launch with none {mean(admit == 0)!r} ({int((admit == 0).sum())} "
+        f"launches), 1-4 {mean((admit > 0) & (admit < 5))!r} "
+        f"({int(((admit > 0) & (admit < 5)).sum())}), 5 or more "
+        f"{mean(admit >= 5)!r} ({int((admit >= 5).sum())})")
     for lo in range(0, n, n // 10 + 1):
         sl = slice(lo, min(lo + n // 10 + 1, n))
         log(f"[k4]   launches {sl.start}-{sl.stop - 1} (ticks "
             f"{sl.start * K}-{sl.stop * K - 1}): mean {float(ms[sl].mean())!r}"
             f" ms, slots in use {float(live[sl].mean()):.1f}, admitted "
-            f"{int(adm[sl].sum())}, overflowed {int(ovf[sl].sum())}, bound "
+            f"{int(adm[sl].sum())} on {int(admit[sl].sum())} ticks, "
+            f"overflowed {int(ovf[sl].sum())}, bound "
             f"{float(bms[sl].mean())!r} ms")
     return row
 
@@ -819,17 +862,28 @@ def phase_lm_kernels(torch, sup, dev):
         Dn = 5120 if tag.startswith("ln") else D
         x, s = (torch.as_tensor(a, device=dev)
                 for a in sup.rmsnorm_inputs(N, Dn, seed=N))
-        x = x.to(bf)
+        x32, x = x, x.to(bf)
         got = rmsnorm(x, s, eps=1e-6)
         want = ref.rmsnorm_ref(x, s, eps=1e-6)
+        again = rmsnorm(x, s, eps=1e-6)
+        spelled = sup.rmsnorm_in_k6_order(x, s, 1e-6)
+        got32 = rmsnorm(x32, s, eps=1e-6)
+        spelled32 = sup.rmsnorm_in_k6_order(x32, s, 1e-6)
         torch.cuda.synchronize()
         ulps = sup.bf16_ulps(got, want)
         if ulps > 1.0:
             raise AssertionError(f"rmsnorm {tag}: {ulps} bfloat16 ulps off")
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+        torch.testing.assert_close(got, spelled, rtol=0, atol=0)
+        torch.testing.assert_close(got32, ref.rmsnorm_ref(x32, s, eps=1e-6),
+                                   rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(got32, spelled32, rtol=0, atol=0)
         e = float((got.float() - want.float()).abs().max())
         err["rmsnorm"] = max(err["rmsnorm"], e)
         log(f"[lm] rmsnorm {tag} [{N}, {Dn}]: max abs err {e!r}, "
-            f"{ulps!r} bfloat16 ulps (at most 1)")
+            f"{ulps!r} bfloat16 ulps (at most 1); float32 within rtol 1e-5; "
+            f"both bitwise equal to its order spelled in torch, bfloat16 to "
+            f"a second run")
 
     rows = {}
     for tag, (T, S) in (("", cases["prefill"]), ("decode_", cases["decode"])):
@@ -864,11 +918,20 @@ def phase_lm_kernels(torch, sup, dev):
             plain_ms=graph_ms(torch, lambda: ref.rmsnorm_ref(x, s)),
             bound_ms=b, bound_by=by,
             library_ms=graph_ms(torch, lambda: F.rms_norm(x, (Dn,), sb,
-                                                          1e-6)))
+                                                          1e-6)),
+            library_f32_scale_ms=graph_ms(
+                torch, lambda: F.rms_norm(x, (Dn,), s, 1e-6), reps=20,
+                rounds=3))
+    for tag, row in rows.items():
+        log(f"[lm] time rmsnorm {row['shape']}: K6 {row['ms'] * 1e3!r} us, "
+            f"F.rms_norm {row['library_ms'] * 1e3!r} us with the scale in "
+            f"bf16 (K6 / F.rms_norm {row['ms'] / row['library_ms']!r}), "
+            f"{row['library_f32_scale_ms'] * 1e3!r} us with the same float32 "
+            f"scale; bound {row['bound_ms'] * 1e3!r} us")
     k6 = dict(rows[""], max_abs_err=err["rmsnorm"])
     for pre in ("qk_", "decode_"):
         for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms"):
+                    "library_ms", "library_f32_scale_ms"):
             k6[pre + key] = rows[pre][key]
     out = {"flash_attention": k5, "rmsnorm": k6}
     for name, row in out.items():

@@ -6,82 +6,251 @@
 // with float32 statistics, out in x's dtype (float32 or bfloat16; the
 // scale is float32, the wrapper widens a bfloat16 one exactly).
 //
-// Design: one warp per row, eight rows per block of 256 threads. Lane l
-// sums the squares of elements l, l + 32, ... in that order, then the
-// warp adds the 32 partial sums by a fixed xor butterfly, so the sum is
-// the same from run to run; the mean is that sum / D. The inverse root is
-// the IEEE 1.0f / sqrtf (two correctly rounded operations, as PyTorch's
-// CPU rsqrt), not the approximate rsqrtf. A second pass rereads the row
-// (from L1/L2) and writes (x * inv) * scale, rounded once to bfloat16
-// where x is bfloat16. Loads and stores of a warp touch consecutive
-// elements.
-//
 // Bound: bytes. Each element is read once from device memory and written
 // once (2 flops to square-and-add, 2 to scale); the rows on the serving
 // path ([4T, 5120] for the layer norms, [4T*40, 128] and [4T*8, 128] for
 // the qk-norms) are far below the card's operations-per-byte line.
+//
+// Design: a group of G lanes normalizes one row, and the row stays in
+// registers between the square sum and the scaling, so it is read from
+// device memory once and written once. The row is cut into 16-byte
+// vectors of E elements (E = 8 bfloat16 or 4 float32); vector v belongs
+// to lane v % G, in its slot v / G, and each lane holds its VPT vectors.
+// Wide rows (D >= 1024) take a whole block per row, about four vectors a
+// lane (G = 32 * ceil(vectors / 128), at most 512: 160 threads at D =
+// 5 120 in bfloat16), so the grid has a block per row and all of a row's
+// loads are in flight at once; narrow rows take G lanes of a warp (the
+// next power of two >= the row's vectors, at most 32: 16 lanes x 8
+// bfloat16 at D = 128, two rows per warp), 256 threads a block. When the
+// grid is at most one block per SM (the decode rows), a lane also loads
+// its scale with its x, before the reduction, so the scale's round trip
+// overlaps the load of x; on a full grid that would cost registers, and
+// the scale, read by every row, comes from L1 after the reduction. The
+// wrapper plans G, VPT and the prefetch (kernels/rmsnorm.py::plan).
+//
+// Loads and stores are 16-byte vectors when the row length is a multiple
+// of E and every base is 16-byte aligned: x is read and y written with
+// the streaming (evict-first) cache hints, since each is touched once,
+// and the scale, which every row reads, through the read-only path;
+// otherwise the same lanes load and store the same elements one at a
+// time. Elements past the row are zero in the registers, and adding
+// their +0.0 squares leaves every partial sum as it is.
+//
+// Sum order, fixed, so results are the same run to run: each lane adds
+// the squares of its slots' elements in order (slot 0 element 0 first)
+// from +0.0; the lanes of each warp (or of the G-lane group) are added by
+// an xor butterfly (offsets 16 or G/2 down to 1, which adds lane l and
+// lane l + half as a tree); for G > 32 the warp sums are added in warp
+// order through shared memory. The mean is that sum / D, the inverse root
+// the IEEE 1.0f / sqrtf (two correctly rounded operations, as PyTorch's
+// CPU rsqrt), not the approximate rsqrtf; y = (x * inv) * scale, rounded
+// once to bfloat16 where x is bfloat16. tests/test_torch_support.py::
+// rmsnorm_in_k6_order spells the same order in torch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNarrowThreads = 256;
+constexpr int kMaxWarps = 16;  // G <= 512
 
 template <typename T>
-__global__ void rmsnorm_kernel(const T* __restrict__ x,
-                               const float* __restrict__ scale,
-                               T* __restrict__ y, long long N, int D,
-                               float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (row >= N) return;
-  const T* xr = x + row * D;
-  T* yr = y + row * D;
-  float acc = 0.0f;
-  for (int i = lane; i < D; i += 32) {
-    const float v = to_f32(xr[i]);
-    acc += v * v;
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int E = 4;
+  __device__ static float get(const uint4& r, int e) {
+    return __uint_as_float((&r.x)[e]);
   }
+  __device__ static void put(uint4& r, int e, float v) {
+    (&r.x)[e] = __float_as_uint(v);
+  }
+  __device__ static void put_raw(uint4& r, int e, const float* p) {
+    (&r.x)[e] = __float_as_uint(*p);
+  }
+  __device__ static void store(float* p, float v) { *p = v; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int E = 8;
+  __device__ static float get(const uint4& r, int e) {
+    const uint32_t w = (&r.x)[e >> 1];
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+  __device__ static void put(uint4& r, int e, float v) {
+    const uint32_t b = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    uint32_t& w = (&r.x)[e >> 1];
+    w = (e & 1) ? ((w & 0x0000ffffu) | (b << 16)) : ((w & 0xffff0000u) | b);
+  }
+  __device__ static void put_raw(uint4& r, int e, const __nv_bfloat16* p) {
+    const uint32_t b = __bfloat16_as_ushort(*p);
+    uint32_t& w = (&r.x)[e >> 1];
+    w = (e & 1) ? ((w & 0x0000ffffu) | (b << 16)) : ((w & 0xffff0000u) | b);
+  }
+  __device__ static void store(__nv_bfloat16* p, float v) {
+    *p = __float2bfloat16_rn(v);
+  }
+};
+
+// VEC: 16-byte loads and stores (else element at a time); PRE: the scale
+// loaded with x (VEC only).
+template <typename T, int VPT, bool PRE, bool VEC>
+__global__ void __launch_bounds__(512)
+rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+               T* __restrict__ y, long long N, int D, int G, float eps) {
+  using El = Elem<T>;
+  constexpr int E = El::E;
+  __shared__ float wsum[kMaxWarps];
+  const int tid = threadIdx.x;
+  // a wide row is the whole block; narrow rows are G-lane groups, G a
+  // power of two
+  const int lane = G > 32 ? tid : (tid & (G - 1));
+  const long long row =
+      G > 32 ? static_cast<long long>(blockIdx.x)
+             : static_cast<long long>(blockIdx.x) * (blockDim.x / G) + tid / G;
+  const bool live = row < N;
+  const int nv = (D + E - 1) / E;
+  const T* xr = x + (live ? row : 0) * D;
+  T* yr = y + (live ? row : 0) * D;
+
+  uint4 r[VPT];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  for (int k = 0; k < VPT; ++k) {
+    const int v = k * G + lane;
+    r[k] = make_uint4(0u, 0u, 0u, 0u);
+    if (live && v < nv) {
+      if (VEC) {
+        r[k] = __ldcs(reinterpret_cast<const uint4*>(xr) + v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (v * E + e < D) El::put_raw(r[k], e, xr + v * E + e);
+      }
+    }
+  }
+  float sc[VPT][E];
+  if (PRE && VEC) {
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int v = k * G + lane;
+      if (live && v < nv) {
+        const float4* sp = reinterpret_cast<const float4*>(scale + v * E);
+#pragma unroll
+        for (int j = 0; j < E / 4; ++j) {
+          const float4 q = __ldg(sp + j);
+          sc[k][4 * j] = q.x;
+          sc[k][4 * j + 1] = q.y;
+          sc[k][4 * j + 2] = q.z;
+          sc[k][4 * j + 3] = q.w;
+        }
+      }
+    }
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const float f = El::get(r[k], e);
+      acc = acc + f * f;
+    }
+  }
+  for (int off = (G < 32 ? G : 32) >> 1; off > 0; off >>= 1)
+    acc = acc + __shfl_xor_sync(kFull, acc, off);
+  if (G > 32) {
+    if ((tid & 31) == 0) wsum[tid >> 5] = acc;
+    __syncthreads();
+    acc = wsum[0];
+    for (int w = 1; w < G / 32; ++w) acc = acc + wsum[w];
   }
   const float inv = 1.0f / sqrtf(acc / static_cast<float>(D) + eps);
-  for (int i = lane; i < D; i += 32) {
-    store(yr + i, to_f32(xr[i]) * inv * scale[i]);
+
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int v = k * G + lane;
+    if (!live || v >= nv) continue;
+    if (VEC) {
+      float s[E];
+      if (PRE) {
+#pragma unroll
+        for (int e = 0; e < E; ++e) s[e] = sc[k][e];
+      } else {
+        const float4* sp = reinterpret_cast<const float4*>(scale + v * E);
+#pragma unroll
+        for (int j = 0; j < E / 4; ++j) {
+          const float4 q = __ldg(sp + j);
+          s[4 * j] = q.x;
+          s[4 * j + 1] = q.y;
+          s[4 * j + 2] = q.z;
+          s[4 * j + 3] = q.w;
+        }
+      }
+      uint4 o = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int e = 0; e < E; ++e) El::put(o, e, El::get(r[k], e) * inv * s[e]);
+      __stcs(reinterpret_cast<uint4*>(yr) + v, o);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (v * E + e < D)
+          El::store(yr + v * E + e, El::get(r[k], e) * inv * scale[v * E + e]);
+    }
   }
 }
 
-template <typename T>
-int launch(const T* x, const float* scale, T* y, long long N, int D,
-           float eps, void* stream) {
-  const long long blocks = (N + kWarps - 1) / kWarps;
-  rmsnorm_kernel<T><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
-                      static_cast<cudaStream_t>(stream)>>>(x, scale, y, N,
-                                                           D, eps);
+template <typename T, int VPT>
+int launch_vpt(const T* x, const float* scale, T* y, long long N, int D,
+               int G, float eps, int vec, int pre, cudaStream_t stream) {
+  const int threads = G > 32 ? G : kNarrowThreads;
+  const long long rows = threads / G;
+  const unsigned blocks = static_cast<unsigned>((N + rows - 1) / rows);
+  if (!vec)
+    rmsnorm_kernel<T, VPT, false, false><<<blocks, threads, 0, stream>>>(
+        x, scale, y, N, D, G, eps);
+  else if (pre)
+    rmsnorm_kernel<T, VPT, true, true><<<blocks, threads, 0, stream>>>(
+        x, scale, y, N, D, G, eps);
+  else
+    rmsnorm_kernel<T, VPT, false, true><<<blocks, threads, 0, stream>>>(
+        x, scale, y, N, D, G, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// VPT is the wrapper's plan rounded up to an instantiated width; the
+// slots past the row's vectors load nothing. G is a power of two up to a
+// warp (narrow rows), or a multiple of 32 up to 512 (a block per row).
+template <typename T>
+int launch(const T* x, const float* scale, T* y, long long N, int D, int G,
+           int vpt, float eps, int vec, int pre, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ok = G > 32 ? (G <= 512 && G % 32 == 0)
+                         : (G >= 1 && (G & (G - 1)) == 0);
+  if (!ok) return cudaErrorInvalidValue;
+#define K6_VPT(n)                                                       \
+  if (vpt <= n)                                                         \
+    return launch_vpt<T, n>(x, scale, y, N, D, G, eps, vec, pre, s);
+  K6_VPT(1) K6_VPT(2) K6_VPT(3) K6_VPT(4) K6_VPT(5) K6_VPT(6) K6_VPT(8)
+  K6_VPT(10) K6_VPT(12) K6_VPT(16)
+#undef K6_VPT
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" int rmsnorm_f32(const float* x, const float* scale, float* y,
-                           long long N, int D, float eps, void* stream) {
-  return launch(x, scale, y, N, D, eps, stream);
+                           long long N, int D, int G, int vpt, float eps,
+                           int vec, int pre, void* stream) {
+  return launch(x, scale, y, N, D, G, vpt, eps, vec, pre, stream);
 }
 
 extern "C" int rmsnorm_bf16(const __nv_bfloat16* x, const float* scale,
-                            __nv_bfloat16* y, long long N, int D, float eps,
+                            __nv_bfloat16* y, long long N, int D, int G,
+                            int vpt, float eps, int vec, int pre,
                             void* stream) {
-  return launch(x, scale, y, N, D, eps, stream);
+  return launch(x, scale, y, N, D, G, vpt, eps, vec, pre, stream);
 }

@@ -5,9 +5,12 @@ advances the flow-slot engine by K whole ticks of
 ``core.megakernel.make_tick`` (``DEFAULT_BLOCK = 64``), the gated
 admit/retire pass included, for PowerTCP and theta-PowerTCP. One
 persistent thread block runs the block's ticks with barriers between the
-tick's phases; the carry stays in device memory (L2-resident) and is
-updated in place. What bounds a tick is its chain of dependent phases,
-not bytes (see the note in the source).
+tick's phases, on a working set staged in shared memory for the launch
+(``layout``: the per-slot, per-hop and per-queue carry, the topology it
+indexes, the tick's temporaries and each queue's full contributor list);
+the rings stay in device memory, and the carry is written back in place
+at the end of the launch. What bounds a tick is its chain of dependent
+phases, not bytes (see the note in the source).
 
 ``fused_tick_block`` takes CUDA tensors only and launches on the current
 stream; ``kernels/ops.py`` sends CPU tensors to the plain block
@@ -73,6 +76,60 @@ class BlockRecords(NamedTuple):
     n_active: torch.Tensor
 
 
+# warps of K4's block (csrc/fused_tick.cu kWarps): the counting sort of
+# the contributor lists keeps a count per warp and queue
+WARPS = 16
+# shared memory a block may take on an H100 (227 KB), less 2 KB for K4's
+# static shared memory
+SMEM_BUDGET = 227 * 1024 - 2048
+
+
+def _fields(S, H, Q, nsw, swdeg, nswb, law):
+    """(name, 4-byte words) of every field K4 stages, in the order of
+    ``enum Field`` in ``csrc/fused_tick.cu``: the tick's temporaries and
+    the contributor lists (CSR offsets, entries, each entry's place, the
+    per-warp counts), the queues (with each queue's q / bw) and the
+    topology, the hops, the slots (with each slot's law config beta and
+    tau)."""
+    SH, Q1 = S * H, Q + 1
+    slot_fields = ("slot_flow admit_t free_at rtt_steps hold pend_flow tau "
+                   "nic start stop w rate_cap remaining next_update "
+                   "last_update gamma_smooth prev_theta pend_val beta "
+                   "ctau").split()
+    return ([("contrib", SH + 1), ("obs", SH * (3 if law == 0 else 1)),
+             ("theta_now", S), ("lam", S), ("act", S), ("freef", S),
+             ("sw_used", nsw), ("csr_off", Q1 + 1), ("csr_list", SH),
+             ("csr_pos", SH), ("csr_hist", WARPS * Q1),
+             ("q", Q1), ("out_rate", Q1), ("qb", Q1), ("bw", Q1),
+             ("buf", Q1),
+             ("switch_of_queue", Q), ("sw_table", nsw * swdeg),
+             ("switch_buffer", nswb),
+             ("path", SH), ("tf_steps", SH)]
+            + [(f, 0 if f == "prev_theta" and law != 1 else S)
+               for f in slot_fields])
+
+
+class Layout(NamedTuple):
+    """Where K4 keeps its working set for one launch: each field's byte
+    offset (16-byte aligned), the bytes in all, and whether they fit in
+    shared memory. Otherwise the same layout lives in a global scratch
+    buffer: the same kernel on a slower layout."""
+    offsets: tuple
+    nbytes: int
+    smem: bool
+
+
+def layout(S, H, Q, nsw, swdeg, nswb, law) -> Layout:
+    """K4's layout for S slots of H hops, Q queues, ``nsw`` switches of
+    ``swdeg`` ports in the Dynamic-Thresholds fold (0: off), ``nswb``
+    switch buffers, and law 0 (PowerTCP) or 1 (theta-PowerTCP)."""
+    offsets, at = [], 0
+    for _, words in _fields(S, H, Q, nsw, swdeg, nswb, law):
+        offsets.append(at)
+        at += -(-4 * words // 16) * 16
+    return Layout(tuple(offsets), at, at <= SMEM_BUDGET)
+
+
 _PTRS = ("cursor hw slot_flow admit_t free_at path tf_steps rtt_steps tau "
          "nic start stop w rate_cap q out_rate hist_lam hist_q hist_w "
          "remaining next_update last_update gamma_smooth prev_theta fct "
@@ -80,8 +137,9 @@ _PTRS = ("cursor hw slot_flow admit_t free_at path tf_steps rtt_steps tau "
          "s_start s_stop s_size c_beta c_tau bw buf sw_table switch_buffer "
          "switch_of_queue due rec_t rec_q rec_w_sum rec_thru rec_lam "
          "rec_lam_f rec_n_active scratch").split()
-_INTS = ("S N Q H D nsw swdeg maxdeg K t0 record_every record law "
-         "has_period use_smem").split()
+_INTS = ("S N Q H D nsw swdeg nswb maxdeg K t0 record_every record law "
+         "has_period use_smem layout_bytes").split()
+_NFIELDS = len(_fields(1, 1, 1, 0, 0, 1, 0))
 _FLOATS = "dt inv_dt dt_alpha gamma one_minus_gamma update_period".split()
 
 
@@ -89,18 +147,25 @@ class _Args(ctypes.Structure):
     """``struct FusedTickArgs`` of ``csrc/fused_tick.cu``, field for field."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _PTRS] +
                 [(n, ctypes.c_int) for n in _INTS] +
-                [(n, ctypes.c_float) for n in _FLOATS])
+                [(n, ctypes.c_float) for n in _FLOATS] +
+                [("off", ctypes.c_int * _NFIELDS)])
 
 
 _SIGNATURES = {
     "fused_tick_block_f32": [ctypes.POINTER(_Args), ctypes.c_void_p],
-    "fused_tick_scratch_bytes": [ctypes.c_int] * 3,
+    "fused_tick_abi": [ctypes.POINTER(ctypes.c_int)],
 }
 
 
 def _lib():
     lib = _build.library("fused_tick", _SIGNATURES)
-    lib.fused_tick_scratch_bytes.restype = ctypes.c_longlong
+    nf = ctypes.c_int()
+    size = lib.fused_tick_abi(ctypes.byref(nf))
+    if size != ctypes.sizeof(_Args) or nf.value != _NFIELDS:
+        raise RuntimeError(f"fused_tick_block: csrc/fused_tick.cu's "
+                           f"FusedTickArgs ({size} bytes, {nf.value} fields)"
+                           f" does not match the wrapper's "
+                           f"({ctypes.sizeof(_Args)}, {_NFIELDS})")
     return lib
 
 
@@ -183,9 +248,10 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         lam_f=torch.empty((nrec, S), dtype=f32, device=dev),
         n_active=torch.empty((nrec,), dtype=i32, device=dev))
     lib = _lib()
-    scratch = torch.empty(
-        (max(int(lib.fused_tick_scratch_bytes(S, H, params.nsw)), 4),),
-        dtype=torch.uint8, device=dev)
+    nswb = int(params.switch_buffer.numel())
+    lay = layout(S, H, Q, params.nsw, params.swdeg, nswb, params.law)
+    scratch = torch.empty((16 if lay.smem else lay.nbytes,),
+                          dtype=torch.uint8, device=dev)
 
     args = _Args()
     for name, (x, _, _) in leaves.items():
@@ -194,12 +260,14 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         setattr(args, "rec_" + name, getattr(recs, name).data_ptr())
     args.scratch = scratch.data_ptr()
     for name, val in dict(S=S, N=N, Q=Q, H=H, D=D, nsw=params.nsw,
-                          swdeg=params.swdeg, maxdeg=M, K=K, t0=int(st.t),
-                          record_every=re, record=int(bool(record)),
-                          law=params.law,
+                          swdeg=params.swdeg, nswb=nswb, maxdeg=M, K=K,
+                          t0=int(st.t), record_every=re,
+                          record=int(bool(record)), law=params.law,
                           has_period=int(params.update_period > 0.0),
-                          use_smem=0).items():
+                          use_smem=int(lay.smem),
+                          layout_bytes=lay.nbytes).items():
         setattr(args, name, val)
+    args.off[:] = lay.offsets
     for name in _FLOATS:
         setattr(args, name, getattr(params, name))
     if K:

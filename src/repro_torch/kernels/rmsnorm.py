@@ -2,13 +2,17 @@
 
 K6 ``rmsnorm`` replaces ``repro/kernels/rmsnorm.py::rmsnorm``:
 ``x·rsqrt(mean(x²)+eps)·scale`` over the last dim with float32
-statistics, out in x's dtype. One warp per row; bound by the bytes it
-moves (each element read once and written once).
+statistics, out in x's dtype. A group of G lanes holds one row in
+registers as 16-byte vectors (``plan``): a block per row for wide rows, a
+few lanes of a warp per row for narrow ones; on a grid of at most one
+block per SM the scale is loaded with x. Bound by the bytes it moves
+(each element read once and written once).
 
 This launches the CUDA kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to ``kernels/ref.py::rmsnorm_ref``.
 The kernel is held to that plain version at rtol 1e-5 in float32 and to
-one bfloat16 ulp in bfloat16.
+one bfloat16 ulp in bfloat16, and bit for bit to its own sum order
+spelled in torch (``tests/test_torch_support.py::rmsnorm_in_k6_order``).
 """
 from __future__ import annotations
 
@@ -20,9 +24,47 @@ from . import _build
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_SIGNATURES = {"rmsnorm_f32": [_P, _P, _P, _L, _I, _F, _P],
-               "rmsnorm_bf16": [_P, _P, _P, _L, _I, _F, _P]}
+_SIGNATURES = {"rmsnorm_f32": [_P, _P, _P, _L, _I, _I, _I, _F, _I, _I, _P],
+               "rmsnorm_bf16": [_P, _P, _P, _L, _I, _I, _I, _F, _I, _I, _P]}
 _ENTRY = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
+
+# rows at least this wide take a whole block; narrower rows share a warp
+WIDE = 1024
+# vectors a lane of a wide row holds, about, and at most
+WIDE_VPT, MAX_VPT = 4, 16
+# threads of a block of narrow rows (csrc/rmsnorm.cu kNarrowThreads)
+NARROW_THREADS = 256
+
+
+def plan(D: int, itemsize: int):
+    """(G, vpt, E) for rows of D elements of ``itemsize`` bytes: G lanes
+    per row, each holding vpt 16-byte vectors of E elements (vector v of
+    the row sits on lane v % G, slot v // G). Wide rows: a block of whole
+    warps with about ``WIDE_VPT`` vectors a lane, at most 512 threads;
+    narrow rows: the next power of two at or above the row's vectors, at
+    most 32."""
+    E = 16 // itemsize
+    nv = max(-(-D // E), 1)
+    if D >= WIDE:
+        G = min(512, 32 * -(-nv // (32 * WIDE_VPT)))
+    else:
+        G = min(32, 1 << (nv - 1).bit_length())
+    vpt = -(-nv // G)
+    if vpt > MAX_VPT:
+        raise ValueError(f"rmsnorm: rows of {D} elements are wider than K6 "
+                         f"holds ({512 * MAX_VPT * E})")
+    return G, vpt, E
+
+
+_SMS: dict = {}
+
+
+def _sm_count(device) -> int:
+    key = str(device)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[key]
 
 
 def rmsnorm(x, scale, *, eps=1e-6):
@@ -45,11 +87,17 @@ def rmsnorm(x, scale, *, eps=1e-6):
     N = x2.numel() // D if D else 0
     if N == 0:
         return y
+    G, vpt, E = plan(D, x2.element_size())
+    vec = int(D % E == 0 and all(t.data_ptr() % 16 == 0 for t in (x2, s, y)))
+    # at most a block per SM: load the scale with x (see the source)
+    blocks = N if G > 32 else -(-N // (NARROW_THREADS // G))
+    pre = int(blocks <= _sm_count(x.device))
     lib = _build.library("rmsnorm", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, _ENTRY[x.dtype])(x2.data_ptr(), s.data_ptr(),
-                                            y.data_ptr(), N, D, eps, stream)
+                                            y.data_ptr(), N, D, G, vpt, eps,
+                                            vec, pre, stream)
     _build.check(err, "rmsnorm")
     _build.LAUNCHES["rmsnorm"] += 1
     return y

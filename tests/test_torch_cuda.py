@@ -10,16 +10,20 @@ spelled in torch and against itself run twice (the elected combine); K4
 ``fused_tick_block`` against the plain megakernel block on every carry
 leaf bit for bit (the records' ``w_sum``/``lam`` sums at rtol 1e-5) at
 the anchor shapes of ``tests/test_megakernel.py``, with the gather table
-at its suggested width and narrowed until it overflows, and the
-megakernel backend's launches; K5 ``flash_attention`` against its plain
-version at 2e-5 in float32 and 2e-2 in bfloat16 on the shapes of
+at its suggested width and narrowed until it overflows (a queue 46
+contributors past it, and one at exactly its width), on a pool too large
+for its shared-memory layout, and the megakernel backend's launches; K5
+``flash_attention`` against its plain version at 2e-5 in float32 and
+2e-2 in bfloat16 on the shapes of
 ``tests/test_kernels.py``'s ``FLASH_CASES``, the serve run's prefill
 and decode shapes (the decode reading strided views of a cache) and the
 edges of its query tiles, key tiles and decode splits, bit for bit
 against itself run twice, and raising on views ``cp.async`` cannot
 copy; K6
 ``rmsnorm`` within one bfloat16 ulp in bfloat16 and at rtol 1e-5 in
-float32 on the serve run's rows; and the REDUCED qwen3-14b model on the
+float32 on the serve run's rows, and bit for bit against its order
+spelled in torch and itself run twice, at those rows and ragged ones;
+and the REDUCED qwen3-14b model on the
 card against the port on the CPU at the tight bar of
 ``tests/test_torch_lm.py``. Every test takes the ``cuda_device``
 fixture and skips without a card; this module imports neither JAX nor
@@ -105,14 +109,51 @@ def test_wrappers_count_their_launches(cuda_device):
     ("powertcp", 16, (1, 7, 64), None),    # S >= N, block edges everywhere
     ("powertcp", 6, (64,), None),          # S < N: slots recycled
     ("theta_powertcp", 6, (64,), None),
-    ("powertcp", 16, (1, 64), 2),          # the gather table overflows:
-    ("theta_powertcp", 6, (64,), 2)])      # K4 walks the hop list
+    ("powertcp", 16, (1, 64), 2),          # the gather table overflows
+    ("theta_powertcp", 6, (64,), 2)])
 def test_fused_tick_block_kernel_anchor(cuda_device, law, slots, blocks,
                                         maxdeg):
     import repro_torch.core as tc
     topo, sched, cfg = sup.staggered(tc, device=cuda_device)
     sup.k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
                          maxdeg=maxdeg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law,n,slots,maxdeg,overflows", [
+    ("powertcp", 48, 48, 2, True),         # 48 contributors: 46 past the
+    ("theta_powertcp", 48, 48, 2, True),   # table's width
+    ("powertcp", 12, 16, 12, False)])      # exactly maxdeg: a full row
+def test_fused_tick_block_kernel_contributor_lists(cuda_device, law, n,
+                                                   slots, maxdeg, overflows):
+    """K4's untruncated contributor lists against the plain tick's gather
+    table, bit for bit with ``inv`` and ``ovf``: a queue whose degree
+    passes the table's width by more than 32 (the plain tick walks the hop
+    list), and one whose degree is exactly the width (a full row that is
+    not truncated)."""
+    import repro_torch.core as tc
+    topo, sched, cfg = sup.staggered(tc, n=n, device=cuda_device)
+    _, n_ovf, degree = sup.k4_against_plain(
+        tc, topo, sched, cfg, law, slots, (64,), maxdeg=maxdeg,
+        overflows=overflows)
+    if overflows:
+        assert degree > maxdeg + 32, degree
+    else:
+        assert degree == maxdeg and n_ovf == 0, (degree, n_ovf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["powertcp", "theta_powertcp"])
+def test_fused_tick_block_kernel_global_layout(cuda_device, law):
+    """A pool whose staged working set does not fit in shared memory: the
+    same kernel runs on its layout in a global scratch buffer, bit for bit
+    against the plain tick."""
+    import repro_torch.core as tc
+    from repro_torch.kernels.fused_tick import layout
+    slots = 2048
+    assert not layout(slots, 1, 1, 0, 0, 1, int(law != "powertcp")).smem
+    topo, sched, cfg = sup.staggered(tc, steps=1000, device=cuda_device)
+    sup.k4_against_plain(tc, topo, sched, cfg, law, slots, (64, 7))
 
 
 @pytest.mark.cuda
@@ -276,6 +317,45 @@ def test_rmsnorm_kernel(cuda_device, N, D, bf16):
         assert sup.bf16_ulps(got, want) <= 1.0
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(4 * 512, 5120), (4, 5120),
+                                 (4 * 512 * 40, 128), (4 * 512 * 8, 128),
+                                 (4 * 40, 128), (9, 64), (33, 200),
+                                 (5, 5121)])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_rmsnorm_kernel_is_its_order_run_to_run(cuda_device, N, D, bf16):
+    """K6 twice on the same inputs gives the same bits, and those of its
+    sum order spelled in torch (elementwise float32 ops on the card), at
+    the serve run's rows and at ragged D (one element at a time)."""
+    from repro_torch.kernels import rmsnorm
+    x, s = (torch.as_tensor(a, device=cuda_device)
+            for a in sup.rmsnorm_inputs(N, D, seed=N * D))
+    if bf16:
+        x = x.to(torch.bfloat16)
+    first = rmsnorm(x, s, eps=1e-6)
+    torch.testing.assert_close(rmsnorm(x, s, eps=1e-6), first, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(first, sup.rmsnorm_in_k6_order(x, s, 1e-6),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_reads_a_misaligned_view(cuda_device):
+    """A row base off the 16-byte grid takes the element-at-a-time loads
+    and gives the same bits as the aligned copy."""
+    from repro_torch.kernels import rmsnorm
+    x, s = (torch.as_tensor(a, device=cuda_device)
+            for a in sup.rmsnorm_inputs(4, 5120, seed=2))
+    x = x.to(torch.bfloat16)
+    flat = torch.zeros(4 * 5120 + 1, dtype=torch.bfloat16,
+                       device=cuda_device)
+    shifted = flat[1:].view(4, 5120)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16
+    torch.testing.assert_close(rmsnorm(shifted, s), rmsnorm(x, s), rtol=0,
+                               atol=0)
 
 
 @pytest.mark.cuda

@@ -30,7 +30,11 @@ interpret mode, on the same numpy inputs:
   in split order; ``test_torch_support.flash_in_k5_order``) against the
   plain version and ``repro.kernels.ref`` within 1e-4 in float32 compute
   on the REDUCED qwen3-14b attention shapes, so that a tolerance fault
-  shows before a chip run.
+  shows before a chip run. K6's sum order (lanes of a row in registers,
+  an xor butterfly, warps in order; ``test_torch_support.
+  rmsnorm_in_k6_order``) and its plan against ``repro.kernels.ref`` and
+  the interpret-mode Pallas kernel within one bfloat16 ulp / rtol 1e-5,
+  also at the serve run's [4, 5120] and [2048, 5120] rows.
 
 ``tests/test_torch_cuda.py`` holds the CUDA kernels themselves against
 these plain versions on the card.
@@ -224,6 +228,52 @@ def test_rmsnorm_plain_3d_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(
         j_rmsnorm(jnp.asarray(x), jnp.asarray(s), interpret=True)),
         atol=1e-5, rtol=1e-5)
+
+
+def test_rmsnorm_plan():
+    """K6's lanes per row, vectors per lane and elements per vector at the
+    serve shapes, ragged rows and the widest rows it holds."""
+    from repro_torch.kernels.rmsnorm import plan
+    assert plan(5120, 2) == (160, 4, 8)       # layer norms, bfloat16
+    assert plan(5120, 4) == (320, 4, 4)
+    assert plan(128, 2) == (16, 1, 8)         # qk-norms: two rows a warp
+    assert plan(128, 4) == (32, 1, 4)
+    assert plan(5121, 2) == (192, 4, 8)
+    assert plan(64, 2) == (8, 1, 8)
+    assert plan(200, 2) == (32, 1, 8)
+    assert plan(1000, 2) == (32, 4, 8)
+    assert plan(1024, 2) == (32, 4, 8)
+    assert plan(2048, 2) == (64, 4, 8)
+    assert plan(40000, 2) == (512, 10, 8)
+    with pytest.raises(ValueError, match="wider"):
+        plan(512 * 16 * 8 + 8, 2)
+
+
+# K6's order at tests/test_kernels.py's rmsnorm cases, the serve run's
+# layer-norm rows and a ragged wide row
+K6_ORDER_CASES = RMSNORM_CASES + [(4, 5120, True), (4, 5120, False),
+                                  (2048, 5120, True), (2048, 5120, False),
+                                  (7, 5121, True)]
+
+
+@pytest.mark.parametrize("N,D,bf16", K6_ORDER_CASES)
+def test_rmsnorm_k6_order_matches_jax(N, D, bf16):
+    """K6's sum order spelled in torch against ``repro``'s rmsnorm (its
+    plain version and interpret-mode Pallas): within one bfloat16 ulp in
+    bfloat16, rtol 1e-5 in float32."""
+    rng = np.random.default_rng(N + D + 1)
+    jx, tx = _bf16_pair(rng.standard_normal((N, D)).astype(np.float32) * 3,
+                        bf16)
+    js, ts = _bf16_pair((1.0 + 0.1 * rng.standard_normal(D))
+                        .astype(np.float32), bf16)
+    got = sup.rmsnorm_in_k6_order(tx, ts)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    for want in (jref.rmsnorm_ref(jx, js), j_rmsnorm(jx, js, interpret=True)):
+        w = torch.as_tensor(np.array(want.astype(jnp.float32)))
+        if bf16:
+            assert sup.bf16_ulps(got, w) <= 1.0
+        else:
+            torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-6)
 
 
 def test_ops_dispatch_lm_kernels_on_cpu():

@@ -401,6 +401,32 @@ def test_block_size():
     assert block_size(3998, 1, 7) == 7
 
 
+def test_k4_layout_plan():
+    """K4's working set fits in shared memory at the paper's shape (both
+    laws) and not at a large S, where the same layout goes to a global
+    buffer; its fields are those of ``enum Field`` in the source, in that
+    order, at 16-byte aligned, non-overlapping offsets."""
+    import re
+    from repro_torch.kernels import fused_tick as ft
+    for law in (0, 1):
+        lay = ft.layout(384, 3, 288, 10, 34, 10, law)
+        assert lay.smem and lay.nbytes <= 227 * 1024, lay.nbytes
+    assert ft.layout(1536, 1, 1, 0, 0, 1, 0).smem
+    assert not ft.layout(2048, 1, 1, 0, 0, 1, 0).smem
+    assert not ft.layout(4096, 3, 288, 10, 34, 10, 0).smem
+    fields = ft._fields(384, 3, 288, 10, 34, 10, 1)
+    lay = ft.layout(384, 3, 288, 10, 34, 10, 1)
+    ends = [o + 4 * n for o, (_, n) in zip(lay.offsets, fields)]
+    assert all(o % 16 == 0 for o in lay.offsets)
+    assert all(e <= o for e, o in zip(ends, lay.offsets[1:] + (lay.nbytes,)))
+    with open(os.path.join(REPO, "src", "repro_torch", "csrc",
+                           "fused_tick.cu")) as f:
+        body = re.search(r"enum Field \{(.*?)kFields", f.read(), re.S)[1]
+    body = re.sub(r"//[^\n]*", "", body)
+    names = [n.strip()[2:].lower() for n in body.split(",") if n.strip()]
+    assert names == [n for n, _ in fields]
+
+
 # -------------------------------------------------------------------------
 # import boundary
 # -------------------------------------------------------------------------

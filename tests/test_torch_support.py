@@ -13,7 +13,8 @@
   either package.
 * seeded kernel inputs and the paper scenario's constants, shared by the
   tests and ``chip_smoke.py``; the sum orders of K3 and K5 spelled in
-  torch (``queue_arrivals_in_k3_order``, ``flash_in_k5_order``) and the
+  torch (``queue_arrivals_in_k3_order``, ``flash_in_k5_order``,
+  ``rmsnorm_in_k6_order``) and the
   edge shapes the kernels are held at; the LM slice's shapes and bars
   (``SERVE_*``, ``LM_TIGHT_*``, ``lm_teacher_forced``); and the
   ``cuda_device`` fixture that
@@ -296,17 +297,21 @@ def plain_ticks(tick, carry, due):
 
 
 def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
-                     expected_flows=8.0, maxdeg=None):
+                     expected_flows=8.0, maxdeg=None, overflows=None):
     """K4 against the plain megakernel tick on the card, from the same
-    initial carry, for each K in ``blocks``: every carry leaf bit for bit,
-    and the records; their per-tick sums ``w_sum`` and ``lam`` at rtol
-    1e-5, because K4 adds them in its own fixed order and the plain tick
-    with ``torch.sum``. ``maxdeg`` narrows the gather table (default
-    ``suggest_maxdeg``); a narrowed table must overflow on some tick, so
-    that K4's walk of the hop list is held too. Returns (the largest
-    absolute difference in the two sums — every other value is equal —,
-    the number of ticks with the table overflowed)."""
+    initial carry, for each K in ``blocks``: every carry leaf bit for bit
+    (the gather table ``inv`` and its flag ``ovf`` included), and the
+    records; their per-tick sums ``w_sum`` and ``lam`` at rtol 1e-5,
+    because K4 adds them in its own fixed order and the plain tick with
+    ``torch.sum``. ``maxdeg`` narrows the gather table (default
+    ``suggest_maxdeg``); ``overflows`` (by default True where ``maxdeg``
+    is given) says whether the table must overflow on some tick, so that
+    the plain tick's walk of the hop list is held too, or must never.
+    Returns (the largest absolute difference in the two sums — every other
+    value is equal —, the number of ticks with the table overflowed, the
+    largest number of contributors of a queue at the end)."""
     from repro_torch.core import fluid, megakernel as mk
+    from repro_torch.kernels.queue_arrivals import max_degree
     dev = sched.start.device
     lcfg = tc.default_law_config(sched, expected_flows=expected_flows)
     sim = fluid.make_slot_sim(topo, sched, law, slots, lcfg, cfg,
@@ -316,8 +321,12 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
     due = torch.as_tensor(mk._due_table(sim.sched, int(cfg.steps), cfg.dt),
                           device=dev)
     want, wrec, n_ovf = plain_ticks(tick, tree_clone(carry0), due)
-    if maxdeg is not None:
-        assert n_ovf > 0, f"a gather table of width {maxdeg} never overflowed"
+    if overflows is None and maxdeg is not None:
+        overflows = True
+    if overflows is not None:
+        assert (n_ovf > 0) == overflows, \
+            f"a gather table of width {tick.maxdeg} overflowed on {n_ovf} " \
+            f"ticks"
     err = 0.0
     for K in blocks:
         got, grec = mk.run_blocks(tick, tree_clone(carry0), due, K, "cuda")
@@ -337,7 +346,7 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
             if tol and g.numel():
                 err = max(err, float(torch.max(torch.abs(g.double()
                                                          - w.double()))))
-    return err, n_ovf
+    return err, n_ovf, max_degree(want.state.path, int(topo.num_queues))
 
 
 # -------------------------------------------------------------------------
@@ -447,6 +456,44 @@ def bf16_ulps(got, want) -> float:
     w = want.float()
     spacing = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
     return float(torch.max(torch.abs(got.float() - w) / spacing))
+
+
+def rmsnorm_in_k6_order(x, scale, eps=1e-6):
+    """K6's arithmetic in torch, in its order (``csrc/rmsnorm.cu``): with
+    the wrapper's ``plan`` (G lanes per row, vpt vectors of E elements a
+    lane, vector v on lane v % G), each lane adds the squares of its
+    slots' elements in order from +0.0 (elements past the row are +0.0);
+    the lanes of each warp (or G-lane group) are added as the xor
+    butterfly's tree, lane l with lane l + half; the warp sums in warp
+    order; then ``1 / sqrt(sum / D + eps)`` and ``(x * inv) * scale``,
+    rounded once to x's dtype. Elementwise float32 ops, so on the card too
+    it rounds as the kernel does."""
+    from repro_torch.kernels.rmsnorm import plan
+    D = x.shape[-1]
+    G, vpt, E = plan(D, x.element_size())
+    xf = x.reshape(-1, D).float()
+    N = xf.shape[0]
+    xp = torch.cat([xf, xf.new_zeros(N, G * vpt * E - D)], 1)
+    xp = xp.reshape(N, vpt, G, E)
+    acc = xf.new_zeros(N, G)
+    for k in range(vpt):
+        for e in range(E):
+            f = xp[:, k, :, e]
+            acc = acc + f * f
+    W = min(G, 32)
+    part = acc.reshape(N, G // W, W)
+    while part.shape[-1] > 1:
+        h = part.shape[-1] // 2
+        part = part[..., :h] + part[..., h:]
+    tot = part[:, 0, 0]
+    for w in range(1, G // W):
+        tot = tot + part[:, w, 0]
+    # a true division: on the card, torch divides by a Python scalar as a
+    # product with its reciprocal
+    root = torch.sqrt(tot / torch.full_like(tot, D) + eps)
+    inv = torch.ones_like(root) / root
+    y = (xf * inv[:, None]) * scale.float()
+    return y.to(x.dtype).reshape(x.shape)
 
 
 def lm_teacher_forced(params, cfg, prompt, tokens, cache_len):
