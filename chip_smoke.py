@@ -16,10 +16,13 @@ exit, traceback) if anything in it is wrong:
    rtol 1e-5 / atol 1e-3 bytes, at the main path's shapes, ragged ones
    and the edges of K3's row chunks and column tiles; K3 also bit for
    bit against its own sum order spelled in torch and against itself
-   run twice (its elected combine); then each timed (CUDA graph replays
+   run twice (its elected combine); each also at the batched engines'
+   shapes (B = 2 scenarios of S = 128 slots and of F = 2 436 padded
+   flows, and a ragged B = 3), one launch for the batch, each scenario
+   bit for bit a launch of its own; then each timed (CUDA graph replays
    of many launches, median of rounds) beside its plain version and, for
    K3, ``torch.einsum`` (the library yardstick, used nowhere in the
-   port);
+   port), K1 and K3 also at the batched shapes;
 4. K4 ``fused_tick_block`` (the megakernel, 64 ticks per launch) against
    its plain version from the same initial carry, every carry leaf bit
    for bit (the records' per-tick sums at rtol 1e-5): the 12-flow anchor
@@ -29,7 +32,10 @@ exit, traceback) if anything in it is wrong:
    anchor and the paper ticks again with the table narrowed until it
    overflows (the plain tick then walks the hop list; K4's contributor
    lists are never truncated, and it writes the table and its flag as
-   the plain tick does); then timed over the whole 40 000-tick paper
+   the plain tick does); K4's grid form (one block per scenario) on the
+   first 2 000 ticks of phase 6b's two seeds, both laws, ``gate`` True
+   and False, against each scenario's plain block; then timed over the
+   whole 40 000-tick paper
    run, every launch (CUDA events between back-to-back launches), with a
    bound counted from each launch's data, the plain block run from the
    same carry at five launches of that run, timed and held bit for bit,
@@ -43,13 +49,41 @@ exit, traceback) if anything in it is wrong:
    (a) ``simulate_slots`` fused, 384 slots; (b) ``simulate_slots``
    reference; (c) ``simulate`` (padded) fused; (d) theta-PowerTCP,
    ``simulate_slots`` fused; (e) ``simulate_slots`` megakernel; (f)
-   theta-PowerTCP, ``simulate_slots`` megakernel. Each run starts with
-   the kernel launch counts at zero; the fused runs must launch the law
-   kernel and K3 once per tick, the megakernel runs K4 once per 64 ticks
-   (625 times) and nothing else, the reference run none. Each is held to
-   the JAX reference's per-flow FCTs
+   theta-PowerTCP, ``simulate_slots`` megakernel (each a batch of one
+   through the batched engines of phase 6b). The eager runs (a)-(d) are
+   cut to their first ``EAGER_TICKS`` (10 000) ticks, the widths
+   unchanged, so that the script stays inside its time limit (phase 6b
+   runs the same engines over the whole 40 000 ticks); (e) and (f) run
+   the whole 40 000. Each run starts with the kernel launch counts at
+   zero; the fused runs must launch the law kernel and K3 once per tick,
+   the megakernel runs K4 once per 64 ticks (625 times) and nothing
+   else, the reference run none. Each is held to the JAX reference's
+   per-flow FCTs of the whole run
    (``tests/golden/torch_port_paper_seed1.json``): the same completion
-   set, and a short-flow (< 10 kB) p99.9 FCT within 1e-3.
+   set (for a cut run, the flows the reference completes before the
+   cut, each flow's completion tick recovered from its FCT; the fused
+   runs, whose FCTs differ from the reference's in the last bits, leave
+   out the flows that complete within 8 ticks of the cut), and a
+   short-flow (< 10 kB) p99.9 FCT within 1e-3 over the flows both
+   complete.
+6b. smoke_slots: ``benchmarks/run.py::smoke_slots`` on the port's batched
+   entry points: seeds 1 and 2 of the same scenario as one batch, (1)
+   ``simulate_batch`` reference (padded); (2) the slot pool sized from
+   those FCTs as ``smoke_slots`` sizes it; (3) ``simulate_slots_batch``
+   reference; (4) megakernel, ``sequential=True`` (K4 one block per
+   launch, 1 250 launches); (5) megakernel, ``sequential=False`` (K4 a
+   grid of two blocks, 625 launches), bit for bit (4) in every FCT, and
+   again with ``gate=False``, bit for bit (5); (6) ``simulate_slots_batch``
+   fused (one K1 and one K3 launch per tick for both seeds); (7) the
+   single-bottleneck bit-match anchors ``fct_slot_exact_bitmatch`` and
+   ``fct_mega_exact_bitmatch``. Launch counts zeroed before and checked
+   after each run. ``smoke_ok``'s slot and megakernel gates (completed
+   sets match, p99.9 rel err < 1e-3 slot vs padded and mega vs slot, both
+   anchors), and every run held to ``repro``'s FCTs for both seeds
+   (``tests/golden/torch_port_smoke_slots.json``: the same completion
+   set, short-flow p99.9 within 1e-3). Prints ``smoke_slots``'s
+   ``fct_slot_*``/``fct_mega_*`` fields with the card's wall seconds and
+   name and power limit, and K4's grid launches timed and bounded;
 
 7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
    plain PyTorch versions at the serve run's shapes (K5: prefill q
@@ -79,7 +113,7 @@ exit, traceback) if anything in it is wrong:
    memory is freed before and after, so that the ~60 GB of params never
    meet another phase's tensors.
 
-``--profile`` adds a phase after 6: each main-path run under
+``--profile`` adds a phase after 6b: each main-path and 6b run under
 ``torch.profiler`` (the first 200 ticks of the eager runs, the whole
 40 000 ticks of the megakernel runs), with the device time and device
 launches per tick, the device-busy share and the kernels that take the
@@ -105,7 +139,8 @@ with each queue's full contributor list (a CSR rebuilt by a block-wide
 stable counting sort on admit ticks) in place of the truncated gather
 table and its overflow walk; ``k4_timing`` splits its launch times by
 the table's overflow flag and by the launch's admit ticks (counted by a
-third pass of one tick per launch).
+third pass of one tick per launch). K4 runs one block per scenario: a
+batch is one launch of B blocks that share nothing.
 
 It prints one ``{"kernels": [...]}`` line (K1-K6), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
@@ -315,6 +350,58 @@ def phase_kernels(torch, sup, dev):
             f"{e!r} (rtol 1e-5, atol 1e-3); bitwise equal to its order "
             f"spelled in torch and to a second run")
 
+    # the batched engines' shapes: B scenarios' rows in one launch (K1/K2
+    # flatten them, K3 runs one grid plane per scenario), each scenario
+    # bit for bit what a launch of its own gives
+    for B, F, H, Q in ((2, 128, 3, 289), (2, 2436, 3, 289),
+                       (3, 257, 5, 129)):
+        parts = [on(sup.law_inputs(F, H, seed=F + H + b)) for b in range(B)]
+        kw = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+        got = powertcp_step(**kw, gamma=0.9, w_min=1000.0)
+        want = ref.powertcp_step_ref(**kw, gamma=0.9, w_min=1000.0)
+        alone = [powertcp_step(**p, gamma=0.9, w_min=1000.0) for p in parts]
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+            torch.testing.assert_close(
+                g, torch.stack([a[i] for a in alone]), rtol=0, atol=0,
+                equal_nan=True)
+        errs["powertcp_step"] = max(errs["powertcp_step"], maxerr(got, want))
+        parts = [on(sup.theta_inputs(F, seed=F + b)) for b in range(B)]
+        kw = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+        got = theta_powertcp_step(**kw, gamma=0.9, w_min=1000.0)
+        want = ref.theta_powertcp_step_ref(**kw, gamma=0.9, w_min=1000.0)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+        parts = [on(sup.queue_inputs(H, F, Q, seed=H + F + Q + b))
+                 for b in range(B)]
+        kw = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+        if B == 2:      # the engines' form: service rates shared
+            kw["out_rate"] = parts[0]["out_rate"]
+        got = queue_arrivals(**kw, dt=sup.QUEUE_DT)
+        want = ref.queue_arrivals_ref(**kw, dt=sup.QUEUE_DT)
+        again = queue_arrivals(**kw, dt=sup.QUEUE_DT)
+        torch.cuda.synchronize()
+        for b in range(B):
+            one = dict(parts[b], out_rate=kw["out_rate"] if B == 2
+                       else parts[b]["out_rate"])
+            alone = queue_arrivals(**one, dt=sup.QUEUE_DT)
+            spelled = sup.queue_arrivals_in_k3_order(**one, dt=sup.QUEUE_DT)
+            for g, a, o in zip(got, alone, spelled):
+                torch.testing.assert_close(g[b], a, rtol=0, atol=0)
+                torch.testing.assert_close(g[b], o, rtol=0, atol=0)
+        for g, w, a in zip(got, want, again):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+            torch.testing.assert_close(a, g, rtol=0, atol=0)
+        e = maxerr(got, want)
+        errs["queue_arrivals"] = max(errs["queue_arrivals"], e)
+        log(f"[kernels] batch B={B} F={F} H={H} Q={Q}: powertcp_step and "
+            f"theta_powertcp_step bitwise equal to their plain versions and "
+            f"to one launch per scenario; queue_arrivals max abs err {e!r} "
+            f"(rtol 1e-5, atol 1e-3), each scenario bitwise equal to its own "
+            f"launch and its order spelled in torch")
+
     rows = {}
     for tag, F in (("", 384), ("@padded", 2406)):
         H, Q = 3, 289
@@ -348,6 +435,34 @@ def phase_kernels(torch, sup, dev):
             bound_ms=b, bound_by=by,
             library_ms=graph_ms(torch,
                                 lambda: torch.einsum("hf,hfq->q", lam, oh)))
+    # the batched fused slot run's shapes (phase 6b: B = 2, S = 128), and K3
+    # at the batched padded engine's (B = 2, F = 2 436)
+    for tag, B, F in (("@batch", 2, 128), ("@batch_padded", 2, 2436)):
+        H, Q = 3, 289
+        parts = [on(sup.law_inputs(F, H, seed=1 + b)) for b in range(B)]
+        kw = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+        nbytes, flops = law_cost(B * F, H)
+        b, by = bound_ms(nbytes, flops)
+        rows["powertcp_step" + tag] = dict(
+            shape=f"B={B} F={F} H={H}",
+            ms=graph_ms(torch, lambda: powertcp_step(**kw)),
+            plain_ms=graph_ms(torch, lambda: ref.powertcp_step_ref(**kw)),
+            bound_ms=b, bound_by=by, library_ms=None)
+        parts = [on(sup.queue_inputs(H, F, Q, seed=1 + b)) for b in range(B)]
+        kq = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+        kq["out_rate"] = parts[0]["out_rate"]
+        nbytes, flops = queue_cost(H, F, Q)
+        b, by = bound_ms(B * nbytes, B * flops)
+        lam, oh = kq["lam_del"], kq["onehot"]
+        rows["queue_arrivals" + tag] = dict(
+            shape=f"B={B} H={H} F={F} Q+1={Q}",
+            ms=graph_ms(torch,
+                        lambda: queue_arrivals(**kq, dt=sup.QUEUE_DT)),
+            plain_ms=graph_ms(torch, lambda: ref.queue_arrivals_ref(
+                **kq, dt=sup.QUEUE_DT), reps=20, rounds=3),
+            bound_ms=b, bound_by=by,
+            library_ms=graph_ms(torch, lambda: torch.einsum(
+                "bhf,bhfq->bq", lam, oh)))
     for name, row in rows.items():
         row["max_abs_err"] = errs[name.split("@")[0]]
         log(f"[kernels] time {name} ({row['shape']}): ms {row['ms']!r} "
@@ -383,6 +498,29 @@ def paper_scenario(tc, sup, dev, ref):
     return fab.topology(device=dev), sched
 
 
+def smoke_scenario(tc, sup, dev, ref):
+    """(topo, [flows], [schedule]) of phase 6b's sweep, each schedule held
+    to the reference's flow count and checksum."""
+    fab = tc.LeafSpine(**ref["fabric"])
+    flows, scheds = [], []
+    for sc in ref["scenarios"]:
+        f = tc.poisson_websearch(fab, ref["load"], ref["duration_s"],
+                                 ref["dt_s"], seed=sc["seed"], device=dev)
+        sched = tc.make_schedule(f)
+        if int(sched.start.shape[0]) != sc["n_flows"] or \
+                sup.schedule_checksum(sched.size.cpu().numpy(),
+                                      sched.start.cpu().numpy()) \
+                != sc["schedule_sha256"]:
+            raise AssertionError(f"the port's schedule of seed {sc['seed']} "
+                                 f"differs from the reference's")
+        flows.append(f)
+        scheds.append(sched)
+    return fab.topology(device=dev), flows, scheds
+
+
+# ticks of the eager main-path runs (a)-(d): the first quarter of the
+# 40 000-tick paper run, to keep the script inside its time limit
+EAGER_TICKS = 10_000
 MAIN_RUNS = (("a", "slot", "powertcp", "fused"),
              ("b", "slot", "powertcp", "reference"),
              ("c", "padded", "powertcp", "fused"),
@@ -411,7 +549,8 @@ def expected_launches(law, backend, steps):
 
 def k4_pool(carry, fluid, bw, law, dt):
     """What one K4 launch must read of its rings, counted from the pool in
-    ``carry`` at a launch's edge: per slot holding a flow, the rows of
+    ``carry`` (one scenario's, ``types.scenario`` of the batch's) at a
+    launch's edge: per slot holding a flow, the rows of
     ``hist_lam`` back to its longest hop delay tf and of ``hist_w`` back
     to its window delay wd (from the delayed queue observation, as the
     tick computes it); per queue, the rows of the packed ``hist_q`` back
@@ -511,6 +650,25 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
             f"S={ref['slots']}, table width {maxdeg or 'suggested'} "
             f"(overflowed on {n_ovf} ticks, busiest queue {deg} "
             f"contributors): bitwise equal")
+    # the grid form: both seeds of phase 6b's sweep in one launch of two
+    # blocks, against each scenario's plain block, with and without gate
+    with open(sup.SMOKE_REF) as f:
+        sref = json.load(f)
+    stopo, _, sscheds = smoke_scenario(tc, sup, dev, sref)
+    sb = tc.stack_flow_schedules(sscheds, stopo.num_queues)
+    scfg = tc.SimConfig(dt=sref["dt_s"], steps=paper_ticks,
+                        hist=sref["hist"],
+                        update_period=sref["update_period_s"])
+    for law in ("powertcp", "theta_powertcp"):
+        for gate in (True, False):
+            e = sup.k4_grid_against_plain(
+                tc, stopo, sb, scfg, law, sref["slots"], (64,), gate=gate,
+                expected_flows=sref["expected_flows"])
+            err = max(err, e)
+            log(f"[k4] {law}: grid of 2 blocks (seeds "
+                f"{[x['seed'] for x in sref['scenarios']]}), first "
+                f"{paper_ticks} ticks, S={sref['slots']}, gate={gate}: "
+                f"bitwise equal to each scenario's plain block")
     row = k4_timing(torch, tc, sup, dev, ref, ptopo, psched)
     row["max_abs_err"] = err
     return row
@@ -535,16 +693,17 @@ def k4_timing(torch, tc, sup, dev, ref, topo, sched, law="powertcp"):
     from repro_torch.kernels import ops, ref as kref
     cfg = tc.SimConfig(dt=ref["dt_s"], steps=ref["steps"], hist=ref["hist"],
                        update_period=ref["update_period_s"])
-    lcfg = tc.default_law_config(sched, expected_flows=ref["expected_flows"])
-    sim = fluid.make_slot_sim(topo, sched, law, ref["slots"], lcfg, cfg,
-                              "megakernel", dev)
+    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), law,
+                              ref["slots"], cfg=cfg, backend="megakernel",
+                              device=dev,
+                              expected_flows=ref["expected_flows"])
     tick = mk.make_tick(sim)
     carry0 = tick.init_carry(fluid.init_slot_state(sim))
     due = torch.as_tensor(mk._due_table(sim.sched, cfg.steps, cfg.dt),
                           device=dev)
     K = mk.DEFAULT_BLOCK
     n = cfg.steps // K
-    blocks = [due[i * K:(i + 1) * K] for i in range(n)]
+    blocks = [due[:, i * K:(i + 1) * K] for i in range(n)]
 
     carry = sup.tree_clone(carry0)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
@@ -559,12 +718,12 @@ def k4_timing(torch, tc, sup, dev, ref, topo, sched, law="powertcp"):
     end1 = carry
 
     static = sim.static
-    S, H = (int(x) for x in carry0.state.path.shape)
+    S, H = (int(x) for x in carry0.state.path.shape[-2:])
     Q1 = int(static.bw.shape[0])
     nsw, swdeg = ((0, 0) if static.sw_table is None
                   else tuple(static.sw_table.shape))
     carry = sup.tree_clone(carry0)
-    pre = k4_pool(carry, fluid, static.bw, law, cfg.dt)
+    pre = k4_pool(tc.scenario(carry, 0), fluid, static.bw, law, cfg.dt)
     samples = set(int(x) for x in np.linspace(0, n - 1, 7)[1:-1])
     bounds, pools, plain = [], [pre], []
     for i in range(n):
@@ -583,7 +742,7 @@ def k4_timing(torch, tc, sup, dev, ref, topo, sched, law="powertcp"):
                 torch.testing.assert_close(
                     g, w, rtol=0, atol=0, equal_nan=True,
                     msg=lambda m, nm=name: f"K4 launch {i} {nm}: {m}")
-        post = k4_pool(carry, fluid, static.bw, law, cfg.dt)
+        post = k4_pool(tc.scenario(carry, 0), fluid, static.bw, law, cfg.dt)
         nbytes, flops = k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post)
         bounds.append(bound_ms(nbytes, flops))
         pools.append(post)
@@ -592,9 +751,9 @@ def k4_timing(torch, tc, sup, dev, ref, topo, sched, law="powertcp"):
     carry = sup.tree_clone(carry0)
     cursors = torch.empty(n * K, dtype=torch.int32, device=dev)
     for t in range(n * K):
-        carry, _ = ops.fused_tick_block(tick, carry, due[t:t + 1],
+        carry, _ = ops.fused_tick_block(tick, carry, due[:, t:t + 1],
                                         record=False)
-        cursors[t] = carry.state.cursor
+        cursors[t] = carry.state.cursor[0]
     for end, what in ((end2, "pass 2"), (carry, "pass 3 (one tick a launch)")):
         for (name, g), (_, w) in zip(sup.tree_leaves(end),
                                      sup.tree_leaves(end1)):
@@ -649,34 +808,47 @@ def k4_timing(torch, tc, sup, dev, ref, topo, sched, law="powertcp"):
     return row
 
 
+def timed_run(torch, kernels, key, want, fn):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after; every kernel must count exactly ``want`` ({name: n}, others 0).
+    Returns (result, wall seconds, launches)."""
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"run ({key}): {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    return out, wall, launches
+
+
 def run_main(torch, tc, kernels, dev, ref, topo, sched, key, engine, law,
              backend, steps):
     """One main-path run with the launch counts zeroed just before it and
     read just after. Returns (fct [N] in schedule order, summary)."""
     cfg = tc.SimConfig(dt=ref["dt_s"], steps=steps, hist=ref["hist"],
                        update_period=ref["update_period_s"])
-    kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    if engine == "slot":
-        lcfg = tc.default_law_config(sched,
-                                     expected_flows=ref["expected_flows"])
-        st, _ = tc.simulate_slots(topo, sched, law, ref["slots"], lcfg, cfg,
-                                  record=False, backend=backend, device=dev)
-    else:
+
+    def run():
+        if engine == "slot":
+            lcfg = tc.default_law_config(
+                sched, expected_flows=ref["expected_flows"])
+            return tc.simulate_slots(topo, sched, law, ref["slots"], lcfg,
+                                     cfg, record=False, backend=backend,
+                                     device=dev)[0]
         flows = tc.schedule_as_flows(sched)
         lcfg = tc.default_law_config(flows,
                                      expected_flows=ref["expected_flows"])
-        st, _ = tc.simulate(topo, flows, law, lcfg, cfg, record=False,
-                            backend=backend, device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    want = expected_launches(law, backend, steps)
-    for name, n in launches.items():
-        if n != want.get(name, 0):
-            raise AssertionError(f"run ({key}): {name} launched {n} times, "
-                                 f"expected {want.get(name, 0)}")
+        return tc.simulate(topo, flows, law, lcfg, cfg, record=False,
+                           backend=backend, device=dev)[0]
+
+    st, wall, launches = timed_run(torch, kernels, key,
+                                   expected_launches(law, backend, steps),
+                                   run)
     fct = st.fct.double().cpu().numpy()
     if not np.all(np.isfinite(fct) | np.isnan(fct)):
         raise AssertionError(f"run ({key}): non-finite FCTs")
@@ -685,12 +857,32 @@ def run_main(torch, tc, kernels, dev, ref, topo, sched, key, engine, law,
                      launches=launches)
 
 
-def compare_fct(key, fct, ref_fct, sizes):
+def ref_done_by(ref_fct, start, tau, dt, ticks, margin):
+    """Of the reference's whole-run FCTs: the flows it completes within
+    the first ``ticks`` ticks, and the flows it completes within
+    ``margin`` ticks of that cut. A flow's FCT is ``t*dt + tau/2 - start``
+    at its completion tick t, which rounding recovers exactly (the FCTs
+    are float32 values of a few ms; a tick is 1 us)."""
+    with np.errstate(invalid="ignore"):
+        t = np.round((ref_fct + start - tau / 2.0) / dt)
+        return (np.isfinite(t) & (t < ticks),
+                np.isfinite(t) & (np.abs(t - ticks) <= margin))
+
+
+def compare_fct(key, fct, ref_fct, sizes, ref_done=None, near=None):
+    """A run's FCTs against the reference's: the same completion set (the
+    reference's ``ref_done`` for a cut run, the flows ``near`` its cut
+    left out) and the short-flow p99.9 within 1e-3 over the flows both
+    complete."""
     done = np.isfinite(fct)
-    ref_done = np.isfinite(ref_fct)
-    if not np.array_equal(done, ref_done):
+    if ref_done is None:
+        ref_done = np.isfinite(ref_fct)
+    keep = np.ones_like(done) if near is None else ~near
+    if not np.array_equal(done[keep], ref_done[keep]):
         raise AssertionError(f"run ({key}): completion set differs from the "
-                             f"reference ({done.sum()} vs {ref_done.sum()})")
+                             f"reference ({done[keep].sum()} vs "
+                             f"{ref_done[keep].sum()})")
+    done = done & ref_done & keep
     short = done & (sizes < 10e3)
     p = float(np.percentile(fct[short], 99.9))
     pr = float(np.percentile(ref_fct[short], 99.9))
@@ -710,18 +902,24 @@ def phase_main(torch, tc, kernels, sup, dev):
         ref = json.load(f)
     topo, sched = paper_scenario(tc, sup, dev, ref)
     sizes = sched.size.double().cpu().numpy()
+    start = sched.start.double().cpu().numpy()
+    tau = sched.tau.double().cpu().numpy()
     launches = {k: 0 for k in kernels.LAUNCHES}
     summaries = []
     for key, engine, law, backend in MAIN_RUNS:
+        steps = ref["steps"] if backend == "megakernel" else EAGER_TICKS
         fct, summ = run_main(torch, tc, kernels, dev, ref, topo, sched, key,
-                             engine, law, backend, ref["steps"])
+                             engine, law, backend, steps)
         ref_fct = np.array([np.nan if x is None else x
                             for x in ref["fct_s"][law]])
-        summ.update(compare_fct(key, fct, ref_fct, sizes))
+        ref_done, near = ref_done_by(ref_fct, start, tau, ref["dt_s"], steps,
+                                     8 if backend == "fused" else 0)
+        summ.update(compare_fct(key, fct, ref_fct, sizes, ref_done, near))
+        summ["left_out_near_cut"] = int(near.sum())
         for k, n in summ["launches"].items():
             launches[k] += n
         summaries.append(summ)
-        log(f"[main] ({key}) {engine} {law} {backend}: wall "
+        log(f"[main] ({key}) {engine} {law} {backend}, {steps} ticks: wall "
             f"{summ['wall_s']:.3f} s, {summ['us_per_tick']:.2f} us/tick, "
             f"completed {summ['completed']}/{summ['n_flows']}, short p99.9 "
             f"{summ['short_p999_us']:.4f} us (reference "
@@ -730,6 +928,304 @@ def phase_main(torch, tc, kernels, sup, dev):
             f"{summ['fct_max_rel_err']!r}, launches {summ['launches']}")
     log("[main] " + json.dumps({"main_path": summaries}))
     return launches, summaries
+
+
+# -------------------------------------------------------------------------
+# phase 6b: benchmarks/run.py::smoke_slots on the port's batched engines
+# -------------------------------------------------------------------------
+
+def fct_rows(fct, scheds, order=False):
+    """Per scenario, a batch run's FCTs [N] in schedule order (the padded
+    engine's rows are in flow order: ``order`` reindexes them)."""
+    out = []
+    for i, s in enumerate(scheds):
+        n = int(s.start.shape[0])
+        row = fct[i][:n].double().cpu().numpy()
+        out.append(row[s.order.cpu().numpy()] if order else row)
+    return out
+
+
+def p999(fct, short):
+    return float(np.percentile(fct[short], 99.9))
+
+
+def smoke_anchors(torch, tc, dev):
+    """``smoke_slots``'s bit-exactness anchors on the card, with its own
+    conditions: one 100 Gbps bottleneck, 12 flows of 100-500 kB starting
+    in the first ms (numpy seed 0), 3 000 ticks, powertcp, 16 slots.
+    ``fct_slot_exact_bitmatch``: the slot engine's queue trace and FCTs
+    equal the padded engine's, windows within rtol 5e-7;
+    ``fct_mega_exact_bitmatch``: the megakernel's (K4) queue trace, FCTs,
+    windows and per-slot rates equal the slot engine's."""
+    B = 100 * tc.GBPS
+    topo = tc.single_bottleneck(bandwidth=B, buffer=16e6, device=dev)
+    rng = np.random.default_rng(0)
+    fl = tc.make_flows_single(12, tau=20e-6, nic=B,
+                              sizes=rng.uniform(1e5, 5e5, 12),
+                              starts=rng.uniform(0.0, 1e-3, 12), sim_dt=1e-6,
+                              device=dev)
+    sched = tc.make_schedule(fl)
+    cfg = tc.SimConfig(dt=1e-6, steps=3000, hist=256)
+    flows = tc.schedule_as_flows(sched)
+    lcfg = tc.default_law_config(flows, expected_flows=8.0)
+    ref_st, ref_rec = tc.simulate(topo, flows, "powertcp", lcfg, cfg,
+                                  device=dev)
+    slot_st, slot_rec = tc.simulate_slots(topo, sched, "powertcp", 16, lcfg,
+                                          cfg, device=dev)
+    mega_st, mega_rec = tc.simulate_slots(topo, sched, "powertcp", 16, lcfg,
+                                          cfg, backend="megakernel",
+                                          device=dev)
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(slot_rec.q, ref_rec.q)
+                 and torch.equal(slot_st.fct.nan_to_num(-1.0),
+                                 ref_st.fct.nan_to_num(-1.0))
+                 and torch.allclose(slot_st.w[:12], ref_st.w, rtol=5e-7,
+                                    atol=0.0))
+    mega_exact = bool(torch.equal(mega_rec.q, slot_rec.q)
+                      and torch.equal(mega_st.fct.nan_to_num(-1.0),
+                                      slot_st.fct.nan_to_num(-1.0))
+                      and torch.equal(mega_st.w, slot_st.w)
+                      and torch.equal(mega_rec.lam_f, slot_rec.lam_f))
+    return exact, mega_exact
+
+
+def phase_smoke_slots(torch, tc, kernels, sup, dev, smi):
+    """Phase 6b: ``benchmarks/run.py::smoke_slots`` on the port's batched
+    entry points (see the module docstring). Returns (launches, the runs'
+    summaries, the smoke_slots fields, K4's grid timing)."""
+    from repro_torch.core import fluid, megakernel as mk
+    with open(sup.SMOKE_REF) as f:
+        ref = json.load(f)
+    topo, flows, scheds = smoke_scenario(tc, sup, dev, ref)
+    Q = topo.num_queues
+    steps = ref["steps"]
+    cfg = tc.SimConfig(dt=ref["dt_s"], steps=steps, hist=ref["hist"],
+                       update_period=ref["update_period_s"])
+    ef = ref["expected_flows"]
+    fb = tc.stack_flows(flows, Q)
+    sb = tc.stack_flow_schedules(scheds, Q)
+    B = len(scheds)
+    sizes = [s.size.double().cpu().numpy() for s in scheds]
+    refs = {k: [np.array([np.nan if x is None else x
+                          for x in sc["fct_s"][k]]) for sc in ref["scenarios"]]
+            for k in ("padded", "slot", "mega")}
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    summaries, fcts = [], {}
+
+    def record(key, what, golden, st, wall, counts, order=False):
+        rows = fct_rows(st.fct, scheds, order)
+        fcts[key] = rows
+        summ = dict(run=key, what=what, wall_s=wall,
+                    us_per_tick=wall / steps * 1e6,
+                    us_per_tick_per_scenario=wall / steps / B * 1e6,
+                    launches=counts, scenarios=[])
+        for i, (row, want) in enumerate(zip(rows, refs[golden])):
+            summ["scenarios"].append(compare_fct(
+                f"{key} seed {ref['scenarios'][i]['seed']}", row, want,
+                sizes[i]))
+        for k, n in counts.items():
+            launches[k] += n
+        summaries.append(summ)
+        log(f"[smoke] ({key}) {what}: wall {wall:.3f} s, "
+            f"{summ['us_per_tick']:.2f} us/tick "
+            f"({summ['us_per_tick_per_scenario']:.2f} per scenario-tick), "
+            f"launches {counts}; against repro's {golden} FCTs per seed: "
+            + "; ".join(f"completed {c['completed']}/{c['n_flows']}, short "
+                        f"p99.9 rel err {c['p999_rel_err']:.3g}, largest "
+                        f"per-flow rel err {c['fct_max_rel_err']!r}"
+                        for c in summ["scenarios"]))
+
+    # (1) the padded engine, batched (reference backend)
+    (st_p, _), wall, counts = timed_run(
+        torch, kernels, "6b.1", {}, lambda: tc.simulate_batch(
+            topo, fb, "powertcp", cfg=cfg, record=False, expected_flows=ef,
+            device=dev))
+    record("6b.1", "simulate_batch reference", "padded", st_p, wall, counts,
+           order=True)
+    padded_s = wall
+    # (2) the pool from the port's own padded FCTs, as smoke_slots sizes it
+    slots = sup.smoke_slots_pool(
+        [s.start.cpu().numpy() for s in scheds],
+        [st_p.fct[i].cpu().numpy() for i in range(B)],
+        max(int(s.tf_steps.max()) for s in scheds), tc.peak_concurrency)
+    log(f"[smoke] (6b.2) pool from the port's padded FCTs: {slots} slots "
+        f"(repro's: {ref['slots']})")
+    # (3) the slot engine, batched (reference backend)
+    (st_s, _), wall, counts = timed_run(
+        torch, kernels, "6b.3", {}, lambda: tc.simulate_slots_batch(
+            topo, sb, "powertcp", slots, cfg=cfg, record=False,
+            expected_flows=ef, device=dev))
+    record("6b.3", "simulate_slots_batch reference", "slot", st_s, wall,
+           counts)
+    slot_s = wall
+    # (4)/(5) the megakernel: scenario after scenario (K4 grid 1), then
+    # the whole batch per launch (grid 2)
+    nblk = -(-steps // mk.DEFAULT_BLOCK)
+    mega = {}
+    for key, seq in (("6b.4", True), ("6b.5", False)):
+        (st_m, _), wall, counts = timed_run(
+            torch, kernels, key, {"fused_tick_block": nblk * (B if seq
+                                                              else 1)},
+            lambda: tc.simulate_slots_batch(
+                topo, sb, "powertcp", slots, cfg=cfg, record=False,
+                backend="megakernel", expected_flows=ef, sequential=seq,
+                device=dev))
+        record(key, f"simulate_slots_batch megakernel sequential={seq} "
+               f"(K4 grid {1 if seq else B})", "mega", st_m, wall, counts)
+        mega[seq] = (st_m, wall)
+    if not torch.equal(mega[True][0].fct.nan_to_num(-1.0),
+                       mega[False][0].fct.nan_to_num(-1.0)):
+        raise AssertionError("K4 grid 2 differs from grid 1 in some FCT")
+    # the ungated tick on the card: the same bits
+    sim = fluid.make_slot_sim(topo, sb, "powertcp", slots, cfg=cfg,
+                              backend="megakernel", device=dev,
+                              expected_flows=ef)
+    ungated, wall_ungated, _ = timed_run(
+        torch, kernels, "6b.5 ungated", {"fused_tick_block": nblk},
+        lambda: mk.simulate_slots_mega(sim, record=False, gate=False))
+    for f in ("fct", "w", "q", "remaining", "hist_q", "hist_lam", "hist_w",
+              "slot_flow", "cursor"):
+        g = getattr(ungated[0], f)
+        w = getattr(mega[False][0], f)
+        if f == "fct":
+            g = g[..., :w.shape[-1]]
+        if not torch.equal(g.nan_to_num(-1.0) if g.is_floating_point()
+                           else g, w.nan_to_num(-1.0)
+                           if w.is_floating_point() else w):
+            raise AssertionError(f"the ungated K4 run differs in {f}")
+    log(f"[smoke] (6b.5) K4 with gate=False: bitwise equal to the gated "
+        f"grid-{B} run (wall {wall_ungated:.3f} s); grid {B} bitwise equal "
+        f"to grid 1 in every FCT")
+    # (6) the slot engine, batched, fused: one K1 and one K3 per tick
+    (st_f, _), wall, counts = timed_run(
+        torch, kernels, "6b.6",
+        {"powertcp_step": steps, "queue_arrivals": steps},
+        lambda: tc.simulate_slots_batch(
+            topo, sb, "powertcp", slots, cfg=cfg, record=False,
+            backend="fused", expected_flows=ef, device=dev))
+    record("6b.6", "simulate_slots_batch fused", "slot", st_f, wall, counts)
+    # (7) the single-bottleneck anchors
+    exact, mega_exact = smoke_anchors(torch, tc, dev)
+
+    # smoke_ok's fields, computed as smoke_slots computes them
+    fp, fs, fm = (np.concatenate(fcts[k]) for k in ("6b.1", "6b.3", "6b.4"))
+    size = np.concatenate(sizes)
+    short = np.isfinite(fp) & np.isfinite(fs) & (size < 10e3)
+    pp, ps, pm = p999(fp, short), p999(fs, short), p999(fm, short)
+    mega_s = mega[True][1]
+    fields = {
+        "fct_slot_hosts": ref["fabric"]["racks"]
+        * ref["fabric"]["hosts_per_rack"],
+        "fct_slot_load": ref["load"], "fct_slot_points": B,
+        "fct_slot_steps_per_point": steps,
+        "fct_slot_flows": int(sum(s.start.shape[0] for s in scheds)),
+        "fct_slot_slots": slots,
+        "fct_slot_padded_s": padded_s, "fct_slot_stream_s": slot_s,
+        "fct_slot_padded_points_per_s": B / padded_s,
+        "fct_slot_points_per_s": B / slot_s,
+        "fct_slot_speedup": padded_s / slot_s,
+        "fct_slot_completed_match": bool(
+            (np.isfinite(fp) == np.isfinite(fs)).all()),
+        "fct_slot_p999_rel_err": abs(ps - pp) / max(pp, 1e-12),
+        "fct_slot_exact_bitmatch": exact,
+        "fct_mega_s": mega_s, "fct_mega_points_per_s": B / mega_s,
+        "fct_mega_speedup": slot_s / mega_s,
+        "fct_mega_mode": "sequential",
+        "fct_mega_completed_match": bool(
+            (np.isfinite(fs) == np.isfinite(fm)).all()),
+        "fct_mega_p999_rel_err": abs(pm - ps) / max(ps, 1e-12),
+        "fct_mega_exact_bitmatch": mega_exact,
+        "fct_mega_grid_s": mega[False][1],
+        "fct_mega_grid_speedup": mega_s / mega[False][1],
+        "device": smi,
+    }
+    ok = (fields["fct_slot_completed_match"]
+          and fields["fct_slot_p999_rel_err"] < 1e-3
+          and fields["fct_slot_exact_bitmatch"]
+          and fields["fct_mega_completed_match"]
+          and fields["fct_mega_p999_rel_err"] < 1e-3
+          and fields["fct_mega_exact_bitmatch"])
+    log("[smoke] " + json.dumps({"smoke_slots": fields}))
+    if not ok:
+        raise AssertionError(f"smoke_slots gates failed: {fields}")
+    grid = k4_grid_timing(torch, fluid, mk, sim, cfg, nblk, B)
+    return launches, summaries, fields, grid
+
+
+def k4_grid_timing(torch, fluid, mk, sim, cfg, nblk, B):
+    """K4 over phase 6b's whole run, every launch, as one grid of B blocks
+    and as B launches of one block (the first scenario), CUDA events
+    between back-to-back launches; then the bound of each grid launch,
+    the sum over its scenarios of ``k4_cost`` from each scenario's pool
+    at the launch's edges (``k4_pool``)."""
+    from repro_torch.core.types import scenario
+    from repro_torch.kernels import ops
+    T, K = int(cfg.steps), mk.DEFAULT_BLOCK
+    law = sim.law.name
+    grid = mk.make_tick(sim)
+    carry0 = grid.init_carry(fluid.init_slot_state(sim))
+    due = torch.as_tensor(mk._due_table(sim.sched, T, cfg.dt),
+                          device=carry0.state.w.device)
+    first = fluid.scenarios(sim, 0, 1)
+    one = mk.make_tick(first, maxdeg=grid.maxdeg)
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, tuple):
+            return type(x)(*[clone(v) for v in x])
+        return x
+
+    def run(tick, carry, d):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(nblk + 1)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)
+        ev[0].record()
+        for i in range(nblk):
+            carry, _ = ops.fused_tick_block(tick, carry,
+                                            d[..., i * K:(i + 1) * K],
+                                            record=False)
+            ev[i + 1].record()
+        ev[nblk].synchronize()
+        return np.array([ev[i].elapsed_time(ev[i + 1]) for i in range(nblk)])
+
+    ms_grid = run(grid, clone(carry0), due)
+    ms_one = run(one, one.init_carry(fluid.init_slot_state(first)), due[:1])
+    static = sim.static
+    S, H = (int(x) for x in carry0.state.path.shape[-2:])
+    Q1 = int(static.bw.shape[0])
+    nsw, swdeg = ((0, 0) if static.sw_table is None
+                  else tuple(static.sw_table.shape))
+    carry = clone(carry0)
+    pre = [k4_pool(scenario(carry, b), fluid, static.bw, law, cfg.dt)
+           for b in range(B)]
+    bounds = []
+    for i in range(nblk):
+        carry, _ = ops.fused_tick_block(grid, carry, due[:, i * K:(i + 1) * K],
+                                        record=False)
+        post = [k4_pool(scenario(carry, b), fluid, static.bw, law, cfg.dt)
+                for b in range(B)]
+        nbytes = flops = 0
+        for a, z in zip(pre, post):
+            nb_, fl_ = k4_cost(S, H, Q1, min(K, T - i * K), nsw, swdeg, law,
+                               a, z)
+            nbytes += nb_
+            flops += fl_
+        bounds.append(bound_ms(nbytes, flops))
+        pre = post
+    bms = np.array([b for b, _ in bounds])
+    by = max(set(b for _, b in bounds), key=[b for _, b in bounds].count)
+    row = dict(grid_shape=f"B={B} S={S} H={H} Q+1={Q1} K={K}",
+               grid_launches=nblk, grid_ms=float(ms_grid.mean()),
+               grid_us_per_tick=float(ms_grid.mean()) / K * 1e3,
+               grid_bound_ms=float(bms.mean()), grid_bound_by=by,
+               grid1_ms=float(ms_one.mean()))
+    log(f"[smoke] time fused_tick_block grid ({row['grid_shape']}, {law}, "
+        f"{nblk} launches over the whole run): mean {row['grid_ms']!r} ms "
+        f"per launch ({row['grid_us_per_tick']!r} us per tick of the "
+        f"batch), one block (seed 1 alone) {row['grid1_ms']!r} ms; bound "
+        f"mean {row['grid_bound_ms']!r} ms ({by})")
+    return row
 
 
 def _self_device_us(evt) -> float:
@@ -771,24 +1267,66 @@ def phase_profile(torch, tc, sup, dev, summaries, ticks=200):
                             record=False, backend=summ["backend"],
                             device=dev)
             torch.cuda.synchronize()
-        # device-side events only (kernels, copies, fills): a CPU op's
-        # entry repeats the device time of the kernels it launched
-        avgs = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = sum(_self_device_us(e) for e in avgs) / n
-        n_dev = sum(e.count for e in avgs) / n
-        if n_dev == 0:
-            raise AssertionError(f"run ({summ['run']}): the profiler saw "
-                                 f"no device work")
-        top = sorted(avgs, key=_self_device_us, reverse=True)[:8]
-        log(f"[profile] ({summ['run']}) first {n} ticks: device "
-            f"{dev_us:.2f} us/tick, busy share {dev_us / summ['us_per_tick']!r}"
-            f" of the unprofiled {summ['us_per_tick']:.2f} us/tick; "
-            f"{n_dev:.2f} device launches/tick, "
-            f"{summ['us_per_tick'] / n_dev:.2f} us of wall time each")
-        for e in top:
-            log(f"[profile] ({summ['run']})   {_self_device_us(e) / n:9.3f}"
-                f" us/tick  {e.count / n:6.2f} calls/tick  {e.key[:90]}")
+        profile_summary(torch, prof, n, summ["run"], summ["us_per_tick"])
+
+
+def profile_summary(torch, prof, n, key, us_per_tick):
+    """Device time and launches per tick of a profiled run of ``n`` ticks,
+    its busy share against the unprofiled wall time per tick, and the
+    kernels that take the most device time."""
+    # device-side events only (kernels, copies, fills): a CPU op's entry
+    # repeats the device time of the kernels it launched
+    avgs = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(_self_device_us(e) for e in avgs) / n
+    n_dev = sum(e.count for e in avgs) / n
+    if n_dev == 0:
+        raise AssertionError(f"run ({key}): the profiler saw no device work")
+    log(f"[profile] ({key}) first {n} ticks: device {dev_us:.2f} us/tick, "
+        f"busy share {dev_us / us_per_tick!r} of the unprofiled "
+        f"{us_per_tick:.2f} us/tick; {n_dev:.2f} device launches/tick, "
+        f"{us_per_tick / n_dev:.2f} us of wall time each")
+    for e in sorted(avgs, key=_self_device_us, reverse=True)[:8]:
+        log(f"[profile] ({key})   {_self_device_us(e) / n:9.3f} us/tick  "
+            f"{e.count / n:6.2f} calls/tick  {e.key[:90]}")
+
+
+def phase_profile_smoke(torch, tc, sup, dev, summaries, ticks=200):
+    """``--profile`` for phase 6b: the eager batch runs' first ``ticks``
+    ticks, the megakernel runs whole, under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with open(sup.SMOKE_REF) as f:
+        ref = json.load(f)
+    topo, flows, scheds = smoke_scenario(tc, sup, dev, ref)
+    Q = topo.num_queues
+    fb = tc.stack_flows(flows, Q)
+    sb = tc.stack_flow_schedules(scheds, Q)
+    slots = ref["slots"]
+    runs = {"6b.1": ("padded", "reference", False),
+            "6b.3": ("slot", "reference", False),
+            "6b.4": ("slot", "megakernel", True),
+            "6b.5": ("slot", "megakernel", False),
+            "6b.6": ("slot", "fused", False)}
+    for summ in summaries:
+        engine, backend, seq = runs[summ["run"]]
+        n = ref["steps"] if backend == "megakernel" else ticks
+        cfg = tc.SimConfig(dt=ref["dt_s"], steps=n, hist=ref["hist"],
+                           update_period=ref["update_period_s"])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            if engine == "padded":
+                tc.simulate_batch(topo, fb, "powertcp", cfg=cfg,
+                                  record=False, backend=backend,
+                                  expected_flows=ref["expected_flows"],
+                                  device=dev)
+            else:
+                tc.simulate_slots_batch(topo, sb, "powertcp", slots,
+                                        cfg=cfg, record=False,
+                                        backend=backend, sequential=seq,
+                                        expected_flows=ref["expected_flows"],
+                                        device=dev)
+            torch.cuda.synchronize()
+        profile_summary(torch, prof, n, summ["run"], summ["us_per_tick"])
 
 
 # -------------------------------------------------------------------------
@@ -1055,6 +1593,12 @@ def kernels_line(rows, launches):
         if k + "@padded" in rows:
             entry.update(padded_ms=rows[k + "@padded"]["ms"],
                          padded_shape=rows[k + "@padded"]["shape"])
+        for tag in ("batch", "batch_padded"):
+            extra = rows.get(f"{k}@{tag}")
+            if extra:
+                entry.update({f"{tag}_{key}": extra[key] for key in (
+                    "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")})
         line.append(entry)
     return line
 
@@ -1079,8 +1623,16 @@ def main():
     log(f"[time] + goldens: {time.perf_counter() - t0:.1f} s")
     launches, summaries = phase_main(torch, tc, kernels, sup, dev)
     log(f"[time] + main path: {time.perf_counter() - t0:.1f} s")
+    smoke_launches, smoke_summ, _, grid = phase_smoke_slots(
+        torch, tc, kernels, sup, dev, smi)
+    log("[smoke] " + json.dumps({"smoke_runs": smoke_summ}))
+    for k, n in smoke_launches.items():
+        launches[k] += n
+    rows["fused_tick_block"].update(grid)
+    log(f"[time] + smoke_slots: {time.perf_counter() - t0:.1f} s")
     if profile:
         phase_profile(torch, tc, sup, dev, summaries)
+        phase_profile_smoke(torch, tc, sup, dev, smoke_summ)
         log(f"[time] + profile: {time.perf_counter() - t0:.1f} s")
     rows.update(phase_lm_kernels(torch, sup, dev))
     log(f"[time] + LM kernels: {time.perf_counter() - t0:.1f} s")

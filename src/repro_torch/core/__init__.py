@@ -2,14 +2,17 @@
 simulator (the main-path subset of ``repro.core``)."""
 from .types import (Flows, FlowSchedule, PathObs, Record, SimConfig,
                     SimState, SlotState, Topology, GBPS, KB, MB, MTU, US,
-                    from_numpy, pad_hops, resolve_device)
+                    batch_of_one, from_numpy, pad_hops, resolve_device,
+                    scenario)
 from .laws import (LAWS, LAW_BACKENDS, Law, LawConfig, get_law,
                    law_backends, norm_power_int, norm_power_theta,
                    register_backend, register_law)
 from .fluid import (FluidSim, SlotSim, audit_carry_dtypes, build_incidence,
                     default_law_config, init_slot_state, init_state,
-                    make_slot_sim, simulate, simulate_slots, slot_step,
-                    step)
+                    make_slot_sim, pad_flows, pad_schedule, simulate,
+                    simulate_batch, simulate_slots, simulate_slots_batch,
+                    slot_step, stack_flow_schedules, stack_flows,
+                    stack_law_configs, step)
 from . import backends  # noqa: F401  (registers the fused kernel backends)
 from .megakernel import MegaCarry, PendingFCT, make_tick, simulate_slots_mega
 from .network import (LeafSpine, make_flows_single, make_schedule,
@@ -23,15 +26,16 @@ from .workload import (WEBSEARCH_CDF, peak_concurrency, poisson_websearch,
 
 __all__ = [
     "Flows", "FlowSchedule", "PathObs", "Record", "SimConfig", "SimState",
-    "SlotState", "Topology", "GBPS", "KB", "MB", "MTU", "US", "from_numpy",
-    "pad_hops", "resolve_device",
+    "SlotState", "Topology", "GBPS", "KB", "MB", "MTU", "US",
+    "batch_of_one", "from_numpy", "pad_hops", "resolve_device", "scenario",
     "LAWS", "LAW_BACKENDS", "Law", "LawConfig", "get_law", "law_backends",
     "norm_power_int", "norm_power_theta", "register_backend",
     "register_law",
     "FluidSim", "SlotSim", "audit_carry_dtypes", "build_incidence",
     "default_law_config", "init_slot_state", "init_state",
-    "make_slot_sim", "simulate",
-    "simulate_slots", "slot_step", "step",
+    "make_slot_sim", "pad_flows", "pad_schedule", "simulate",
+    "simulate_batch", "simulate_slots", "simulate_slots_batch", "slot_step",
+    "stack_flow_schedules", "stack_flows", "stack_law_configs", "step",
     "MegaCarry", "PendingFCT", "make_tick", "simulate_slots_mega",
     "LeafSpine", "make_flows_single", "make_schedule", "schedule_as_flows",
     "single_bottleneck",

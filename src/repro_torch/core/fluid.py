@@ -23,6 +23,16 @@ engine of ``core/megakernel.py`` (K4, one launch per 64 ticks on the
 card; its plain tick on the CPU), bit for bit the reference backend; on
 the padded engine, as in ``repro``, the reference ops.
 
+Batched scenario engine (``simulate_batch``, ``simulate_slots_batch``): a
+sweep of B scenarios on one topology runs as one batch, with an explicit
+leading batch axis on every carry leaf (the stacking helpers
+``stack_flows``, ``stack_flow_schedules`` and ``stack_law_configs``
+build it). The engines carry that axis always: ``simulate`` and
+``simulate_slots`` run a batch of one (``types.batch_of_one``) and
+return its scenario, bit for bit what a scenario gives in any batch.
+``torch.vmap`` does not serve here: the slot engine's admit/retire gate
+is host-side control flow.
+
 The tick loop is a Python loop of eager PyTorch ops: ``repro``'s
 ``lax.scan`` has no counterpart. Tick counters live on the host, so the
 loop indexes its ring buffers without reading anything back from the
@@ -34,8 +44,11 @@ admitted (the host knows the due count from the schedule, and reads the
 admission cursor back after each pass), as ``repro``'s megakernel gates
 it; retiring a drained slot later changes nothing, because its delayed
 rates are exactly zero and a pass retires every drained slot before it
-admits. The reference backend rebuilds its in-order gather table on
-those ticks too, reading back the largest live queue degree.
+admits. A batch runs the pass for every scenario on a tick where any
+scenario needs it (exact for the others, by the same argument: ``repro``'s
+``slot_step`` runs it every tick). The reference backend rebuilds its
+in-order gather table on those ticks too, reading back the largest live
+queue degree.
 
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
 item that brings it): time-varying bandwidth (``bw_fn``), allocators
@@ -45,7 +58,7 @@ or incast channels.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Union
+from typing import List, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -56,7 +69,9 @@ from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
                                       one_hot_incidence, update_incidence)
 from .laws import Law, LawConfig, get_law
 from .types import (MTU, Flows, FlowSchedule, PathObs, Record, SimConfig,
-                    SimState, SlotState, Topology, resolve_device)
+                    SimState, SlotState, Topology, batch_of_one, cat_trees,
+                    pad_hops, resolve_device, scenario, stack_trees,
+                    tree_map)
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -88,6 +103,77 @@ def _hop_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in XLA:CPU's order for ``jnp.sum``, which
+    ``repro``'s record sums ``w_sum`` and ``lam`` take: while more than 32
+    values are left, pad them with zeros to a multiple of 32 (half the
+    pad, rounded down, in front) and sum each window of 32 left to right;
+    then sum the rest left to right. ``torch.sum`` adds in its own order,
+    one ulp away on some ticks. It runs only on recorded ticks; at the
+    paper's 384 slots it is 42 adds (31 over 12 windows, then 11), so two
+    such sums cost ~90 launches per recorded tick on the card."""
+    n = int(x.shape[-1])
+    while n > 32:
+        m = -(-n // 32) * 32
+        pad = m - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(tuple(x.shape[:-1]) + (m // 32, 32))
+        acc = x[..., 0]
+        for j in range(1, 32):
+            acc = acc + x[..., j]
+        x, n = acc, m // 32
+    acc = x[..., 0]
+    for j in range(1, n):
+        acc = acc + x[..., j]
+    return acc
+
+
+_BIDX: dict = {}
+
+
+def _bidx(B: int, nd: int, device) -> torch.Tensor:
+    """``arange(B)`` shaped [B, 1, ...] (``nd`` axes) to index the batch
+    axis beside index tensors of ``nd`` axes; cached per device."""
+    key = (B, nd, str(device))
+    x = _BIDX.get(key)
+    if x is None:
+        x = torch.arange(B, device=device).view((B,) + (1,) * (nd - 1))
+        _BIDX[key] = x
+    return x
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[b, idx[b]]`` for each scenario b of the batch: scenario b's
+    rows of ``x`` [B, X] at scenario b's ``idx`` [B, ...]."""
+    return x[_bidx(int(x.shape[0]), idx.dim(), x.device), idx]
+
+
+def _ring(hist: torch.Tensor, rows: torch.Tensor,
+          cols: torch.Tensor) -> torch.Tensor:
+    """``hist[b, rows, cols]`` of a batch's rings [B, D, X]; ``rows`` and
+    ``cols`` broadcast (per scenario, [B, ...], or shared)."""
+    nd = max(rows.dim(), cols.dim())
+    return hist[_bidx(int(hist.shape[0]), nd, hist.device), rows, cols]
+
+
+def _put(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> None:
+    """``table[b, idx[b]] = vals[b]`` for each scenario b (in place)."""
+    table[_bidx(int(table.shape[0]), idx.dim(), table.device), idx] = vals
+
+
+def _host_count(x: torch.Tensor) -> np.ndarray:
+    """A batch's device counters [B] on the host."""
+    return x.cpu().numpy().astype(np.int64)
+
+
+def _law_init(law: Law, shape: tuple, cfg: LawConfig):
+    """``law.init`` for per-flow shape ``shape`` ([B, F]): a law builds
+    [F] leaves (or broadcasts against the batch's config); each is made
+    ``shape`` and contiguous."""
+    st = law.init(int(shape[-1]), cfg)
+    return type(st)(*[x.expand(shape).contiguous() for x in st])
+
+
 def _marking(q: torch.Tensor, buf: torch.Tensor, cfg: LawConfig,
              ) -> torch.Tensor:
     """ECN marking probability + hard mark when a hop's buffer is ~full."""
@@ -113,10 +199,12 @@ class _Static(NamedTuple):
 
 
 class FluidSim(NamedTuple):
-    """One scenario bound to a backend. ``incidence`` is the [H, F, Q+1]
+    """A batch of scenarios ([B, F, ...] flows, a stacked law config) on
+    one topology, bound to a backend. ``incidence`` is the [B, H, F, Q+1]
     one-hot path incidence of the fused queue kernel (fused backend);
-    ``inv`` the in-order gather table of the reference queue update
-    (reference backend; the padded engine's hop table is static)."""
+    ``inv`` the [B, Q+1, maxdeg] in-order gather table of the reference
+    queue update (reference backend; the padded engine's hop table is
+    static)."""
     topo: Topology
     flows: Flows
     law: Law
@@ -129,14 +217,17 @@ class FluidSim(NamedTuple):
 
 
 def build_incidence(flows: Flows, num_queues: int) -> torch.Tensor:
-    """[H, F, Q+1] one-hot path incidence for the fused queue update;
+    """[B, H, F, Q+1] one-hot path incidence for the fused queue update;
     sentinel (padded) hops become all-zero rows."""
     return one_hot_incidence(flows.path, num_queues)
 
 
 def init_state(sim: FluidSim) -> SimState:
+    """The padded engine's initial carry: every leaf with the batch's
+    leading axis."""
     topo, flows, cfg = sim.topo, sim.flows, sim.cfg
-    F = flows.tau.shape[0]
+    lead = tuple(flows.tau.shape[:-1])
+    F = flows.tau.shape[-1]
     Q = topo.num_queues
     D = cfg.hist
     dev = flows.tau.device
@@ -145,18 +236,18 @@ def init_state(sim: FluidSim) -> SimState:
     return SimState(
         t=0,
         w=w0,
-        rate_cap=torch.full((F,), float("inf"), **f32),
-        q=torch.zeros((Q + 1,), **f32),
-        out_rate=torch.zeros((Q + 1,), **f32),
-        hist_lam=torch.zeros((D, F), **f32),
-        hist_q=torch.zeros((D, Q + 1), **f32),
-        hist_out=torch.zeros((D, Q + 1), **f32),
-        hist_w=w0.expand(D, F).clone(),
+        rate_cap=torch.full(lead + (F,), float("inf"), **f32),
+        q=torch.zeros(lead + (Q + 1,), **f32),
+        out_rate=torch.zeros(lead + (Q + 1,), **f32),
+        hist_lam=torch.zeros(lead + (D, F), **f32),
+        hist_q=torch.zeros(lead + (D, Q + 1), **f32),
+        hist_out=torch.zeros(lead + (D, Q + 1), **f32),
+        hist_w=w0[..., None, :].expand(lead + (D, F)).clone(),
         remaining=flows.size.to(torch.float32),
-        fct=torch.full((F,), float("nan"), **f32),
+        fct=torch.full(lead + (F,), float("nan"), **f32),
         next_update=flows.start + flows.tau,
         last_update=flows.start,
-        law=sim.law.init(F, sim.law_cfg),
+        law=_law_init(sim.law, lead + (F,), sim.law_cfg),
     )
 
 
@@ -201,14 +292,14 @@ def _buffer_caps(topo: Topology, q: torch.Tensor,
     ``repro`` accumulates it."""
     if static.sw_table is None:
         return static.buf
-    m = q[static.sw_table]                      # [switches, deg]
-    used = torch.zeros_like(m[:, 0])
-    for j in range(m.shape[1]):
-        used = used + m[:, j]
+    m = q[..., static.sw_table]                 # [..., switches, deg]
+    used = torch.zeros_like(m[..., 0])
+    for j in range(m.shape[-1]):
+        used = used + m[..., j]
     free = torch.clamp_min(topo.switch_buffer - used, 0.0)
-    thr = topo.dt_alpha * free[topo.switch_of_queue]
+    thr = topo.dt_alpha * free[..., topo.switch_of_queue]
     return torch.cat([torch.minimum(thr, topo.buffer),
-                      thr.new_full((1,), 1e30)])
+                      thr.new_full(tuple(thr.shape[:-1]) + (1,), 1e30)], -1)
 
 
 def _queue_update(topo: Topology, dt: float, backend: str, incidence, inv,
@@ -218,15 +309,18 @@ def _queue_update(topo: Topology, dt: float, backend: str, incidence, inv,
     Reference backend: the masked per-hop rates summed per queue in
     ascending flat order through the gather table ``inv``. Fused backend:
     K3 over the incidence (``out_rate=bw`` is exact there — when q == 0
-    and arr < bw the clip at 0 reproduces ``out = min(arr, bw)``).
+    and arr < bw the clip at 0 reproduces ``out = min(arr, bw)``). A
+    batch (leading axis on ``q``, ``lam_del``, ``inv``/``incidence``) is
+    one gather, or one K3 launch.
     """
     bw = static.bw
     caps = _buffer_caps(topo, q, static)
     if backend == "fused":
-        arr, q_new = ops.queue_arrivals(lam_del.t().contiguous(), incidence,
-                                        q, bw, caps, dt=dt)
+        arr, q_new = ops.queue_arrivals(
+            lam_del.transpose(-1, -2).contiguous(), incidence, q, bw, caps,
+            dt=dt)
         out = torch.where(q > 0.0, bw, torch.minimum(arr, bw))
-        q_new[-1] = 0.0
+        q_new[..., -1] = 0.0
         return arr, out, q_new
     contrib = torch.where(valid, lam_del, 0.0)
     arr = csr_gather_arrivals(contrib, inv, torch.zeros_like(q))
@@ -243,18 +337,18 @@ def _observe(law: Law, law_cfg: LawConfig, static: _Static, cfg: SimConfig,
     wold_delay). Telemetry a law declares it does not read
     (``Law.uses_qdot``/``uses_mu``/``uses_ecn``) is left out (None)."""
     D, dt = cfg.hist, cfg.dt
-    tb_steps = torch.clamp(rtt_steps[:, None] - tf_steps, 1, D - 2)
+    tb_steps = torch.clamp(rtt_steps[..., None] - tf_steps, 1, D - 2)
     ohidx = torch.remainder(ptr - tb_steps, D)                # [F,H]
-    q_obs = hist_q[ohidx, path]
+    q_obs = _ring(hist_q, ohidx, path)
     qdot = mu = ecn = None
     if law.uses_qdot:
-        q_prev = hist_q[torch.remainder(ohidx - 1, D), path]
+        q_prev = _ring(hist_q, torch.remainder(ohidx - 1, D), path)
         qdot = (q_obs - q_prev) * (1.0 / dt)
     if law.uses_mu:
-        mu = hist_out[ohidx, path]
+        mu = _ring(hist_out, ohidx, path)
     if law.uses_ecn:
         ecn = torch.amax(torch.where(
-            valid, _marking(q_obs, static.buf[path], law_cfg), 0.0), dim=1)
+            valid, _marking(q_obs, static.buf[path], law_cfg), 0.0), dim=-1)
     theta_obs = tau + _hop_sum(torch.where(valid, q_obs / b_hop, 0.0))
     wold_delay = torch.clamp(torch.round(theta_obs / static.dt)
                              .to(torch.int32), 1, D - 2)
@@ -271,17 +365,21 @@ def _next_update(cfg: SimConfig, upd, t_sec: float, theta_now,
 
 
 def _record(t_sec, q_new, w, out, lam, active) -> Record:
-    return Record(t=torch.tensor(t_sec, dtype=torch.float32), q=q_new,
-                  w_sum=torch.sum(torch.where(active, w, 0.0)),
-                  thru=out, lam=torch.sum(lam), lam_f=lam,
-                  n_active=torch.sum(active, dtype=torch.int32))
+    """One tick's record, per scenario; the two float sums in ``repro``'s
+    order (``_xla_sum``)."""
+    return Record(t=torch.full(tuple(w.shape[:-1]), t_sec,
+                               dtype=torch.float32), q=q_new,
+                  w_sum=_xla_sum(torch.where(active, w, 0.0)),
+                  thru=out, lam=_xla_sum(lam), lam_f=lam,
+                  n_active=torch.sum(active, dim=-1, dtype=torch.int32))
 
 
 def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
          record: bool = True):
-    """One tick of the padded engine. Returns (new state, Record or None).
-    The ring buffers of ``state`` are updated in place and shared with
-    the new state."""
+    """One tick of the padded engine over the batch (a leading scenario
+    axis on every leaf, each op covering every scenario). Returns (new
+    state, Record or None). The ring buffers of ``state`` are updated in
+    place and shared with the new state."""
     if bw_fn is not None:
         _unported("bw_fn", 8)
     if alloc_fn is not None:
@@ -289,7 +387,7 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     topo, flows, cfg, static = sim.topo, sim.flows, sim.cfg, sim.static
     law_cfg = sim.law_cfg
     D, dt = cfg.hist, cfg.dt
-    F = flows.tau.shape[0]
+    F = flows.tau.shape[-1]
     t = state.t
     t_sec = _tick_time(t, dt)
     ptr = t % D
@@ -300,7 +398,7 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     # -- instantaneous RTT and send rates ---------------------------------
     path = flows.path
     valid = path < topo.num_queues
-    q_hop = state.q[path]                                     # [F,H]
+    q_hop = _take(state.q, path)                              # [B,F,H]
     b_hop = static.bw[path]
     theta_now = flows.tau + _hop_sum(torch.where(valid, q_hop / b_hop, 0.0))
     lam = torch.where(active, torch.minimum(
@@ -309,23 +407,23 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
 
     # -- histories at current time (in place) ------------------------------
     hist_lam, hist_w = state.hist_lam, state.hist_w
-    hist_lam[ptr] = lam
-    hist_w[ptr] = state.w
+    hist_lam[..., ptr, :] = lam
+    hist_w[..., ptr, :] = state.w
 
     # -- queue update ------------------------------------------------------
-    lam_del = hist_lam[torch.remainder(ptr - flows.tf_steps, D),
-                       fidx[:, None]]                         # [F,H]
+    lam_del = _ring(hist_lam, torch.remainder(ptr - flows.tf_steps, D),
+                    fidx[:, None])                            # [B,F,H]
     arr, out, q_new = _queue_update(topo, dt, sim.backend, sim.incidence,
                                     sim.inv, state.q, lam_del, valid, static)
     hist_q, hist_out = state.hist_q, state.hist_out
-    hist_q[ptr] = q_new
-    hist_out[ptr] = out
+    hist_q[..., ptr, :] = q_new
+    hist_out[..., ptr, :] = out
 
     # -- delayed observation ------------------------------------------------
     q_obs, qdot, mu, ecn, theta_obs, wold_delay = _observe(
         sim.law, law_cfg, static, cfg, ptr, hist_q, hist_out, path, valid,
         flows.tf_steps, flows.rtt_steps, flows.tau, b_hop)
-    w_old = hist_w[torch.remainder(ptr - wold_delay, D), fidx]
+    w_old = _ring(hist_w, torch.remainder(ptr - wold_delay, D), fidx)
     upd = active & (t_sec >= state.next_update)
     dt_obs = torch.clamp_min(t_sec - state.last_update, dt)
     obs = PathObs(q=q_obs, qdot=qdot, mu=mu, b=b_hop, valid=valid,
@@ -362,7 +460,8 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
 def _run(sim, state, step_fn, record: bool):
     """The tick loop: ``cfg.steps`` ticks, honouring ``cfg.record_every``
     (one record per chunk of k ticks, the chunk's last tick; steps must
-    divide by k). Returns (final state, stacked Record or None)."""
+    divide by k). Returns (final state, stacked Record or None); the
+    records are [B, T, ...], as ``repro``'s vmapped scan returns them."""
     cfg = sim.cfg
     k = max(int(cfg.record_every), 1) if record else 1
     if cfg.steps % k:
@@ -376,7 +475,7 @@ def _run(sim, state, step_fn, record: bool):
             recs.append(rec)
     if not record:
         return state, None
-    return state, Record(*[torch.stack(list(x)) for x in zip(*recs)])
+    return state, Record(*[torch.stack(list(x), dim=1) for x in zip(*recs)])
 
 
 def _resolve_law(law: Union[str, Law], backend: str) -> Law:
@@ -395,12 +494,7 @@ def _check_backend(backend: str):
 
 def _to(x, dev):
     """Move a NamedTuple of tensors (nested tuples included) to ``dev``."""
-    if isinstance(x, torch.Tensor):
-        return x.to(dev)
-    if isinstance(x, tuple):
-        vals = [_to(v, dev) for v in x]
-        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
-    return x
+    return tree_map(lambda v: v.to(dev), x)
 
 
 def audit_carry_dtypes(state) -> None:
@@ -427,35 +521,18 @@ def simulate(topo: Topology, flows: Flows, law_name: Union[str, Law],
              cfg: Optional[SimConfig] = None,
              bw_fn=None, alloc_fn=None, record: bool = True,
              backend: str = "reference", impair=None, device="cuda"):
-    """Run a scenario through the padded engine on ``device``. Returns
-    (final ``SimState``, ``Record`` or None). ``backend="fused"`` sends the
-    law update and the queue update through the CUDA kernels (their plain
-    versions on the CPU)."""
-    if bw_fn is not None:
-        _unported("bw_fn", 8)
-    if alloc_fn is not None:
-        _unported("alloc_fn", 13)
+    """Run a scenario through the padded engine on ``device``: a batch of
+    one through ``simulate_batch``. Returns (final ``SimState``, ``Record``
+    or None). ``backend="fused"`` sends the law update and the queue
+    update through the CUDA kernels (their plain versions on the CPU)."""
     if impair is not None:
         _unported("impair", 10)
-    _check_backend(backend)
-    cfg = cfg or SimConfig()
-    dev = resolve_device(device)
-    law = _resolve_law(law_name, backend)
-    topo, flows = _to(topo, dev), _to(flows, dev)
-    law_cfg = _to(law_cfg, dev) if law_cfg is not None \
-        else default_law_config(flows)
-    Q = topo.num_queues
-    incidence = inv = None
-    if backend == "fused":
-        incidence = build_incidence(flows, Q)
-    else:
-        inv, _ = build_csr_gather(flows.path, Q, max_degree(flows.path, Q))
-    sim = FluidSim(topo, flows, law, law_cfg, cfg, backend, incidence,
-                   _make_static(topo, cfg.dt), inv)
-    with torch.no_grad():
-        state = init_state(sim)
-        audit_carry_dtypes(state)
-        return _run(sim, state, step, record)
+    state, recs = simulate_batch(
+        topo, batch_of_one(flows), law_name,
+        None if law_cfg is None else batch_of_one(law_cfg), cfg,
+        bw_fn=bw_fn, alloc_fn=alloc_fn, record=record, backend=backend,
+        device=device)
+    return scenario(state, 0), (None if recs is None else scenario(recs, 0))
 
 
 # --------------------------------------------------------------------------
@@ -463,10 +540,11 @@ def simulate(topo: Topology, flows: Flows, law_name: Union[str, Law],
 # --------------------------------------------------------------------------
 
 class SlotSim(NamedTuple):
-    """One schedule bound to a slot pool of ``slots`` (S) and a backend.
-    ``start_host`` is the schedule's arrival times on the host (float32
-    numpy), where the admission search runs; ``static`` the per-topology
-    constants."""
+    """A batch of B schedules ([B, N, ...] leaves, a stacked law config)
+    on one topology, bound to a slot pool of ``slots`` (S) and a backend.
+    ``start_host`` [B, N] is the schedules' arrival times on the host
+    (float32 numpy), where the admission search runs; ``static`` the
+    per-topology constants."""
     topo: Topology
     sched: FlowSchedule
     law: Law
@@ -479,81 +557,86 @@ class SlotSim(NamedTuple):
 
 
 def _slot_n(sim: SlotSim) -> int:
-    """Global flow count N."""
-    return int(sim.sched.start.shape[0])
+    """Global flow count N (per scenario)."""
+    return int(sim.sched.start.shape[-1])
 
 
 def _gather_law_cfg(law_cfg: LawConfig, gf: torch.Tensor, n_flows: int):
-    """Per-slot view of a LawConfig: tensors with an [N] flow axis are
-    gathered at ``gf``; scalars pass through."""
+    """Per-slot view of a batch's LawConfig: tensors with a [B, N] flow
+    axis are gathered at ``gf`` [B, S]; scalars and per-scenario scalars
+    [B, 1] pass through."""
     def g(x):
-        if isinstance(x, torch.Tensor) and x.dim() >= 1 \
-                and x.shape[0] == n_flows:
-            return x[gf]
+        if isinstance(x, torch.Tensor) and x.dim() == gf.dim() \
+                and x.shape[-1] == n_flows:
+            return _take(x, gf)
         return x
     return type(law_cfg)(*[g(x) for x in law_cfg])
 
 
 def init_slot_state(sim: SlotSim) -> SlotState:
     """All slots free; pool metadata holds inert values so empty slots
-    never send and never NaN."""
+    never send and never NaN. Every leaf has the batch's leading axis
+    (``admitted``, the host's copy of the cursors, a numpy array)."""
     topo, sched, cfg = sim.topo, sim.sched, sim.cfg
+    lead = tuple(sched.start.shape[:-1])
     S = int(sim.slots)
     N = _slot_n(sim)
-    H = int(sched.path.shape[1])
+    H = int(sched.path.shape[-1])
     Q = topo.num_queues
     D = cfg.hist
     dev = sched.start.device
     f32 = dict(dtype=torch.float32, device=dev)
     i32 = dict(dtype=torch.int32, device=dev)
-    tau0 = torch.full((S,), 20e-6, **f32)
-    nic0 = torch.full((S,), 1e9, **f32)
+    pool = lead + (S,)
+    tau0 = torch.full(pool, 20e-6, **f32)
+    nic0 = torch.full(pool, 1e9, **f32)
     w0 = nic0 * tau0
-    cfg0 = _gather_law_cfg(sim.law_cfg, torch.zeros((S,), **i32), N)
-    incidence = (torch.zeros((H, S, Q + 1), **f32)
+    cfg0 = _gather_law_cfg(sim.law_cfg, torch.zeros(pool, **i32), N)
+    incidence = (torch.zeros(lead + (H, S, Q + 1), **f32)
                  if sim.backend == "fused" else None)
     inf = float("inf")
+    path0 = torch.full(pool + (H,), Q, **i32)
     return SlotState(
         t=0,
-        admitted=0,
-        cursor=torch.zeros((), **i32),
-        hw=torch.zeros((), **i32),
-        slot_flow=torch.full((S,), N, **i32),
-        admit_t=torch.zeros((S,), **i32),
-        free_at=torch.zeros((S,), **i32),
-        path=torch.full((S, H), Q, **i32),
-        tf_steps=torch.ones((S, H), **i32),
-        rtt_steps=torch.ones((S,), **i32),
+        admitted=np.zeros(lead, np.int64),
+        cursor=torch.zeros(lead, **i32),
+        hw=torch.zeros(lead, **i32),
+        slot_flow=torch.full(pool, N, **i32),
+        admit_t=torch.zeros(pool, **i32),
+        free_at=torch.zeros(pool, **i32),
+        path=path0,
+        tf_steps=torch.ones(pool + (H,), **i32),
+        rtt_steps=torch.ones(pool, **i32),
         tau=tau0, nic_rate=nic0,
-        start=torch.full((S,), inf, **f32),
-        stop=torch.full((S,), inf, **f32),
+        start=torch.full(pool, inf, **f32),
+        stop=torch.full(pool, inf, **f32),
         w=w0,
-        rate_cap=torch.full((S,), inf, **f32),
-        q=torch.zeros((Q + 1,), **f32),
-        out_rate=torch.zeros((Q + 1,), **f32),
-        hist_lam=torch.zeros((D, S), **f32),
-        hist_q=torch.zeros((D, Q + 1), **f32),
-        hist_out=torch.zeros((D, Q + 1), **f32),
-        hist_w=w0.expand(D, S).clone(),
-        remaining=torch.full((S,), inf, **f32),
-        next_update=torch.full((S,), inf, **f32),
-        last_update=torch.zeros((S,), **f32),
-        law=sim.law.init(S, cfg0),
-        fct=torch.full((N + 1,), float("nan"), **f32),
+        rate_cap=torch.full(pool, inf, **f32),
+        q=torch.zeros(lead + (Q + 1,), **f32),
+        out_rate=torch.zeros(lead + (Q + 1,), **f32),
+        hist_lam=torch.zeros(lead + (D, S), **f32),
+        hist_q=torch.zeros(lead + (D, Q + 1), **f32),
+        hist_out=torch.zeros(lead + (D, Q + 1), **f32),
+        hist_w=w0[..., None, :].expand(lead + (D, S)).clone(),
+        remaining=torch.full(pool, inf, **f32),
+        next_update=torch.full(pool, inf, **f32),
+        last_update=torch.zeros(pool, **f32),
+        law=_law_init(sim.law, pool, cfg0),
+        fct=torch.full(lead + (N + 1,), float("nan"), **f32),
         incidence=incidence,
         inv=(None if sim.backend == "fused" else _resident_gather(
-            torch.zeros((S,), dtype=torch.bool, device=dev),
-            torch.full((S, H), Q, **i32), Q)),
+            torch.zeros(pool, dtype=torch.bool, device=dev), path0, Q)),
     )
 
 
 def _resident_gather(resident: torch.Tensor, path: torch.Tensor,
                      num_queues: int) -> torch.Tensor:
     """The reference backend's in-order gather table over the resident
-    slots' hops (int32). Only resident slots can send, so leaving the
-    others out keeps the sums bit-identical and the table narrow; reads
-    the largest queue degree back from the device."""
-    live = torch.where(resident[:, None], path, num_queues)
+    slots' hops (int32 [B, Q+1, maxdeg], maxdeg the largest over the
+    batch). Only resident slots can send, so leaving the others out keeps
+    the sums bit-identical and the table narrow; reads the largest queue
+    degree back from the device."""
+    live = torch.where(resident[..., None], path, num_queues)
     inv, _ = build_csr_gather(live, num_queues, max_degree(live, num_queues))
     return inv.to(torch.int32)
 
@@ -563,14 +646,15 @@ def _admit_retire(sim: SlotSim, state: SlotState, due: int):
 
     Retire: slots whose occupant completed (or passed ``stop``) AND whose
     in-flight traffic has drained (``t >= free_at``) return to the pool.
-    Admit: the ``due`` arrivals (``start <= t``, counted by the caller on
-    the host) fill free slots, fresh-never-used slots first (ascending),
-    recycled slots when fresh ones run out. Admitted slots gather the
-    flow's metadata and re-init window, timers and law state exactly as
-    ``init_state`` would. Returns (state, resident mask).
+    Admit: the ``due`` arrivals (``start <= t``, counted by the caller; a
+    [B] int32 tensor) fill free slots, fresh-never-used
+    slots first (ascending), recycled slots when fresh ones run out.
+    Admitted slots gather the flow's metadata and re-init window, timers
+    and law state exactly as ``init_state`` would. Returns (state,
+    resident mask).
     """
     sched = sim.sched
-    S = int(state.w.shape[0])
+    S = int(state.w.shape[-1])
     N = _slot_n(sim)
     dev = state.w.device
     sidx = torch.arange(S, dtype=torch.int32, device=dev)
@@ -581,28 +665,35 @@ def _admit_retire(sim: SlotSim, state: SlotState, due: int):
     slot_flow = torch.where(freeable, N, state.slot_flow)
     occupied = slot_flow < N
 
-    n_free = S - torch.sum(occupied, dtype=i32)
+    n_free = S - torch.sum(occupied, dim=-1, dtype=i32)
     n_admit = torch.minimum(due - state.cursor, n_free)
     free = ~occupied
-    fresh = free & (sidx >= state.hw)
-    n_fresh = torch.minimum(n_admit, torch.sum(fresh, dtype=i32))
-    take_fresh = fresh & (torch.cumsum(fresh, 0, dtype=i32) - 1 < n_fresh)
-    recycled = free & (sidx < state.hw)
-    take_rec = recycled & (torch.cumsum(recycled, 0, dtype=i32) - 1 <
-                           n_admit - n_fresh)
+    hw = state.hw[..., None]
+    fresh = free & (sidx >= hw)
+    n_fresh = torch.minimum(n_admit, torch.sum(fresh, dim=-1, dtype=i32))
+    take_fresh = fresh & (torch.cumsum(fresh, -1, dtype=i32) - 1 <
+                          n_fresh[..., None])
+    recycled = free & (sidx < hw)
+    take_rec = recycled & (torch.cumsum(recycled, -1, dtype=i32) - 1 <
+                           (n_admit - n_fresh)[..., None])
     admit = take_fresh | take_rec
-    rank = torch.cumsum(admit, 0, dtype=i32) - 1
-    slot_flow = torch.where(admit, state.cursor + rank, slot_flow)
+    rank = torch.cumsum(admit, -1, dtype=i32) - 1
+    slot_flow = torch.where(admit, state.cursor[..., None] + rank, slot_flow)
     gf = torch.clamp(slot_flow, 0, N - 1)
 
     def sel(new, old):
-        return torch.where(admit.view((S,) + (1,) * (old.dim() - 1)),
-                           new, old)
+        return torch.where(
+            admit.view(tuple(admit.shape) + (1,) * (old.dim() - admit.dim())),
+            new, old)
 
-    tau = sel(sched.tau[gf], state.tau)
-    nic = sel(sched.nic_rate[gf], state.nic_rate)
-    start = sel(sched.start[gf], state.start)
-    fresh_law = sim.law.init(S, _gather_law_cfg(sim.law_cfg, gf, N))
+    def take(x):
+        return _take(x, gf)
+
+    tau = sel(take(sched.tau), state.tau)
+    nic = sel(take(sched.nic_rate), state.nic_rate)
+    start = sel(take(sched.start), state.start)
+    fresh_law = _law_init(sim.law, tuple(gf.shape),
+                          _gather_law_cfg(sim.law_cfg, gf, N))
     law_state = type(state.law)(*[sel(f, o) for f, o
                                   in zip(fresh_law, state.law)])
     state = state._replace(
@@ -611,14 +702,14 @@ def _admit_retire(sim: SlotSim, state: SlotState, due: int):
         hw=state.hw + n_fresh,
         admit_t=torch.where(admit, state.t, state.admit_t),
         free_at=torch.where(admit, _INT32_MAX, state.free_at),
-        path=sel(sched.path[gf], state.path),
-        tf_steps=sel(sched.tf_steps[gf], state.tf_steps),
-        rtt_steps=sel(sched.rtt_steps[gf], state.rtt_steps),
+        path=sel(take(sched.path), state.path),
+        tf_steps=sel(take(sched.tf_steps), state.tf_steps),
+        rtt_steps=sel(take(sched.rtt_steps), state.rtt_steps),
         tau=tau, nic_rate=nic, start=start,
-        stop=sel(sched.stop[gf], state.stop),
+        stop=sel(take(sched.stop), state.stop),
         w=sel(nic * tau, state.w),
         rate_cap=torch.where(admit, float("inf"), state.rate_cap),
-        remaining=sel(sched.size[gf], state.remaining),
+        remaining=sel(take(sched.size), state.remaining),
         next_update=sel(start + tau, state.next_update),
         last_update=sel(start, state.last_update),
         law=law_state,
@@ -629,19 +720,29 @@ def _admit_retire(sim: SlotSim, state: SlotState, due: int):
     return state, occupied | admit
 
 
+def _due_now(sim: SlotSim, t_sec: float) -> np.ndarray:
+    """Each scenario's schedule entries with ``start <= t_sec`` (float32),
+    counted on the host ([B])."""
+    t32 = np.float32(t_sec)
+    return np.array([np.searchsorted(row, t32, side="right")
+                     for row in sim.start_host], np.int64)
+
+
 def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
               record: bool = True):
-    """One tick of the flow-slot streaming engine: ``step``'s arithmetic
-    on the S-sized pool, plus the admit/retire pass (on ticks with an
-    arrival due and not yet admitted) and two occupancy guards on delayed ring-buffer reads (history older than the occupant's
-    admission reads as the ring-init values). Ring buffers and the FCT
-    table are updated in place."""
+    """One tick of the flow-slot streaming engine over the batch:
+    ``step``'s arithmetic on the S-sized pools, plus the admit/retire pass
+    (on ticks with an arrival due and not yet admitted, in any scenario)
+    and two
+    occupancy guards on delayed ring-buffer reads (history older than the
+    occupant's admission reads as the ring-init values). Ring buffers and
+    the FCT table are updated in place."""
     if bw_fn is not None:
         _unported("bw_fn", 8)
     if alloc_fn is not None:
         raise ValueError("alloc_fn is not supported on the slot path")
     topo, cfg, static = sim.topo, sim.cfg, sim.static
-    S = int(state.w.shape[0])
+    S = int(state.w.shape[-1])
     N = _slot_n(sim)
     Q = topo.num_queues
     D, dt = cfg.hist, cfg.dt
@@ -651,11 +752,11 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     sidx = torch.arange(S, device=state.w.device)
 
     # -- admit / retire, on ticks with an arrival due and not admitted ----
-    due = int(np.searchsorted(sim.start_host, np.float32(t_sec),
-                              side="right"))
-    if due > state.admitted:
+    due = _due_now(sim, t_sec)
+    if np.any(due > state.admitted):
+        due = torch.as_tensor(due, dtype=torch.int32, device=state.w.device)
         state, occupied = _admit_retire(sim, state, due)
-        state = state._replace(admitted=int(state.cursor))
+        state = state._replace(admitted=_host_count(state.cursor))
         if sim.backend != "fused":
             state = state._replace(
                 inv=_resident_gather(occupied, state.path, Q))
@@ -670,7 +771,7 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
               (t_sec < state.stop))
     # -- instantaneous RTT and send rates ---------------------------------
     valid = path < Q
-    q_hop = state.q[path]                                     # [S,H]
+    q_hop = _take(state.q, path)                              # [B,S,H]
     b_hop = static.bw[path]
     theta_now = tau + _hop_sum(torch.where(valid, q_hop / b_hop, 0.0))
     lam = torch.where(active, torch.minimum(
@@ -678,26 +779,27 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
 
     # -- histories at current time (in place) ------------------------------
     hist_lam, hist_w = state.hist_lam, state.hist_w
-    hist_lam[ptr] = lam
-    hist_w[ptr] = state.w
+    hist_lam[..., ptr, :] = lam
+    hist_w[..., ptr, :] = state.w
 
     # -- queue update (reads older than admission are masked) --------------
-    lam_del = hist_lam[torch.remainder(ptr - tf_steps, D), sidx[:, None]]
-    lam_del = torch.where(t - tf_steps >= state.admit_t[:, None], lam_del,
+    lam_del = _ring(hist_lam, torch.remainder(ptr - tf_steps, D),
+                    sidx[:, None])
+    lam_del = torch.where(t - tf_steps >= state.admit_t[..., None], lam_del,
                           0.0)
     arr, out, q_new = _queue_update(topo, dt, sim.backend, state.incidence,
                                     state.inv, state.q, lam_del, valid,
                                     static)
     hist_q, hist_out = state.hist_q, state.hist_out
-    hist_q[ptr] = q_new
-    hist_out[ptr] = out
+    hist_q[..., ptr, :] = q_new
+    hist_out[..., ptr, :] = out
 
     # -- delayed observation (w_old before admission is the occupant's
     #    initial window, the padded engine's ring-init) -------------------
     q_obs, qdot, mu, ecn, theta_obs, wold_delay = _observe(
         sim.law, cfg_slot, static, cfg, ptr, hist_q, hist_out, path, valid,
         tf_steps, state.rtt_steps, tau, b_hop)
-    w_old = hist_w[torch.remainder(ptr - wold_delay, D), sidx]
+    w_old = _ring(hist_w, torch.remainder(ptr - wold_delay, D), sidx)
     w_old = torch.where(t - wold_delay >= state.admit_t, w_old, nic * tau)
     upd = active & (t_sec >= state.next_update)
     dt_obs = torch.clamp_min(t_sec - state.last_update, dt)
@@ -717,10 +819,10 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
                             state.remaining)
     done = active & (remaining <= 0.0)
     fct = state.fct
-    fct[torch.where(done, state.slot_flow, N)] = torch.where(
-        done, t_sec + tau / 2.0 - state.start, float("nan"))
+    _put(fct, torch.where(done, state.slot_flow, N), torch.where(
+        done, t_sec + tau / 2.0 - state.start, float("nan")))
     # hold the slot until the flow's tail has drained into the queues
-    hold = torch.amax(torch.where(valid, tf_steps, 0), dim=1)
+    hold = torch.amax(torch.where(valid, tf_steps, 0), dim=-1)
     expire = (occupied & (t_sec >= state.stop) &
               (state.free_at == _INT32_MAX) & ~done)
     free_at = torch.where(done | expire, t + hold + 1, state.free_at)
@@ -738,16 +840,22 @@ def make_slot_sim(topo: Topology, sched: FlowSchedule,
                   law_name: Union[str, Law], slots: int,
                   law_cfg: Optional[LawConfig] = None,
                   cfg: Optional[SimConfig] = None,
-                  backend: str = "reference", device="cuda") -> SlotSim:
-    """Bind a schedule to a pool of ``slots`` and a backend on ``device``
-    (the ``SlotSim`` that ``simulate_slots`` runs)."""
+                  backend: str = "reference", device="cuda",
+                  expected_flows: float = 1.0) -> SlotSim:
+    """Bind a batch of schedules ([B, N, ...] leaves; ``batch_of_one`` for
+    one) to a pool of ``slots`` and a backend on ``device``: the
+    ``SlotSim`` that ``simulate_slots_batch`` runs. ``law_cfg`` is a
+    stacked LawConfig (leading batch axis on every tensor leaf), or None
+    for the paper default with ``expected_flows``."""
     _check_backend(backend)
     cfg = cfg or SimConfig()
     dev = resolve_device(device)
     law = _resolve_law(law_name, backend)
     topo, sched = _to(topo, dev), _to(sched, dev)
-    law_cfg = _to(law_cfg, dev) if law_cfg is not None \
-        else default_law_config(sched)
+    B = int(sched.start.shape[0])
+    law_cfg = (_batch_law_cfg(_to(law_cfg, dev), B, backend)
+               if law_cfg is not None else
+               default_law_config(sched, expected_flows=expected_flows))
     return SlotSim(topo, sched, law, law_cfg, cfg, int(slots), backend,
                    _make_static(topo, cfg.dt),
                    sched.start.cpu().numpy().astype(np.float32))
@@ -762,28 +870,302 @@ def simulate_slots(topo: Topology, sched: FlowSchedule,
                    checkpoint=None, faults=None, guard: bool = False,
                    device="cuda"):
     """Run a schedule through a bounded pool of ``slots`` active slots on
-    ``device``. Returns (final ``SlotState``, ``Record`` or None);
-    ``final.fct`` is [N] in SCHEDULE order. With ``slots >= N`` this
-    reproduces ``simulate`` on ``network.schedule_as_flows(sched)`` bit
-    for bit; smaller pools delay the admission of flows that arrive
-    while the pool is full. ``law_cfg`` tensors with an [N] flow axis are
-    gathered into slots on admission."""
-    if bw_fn is not None:
-        _unported("bw_fn", 8)
+    ``device``: a batch of one through ``simulate_slots_batch``. Returns
+    (final ``SlotState``, ``Record`` or None); ``final.fct`` is [N] in
+    SCHEDULE order. With ``slots >= N`` this reproduces ``simulate`` on
+    ``network.schedule_as_flows(sched)`` bit for bit; smaller pools delay
+    the admission of flows that arrive while the pool is full.
+    ``law_cfg`` tensors with an [N] flow axis are gathered into slots on
+    admission."""
     if impair is not None:
         _unported("impair", 10)
     if chunk is not None:
         _unported("chunk streaming (chunk=)", 11)
     if checkpoint is not None or faults is not None or guard:
         _unported("checkpoint / faults / guard", 11)
-    sim = make_slot_sim(topo, sched, law_name, slots, law_cfg, cfg, backend,
-                        device)
+    state, recs = simulate_slots_batch(
+        topo, batch_of_one(sched), law_name, slots,
+        None if law_cfg is None else batch_of_one(law_cfg), cfg,
+        bw_fn=bw_fn, record=record, backend=backend, device=device)
+    return scenario(state, 0), (None if recs is None else scenario(recs, 0))
+
+
+# --------------------------------------------------------------------------
+# Batched scenario engine
+# --------------------------------------------------------------------------
+
+def _pad_rows(x: torch.Tensor, add: int, fill, dtype) -> torch.Tensor:
+    """``x`` (as ``dtype``) with ``add`` rows of ``fill`` appended."""
+    x = x.to(dtype)
+    pad = torch.full((add,) + tuple(x.shape[1:]), fill, dtype=dtype,
+                     device=x.device)
+    return torch.cat([x, pad])
+
+
+def pad_flows(flows: Flows, n: int, pad_queue: int) -> Flows:
+    """Pad a Flows batch to ``n`` flows with inert entries.
+
+    Padded flows never activate (``start = inf``), traverse only the
+    sentinel queue ``pad_queue`` (== topo.num_queues), and carry ``size =
+    inf`` so FCT accounting (which keys on finite sizes) ignores them.
+    """
+    F = int(flows.tau.shape[0])
+    add = n - F
+    if add < 0:
+        raise ValueError(f"cannot pad {F} flows down to {n}")
+    if add == 0:
+        return flows
+    i32, f32, inf = torch.int32, torch.float32, float("inf")
+    return Flows(
+        path=_pad_rows(flows.path, add, pad_queue, i32),
+        tf_steps=_pad_rows(flows.tf_steps, add, 1, i32),
+        rtt_steps=_pad_rows(flows.rtt_steps, add, 1, i32),
+        tau=_pad_rows(flows.tau, add, 20e-6, f32),
+        nic_rate=_pad_rows(flows.nic_rate, add, 1e9, f32),
+        size=_pad_rows(flows.size, add, inf, f32),
+        start=_pad_rows(flows.start, add, inf, f32),
+        stop=_pad_rows(flows.stop, add, inf, f32),
+        weight=_pad_rows(flows.weight, add, 1.0, f32),
+    )
+
+
+def stack_flows(flows_list: List[Flows], pad_queue: int) -> Flows:
+    """Stack scenarios along a new leading batch axis, padding each to the
+    largest flow count with inert flows (``pad_flows``) and to the
+    largest hop count with sentinel hops (``types.pad_hops``)."""
+    n = max(int(f.tau.shape[0]) for f in flows_list)
+    h = max(int(f.path.shape[-1]) for f in flows_list)
+    return stack_trees([pad_flows(pad_hops(f, h, pad_queue), n, pad_queue)
+                        for f in flows_list])
+
+
+def _leaf_tensor(x, device) -> torch.Tensor:
+    """A LawConfig leaf as a tensor: Python floats float32, ints int32,
+    flags bool (``jnp.asarray``'s dtypes); tensors as they are."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, bool):
+        return torch.tensor(x, device=device)
+    if isinstance(x, int):
+        return torch.tensor(x, dtype=torch.int32, device=device)
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def stack_law_configs(cfgs: List[LawConfig]) -> LawConfig:
+    """Stack per-scenario LawConfigs along a new leading axis (scalars become
+    [B] vectors; None leaves must be None everywhere)."""
+    dev = next((x.device for c in cfgs for x in c
+                if isinstance(x, torch.Tensor)), torch.device("cpu"))
+
+    def stack(xs):
+        if all(x is None for x in xs):
+            return None
+        if any(x is None for x in xs):
+            raise ValueError("a LawConfig leaf is None in some scenarios "
+                             "and not in others")
+        if isinstance(xs[0], tuple):
+            return type(xs[0])(*[stack(list(ys)) for ys in zip(*xs)]) \
+                if hasattr(xs[0], "_fields") else \
+                tuple(stack(list(ys)) for ys in zip(*xs))
+        return torch.stack([_leaf_tensor(x, dev) for x in xs])
+
+    return type(cfgs[0])(*[stack(list(xs)) for xs in zip(*cfgs)])
+
+
+def pad_schedule(sched: FlowSchedule, n: int,
+                 pad_queue: int) -> FlowSchedule:
+    """Pad a schedule to ``n`` flows with inert tail entries.
+
+    Same inert values as ``pad_flows`` plus ``start = inf`` — the sorted
+    order is preserved (inf sorts last) and the admission cursor never
+    reaches the padding, so padded scenarios in one batch share a flow
+    count without ever admitting phantom flows. ``order`` pads with -1.
+    """
+    N = int(sched.start.shape[0])
+    add = n - N
+    if add < 0:
+        raise ValueError(f"cannot pad {N} schedule entries down to {n}")
+    if add == 0:
+        return sched
+    flows = pad_flows(Flows(*sched[:-1]), n, pad_queue)
+    return FlowSchedule(*flows, order=_pad_rows(sched.order, add, -1,
+                                                torch.int32))
+
+
+def stack_flow_schedules(scheds: List[FlowSchedule],
+                         pad_queue: int) -> FlowSchedule:
+    """Stack schedules along a new leading batch axis, padding each to the
+    largest flow count with inert entries (``pad_schedule``) and to the
+    largest hop count with sentinel hops (``types.pad_hops``)."""
+    n = max(int(s.start.shape[0]) for s in scheds)
+    h = max(int(s.path.shape[-1]) for s in scheds)
+    return stack_trees([pad_schedule(pad_hops(s, h, pad_queue), n,
+                                      pad_queue) for s in scheds])
+
+
+def _check_batch_args(bw_fn, bw_params, impair_params, devices, dev):
+    """The arguments of the batched entry points that belong to later
+    ROADMAP items raise, naming the item; ``devices`` beyond one device
+    is the sharded sweep (item 12; None where it is ignored)."""
+    if bw_fn is not None or bw_params is not None:
+        _unported("bw_fn / bw_params", 8)
+    if impair_params is not None:
+        _unported("impair_params", 10)
+    if devices is None:
+        return
+    n = ((torch.cuda.device_count() if dev.type == "cuda" else 1)
+         if devices == "auto" else int(devices))
+    if n > 1:
+        _unported(f"devices={devices!r} (a sweep sharded over devices)", 12)
+
+
+def _batch_law_cfg(law_cfg: LawConfig, batch: int, backend: str):
+    """A stacked LawConfig for the batched tick: per-scenario scalars [B]
+    become [B, 1] so they broadcast over flows; per-flow leaves [B, F]
+    stay. A fused backend needs one concrete gamma (its kernels take it
+    as a launch argument), so a stacked gamma raises as in ``repro``."""
+    if backend == "fused" and isinstance(law_cfg.gamma, torch.Tensor):
+        raise ValueError("fused law backends need a concrete (non-traced) "
+                         "gamma; use backend='reference' for gamma sweeps")
+
+    def norm(x):
+        if isinstance(x, torch.Tensor):
+            if x.dim() == 0 or x.shape[0] != batch:
+                raise ValueError(f"a stacked LawConfig leaf has shape "
+                                 f"{tuple(x.shape)}; expected a leading "
+                                 f"batch axis of {batch}")
+            return x.reshape(batch, 1) if x.dim() == 1 else x
+        return x
+    return type(law_cfg)(*[norm(x) for x in law_cfg])
+
+
+def scenarios(sim: SlotSim, lo: int, hi: int) -> SlotSim:
+    """Of a ``SlotSim``: the batch of its scenarios ``lo:hi`` (views of the
+    schedules, the law config and the host arrival times; the topology is
+    shared)."""
+    def part(x):
+        return tree_map(lambda v: v[lo:hi], x)
+    return sim._replace(sched=part(sim.sched), law_cfg=part(sim.law_cfg),
+                        start_host=part(sim.start_host))
+
+
+def _pad_inv(state: SlotState, width: int, fill: int) -> SlotState:
+    """The reference gather table widened to ``width`` with the sentinel
+    index (so runs of different widths join on the batch axis)."""
+    inv = state.inv
+    if inv is None or inv.shape[-1] == width:
+        return state
+    pad = inv.new_full(tuple(inv.shape[:-1]) + (width - inv.shape[-1],),
+                       fill)
+    return state._replace(inv=torch.cat([inv, pad], -1))
+
+
+def simulate_batch(topo: Topology, flows: Flows, law_name: Union[str, Law],
+                   law_cfg: Optional[LawConfig] = None,
+                   cfg: Optional[SimConfig] = None,
+                   bw_fn=None, bw_params=None, alloc_fn=None,
+                   record: bool = True, backend: str = "reference",
+                   expected_flows: float = 1.0, devices=None,
+                   impair_params=None, device="cuda"):
+    """Run a sweep of scenarios on ``device`` as one batch through the
+    padded engine.
+
+    ``flows`` carries a leading batch axis B on every leaf (build it with
+    ``stack_flows``); ``law_cfg`` likewise (``stack_law_configs``), or
+    None to derive the paper-default config per scenario with
+    ``expected_flows``. Topology, SimConfig and the law are shared: every
+    scenario advances in lockstep through one tick loop whose ops each
+    cover the whole batch (on the fused backend one K1/K2 and one K3
+    launch per tick for all B). Each scenario's trajectory is bit for bit
+    its own run through ``simulate``.
+
+    ``bw_fn``/``bw_params`` (ROADMAP Queue 1 item 8), ``alloc_fn`` (13),
+    ``impair_params`` (10) and ``devices`` > 1 (12) raise
+    ``NotImplementedError``. Returns (final_states, records) with a
+    leading batch axis.
+    """
+    if alloc_fn is not None:
+        _unported("alloc_fn", 13)
+    dev = resolve_device(device)
+    _check_batch_args(bw_fn, bw_params, impair_params, devices, dev)
+    _check_backend(backend)
+    cfg = cfg or SimConfig()
+    law = _resolve_law(law_name, backend)
+    topo, flows = _to(topo, dev), _to(flows, dev)
+    B = int(flows.tau.shape[0])
+    law_cfg = (_batch_law_cfg(_to(law_cfg, dev), B, backend)
+               if law_cfg is not None else
+               default_law_config(flows, expected_flows=expected_flows))
+    Q = topo.num_queues
+    incidence = inv = None
+    if backend == "fused":
+        incidence = build_incidence(flows, Q)
+    else:
+        inv, _ = build_csr_gather(flows.path, Q, max_degree(flows.path, Q))
+    sim = FluidSim(topo, flows, law, law_cfg, cfg, backend, incidence,
+                   _make_static(topo, cfg.dt), inv)
+    with torch.no_grad():
+        state = init_state(sim)
+        audit_carry_dtypes(state)
+        return _run(sim, state, step, record)
+
+
+def simulate_slots_batch(topo: Topology, scheds: FlowSchedule,
+                         law_name: Union[str, Law], slots: int,
+                         law_cfg: Optional[LawConfig] = None,
+                         cfg: Optional[SimConfig] = None,
+                         bw_fn=None, bw_params=None, record: bool = True,
+                         backend: str = "reference",
+                         expected_flows: float = 1.0, devices=None,
+                         sequential: bool = False, impair_params=None,
+                         device="cuda"):
+    """Batched twin of ``simulate_slots``: B schedules (a leading batch
+    axis on every leaf, ``stack_flow_schedules``) through one pool size
+    ``slots`` on ``device``. ``law_cfg`` and the unported arguments as in
+    ``simulate_batch``. Returns (final ``SlotState``s, records) with a
+    leading batch axis; ``fct`` rows [B, N] are in each scenario's
+    schedule order.
+
+    ``sequential=False`` advances the scenarios in lockstep, one op (or
+    one kernel launch) per step for the whole batch; the admit/retire
+    pass runs on a tick where any scenario has an arrival due and not
+    yet admitted. ``sequential=True`` runs them one after another, as
+    ``repro``'s ``lax.scan`` over scenarios. Both give each scenario its
+    own ``simulate_slots`` trajectory bit for bit.
+
+    ``backend="megakernel"`` runs ``megakernel.simulate_slots_mega``: on
+    the card K4 with one thread block per scenario, one launch per 64
+    ticks for the whole batch (``sequential=False``), or one block per
+    launch, scenario after scenario (``sequential=True``). Both run the
+    gated tick: ``repro`` drops the gate under ``vmap`` only because a
+    ``lax.cond`` there runs both branches, and a K4 block branches on its
+    own scenario. ``devices`` is ignored with ``sequential``, as in
+    ``repro``.
+    """
+    dev = resolve_device(device)
+    _check_batch_args(bw_fn, bw_params, impair_params,
+                      None if sequential else devices, dev)
+    sim = make_slot_sim(topo, scheds, law_name, slots, law_cfg, cfg,
+                        backend, dev, expected_flows)
+    B, N = int(sim.sched.start.shape[0]), _slot_n(sim)
     with torch.no_grad():
         if backend == "megakernel":
             from .megakernel import simulate_slots_mega
-            state, recs = simulate_slots_mega(sim, record=record)
+            state, recs = simulate_slots_mega(sim, record=record,
+                                              sequential=sequential)
         else:
-            state = init_slot_state(sim)
-            audit_carry_dtypes(state)
-            state, recs = _run(sim, state, slot_step, record)
-    return state._replace(fct=state.fct[:_slot_n(sim)]), recs
+            parts = ([scenarios(sim, b, b + 1) for b in range(B)]
+                     if sequential else [sim])
+            outs = []
+            for part in parts:
+                state = init_slot_state(part)
+                audit_carry_dtypes(state)
+                outs.append(_run(part, state, slot_step, record))
+            finals = [o[0] for o in outs]
+            if finals[0].inv is not None:
+                width = max(int(f.inv.shape[-1]) for f in finals)
+                fill = int(sim.slots) * int(sim.sched.path.shape[-1])
+                finals = [_pad_inv(f, width, fill) for f in finals]
+            state = cat_trees(finals)
+            recs = cat_trees([o[1] for o in outs]) if record else None
+    return state._replace(fct=state.fct[..., :N]), recs

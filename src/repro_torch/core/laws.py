@@ -3,8 +3,9 @@ the two PowerTCP laws.
 
 Every law is a pair ``init(nflows, cfg) -> state`` and
 ``update(state, obs, w, rate_cap, upd_mask, cfg, t) -> (state, w, rate_cap)``
-on per-flow tensors; the engines call ``update`` every tick and a law acts
-only where ``upd_mask`` is set.
+on per-flow tensors ([F], or [B, F] for a batch of scenarios, per-hop
+[..., F, H]); the engines call ``update`` every tick and a law acts only
+where ``upd_mask`` is set.
 
   powertcp        Algorithm 1 (INT feedback; per-hop max normalized power)
   theta_powertcp  Algorithm 2 (RTT + RTT-gradient only)
@@ -84,7 +85,7 @@ def norm_power_int(obs: PathObs, cfg: LawConfig) -> torch.Tensor:
     Gamma' = (qdot + mu) * (q + b*tau), e = b^2 * tau, Gamma'_norm = Gamma'/e.
     Written in ``repro``'s association: base = (b*tau)*b and an explicit
     reciprocal multiply."""
-    tau = cfg.tau[:, None]
+    tau = cfg.tau[..., None]
     current = obs.qdot + obs.mu                      # [F,H] bytes/s
     bdp = obs.b * tau                                # [F,H] bytes (b*tau)
     voltage = obs.q + bdp                            # [F,H] bytes
@@ -92,7 +93,7 @@ def norm_power_int(obs: PathObs, cfg: LawConfig) -> torch.Tensor:
     power = current * voltage
     g = torch.where(obs.valid,
                     power * (1.0 / torch.clamp_min(base, 1.0)), 0.0)
-    return torch.amax(g, dim=1)                      # [F]
+    return torch.amax(g, dim=-1)                     # [F]
 
 
 def norm_power_theta(theta: torch.Tensor, theta_prev: torch.Tensor,

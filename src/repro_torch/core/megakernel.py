@@ -27,9 +27,18 @@ Two lowerings, chosen by ``impl``:
     looped per tick (``kernels.ref.fused_tick_block_ref``). It is the
     counterpart of ``repro``'s XLA lowering, and what the CPU runs;
   * ``"cuda"``: K4 (``kernels/fused_tick.py``, ``csrc/fused_tick.cu``), one
-    launch per block of K ticks, with the gated busy tick and the law's
-    arithmetic written by hand for PowerTCP and theta-PowerTCP. The host
-    uploads the due table once and reads nothing back between blocks.
+    launch per block of K ticks, with the busy tick (gated or not, as the
+    plain tick) and the law's arithmetic written by hand for PowerTCP and
+    theta-PowerTCP. The host uploads the due table once and reads nothing
+    back between blocks.
+
+The carry is a batch's, as the slot engine's is ([B, ...] leaves; one
+schedule runs as a batch of one). K4 takes it in one launch of B thread
+blocks, one scenario each; the plain tick runs every op over the batch,
+and the admit/retire pass on a tick where any scenario needs it (exact
+for the others: the pass changes nothing in a scenario with nothing due
+and nothing freeable). Scenarios share nothing, so a scenario's
+trajectory is its own run's whatever the batch.
 
 Both produce the reference backend's trajectories bit for bit: queue
 trace, FCTs, windows, per-slot rates and rings
@@ -45,11 +54,11 @@ import torch
 from ..kernels import ops, ref
 from ..kernels.fused_tick import DEFAULT_BLOCK, TickParams
 from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
-                                      integrate_arrivals,
-                                      ordered_scatter_add, suggest_maxdeg)
+                                      integrate_arrivals, max_degree,
+                                      suggest_maxdeg)
 from . import fluid
 from . import laws as _laws
-from .types import MTU, PathObs, Record, SlotState
+from .types import MTU, PathObs, Record, SlotState, cat_trees
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -61,8 +70,8 @@ K4_LAWS = {"powertcp": (_laws.powertcp_update, 0),
 class PendingFCT(NamedTuple):
     """Completions awaiting their write into the FCT table; ``flow == N``
     marks an empty lane."""
-    flow: torch.Tensor              # [S] int32 schedule index (N = empty)
-    val: torch.Tensor               # [S] float32 completion time
+    flow: torch.Tensor              # [B, S] int32 schedule index (N = empty)
+    val: torch.Tensor               # [B, S] float32 completion time
 
 
 class MegaCarry(NamedTuple):
@@ -73,47 +82,58 @@ class MegaCarry(NamedTuple):
     flag. The hold and the table change only on admit/retire ticks."""
     state: SlotState
     pend: PendingFCT
-    hold: torch.Tensor              # [S] int32 largest valid hop delay
-    inv: torch.Tensor               # [Q+1, maxdeg] int32 gather table
-    ovf: torch.Tensor               # bool: some queue exceeds maxdeg
+    hold: torch.Tensor              # [B, S] int32 largest valid hop delay
+    inv: torch.Tensor               # [B, Q+1, maxdeg] int32 gather table
+    ovf: torch.Tensor               # [B] bool: some queue exceeds maxdeg
 
 
 def _due_table(sched, steps: int, dt: float) -> np.ndarray:
-    """[T] int32 due-arrival counts on the host: ``due[t]`` is the number
-    of schedule entries with ``start <= t*dt`` (float32), the count the
-    slot engine's admission takes at tick t."""
-    start = sched.start.cpu().numpy().astype(np.float32)
+    """[B, T] int32 due-arrival counts on the host: ``due[b, t]`` is the
+    number of scenario b's schedule entries with ``start <= t*dt``
+    (float32), the count the slot engine's admission takes at tick t."""
     t_sec = np.arange(steps, dtype=np.int32).astype(np.float32) \
         * np.float32(dt)
-    return np.searchsorted(start, t_sec, side="right").astype(np.int32)
+    return np.stack([np.searchsorted(row, t_sec, side="right")
+                     for row in sched.start.cpu().numpy().astype(np.float32)
+                     ]).astype(np.int32)
+
+
+def _suggest_maxdeg(sched, num_queues: int, slots: int) -> int:
+    """The gather table's width for a batch: the largest of its
+    scenarios' ``suggest_maxdeg``."""
+    return max(suggest_maxdeg(p, num_queues, slots)
+               for p in sched.path.cpu().numpy())
 
 
 def _flush_pending(fct: torch.Tensor, pend: PendingFCT, mask, N: int):
-    """Write the masked pending completions into ``fct`` (in place; [N+1],
-    other rows land on the drop cell N) and empty their lanes."""
-    fct[torch.where(mask, pend.flow, N)] = torch.where(mask, pend.val,
-                                                       float("nan"))
+    """Write the masked pending completions into ``fct`` (in place; [B,
+    N+1], other rows land on the drop cell N) and empty their lanes."""
+    fluid._put(fct, torch.where(mask, pend.flow, N),
+               torch.where(mask, pend.val, float("nan")))
     pend = PendingFCT(torch.where(mask, N, pend.flow),
                       torch.where(mask, float("nan"), pend.val))
     return fct, pend
 
 
-def _per_flow(x, n: int, dev) -> torch.Tensor:
-    """A law-config field as a contiguous float32 [n] tensor."""
-    if isinstance(x, torch.Tensor) and x.dim() == 1 and x.shape[0] == n:
-        return x.to(device=dev, dtype=torch.float32).contiguous()
-    return torch.full((n,), float(x), dtype=torch.float32, device=dev)
+def _per_flow(x, B: int, n: int, dev) -> torch.Tensor:
+    """A batch's law-config field (a scalar, per scenario [B, 1] or per
+    flow [B, n]) as a contiguous float32 [B, n] tensor."""
+    return torch.as_tensor(x, dtype=torch.float32, device=dev).expand(
+        B, n).contiguous()
 
 
 def _k4_gamma(gamma):
     """(gamma, 1 - gamma) as the float32 values the plain law uses: a
     Python gamma enters as float32(gamma) and float32(1.0 - gamma); a
-    one-element tensor computes 1 - gamma in float32."""
+    tensor (one value for the whole batch) computes 1 - gamma in
+    float32."""
     if isinstance(gamma, torch.Tensor):
-        if gamma.numel() != 1:
-            raise ValueError("the megakernel's K4 needs one concrete gamma; "
-                             "use backend='reference' for gamma sweeps")
-        g = np.float32(gamma.item())
+        vals = torch.unique(gamma.reshape(-1))
+        if vals.numel() != 1:
+            raise ValueError("the megakernel's K4 takes one gamma for the "
+                             "batch; use backend='reference' for gamma "
+                             "sweeps")
+        g = np.float32(vals.item())
         return float(g), float(np.float32(1.0) - g)
     return float(np.float32(gamma)), float(np.float32(1.0 - gamma))
 
@@ -129,7 +149,7 @@ def _k4_params(sim, maxdeg: int) -> TickParams:
             f"Queue 1 item 8")
     topo, sched, cfg, static = sim.topo, sim.sched, sim.cfg, sim.static
     dev = sched.start.device
-    N = fluid._slot_n(sim)
+    B, N = int(sched.start.shape[0]), fluid._slot_n(sim)
     gamma, one_minus_gamma = _k4_gamma(sim.law_cfg.gamma)
 
     def i32(x):
@@ -155,8 +175,8 @@ def _k4_params(sim, maxdeg: int) -> TickParams:
         s_rtt=i32(sched.rtt_steps), s_tau=f32(sched.tau),
         s_nic=f32(sched.nic_rate), s_start=f32(sched.start),
         s_stop=f32(sched.stop), s_size=f32(sched.size),
-        c_beta=_per_flow(sim.law_cfg.beta, N, dev),
-        c_tau=_per_flow(sim.law_cfg.tau, N, dev),
+        c_beta=_per_flow(sim.law_cfg.beta, B, N, dev),
+        c_tau=_per_flow(sim.law_cfg.tau, B, N, dev),
         bw=f32(static.bw), buf=f32(static.buf), sw_table=sw_table,
         switch_buffer=f32(topo.switch_buffer),
         switch_of_queue=i32(topo.switch_of_queue))
@@ -164,25 +184,28 @@ def _k4_params(sim, maxdeg: int) -> TickParams:
 
 def make_tick(sim, gate: bool = True, quiet: bool = False,
               maxdeg: Optional[int] = None) -> Callable:
-    """Build the plain megakernel tick: ``tick(carry, due_t) -> (carry',
-    Record)``, ``due_t`` the due count of the tick (an int).
+    """Build the plain megakernel tick of a batch (``sim`` a
+    ``fluid.SlotSim``): ``tick(carry, due_t) -> (carry', Record)``,
+    ``due_t`` the [B] int32 due counts of the tick.
 
     The arithmetic is ``fluid.slot_step``'s, with the restructurings of
     the module docstring; the law runs through ``sim.law.update`` against
     the slot-gathered config. ``gate`` runs the admit/retire pass only on
-    ticks with an arrival due and not yet admitted or a slot freeable
-    (without it, every tick). ``quiet`` short-circuits ticks with an empty
-    pool and nothing due to the queue drain and the ring writes (exact
-    for laws with ``masked_updates``). ``maxdeg`` overrides the gather
-    table's width (default ``suggest_maxdeg`` of the schedule).
+    ticks with an arrival due and not yet admitted or a slot freeable, in
+    any scenario (without it, every tick). ``quiet`` short-circuits ticks
+    with every pool empty and nothing due to the queue drain and the ring
+    writes (exact for laws with ``masked_updates``). ``maxdeg`` overrides
+    the gather table's width (default the batch's largest
+    ``suggest_maxdeg``).
 
     ``tick.init_carry(state0)`` builds the matching ``MegaCarry``;
     ``tick.k4_params()`` the inputs of K4 (raises for a law without a K4
-    path).
+    path); ``tick.gate`` is the ``gate`` K4 runs with.
     """
     topo, cfg, law, static = sim.topo, sim.cfg, sim.law, sim.static
     sched = sim.sched
     dev = sched.start.device
+    B = int(sched.start.shape[0])
     S = int(sim.slots)
     N = fluid._slot_n(sim)
     Q = int(topo.num_queues)
@@ -190,36 +213,40 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
     D = int(cfg.hist)
     dt = cfg.dt
     if maxdeg is None:
-        maxdeg = suggest_maxdeg(sched.path.cpu().numpy(), Q, S)
+        maxdeg = _suggest_maxdeg(sched, Q, S)
     sidx = torch.arange(S, device=dev)
     bw, buf = static.bw, static.buf
 
     def slot_hold(st):
-        return torch.amax(torch.where(st.path < Q, st.tf_steps, 0), dim=1)
+        return torch.amax(torch.where(st.path < Q, st.tf_steps, 0), dim=-1)
+
+    def gather_table(path):
+        inv, ovf = build_csr_gather(path, Q, maxdeg)
+        return inv.to(torch.int32), ovf
 
     def init_carry(state0: SlotState) -> MegaCarry:
-        inv0, ovf0 = build_csr_gather(state0.path, Q, maxdeg)
+        inv0, ovf0 = gather_table(state0.path)
         return MegaCarry(
             state=state0._replace(
-                hist_q=torch.zeros((D, 3 * Q1), dtype=torch.float32,
+                hist_q=torch.zeros((B, D, 3 * Q1), dtype=torch.float32,
                                    device=dev),
                 hist_out=None, inv=None, incidence=None),
             pend=PendingFCT(
-                torch.full((S,), N, dtype=torch.int32, device=dev),
-                torch.full((S,), float("nan"), dtype=torch.float32,
+                torch.full((B, S), N, dtype=torch.int32, device=dev),
+                torch.full((B, S), float("nan"), dtype=torch.float32,
                            device=dev)),
-            hold=slot_hold(state0), inv=inv0.to(torch.int32), ovf=ovf0)
+            hold=slot_hold(state0), inv=inv0, ovf=ovf0)
 
-    def admit_retire(st, pend, inv, ovf, due_t: int):
+    def admit_retire(st, pend, inv, ovf, due_t):
         """Retire drained slots (flushing their parked FCTs), admit due
-        arrivals, and rebuild the gather table if the cursor moved."""
+        arrivals, and rebuild the gather tables if a cursor moved (a
+        scenario whose cursor did not move gets its table again)."""
         freeable = ((st.slot_flow < N) & (st.t >= st.free_at) &
                     (pend.flow < N))
         fct, pend = _flush_pending(st.fct, pend, freeable, N)
         st2, occupied = fluid._admit_retire(sim, st._replace(fct=fct), due_t)
-        if bool(st2.cursor > st.cursor):
-            inv, ovf = build_csr_gather(st2.path, Q, maxdeg)
-            inv = inv.to(torch.int32)
+        if bool(torch.any(st2.cursor > st.cursor)):
+            inv, ovf = gather_table(st2.path)
         return st2, pend, occupied, slot_hold(st2), inv, ovf
 
     def integrate_queues(st, arr):
@@ -228,7 +255,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         when it reads the ring."""
         caps = fluid._buffer_caps(topo, st.q, static)
         out, q_new = integrate_arrivals(arr, st.q, bw, caps, dt=dt)
-        row = torch.cat([q_new, out, (q_new - st.q) * (1.0 / dt)])
+        row = torch.cat([q_new, out, (q_new - st.q) * (1.0 / dt)], -1)
         return q_new, out, row
 
     def window_clamp(w, nic, tau, theta_now):
@@ -237,30 +264,30 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
 
     def theta_of(st, q):
         valid = st.path < Q
-        return st.tau + fluid._hop_sum(
-            torch.where(valid, q[st.path] / bw[st.path], 0.0))
+        return st.tau + fluid._hop_sum(torch.where(
+            valid, fluid._take(q, st.path) / bw[st.path], 0.0))
 
     def quiet_tick(c, ptr):
-        """Empty pool, nothing due: the queues drain, the rings advance
-        and the window clamp runs; nothing else can change."""
+        """Every pool empty, nothing due: the queues drain, the rings
+        advance and the window clamp runs; nothing else can change."""
         st, pend, hold, inv, ovf = c
         q_new, out, row = integrate_queues(st, torch.zeros_like(st.q))
         w = window_clamp(st.w, st.nic_rate, st.tau, theta_of(st, st.q))
         lam = torch.zeros_like(st.w)
-        st.hist_lam[ptr] = lam
-        st.hist_w[ptr] = st.w
-        st.hist_q[ptr] = row
+        st.hist_lam[:, ptr] = lam
+        st.hist_w[:, ptr] = st.w
+        st.hist_q[:, ptr] = row
         st = st._replace(t=st.t + 1, w=w, q=q_new, out_rate=out)
-        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        zero = torch.zeros((B,), dtype=torch.float32, device=dev)
         return (st, pend, hold, inv, ovf, zero, zero,
-                torch.zeros((), dtype=torch.int32, device=dev), lam)
+                torch.zeros((B,), dtype=torch.int32, device=dev), lam)
 
-    def busy_tick(c, ptr, due_t: int):
+    def busy_tick(c, ptr, due_t):
         st, pend, hold, inv, ovf = c
         t = st.t
         t_sec = fluid._tick_time(t, dt)
         need = (not gate) or bool(
-            (due_t > st.cursor) |
+            torch.any(due_t > st.cursor) |
             torch.any((st.slot_flow < N) & (t >= st.free_at)))
         if need:
             st, pend, occupied, hold, inv, ovf = admit_retire(
@@ -280,36 +307,40 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         lam = torch.where(active, torch.minimum(
             torch.minimum(st.w / theta_now, st.rate_cap), nic), 0.0)
         hist_lam, hist_w, hist_q = st.hist_lam, st.hist_w, st.hist_q
-        hist_lam[ptr] = lam
-        hist_w[ptr] = st.w
+        hist_lam[:, ptr] = lam
+        hist_w[:, ptr] = st.w
 
-        # -- queue update: in-order gather table, or the in-order walk of
-        #    the hop list when a queue outgrows the table -----------------
-        lam_del = hist_lam[torch.remainder(ptr - tf_steps, D), sidx[:, None]]
-        lam_del = torch.where(t - tf_steps >= st.admit_t[:, None], lam_del,
-                              0.0)
+        # -- queue update: in-order gather table, or, when a queue outgrows
+        #    the table, the in-order walk of the hop list (a table as wide
+        #    as the busiest queue) -----------------------------------------
+        lam_del = fluid._ring(hist_lam, torch.remainder(ptr - tf_steps, D),
+                              sidx[:, None])
+        lam_del = torch.where(t - tf_steps >= st.admit_t[..., None],
+                              lam_del, 0.0)
         contrib = torch.where(valid, lam_del, 0.0)
-        if bool(ovf):
-            arr = ordered_scatter_add(torch.zeros_like(st.q), path, contrib)
-        else:
-            arr = csr_gather_arrivals(contrib, inv, torch.zeros_like(st.q))
+        table = inv
+        if bool(torch.any(ovf)):
+            table, _ = build_csr_gather(path, Q, max_degree(path, Q))
+        arr = csr_gather_arrivals(contrib, table, torch.zeros_like(st.q))
         q_new, out, row = integrate_queues(st, arr)
-        hist_q[ptr] = row
+        hist_q[:, ptr] = row
 
         # -- delayed observation: one packed ring --------------------------
-        tb_steps = torch.clamp(st.rtt_steps[:, None] - tf_steps, 1, D - 2)
+        tb_steps = torch.clamp(st.rtt_steps[..., None] - tf_steps, 1, D - 2)
         ohidx = torch.remainder(ptr - tb_steps, D)
-        q_obs = hist_q[ohidx, path]
-        mu = hist_q[ohidx, path + Q1] if law.uses_mu else None
-        qdot = hist_q[ohidx, path + 2 * Q1] if law.uses_qdot else None
+        q_obs = fluid._ring(hist_q, ohidx, path)
+        mu = fluid._ring(hist_q, ohidx, path + Q1) if law.uses_mu else None
+        qdot = (fluid._ring(hist_q, ohidx, path + 2 * Q1)
+                if law.uses_qdot else None)
         ecn = (torch.amax(torch.where(
-            valid, fluid._marking(q_obs, buf[path], cfg_slot), 0.0), dim=1)
+            valid, fluid._marking(q_obs, buf[path], cfg_slot), 0.0), dim=-1)
             if law.uses_ecn else None)
         theta_obs = tau + fluid._hop_sum(torch.where(valid, q_obs / b_hop,
                                                      0.0))
         wold_delay = torch.clamp(torch.round(theta_obs / static.dt)
                                  .to(torch.int32), 1, D - 2)
-        w_old = hist_w[torch.remainder(ptr - wold_delay, D), sidx]
+        w_old = fluid._ring(hist_w, torch.remainder(ptr - wold_delay, D),
+                            sidx)
         w_old = torch.where(t - wold_delay >= st.admit_t, w_old, nic * tau)
         upd = active & (t_sec >= st.next_update)
         dt_obs = torch.clamp_min(t_sec - st.last_update, dt)
@@ -341,21 +372,24 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
             remaining=remaining, free_at=free_at, next_update=next_update,
             last_update=last_update, law=law_state)
         return (st, pend, hold, inv, ovf,
-                torch.sum(torch.where(active, w, 0.0)), torch.sum(lam),
-                torch.sum(active, dtype=torch.int32), lam)
+                fluid._xla_sum(torch.where(active, w, 0.0)),
+                fluid._xla_sum(lam),
+                torch.sum(active, dim=-1, dtype=torch.int32), lam)
 
-    def tick(carry: MegaCarry, due_t: int):
+    def tick(carry: MegaCarry, due_t):
         st = carry.state
         t_sec = fluid._tick_time(st.t, dt)
         ptr = st.t % D
         c = tuple(carry)
-        if (gate and quiet and law.masked_updates and due_t == int(st.cursor)
+        if (gate and quiet and law.masked_updates
+                and bool(torch.all(due_t == st.cursor))
                 and not bool(torch.any(st.slot_flow < N))):
             out = quiet_tick(c, ptr)
         else:
             out = busy_tick(c, ptr, due_t)
         st, pend, hold, inv, ovf, w_sum, lam_sum, n_act, lam = out
-        rec = Record(t=torch.tensor(t_sec, dtype=torch.float32, device=dev),
+        rec = Record(t=torch.full((B,), t_sec, dtype=torch.float32,
+                                  device=dev),
                      q=st.q, w_sum=w_sum, thru=st.out_rate, lam=lam_sum,
                      lam_f=lam, n_active=n_act)
         return MegaCarry(st, pend, hold, inv, ovf), rec
@@ -370,6 +404,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
     tick.init_carry = init_carry
     tick.k4_params = k4_params
     tick.maxdeg = maxdeg
+    tick.gate = bool(gate)
     return tick
 
 
@@ -384,9 +419,9 @@ def _unpack_state(carry: MegaCarry, N: int, Q1: int) -> SlotState:
     the ``SlotState`` layout."""
     st, pend = carry.state, carry.pend
     fct, _ = _flush_pending(st.fct, pend, pend.flow < N, N)
-    return st._replace(fct=fct, admitted=int(st.cursor),
-                       hist_q=st.hist_q[:, :Q1].contiguous(),
-                       hist_out=st.hist_q[:, Q1:2 * Q1].contiguous())
+    return st._replace(fct=fct, admitted=fluid._host_count(st.cursor),
+                       hist_q=st.hist_q[..., :Q1].contiguous(),
+                       hist_out=st.hist_q[..., Q1:2 * Q1].contiguous())
 
 
 def block_size(steps: int, record_every: int = 1,
@@ -401,20 +436,44 @@ def block_size(steps: int, record_every: int = 1,
     return K
 
 
+def run_blocks(tick, carry: MegaCarry, due: torch.Tensor, block: int,
+               impl: str, record: bool = True, record_every: int = 1):
+    """Advance ``carry`` over the ticks of ``due`` ([B, T], the device due
+    table from the carry's tick on) in blocks of ``block`` ticks, the last
+    block the remainder: K4 per block for ``impl="cuda"`` (one launch for
+    the batch, ``kernels.ops``), the plain block for ``"torch"``. Returns
+    (carry', Record [B, T, ...] or None)."""
+    run_block = (ops.fused_tick_block if impl == "cuda"
+                 else ref.fused_tick_block_ref)
+    recs = []
+    for lo in range(0, int(due.shape[-1]), block):
+        carry, r = run_block(tick, carry, due[..., lo:lo + block],
+                             record=record, record_every=record_every)
+        if record:
+            recs.append(r)
+    if not record:
+        return carry, None
+    return carry, Record(*[torch.cat(list(x), dim=1) for x in zip(*recs)])
+
+
 def simulate_slots_mega(sim, record: bool = True,
                         impl: Optional[str] = None,
-                        block: Optional[int] = None,
-                        gate: Optional[bool] = None,
-                        quiet: bool = False):
-    """Run one schedule through the megakernel backend; the return contract
-    of the slot engine: ``(final SlotState, Record or None)``, the FCT
-    table still [N+1] (``fluid.simulate_slots`` trims it).
+                        block: Optional[int] = None, gate: bool = True,
+                        quiet: bool = False, sequential: bool = False):
+    """Run a batch of schedules (``sim`` a ``fluid.SlotSim``) through the
+    megakernel backend, all scenarios with the batch's largest suggested
+    gather-table width. Returns (final ``SlotState``, Record [B, T, ...]
+    or None), the FCT table [B, N+1] (``fluid.simulate_slots_batch`` trims
+    it).
 
     ``impl`` is ``"cuda"`` (K4, on CUDA tensors only) or ``"torch"`` (the
     plain tick); the default follows the device. ``block`` sets the ticks
     per block; ``T // K`` full blocks run, then one remainder block.
-    ``gate`` and ``quiet`` go to the plain tick (``make_tick``); K4 always
-    runs the gated busy tick, whose results are the same.
+    ``sequential=False`` advances the whole batch per block (one K4 launch
+    of B thread blocks per 64 ticks); ``sequential=True`` runs the
+    scenarios one after another (one block per launch). ``gate`` goes to
+    the plain tick (``make_tick``) and to K4, ``quiet`` to the plain tick
+    only (K4 runs the busy tick); neither changes the results.
     """
     cfg = sim.cfg
     T = int(cfg.steps)
@@ -429,36 +488,25 @@ def simulate_slots_mega(sim, record: bool = True,
     if impl == "cuda" and dev.type != "cuda":
         raise ValueError("impl='cuda' runs K4 and needs CUDA tensors; use "
                          "impl='torch' on the CPU")
-    tick = make_tick(sim, gate=True if gate is None else gate, quiet=quiet)
-    state0 = fluid.init_slot_state(sim)
-    fluid.audit_carry_dtypes(state0)
+    B = int(sim.sched.start.shape[0])
+    Q = int(sim.topo.num_queues)
+    maxdeg = _suggest_maxdeg(sim.sched, Q, sim.slots)
     due = torch.as_tensor(_due_table(sim.sched, T, cfg.dt), device=dev)
-    carry, recs = run_blocks(tick, tick.init_carry(state0), due,
-                             block_size(T, re, block), impl, record, re)
-    final = _unpack_state(carry, fluid._slot_n(sim),
-                          int(sim.topo.num_queues) + 1)
-    return final, recs
-
-
-def run_blocks(tick, carry: MegaCarry, due: torch.Tensor, block: int,
-               impl: str, record: bool = True, record_every: int = 1):
-    """Advance ``carry`` over the ticks of ``due`` (the device due table
-    from the carry's tick on) in blocks of ``block`` ticks, the last block
-    the remainder: K4 per block for ``impl="cuda"`` (``kernels.ops``),
-    the plain block for ``"torch"``. Returns (carry', Record or None)."""
-    run_block = (ops.fused_tick_block if impl == "cuda"
-                 else ref.fused_tick_block_ref)
-    recs = []
-    for lo in range(0, int(due.shape[0]), block):
-        carry, r = run_block(tick, carry, due[lo:lo + block], record=record,
-                             record_every=record_every)
-        if record:
-            recs.append(r)
-    if not record:
-        return carry, None
-    return carry, Record(*[torch.cat(list(x)) for x in zip(*recs)])
+    K = block_size(T, re, block)
+    parts = [(b, b + 1) for b in range(B)] if sequential else [(0, B)]
+    finals, recs = [], []
+    for lo, hi in parts:
+        part = fluid.scenarios(sim, lo, hi)
+        tick = make_tick(part, gate=gate, quiet=quiet, maxdeg=maxdeg)
+        state0 = fluid.init_slot_state(part)
+        fluid.audit_carry_dtypes(state0)
+        carry, r = run_blocks(tick, tick.init_carry(state0), due[lo:hi], K,
+                              impl, record, re)
+        finals.append(_unpack_state(carry, fluid._slot_n(sim), Q + 1))
+        recs.append(r)
+    return cat_trees(finals), (cat_trees(recs) if record else None)
 
 
 __all__ = ["DEFAULT_BLOCK", "K4_LAWS", "MegaCarry", "PendingFCT",
-           "block_size", "default_impl", "make_tick",
-           "run_blocks", "simulate_slots_mega"]
+           "block_size", "default_impl", "make_tick", "run_blocks",
+           "simulate_slots_mega"]

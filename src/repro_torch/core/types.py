@@ -191,6 +191,44 @@ class Record(NamedTuple):
     n_active: torch.Tensor          # scalar int32, flows actively sending
 
 
+def tree_map(fn, *trees):
+    """``fn`` over the array leaves (tensors, numpy arrays) of NamedTuple
+    trees of one structure (nested tuples included); every other leaf
+    (None, a host tick counter, a Python scalar) is the first tree's."""
+    first = trees[0]
+    if isinstance(first, (torch.Tensor, np.ndarray)):
+        return fn(*trees)
+    if isinstance(first, tuple):
+        vals = [tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(first)(*vals) if hasattr(first, "_fields") else \
+            tuple(vals)
+    return first
+
+
+def batch_of_one(tree):
+    """``tree`` with a leading batch axis of one on every array leaf: the
+    form in which the engines take a single scenario."""
+    return tree_map(lambda x: x[None], tree)
+
+
+def scenario(tree, b):
+    """Scenario ``b`` of a batched tree (tensor leaves as views)."""
+    return tree_map(lambda x: x[b], tree)
+
+
+def stack_trees(items):
+    """Trees of one structure stacked leaf by leaf on a new leading
+    axis."""
+    return tree_map(lambda *xs: torch.stack(xs) if isinstance(
+        xs[0], torch.Tensor) else np.stack(xs), *items)
+
+
+def cat_trees(items):
+    """Batched trees of one structure joined on their leading axis."""
+    return tree_map(lambda *xs: torch.cat(xs) if isinstance(
+        xs[0], torch.Tensor) else np.concatenate(xs), *items)
+
+
 def _to_tensor(x, device) -> torch.Tensor:
     a = np.asarray(x)
     if a.dtype == np.bool_:

@@ -8,7 +8,8 @@
 // (PowerTCP and theta-PowerTCP, chosen by a template parameter), in the
 // order of the port's plain tick (repro_torch/core/megakernel.py):
 //   1. t_sec and the ring pointer;
-//   2. the gate: an arrival due and not admitted, or a freeable slot;
+//   2. the gate: an arrival due and not admitted, or a freeable slot
+//      (gate = 0 opens it on every tick);
 //   3. on gated ticks: flush the freeable slots' pending FCTs, retire them,
 //      admit due arrivals fresh-first in slot order (block-wide integer
 //      prefix sums), gather the admitted slots' schedule rows, re-init
@@ -31,7 +32,19 @@
 // queues at the paper's scale (a few tens of kB), but its phases depend on
 // each other: rates before arrivals, queues before the observation, the
 // observation before the law. What bounds a tick is that chain of
-// dependent phases and the block barriers between them.
+// dependent phases, the block barriers between them and its two dependent
+// L2 round trips (below), all on one SM.
+//
+// Grid: one block per scenario. A batch of B scenarios (the batched
+// engine, every carry leaf, the schedule, the law config, the due table
+// and the records with a leading scenario axis; the topology shared) is
+// one launch of B blocks. Each block offsets its pointers by its
+// scenario's strides (a launch of one scenario takes the kernel variant
+// without offsets, the code of a single-scenario kernel) and stages its
+// own working set in its own shared memory; blocks share nothing (no atomics, no order between blocks), so
+// each scenario's result is that of a launch of its own. At ~98 KB of
+// shared memory a block, two blocks fit on an SM: up to 264 scenarios run
+// at once, on B SMs instead of 1, each still bound by its own chain.
 //
 // Design: one persistent thread block runs the whole block of K ticks,
 // with __syncthreads() between phases (a grid-wide sync would cost
@@ -78,7 +91,7 @@
 // every float constant arrives as the float32 value PyTorch rounds it to;
 // no float atomics. The carry then equals the plain tick's bit for bit.
 // The per-tick record sums (w_sum, lam) add in this kernel's fixed order,
-// not torch.sum's.
+// not in the plain tick's (XLA:CPU's, core/fluid.py::_xla_sum).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -173,6 +186,9 @@ struct FusedTickArgs {
   void* scratch;
   int S, N, Q, H, D, nsw, swdeg, nswb, maxdeg, K, t0, record_every, record,
       law, has_period, use_smem, layout_bytes;
+  int B;           // scenarios: the grid has one block each
+  int gate;        // 0: the admit/retire pass on every tick
+  int due_stride;  // ints from one scenario's due row to the next
   float dt, inv_dt, dt_alpha, gamma, one_minus_gamma, update_period;
   int off[kFields];
 };
@@ -318,7 +334,10 @@ __device__ __forceinline__ T* at(unsigned char* base, int off) {
   return reinterpret_cast<T*>(base + off);
 }
 
-template <int LAW, bool SMEM>  // LAW 0: PowerTCP (Algorithm 1), 1: theta
+// LAW 0: PowerTCP (Algorithm 1), 1: theta-PowerTCP. GRID: a launch of
+// several scenarios, one block each (without it the pointers are used as
+// given, and the offsets below fold away).
+template <int LAW, bool SMEM, bool GRID>
 __global__ void __launch_bounds__(kThreads)
 fused_tick_kernel(const FusedTickArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -327,13 +346,69 @@ fused_tick_kernel(const FusedTickArgs a) {
   __shared__ int sh_cursor, sh_hw;
   __shared__ int sh_due[kDueChunk];
 
+  // this block's scenario: each per-scenario pointer advanced by its
+  // stride (the topology is shared)
+  const long long sb = GRID ? static_cast<long long>(blockIdx.x) : 0;
+  const long long sS = sb * a.S, sSH = sS * a.H, sN = sb * a.N;
+  const long long sNH = sN * a.H, sQ1 = sb * (a.Q + 1);
+  const long long nrec = a.record ? a.K / a.record_every : 0;
+  int* const g_cursor = a.cursor + sb;
+  int* const g_hw = a.hw + sb;
+  int* const g_slot_flow = a.slot_flow + sS;
+  int* const g_admit_t = a.admit_t + sS;
+  int* const g_free_at = a.free_at + sS;
+  int* const g_path = a.path + sSH;
+  int* const g_tf_steps = a.tf_steps + sSH;
+  int* const g_rtt_steps = a.rtt_steps + sS;
+  float* const g_tau = a.tau + sS;
+  float* const g_nic = a.nic + sS;
+  float* const g_start = a.start + sS;
+  float* const g_stop = a.stop + sS;
+  float* const g_w = a.w + sS;
+  float* const g_rate_cap = a.rate_cap + sS;
+  float* const g_q = a.q + sQ1;
+  float* const g_out_rate = a.out_rate + sQ1;
+  float* const g_hist_lam = a.hist_lam + sS * a.D;
+  float* const g_hist_q = a.hist_q + sQ1 * 3 * a.D;
+  float* const g_hist_w = a.hist_w + sS * a.D;
+  float* const g_remaining = a.remaining + sS;
+  float* const g_next_update = a.next_update + sS;
+  float* const g_last_update = a.last_update + sS;
+  float* const g_gamma_smooth = a.gamma_smooth + sS;
+  float* const g_prev_theta = LAW == 1 ? a.prev_theta + sS : a.prev_theta;
+  float* const g_fct = a.fct + sN + sb;
+  int* const g_pend_flow = a.pend_flow + sS;
+  float* const g_pend_val = a.pend_val + sS;
+  int* const g_hold = a.hold + sS;
+  int* const g_inv = a.inv + sQ1 * a.maxdeg;
+  uint8_t* const g_ovf = a.ovf + sb;
+  const int* const g_s_path = a.s_path + sNH;
+  const int* const g_s_tf = a.s_tf + sNH;
+  const int* const g_s_rtt = a.s_rtt + sN;
+  const float* const g_s_tau = a.s_tau + sN;
+  const float* const g_s_nic = a.s_nic + sN;
+  const float* const g_s_start = a.s_start + sN;
+  const float* const g_s_stop = a.s_stop + sN;
+  const float* const g_s_size = a.s_size + sN;
+  const float* const g_c_beta = a.c_beta + sN;
+  const float* const g_c_tau = a.c_tau + sN;
+  const int* const g_due = a.due + sb * a.due_stride;
+  float* const g_rec_t = a.rec_t + sb * nrec;
+  float* const g_rec_q = a.rec_q + sb * nrec * (a.Q + 1);
+  float* const g_rec_w_sum = a.rec_w_sum + sb * nrec;
+  float* const g_rec_thru = a.rec_thru + sb * nrec * (a.Q + 1);
+  float* const g_rec_lam = a.rec_lam + sb * nrec;
+  float* const g_rec_lam_f = a.rec_lam_f + sS * nrec;
+  int* const g_rec_n_active = a.rec_n_active + sb * nrec;
+
   const int tid = threadIdx.x;
   const int S = a.S, N = a.N, Q = a.Q, Q1 = Q + 1, H = a.H, D = a.D;
   const int SH = S * H, maxdeg = a.maxdeg;
   const float dt = a.dt;
 
   unsigned char* base =
-      SMEM ? smem_raw : static_cast<unsigned char*>(a.scratch);
+      SMEM ? smem_raw
+           : static_cast<unsigned char*>(a.scratch) + sb * a.layout_bytes;
   float* contrib = at<float>(base, a.off[F_CONTRIB]);  // [SH + 1], CSR order
   float* obs = at<float>(base, a.off[F_OBS]);  // [NOBS, SH]: q, out, qdot
   float* theta_now = at<float>(base, a.off[F_THETA_NOW]);  // [S]
@@ -378,16 +453,16 @@ fused_tick_kernel(const FusedTickArgs a) {
 
   // -- stage the carry, the topology and each slot's law config --------
   for (int s = tid; s < S; s += kThreads) {
-    const int sf = a.slot_flow[s];
+    const int sf = g_slot_flow[s];
     const int g = min(max(sf, 0), N - 1);
-    const int i0 = a.admit_t[s], i1 = a.free_at[s], i2 = a.rtt_steps[s],
-              i3 = a.hold[s], i4 = a.pend_flow[s];
-    const float f0 = a.tau[s], f1 = a.nic[s], f2 = a.start[s],
-                f3 = a.stop[s], f4 = a.w[s], f5 = a.rate_cap[s],
-                f6 = a.remaining[s], f7 = a.next_update[s],
-                f8 = a.last_update[s], f9 = a.gamma_smooth[s],
-                f10 = a.pend_val[s], f11 = LAW == 1 ? a.prev_theta[s] : 0.0f;
-    const float be = a.c_beta[g], ct = a.c_tau[g];
+    const int i0 = g_admit_t[s], i1 = g_free_at[s], i2 = g_rtt_steps[s],
+              i3 = g_hold[s], i4 = g_pend_flow[s];
+    const float f0 = g_tau[s], f1 = g_nic[s], f2 = g_start[s],
+                f3 = g_stop[s], f4 = g_w[s], f5 = g_rate_cap[s],
+                f6 = g_remaining[s], f7 = g_next_update[s],
+                f8 = g_last_update[s], f9 = g_gamma_smooth[s],
+                f10 = g_pend_val[s], f11 = LAW == 1 ? g_prev_theta[s] : 0.0f;
+    const float be = g_c_beta[g], ct = g_c_tau[g];
     slot_flow[s] = sf;
     admit_t[s] = i0;
     free_at[s] = i1;
@@ -415,12 +490,12 @@ fused_tick_kernel(const FusedTickArgs a) {
     int p = 0, tf = 0, so = 0, st = 0;
     float qv = 0.0f, ov = 0.0f, bv = 0.0f, fv = 0.0f, sb = 0.0f;
     if (i < SH) {
-      p = a.path[i];
-      tf = a.tf_steps[i];
+      p = g_path[i];
+      tf = g_tf_steps[i];
     }
     if (i < Q1) {
-      qv = a.q[i];
-      ov = a.out_rate[i];
+      qv = g_q[i];
+      ov = g_out_rate[i];
       bv = a.bw[i];
       fv = a.buf[i];
     }
@@ -443,8 +518,8 @@ fused_tick_kernel(const FusedTickArgs a) {
     if (i < a.nswb) sw_buffer[i] = sb;
   }
   if (tid == 0) {
-    sh_cursor = *a.cursor;
-    sh_hw = *a.hw;
+    sh_cursor = *g_cursor;
+    sh_hw = *g_hw;
   }
   __syncthreads();
   int ovf = build_csr(spath, SH, Q, maxdeg, csr_off, csr_list, csr_pos,
@@ -457,7 +532,7 @@ fused_tick_kernel(const FusedTickArgs a) {
     const int ptr = t % D;
     if (k % kDueChunk == 0) {
       for (int i = tid; i < kDueChunk && k + i < a.K; i += kThreads)
-        sh_due[i] = a.due[k + i];
+        sh_due[i] = g_due[k + i];
       __syncthreads();
     }
     const int due_t = sh_due[k % kDueChunk];
@@ -466,10 +541,13 @@ fused_tick_kernel(const FusedTickArgs a) {
     const int r = (k + 1) / a.record_every - 1;
 
     // -- 2. gate --------------------------------------------------------
-    int local = (tid == 0 && due_t > cursor);
-    for (int s = tid; s < S; s += kThreads)
-      local |= (slot_flow[s] < N && t >= free_at[s]);
-    const int need = __syncthreads_or(local);
+    int need = 1;
+    if (a.gate) {
+      int local = (tid == 0 && due_t > cursor);
+      for (int s = tid; s < S; s += kThreads)
+        local |= (slot_flow[s] < N && t >= free_at[s]);
+      need = __syncthreads_or(local);
+    }
 
     // -- 3. admit / retire ----------------------------------------------
     if (need) {
@@ -480,7 +558,7 @@ fused_tick_kernel(const FusedTickArgs a) {
         if (sf < N && t >= free_at[s]) {
           const int pf = pend_flow[s];
           if (pf < N) {
-            a.fct[pf] = pend_val[s];
+            g_fct[pf] = pend_val[s];
             pend_flow[s] = N;
             pend_val[s] = qnan();
           }
@@ -519,27 +597,27 @@ fused_tick_kernel(const FusedTickArgs a) {
           free_at[s] = kInt32Max;
           int hmax = 0;
           for (int h = 0; h < H; ++h) {
-            const int p = a.s_path[g * H + h];
-            const int tf = a.s_tf[g * H + h];
+            const int p = g_s_path[g * H + h];
+            const int tf = g_s_tf[g * H + h];
             spath[s * H + h] = p;
             tf_steps[s * H + h] = tf;
             if (p < Q) hmax = max(hmax, tf);
           }
           hold[s] = hmax;
-          rtt_steps[s] = a.s_rtt[g];
-          const float tau = a.s_tau[g], nic = a.s_nic[g], st = a.s_start[g];
+          rtt_steps[s] = g_s_rtt[g];
+          const float tau = g_s_tau[g], nic = g_s_nic[g], st = g_s_start[g];
           taus[s] = tau;
           nics[s] = nic;
           start[s] = st;
-          stop[s] = a.s_stop[g];
+          stop[s] = g_s_stop[g];
           ws[s] = nic * tau;
           rate_cap[s] = __int_as_float(0x7f800000);
-          remaining[s] = a.s_size[g];
+          remaining[s] = g_s_size[g];
           next_update[s] = st + tau;
           last_update[s] = st;
           gamma_smooth[s] = 1.0f;
-          const float ctau = a.c_tau[g];
-          betas[s] = a.c_beta[g];
+          const float ctau = g_c_tau[g];
+          betas[s] = g_c_beta[g];
           ctaus[s] = ctau;
           if (LAW == 1) prev_theta[s] = ctau * 1.0f;
         }
@@ -552,7 +630,7 @@ fused_tick_kernel(const FusedTickArgs a) {
         sh_cursor = cursor + n_admit;
         sh_hw = hw + n_fresh;
       }
-      if (n_admit > 0) {
+      if (n_admit > 0 || !a.gate) {
         ovf = build_csr(spath, SH, Q, maxdeg, csr_off, csr_list, csr_pos,
                         csr_hist, wbuf_i);
         rebuilt = 1;
@@ -579,8 +657,8 @@ fused_tick_kernel(const FusedTickArgs a) {
       const float th = tau + acc;
       float lam = 0.0f;
       if (active) lam = pmin(pmin(w / th, rate_cap[s]), nic);
-      a.hist_lam[ptr * S + s] = lam;
-      a.hist_w[ptr * S + s] = w;
+      g_hist_lam[ptr * S + s] = lam;
+      g_hist_w[ptr * S + s] = w;
       theta_now[s] = th;
       lam_s[s] = lam;
       act[s] = active | (upd << 1);
@@ -592,11 +670,11 @@ fused_tick_kernel(const FusedTickArgs a) {
         const int tf = tf_steps[e];
         float ld = 0.0f;
         if (p < Q && t - tf >= adm)
-          ld = a.hist_lam[imod(ptr - tf, D) * S + s];
+          ld = g_hist_lam[imod(ptr - tf, D) * S + s];
         contrib[csr_pos[e]] = ld;
         if (upd && p < Q) {
           const int oh = imod(ptr - iclamp(rtt - tf, 1, D - 2), D);
-          const float* orow = a.hist_q + static_cast<long long>(oh) * 3 * Q1;
+          const float* orow = g_hist_q + static_cast<long long>(oh) * 3 * Q1;
           obs[e] = orow[p];
           if (LAW == 0) {
             obs[SH + e] = orow[Q1 + p];
@@ -616,7 +694,7 @@ fused_tick_kernel(const FusedTickArgs a) {
     __syncthreads();
 
     // -- 6. queues: arrivals, caps, integration, packed ring row --------
-    float* hrow = a.hist_q + static_cast<long long>(ptr) * 3 * Q1;
+    float* hrow = g_hist_q + static_cast<long long>(ptr) * 3 * Q1;
     for (int c = tid; c < Q1; c += kThreads) {
       float arr = 0.0f;
       const int hi = csr_off[c + 1];
@@ -639,8 +717,8 @@ fused_tick_kernel(const FusedTickArgs a) {
       hrow[Q1 + c] = out;
       hrow[2 * Q1 + c] = (qn - qc) * a.inv_dt;
       if (rec_row) {
-        a.rec_q[r * Q1 + c] = qn;
-        a.rec_thru[r * Q1 + c] = out;
+        g_rec_q[r * Q1 + c] = qn;
+        g_rec_thru[r * Q1 + c] = out;
       }
     }
     __syncthreads();
@@ -682,7 +760,7 @@ fused_tick_kernel(const FusedTickArgs a) {
         const float theta_obs = tau + acc;
         const int wd =
             iclamp(static_cast<int>(rintf(theta_obs / dt)), 1, D - 2);
-        float w_old = a.hist_w[imod(ptr - wd, D) * S + s];
+        float w_old = g_hist_w[imod(ptr - wd, D) * S + s];
         if (!(t - wd >= admit_t[s])) w_old = nic * tau;
         const float dt_obs = pmax(t_sec - last_update[s], dt);
 
@@ -721,7 +799,7 @@ fused_tick_kernel(const FusedTickArgs a) {
                           free_at[s] == kInt32Max && !done;
       if (done || expire) free_at[s] = t + hold[s] + 1;
 
-      if (rec_row) a.rec_lam_f[r * S + s] = lam;
+      if (rec_row) g_rec_lam_f[r * S + s] = lam;
       w_sum += active ? wl : 0.0f;
       lam_sum += lam;
       n_act += active;
@@ -733,10 +811,10 @@ fused_tick_kernel(const FusedTickArgs a) {
       lam_sum = block_sum_float(lam_sum, wbuf_f);
       n_act = block_sum_int(n_act, wbuf_i);
       if (tid == 0) {
-        a.rec_t[r] = t_sec;
-        a.rec_w_sum[r] = w_sum;
-        a.rec_lam[r] = lam_sum;
-        a.rec_n_active[r] = n_act;
+        g_rec_t[r] = t_sec;
+        g_rec_w_sum[r] = w_sum;
+        g_rec_lam[r] = lam_sum;
+        g_rec_n_active[r] = n_act;
       }
     }
     __syncthreads();
@@ -744,32 +822,32 @@ fused_tick_kernel(const FusedTickArgs a) {
 
   // -- write the carry back ----------------------------------------------
   for (int s = tid; s < S; s += kThreads) {
-    a.slot_flow[s] = slot_flow[s];
-    a.admit_t[s] = admit_t[s];
-    a.free_at[s] = free_at[s];
-    a.rtt_steps[s] = rtt_steps[s];
-    a.hold[s] = hold[s];
-    a.pend_flow[s] = pend_flow[s];
-    a.tau[s] = taus[s];
-    a.nic[s] = nics[s];
-    a.start[s] = start[s];
-    a.stop[s] = stop[s];
-    a.w[s] = ws[s];
-    a.rate_cap[s] = rate_cap[s];
-    a.remaining[s] = remaining[s];
-    a.next_update[s] = next_update[s];
-    a.last_update[s] = last_update[s];
-    a.gamma_smooth[s] = gamma_smooth[s];
-    a.pend_val[s] = pend_val[s];
-    if (LAW == 1) a.prev_theta[s] = prev_theta[s];
+    g_slot_flow[s] = slot_flow[s];
+    g_admit_t[s] = admit_t[s];
+    g_free_at[s] = free_at[s];
+    g_rtt_steps[s] = rtt_steps[s];
+    g_hold[s] = hold[s];
+    g_pend_flow[s] = pend_flow[s];
+    g_tau[s] = taus[s];
+    g_nic[s] = nics[s];
+    g_start[s] = start[s];
+    g_stop[s] = stop[s];
+    g_w[s] = ws[s];
+    g_rate_cap[s] = rate_cap[s];
+    g_remaining[s] = remaining[s];
+    g_next_update[s] = next_update[s];
+    g_last_update[s] = last_update[s];
+    g_gamma_smooth[s] = gamma_smooth[s];
+    g_pend_val[s] = pend_val[s];
+    if (LAW == 1) g_prev_theta[s] = prev_theta[s];
   }
   for (int i = tid; i < SH; i += kThreads) {
-    a.path[i] = spath[i];
-    a.tf_steps[i] = tf_steps[i];
+    g_path[i] = spath[i];
+    g_tf_steps[i] = tf_steps[i];
   }
   for (int c = tid; c < Q1; c += kThreads) {
-    a.q[c] = q[c];
-    a.out_rate[c] = out_rate[c];
+    g_q[c] = q[c];
+    g_out_rate[c] = out_rate[c];
   }
   if (rebuilt) {
     // the carry's gather table, as build_csr_gather builds it: each real
@@ -777,20 +855,20 @@ fused_tick_kernel(const FusedTickArgs a) {
     for (int i = tid; i < Q1 * maxdeg; i += kThreads) {
       const int c = i / maxdeg, j = i - c * maxdeg;
       const int lo = csr_off[c];
-      a.inv[i] = j < csr_off[c + 1] - lo ? csr_list[lo + j] : SH;
+      g_inv[i] = j < csr_off[c + 1] - lo ? csr_list[lo + j] : SH;
     }
-    if (tid == 0) *a.ovf = static_cast<uint8_t>(ovf);
+    if (tid == 0) *g_ovf = static_cast<uint8_t>(ovf);
   }
   if (tid == 0) {
-    *a.cursor = sh_cursor;
-    *a.hw = sh_hw;
+    *g_cursor = sh_cursor;
+    *g_hw = sh_hw;
   }
 }
 
-template <int LAW>
+template <int LAW, bool GRID>
 int launch(const FusedTickArgs& a, cudaStream_t stream) {
   if (a.use_smem) {
-    void (*kern)(const FusedTickArgs) = fused_tick_kernel<LAW, true>;
+    void (*kern)(const FusedTickArgs) = fused_tick_kernel<LAW, true, GRID>;
     const size_t smem = static_cast<size_t>(a.layout_bytes);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -798,21 +876,25 @@ int launch(const FusedTickArgs& a, cudaStream_t stream) {
           static_cast<int>(smem));
       if (e != cudaSuccess) return static_cast<int>(e);
     }
-    kern<<<1, kThreads, smem, stream>>>(a);
+    kern<<<a.B, kThreads, smem, stream>>>(a);
   } else {
-    fused_tick_kernel<LAW, false><<<1, kThreads, 0, stream>>>(a);
+    fused_tick_kernel<LAW, false, GRID><<<a.B, kThreads, 0, stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One launch of K ticks. The wrapper fills the layout offsets (and, when
-// the layout is not in shared memory, a global scratch buffer of
-// layout_bytes) from kernels/fused_tick.py::layout.
+// One launch of K ticks for B scenarios. The wrapper fills the layout
+// offsets (and, when the layout is not in shared memory, a global scratch
+// buffer of B * layout_bytes) from kernels/fused_tick.py::layout.
 extern "C" int fused_tick_block_f32(const FusedTickArgs* args, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return args->law == 1 ? launch<1>(*args, s) : launch<0>(*args, s);
+  if (args->B > 1)
+    return args->law == 1 ? launch<1, true>(*args, s)
+                          : launch<0, true>(*args, s);
+  return args->law == 1 ? launch<1, false>(*args, s)
+                        : launch<0, false>(*args, s);
 }
 
 // sizeof(FusedTickArgs) and kFields, which the wrapper checks against its

@@ -29,6 +29,11 @@
 //   with NaN-propagating pmax/pmin, so arrivals and the new queue leave
 //   the kernel once.
 //
+// A batch of B scenarios (the batched engines) runs in the same launch on
+// a third grid axis, blockIdx.z = scenario: each scenario has its own
+// rows, queues, partials and counters, and its tiles elect their own last
+// blocks, so each scenario's sums run in the order of a launch of its own.
+//
 // Every sum runs in this fixed order, so the result is the same from run
 // to run (the counter only elects a block; no atomics touch the data). It
 // is not the reference scatter's order and is held to the plain version
@@ -62,7 +67,7 @@ __global__ void __launch_bounds__(kThreads)
                           float* __restrict__ arr, float* __restrict__ q_new,
                           float* __restrict__ part,
                           unsigned int* __restrict__ count, int R, int Q,
-                          float dt) {
+                          int rate_stride, int caps_stride, float dt) {
   __shared__ float lam_s[kRows];
   __shared__ float group_s[kGroups][kCols];
   __shared__ bool last_s;
@@ -71,6 +76,17 @@ __global__ void __launch_bounds__(kThreads)
   const int tile = blockIdx.x;
   const int chunk = blockIdx.y;
   const int chunks = gridDim.y;
+  // this block's scenario
+  const long long b = blockIdx.z;
+  lam += b * R;
+  onehot += b * R * static_cast<long long>(Q);
+  q += b * Q;
+  out_rate += b * rate_stride;
+  caps += b * caps_stride;
+  arr += b * Q;
+  q_new += b * Q;
+  part += b * chunks * static_cast<long long>(Q);
+  count += b * gridDim.x;
   const int c = tile * kCols + col;
   const int r0 = chunk * kRows;
   if (threadIdx.x < kRows) {
@@ -141,18 +157,22 @@ extern "C" int queue_arrivals_chunks(int R) {
   return R > 0 ? (R + kRows - 1) / kRows : 1;
 }
 
-// part: [queue_arrivals_chunks(H*F), Q] floats of scratch; count:
-// queue_arrivals_tiles(Q) zeroed counters (left zeroed on return).
+// B scenarios of lam [H, F], onehot [H, F, Q], q [Q]; out_rate and caps
+// advance by rate_stride / caps_stride per scenario (0: shared). part:
+// B * queue_arrivals_chunks(H*F) * Q floats of scratch; count:
+// B * queue_arrivals_tiles(Q) zeroed counters (left zeroed on return).
 extern "C" int queue_arrivals_f32(const float* lam, const float* onehot,
                                   const float* q, const float* out_rate,
                                   const float* caps, float* arr,
                                   float* q_new, float* part,
-                                  unsigned int* count, int H, int F, int Q,
+                                  unsigned int* count, int B, int H, int F,
+                                  int Q, int rate_stride, int caps_stride,
                                   float dt, void* stream) {
   const int R = H * F;
-  const dim3 grid(queue_arrivals_tiles(Q), queue_arrivals_chunks(R));
+  const dim3 grid(queue_arrivals_tiles(Q), queue_arrivals_chunks(R), B);
   queue_arrivals_kernel<<<grid, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      lam, onehot, q, out_rate, caps, arr, q_new, part, count, R, Q, dt);
+      lam, onehot, q, out_rate, caps, arr, q_new, part, count, R, Q,
+      rate_stride, caps_stride, dt);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,10 +2,13 @@
 
 K4 replaces ``repro/kernels/fused_tick.py::fused_tick_block``: one launch
 advances the flow-slot engine by K whole ticks of
-``core.megakernel.make_tick`` (``DEFAULT_BLOCK = 64``), the gated
-admit/retire pass included, for PowerTCP and theta-PowerTCP. One
-persistent thread block runs the block's ticks with barriers between the
-tick's phases, on a working set staged in shared memory for the launch
+``core.megakernel.make_tick`` (``DEFAULT_BLOCK = 64``), the admit/retire
+pass included (gated or, with ``gate=False``, on every tick), for
+PowerTCP and theta-PowerTCP. One persistent thread block per scenario
+runs the block's ticks with barriers between the tick's phases: a batch
+of B scenarios (every carry leaf, the schedule and the law config with a
+leading batch axis) is one launch of B blocks that share nothing. Each
+block works on a working set staged in its shared memory for the launch
 (``layout``: the per-slot, per-hop and per-queue carry, the topology it
 indexes, the tick's temporaries and each queue's full contributor list);
 the rings stay in device memory, and the carry is written back in place
@@ -15,7 +18,15 @@ phases, not bytes (see the note in the source).
 ``fused_tick_block`` takes CUDA tensors only and launches on the current
 stream; ``kernels/ops.py`` sends CPU tensors to the plain block
 (``kernels/ref.py::fused_tick_block_ref``) instead. The carry K4 leaves
-equals the plain block's bit for bit.
+equals the plain block's bit for bit, with the same ``gate``.
+
+``gate``: K4 honours both values. The batched megakernel path
+(``fluid.simulate_slots_batch``) passes ``gate=True`` whether or not it
+runs the scenarios sequentially. ``repro`` runs the ungated tick for a
+vmapped batch only because a ``lax.cond`` under ``vmap`` runs both of its
+branches; a K4 block branches on its own scenario's state, so that reason
+does not hold here, and the gated tick skips the admit/retire pass and
+the contributor lists' rebuild on the ticks that need neither.
 """
 from __future__ import annotations
 
@@ -138,7 +149,7 @@ _PTRS = ("cursor hw slot_flow admit_t free_at path tf_steps rtt_steps tau "
          "switch_of_queue due rec_t rec_q rec_w_sum rec_thru rec_lam "
          "rec_lam_f rec_n_active scratch").split()
 _INTS = ("S N Q H D nsw swdeg nswb maxdeg K t0 record_every record law "
-         "has_period use_smem layout_bytes").split()
+         "has_period use_smem layout_bytes B gate due_stride").split()
 _NFIELDS = len(_fields(1, 1, 1, 0, 0, 1, 0))
 _FLOATS = "dt inv_dt dt_alpha gamma one_minus_gamma update_period".split()
 
@@ -170,19 +181,29 @@ def _lib():
 
 
 def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
-                     record: bool = True, record_every: int = 1):
+                     record: bool = True, record_every: int = 1,
+                     gate: bool = True):
     """Run K ticks of the megakernel in one launch of K4, K the length of
     ``due_block`` (int32, the due counts of the block's ticks). ``carry``
     is a ``core.megakernel.MegaCarry`` of CUDA tensors; every leaf is
     updated in place and the returned carry holds the same tensors with
-    the tick counter advanced by K. Returns (carry', ``BlockRecords`` of
-    every ``record_every``-th tick, or None)."""
+    the tick counter advanced by K. A batch's carry ([B, ...] leaves, the
+    schedule and law config of ``params`` [B, N, ...], ``due_block``
+    [B, K], rows of a wider table allowed) launches B blocks, one per
+    scenario; the topology is shared. ``gate=False`` runs the admit/retire
+    pass and the contributor lists' rebuild on every tick. Returns
+    (carry', ``BlockRecords`` of every ``record_every``-th tick — [B,
+    nrec, ...] for a batch — or None)."""
     st = carry.state
     dev = st.w.device
-    S, H = (int(n) for n in st.path.shape)
+    lead = tuple(st.w.shape[:-1])
+    S, H = (int(n) for n in st.path.shape[-2:])
+    B = 1
+    for n in lead:
+        B *= n
     N, Q, D, M = params.N, params.Q, params.D, params.maxdeg
     Q1 = Q + 1
-    K = int(due_block.shape[0])
+    K = int(due_block.shape[-1])
     re = max(int(record_every), 1)
     if record and K % re:
         raise ValueError(f"fused_tick_block: K ({K}) must be a multiple of "
@@ -193,6 +214,9 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
     if (params.law == 1) != (prev_theta is not None):
         raise ValueError("fused_tick_block: the law state does not match "
                          "the law of the parameters")
+    if dev.type == "cuda" and (B < 1 or B > 65535):
+        raise ValueError(f"fused_tick_block: a batch of {B} scenarios")
+    # per scenario: (tensor, dtype, shape without the batch axis)
     leaves = {
         "cursor": (st.cursor, i32, ()), "hw": (st.hw, i32, ()),
         "slot_flow": (st.slot_flow, i32, (S,)),
@@ -219,17 +243,20 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         "s_path": (params.s_path, i32, (N, H)),
         "s_tf": (params.s_tf, i32, (N, H)),
         "s_rtt": (params.s_rtt, i32, (N,)),
-        "bw": (params.bw, f32, (Q1,)), "buf": (params.buf, f32, (Q1,)),
-        "switch_buffer": (params.switch_buffer, f32,
-                          tuple(params.switch_buffer.shape)),
-        "switch_of_queue": (params.switch_of_queue, i32, (Q,)),
-        "due": (due_block, i32, (K,)),
     }
     for name in ("s_tau", "s_nic", "s_start", "s_stop", "s_size", "c_beta",
                  "c_tau"):
         leaves[name] = (getattr(params, name), f32, (N,))
     if prev_theta is not None:
         leaves["prev_theta"] = (prev_theta, f32, (S,))
+    leaves = {k: (x, dt, lead + shape) for k, (x, dt, shape)
+              in leaves.items()}
+    # the topology, shared by the batch
+    leaves["bw"] = (params.bw, f32, (Q1,))
+    leaves["buf"] = (params.buf, f32, (Q1,))
+    leaves["switch_buffer"] = (params.switch_buffer, f32,
+                               tuple(params.switch_buffer.shape))
+    leaves["switch_of_queue"] = (params.switch_of_queue, i32, (Q,))
     if params.sw_table is not None:
         leaves["sw_table"] = (params.sw_table, i32,
                               (params.nsw, params.swdeg))
@@ -237,25 +264,33 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         "fused_tick_block", {k: v[0] for k, v in leaves.items()},
         {k: v[2] for k, v in leaves.items()}, dev,
         dtypes={k: v[1] for k, v in leaves.items()})
+    # the due counts: each scenario's K contiguous, rows of any stride
+    if (due_block.dtype != i32 or due_block.device != dev
+            or tuple(due_block.shape) != lead + (K,)
+            or (K > 1 and due_block.stride(-1) != 1)):
+        raise ValueError(f"fused_tick_block: due_block must be int32 "
+                         f"{lead + (K,)} on {dev} with contiguous rows")
+    due_stride = int(due_block.stride(0)) if lead else K
 
     nrec = K // re if record else 0
     recs = BlockRecords(
-        t=torch.empty((nrec,), dtype=f32, device=dev),
-        q=torch.empty((nrec, Q1), dtype=f32, device=dev),
-        w_sum=torch.empty((nrec,), dtype=f32, device=dev),
-        thru=torch.empty((nrec, Q1), dtype=f32, device=dev),
-        lam=torch.empty((nrec,), dtype=f32, device=dev),
-        lam_f=torch.empty((nrec, S), dtype=f32, device=dev),
-        n_active=torch.empty((nrec,), dtype=i32, device=dev))
+        t=torch.empty(lead + (nrec,), dtype=f32, device=dev),
+        q=torch.empty(lead + (nrec, Q1), dtype=f32, device=dev),
+        w_sum=torch.empty(lead + (nrec,), dtype=f32, device=dev),
+        thru=torch.empty(lead + (nrec, Q1), dtype=f32, device=dev),
+        lam=torch.empty(lead + (nrec,), dtype=f32, device=dev),
+        lam_f=torch.empty(lead + (nrec, S), dtype=f32, device=dev),
+        n_active=torch.empty(lead + (nrec,), dtype=i32, device=dev))
     lib = _lib()
     nswb = int(params.switch_buffer.numel())
     lay = layout(S, H, Q, params.nsw, params.swdeg, nswb, params.law)
-    scratch = torch.empty((16 if lay.smem else lay.nbytes,),
+    scratch = torch.empty((16 if lay.smem else B * lay.nbytes,),
                           dtype=torch.uint8, device=dev)
 
     args = _Args()
     for name, (x, _, _) in leaves.items():
         setattr(args, name, x.data_ptr())
+    args.due = due_block.data_ptr()
     for name in BlockRecords._fields:
         setattr(args, "rec_" + name, getattr(recs, name).data_ptr())
     args.scratch = scratch.data_ptr()
@@ -265,7 +300,8 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
                           record=int(bool(record)), law=params.law,
                           has_period=int(params.update_period > 0.0),
                           use_smem=int(lay.smem),
-                          layout_bytes=lay.nbytes).items():
+                          layout_bytes=lay.nbytes, B=B, gate=int(bool(gate)),
+                          due_stride=due_stride).items():
         setattr(args, name, val)
     args.off[:] = lay.offsets
     for name in _FLOATS:

@@ -6,7 +6,9 @@ UPDATEWINDOW in one pass); K2 ``theta_powertcp_step`` replaces
 ``theta_powertcp_step`` (Algorithm 2, elementwise). One CUDA thread per
 flow; per-hop inputs in the engine's [F, H] layout. Both are bound by the
 bytes they move (about 13 words per flow), and at the simulator's widths
-by the launch itself.
+by the launch itself. A batch of scenarios ([B, F, H] and [B, F]) is one
+launch over its B*F flat rows: the rows are independent, so the batch
+changes nothing in any row's arithmetic.
 
 These launch the CUDA kernel and take CUDA tensors only; ``kernels/ops.py``
 sends CPU tensors to the plain versions in ``kernels/ref.py`` instead.
@@ -33,17 +35,21 @@ def _lib():
 
 def powertcp_step(q, qdot, mu, b, valid, tau, w, w_old, gs_prev, dt_obs,
                   upd, beta, *, gamma=0.9, w_min=1000.0):
-    """Per-hop tensors [F, H] (float32; ``valid`` bool); per-flow tensors
-    [F] (float32; ``upd`` bool). Returns (w, gs)."""
-    F, H = q.shape
-    flow = (F,)
+    """Per-hop tensors [..., F, H] (float32; ``valid`` bool); per-flow
+    tensors [..., F] (float32; ``upd`` bool), any leading batch axes
+    flattened into the rows of one launch. Returns (w, gs)."""
+    H = q.shape[-1]
+    flow = tuple(q.shape[:-1])
+    F = 1
+    for n in flow:
+        F *= n
     _build.check_tensors(
         "powertcp_step",
         dict(q=q, qdot=qdot, mu=mu, b=b, valid=valid, tau=tau, w=w,
              w_old=w_old, gs_prev=gs_prev, dt_obs=dt_obs, upd=upd,
              beta=beta),
-        dict(q=(F, H), qdot=(F, H), mu=(F, H), b=(F, H), valid=(F, H),
-             tau=flow, w=flow, w_old=flow, gs_prev=flow, dt_obs=flow,
+        dict(q=flow + (H,), qdot=flow + (H,), mu=flow + (H,),
+             b=flow + (H,), valid=flow + (H,), tau=flow, w=flow, w_old=flow, gs_prev=flow, dt_obs=flow,
              upd=flow, beta=flow), q.device)
     w_out = torch.empty_like(w)
     gs_out = torch.empty_like(w)
@@ -65,10 +71,11 @@ def powertcp_step(q, qdot, mu, b, valid, tau, w, w_old, gs_prev, dt_obs,
 
 def theta_powertcp_step(theta, prev_theta, tau, w, w_old, gs_prev, dt_obs,
                         upd, beta, *, gamma=0.9, w_min=1000.0):
-    """All tensors per flow [F] (float32; ``upd`` bool). Returns
+    """All tensors per flow [..., F] (float32; ``upd`` bool), any leading
+    batch axes flattened into the rows of one launch. Returns
     (w, gs, prev_theta)."""
-    (F,) = theta.shape
-    flow = (F,)
+    flow = tuple(theta.shape)
+    F = theta.numel()
     _build.check_tensors(
         "theta_powertcp_step",
         dict(theta=theta, prev_theta=prev_theta, tau=tau, w=w,

@@ -7,9 +7,11 @@ delayed per-hop rates through the [H, F, Q+1] one-hot incidence and
 integrates the queues, ``q' = clip(q + (arr - out) dt, 0, caps)``, in one
 launch of ``csrc/queue_arrivals.cu``: a split reduction over row chunks
 of the incidence whose last block per column tile adds the chunks'
-partials in chunk order and integrates. Its sum runs in that fixed order,
-which is not the reference scatter's, so the fused backend is close to
-(not bitwise equal with) the reference backend.
+partials in chunk order and integrates. A batch of scenarios (the
+engines carry one, of one scenario or more) is the same launch with one
+grid plane per scenario. Its sum runs in that fixed order, which is not
+the reference scatter's, so the fused backend is close to (not bitwise
+equal with) the reference backend.
 
 Sparse (the ``"reference"`` backend): ``repro`` accumulates queue
 arrivals with a scatter-add that XLA runs in ascending flat order. On the
@@ -17,7 +19,8 @@ card ``index_add_``/``scatter_add_`` use atomics whose order changes from
 run to run, so the port inverts the hop table into a per-queue gather
 table (``build_csr_gather``) and adds each queue's contributors in
 ascending flat order (``csr_gather_arrivals``) — bit-identical to the
-scatter by construction, on the CPU and on the card alike.
+scatter by construction, on the CPU and on the card alike. Both take a
+leading batch axis of scenarios, as the engines' carries do.
 """
 from __future__ import annotations
 
@@ -29,38 +32,53 @@ import torch
 from . import _build
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURES = {"queue_arrivals_f32": [_P] * 9 + [_I, _I, _I, _F, _P],
+_SIGNATURES = {"queue_arrivals_f32": [_P] * 9 + [_I] * 6 + [_F, _P],
                "queue_arrivals_tiles": [_I], "queue_arrivals_chunks": [_I]}
 
 
 def queue_arrivals(lam_del, onehot, q, out_rate, caps, *, dt):
-    """K3 on CUDA tensors. lam_del: [H,F]; onehot: [H,F,Q]; q/out_rate/caps:
-    [Q] (all float32, contiguous). Returns (arrivals [Q], q_new [Q])."""
-    H, F, Q = onehot.shape
+    """K3 on CUDA tensors. lam_del: [..., H, F]; onehot: [..., H, F, Q];
+    q: [..., Q]; out_rate/caps: [Q] (shared by the batch) or [..., Q]
+    (all float32, contiguous). A leading batch axis B of scenarios runs in
+    the same launch, each scenario on its own plane of the grid. Returns
+    (arrivals [..., Q], q_new [..., Q])."""
+    H, F, Q = onehot.shape[-3:]
+    lead = tuple(onehot.shape[:-3])
+    B = 1
+    for n in lead:
+        B *= n
+
+    def rate(x):
+        return (Q,) if x.dim() == 1 else lead + (Q,)
+
     _build.check_tensors(
         "queue_arrivals",
         dict(lam_del=lam_del, onehot=onehot, q=q, out_rate=out_rate,
              caps=caps),
-        dict(lam_del=(H, F), onehot=(H, F, Q), q=(Q,), out_rate=(Q,),
-             caps=(Q,)), onehot.device)
+        dict(lam_del=lead + (H, F), onehot=lead + (H, F, Q), q=lead + (Q,),
+             out_rate=rate(out_rate), caps=rate(caps)), onehot.device)
     arr = torch.empty_like(q)
     q_new = torch.empty_like(q)
-    if Q == 0:
+    if Q == 0 or B == 0:
         return arr, q_new
+    if B > 65535:
+        raise ValueError(f"queue_arrivals: a batch of {B} scenarios is more "
+                         f"than the grid's 65 535 planes hold")
     lib = _build.library("queue_arrivals", _SIGNATURES)
     chunks = lib.queue_arrivals_chunks(H * F)
     if chunks > 65535:
         raise ValueError(f"queue_arrivals: {H * F} incidence rows are more "
                          f"than the grid's 65 535 row chunks hold")
-    part = torch.empty((chunks, Q), dtype=torch.float32, device=q.device)
-    count = _build.counters("queue_arrivals", lib.queue_arrivals_tiles(Q),
-                            q.device)
+    part = torch.empty((B, chunks, Q), dtype=torch.float32, device=q.device)
+    count = _build.counters("queue_arrivals",
+                            B * lib.queue_arrivals_tiles(Q), q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.queue_arrivals_f32(
             lam_del.data_ptr(), onehot.data_ptr(), q.data_ptr(),
             out_rate.data_ptr(), caps.data_ptr(), arr.data_ptr(),
-            q_new.data_ptr(), part.data_ptr(), count.data_ptr(), H, F, Q,
+            q_new.data_ptr(), part.data_ptr(), count.data_ptr(), B, H, F,
+            Q, 0 if out_rate.dim() == 1 else Q, 0 if caps.dim() == 1 else Q,
             dt, stream)
     _build.check(err, "queue_arrivals")
     _build.LAUNCHES["queue_arrivals"] += 1
@@ -103,54 +121,71 @@ def seg_ranks(sorted_ids: torch.Tensor) -> torch.Tensor:
 
 
 def build_csr_gather(path: torch.Tensor, num_queues: int, maxdeg: int):
-    """Invert a hop table into a per-queue gather table.
+    """Invert the hop tables of a batch of scenarios into per-queue gather
+    tables.
 
-    ``path`` is an [S, H] hop table (any shape; it is flattened). The
-    result ``inv`` is [num_queues+1, maxdeg] int64 where ``inv[q, j]`` is
-    the flat index of queue q's j-th contributor in ascending flat order,
-    padded with the sentinel index S*H (which ``csr_gather_arrivals`` maps
-    to a 0.0 contribution). Entries ``>= num_queues`` (the sentinel queue)
-    are left out: their contributions are structurally zero. ``overflow``
-    (a bool tensor) is True when some queue has more than ``maxdeg``
-    contributors and the table is truncated.
+    ``path`` is [B, S, H] (any shape after the batch axis; each
+    scenario's is flattened). The result ``inv`` is [B, num_queues+1,
+    maxdeg] int64 where ``inv[b, q, j]`` is the flat index (within
+    scenario b) of queue q's j-th contributor in ascending flat order,
+    padded with the sentinel index S*H (which ``csr_gather_arrivals``
+    maps to a 0.0 contribution). Entries ``>= num_queues`` (the sentinel
+    queue) are left out: their contributions are structurally zero.
+    ``overflow`` [B] (bool) is True where some queue has more than
+    ``maxdeg`` contributors and the table is truncated. One stable sort
+    serves the batch: scenario b's queue ids are shifted by
+    b * (num_queues+1), so its entries stay in ascending flat order.
     """
-    nnz = int(path.numel())
-    sorted_q, order = stable_sort_ids(path, num_queues)
-    sorted_q = sorted_q.to(torch.int64)
+    flat = path.reshape(path.shape[0], -1)
+    B, nnz = int(flat.shape[0]), int(flat.shape[1])
+    Q1 = num_queues + 1
+    base = torch.arange(B, dtype=torch.int64, device=path.device) * Q1
+    key = flat.to(torch.int64) + base[:, None]
+    sorted_k, order = stable_sort_ids(key, B * Q1)
+    sorted_k = sorted_k.to(torch.int64)
     # rank of each contributor within its queue (ascending flat index,
     # because the sort is stable)
-    rank = seg_ranks(sorted_q).to(torch.int64)
-    real = sorted_q < num_queues
-    overflow = torch.any(real & (rank >= maxdeg))
-    drop = (num_queues + 1) * maxdeg
+    rank = seg_ranks(sorted_k).to(torch.int64)
+    scen = torch.div(sorted_k, Q1, rounding_mode="floor")
+    real = sorted_k - scen * Q1 < num_queues
+    overflow = (real & (rank >= maxdeg)).reshape(B, nnz).any(1)
+    drop = B * Q1 * maxdeg
     cell = torch.where(real & (rank < maxdeg),
-                       sorted_q * maxdeg + rank.clamp_max(maxdeg - 1), drop)
+                       sorted_k * maxdeg + rank.clamp_max(maxdeg - 1), drop)
     inv = torch.full((drop + 1,), nnz, dtype=torch.int64, device=path.device)
-    inv[cell] = order.to(torch.int64)
-    return inv[:-1].reshape(num_queues + 1, maxdeg), overflow
+    inv[cell] = order.to(torch.int64) - scen * nnz
+    return inv[:-1].reshape(B, Q1, maxdeg), overflow
 
 
 def csr_gather_arrivals(contrib: torch.Tensor, inv: torch.Tensor,
                         zero: torch.Tensor) -> torch.Tensor:
-    """Arrival sums from the inverted incidence: one [Q+1, maxdeg] gather
+    """Arrival sums of a batch from its inverted incidence (``inv`` [B,
+    Q+1, maxdeg], contributions [B, ...], ``zero`` [B, Q+1]): one gather
     and maxdeg in-order column adds. Column j holds every queue's j-th
     contributor, so each queue's chain of adds is exactly the scatter's;
     the sentinel pad contributes +0.0, an identity on the non-negative
     arrivals."""
-    padded = torch.cat([contrib.reshape(-1), contrib.new_zeros(1)])
-    m = padded[inv]                                   # [Q+1, maxdeg]
+    B = int(inv.shape[0])
+    flat = contrib.reshape(B, -1)
+    padded = torch.cat([flat, flat.new_zeros(B, 1)], -1)
+    rows = torch.arange(B, device=inv.device).view(B, 1, 1)
+    m = padded[rows, inv]                             # [B, Q+1, maxdeg]
     arr = zero
-    for j in range(inv.shape[1]):
-        arr = arr + m[:, j]
+    for j in range(inv.shape[-1]):
+        arr = arr + m[..., j]
     return arr
 
 
 def max_degree(path: torch.Tensor, num_queues: int) -> int:
-    """Largest number of entries of ``path`` on one real queue (at least
-    1): the ``maxdeg`` that makes ``build_csr_gather`` exact. Reads one
-    number back from the device."""
-    flat = path.reshape(-1).to(torch.int64)
-    counts = torch.bincount(flat, minlength=num_queues + 1)[:num_queues]
+    """Largest number of entries of one scenario's ``path`` ([B, ...]) on
+    one real queue (at least 1): the ``maxdeg`` that makes
+    ``build_csr_gather`` exact for the whole batch. Reads one number back
+    from the device."""
+    flat = path.reshape(path.shape[0], -1).to(torch.int64)
+    B, Q1 = int(flat.shape[0]), num_queues + 1
+    key = flat + torch.arange(B, device=flat.device)[:, None] * Q1
+    counts = torch.bincount(key.reshape(-1), minlength=B * Q1)
+    counts = counts.reshape(B, Q1)[:, :num_queues]
     return max(int(counts.max()) if counts.numel() else 0, 1)
 
 
@@ -158,10 +193,11 @@ def ordered_scatter_add(zero: torch.Tensor, idx: torch.Tensor,
                         vals: torch.Tensor) -> torch.Tensor:
     """``zero`` plus ``vals`` scattered to ``idx``, each position summed in
     ascending flat order of ``idx`` — bit-identical to ``repro``'s
-    ``zero.at[idx].add(vals)`` on every device, via the gather table."""
+    ``zero.at[idx].add(vals)`` on every device, via the gather table (a
+    batch of one)."""
     n = int(zero.shape[0])
-    inv, _ = build_csr_gather(idx, n, max_degree(idx, n))
-    return csr_gather_arrivals(vals, inv[:n], zero)
+    inv, _ = build_csr_gather(idx[None], n, max_degree(idx[None], n))
+    return csr_gather_arrivals(vals[None], inv[:, :n], zero[None])[0]
 
 
 def integrate_arrivals(arr: torch.Tensor, q: torch.Tensor, bw: torch.Tensor,
@@ -171,7 +207,7 @@ def integrate_arrivals(arr: torch.Tensor, q: torch.Tensor, bw: torch.Tensor,
     pinned to 0, and the egress rate ``out = bw`` where the queue was
     backlogged, else ``min(arr, bw)``. Returns (out, q_new)."""
     q_new = torch.minimum(torch.clamp_min(q + (arr - bw) * dt, 0.0), caps)
-    q_new[-1] = 0.0
+    q_new[..., -1] = 0.0
     out = torch.where(q > 0.0, bw, torch.minimum(arr, bw))
     return out, q_new
 
@@ -192,17 +228,17 @@ def queue_arrivals_sparse(lam_del: torch.Tensor, path: torch.Tensor,
 
 def update_incidence(incidence: torch.Tensor, path: torch.Tensor,
                      changed: torch.Tensor, num_queues: int) -> torch.Tensor:
-    """Refresh a slot pool's [H, S, Q+1] one-hot incidence where
-    ``changed`` [S] marks slots admitted this tick (retired slots keep
-    their stale path: their delayed rates are zero). Sentinel hops become
-    all-zero rows, as in ``fluid.build_incidence``."""
-    return torch.where(changed[None, :, None],
+    """Refresh a slot pool's [..., H, S, Q+1] one-hot incidence where
+    ``changed`` [..., S] marks slots admitted this tick (retired slots
+    keep their stale path: their delayed rates are zero). Sentinel hops
+    become all-zero rows, as in ``fluid.build_incidence``."""
+    return torch.where(changed[..., None, :, None],
                        one_hot_incidence(path, num_queues), incidence)
 
 
 def one_hot_incidence(path: torch.Tensor, num_queues: int) -> torch.Tensor:
-    """[H, F, Q+1] float32 one-hot of an [F, H] hop table, contiguous,
-    with all-zero rows for sentinel hops."""
-    pt = path.t().to(torch.int64)
+    """[..., H, F, Q+1] float32 one-hot of an [..., F, H] hop table,
+    contiguous, with all-zero rows for sentinel hops."""
+    pt = path.transpose(-1, -2).to(torch.int64)
     oh = torch.nn.functional.one_hot(pt, num_queues + 1).to(torch.float32)
     return oh * (pt < num_queues)[..., None]

@@ -7,8 +7,8 @@ the card: K1 and K2 bit for bit (the kernels are built with
 ``-fmad=false`` and round every product the way these do), K3 at rtol
 1e-5 (its arrival sum runs in another order), K4 bit for bit on every
 carry leaf (the per-tick record sums ``w_sum`` and ``lam`` at rtol 1e-5:
-``torch.sum`` adds in its own order), K5 at 2e-5 in float32 and 2e-2 in
-bfloat16 (the tolerances ``tests/test_kernels.py`` holds the Pallas
+K4 adds them in its block order, the plain tick in XLA:CPU's), K5 at
+2e-5 in float32 and 2e-2 in bfloat16 (the tolerances ``tests/test_kernels.py`` holds the Pallas
 kernel to: the online softmax adds in another order and rescales), K6 at
 rtol 1e-5 in float32 and one bfloat16 ulp in bfloat16 (its square sum
 runs in its own fixed order).
@@ -55,14 +55,15 @@ def rmsnorm_ref(x, scale, eps=1e-6):
 def powertcp_step_ref(q, qdot, mu, b, valid, tau, w, w_old, gs_prev,
                       dt_obs, upd, beta, gamma=0.9, w_min=1000.0):
     """Algorithm 1 (NORMPOWER + smoothing + UPDATEWINDOW), vectorized over
-    flows. Per-hop tensors [F,H]; per-flow tensors [F]. Returns (w, gs)."""
-    tau2 = tau[:, None]
+    flows. Per-hop tensors [...,F,H]; per-flow tensors [...,F]. Returns
+    (w, gs)."""
+    tau2 = tau[..., None]
     current = qdot + mu
     voltage = q + b * tau2
     base = b * b * tau2
     gnorm = torch.where(valid,
                         current * voltage / torch.clamp_min(base, 1.0), 0.0)
-    gmax = torch.amax(gnorm, dim=1)
+    gmax = torch.amax(gnorm, dim=-1)
     d = torch.minimum(torch.clamp_min(dt_obs, 0.0), tau)
     gs = (gs_prev * (tau - d) + gmax * d) / torch.clamp_min(tau, 1e-12)
     gs_out = torch.where(upd, gs, gs_prev)
@@ -92,8 +93,17 @@ def queue_arrivals_ref(lam_del, onehot, q, out_rate, caps, dt):
     """Dense fluid-queue update: arrivals are the incidence-weighted sum
     of the delayed per-hop rates, then q' = clip(q + (arr - out) dt, 0, caps).
 
-    lam_del: [H,F]; onehot: [H,F,Q]; q/out_rate/caps: [Q].
-    Returns (arrivals [Q], q_new [Q])."""
+    lam_del: [H,F]; onehot: [H,F,Q]; q/out_rate/caps: [Q]. A batch
+    ([B,H,F], [B,H,F,Q], q [B,Q], out_rate/caps [Q] or [B,Q]) is summed
+    scenario by scenario, each as on its own. Returns (arrivals [...,Q],
+    q_new [...,Q])."""
+    if onehot.dim() == 4:
+        out = [queue_arrivals_ref(
+            lam_del[b], onehot[b], q[b],
+            out_rate if out_rate.dim() == 1 else out_rate[b],
+            caps if caps.dim() == 1 else caps[b], dt)
+            for b in range(onehot.shape[0])]
+        return tuple(torch.stack(x) for x in zip(*out))
     arr = torch.sum(lam_del[:, :, None] * onehot, dim=(0, 1))
     q_new = torch.minimum(torch.clamp_min(q + (arr - out_rate) * dt, 0.0),
                           caps)
@@ -103,15 +113,17 @@ def queue_arrivals_ref(lam_del, onehot, q, out_rate, caps, dt):
 def fused_tick_block_ref(tick, carry, due_block, record=True,
                          record_every=1):
     """K whole ticks of the megakernel (``core.megakernel.make_tick``'s
-    plain tick) looped one by one, K the length of ``due_block`` (the due
-    counts of the block's ticks). Returns (carry', records stacked over
-    the block's recorded ticks — every ``record_every``-th — or None)."""
+    plain tick over a batch's carry) looped one by one, K the length of
+    ``due_block`` ([B, K], the due counts of the block's ticks). Returns
+    (carry', records [B, nrec, ...] of the block's recorded ticks — every
+    ``record_every``-th — or None)."""
     re = max(int(record_every), 1)
     recs = []
-    for k, due_t in enumerate(due_block.tolist()):
-        carry, rec = tick(carry, int(due_t))
+    for k in range(int(due_block.shape[-1])):
+        carry, rec = tick(carry, due_block[:, k])
         if record and (k + 1) % re == 0:
             recs.append(rec)
     if not record:
         return carry, None
-    return carry, type(recs[0])(*[torch.stack(list(x)) for x in zip(*recs)])
+    return carry, type(recs[0])(*[torch.stack(list(x), dim=1)
+                                  for x in zip(*recs)])

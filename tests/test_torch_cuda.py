@@ -23,6 +23,9 @@ copy; K6
 ``rmsnorm`` within one bfloat16 ulp in bfloat16 and at rtol 1e-5 in
 float32 on the serve run's rows, and bit for bit against its order
 spelled in torch and itself run twice, at those rows and ragged ones;
+K4's grid form (a batch of B scenarios, one block each, B in 1-3, with
+and without gate) against each scenario's plain block, K1-K3 taking a
+batch in one launch, and the batched megakernel backend's launches;
 and the REDUCED qwen3-14b model on the
 card against the port on the CPU at the tight bar of
 ``tests/test_torch_lm.py``. Every test takes the ``cuda_device``
@@ -185,6 +188,93 @@ def test_megakernel_backend_launches_only_k4(cuda_device):
     assert sum(lc.values()) == 0
     torch.testing.assert_close(fg, fc, rtol=0, atol=0, equal_nan=True)
     torch.testing.assert_close(qg, qc, rtol=0, atol=0)
+
+
+def _staggered_batch(tc, B, steps, device):
+    """B seeds of the 12-flow anchor, stacked (``stack_flow_schedules``)."""
+    scen = [sup.staggered(tc, steps=steps, seed=b, device=device)
+            for b in range(B)]
+    topo, cfg = scen[0][0], scen[0][2]
+    return topo, tc.stack_flow_schedules([x[1] for x in scen],
+                                         topo.num_queues), cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("law", ["powertcp", "theta_powertcp"])
+def test_fused_tick_block_kernel_grid(cuda_device, B, gate, law):
+    """K4's grid form, one block per scenario, against each scenario's
+    plain block with the same ``gate``, K = 64 and a ragged K = 7."""
+    import repro_torch.core as tc
+    topo, sched, cfg = _staggered_batch(tc, B, 1500, cuda_device)
+    sup.k4_grid_against_plain(tc, topo, sched, cfg, law, 6, (64, 7),
+                              gate=gate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,H,Q", [(2, 128, 3, 289), (3, 257, 5, 129)])
+def test_law_and_queue_kernels_take_a_batch(cuda_device, B, F, H, Q):
+    """K1/K2 over a batch's flat rows and K3 with a scenario per grid
+    plane: the plain versions' results, and each scenario the bits of a
+    launch of its own."""
+    parts = [_on(sup.law_inputs(F, H, seed=b), cuda_device)
+             for b in range(B)]
+    kw = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    got = powertcp_step(**kw)
+    for i, w in enumerate(ref.powertcp_step_ref(**kw)):
+        torch.testing.assert_close(got[i], w, rtol=0, atol=0)
+        torch.testing.assert_close(got[i], torch.stack(
+            [powertcp_step(**p)[i] for p in parts]), rtol=0, atol=0)
+    parts = [_on(sup.theta_inputs(F, seed=b), cuda_device) for b in range(B)]
+    kw = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    for g, w in zip(theta_powertcp_step(**kw),
+                    ref.theta_powertcp_step_ref(**kw)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    parts = [_on(sup.queue_inputs(H, F, Q, seed=b), cuda_device)
+             for b in range(B)]
+    kw = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
+    for shared in (False, True):
+        if shared:
+            kw["out_rate"] = kw["caps"] = parts[0]["caps"]
+        got = queue_arrivals(**kw, dt=sup.QUEUE_DT)
+        want = ref.queue_arrivals_ref(**kw, dt=sup.QUEUE_DT)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+        for b in range(B):
+            one = dict(parts[b])
+            if shared:
+                one["out_rate"] = one["caps"] = parts[0]["caps"]
+            for g, a in zip(got, queue_arrivals(**one, dt=sup.QUEUE_DT)):
+                torch.testing.assert_close(g[b], a, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sequential", [False, True])
+def test_batched_megakernel_launches(cuda_device, sequential):
+    """``simulate_slots_batch(backend="megakernel")`` with B = 2 over
+    40 000 ticks launches K4 625 times for the whole batch, or 1 250 times
+    (625 per scenario) with ``sequential``, and nothing else; the FCTs are
+    the plain tick's on the CPU."""
+    import repro_torch.core as tc
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    out = []
+    for dev, steps in ((cuda_device, 40000), (cuda_device, 4000),
+                       ("cpu", 4000)):
+        topo, sched, cfg = _staggered_batch(tc, 2, steps, dev)
+        reset_launches()
+        st, _ = tc.simulate_slots_batch(topo, sched, "powertcp", 6, cfg=cfg,
+                                        record=False, backend="megakernel",
+                                        expected_flows=8.0,
+                                        sequential=sequential, device=dev)
+        out.append((st.fct.cpu(), dict(LAUNCHES)))
+    assert out[0][1] == {"powertcp_step": 0, "theta_powertcp_step": 0,
+                         "queue_arrivals": 0,
+                         "fused_tick_block": 1250 if sequential else 625,
+                         "rmsnorm": 0, "flash_attention": 0}
+    assert sum(out[2][1].values()) == 0
+    torch.testing.assert_close(out[1][0], out[2][0], rtol=0, atol=0,
+                               equal_nan=True)
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@
   both backends, at ``tests/test_golden_traces.py``'s tolerances;
 * live parity with ``repro`` on a small leaf-spine web-search scenario,
   padded and slot engines, reference and fused backends: the reference
-  backend bit for bit (queue trace, FCTs with ``equal_nan``), the fused
+  backend bit for bit (every ``Record`` field, FCTs with ``equal_nan``),
+  the fused
   backend at rtol 1e-5 (its kernels sum and associate in their own
   order, in both packages);
 * within the port, slot == padded bit for bit when S >= N;
@@ -101,6 +102,11 @@ def test_live_parity_with_jax(law, backend, engine):
         np.testing.assert_array_equal(qt, qj)
         np.testing.assert_array_equal(ft, fj)
         np.testing.assert_array_equal(_host(rt.lam_f), np.asarray(rj.lam_f))
+        # every Record field, the per-tick sums w_sum and lam included
+        for f in rj._fields:
+            np.testing.assert_array_equal(_host(getattr(rt, f)),
+                                          np.asarray(getattr(rj, f)),
+                                          err_msg=f"rec.{f}")
     else:
         np.testing.assert_allclose(qt, qj, rtol=1e-5, atol=0.5)
         np.testing.assert_allclose(ft, fj, rtol=1e-5)

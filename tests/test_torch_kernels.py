@@ -345,18 +345,20 @@ def test_csr_gather_matches_jax(S, H, Q):
     rng = np.random.default_rng(S * H)
     contrib = (np.abs(rng.standard_normal((S, H))) * 3e9).astype(np.float32)
     contrib[path == Q] = 0.0
-    exact = tqa.max_degree(torch.as_tensor(path), Q)
+    # the port's helpers take a batch of scenarios: a batch of one here
+    exact = tqa.max_degree(torch.as_tensor(path)[None], Q)
     for maxdeg in (exact, max(exact // 2, 1)):
-        inv, over = tqa.build_csr_gather(torch.as_tensor(path), Q, maxdeg)
+        inv, over = tqa.build_csr_gather(torch.as_tensor(path)[None], Q,
+                                         maxdeg)
         jinv, jover = jqa.build_csr_gather(jnp.asarray(path), Q, maxdeg)
-        np.testing.assert_array_equal(inv.numpy(), np.asarray(jinv))
-        assert bool(over) == bool(jover)
-    inv, _ = tqa.build_csr_gather(torch.as_tensor(path), Q, exact)
+        np.testing.assert_array_equal(inv[0].numpy(), np.asarray(jinv))
+        assert bool(over[0]) == bool(jover)
+    inv, _ = tqa.build_csr_gather(torch.as_tensor(path)[None], Q, exact)
     zero = np.zeros(Q + 1, np.float32)
-    got = tqa.csr_gather_arrivals(torch.as_tensor(contrib), inv,
-                                  torch.as_tensor(zero))
+    got = tqa.csr_gather_arrivals(torch.as_tensor(contrib)[None], inv,
+                                  torch.as_tensor(zero)[None])[0]
     want = jqa.csr_gather_arrivals(jnp.asarray(contrib), jnp.asarray(
-        inv.numpy().astype(np.int32)), jnp.asarray(zero))
+        inv[0].numpy().astype(np.int32)), jnp.asarray(zero))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # the port's ordered_scatter_add == repro's at every row count (repro
     # unrolls up to 128 rows and scatters above)

@@ -76,10 +76,10 @@ def _port(case, law, backend, block=None):
         st, rec = tc.simulate_slots(topo, sched, law, slots, lcfg, cfg,
                                     backend=backend, device="cpu")
         return st, rec
-    sim = fluid.make_slot_sim(topo, sched, law, slots, lcfg, cfg,
-                              backend, "cpu")
+    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), law, slots,
+                              tc.batch_of_one(lcfg), cfg, backend, "cpu")
     with torch.no_grad():
-        st, rec = mk.simulate_slots_mega(sim, block=block)
+        st, rec = tc.scenario(mk.simulate_slots_mega(sim, block=block), 0)
     return st._replace(fct=st.fct[:fluid._slot_n(sim)]), rec
 
 
@@ -96,7 +96,7 @@ def _jax(case, law):
 def _assert_bitwise(got, want, rings=True):
     st_g, rec_g = got
     st_w, rec_w = want
-    for f in ("q", "w_sum", "lam_f", "n_active", "thru", "lam"):
+    for f in rec_w._fields:     # every Record field
         np.testing.assert_array_equal(_host(getattr(rec_g, f)),
                                       np.asarray(getattr(rec_w, f)),
                                       err_msg=f"record {f}")
@@ -172,8 +172,9 @@ def test_gather_table_overflow_equals_slot_reference(law):
     from repro_torch.core import fluid, megakernel as mk
     topo, sched, cfg, slots = _scenario(tc, "anchor", device="cpu")
     lcfg = tc.default_law_config(sched, expected_flows=8.0)
-    sim = fluid.make_slot_sim(topo, sched, law, slots, lcfg, cfg,
-                              "megakernel", "cpu")
+    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), law, slots,
+                              tc.batch_of_one(lcfg), cfg, "megakernel",
+                              "cpu")
     tick = mk.make_tick(sim, maxdeg=2)
     due = torch.as_tensor(mk._due_table(sim.sched, int(cfg.steps), cfg.dt))
     with torch.no_grad():
@@ -181,7 +182,8 @@ def test_gather_table_overflow_equals_slot_reference(law):
             tick, tick.init_carry(fluid.init_slot_state(sim)), due)
     assert n_ovf > 1000, n_ovf
     N = fluid._slot_n(sim)
-    st = mk._unpack_state(carry, N, topo.num_queues + 1)
+    st, rec = tc.scenario((mk._unpack_state(carry, N, topo.num_queues + 1),
+                           rec), 0)
     _assert_bitwise((st._replace(fct=st.fct[:N]), rec),
                     _port("anchor", law, "reference"))
 
@@ -193,12 +195,14 @@ def test_quiet_and_ungated_ticks_equal_the_gated_tick():
     from repro_torch.core import fluid, megakernel as mk
     topo, sched, cfg, slots = _scenario(tc, "single_slot", device="cpu")
     lcfg = tc.default_law_config(sched, expected_flows=8.0)
-    sim = fluid.make_slot_sim(topo, sched, "powertcp", slots, lcfg,
+    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), "powertcp",
+                              slots, tc.batch_of_one(lcfg),
                               cfg._replace(steps=1200), "megakernel", "cpu")
     with torch.no_grad():
-        base = mk.simulate_slots_mega(sim)
+        base = tc.scenario(mk.simulate_slots_mega(sim), 0)
         for kw in (dict(quiet=True), dict(gate=False)):
-            _assert_bitwise(mk.simulate_slots_mega(sim, **kw), base)
+            _assert_bitwise(tc.scenario(mk.simulate_slots_mega(sim, **kw),
+                                        0), base)
 
 
 def test_padded_engine_runs_megakernel_as_reference():
@@ -229,7 +233,8 @@ def test_k4_needs_cuda_and_a_k4_law():
     from repro_torch.kernels.fused_tick import fused_tick_block
     topo, sched, cfg, slots = _scenario(tc, "single_slot", device="cpu")
     lcfg = tc.default_law_config(sched, expected_flows=8.0)
-    sim = fluid.make_slot_sim(topo, sched, "powertcp", slots, lcfg, cfg,
+    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), "powertcp",
+                              slots, tc.batch_of_one(lcfg), cfg,
                               "megakernel", "cpu")
     with pytest.raises(ValueError, match="impl='torch'"):
         mk.simulate_slots_mega(sim, impl="cuda")
@@ -238,12 +243,12 @@ def test_k4_needs_cuda_and_a_k4_law():
     carry = tick.init_carry(fluid.init_slot_state(sim))
     with pytest.raises(ValueError, match="CUDA tensors"):
         fused_tick_block(tick.k4_params(), carry,
-                         torch.zeros(4, dtype=torch.int32))
+                         torch.zeros((1, 4), dtype=torch.int32))
     other = tc.Law("my_law", tc.LAWS["powertcp"].init,
                    tc.LAWS["powertcp"].update, backend="megakernel")
     with pytest.raises(NotImplementedError, match="item 8"):
         mk.make_tick(sim._replace(law=other)).k4_params()
-    batched = lcfg._replace(gamma=torch.tensor([0.9, 0.8]))
+    batched = sim.law_cfg._replace(gamma=torch.tensor([[0.9], [0.8]]))
     with pytest.raises(ValueError, match="gamma"):
         mk.make_tick(sim._replace(law_cfg=batched)).k4_params()
 
@@ -287,7 +292,9 @@ def test_build_csr_gather_matches_repro(maxdeg):
     path = rng.integers(0, Q + 1, (9, 3)).astype(np.int32)
     jinv, jovf = jqa.build_csr_gather(jnp.asarray(path), Q,
                                                     maxdeg)
-    tinv, tovf = build_csr_gather(torch.as_tensor(path), Q, maxdeg)
+    # the port's takes a batch of scenarios: a batch of one here
+    tinv, tovf = build_csr_gather(torch.as_tensor(path)[None], Q, maxdeg)
+    tinv, tovf = tinv[0], tovf[0]
     np.testing.assert_array_equal(tinv.numpy(), np.asarray(jinv))
     assert bool(tovf) == bool(jovf)
     deg = np.bincount(path[path < Q].ravel(), minlength=Q).max()
@@ -345,13 +352,14 @@ def test_sparse_queue_update_equals_reference_update():
     q = torch.as_tensor(np.concatenate([rng.uniform(0, 2e6, Q), [0.0]])
                         .astype(np.float32))
     valid = path < Q
-    inv, _ = build_csr_gather(path, Q, 16 * 3)
-    ref = fluid._queue_update(topo, 1e-6, "reference", None, inv, q, lam,
-                              valid, static)
+    # the engine's queue update takes a batch: a batch of one
+    inv, _ = build_csr_gather(path[None], Q, 16 * 3)
+    ref = fluid._queue_update(topo, 1e-6, "reference", None, inv, q[None],
+                              lam[None], valid[None], static)
     got = queue_arrivals_sparse(lam, path, valid, q, static.bw,
                                 fluid._buffer_caps(topo, q, static), dt=1e-6)
     for a, b in zip(got, ref):
-        assert torch.equal(a, b)
+        assert torch.equal(a, b[0])
 
 
 def test_buffer_caps_match_repro_csr_form():
@@ -384,7 +392,7 @@ def test_due_table_matches_repro_and_the_slot_engine():
     from repro_torch.core import megakernel as mk
     _, jsched, _ = _staggered(jcore)
     _, tsched, _ = _staggered(tc, device="cpu")
-    got = mk._due_table(tsched, 4000, 1e-6)
+    got = mk._due_table(tc.batch_of_one(tsched), 4000, 1e-6)[0]
     np.testing.assert_array_equal(got, np.asarray(jdue(jsched, 4000, 1e-6)))
     start = tsched.start.numpy()
     for t in (0, 1, 17, 1499, 3999):

@@ -12,7 +12,11 @@
   rebuilds its scenario (the constants of ``tools/gen_golden.py``) in
   either package.
 * seeded kernel inputs and the paper scenario's constants, shared by the
-  tests and ``chip_smoke.py``; the sum orders of K3 and K5 spelled in
+  tests and ``chip_smoke.py``; ``smoke_slots_pool`` (the slot pool of
+  ``benchmarks/run.py::smoke_slots``) and ``SMOKE_REF``, the reference
+  FCTs of its batched runs; ``k4_against_plain`` and
+  ``k4_grid_against_plain`` (K4, and its grid of one block per scenario,
+  against the plain megakernel block on the card); the sum orders of K3 and K5 spelled in
   torch (``queue_arrivals_in_k3_order``, ``flash_in_k5_order``,
   ``rmsnorm_in_k6_order``) and the
   edge shapes the kernels are held at; the LM slice's shapes and bars
@@ -36,6 +40,7 @@ import torch
 HERE = os.path.dirname(__file__)
 GOLDEN = os.path.join(HERE, "golden", "golden_laws.json")
 PAPER_REF = os.path.join(HERE, "golden", "torch_port_paper_seed1.json")
+SMOKE_REF = os.path.join(HERE, "golden", "torch_port_smoke_slots.json")
 
 
 def apply_jax_shim() -> None:
@@ -122,6 +127,26 @@ PAPER_DT = 1e-6
 PAPER_STEPS = int((PAPER_DURATION + 0.01) / PAPER_DT)
 PAPER_SLOTS = 384
 PAPER_EXPECTED_FLOWS = 8.0
+
+
+def smoke_slots_pool(starts, fcts, max_tf, peak_concurrency,
+                     dt=PAPER_DT) -> int:
+    """The slot pool of ``benchmarks/run.py::smoke_slots``: the largest
+    realized concurrency over the scenarios, each flow live from its start
+    to its padded-engine FCT plus the drain hold (``max_tf`` ticks),
+    rounded up to 64 and clamped to the total flow count. ``starts`` and
+    ``fcts`` are per scenario as ``smoke_slots`` reads them: the
+    schedule's starts and the padded run's FCT row in its own flow order
+    (``peak_concurrency`` from either package)."""
+    hold = max_tf * dt
+    peak = 0
+    for start, fct in zip(starts, fcts):
+        start = np.asarray(start, np.float64)
+        fct = np.asarray(fct, np.float64)[:start.shape[0]]
+        ends = start + np.where(np.isfinite(fct), fct, np.inf) + hold
+        peak = max(peak, peak_concurrency(start, ends))
+    n_total = sum(int(np.asarray(x).shape[0]) for x in starts)
+    return min(-(-max(peak, 1) // 64) * 64, n_total)
 
 
 def schedule_checksum(size, start) -> str:
@@ -283,17 +308,17 @@ def tree_clone(x):
 
 
 def plain_ticks(tick, carry, due):
-    """The plain megakernel tick looped over the due counts ``due``.
-    Returns (carry', records stacked over the ticks, the number of ticks
-    that ended with the gather table overflowed, so that a queue's
-    arrivals came from the in-order walk of the hop list)."""
+    """The plain megakernel tick looped over the due counts ``due`` ([B,
+    T]). Returns (carry', records [B, T, ...], the number of ticks that
+    ended with a gather table overflowed, so that a queue's arrivals came
+    from the in-order walk of the hop list)."""
     recs, n_ovf = [], 0
-    for due_t in due.tolist():
-        carry, rec = tick(carry, int(due_t))
+    for k in range(int(due.shape[-1])):
+        carry, rec = tick(carry, due[:, k])
         recs.append(rec)
-        n_ovf += bool(carry.ovf)
-    return (carry, type(recs[0])(*[torch.stack(list(x)) for x in zip(*recs)]),
-            n_ovf)
+        n_ovf += bool(torch.any(carry.ovf))
+    return (carry, type(recs[0])(*[torch.stack(list(x), dim=1)
+                                   for x in zip(*recs)]), n_ovf)
 
 
 def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
@@ -302,8 +327,8 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
     initial carry, for each K in ``blocks``: every carry leaf bit for bit
     (the gather table ``inv`` and its flag ``ovf`` included), and the
     records; their per-tick sums ``w_sum`` and ``lam`` at rtol 1e-5,
-    because K4 adds them in its own fixed order and the plain tick with
-    ``torch.sum``. ``maxdeg`` narrows the gather table (default
+    because K4 adds them in its own fixed order and the plain tick in
+    XLA:CPU's (``fluid._xla_sum``). ``maxdeg`` narrows the gather table (default
     ``suggest_maxdeg``); ``overflows`` (by default True where ``maxdeg``
     is given) says whether the table must overflow on some tick, so that
     the plain tick's walk of the hop list is held too, or must never.
@@ -313,9 +338,9 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
     from repro_torch.core import fluid, megakernel as mk
     from repro_torch.kernels.queue_arrivals import max_degree
     dev = sched.start.device
-    lcfg = tc.default_law_config(sched, expected_flows=expected_flows)
-    sim = fluid.make_slot_sim(topo, sched, law, slots, lcfg, cfg,
-                              "megakernel", dev)
+    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), law, slots,
+                              cfg=cfg, backend="megakernel", device=dev,
+                              expected_flows=expected_flows)
     tick = mk.make_tick(sim, maxdeg=maxdeg)
     carry0 = tick.init_carry(fluid.init_slot_state(sim))
     due = torch.as_tensor(mk._due_table(sim.sched, int(cfg.steps), cfg.dt),
@@ -347,6 +372,47 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
                 err = max(err, float(torch.max(torch.abs(g.double()
                                                          - w.double()))))
     return err, n_ovf, max_degree(want.state.path, int(topo.num_queues))
+
+
+def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
+                          gate=True, expected_flows=8.0):
+    """K4's grid form against the plain block on the card: a batch of
+    schedules ``sched`` ([B, N, ...], ``fluid.stack_flow_schedules``), one
+    K4 block per scenario, against the plain tick of the batch, both with
+    ``gate``, from the same initial carry, for each K in ``blocks``: every
+    carry leaf bit for bit, and the records; their sums ``w_sum`` and
+    ``lam`` at rtol 1e-5 (K4 adds them in its block order). Returns the
+    largest absolute difference in those sums."""
+    from repro_torch.core import fluid, megakernel as mk
+    dev = sched.start.device
+    sim = fluid.make_slot_sim(topo, sched, law, slots, cfg=cfg,
+                              backend="megakernel", device=dev,
+                              expected_flows=expected_flows)
+    T = int(cfg.steps)
+    grid = mk.make_tick(sim, gate=gate)
+    carry0 = grid.init_carry(fluid.init_slot_state(sim))
+    due = torch.as_tensor(mk._due_table(sim.sched, T, cfg.dt), device=dev)
+    want, wrec = mk.run_blocks(grid, tree_clone(carry0), due, T, "torch")
+    err = 0.0
+    for K in blocks:
+        got, grec = mk.run_blocks(grid, tree_clone(carry0), due, K, "cuda")
+        torch.cuda.synchronize()
+        assert got.state.t == want.state.t, (K, got.state.t, want.state.t)
+        for (name, g), (_, w) in zip(tree_leaves(got), tree_leaves(want)):
+            torch.testing.assert_close(
+                g, w, rtol=0, atol=0, equal_nan=True,
+                msg=lambda m, n=name: f"K4 grid K={K} {n}: {m}")
+        for f in grec._fields:
+            g = getattr(grec, f)
+            w = getattr(wrec, f).to(device=g.device, dtype=g.dtype)
+            tol = 1e-5 if f in ("w_sum", "lam") else 0.0
+            torch.testing.assert_close(
+                g, w, rtol=tol, atol=0, equal_nan=True,
+                msg=lambda m, n=f: f"K4 grid K={K} rec.{n}: {m}")
+            if tol and g.numel():
+                err = max(err, float(torch.max(torch.abs(g.double()
+                                                         - w.double()))))
+    return err
 
 
 # -------------------------------------------------------------------------
