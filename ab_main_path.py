@@ -16,12 +16,15 @@ megakernel over the whole 40 000 ticks. Every run is warmed up first
 clock is the host's, around work that ends in
 ``torch.cuda.synchronize()``. Prints one JSON line per pass and, last, the
 mean of each tree's two passes per run with the card's name and power
-limit. Run it from the repo root on a machine with one CUDA GPU, e.g.
-with the parent commit unpacked into a gitignored directory:
+limit, and whether every pass gave the same FCTs bit for bit (a
+SHA-256 of each run's FCT table). Run it from the repo root on a machine
+with one CUDA GPU, e.g. with the parent commit unpacked into a gitignored
+directory:
 
     git archive HEAD~1 | (mkdir -p build/ab/parent && tar -x -C build/ab/parent)
     python3 ab_main_path.py build/ab/parent .
 """
+import hashlib
 import json
 import os
 import subprocess
@@ -77,7 +80,9 @@ def child(tree: str, ticks: int) -> dict:
         wall = time.perf_counter() - t0
         done = int(torch.isfinite(st.fct).sum())
         out[key] = dict(steps=steps, wall_s=wall,
-                        us_per_tick=wall / steps * 1e6, completed=done)
+                        us_per_tick=wall / steps * 1e6, completed=done,
+                        fct_sha256=hashlib.sha256(
+                            st.fct.cpu().numpy().tobytes()).hexdigest())
     return out
 
 
@@ -122,7 +127,10 @@ def main():
             sys.exit(f"ab_main_path.py: run ({key}) completes a different "
                      f"number of flows in some pass")
         summary[key] = dict(us_per_tick_a=means[0], us_per_tick_b=means[1],
-                            b_over_a=means[1] / means[0])
+                            b_over_a=means[1] / means[0],
+                            fct_bitwise_equal=len({
+                                p[key]["fct_sha256"] for i in (0, 1)
+                                for p in passes[i]}) == 1)
     print(smi, flush=True)
     print(json.dumps({"trees": args, "ticks": ticks, "device": smi,
                       "runs": summary}), flush=True)

@@ -22,7 +22,17 @@ exit, traceback) if anything in it is wrong:
    bit for bit a launch of its own; then each timed (CUDA graph replays
    of many launches, median of rounds) beside its plain version and, for
    K3, ``torch.einsum`` (the library yardstick, used nowhere in the
-   port), K1 and K3 also at the batched shapes;
+   port), K1 and K3 also at the batched shapes. Then K1/K2 in the
+   engines' form, ``powertcp_observe_step`` and
+   ``theta_powertcp_observe_step`` (each reads its telemetry from the
+   rings and returns the finished window, in place of the ~50 eager ops
+   around the law): each law's observe-and-update routine on CUDA
+   tensors against its plain version (``core/backends.py``) bit for bit
+   in every output, at S = 384, P = 2 406, B = 2 x 128 and ragged shapes,
+   fixed-period and RTT-paced; timed at S, P and B beside the plain
+   version and the launch floor (an empty kernel through the same
+   interface, timed the same way), with a bound counted from the data
+   (``observe_cost``);
 4. K4 ``fused_tick_block`` (the megakernel, 64 ticks per launch) against
    its plain version from the same initial carry, every carry leaf bit
    for bit (the records' per-tick sums at rtol 1e-5): the 12-flow anchor
@@ -55,7 +65,8 @@ exit, traceback) if anything in it is wrong:
    unchanged, so that the script stays inside its time limit (phase 6b
    runs the same engines over the whole 40 000 ticks); (e) and (f) run
    the whole 40 000. Each run starts with the kernel launch counts at
-   zero; the fused runs must launch the law kernel and K3 once per tick,
+   zero; the fused runs must launch their law's observe kernel and K3
+   once per tick (K1/K2's TPU form never),
    the megakernel runs K4 once per 64 ticks (625 times) and nothing
    else, the reference run none. Each is held to the JAX reference's
    per-flow FCTs of the whole run
@@ -74,7 +85,8 @@ exit, traceback) if anything in it is wrong:
    launch, 1 250 launches); (5) megakernel, ``sequential=False`` (K4 a
    grid of two blocks, 625 launches), bit for bit (4) in every FCT, and
    again with ``gate=False``, bit for bit (5); (6) ``simulate_slots_batch``
-   fused (one K1 and one K3 launch per tick for both seeds); (7) the
+   fused (one K1 observe-kernel and one K3 launch per tick for both
+   seeds); (7) the
    single-bottleneck bit-match anchors ``fct_slot_exact_bitmatch`` and
    ``fct_mega_exact_bitmatch``. Launch counts zeroed before and checked
    after each run. ``smoke_ok``'s slot and megakernel gates (completed
@@ -142,7 +154,8 @@ the table's overflow flag and by the launch's admit ticks (counted by a
 third pass of one tick per launch). K4 runs one block per scenario: a
 batch is one launch of B blocks that share nothing.
 
-It prints one ``{"kernels": [...]}`` line (K1-K6), the nvidia-smi line,
+It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms;
+the TPU form's main-path launches are 0), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
 no result, when CUDA is not available or the checkout's sources are
 missing.
@@ -164,13 +177,20 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_BF16_S = 989e12
 
-SIM_KERNELS = ("powertcp_step", "theta_powertcp_step", "queue_arrivals",
-               "fused_tick_block")
+OBSERVE_KERNELS = ("powertcp_observe_step", "theta_powertcp_observe_step")
+SIM_KERNELS = ("powertcp_step", "theta_powertcp_step") + OBSERVE_KERNELS + (
+    "queue_arrivals", "fused_tick_block")
 LM_KERNELS = ("flash_attention", "rmsnorm")
 KERNELS = SIM_KERNELS + LM_KERNELS
+# the kernels the main path runs (K1/K2's TPU form stays in the kernels
+# line, held and timed in phase 3, with its main-path launches: 0)
+PATH_KERNELS = OBSERVE_KERNELS + ("queue_arrivals", "fused_tick_block") \
+    + LM_KERNELS
 REPLACES = {
     "powertcp_step": "src/repro/kernels/powertcp_step.py:51",
     "theta_powertcp_step": "src/repro/kernels/powertcp_step.py:101",
+    "powertcp_observe_step": "src/repro/kernels/powertcp_step.py:51",
+    "theta_powertcp_observe_step": "src/repro/kernels/powertcp_step.py:101",
     "queue_arrivals": "src/repro/kernels/queue_arrivals.py:312",
     "fused_tick_block": "src/repro/kernels/fused_tick.py:74",
     "flash_attention": "src/repro/kernels/flash_attention.py:98",
@@ -179,6 +199,8 @@ REPLACES = {
 SOURCES = {
     "powertcp_step": "src/repro_torch/csrc/powertcp_step.cu",
     "theta_powertcp_step": "src/repro_torch/csrc/powertcp_step.cu",
+    "powertcp_observe_step": "src/repro_torch/csrc/powertcp_step.cu",
+    "theta_powertcp_observe_step": "src/repro_torch/csrc/powertcp_step.cu",
     "queue_arrivals": "src/repro_torch/csrc/queue_arrivals.cu",
     "fused_tick_block": "src/repro_torch/csrc/fused_tick.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
@@ -239,6 +261,32 @@ def law_cost(F, H):
 def theta_cost(F):
     """K2: 8 float inputs + 1 mask byte, 3 float outputs, ~18 flops."""
     return F * (8 * 4 + 1 + 3 * 4), F * 18
+
+
+def observe_cost(inp, law):
+    """One observe-kernel call on ``test_torch_support.observe_inputs``'
+    data, counted from that data: every row reads its window, NIC rate,
+    base RTT, RTT now, smoothed power, update times (7 floats; Algorithm 2
+    also its previous RTT), its active flag and on the padded engine its
+    ``started`` flag, and writes four floats (Algorithm 2 five); only a
+    row that updates reads its path, hop delays and RTT in steps, its law
+    config (tau, beta), w_old and on the slot engine ``slot_flow`` and
+    ``admit_t``, and per real hop its observation (q; Algorithm 1 also q
+    one tick earlier and the queue's rate out) and the queue's service
+    rate. Flops: ~5 a row (the clamp), and per updating row ~30 plus 2
+    (Algorithm 2) or 12 (Algorithm 1) per real hop."""
+    active, nu = inp["active"], inp["next_update"]
+    upd = active & (np.float32(inp["t_sec"]) >= nu)
+    rows, n_upd = active.size, int(upd.sum())
+    hops = int((inp["path"][upd] < inp["Q"]).sum())
+    H = inp["path"].shape[-1]
+    a1, slot = law == "powertcp", inp["engine"] == "slot"
+    per_row = 4 * (7 + 4 + 2 * (not a1)) + 1 + (not slot)
+    per_upd = 4 * (2 * H + 1 + 2 + 1 + 2 * slot)
+    per_hop = 4 * ((3 if a1 else 1) + 1)
+    nbytes = rows * per_row + n_upd * per_upd + hops * per_hop
+    flops = 5 * rows + 30 * n_upd + (12 if a1 else 2) * hops
+    return nbytes, flops
 
 
 def queue_cost(H, F, Q):
@@ -471,6 +519,78 @@ def phase_kernels(torch, sup, dev):
     return rows
 
 
+# K1/K2's observe form: (tag, engine, B, F, H, N) — S = 384 slots over the
+# paper's 2 406 flows, P = 2 406 padded flows, B = phase 6b's 2 x 128
+# slots over 2 436 flows; then ragged shapes (checked, not timed)
+OBSERVE_SHAPES = (("", "slot", 1, 384, 3, 2406),
+                  ("@padded", "padded", 1, 2406, 3, None),
+                  ("@batch", "slot", 2, 128, 3, 2436),
+                  (None, "padded", 2, 257, 5, None),
+                  (None, "slot", 3, 100, 1, 500))
+
+
+def phase_observe(torch, tc, sup, dev):
+    """K1/K2's observe form: each law's routine (the kernel on these CUDA
+    tensors) against its plain version on the same tensors, bit for bit
+    in every output, at ``OBSERVE_SHAPES``, fixed-period and RTT-paced;
+    then timed at the S, P and B shapes beside the plain version, with the
+    launch floor: an empty kernel launched through the same interface and
+    timed the same way. Returns {name: row} as ``phase_kernels``."""
+    from repro_torch.core import backends
+    from repro_torch.kernels.powertcp_step import launch_floor
+    floor = graph_ms(torch, lambda: launch_floor(dev))
+    log(f"[observe] launch floor (an empty kernel, same interface, CUDA "
+        f"graph replay): {floor!r} ms")
+    rows = {}
+    for law in ("powertcp", "theta_powertcp"):
+        name = law + "_observe_step"
+        plain = (backends.powertcp_observe_step_plain if law == "powertcp"
+                 else backends.theta_powertcp_observe_step_plain)
+        err = 0.0
+        for tag, engine, B, F, H, N in OBSERVE_SHAPES:
+            for period in (2e-6, 0.0):
+                inp = sup.observe_inputs(engine, B, F, H=H, N=N,
+                                         update_period=period, seed=F + H)
+                law_b, static, cfg, x = sup.observe_tick(tc, inp, law, dev)
+                routine = tc.observe_step(law_b)
+
+                def run():
+                    return routine(law_b, static, cfg, x)
+
+                def run_plain():
+                    return plain(law_b, static, cfg, x)
+                got, want = run(), run_plain()
+                torch.cuda.synchronize()
+                got = tuple(got[0]) + tuple(got[1:])
+                want = tuple(want[0]) + tuple(want[1:])
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g, w, rtol=0, atol=0,
+                                               equal_nan=True)
+                    d = torch.abs(g - w)
+                    d = d[torch.isfinite(d)]   # inf - inf: equal infinities
+                    err = max(err, float(d.max()) if d.numel() else 0.0)
+                log(f"[observe] {name} {engine} B={B} F={F} H={H} "
+                    f"update_period={period}: bitwise equal to its plain "
+                    f"version")
+                if tag is None or period == 0.0:
+                    continue
+                b, by = bound_ms(*observe_cost(inp, law))
+                rows[name + tag] = dict(
+                    shape=f"{engine} B={B} F={F} H={H}",
+                    ms=graph_ms(torch, run), plain_ms=graph_ms(torch,
+                                                               run_plain),
+                    bound_ms=b, bound_by=by, library_ms=None,
+                    floor_ms=floor)
+        for key, row in rows.items():
+            if key.startswith(name):
+                row["max_abs_err"] = err
+                log(f"[kernels] time {key} ({row['shape']}): ms "
+                    f"{row['ms']!r} plain_ms {row['plain_ms']!r} bound_ms "
+                    f"{row['bound_ms']!r} ({row['bound_by']}) floor_ms "
+                    f"{floor!r} library_ms None")
+    return rows
+
+
 def phase_goldens(tc, sup, dev):
     """The golden scenario (``tools/gen_golden.py``'s constants) through
     the port on the card, both backends, at the golden tolerances."""
@@ -531,13 +651,12 @@ MAIN_RUNS = (("a", "slot", "powertcp", "fused"),
 
 def expected_launches(law, backend, steps):
     """Launches each kernel must count in one main-path run: the fused
-    backend one law kernel and one K3 per tick, the megakernel one K4 per
+    backend one observe kernel (K1/K2's engine form) and one K3 per tick
+    and no K1/K2 in the TPU kernels' form, the megakernel one K4 per
     block of 64 ticks (and one for a remainder), the reference none."""
     from repro_torch.kernels import DEFAULT_BLOCK
     if backend == "fused":
-        law_kernel = ("theta_powertcp_step" if law == "theta_powertcp"
-                      else "powertcp_step")
-        return {law_kernel: steps, "queue_arrivals": steps}
+        return {law + "_observe_step": steps, "queue_arrivals": steps}
     if backend == "megakernel":
         return {"fused_tick_block": -(-steps // DEFAULT_BLOCK)}
     return {}
@@ -1096,10 +1215,11 @@ def phase_smoke_slots(torch, tc, kernels, sup, dev, smi):
     log(f"[smoke] (6b.5) K4 with gate=False: bitwise equal to the gated "
         f"grid-{B} run (wall {wall_ungated:.3f} s); grid {B} bitwise equal "
         f"to grid 1 in every FCT")
-    # (6) the slot engine, batched, fused: one K1 and one K3 per tick
+    # (6) the slot engine, batched, fused: one K1 (observe form) and one K3
+    # per tick
     (st_f, _), wall, counts = timed_run(
         torch, kernels, "6b.6",
-        {"powertcp_step": steps, "queue_arrivals": steps},
+        expected_launches("powertcp", "fused", steps),
         lambda: tc.simulate_slots_batch(
             topo, sb, "powertcp", slots, cfg=cfg, record=False,
             backend="fused", expected_flows=ef, device=dev))
@@ -1616,6 +1736,7 @@ def main():
     t0 = time.perf_counter()
     phase_build(kernels)
     rows = phase_kernels(torch, sup, dev)
+    rows.update(phase_observe(torch, tc, sup, dev))
     log(f"[time] build + kernels: {time.perf_counter() - t0:.1f} s")
     rows["fused_tick_block"] = phase_k4(torch, tc, sup, dev)
     log(f"[time] + K4: {time.perf_counter() - t0:.1f} s")
@@ -1643,7 +1764,7 @@ def main():
     for k in LM_KERNELS:
         launches[k] = serve_launches[k]
 
-    for k in KERNELS:
+    for k in PATH_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"the main path never launched {k}")
     line = kernels_line(rows, launches)

@@ -4,15 +4,16 @@ from .types import (Flows, FlowSchedule, PathObs, Record, SimConfig,
                     SimState, SlotState, Topology, GBPS, KB, MB, MTU, US,
                     batch_of_one, from_numpy, pad_hops, resolve_device,
                     scenario)
-from .laws import (LAWS, LAW_BACKENDS, Law, LawConfig, get_law,
-                   law_backends, norm_power_int, norm_power_theta,
-                   register_backend, register_law)
-from .fluid import (FluidSim, SlotSim, audit_carry_dtypes, build_incidence,
-                    default_law_config, init_slot_state, init_state,
-                    make_slot_sim, pad_flows, pad_schedule, simulate,
-                    simulate_batch, simulate_slots, simulate_slots_batch,
-                    slot_step, stack_flow_schedules, stack_flows,
-                    stack_law_configs, step)
+from .laws import (LAWS, LAW_BACKENDS, OBSERVE_STEPS, Law, LawConfig,
+                   get_law, law_backends, norm_power_int, norm_power_theta,
+                   observe_step, register_backend, register_law,
+                   register_observe_step)
+from .fluid import (FluidSim, LawTick, SlotSim, audit_carry_dtypes,
+                    build_incidence, default_law_config, init_slot_state,
+                    init_state, make_slot_sim, pad_flows, pad_schedule,
+                    simulate, simulate_batch, simulate_slots,
+                    simulate_slots_batch, slot_step, stack_flow_schedules,
+                    stack_flows, stack_law_configs, step)
 from . import backends  # noqa: F401  (registers the fused kernel backends)
 from .megakernel import MegaCarry, PendingFCT, make_tick, simulate_slots_mega
 from .network import (LeafSpine, make_flows_single, make_schedule,
@@ -28,10 +29,10 @@ __all__ = [
     "Flows", "FlowSchedule", "PathObs", "Record", "SimConfig", "SimState",
     "SlotState", "Topology", "GBPS", "KB", "MB", "MTU", "US",
     "batch_of_one", "from_numpy", "pad_hops", "resolve_device", "scenario",
-    "LAWS", "LAW_BACKENDS", "Law", "LawConfig", "get_law", "law_backends",
-    "norm_power_int", "norm_power_theta", "register_backend",
-    "register_law",
-    "FluidSim", "SlotSim", "audit_carry_dtypes", "build_incidence",
+    "LAWS", "LAW_BACKENDS", "OBSERVE_STEPS", "Law", "LawConfig", "get_law",
+    "law_backends", "norm_power_int", "norm_power_theta", "observe_step",
+    "register_backend", "register_law", "register_observe_step",
+    "FluidSim", "LawTick", "SlotSim", "audit_carry_dtypes", "build_incidence",
     "default_law_config", "init_slot_state", "init_state",
     "make_slot_sim", "pad_flows", "pad_schedule", "simulate",
     "simulate_batch", "simulate_slots", "simulate_slots_batch", "slot_step",

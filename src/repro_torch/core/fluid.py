@@ -16,9 +16,11 @@ slot engine reproduces the padded engine's trajectories bit for bit.
 
 Backends: ``"reference"`` (plain PyTorch, with the queue arrivals summed in
 ascending flat order — bitwise ``repro``'s scatter, see
-``kernels/queue_arrivals.py``), ``"fused"``, which sends the law update
-through K1/K2 and the queue update through K3, one launch each per tick
-on the card, or ``"megakernel"``: on the slot engine the whole-tick
+``kernels/queue_arrivals.py``), ``"fused"``, which sends the tick's
+observation and law update through K1/K2 in their observe form (the
+law's registered observe-and-update routine, ``laws.observe_step``) and
+the queue update through K3, one launch each per tick on the card, or
+``"megakernel"``: on the slot engine the whole-tick
 engine of ``core/megakernel.py`` (K4, one launch per 64 ticks on the
 card; its plain tick on the CPU), bit for bit the reference backend; on
 the padded engine, as in ``repro``, the reference ops.
@@ -67,7 +69,7 @@ from ..kernels import ops
 from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
                                       integrate_arrivals, max_degree,
                                       one_hot_incidence, update_incidence)
-from .laws import Law, LawConfig, get_law
+from .laws import Law, LawConfig, get_law, observe_step
 from .types import (MTU, Flows, FlowSchedule, PathObs, Record, SimConfig,
                     SimState, SlotState, Topology, batch_of_one, cat_trees,
                     pad_hops, resolve_device, scenario, stack_trees,
@@ -364,6 +366,89 @@ def _next_update(cfg: SimConfig, upd, t_sec: float, theta_now,
     return torch.where(upd, t_sec + theta_now, next_update)
 
 
+class LawTick(NamedTuple):
+    """What one tick's observation and law update read, per row [B, F]
+    (flows on the padded engine, slots on the slot engine); the rings
+    already hold this tick's row ``ptr``. ``law_cfg`` is the batch's
+    config: per flow on the padded engine, per schedule entry on the slot
+    engine, where ``slot_flow`` and ``n_flows`` (N) gather it into the
+    slots. ``started`` (padded) holds the window of flows not yet started;
+    ``admit_t`` (slot) dates each occupant's admission."""
+    t: int
+    t_sec: float
+    ptr: int
+    hist_q: torch.Tensor            # [B, D, Q+1]
+    hist_out: torch.Tensor          # [B, D, Q+1]
+    hist_w: torch.Tensor            # [B, D, F]
+    rows: torch.Tensor              # arange(F)
+    path: torch.Tensor              # [B, F, H]
+    valid: torch.Tensor             # [B, F, H] path < Q
+    b_hop: torch.Tensor             # [B, F, H] bw[path]
+    tf_steps: torch.Tensor          # [B, F, H]
+    rtt_steps: torch.Tensor
+    tau: torch.Tensor
+    nic: torch.Tensor
+    theta_now: torch.Tensor         # the instantaneous RTT
+    active: torch.Tensor
+    w: torch.Tensor
+    rate_cap: torch.Tensor
+    law_state: tuple
+    next_update: torch.Tensor
+    last_update: torch.Tensor
+    law_cfg: LawConfig
+    started: Optional[torch.Tensor] = None
+    admit_t: Optional[torch.Tensor] = None
+    slot_flow: Optional[torch.Tensor] = None
+    n_flows: int = 0
+
+
+def _law_tick(update, law: Law, static: _Static, cfg: SimConfig,
+              x: LawTick):
+    """One tick's delayed observation (``_observe``), ``w_old`` (on the
+    slot engine the occupant's initial window where the ring row predates
+    its admission), ``upd`` and ``dt_obs``, the law update ``update``, the
+    window clamp, the padded engine's hold of flows not yet started and
+    the update times. Returns (law state, w, rate_cap, next_update,
+    last_update)."""
+    D = cfg.hist
+    law_cfg = x.law_cfg
+    if x.slot_flow is not None:
+        gf = torch.clamp(x.slot_flow, 0, x.n_flows - 1)
+        law_cfg = _gather_law_cfg(law_cfg, gf, x.n_flows)
+    q_obs, qdot, mu, ecn, theta_obs, wold_delay = _observe(
+        law, law_cfg, static, cfg, x.ptr, x.hist_q, x.hist_out, x.path,
+        x.valid, x.tf_steps, x.rtt_steps, x.tau, x.b_hop)
+    w_old = _ring(x.hist_w, torch.remainder(x.ptr - wold_delay, D), x.rows)
+    if x.admit_t is not None:
+        w_old = torch.where(x.t - wold_delay >= x.admit_t, w_old,
+                            x.nic * x.tau)
+    upd = x.active & (x.t_sec >= x.next_update)
+    dt_obs = torch.clamp_min(x.t_sec - x.last_update, cfg.dt)
+    obs = PathObs(q=q_obs, qdot=qdot, mu=mu, b=x.b_hop, valid=x.valid,
+                  theta=theta_obs, w_old=w_old, dt_obs=dt_obs, ecn_frac=ecn)
+    law_state, w, rate_cap = update(x.law_state, obs, x.w, x.rate_cap, upd,
+                                    law_cfg, x.t_sec)
+    w = torch.minimum(torch.clamp_min(w, MTU),
+                      8.0 * x.nic * x.tau + 8.0 * x.nic * x.theta_now)
+    if x.started is not None:
+        # a flow that has not started holds its initial window, so the
+        # slot engine's admission re-init lands on the same bits
+        w = torch.where(x.started, w, x.w)
+    next_update = _next_update(cfg, upd, x.t_sec, x.theta_now, x.next_update)
+    last_update = torch.where(upd, x.t_sec, x.last_update)
+    return law_state, w, rate_cap, next_update, last_update
+
+
+def _observe_update(law: Law, static: _Static, cfg: SimConfig, x: LawTick):
+    """The bound law's observe-and-update routine where it has one
+    (``laws.observe_step``: the fused PowerTCP laws' K1/K2 observe
+    kernels), else ``_law_tick`` with ``law.update``."""
+    fn = observe_step(law)
+    if fn is not None:
+        return fn(law, static, cfg, x)
+    return _law_tick(law.update, law, static, cfg, x)
+
+
 def _record(t_sec, q_new, w, out, lam, active) -> Record:
     """One tick's record, per scenario; the two float sums in ``repro``'s
     order (``_xla_sum``)."""
@@ -419,27 +504,18 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     hist_q[..., ptr, :] = q_new
     hist_out[..., ptr, :] = out
 
-    # -- delayed observation ------------------------------------------------
-    q_obs, qdot, mu, ecn, theta_obs, wold_delay = _observe(
-        sim.law, law_cfg, static, cfg, ptr, hist_q, hist_out, path, valid,
-        flows.tf_steps, flows.rtt_steps, flows.tau, b_hop)
-    w_old = _ring(hist_w, torch.remainder(ptr - wold_delay, D), fidx)
-    upd = active & (t_sec >= state.next_update)
-    dt_obs = torch.clamp_min(t_sec - state.last_update, dt)
-    obs = PathObs(q=q_obs, qdot=qdot, mu=mu, b=b_hop, valid=valid,
-                  theta=theta_obs, w_old=w_old, dt_obs=dt_obs, ecn_frac=ecn)
-
-    # -- control-law update (dispatches through the law's bound backend) ---
-    law_state, w, rate_cap = sim.law.update(
-        state.law, obs, state.w, state.rate_cap, upd, law_cfg, t_sec)
-    w = torch.minimum(torch.clamp_min(w, MTU),
-                      8.0 * flows.nic_rate * flows.tau +
-                      8.0 * flows.nic_rate * theta_now)
-    # a flow that has not started holds its initial window, so the slot
-    # engine's admission re-init lands on the same bits
-    w = torch.where(started, w, state.w)
-    next_update = _next_update(cfg, upd, t_sec, theta_now, state.next_update)
-    last_update = torch.where(upd, t_sec, state.last_update)
+    # -- delayed observation and control-law update (the bound law's
+    #    observe-and-update routine, or its backend's update) -------------
+    law_state, w, rate_cap, next_update, last_update = _observe_update(
+        sim.law, static, cfg, LawTick(
+            t=t, t_sec=t_sec, ptr=ptr, hist_q=hist_q, hist_out=hist_out,
+            hist_w=hist_w, rows=fidx, path=path, valid=valid, b_hop=b_hop,
+            tf_steps=flows.tf_steps, rtt_steps=flows.rtt_steps,
+            tau=flows.tau, nic=flows.nic_rate, theta_now=theta_now,
+            active=active, w=state.w, rate_cap=state.rate_cap,
+            law_state=state.law, next_update=state.next_update,
+            last_update=state.last_update, law_cfg=law_cfg,
+            started=started))
 
     # -- flow progress ------------------------------------------------------
     remaining = torch.where(active, state.remaining - lam * dt,
@@ -764,8 +840,6 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
         occupied = state.slot_flow < N
     path, tf_steps, tau, nic = (state.path, state.tf_steps, state.tau,
                                 state.nic_rate)
-    gf = torch.clamp(state.slot_flow, 0, N - 1)
-    cfg_slot = _gather_law_cfg(sim.law_cfg, gf, N)
 
     active = (occupied & (t_sec >= state.start) & (state.remaining > 0.0) &
               (t_sec < state.stop))
@@ -795,24 +869,18 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     hist_out[..., ptr, :] = out
 
     # -- delayed observation (w_old before admission is the occupant's
-    #    initial window, the padded engine's ring-init) -------------------
-    q_obs, qdot, mu, ecn, theta_obs, wold_delay = _observe(
-        sim.law, cfg_slot, static, cfg, ptr, hist_q, hist_out, path, valid,
-        tf_steps, state.rtt_steps, tau, b_hop)
-    w_old = _ring(hist_w, torch.remainder(ptr - wold_delay, D), sidx)
-    w_old = torch.where(t - wold_delay >= state.admit_t, w_old, nic * tau)
-    upd = active & (t_sec >= state.next_update)
-    dt_obs = torch.clamp_min(t_sec - state.last_update, dt)
-    obs = PathObs(q=q_obs, qdot=qdot, mu=mu, b=b_hop, valid=valid,
-                  theta=theta_obs, w_old=w_old, dt_obs=dt_obs, ecn_frac=ecn)
-
-    # -- control-law update (slot-gathered config) ------------------------
-    law_state, w, rate_cap = sim.law.update(
-        state.law, obs, state.w, state.rate_cap, upd, cfg_slot, t_sec)
-    w = torch.minimum(torch.clamp_min(w, MTU),
-                      8.0 * nic * tau + 8.0 * nic * theta_now)
-    next_update = _next_update(cfg, upd, t_sec, theta_now, state.next_update)
-    last_update = torch.where(upd, t_sec, state.last_update)
+    #    initial window, the padded engine's ring-init) and control-law
+    #    update on the slot-gathered config --------------------------------
+    law_state, w, rate_cap, next_update, last_update = _observe_update(
+        sim.law, static, cfg, LawTick(
+            t=t, t_sec=t_sec, ptr=ptr, hist_q=hist_q, hist_out=hist_out,
+            hist_w=hist_w, rows=sidx, path=path, valid=valid, b_hop=b_hop,
+            tf_steps=tf_steps, rtt_steps=state.rtt_steps, tau=tau, nic=nic,
+            theta_now=theta_now, active=active, w=state.w,
+            rate_cap=state.rate_cap, law_state=state.law,
+            next_update=state.next_update, last_update=state.last_update,
+            law_cfg=sim.law_cfg, admit_t=state.admit_t,
+            slot_flow=state.slot_flow, n_flows=N))
 
     # -- flow progress; FCT goes to the schedule-ordered table ------------
     remaining = torch.where(active, state.remaining - lam * dt,

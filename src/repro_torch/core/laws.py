@@ -26,7 +26,7 @@ The electrical analogy (Table 1 of the paper):
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -209,6 +209,16 @@ LAW_BACKENDS: dict = {name: {"reference": law.update,
                              "megakernel": law.update}
                       for name, law in LAWS.items()}
 
+# (law name, backend name) -> observe-and-update routine
+# ``fn(law, static, cfg, tick) -> (law_state, w, rate_cap, next_update,
+# last_update)``: one tick's delayed observation, law update, window clamp
+# and update times for a bound law, in place of the engine's generic
+# sequence (``fluid._law_tick``: ``fluid._observe``, then ``law.update``,
+# then the clamp and the update times), which it must equal. ``tick`` is a
+# ``fluid.LawTick``. ``core.backends`` registers the fused PowerTCP laws'
+# (K1/K2 in their observe form). ``observe_step`` is the lookup.
+OBSERVE_STEPS: dict = {}
+
 # Telemetry channels and feedback-path models a law may declare
 # (validated at registration, as in ``repro``).
 ENGINE_CHANNELS = ("qdot", "mu", "ecn", "pause", "incast")
@@ -240,6 +250,8 @@ def register_law(law: Law) -> None:
     LAWS[law.name] = law
     LAW_BACKENDS[law.name] = {"reference": law.update,
                               "megakernel": law.update}
+    for key in [k for k in OBSERVE_STEPS if k[0] == law.name]:
+        del OBSERVE_STEPS[key]
 
 
 def register_backend(law_name: str, backend: str, update: Callable) -> None:
@@ -248,6 +260,27 @@ def register_backend(law_name: str, backend: str, update: Callable) -> None:
     if law_name not in LAWS:
         raise KeyError(f"unknown law '{law_name}'; have {sorted(LAWS)}")
     LAW_BACKENDS.setdefault(law_name, {})[backend] = update
+
+
+def register_observe_step(law_name: str, backend: str,
+                          fn: Callable) -> None:
+    """Register the observe-and-update routine of a law's backend (see
+    ``OBSERVE_STEPS``); the backend must be registered first."""
+    if backend not in LAW_BACKENDS.get(law_name, {}):
+        raise KeyError(f"law '{law_name}' has no backend '{backend}'")
+    OBSERVE_STEPS[(law_name, backend)] = fn
+
+
+def observe_step(law: Law) -> Optional[Callable]:
+    """The observe-and-update routine of a bound law, or None. It is the
+    one registered for the law's (name, backend), and only while
+    ``law.update`` is that backend's registered update: a ``Law`` built
+    around another update keeps the engine's generic sequence."""
+    fn = OBSERVE_STEPS.get((law.name, law.backend))
+    if fn is None or LAW_BACKENDS.get(law.name, {}).get(law.backend) \
+            is not law.update:
+        return None
+    return fn
 
 
 def law_backends(name: str) -> list:

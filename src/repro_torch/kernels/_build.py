@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 LAUNCHES = {"powertcp_step": 0, "theta_powertcp_step": 0,
+            "powertcp_observe_step": 0, "theta_powertcp_observe_step": 0,
             "queue_arrivals": 0, "fused_tick_block": 0, "rmsnorm": 0,
             "flash_attention": 0}
 

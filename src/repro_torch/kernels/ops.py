@@ -15,7 +15,8 @@ from . import queue_arrivals as _queue
 from . import rmsnorm as _rmsnorm
 
 
-def _on_cuda(x) -> bool:
+def on_cuda(x) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
     if x.device.type == "cuda":
         return True
     if x.device.type == "cpu":
@@ -27,7 +28,7 @@ def powertcp_step(q, qdot, mu, b, valid, tau, w, w_old, gs_prev, dt_obs,
                   upd, beta, *, gamma=0.9, w_min=1000.0):
     args = (q, qdot, mu, b, valid, tau, w, w_old, gs_prev, dt_obs, upd,
             beta)
-    if _on_cuda(q):
+    if on_cuda(q):
         return _law.powertcp_step(*args, gamma=gamma, w_min=w_min)
     return ref.powertcp_step_ref(*args, gamma=gamma, w_min=w_min)
 
@@ -35,13 +36,13 @@ def powertcp_step(q, qdot, mu, b, valid, tau, w, w_old, gs_prev, dt_obs,
 def theta_powertcp_step(theta, prev_theta, tau, w, w_old, gs_prev, dt_obs,
                         upd, beta, *, gamma=0.9, w_min=1000.0):
     args = (theta, prev_theta, tau, w, w_old, gs_prev, dt_obs, upd, beta)
-    if _on_cuda(theta):
+    if on_cuda(theta):
         return _law.theta_powertcp_step(*args, gamma=gamma, w_min=w_min)
     return ref.theta_powertcp_step_ref(*args, gamma=gamma, w_min=w_min)
 
 
 def queue_arrivals(lam_del, onehot, q, out_rate, caps, *, dt):
-    if _on_cuda(onehot):
+    if on_cuda(onehot):
         return _queue.queue_arrivals(lam_del, onehot, q, out_rate, caps,
                                      dt=dt)
     return ref.queue_arrivals_ref(lam_del, onehot, q, out_rate, caps, dt)
@@ -51,7 +52,7 @@ def fused_tick_block(tick, carry, due_block, *, record=True, record_every=1):
     """K ticks of the megakernel over a batch's carry: K4 on CUDA tensors
     (with ``tick.k4_params()`` and ``tick.gate``, one block per
     scenario), the plain tick loop on CPU tensors."""
-    if _on_cuda(carry.state.w):
+    if on_cuda(carry.state.w):
         return _tick.fused_tick_block(tick.k4_params(), carry, due_block,
                                       record=record,
                                       record_every=record_every,
@@ -63,7 +64,7 @@ def fused_tick_block(tick, carry, due_block, *, record=True, record_every=1):
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q: [B,H,T,D]; k, v: [B,KV,S,D]. K5 on CUDA tensors, the plain
     attention on CPU tensors."""
-    if _on_cuda(q):
+    if on_cuda(q):
         return _flash.flash_attention(q, k, v, causal=causal, window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
 
@@ -71,6 +72,6 @@ def flash_attention(q, k, v, *, causal=True, window=0):
 def rmsnorm(x, scale, *, eps=1e-6):
     """RMSNorm over the last dim: K6 on CUDA tensors, the plain version on
     CPU tensors."""
-    if _on_cuda(x):
+    if on_cuda(x):
         return _rmsnorm.rmsnorm(x, scale, eps=eps)
     return ref.rmsnorm_ref(x, scale, eps=eps)

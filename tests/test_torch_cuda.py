@@ -26,6 +26,11 @@ spelled in torch and itself run twice, at those rows and ragged ones;
 K4's grid form (a batch of B scenarios, one block each, B in 1-3, with
 and without gate) against each scenario's plain block, K1-K3 taking a
 batch in one launch, and the batched megakernel backend's launches;
+K1/K2's observe form (``powertcp_observe_step``,
+``theta_powertcp_observe_step``) bit for bit against its plain version
+at the main path's shapes (S = 384, P = 2 406, B = 2 x 128, and a ragged
+5-hop batch), both update modes, and a fused run of each engine
+launching one observe kernel and one K3 a tick and nothing else;
 and the REDUCED qwen3-14b model on the
 card against the port on the CPU at the tight bar of
 ``tests/test_torch_lm.py``. Every test takes the ``cuda_device``
@@ -183,6 +188,8 @@ def test_megakernel_backend_launches_only_k4(cuda_device):
         out.append((st.fct.cpu(), rec.q.cpu(), dict(LAUNCHES)))
     (fg, qg, lg), (fc, qc, lc) = out
     assert lg == {"powertcp_step": 0, "theta_powertcp_step": 0,
+                  "powertcp_observe_step": 0,
+                  "theta_powertcp_observe_step": 0,
                   "queue_arrivals": 0, "fused_tick_block": 63, "rmsnorm": 0,
                   "flash_attention": 0}
     assert sum(lc.values()) == 0
@@ -269,12 +276,93 @@ def test_batched_megakernel_launches(cuda_device, sequential):
                                         sequential=sequential, device=dev)
         out.append((st.fct.cpu(), dict(LAUNCHES)))
     assert out[0][1] == {"powertcp_step": 0, "theta_powertcp_step": 0,
+                         "powertcp_observe_step": 0,
+                         "theta_powertcp_observe_step": 0,
                          "queue_arrivals": 0,
                          "fused_tick_block": 1250 if sequential else 625,
                          "rmsnorm": 0, "flash_attention": 0}
     assert sum(out[2][1].values()) == 0
     torch.testing.assert_close(out[1][0], out[2][0], rtol=0, atol=0,
                                equal_nan=True)
+
+
+# K1/K2's observe form: S = 384 slots over the paper's 2 406 flows, P =
+# 2 406 padded flows, B = 2 x 128 slots over 2 436 (phase 6b's batch),
+# and a ragged padded batch with 5-hop paths
+OBSERVE_SHAPES = [("slot", 1, 384, 3, 2406), ("padded", 1, 2406, 3, None),
+                  ("slot", 2, 128, 3, 2436), ("padded", 2, 257, 5, None)]
+
+
+def _observe_plain(law):
+    from repro_torch.core import backends
+    return (backends.powertcp_observe_step_plain if law == "powertcp"
+            else backends.theta_powertcp_observe_step_plain)
+
+
+def _observe_key(law):
+    return ("powertcp_observe_step" if law == "powertcp"
+            else "theta_powertcp_observe_step")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("period", [2e-6, 0.0])
+@pytest.mark.parametrize("engine,B,F,H,N", OBSERVE_SHAPES)
+@pytest.mark.parametrize("law", ["powertcp", "theta_powertcp"])
+def test_observe_step_kernel(cuda_device, law, engine, B, F, H, N, period):
+    """The fused law's observe-and-update routine on CUDA tensors launches
+    its observe kernel once and equals the plain version on the same
+    tensors bit for bit, every output."""
+    import repro_torch.core as tc
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    inp = sup.observe_inputs(engine, B, F, H=H, N=N, update_period=period,
+                             seed=F + H)
+    law_b, static, cfg, x = sup.observe_tick(tc, inp, law, cuda_device)
+    reset_launches()
+    state, w, rate_cap, nu, lu = tc.observe_step(law_b)(law_b, static, cfg,
+                                                        x)
+    got = tuple(state) + (w, rate_cap, nu, lu)
+    assert LAUNCHES[_observe_key(law)] == 1
+    assert sum(LAUNCHES.values()) == 1
+    state, w, rate_cap, nu, lu = _observe_plain(law)(law_b, static, cfg, x)
+    for g, e in zip(got, tuple(state) + (w, rate_cap, nu, lu)):
+        torch.testing.assert_close(g, e, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["padded", "slot"])
+@pytest.mark.parametrize("law", ["powertcp", "theta_powertcp"])
+def test_fused_runs_launch_one_observe_kernel_a_tick(cuda_device, law,
+                                                     engine):
+    """A fused run on the card launches its law's observe kernel and K3
+    once a tick and nothing else (no old-form K1/K2), and completes the
+    flows the same run completes on the CPU, at the same FCTs within the
+    fused backend's rtol 1e-5 (K3 sums in its own order)."""
+    import repro_torch.core as tc
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    steps, out = 4000, []
+    for dev in (cuda_device, "cpu"):
+        topo, sched, cfg = sup.staggered(tc, steps=steps, device=dev)
+        reset_launches()
+        if engine == "padded":
+            flows = tc.schedule_as_flows(sched)
+            st, _ = tc.simulate(
+                topo, flows, law,
+                tc.default_law_config(flows, expected_flows=8.0), cfg,
+                record=False, backend="fused", device=dev)
+        else:
+            st, _ = tc.simulate_slots(
+                topo, sched, law, 6,
+                tc.default_law_config(sched, expected_flows=8.0), cfg,
+                record=False, backend="fused", device=dev)
+        out.append((st.fct.cpu().numpy(), dict(LAUNCHES)))
+    want = {k: 0 for k in out[0][1]}
+    want[_observe_key(law)] = want["queue_arrivals"] = steps
+    assert out[0][1] == want
+    assert sum(out[1][1].values()) == 0
+    (fg, _), (fc, _) = out
+    assert np.isfinite(fc).sum() > 0
+    np.testing.assert_array_equal(np.isfinite(fg), np.isfinite(fc))
+    np.testing.assert_allclose(fg, fc, rtol=1e-5)
 
 
 @pytest.mark.cuda

@@ -14,7 +14,8 @@
 * seeded kernel inputs and the paper scenario's constants, shared by the
   tests and ``chip_smoke.py``; ``smoke_slots_pool`` (the slot pool of
   ``benchmarks/run.py::smoke_slots``) and ``SMOKE_REF``, the reference
-  FCTs of its batched runs; ``k4_against_plain`` and
+  FCTs of its batched runs; ``observe_inputs`` / ``observe_tick`` (one
+  tick's inputs to K1/K2's observe form); ``k4_against_plain`` and
   ``k4_grid_against_plain`` (K4, and its grid of one block per scenario,
   against the plain megakernel block on the card); the sum orders of K3 and K5 spelled in
   torch (``queue_arrivals_in_k3_order``, ``flash_in_k5_order``,
@@ -253,6 +254,105 @@ def queue_arrivals_in_k3_order(lam_del, onehot, q, out_rate, caps, dt):
     q_new = torch.minimum(torch.clamp_min(q + (arr - out_rate) * dt, 0.0),
                           caps)
     return arr, q_new
+
+
+# K1/K2's observe form: one tick's rings, rows and law config
+
+OBSERVE_DT = 1e-6
+
+
+def observe_inputs(engine, B, F, H=3, Q=288, D=512, N=None,
+                   update_period=2e-6, seed=0):
+    """One tick's inputs to K1/K2's observe form (``LawTick``) at the
+    simulator's magnitudes, numpy, rows [B, F]: rings [B, D, Q+1] and
+    [B, D, F] with zeros among the queues and a sentinel column that stays
+    0, paths with a sentinel last hop on ~30% of the rows, about half the
+    active rows due to update, some windows above the clamp. ``engine``
+    "padded": the law config per flow and ~15% of the flows not started;
+    "slot": the config per schedule entry (N of them) read at
+    ``slot_flow`` (N on an empty slot, which is never active; the first
+    and ~10% of the others), and ``admit_t`` within 80 ticks,
+    so that some slots were admitted after their ``w_old`` row."""
+    rng = np.random.default_rng(seed)
+    f32, i32 = np.float32, np.int32
+    Q1 = Q + 1
+    t = int(rng.integers(1000, 5000))
+    bw = np.concatenate([rng.choice([3.125e9, 12.5e9], Q),
+                         [1e15]]).astype(f32)
+    hist_q = (np.abs(rng.standard_normal((B, D, Q1))) * 5e4).astype(f32)
+    hist_q[rng.random((B, D, Q1)) < 0.3] = 0.0
+    hist_q[..., Q] = 0.0
+    path = rng.integers(0, Q, (B, F, H)).astype(i32)
+    path[..., -1][rng.random((B, F)) < 0.3] = Q
+    tau = rng.uniform(12e-6, 24e-6, (B, F)).astype(f32)
+    w = (np.abs(rng.standard_normal((B, F))) * 1e5 + 1e4).astype(f32)
+    w[rng.random((B, F)) < 0.05] = 5e7
+    t_sec = float(f32(t) * f32(OBSERVE_DT))
+    n = F if engine == "padded" else N
+    out = dict(
+        engine=engine, Q=Q, D=D, N=N, t=t, t_sec=t_sec, dt=OBSERVE_DT,
+        update_period=update_period, bw=bw, hist_q=hist_q,
+        hist_out=(rng.random((B, D, Q1)) * bw).astype(f32),
+        hist_w=(np.abs(rng.standard_normal((B, D, F))) * 1e5 + 1e4
+                ).astype(f32),
+        path=path, tf_steps=rng.integers(1, 12, (B, F, H)).astype(i32),
+        rtt_steps=rng.integers(12, 26, (B, F)).astype(i32), tau=tau,
+        nic=rng.choice([3.125e9, 12.5e9], (B, F)).astype(f32),
+        theta_now=(tau + rng.uniform(0.0, 20e-6, (B, F))).astype(f32), w=w,
+        gs_prev=rng.uniform(0.5, 2.0, (B, F)).astype(f32),
+        prev_theta=(tau * (1 + np.abs(rng.standard_normal((B, F))) * 0.5)
+                    ).astype(f32),
+        next_update=(t_sec + rng.uniform(-4e-6, 4e-6, (B, F))).astype(f32),
+        last_update=(t_sec - rng.uniform(0.0, 40e-6, (B, F))).astype(f32),
+        active=rng.random((B, F)) > 0.2,
+        cfg_tau=rng.uniform(12e-6, 24e-6, (B, n)).astype(f32),
+        cfg_beta=rng.uniform(1e3, 5e4, (B, n)).astype(f32))
+    if engine == "padded":
+        out["started"] = rng.random((B, F)) > 0.15
+    else:
+        sf = rng.integers(0, N, (B, F)).astype(i32)
+        sf[:, 0] = N
+        sf[rng.random((B, F)) < 0.1] = N
+        out["slot_flow"] = sf
+        out["active"] &= sf < N
+        out["admit_t"] = (t - rng.integers(0, 80, (B, F))).astype(i32)
+    return out
+
+
+def observe_tick(tc, inp, law, device="cpu"):
+    """(the law bound to the fused backend, the tick's ``_Static``, its
+    ``SimConfig``, the ``LawTick``) of ``observe_inputs``' dict on
+    ``device``."""
+    from repro_torch.core import fluid
+    from repro_torch.core.laws import PowerTCPState, ThetaPowerTCPState
+    dev = torch.device(device)
+
+    def on(k):
+        return None if k not in inp else torch.as_tensor(inp[k], device=dev)
+    B, F = inp["w"].shape
+    bw, path = on("bw"), on("path")
+    static = fluid._Static(bw=bw, buf=torch.full_like(bw, 1e30),
+                           sw_table=None, dt=torch.tensor(
+                               inp["dt"], dtype=torch.float32, device=dev))
+    cfg = tc.SimConfig(dt=inp["dt"], hist=inp["D"],
+                       update_period=inp["update_period"])
+    state = (PowerTCPState(on("gs_prev")) if law == "powertcp" else
+             ThetaPowerTCPState(on("gs_prev"), on("prev_theta")))
+    tick = fluid.LawTick(
+        t=inp["t"], t_sec=inp["t_sec"], ptr=inp["t"] % inp["D"],
+        hist_q=on("hist_q"), hist_out=on("hist_out"), hist_w=on("hist_w"),
+        rows=torch.arange(F, device=dev), path=path,
+        valid=path < inp["Q"], b_hop=bw[path], tf_steps=on("tf_steps"),
+        rtt_steps=on("rtt_steps"), tau=on("tau"), nic=on("nic"),
+        theta_now=on("theta_now"), active=on("active"), w=on("w"),
+        rate_cap=torch.full((B, F), float("inf"), device=dev),
+        law_state=state, next_update=on("next_update"),
+        last_update=on("last_update"),
+        law_cfg=tc.LawConfig(gamma=0.9, beta=on("cfg_beta"),
+                             tau=on("cfg_tau")),
+        started=on("started"), admit_t=on("admit_t"),
+        slot_flow=on("slot_flow"), n_flows=inp["N"] or 0)
+    return tc.get_law(law, "fused"), static, cfg, tick
 
 
 # the megakernel's anchors (tests/test_megakernel.py)
