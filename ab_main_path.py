@@ -11,7 +11,9 @@ on the paper scenario of ``tests/golden/torch_port_paper_seed1.json``
 phase 6 through the public entry points: (a) ``simulate_slots`` fused,
 (c) ``simulate`` (padded) fused, (d) theta-PowerTCP ``simulate_slots``
 fused over the first N ticks (default 5 000), and (e) ``simulate_slots``
-megakernel over the whole 40 000 ticks. Every run is warmed up first
+megakernel over the whole 40 000 ticks. Each tree's first pass also
+times the build of its K4 source (``csrc/fused_tick.cu``, one ``nvcc``
+before any other kernel is built). Every run is warmed up first
 (a few ticks: the build and the first launches are not timed); the wall
 clock is the host's, around work that ends in
 ``torch.cuda.synchronize()``. Prints one JSON line per pass and, last, the
@@ -43,6 +45,11 @@ def child(tree: str, ticks: int) -> dict:
     sys.path[:0] = [os.path.join(tree, "src")]
     import torch
     import repro_torch.core as tc
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    built = _build.build(("fused_tick",))
+    out = {"build_fused_tick_s": (time.perf_counter() - t0) if built
+           else None}
     with open(os.path.join(ROOT, "tests", "golden",
                            "torch_port_paper_seed1.json")) as f:
         ref = json.load(f)
@@ -69,7 +76,6 @@ def child(tree: str, ticks: int) -> dict:
         return tc.simulate(topo, pflows, law, lcfg, cfg, record=False,
                            backend=backend, device=dev)
 
-    out = {}
     for key, engine, law, backend in RUNS:
         steps = ref["steps"] if backend == "megakernel" else ticks
         run(engine, law, backend, 64)                       # warm-up
@@ -107,7 +113,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    passes = {0: [], 1: []}
+    passes, builds = {0: [], 1: []}, {}
     for i in (0, 1, 1, 0):
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", trees[i],
@@ -116,6 +122,9 @@ def main():
             sys.stderr.write(res.stderr[-4000:])
             sys.exit(f"ab_main_path.py: the pass over {trees[i]} failed")
         got = json.loads(res.stdout.strip().splitlines()[-1])
+        build_s = got.pop("build_fused_tick_s")
+        if build_s is not None:
+            builds[i] = build_s
         passes[i].append(got)
         print(json.dumps({"tree": args[i], "runs": got}), flush=True)
     summary = {}
@@ -133,6 +142,7 @@ def main():
                                 for p in passes[i]}) == 1)
     print(smi, flush=True)
     print(json.dumps({"trees": args, "ticks": ticks, "device": smi,
+                      "build_fused_tick_s": [builds.get(0), builds.get(1)],
                       "runs": summary}), flush=True)
 
 

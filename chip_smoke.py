@@ -33,7 +33,8 @@ exit, traceback) if anything in it is wrong:
    version and the launch floor (an empty kernel through the same
    interface, timed the same way), with a bound counted from the data
    (``observe_cost``);
-4. K4 ``fused_tick_block`` (the megakernel, 64 ticks per launch) against
+4. K4 ``fused_tick_block`` (the megakernel, 64 ticks per launch; PowerTCP
+   and theta-PowerTCP here, every law in phase 6c) against
    its plain version from the same initial carry, every carry leaf bit
    for bit (the records' per-tick sums at rtol 1e-5): the 12-flow anchor
    of ``tests/test_megakernel.py`` with K in {1, 7, 64}, S < N for both
@@ -96,6 +97,28 @@ exit, traceback) if anything in it is wrong:
    set, short-flow p99.9 within 1e-3). Prints ``smoke_slots``'s
    ``fct_slot_*``/``fct_mega_*`` fields with the card's wall seconds and
    name and power limit, and K4's grid launches timed and bounded;
+6c. fig6: ``benchmarks/fig6_fct.py::run_paper_scale`` on the port, full
+   width and depth: the 256-host fabric, web-search at 60% load, 90 ms of
+   arrivals + 40 ms drain (130 000 ticks of 1 us, seed 1, 7 126 flows),
+   the pool from ``suggest_slots`` (448 slots). First DCQCN's ``powf`` in
+   K4's build against ``torch.pow`` over DCQCN's inputs (the same bits,
+   or the phase fails); then each of K4's eight laws (``powertcp``,
+   ``theta_powertcp``, ``hpcc``, ``swift``, ``gradient_mimd``, ``timely``,
+   ``dcqcn``, ``reno``) held bit for bit to the plain megakernel tick
+   over the first 3 launches and to the eager reference slot engine
+   (``simulate_slots_batch``, ``backend="reference"``) over the first
+   2 000 ticks (the final carry and the FCTs), and timed over the whole
+   run (every launch, CUDA events; the bound of every 4th launch counted
+   from its data; the plain block at the middle launch, host clock, held
+   bit for bit). Then the five laws of ``run_paper_scale``
+   (``powertcp``, ``theta_powertcp``, ``hpcc``, ``timely``, ``dcqcn``)
+   through ``simulate_slots_batch(..., backend="megakernel")``, the
+   launch counts zeroed before and checked after each (2 032 K4 launches
+   and nothing else), each held to ``repro``'s FCTs
+   (``tests/golden/torch_port_fig6_paper.json``: the same completion set,
+   short-flow p99.9 within 1e-3); prints the short, medium and long p99.9
+   and ``claims_hold`` (the four orderings of ``run_paper_scale``), which
+   must equal ``repro``'s;
 
 7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
    plain PyTorch versions at the serve run's shapes (K5: prefill q
@@ -155,7 +178,8 @@ third pass of one tick per launch). K4 runs one block per scenario: a
 batch is one launch of B blocks that share nothing.
 
 It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms;
-the TPU form's main-path launches are 0), the nvidia-smi line,
+the TPU form's main-path launches are 0; K4's entry carries each law's
+phase-6c times under ``laws``), the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
 no result, when CUDA is not available or the checkout's sources are
 missing.
@@ -673,11 +697,13 @@ def k4_pool(carry, fluid, bw, law, dt):
     ``hist_lam`` back to its longest hop delay tf and of ``hist_w`` back
     to its window delay wd (from the delayed queue observation, as the
     tick computes it); per queue, the rows of the packed ``hist_q`` back
-    to the longest feedback delay tb of a hop on it, 3 columns for
-    PowerTCP (q, out, qdot), 1 for theta-PowerTCP. Also the admission
-    cursor, the FCTs written so far, the gather table's live entries, the
-    slots in use and the overflow flag."""
+    to the longest feedback delay tb of a hop on it, as many columns as
+    the law reads (``fused_tick.TELEMETRY``: PowerTCP 3, HPCC 2, the
+    others 1). Also the admission cursor, the FCTs written so far, the
+    gather table's live entries, the slots in use and the overflow
+    flag."""
     import torch
+    from repro_torch.kernels.fused_tick import TELEMETRY
     st = carry.state
     N = int(st.fct.shape[0]) - 1
     Q = int(bw.shape[0]) - 1
@@ -695,11 +721,21 @@ def k4_pool(carry, fluid, bw, law, dt):
     wd = torch.clamp(torch.round(theta / dt).to(torch.int32), 1, D - 2)
     return dict(
         lam=int(torch.where(live, st.tf_steps, 0).amax(1).sum()),
-        q=int(q_back[:Q].sum()) * (3 if law == "powertcp" else 1),
+        q=int(q_back[:Q].sum()) * TELEMETRY.get(law, 1),
         w=int(torch.where(occ, wd, 0).sum()),
         inv=int(valid.sum()) + Q + 1,
         cursor=int(st.cursor), fct=int(torch.isfinite(st.fct[:N]).sum()),
         live=int(occ.sum()), ovf=bool(carry.ovf))
+
+
+# K4's flops by law, counted from csrc/fused_tick.cu: per slot-hop, the
+# law's telemetry (PowerTCP's normalized power; HPCC's utilization; the
+# ECN marking); per slot, the law's update beyond PowerTCP's, which the
+# base ~34 a slot includes (DCQCN's powf taken as ~20)
+K4_HOP_FLOPS = {"powertcp": 8, "hpcc": 6, "dcqcn": 6, "reno": 6}
+K4_SLOT_FLOPS = {"powertcp": 0, "theta_powertcp": 5, "hpcc": 6,
+                 "swift": 0, "gradient_mimd": 2, "timely": 14,
+                 "dcqcn": 36, "reno": 0}
 
 
 def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post):
@@ -712,21 +748,25 @@ def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post):
     table's live entries read (and written when the cursor moved); the
     FCTs flushed; the topology, the due table and the schedule rows of
     the admitted flows read. Rows a launch writes and then reads are its
-    own and cost nothing more. Flops per tick: per slot-hop ~6 for
-    theta_now and theta_obs, plus 8 for PowerTCP's normalized power; per
-    slot ~34 (rate, law, clamp, progress; theta-PowerTCP adds 5); per
-    valid hop one arrival add; per queue ~10 (caps, integration,
-    gradient); per switch its fold."""
+    own and cost nothing more. The slot vectors are the carry's 16 and
+    the law's state (``fused_tick.LAW_STATE``), read and written, and its
+    per-slot config (``LAW_CONFIG``), read. Flops per tick: per slot-hop
+    ~6 for theta_now and theta_obs, plus the law's per-hop telemetry
+    (``K4_HOP_FLOPS``); per slot ~34 (rate, PowerTCP's update, clamp,
+    progress) plus the rest of the law's update (``K4_SLOT_FLOPS``); per
+    valid hop one arrival add; per
+    queue ~10 (caps, integration, gradient); per switch its fold."""
+    from repro_torch.kernels.fused_tick import LAW_CONFIG, LAW_STATE
     admitted = post["cursor"] - pre["cursor"]
     inv = max(pre["inv"], post["inv"])
-    words = (2 * S * (2 * H + 17 + (law == "theta_powertcp")) + 4 * Q1
+    words = (2 * S * (2 * H + 16 + len(LAW_STATE[law]))
+             + S * len(LAW_CONFIG[law]) + 4 * Q1
              + K * (2 * S + 3 * Q1)
              + sum(max(pre[k], post[k]) for k in ("lam", "q", "w"))
              + inv * (2 if admitted else 1) + post["fct"] - pre["fct"]
              + 3 * Q1 + nsw * (swdeg + 1) + K + admitted * (2 * H + 10))
-    per_tick = S * H * (6 + (8 if law == "powertcp" else 0) + 1) \
-        + S * (34 + (5 if law == "theta_powertcp" else 0)) + 10 * Q1 \
-        + nsw * swdeg
+    per_tick = S * H * (6 + K4_HOP_FLOPS.get(law, 0) + 1) \
+        + S * (34 + K4_SLOT_FLOPS[law]) + 10 * Q1 + nsw * swdeg
     return 4 * words, K * per_tick
 
 
@@ -1356,6 +1396,203 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
+# -------------------------------------------------------------------------
+# phase 6c: benchmarks/fig6_fct.py::run_paper_scale's five laws on K4
+# -------------------------------------------------------------------------
+
+# ticks of phase 6c's checks against the eager reference slot engine
+FIG6_EAGER_TICKS = 2000
+# launches of the paper run over which K4 is held to its plain tick
+FIG6_PLAIN_LAUNCHES = 3
+# every how many launches phase 6c's timing pass counts a launch's bound
+FIG6_BOUND_EVERY = 4
+
+
+def powf_probe(torch, dev):
+    """DCQCN's ``powf`` in K4's build against ``torch.pow`` on the card,
+    over DCQCN's inputs (1 - p in [0.8, 1] and in [0, 1], packets 1-2 000;
+    the edges 0 and 1): the number of results that differ and the largest
+    difference in ulps."""
+    from repro_torch.kernels import fused_tick as ft
+    g = torch.Generator(device="cpu").manual_seed(0)
+    n = 1 << 21
+    x = torch.cat([torch.rand(n, generator=g) * 0.2 + 0.8,
+                   torch.rand(n, generator=g), torch.zeros(16),
+                   torch.ones(16)]).to(dev)
+    y = torch.cat([1.0 + torch.rand(n, generator=g) * 1999.0,
+                   1.0 + torch.rand(n, generator=g) * 49.0,
+                   torch.linspace(1, 2000, 16),
+                   torch.linspace(1, 2000, 16)]).to(dev)
+    a, b = ft.powf(x, y), torch.pow(x, y)
+    ulp = (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+    return int((a != b).sum()), int(ulp.max()), int(a.numel())
+
+
+def k4_law_timing(torch, tc, sup, dev, topo, sched, cfg, slots, law):
+    """K4 over the whole run of ``cfg`` for ``law``: every launch timed
+    (CUDA events between back-to-back launches), then a second pass from
+    the same carry that counts the bound (``k4_cost``) of every
+    ``FIG6_BOUND_EVERY``-th launch from its data and, at the middle
+    launch, runs the plain block from the same carry (timed by the host
+    clock, held bit for bit to K4's launch); both passes must end on the
+    same carry. Returns the row of the law."""
+    from repro_torch.core import fluid, megakernel as mk
+    from repro_torch.kernels import ops, ref as kref
+    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), law, slots,
+                              cfg=cfg, backend="megakernel", device=dev,
+                              expected_flows=sup.PAPER_EXPECTED_FLOWS)
+    tick = mk.make_tick(sim)
+    carry0 = tick.init_carry(fluid.init_slot_state(sim))
+    T, K = int(cfg.steps), mk.DEFAULT_BLOCK
+    due = torch.as_tensor(mk._due_table(sim.sched, T, cfg.dt), device=dev)
+    n = -(-T // K)
+    blocks = [due[:, i * K:(i + 1) * K] for i in range(n)]
+    carry = sup.tree_clone(carry0)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    ev[0].record()
+    for i in range(n):
+        carry, _ = ops.fused_tick_block(tick, carry, blocks[i], record=False)
+        ev[i + 1].record()
+    ev[n].synchronize()
+    ms = np.array([ev[i].elapsed_time(ev[i + 1]) for i in range(n)])
+    end1 = carry
+    static = sim.static
+    S, H = (int(x) for x in carry0.state.path.shape[-2:])
+    Q1 = int(static.bw.shape[0])
+    nsw, swdeg = ((0, 0) if static.sw_table is None
+                  else tuple(static.sw_table.shape))
+    carry = sup.tree_clone(carry0)
+    bounds = []
+    for i in range(n):
+        pre = (k4_pool(tc.scenario(carry, 0), fluid, static.bw, law, cfg.dt)
+               if i % FIG6_BOUND_EVERY == 0 else None)
+        if i == n // 2:
+            pc = sup.tree_clone(carry)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pc, _ = kref.fused_tick_block_ref(tick, pc, blocks[i],
+                                              record=False)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        carry, _ = ops.fused_tick_block(tick, carry, blocks[i], record=False)
+        if i == n // 2:
+            for (name, g), (_, w) in zip(sup.tree_leaves(carry),
+                                         sup.tree_leaves(pc)):
+                torch.testing.assert_close(
+                    g, w, rtol=0, atol=0, equal_nan=True,
+                    msg=lambda m, nm=name: f"K4 {law} launch {i} {nm}: {m}")
+        if pre is not None:
+            post = k4_pool(tc.scenario(carry, 0), fluid, static.bw, law,
+                           cfg.dt)
+            bounds.append(bound_ms(*k4_cost(S, H, Q1, blocks[i].shape[-1],
+                                            nsw, swdeg, law, pre, post)))
+    for (name, g), (_, w) in zip(sup.tree_leaves(carry),
+                                 sup.tree_leaves(end1)):
+        torch.testing.assert_close(
+            g, w, rtol=0, atol=0, equal_nan=True,
+            msg=lambda m, nm=name: f"K4 {law} timing pass 2 {nm}: {m}")
+    bms = np.array([b for b, _ in bounds])
+    by = max(set(b for _, b in bounds), key=[b for _, b in bounds].count)
+    return dict(shape=f"S={S} H={H} Q+1={Q1} D={cfg.hist} K={K}",
+                launches=n, ms=float(ms.mean()),
+                us_per_tick=float(ms.sum()) / T * 1e3,
+                ms_p50=float(np.median(ms)), plain_ms=plain_ms,
+                bound_ms=float(bms.mean()), bound_by=by)
+
+
+def phase_fig6(torch, tc, kernels, sup, dev, smi):
+    """Phase 6c: ``benchmarks/fig6_fct.py::run_paper_scale`` on K4 (see the
+    module docstring). Returns (launches, the K4 rows of the eight laws,
+    the runs' summaries)."""
+    from repro_torch.kernels import fused_tick as ft
+    with open(sup.FIG6_REF) as f:
+        ref = json.load(f)
+    topo, sched, cfg, slots = sup.fig6_scenario(tc, device=dev)
+    n = int(sched.start.shape[0])
+    if n != ref["n_flows"] or slots != ref["slots"] or \
+            sup.schedule_checksum(sched.size.cpu().numpy(),
+                                  sched.start.cpu().numpy()) \
+            != ref["schedule_sha256"]:
+        raise AssertionError("the port's fig6 schedule or pool differs from "
+                             "the reference's")
+    sizes = sched.size.double().cpu().numpy()
+    nd, ulp, total = powf_probe(torch, dev)
+    log(f"[fig6] powf in K4's build against torch.pow: {nd} of {total} "
+        f"results differ, largest difference {ulp} ulp")
+    if nd:
+        raise AssertionError("K4's powf differs from torch.pow; DCQCN's K4 "
+                             "run would not be held bit for bit")
+    # each law in K4: against the plain tick over the first launches, and
+    # against the eager reference slot engine over the first ticks
+    plain_cfg = cfg._replace(steps=FIG6_PLAIN_LAUNCHES * 64)
+    eager_cfg = cfg._replace(steps=FIG6_EAGER_TICKS)
+    rows, err = {}, 0.0
+    for law in ft.LAW_NAMES:
+        t0 = time.perf_counter()
+        e, _, _ = sup.k4_against_plain(tc, topo, sched, plain_cfg, law,
+                                       slots, (64,))
+        err = max(err, e)
+        done = sup.k4_against_reference(tc, topo, sched, eager_cfg, law,
+                                        slots)
+        log(f"[fig6] {law}: K4 bitwise equal to the plain tick over "
+            f"{FIG6_PLAIN_LAUNCHES} launches and to the reference slot "
+            f"engine over {FIG6_EAGER_TICKS} ticks ({done} flows done) "
+            f"({time.perf_counter() - t0:.1f} s)")
+        rows[law] = k4_law_timing(torch, tc, sup, dev, topo, sched, cfg,
+                                  slots, law)
+        log(f"[fig6] time K4 {law} ({rows[law]['shape']}, "
+            f"{rows[law]['launches']} launches, the whole "
+            f"{cfg.steps}-tick run): mean {rows[law]['ms']!r} ms per launch "
+            f"({rows[law]['us_per_tick']!r} us per tick), median "
+            f"{rows[law]['ms_p50']!r}; plain block at the middle launch "
+            f"{rows[law]['plain_ms']!r} ms (bitwise equal); bound mean "
+            f"{rows[law]['bound_ms']!r} ms ({rows[law]['bound_by']}); {smi}")
+    # the five laws of run_paper_scale through the entry point
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    want = expected_launches("powertcp", "megakernel", cfg.steps)
+    stats, summaries = {}, []
+    sb = tc.stack_flow_schedules([sched], topo.num_queues)
+    for law in sup.FIG6_LAWS:
+        (st, _), wall, counts = timed_run(
+            torch, kernels, f"6c {law}", want,
+            lambda law=law: tc.simulate_slots_batch(
+                topo, sb, law, slots, cfg=cfg, record=False,
+                backend="megakernel",
+                expected_flows=sup.PAPER_EXPECTED_FLOWS, device=dev))
+        for k, c in counts.items():
+            launches[k] += c
+        fct = st.fct[0, :n].double().cpu().numpy()
+        ref_fct = np.array([np.nan if x is None else x
+                            for x in ref["fct_s"][law]])
+        summ = compare_fct(f"6c {law}", fct, ref_fct, sizes)
+        stats[law] = sup.fig6_stats(fct.astype(np.float32), sizes)
+        summ.update(run=f"6c {law}", law=law, wall_s=wall,
+                    us_per_tick=wall / cfg.steps * 1e6, launches=counts,
+                    **{k: stats[law][k] for k in ("short_p999_us",
+                                                 "med_p999_us",
+                                                 "long_p999_us")})
+        summaries.append(summ)
+        log(f"[fig6] {law} megakernel, {cfg.steps} ticks, {slots} slots: "
+            f"wall {wall:.3f} s ({summ['us_per_tick']:.3f} us/tick), "
+            f"completed {summ['completed']}/{n} (the reference's set), "
+            f"p99.9 short {stats[law]['short_p999_us']!r} us (reference "
+            f"{ref['stats'][law]['short_p999_us']!r}, rel err "
+            f"{summ['p999_rel_err']:.3g}), medium "
+            f"{stats[law]['med_p999_us']!r}, long "
+            f"{stats[law]['long_p999_us']!r}; launches {counts}")
+    claims = sup.fig6_claims(stats)
+    log(f"[fig6] claims_hold {claims} (reference {ref['claims_hold']})")
+    if claims != ref["claims_hold"]:
+        raise AssertionError("fig6 claims_hold differs from the reference's")
+    log("[fig6] " + json.dumps({"fig6_paper": {
+        "claims_hold": claims, "runs": summaries}}))
+    for row in rows.values():
+        row["max_abs_err"] = err
+    return launches, rows, summaries
+
+
 def phase_profile(torch, tc, sup, dev, summaries, ticks=200):
     """``--profile``: each main-path run under ``torch.profiler`` — the
     first ``ticks`` ticks of the eager runs, the whole run of the
@@ -1751,6 +1988,12 @@ def main():
         launches[k] += n
     rows["fused_tick_block"].update(grid)
     log(f"[time] + smoke_slots: {time.perf_counter() - t0:.1f} s")
+    fig6_launches, law_rows, _ = phase_fig6(torch, tc, kernels, sup, dev,
+                                            smi)
+    for k, n in fig6_launches.items():
+        launches[k] += n
+    rows["fused_tick_block"]["laws"] = law_rows
+    log(f"[time] + fig6: {time.perf_counter() - t0:.1f} s")
     if profile:
         phase_profile(torch, tc, sup, dev, summaries)
         phase_profile_smoke(torch, tc, sup, dev, smoke_summ)

@@ -69,7 +69,7 @@ from ..kernels import ops
 from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
                                       integrate_arrivals, max_degree,
                                       one_hot_incidence, update_incidence)
-from .laws import Law, LawConfig, get_law, observe_step
+from .laws import Law, LawConfig, div_config, get_law, observe_step
 from .types import (MTU, Flows, FlowSchedule, PathObs, Record, SimConfig,
                     SimState, SlotState, Topology, batch_of_one, cat_trees,
                     pad_hops, resolve_device, scenario, stack_trees,
@@ -171,17 +171,28 @@ def _host_count(x: torch.Tensor) -> np.ndarray:
 def _law_init(law: Law, shape: tuple, cfg: LawConfig):
     """``law.init`` for per-flow shape ``shape`` ([B, F]): a law builds
     [F] leaves (or broadcasts against the batch's config); each is made
-    ``shape`` and contiguous."""
+    ``shape``, contiguous and a tensor of its own (DCQCN's init returns
+    one tensor for two leaves; K4 updates the carry in place)."""
     st = law.init(int(shape[-1]), cfg)
-    return type(st)(*[x.expand(shape).contiguous() for x in st])
+    return type(st)(*[x.expand(shape).clone(
+        memory_format=torch.contiguous_format) for x in st])
 
 
 def _marking(q: torch.Tensor, buf: torch.Tensor, cfg: LawConfig,
              ) -> torch.Tensor:
     """ECN marking probability + hard mark when a hop's buffer is ~full."""
-    span = torch.tensor(max(cfg.dcqcn_kmax - cfg.dcqcn_kmin, 1.0),
-                        dtype=torch.float32, device=q.device)
-    p = torch.clamp((q - cfg.dcqcn_kmin) / span, 0.0, 1.0) * cfg.dcqcn_pmax
+    def per_hop(x):
+        # a stacked config's per-scenario leaf [B, 1] against [B, F, H]
+        return x[..., None] if isinstance(x, torch.Tensor) else x
+
+    # a stacked config's leaves subtract in float32, Python scalars in
+    # double, as in ``repro``; the span divides as ``laws.div_config``
+    kmin = per_hop(cfg.dcqcn_kmin)
+    span = per_hop(cfg.dcqcn_kmax) - kmin
+    span = (torch.clamp_min(span, 1.0) if isinstance(span, torch.Tensor)
+            else max(span, 1.0))
+    p = torch.clamp(div_config(q - kmin, span), 0.0,
+                    1.0) * per_hop(cfg.dcqcn_pmax)
     hard = q >= 0.95 * buf
     return torch.where(hard, 1.0, p)
 

@@ -28,9 +28,10 @@ Two lowerings, chosen by ``impl``:
     counterpart of ``repro``'s XLA lowering, and what the CPU runs;
   * ``"cuda"``: K4 (``kernels/fused_tick.py``, ``csrc/fused_tick.cu``), one
     launch per block of K ticks, with the busy tick (gated or not, as the
-    plain tick) and the law's arithmetic written by hand for PowerTCP and
-    theta-PowerTCP. The host uploads the due table once and reads nothing
-    back between blocks.
+    plain tick) and each law's arithmetic written by hand (the eight laws
+    of ``core/laws.py``, ``K4_LAWS``; a ``Law`` around another update
+    raises). The host uploads the due table once and reads nothing back
+    between blocks.
 
 The carry is a batch's, as the slot engine's is ([B, ...] leaves; one
 schedule runs as a batch of one). K4 takes it in one launch of B thread
@@ -52,6 +53,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops, ref
+from ..kernels import fused_tick as _k4
 from ..kernels.fused_tick import DEFAULT_BLOCK, TickParams
 from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
                                       integrate_arrivals, max_degree,
@@ -63,8 +65,8 @@ from .types import MTU, PathObs, Record, SlotState, cat_trees
 _INT32_MAX = np.iinfo(np.int32).max
 
 # laws with a K4 path: name -> (reference update K4 carries, law id)
-K4_LAWS = {"powertcp": (_laws.powertcp_update, 0),
-           "theta_powertcp": (_laws.theta_powertcp_update, 1)}
+K4_LAWS = {name: (_laws.LAWS[name].update, i)
+           for i, name in enumerate(_k4.LAW_NAMES)}
 
 
 class PendingFCT(NamedTuple):
@@ -122,20 +124,59 @@ def _per_flow(x, B: int, n: int, dev) -> torch.Tensor:
         B, n).contiguous()
 
 
-def _k4_gamma(gamma):
-    """(gamma, 1 - gamma) as the float32 values the plain law uses: a
-    Python gamma enters as float32(gamma) and float32(1.0 - gamma); a
-    tensor (one value for the whole batch) computes 1 - gamma in
-    float32."""
-    if isinstance(gamma, torch.Tensor):
-        vals = torch.unique(gamma.reshape(-1))
-        if vals.numel() != 1:
-            raise ValueError("the megakernel's K4 takes one gamma for the "
-                             "batch; use backend='reference' for gamma "
-                             "sweeps")
-        g = np.float32(vals.item())
-        return float(g), float(np.float32(1.0) - g)
-    return float(np.float32(gamma)), float(np.float32(1.0 - gamma))
+def _k4_config(name: str, lcfg, B: int, n: int, dev) -> dict:
+    """The per-flow law config K4 reads for law ``name`` (its
+    ``LAW_CONFIG`` fields), each a contiguous float32 [B, n] tensor
+    rounded as the plain law rounds it: gamma and 1 - gamma from a Python
+    gamma as float32(gamma) and float32(1.0 - gamma), from a tensor in
+    float32; TIMELY's thresholds and step by ``laws.timely_params``."""
+    gamma = lcfg.gamma
+    t_low, t_high, tadd = (_laws.timely_params(lcfg) if name == "timely"
+                           else (None, None, None))
+    vals = dict(beta=lcfg.beta, ctau=lcfg.tau, gamma=gamma,
+                omg=1.0 - gamma, hbw=lcfg.host_bw, t_low=t_low,
+                t_high=t_high, tadd=tadd)
+    return {f: _per_flow(vals[f], B, n, dev) for f in _k4.LAW_CONFIG[name]}
+
+
+def _k4_lawp(lcfg, B: int, dev) -> tuple:
+    """The per-scenario law constants of K4 ([B, len(LAW_PARAMS)] float32,
+    ``fused_tick.LAW_PARAMS``) and the two divisor modes (1: a tensor
+    leaf, divided; 0: a Python scalar, multiplied by its float32
+    reciprocal, ``laws.div_config``). Each derived constant is rounded as
+    the plain law rounds it (Python arithmetic in double for Python
+    scalars, float32 ops for tensor leaves). A leaf that varies per flow
+    raises."""
+    span = lcfg.dcqcn_kmax - lcfg.dcqcn_kmin
+    span = (torch.clamp_min(span, 1.0) if isinstance(span, torch.Tensor)
+            else max(span, 1.0))
+
+    def inv(x):
+        if isinstance(x, torch.Tensor):
+            return 1.0 / x.to(torch.float32)
+        return float(np.float32(1.0) / np.float32(x))
+
+    vals = dict(hpcc_eta=lcfg.hpcc_eta, hpcc_inv_eta=inv(lcfg.hpcc_eta),
+                hpcc_max_stage=lcfg.hpcc_max_stage,
+                timely_beta=lcfg.timely_beta,
+                timely_hai_n=lcfg.timely_hai_n, dcqcn_kmin=lcfg.dcqcn_kmin,
+                dcqcn_span=span, dcqcn_inv_span=inv(span),
+                dcqcn_pmax=lcfg.dcqcn_pmax, dcqcn_g=lcfg.dcqcn_g,
+                dcqcn_omg=1.0 - lcfg.dcqcn_g, dcqcn_rai=lcfg.dcqcn_rai,
+                dcqcn_rai_hyper=5.0 * lcfg.dcqcn_rai,
+                dcqcn_timer=lcfg.dcqcn_timer,
+                dcqcn_cnp_timer=lcfg.dcqcn_cnp_timer,
+                dcqcn_f=lcfg.dcqcn_f, reno_md=lcfg.reno_md)
+    cols = []
+    for f in _k4.LAW_PARAMS:
+        x = torch.as_tensor(vals[f], device=dev).to(torch.float32)
+        if x.numel() not in (1, B):
+            raise ValueError(f"the megakernel's K4 takes {f} per scenario; "
+                             f"got a leaf of shape {tuple(x.shape)}")
+        cols.append(x.reshape(-1).expand(B))
+    return (torch.stack(cols, -1).contiguous(),
+            int(isinstance(lcfg.hpcc_eta, torch.Tensor)),
+            int(isinstance(span, torch.Tensor)))
 
 
 def _k4_params(sim, maxdeg: int) -> TickParams:
@@ -144,13 +185,12 @@ def _k4_params(sim, maxdeg: int) -> TickParams:
     entry = K4_LAWS.get(law.name)
     if entry is None or law.update is not entry[0]:
         raise NotImplementedError(
-            f"law '{law.name}' has no K4 path (the CUDA megakernel carries "
-            f"{sorted(K4_LAWS)}); the other laws come with ROADMAP.md, "
-            f"Queue 1 item 8")
+            f"law '{law.name}' has no K4 path: the CUDA megakernel carries "
+            f"{sorted(K4_LAWS)}, each through its registered update")
     topo, sched, cfg, static = sim.topo, sim.sched, sim.cfg, sim.static
     dev = sched.start.device
     B, N = int(sched.start.shape[0]), fluid._slot_n(sim)
-    gamma, one_minus_gamma = _k4_gamma(sim.law_cfg.gamma)
+    lawp, div_eta, div_span = _k4_lawp(sim.law_cfg, B, dev)
 
     def i32(x):
         return x.to(device=dev, dtype=torch.int32).contiguous()
@@ -169,14 +209,13 @@ def _k4_params(sim, maxdeg: int) -> TickParams:
         dt=float(np.float32(cfg.dt)),
         inv_dt=float(np.float32(1.0 / cfg.dt)),
         dt_alpha=float(np.float32(topo.dt_alpha)),
-        gamma=gamma, one_minus_gamma=one_minus_gamma,
         update_period=float(np.float32(cfg.update_period)),
+        div_eta=div_eta, div_span=div_span,
         s_path=i32(sched.path), s_tf=i32(sched.tf_steps),
         s_rtt=i32(sched.rtt_steps), s_tau=f32(sched.tau),
         s_nic=f32(sched.nic_rate), s_start=f32(sched.start),
         s_stop=f32(sched.stop), s_size=f32(sched.size),
-        c_beta=_per_flow(sim.law_cfg.beta, B, N, dev),
-        c_tau=_per_flow(sim.law_cfg.tau, B, N, dev),
+        config=_k4_config(law.name, sim.law_cfg, B, N, dev), lawp=lawp,
         bw=f32(static.bw), buf=f32(static.buf), sw_table=sw_table,
         switch_buffer=f32(topo.switch_buffer),
         switch_of_queue=i32(topo.switch_of_queue))

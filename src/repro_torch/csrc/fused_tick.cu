@@ -4,9 +4,13 @@
 // Replaces the Pallas kernel fused_tick_block of
 // src/repro/kernels/fused_tick.py, which runs K ticks of
 // src/repro/core/megakernel.py::make_tick in one pallas_call with the
-// whole carry resident in VMEM. Here the tick is written out by hand
-// (PowerTCP and theta-PowerTCP, chosen by a template parameter), in the
-// order of the port's plain tick (repro_torch/core/megakernel.py):
+// whole carry resident in VMEM, for whatever law it is given. Here the
+// tick is written out by hand, with a routine for each of the eight laws
+// of repro_torch/core/laws.py (powertcp, theta_powertcp, hpcc, swift,
+// gradient_mimd, timely, dcqcn, reno; the law is a template parameter,
+// so each instantiation holds one law's code, and the launch's law id
+// picks the instantiation), in the order of the port's plain tick
+// (repro_torch/core/megakernel.py):
 //   1. t_sec and the ring pointer;
 //   2. the gate: an arrival due and not admitted, or a freeable slot
 //      (gate = 0 opens it on every tick);
@@ -22,9 +26,12 @@
 //   6. per queue: the in-order arrival sum from +0.0, the Dynamic-
 //      Thresholds cap, the integration and the packed [q | out | qdot]
 //      ring row;
-//   7. on updating slots: theta_obs, the w_old delay and w_old;
+//   7. on updating slots: theta_obs, the w_old delay and w_old, and the
+//      law's per-hop telemetry (PowerTCP's normalized power, HPCC's link
+//      utilization, the ECN marking of DCQCN and Reno), maxed over hops;
 //   8. on updating slots: the law update and the update timers; on every
-//      slot: the window clamp;
+//      slot: DCQCN's rate clamp and the rate-based laws' rate cap, and the
+//      window clamp;
 //   9. progress, completions into the pending buffer, free_at;
 //  10. the record row, when recording.
 //
@@ -85,11 +92,23 @@
 // overflow flag are written from the CSR at the end of a launch that
 // rebuilt it, as build_csr_gather builds them.
 //
+// Law state and config: each law's state fields and the per-flow config it
+// reads (beta, tau, gamma and 1 - gamma, host_bw, TIMELY's thresholds and
+// step) are slot fields, staged where the law has them (the masks smask
+// and cmask) and re-initialized at admission to the law's init; the
+// config is read through slot_flow (a retired slot's from flow N - 1, as
+// the plain tick's clamped gather reads it). The law's scalars (HPCC's
+// eta and stage limit, TIMELY's beta and HAI count, DCQCN's marking and
+// timers, Reno's decrease) come per scenario in lawp.
+//
 // Numerics: built with -fmad=false (no contraction) and without fast
 // math, so every division is IEEE round-to-nearest; max/min propagate NaN
 // as torch.maximum/clamp do; rintf rounds half to even as torch.round;
 // every float constant arrives as the float32 value PyTorch rounds it to;
-// no float atomics. The carry then equals the plain tick's bit for bit.
+// a law-config divisor divides, or multiplies by its float32 reciprocal,
+// as core/laws.py::div_config does; DCQCN's powf is CUDA's, as
+// torch.pow's on the card; no float atomics. The carry then equals the
+// plain tick's bit for bit.
 // The per-tick record sums (w_sum, lam) add in this kernel's fixed order,
 // not in the plain tick's (XLA:CPU's, core/fluid.py::_xla_sum).
 
@@ -118,9 +137,31 @@ enum Field {
   // slots
   F_SLOT_FLOW, F_ADMIT_T, F_FREE_AT, F_RTT_STEPS, F_HOLD, F_PEND_FLOW,
   F_TAU, F_NIC, F_START, F_STOP, F_W, F_RATE_CAP, F_REMAINING,
-  F_NEXT_UPDATE, F_LAST_UPDATE, F_GAMMA_SMOOTH, F_PREV_THETA, F_PEND_VAL,
-  F_BETA, F_CTAU,
+  F_NEXT_UPDATE, F_LAST_UPDATE,
+  // law state (kernels/fused_tick.py::STATE_FIELDS)
+  F_GAMMA_SMOOTH, F_PREV_THETA, F_U, F_WC, F_INC_STAGE, F_LAST_REF, F_RATE,
+  F_NEG_COUNT, F_RC, F_RT, F_ALPHA, F_T_LAST_CUT, F_T_LAST_INC, F_LAST_CUT,
+  F_PEND_VAL,
+  // per-flow law config (CONFIG_FIELDS)
+  F_BETA, F_CTAU, F_GAMMA, F_OMG, F_HBW, F_T_LOW, F_T_HIGH, F_TADD,
   kFields
+};
+constexpr int kStateFields = F_LAST_CUT - F_GAMMA_SMOOTH + 1;
+constexpr int kConfigFields = F_TADD - F_BETA + 1;
+
+// law ids (kernels/fused_tick.py::LAW_NAMES)
+enum Law {
+  kPowerTCP, kThetaPowerTCP, kHPCC, kSwift, kGradient, kTimely, kDCQCN,
+  kReno
+};
+
+// the per-scenario law constants (LAW_PARAMS)
+enum LawParam {
+  P_HPCC_ETA, P_HPCC_INV_ETA, P_HPCC_MAX_STAGE, P_TIMELY_BETA,
+  P_TIMELY_HAI_N, P_DCQCN_KMIN, P_DCQCN_SPAN, P_DCQCN_INV_SPAN,
+  P_DCQCN_PMAX, P_DCQCN_G, P_DCQCN_OMG, P_DCQCN_RAI, P_DCQCN_RAI_HYPER,
+  P_DCQCN_TIMER, P_DCQCN_CNP_TIMER, P_DCQCN_F, P_RENO_MD,
+  kLawParams
 };
 
 }  // namespace
@@ -149,8 +190,7 @@ struct FusedTickArgs {
   float* remaining;
   float* next_update;
   float* last_update;
-  float* gamma_smooth;
-  float* prev_theta;
+  void* law_state[kStateFields];  // [S] each, null where the law lacks it
   float* fct;
   int* pend_flow;
   float* pend_val;
@@ -166,8 +206,8 @@ struct FusedTickArgs {
   const float* s_start;
   const float* s_stop;
   const float* s_size;
-  const float* c_beta;
-  const float* c_tau;
+  const float* law_cfg[kConfigFields];  // [N] each, null where unread
+  const float* lawp;                    // [kLawParams] per scenario
   // topology, read only
   const float* bw;
   const float* buf;
@@ -189,7 +229,12 @@ struct FusedTickArgs {
   int B;           // scenarios: the grid has one block each
   int gate;        // 0: the admit/retire pass on every tick
   int due_stride;  // ints from one scenario's due row to the next
-  float dt, inv_dt, dt_alpha, gamma, one_minus_gamma, update_period;
+  int div_eta;     // 1: divide by hpcc_eta, 0: multiply by its reciprocal
+  int div_span;    // the same for DCQCN's marking span
+  int smask;       // bit i: law state field i staged
+  int cmask;       // bit j: law config field j staged
+  int nlawp;       // kLawParams
+  float dt, inv_dt, dt_alpha, update_period;
   int off[kFields];
 };
 
@@ -334,9 +379,31 @@ __device__ __forceinline__ T* at(unsigned char* base, int off) {
   return reinterpret_cast<T*>(base + off);
 }
 
-// LAW 0: PowerTCP (Algorithm 1), 1: theta-PowerTCP. GRID: a launch of
-// several scenarios, one block each (without it the pointers are used as
-// given, and the offsets below fold away).
+// Gamma_smooth's update (core/laws.py::_smooth), with dt clipped to tau.
+__device__ __forceinline__ float smooth(float prev, float nw, float dt_obs,
+                                        float tau) {
+  const float d = pmin(pmax(dt_obs, 0.0f), tau);
+  const float blend = prev * (tau - d) + nw * d;
+  return blend / pmax(tau, 1e-12f);
+}
+
+// x / d for a law-config divisor: divided, or multiplied by its float32
+// reciprocal (core/laws.py::div_config).
+__device__ __forceinline__ float div_config(float x, float d, float inv_d,
+                                            int divide) {
+  return divide ? x / d : x * inv_d;
+}
+
+// 1 + x for an int32 counter, wrapping as torch's int32 add does.
+__device__ __forceinline__ int inc_wrap(int x) {
+  return static_cast<int>(static_cast<unsigned>(x) + 1u);
+}
+
+// LAW: the law (enum Law), so that each instantiation holds one law's
+// routines. SMEM: the working set in shared memory (else in the global
+// scratch buffer). GRID: a launch of several scenarios, one block each
+// (without it the pointers are used as given, and the offsets below fold
+// away).
 template <int LAW, bool SMEM, bool GRID>
 __global__ void __launch_bounds__(kThreads)
 fused_tick_kernel(const FusedTickArgs a) {
@@ -374,8 +441,6 @@ fused_tick_kernel(const FusedTickArgs a) {
   float* const g_remaining = a.remaining + sS;
   float* const g_next_update = a.next_update + sS;
   float* const g_last_update = a.last_update + sS;
-  float* const g_gamma_smooth = a.gamma_smooth + sS;
-  float* const g_prev_theta = LAW == 1 ? a.prev_theta + sS : a.prev_theta;
   float* const g_fct = a.fct + sN + sb;
   int* const g_pend_flow = a.pend_flow + sS;
   float* const g_pend_val = a.pend_val + sS;
@@ -390,8 +455,7 @@ fused_tick_kernel(const FusedTickArgs a) {
   const float* const g_s_start = a.s_start + sN;
   const float* const g_s_stop = a.s_stop + sN;
   const float* const g_s_size = a.s_size + sN;
-  const float* const g_c_beta = a.c_beta + sN;
-  const float* const g_c_tau = a.c_tau + sN;
+  const float* const lawp = a.lawp + sb * a.nlawp;
   const int* const g_due = a.due + sb * a.due_stride;
   float* const g_rec_t = a.rec_t + sb * nrec;
   float* const g_rec_q = a.rec_q + sb * nrec * (a.Q + 1);
@@ -405,6 +469,8 @@ fused_tick_kernel(const FusedTickArgs a) {
   const int S = a.S, N = a.N, Q = a.Q, Q1 = Q + 1, H = a.H, D = a.D;
   const int SH = S * H, maxdeg = a.maxdeg;
   const float dt = a.dt;
+  constexpr int law = LAW;
+  const int smask = a.smask, cmask = a.cmask;
 
   unsigned char* base =
       SMEM ? smem_raw
@@ -445,11 +511,51 @@ fused_tick_kernel(const FusedTickArgs a) {
   float* remaining = at<float>(base, a.off[F_REMAINING]);
   float* next_update = at<float>(base, a.off[F_NEXT_UPDATE]);
   float* last_update = at<float>(base, a.off[F_LAST_UPDATE]);
+  float* pend_val = at<float>(base, a.off[F_PEND_VAL]);
+  // the law's state and per-slot config (fields it lacks take no words)
   float* gamma_smooth = at<float>(base, a.off[F_GAMMA_SMOOTH]);
   float* prev_theta = at<float>(base, a.off[F_PREV_THETA]);
-  float* pend_val = at<float>(base, a.off[F_PEND_VAL]);
+  float* u_s = at<float>(base, a.off[F_U]);
+  float* wc_s = at<float>(base, a.off[F_WC]);
+  int* inc_stage = at<int>(base, a.off[F_INC_STAGE]);
+  float* last_ref = at<float>(base, a.off[F_LAST_REF]);
+  float* rate_s = at<float>(base, a.off[F_RATE]);
+  int* neg_count = at<int>(base, a.off[F_NEG_COUNT]);
+  float* rc_s = at<float>(base, a.off[F_RC]);
+  float* rt_s = at<float>(base, a.off[F_RT]);
+  float* alpha_s = at<float>(base, a.off[F_ALPHA]);
+  float* t_last_cut = at<float>(base, a.off[F_T_LAST_CUT]);
+  float* t_last_inc = at<float>(base, a.off[F_T_LAST_INC]);
+  float* last_cut = at<float>(base, a.off[F_LAST_CUT]);
   float* betas = at<float>(base, a.off[F_BETA]);
   float* ctaus = at<float>(base, a.off[F_CTAU]);
+  float* gammas = at<float>(base, a.off[F_GAMMA]);
+  float* omgs = at<float>(base, a.off[F_OMG]);
+  float* hbws = at<float>(base, a.off[F_HBW]);
+  float* t_lows = at<float>(base, a.off[F_T_LOW]);
+  float* t_highs = at<float>(base, a.off[F_T_HIGH]);
+  float* tadds = at<float>(base, a.off[F_TADD]);
+  // the law's scalars
+  const float hpcc_eta = lawp[P_HPCC_ETA], hpcc_inv_eta = lawp[P_HPCC_INV_ETA];
+  const int hpcc_max_stage = static_cast<int>(lawp[P_HPCC_MAX_STAGE]);
+  const float timely_beta = lawp[P_TIMELY_BETA];
+  const int timely_hai_n = static_cast<int>(lawp[P_TIMELY_HAI_N]);
+  const float kmin = lawp[P_DCQCN_KMIN], span = lawp[P_DCQCN_SPAN],
+              inv_span = lawp[P_DCQCN_INV_SPAN],
+              mark_pmax = lawp[P_DCQCN_PMAX], dc_g = lawp[P_DCQCN_G],
+              dc_omg = lawp[P_DCQCN_OMG], rai = lawp[P_DCQCN_RAI],
+              rai_hyper = lawp[P_DCQCN_RAI_HYPER],
+              dc_timer = lawp[P_DCQCN_TIMER],
+              dc_cnp_timer = lawp[P_DCQCN_CNP_TIMER];
+  const int dc_f = static_cast<int>(lawp[P_DCQCN_F]);
+  const float reno_md = lawp[P_RENO_MD];
+
+  // the per-slot law config of flow g (clamped into [0, N)) into slot s
+  auto load_config = [&](int s, int g) {
+    for (int j = 0; j < kConfigFields; ++j)
+      if ((cmask >> j) & 1)
+        at<float>(base, a.off[F_BETA + j])[s] = a.law_cfg[j][sN + g];
+  };
 
   // -- stage the carry, the topology and each slot's law config --------
   for (int s = tid; s < S; s += kThreads) {
@@ -460,9 +566,12 @@ fused_tick_kernel(const FusedTickArgs a) {
     const float f0 = g_tau[s], f1 = g_nic[s], f2 = g_start[s],
                 f3 = g_stop[s], f4 = g_w[s], f5 = g_rate_cap[s],
                 f6 = g_remaining[s], f7 = g_next_update[s],
-                f8 = g_last_update[s], f9 = g_gamma_smooth[s],
-                f10 = g_pend_val[s], f11 = LAW == 1 ? g_prev_theta[s] : 0.0f;
-    const float be = g_c_beta[g], ct = g_c_tau[g];
+                f8 = g_last_update[s], f10 = g_pend_val[s];
+    for (int i = 0; i < kStateFields; ++i)
+      if ((smask >> i) & 1)
+        at<int>(base, a.off[F_GAMMA_SMOOTH + i])[s] =
+            static_cast<const int*>(a.law_state[i])[sS + s];
+    load_config(s, g);
     slot_flow[s] = sf;
     admit_t[s] = i0;
     free_at[s] = i1;
@@ -478,11 +587,7 @@ fused_tick_kernel(const FusedTickArgs a) {
     remaining[s] = f6;
     next_update[s] = f7;
     last_update[s] = f8;
-    gamma_smooth[s] = f9;
     pend_val[s] = f10;
-    if (LAW == 1) prev_theta[s] = f11;
-    betas[s] = be;
-    ctaus[s] = ct;
   }
   const int nsw_all = a.nsw * a.swdeg;
   const int nstage = max(max(SH, Q1), max(nsw_all, a.nswb));
@@ -564,6 +669,7 @@ fused_tick_kernel(const FusedTickArgs a) {
           }
           sf = N;
           slot_flow[s] = N;
+          load_config(s, N - 1);
         }
         const int fr = sf >= N;
         freef[s] = fr;
@@ -615,11 +721,47 @@ fused_tick_kernel(const FusedTickArgs a) {
           remaining[s] = g_s_size[g];
           next_update[s] = st + tau;
           last_update[s] = st;
-          gamma_smooth[s] = 1.0f;
-          const float ctau = g_c_tau[g];
-          betas[s] = g_c_beta[g];
-          ctaus[s] = ctau;
-          if (LAW == 1) prev_theta[s] = ctau * 1.0f;
+          load_config(s, g);
+          // the law's init, on the admitted flow's config
+          const float ctau = (cmask >> (F_CTAU - F_BETA)) & 1 ? ctaus[s]
+                                                               : 0.0f;
+          const float hbw = (cmask >> (F_HBW - F_BETA)) & 1 ? hbws[s] : 0.0f;
+          switch (law) {
+            case kPowerTCP:
+              gamma_smooth[s] = 1.0f;
+              break;
+            case kThetaPowerTCP:
+              gamma_smooth[s] = 1.0f;
+              prev_theta[s] = ctau * 1.0f;
+              break;
+            case kHPCC:
+              u_s[s] = 1.0f;
+              wc_s[s] = hbw * ctau * 1.0f;
+              inc_stage[s] = 0;
+              last_ref[s] = 0.0f;
+              break;
+            case kGradient:
+              prev_theta[s] = ctau * 1.0f;
+              break;
+            case kTimely:
+              rate_s[s] = hbw * 1.0f;
+              prev_theta[s] = ctau * 1.0f;
+              neg_count[s] = 0;
+              break;
+            case kDCQCN:
+              rc_s[s] = hbw * 1.0f;
+              rt_s[s] = hbw * 1.0f;
+              alpha_s[s] = 1.0f;
+              t_last_cut[s] = 0.0f;
+              t_last_inc[s] = 0.0f;
+              inc_stage[s] = 0;
+              break;
+            case kReno:
+              last_cut[s] = 0.0f;
+              break;
+            default:  // kSwift: no state
+              break;
+          }
         }
         c_fresh += tot_f;
         c_rec += tot_r;
@@ -676,10 +818,8 @@ fused_tick_kernel(const FusedTickArgs a) {
           const int oh = imod(ptr - iclamp(rtt - tf, 1, D - 2), D);
           const float* orow = g_hist_q + static_cast<long long>(oh) * 3 * Q1;
           obs[e] = orow[p];
-          if (LAW == 0) {
-            obs[SH + e] = orow[Q1 + p];
-            obs[2 * SH + e] = orow[2 * Q1 + p];
-          }
+          if (law == kPowerTCP || law == kHPCC) obs[SH + e] = orow[Q1 + p];
+          if (law == kPowerTCP) obs[2 * SH + e] = orow[2 * Q1 + p];
         }
       }
     }
@@ -734,8 +874,10 @@ fused_tick_kernel(const FusedTickArgs a) {
       const float th_now = theta_now[s], lam = lam_s[s];
       float wl = w;
       if (upd) {
-        const float beta = betas[s], ctau = ctaus[s];
-        float acc = 0.0f, gmax = 0.0f;
+        const float ctau = (cmask >> (F_CTAU - F_BETA)) & 1 ? ctaus[s] : 0.0f;
+        // theta_obs, and the law's per-hop telemetry maxed over the hops
+        // (a sentinel hop gives 0, as the plain tick's where(valid, ., 0))
+        float acc = 0.0f, hmax = 0.0f;
         for (int h = 0; h < H; ++h) {
           const int e = s * H + h;
           const int p = spath[e];
@@ -744,7 +886,7 @@ fused_tick_kernel(const FusedTickArgs a) {
             const float q_obs = obs[e];
             const float b = bw[p];
             x = q_obs / b;
-            if (LAW == 0) {
+            if (law == kPowerTCP) {
               // NORMPOWER: (qdot + mu)(q + b tau) * (1 / max(b^2 tau, 1))
               const float current = obs[2 * SH + e] + obs[SH + e];
               const float bdp = b * ctau;
@@ -752,10 +894,21 @@ fused_tick_kernel(const FusedTickArgs a) {
               const float base_ = bdp * b;
               const float power = current * voltage;
               gh = power * (1.0f / pmax(base_, 1.0f));
+            } else if (law == kHPCC) {
+              // the link's utilization: q / max(b tau, 1) + mu / max(b, 1)
+              gh = q_obs / pmax(b * ctau, 1.0f) + obs[SH + e] / pmax(b, 1.0f);
+            } else if (law == kDCQCN || law == kReno) {
+              // ECN marking (core/fluid.py::_marking), a hard mark near
+              // the buffer's end
+              const float r = div_config(q_obs - kmin, span, inv_span,
+                                         a.div_span);
+              gh = q_obs >= 0.95f * buf[p]
+                       ? 1.0f
+                       : pmin(pmax(r, 0.0f), 1.0f) * mark_pmax;
             }
           }
           acc = h ? acc + x : x;
-          if (LAW == 0) gmax = h ? pmax(gmax, gh) : gh;
+          hmax = h ? pmax(hmax, gh) : gh;
         }
         const float theta_obs = tau + acc;
         const int wd =
@@ -764,24 +917,139 @@ fused_tick_kernel(const FusedTickArgs a) {
         if (!(t - wd >= admit_t[s])) w_old = nic * tau;
         const float dt_obs = pmax(t_sec - last_update[s], dt);
 
-        // law: smoothing of the normalized power, then UPDATEWINDOW
-        float gnorm = gmax;
-        if (LAW == 1) {
-          const float prev = prev_theta[s];
-          const float thetadot = (theta_obs - prev) / pmax(dt_obs, 1e-12f);
-          gnorm = (thetadot + 1.0f) * theta_obs / pmax(ctau, 1e-12f);
-          prev_theta[s] = theta_obs;
+        switch (law) {
+          case kPowerTCP:
+          case kThetaPowerTCP: {
+            // smoothing of the normalized power, then UPDATEWINDOW
+            float gnorm = hmax;
+            if (law == kThetaPowerTCP) {
+              const float prev = prev_theta[s];
+              const float thetadot =
+                  (theta_obs - prev) / pmax(dt_obs, 1e-12f);
+              gnorm = (thetadot + 1.0f) * theta_obs / pmax(ctau, 1e-12f);
+              prev_theta[s] = theta_obs;
+            }
+            const float gs = smooth(gamma_smooth[s], gnorm, dt_obs, ctau);
+            const float target = w_old / pmax(gs, 1e-9f) + betas[s];
+            wl = pmax(gammas[s] * target + omgs[s] * w, 1000.0f);
+            gamma_smooth[s] = gs;
+            break;
+          }
+          case kHPCC: {
+            // against the once-per-RTT reference window wc
+            const float u = smooth(u_s[s], hmax, dt_obs, ctau);
+            const int stage = inc_stage[s];
+            const bool over = u >= hpcc_eta || stage >= hpcc_max_stage;
+            const float wc = wc_s[s], beta = betas[s];
+            const float w_mimd =
+                wc / pmax(div_config(u, hpcc_eta, hpcc_inv_eta, a.div_eta),
+                          1e-6f) +
+                beta;
+            wl = pmax(over ? w_mimd : wc + beta, 1000.0f);
+            if (t_sec - last_ref[s] >= theta_obs) {
+              wc_s[s] = wl;
+              inc_stage[s] = over ? 0 : inc_wrap(stage);
+              last_ref[s] = t_sec;
+            }
+            u_s[s] = u;
+            break;
+          }
+          case kSwift: {
+            const float f = pmax(theta_obs, 1e-12f);
+            const float target = w_old * ctau / f + betas[s];
+            wl = pmax(gammas[s] * target + omgs[s] * w, 1000.0f);
+            break;
+          }
+          case kGradient: {
+            const float thetadot =
+                (theta_obs - prev_theta[s]) / pmax(dt_obs, 1e-12f);
+            const float f = pmax(thetadot + 1.0f, 1e-2f);
+            const float target = w_old / f + betas[s];
+            wl = pmax(gammas[s] * target + omgs[s] * w, 1000.0f);
+            prev_theta[s] = theta_obs;
+            break;
+          }
+          case kTimely: {
+            const float t_low = t_lows[s], t_high = t_highs[s],
+                        add = tadds[s], hb = hbws[s];
+            const float grad = (theta_obs - prev_theta[s]) /
+                               pmax(ctau, 1e-12f);
+            const int neg = grad <= 0.0f ? inc_wrap(neg_count[s]) : 0;
+            const float r = rate_s[s];
+            const float step =
+                neg >= timely_hai_n ? static_cast<float>(timely_hai_n) * add
+                                    : add;
+            const float r_inc = r + step;
+            const float r_high =
+                r * (1.0f - timely_beta *
+                                (1.0f - t_high / pmax(theta_obs, 1e-12f)));
+            const float r_pos = r * pmax(1.0f - timely_beta * grad, 0.5f);
+            const float r_mid = grad <= 0.0f ? r_inc : r_pos;
+            float r_new = theta_obs < t_low
+                              ? r_inc
+                              : (theta_obs > t_high ? r_high : r_mid);
+            r_new = pmin(pmax(r_new, 0.001f * hb), hb);
+            rate_s[s] = r_new;
+            wl = pmax(r_new * theta_obs, 1000.0f);
+            prev_theta[s] = theta_obs;
+            neg_count[s] = neg;
+            break;
+          }
+          case kDCQCN: {
+            // cut on marks (at most once per CNP interval), else increase
+            // on the timer; the rate clamp below runs on every slot
+            const float rc0 = rc_s[s];
+            const float pkts = pmax((rc0 * dt_obs) * 0.001f, 1.0f);
+            const float pe =
+                1.0f - powf(pmin(pmax(1.0f - hmax, 0.0f), 1.0f), pkts);
+            const bool cut = pe > 0.01f && t_sec - t_last_cut[s] >= dc_cnp_timer;
+            float alpha = alpha_s[s], rt = rt_s[s], rc = rc0;
+            int stage = inc_stage[s];
+            if (cut) {
+              alpha = dc_g * pe + dc_omg * alpha;
+              rt = rc0;
+              rc = rc0 * (1.0f - 0.5f * alpha * pmin(pe, 1.0f));
+              t_last_cut[s] = t_sec;
+              stage = 0;
+            } else if (t_sec - t_last_inc[s] >= dc_timer) {
+              const float rt_inc = stage < dc_f ? rt
+                                   : rt + (stage >= 2 * dc_f ? rai_hyper
+                                                              : rai);
+              rc = 0.5f * (rc + rt_inc);
+              rt = rt_inc;
+              stage = inc_wrap(stage);
+              t_last_inc[s] = t_sec;
+              alpha = dc_omg * alpha;
+            }
+            const float hb = hbws[s];
+            rc = pmin(pmax(rc, 0.001f * hb), hb);
+            rc_s[s] = rc;
+            rt_s[s] = rt;
+            alpha_s[s] = alpha;
+            inc_stage[s] = stage;
+            rate_cap[s] = rc;
+            wl = pmax(rc * pmax(theta_obs, ctau), 1000.0f);
+            break;
+          }
+          case kReno: {
+            const bool can_cut = hmax >= 1.0f && t_sec - last_cut[s] > theta_obs;
+            wl = pmax(can_cut ? w * reno_md : w + 1000.0f, 1000.0f);
+            if (can_cut) last_cut[s] = t_sec;
+            break;
+          }
         }
-        const float gs_prev = gamma_smooth[s];
-        const float d = pmin(pmax(dt_obs, 0.0f), ctau);
-        const float blend = gs_prev * (ctau - d) + gnorm * d;
-        const float gs = blend / pmax(ctau, 1e-12f);
-        const float target = w_old / pmax(gs, 1e-9f) + beta;
-        const float w_new = a.gamma * target + a.one_minus_gamma * w;
-        wl = pmax(w_new, 1000.0f);
-        gamma_smooth[s] = gs;
         next_update[s] = t_sec + (a.has_period ? a.update_period : th_now);
         last_update[s] = t_sec;
+      }
+      // the rate-based laws' rate is the rate cap on every slot; DCQCN
+      // clamps it to [0.001, 1] x host_bw on every slot (an identity on
+      // in-range rates)
+      if (law == kTimely) rate_cap[s] = rate_s[s];
+      if (law == kDCQCN && !upd) {
+        const float hb = hbws[s];
+        const float rc = pmin(pmax(rc_s[s], 0.001f * hb), hb);
+        rc_s[s] = rc;
+        rate_cap[s] = rc;
       }
       wl = pmin(pmax(wl, 1000.0f), 8.0f * nic * tau + 8.0f * nic * th_now);
       ws[s] = wl;
@@ -837,9 +1105,11 @@ fused_tick_kernel(const FusedTickArgs a) {
     g_remaining[s] = remaining[s];
     g_next_update[s] = next_update[s];
     g_last_update[s] = last_update[s];
-    g_gamma_smooth[s] = gamma_smooth[s];
     g_pend_val[s] = pend_val[s];
-    if (LAW == 1) g_prev_theta[s] = prev_theta[s];
+    for (int i = 0; i < kStateFields; ++i)
+      if ((smask >> i) & 1)
+        static_cast<int*>(a.law_state[i])[sS + s] =
+            at<int>(base, a.off[F_GAMMA_SMOOTH + i])[s];
   }
   for (int i = tid; i < SH; i += kThreads) {
     g_path[i] = spath[i];
@@ -883,6 +1153,11 @@ int launch(const FusedTickArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int LAW>
+int launch_law(const FusedTickArgs& a, cudaStream_t stream) {
+  return a.B > 1 ? launch<LAW, true>(a, stream) : launch<LAW, false>(a, stream);
+}
+
 }  // namespace
 
 // One launch of K ticks for B scenarios. The wrapper fills the layout
@@ -890,11 +1165,39 @@ int launch(const FusedTickArgs& a, cudaStream_t stream) {
 // buffer of B * layout_bytes) from kernels/fused_tick.py::layout.
 extern "C" int fused_tick_block_f32(const FusedTickArgs* args, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (args->B > 1)
-    return args->law == 1 ? launch<1, true>(*args, s)
-                          : launch<0, true>(*args, s);
-  return args->law == 1 ? launch<1, false>(*args, s)
-                        : launch<0, false>(*args, s);
+  if (args->nlawp != kLawParams)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (args->law) {
+    case kPowerTCP: return launch_law<kPowerTCP>(*args, s);
+    case kThetaPowerTCP: return launch_law<kThetaPowerTCP>(*args, s);
+    case kHPCC: return launch_law<kHPCC>(*args, s);
+    case kSwift: return launch_law<kSwift>(*args, s);
+    case kGradient: return launch_law<kGradient>(*args, s);
+    case kTimely: return launch_law<kTimely>(*args, s);
+    case kDCQCN: return launch_law<kDCQCN>(*args, s);
+    case kReno: return launch_law<kReno>(*args, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+namespace {
+
+__global__ void powf_kernel(const float* x, const float* y, float* out,
+                            int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = powf(x[i], y[i]);
+}
+
+}  // namespace
+
+// out[i] = powf(x[i], y[i]) compiled with K4's flags: DCQCN's pow in K4,
+// which chip_smoke.py holds against torch.pow on the card.
+extern "C" int fused_tick_powf(const float* x, const float* y, float* out,
+                               int n, void* stream) {
+  if (n > 0)
+    powf_kernel<<<(n + 255) / 256, 256, 0,
+                  static_cast<cudaStream_t>(stream)>>>(x, y, out, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // sizeof(FusedTickArgs) and kFields, which the wrapper checks against its

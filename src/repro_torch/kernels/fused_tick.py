@@ -3,8 +3,10 @@
 K4 replaces ``repro/kernels/fused_tick.py::fused_tick_block``: one launch
 advances the flow-slot engine by K whole ticks of
 ``core.megakernel.make_tick`` (``DEFAULT_BLOCK = 64``), the admit/retire
-pass included (gated or, with ``gate=False``, on every tick), for
-PowerTCP and theta-PowerTCP. One persistent thread block per scenario
+pass included (gated or, with ``gate=False``, on every tick), for each
+law of ``LAW_NAMES`` (the law a template parameter of the kernel; its
+state and per-flow config staged per slot, its scalars per scenario in
+``TickParams.lawp``). One persistent thread block per scenario
 runs the block's ticks with barriers between the tick's phases: a batch
 of B scenarios (every carry leaf, the schedule and the law config with a
 leading batch axis) is one launch of B blocks that share nothing. Each
@@ -42,11 +44,58 @@ from . import _build
 DEFAULT_BLOCK = 64
 
 
+# K4's laws; a law's id is its place here (``TickParams.law``)
+LAW_NAMES = ("powertcp", "theta_powertcp", "hpcc", "swift", "gradient_mimd",
+             "timely", "dcqcn", "reno")
+# the state fields K4 stages, in ``enum Field``'s order; a law stages the
+# fields of its state NamedTuple (swift's ``dummy`` stays zeros in the
+# carry and is not staged); ``INT_STATE`` are int32
+STATE_FIELDS = ("gamma_smooth prev_theta u wc inc_stage last_ref rate "
+                "neg_count rc rt alpha t_last_cut t_last_inc "
+                "last_cut").split()
+INT_STATE = ("inc_stage", "neg_count")
+LAW_STATE = {
+    "powertcp": ("gamma_smooth",),
+    "theta_powertcp": ("gamma_smooth", "prev_theta"),
+    "hpcc": ("u", "wc", "inc_stage", "last_ref"),
+    "swift": (),
+    "gradient_mimd": ("prev_theta",),
+    "timely": ("rate", "prev_theta", "neg_count"),
+    "dcqcn": ("rc", "rt", "alpha", "t_last_cut", "t_last_inc", "inc_stage"),
+    "reno": ("last_cut",),
+}
+# the per-flow law config K4 reads through ``slot_flow`` (each [B, N]
+# float32): beta, tau, gamma and 1 - gamma (``omg``), host_bw and
+# TIMELY's thresholds and step
+CONFIG_FIELDS = ("beta ctau gamma omg hbw t_low t_high tadd").split()
+_EWMA = ("beta", "ctau", "gamma", "omg")
+LAW_CONFIG = {
+    "powertcp": _EWMA, "theta_powertcp": _EWMA, "swift": _EWMA,
+    "gradient_mimd": _EWMA, "hpcc": ("beta", "ctau", "hbw"),
+    "timely": ("ctau", "hbw", "t_low", "t_high", "tadd"),
+    "dcqcn": ("ctau", "hbw"), "reno": (),
+}
+# per-hop telemetry words a law reads from the packed ring: q, then the
+# egress rate (PowerTCP, HPCC), then the queue gradient (PowerTCP)
+TELEMETRY = {"powertcp": 3, "hpcc": 2}
+# the per-scenario law constants (``TickParams.lawp`` [B, len]), float32;
+# the integer ones hold small integers exactly. ``*_inv_*`` are the
+# float32 reciprocals a Python-scalar divisor is multiplied by
+# (``core.laws.div_config``), ``dcqcn_omg`` 1 - g and ``dcqcn_rai_hyper``
+# 5 * rai, each rounded as the plain law rounds it
+LAW_PARAMS = ("hpcc_eta hpcc_inv_eta hpcc_max_stage timely_beta "
+              "timely_hai_n dcqcn_kmin dcqcn_span dcqcn_inv_span dcqcn_pmax "
+              "dcqcn_g dcqcn_omg dcqcn_rai dcqcn_rai_hyper dcqcn_timer "
+              "dcqcn_cnp_timer dcqcn_f reno_md").split()
+
+
 class TickParams(NamedTuple):
     """The read-only inputs of K4 for one run (built by
-    ``core.megakernel``): the schedule, the per-flow law config, the
-    topology and the run's float32 constants."""
-    law: int                        # 0 powertcp, 1 theta_powertcp
+    ``core.megakernel``): the schedule, the law config (per flow, and per
+    scenario in ``lawp``), the topology and the run's float32 constants.
+    ``config`` maps each of the law's ``LAW_CONFIG`` fields to its [B, N]
+    tensor."""
+    law: int                        # index into LAW_NAMES
     N: int
     Q: int
     D: int
@@ -56,9 +105,9 @@ class TickParams(NamedTuple):
     dt: float
     inv_dt: float
     dt_alpha: float
-    gamma: float
-    one_minus_gamma: float
     update_period: float            # 0: once per measured RTT
+    div_eta: int                    # 1: divide by hpcc_eta, 0: multiply
+    div_span: int                   # the same for the marking span
     s_path: torch.Tensor            # [N, H] int32
     s_tf: torch.Tensor              # [N, H] int32
     s_rtt: torch.Tensor             # [N] int32
@@ -67,8 +116,8 @@ class TickParams(NamedTuple):
     s_start: torch.Tensor
     s_stop: torch.Tensor
     s_size: torch.Tensor
-    c_beta: torch.Tensor            # [N] float32 law config
-    c_tau: torch.Tensor
+    config: dict                    # name -> [N] float32 (LAW_CONFIG)
+    lawp: torch.Tensor              # [len(LAW_PARAMS)] float32
     bw: torch.Tensor                # [Q+1] float32
     buf: torch.Tensor               # [Q+1] float32
     sw_table: Optional[torch.Tensor]  # [nsw, swdeg] int32
@@ -100,14 +149,15 @@ def _fields(S, H, Q, nsw, swdeg, nswb, law):
     ``enum Field`` in ``csrc/fused_tick.cu``: the tick's temporaries and
     the contributor lists (CSR offsets, entries, each entry's place, the
     per-warp counts), the queues (with each queue's q / bw) and the
-    topology, the hops, the slots (with each slot's law config beta and
-    tau)."""
+    topology, the hops, the slots: their carry, the law state and config
+    of law ``law`` (an index into ``LAW_NAMES``; a field the law lacks
+    takes no words)."""
+    name = LAW_NAMES[law]
     SH, Q1 = S * H, Q + 1
     slot_fields = ("slot_flow admit_t free_at rtt_steps hold pend_flow tau "
                    "nic start stop w rate_cap remaining next_update "
-                   "last_update gamma_smooth prev_theta pend_val beta "
-                   "ctau").split()
-    return ([("contrib", SH + 1), ("obs", SH * (3 if law == 0 else 1)),
+                   "last_update").split()
+    return ([("contrib", SH + 1), ("obs", SH * TELEMETRY.get(name, 1)),
              ("theta_now", S), ("lam", S), ("act", S), ("freef", S),
              ("sw_used", nsw), ("csr_off", Q1 + 1), ("csr_list", SH),
              ("csr_pos", SH), ("csr_hist", WARPS * Q1),
@@ -116,8 +166,11 @@ def _fields(S, H, Q, nsw, swdeg, nswb, law):
              ("switch_of_queue", Q), ("sw_table", nsw * swdeg),
              ("switch_buffer", nswb),
              ("path", SH), ("tf_steps", SH)]
-            + [(f, 0 if f == "prev_theta" and law != 1 else S)
-               for f in slot_fields])
+            + [(f, S) for f in slot_fields]
+            + [(f, S if f in LAW_STATE[name] else 0) for f in STATE_FIELDS]
+            + [("pend_val", S)]
+            + [(f, S if f in LAW_CONFIG[name] else 0)
+               for f in CONFIG_FIELDS])
 
 
 class Layout(NamedTuple):
@@ -133,7 +186,7 @@ class Layout(NamedTuple):
 def layout(S, H, Q, nsw, swdeg, nswb, law) -> Layout:
     """K4's layout for S slots of H hops, Q queues, ``nsw`` switches of
     ``swdeg`` ports in the Dynamic-Thresholds fold (0: off), ``nswb``
-    switch buffers, and law 0 (PowerTCP) or 1 (theta-PowerTCP)."""
+    switch buffers, and law ``law`` (an index into ``LAW_NAMES``)."""
     offsets, at = [], 0
     for _, words in _fields(S, H, Q, nsw, swdeg, nswb, law):
         offsets.append(at)
@@ -141,17 +194,24 @@ def layout(S, H, Q, nsw, swdeg, nswb, law) -> Layout:
     return Layout(tuple(offsets), at, at <= SMEM_BUDGET)
 
 
-_PTRS = ("cursor hw slot_flow admit_t free_at path tf_steps rtt_steps tau "
-         "nic start stop w rate_cap q out_rate hist_lam hist_q hist_w "
-         "remaining next_update last_update gamma_smooth prev_theta fct "
-         "pend_flow pend_val hold inv ovf s_path s_tf s_rtt s_tau s_nic "
-         "s_start s_stop s_size c_beta c_tau bw buf sw_table switch_buffer "
-         "switch_of_queue due rec_t rec_q rec_w_sum rec_thru rec_lam "
-         "rec_lam_f rec_n_active scratch").split()
+_PTRS = (("cursor hw slot_flow admit_t free_at path tf_steps rtt_steps tau "
+          "nic start stop w rate_cap q out_rate hist_lam hist_q hist_w "
+          "remaining next_update last_update").split() + STATE_FIELDS
+         + ("fct pend_flow pend_val hold inv ovf s_path s_tf s_rtt s_tau "
+            "s_nic s_start s_stop s_size").split()
+         + ["c_" + f for f in CONFIG_FIELDS]
+         + ("lawp bw buf sw_table switch_buffer switch_of_queue due rec_t "
+            "rec_q rec_w_sum rec_thru rec_lam rec_lam_f rec_n_active "
+            "scratch").split())
 _INTS = ("S N Q H D nsw swdeg nswb maxdeg K t0 record_every record law "
-         "has_period use_smem layout_bytes B gate due_stride").split()
+         "has_period use_smem layout_bytes B gate due_stride div_eta "
+         "div_span smask cmask nlawp").split()
 _NFIELDS = len(_fields(1, 1, 1, 0, 0, 1, 0))
-_FLOATS = "dt inv_dt dt_alpha gamma one_minus_gamma update_period".split()
+# the inputs K4 reads and never writes
+_READ_ONLY = set(("s_path s_tf s_rtt s_tau s_nic s_start s_stop s_size lawp "
+                  "bw buf sw_table switch_buffer switch_of_queue").split()
+                 + ["c_" + f for f in CONFIG_FIELDS])
+_FLOATS = "dt inv_dt dt_alpha update_period".split()
 
 
 class _Args(ctypes.Structure):
@@ -162,9 +222,16 @@ class _Args(ctypes.Structure):
                 [("off", ctypes.c_int * _NFIELDS)])
 
 
+def _mask(fields, staged) -> int:
+    """Bit i set where ``fields[i]`` is among ``staged``."""
+    return sum(1 << i for i, f in enumerate(fields) if f in staged)
+
+
 _SIGNATURES = {
     "fused_tick_block_f32": [ctypes.POINTER(_Args), ctypes.c_void_p],
     "fused_tick_abi": [ctypes.POINTER(ctypes.c_int)],
+    "fused_tick_powf": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_int, ctypes.c_void_p],
 }
 
 
@@ -209,11 +276,12 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         raise ValueError(f"fused_tick_block: K ({K}) must be a multiple of "
                          f"record_every ({re})")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
+    lname = LAW_NAMES[params.law]
     law = st.law
-    prev_theta = getattr(law, "prev_theta", None)
-    if (params.law == 1) != (prev_theta is not None):
-        raise ValueError("fused_tick_block: the law state does not match "
-                         "the law of the parameters")
+    if tuple(getattr(law, "_fields", ())) != (LAW_STATE[lname]
+                                              or ("dummy",)):
+        raise ValueError(f"fused_tick_block: the law state "
+                         f"{type(law).__name__} is not {lname}'s")
     if dev.type == "cuda" and (B < 1 or B > 65535):
         raise ValueError(f"fused_tick_block: a batch of {B} scenarios")
     # per scenario: (tensor, dtype, shape without the batch axis)
@@ -234,7 +302,6 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         "remaining": (st.remaining, f32, (S,)),
         "next_update": (st.next_update, f32, (S,)),
         "last_update": (st.last_update, f32, (S,)),
-        "gamma_smooth": (law.gamma_smooth, f32, (S,)),
         "fct": (st.fct, f32, (N + 1,)),
         "pend_flow": (carry.pend.flow, i32, (S,)),
         "pend_val": (carry.pend.val, f32, (S,)),
@@ -244,11 +311,13 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         "s_tf": (params.s_tf, i32, (N, H)),
         "s_rtt": (params.s_rtt, i32, (N,)),
     }
-    for name in ("s_tau", "s_nic", "s_start", "s_stop", "s_size", "c_beta",
-                 "c_tau"):
-        leaves[name] = (getattr(params, name), f32, (N,))
-    if prev_theta is not None:
-        leaves["prev_theta"] = (prev_theta, f32, (S,))
+    for f in ("s_tau", "s_nic", "s_start", "s_stop", "s_size"):
+        leaves[f] = (getattr(params, f), f32, (N,))
+    for f in LAW_STATE[lname]:
+        leaves[f] = (getattr(law, f), i32 if f in INT_STATE else f32, (S,))
+    for f in LAW_CONFIG[lname]:
+        leaves["c_" + f] = (params.config[f], f32, (N,))
+    leaves["lawp"] = (params.lawp, f32, (len(LAW_PARAMS),))
     leaves = {k: (x, dt, lead + shape) for k, (x, dt, shape)
               in leaves.items()}
     # the topology, shared by the batch
@@ -264,6 +333,12 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         "fused_tick_block", {k: v[0] for k, v in leaves.items()},
         {k: v[2] for k, v in leaves.items()}, dev,
         dtypes={k: v[1] for k, v in leaves.items()})
+    # K4 writes the carry back in place: two leaves on one buffer would
+    # take each other's values
+    ptrs = [x.data_ptr() for k, (x, _, _) in leaves.items()
+            if k not in _READ_ONLY]
+    if len(set(ptrs)) != len(ptrs):
+        raise ValueError("fused_tick_block: two carry leaves share memory")
     # the due counts: each scenario's K contiguous, rows of any stride
     if (due_block.dtype != i32 or due_block.device != dev
             or tuple(due_block.shape) != lead + (K,)
@@ -288,24 +363,28 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
                           dtype=torch.uint8, device=dev)
 
     args = _Args()
-    for name, (x, _, _) in leaves.items():
-        setattr(args, name, x.data_ptr())
+    for f, (x, _, _) in leaves.items():
+        setattr(args, f, x.data_ptr())
     args.due = due_block.data_ptr()
     for name in BlockRecords._fields:
         setattr(args, "rec_" + name, getattr(recs, name).data_ptr())
     args.scratch = scratch.data_ptr()
-    for name, val in dict(S=S, N=N, Q=Q, H=H, D=D, nsw=params.nsw,
+    for f, val in dict(S=S, N=N, Q=Q, H=H, D=D, nsw=params.nsw,
                           swdeg=params.swdeg, nswb=nswb, maxdeg=M, K=K,
                           t0=int(st.t), record_every=re,
                           record=int(bool(record)), law=params.law,
                           has_period=int(params.update_period > 0.0),
                           use_smem=int(lay.smem),
                           layout_bytes=lay.nbytes, B=B, gate=int(bool(gate)),
-                          due_stride=due_stride).items():
-        setattr(args, name, val)
+                          due_stride=due_stride, div_eta=params.div_eta,
+                          div_span=params.div_span,
+                          smask=_mask(STATE_FIELDS, LAW_STATE[lname]),
+                          cmask=_mask(CONFIG_FIELDS, LAW_CONFIG[lname]),
+                          nlawp=len(LAW_PARAMS)).items():
+        setattr(args, f, val)
     args.off[:] = lay.offsets
-    for name in _FLOATS:
-        setattr(args, name, getattr(params, name))
+    for f in _FLOATS:
+        setattr(args, f, getattr(params, f))
     if K:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -314,3 +393,19 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         _build.LAUNCHES["fused_tick_block"] += 1
     carry = carry._replace(state=st._replace(t=int(st.t) + K))
     return carry, (recs if record else None)
+
+
+def powf(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``powf(x, y)`` elementwise, compiled into K4's library with its
+    flags: the pow of DCQCN's K4 routine, to hold against ``torch.pow``
+    on the card (CUDA float32 tensors of one shape; not a K4 launch)."""
+    _build.check_tensors("fused_tick_powf", {"x": x, "y": y},
+                         {"x": tuple(x.shape), "y": tuple(x.shape)},
+                         x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().fused_tick_powf(x.data_ptr(), y.data_ptr(),
+                                     out.data_ptr(), x.numel(), stream)
+    _build.check(err, "fused_tick_powf")
+    return out

@@ -26,6 +26,9 @@ spelled in torch and itself run twice, at those rows and ragged ones;
 K4's grid form (a batch of B scenarios, one block each, B in 1-3, with
 and without gate) against each scenario's plain block, K1-K3 taking a
 batch in one launch, and the batched megakernel backend's launches;
+each of K4's eight laws against the plain tick, a per-flow gamma, a
+batch with per-scenario law constants, and DCQCN's ``powf`` against
+``torch.pow``;
 K1/K2's observe form (``powertcp_observe_step``,
 ``theta_powertcp_observe_step``) bit for bit against its plain version
 at the main path's shapes (S = 384, P = 2 406, B = 2 x 128, and a ragged
@@ -219,6 +222,68 @@ def test_fused_tick_block_kernel_grid(cuda_device, B, gate, law):
                               gate=gate)
 
 
+K4_LAW_NAMES = ("powertcp", "theta_powertcp", "hpcc", "swift",
+                "gradient_mimd", "timely", "dcqcn", "reno")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,blocks", [(16, (1, 64)), (6, (64, 7))])
+@pytest.mark.parametrize("law", K4_LAW_NAMES)
+def test_fused_tick_block_kernel_each_law(cuda_device, law, slots, blocks):
+    """Each law's K4 routine against the plain tick, every carry leaf (its
+    state included) bit for bit, S >= N and S < N."""
+    import repro_torch.core as tc
+    topo, sched, cfg = sup.staggered(tc, device=cuda_device)
+    sup.k4_against_plain(tc, topo, sched, cfg, law, slots, blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["powertcp", "theta_powertcp", "swift",
+                                 "gradient_mimd"])
+def test_fused_tick_block_kernel_per_flow_gamma(cuda_device, law):
+    """A per-flow gamma (``linspace(0.5, 0.95)`` over the schedule), read
+    per slot through ``slot_flow`` with 1 - gamma, bit for bit against the
+    plain tick."""
+    import repro_torch.core as tc
+    topo, sched, cfg = sup.staggered(tc, device=cuda_device)
+    n = int(sched.start.shape[0])
+    lcfg = tc.default_law_config(sched, expected_flows=8.0)._replace(
+        gamma=torch.linspace(0.5, 0.95, n, device=cuda_device))
+    sup.k4_against_plain(tc, topo, sched, cfg, law, 6, (64,), law_cfg=lcfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["hpcc", "dcqcn", "reno", "timely"])
+def test_fused_tick_block_kernel_grid_per_scenario_config(cuda_device, law):
+    """A batch whose ``hpcc_eta``, ``dcqcn_rai`` and DCQCN marking
+    thresholds differ by scenario (``stack_law_configs``: the engines
+    divide by the stacked eta and span, K4 too), K4's grid against the
+    plain block of the batch."""
+    import repro_torch.core as tc
+    topo, sched, cfg = _staggered_batch(tc, 2, 1500, cuda_device)
+    cfgs = [tc.default_law_config(type(sched)(*[x[b] for x in sched]),
+                                  expected_flows=8.0, hpcc_eta=eta,
+                                  dcqcn_rai=rai, dcqcn_kmin=kmin)
+            for b, (eta, rai, kmin) in enumerate(((0.9, 40e6, 3e5),
+                                                  (0.97, 80e6, 5e5)))]
+    sup.k4_grid_against_plain(tc, topo, sched, cfg, law, 6, (64,),
+                              law_cfg=tc.stack_law_configs(cfgs))
+
+
+@pytest.mark.cuda
+def test_fused_tick_powf_is_torch_pow(cuda_device):
+    """DCQCN's ``powf`` in K4's build equals ``torch.pow`` on the card over
+    DCQCN's inputs, so its K4 routine is held bit for bit."""
+    from repro_torch.kernels import fused_tick as ft
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.cat([torch.rand(1 << 16, generator=g) * 0.2 + 0.8,
+                   torch.tensor([0.0, 1.0])]).to(cuda_device)
+    y = torch.cat([1.0 + torch.rand(1 << 16, generator=g) * 1999.0,
+                   torch.tensor([3.0, 3.0])]).to(cuda_device)
+    torch.testing.assert_close(ft.powf(x, y), torch.pow(x, y), rtol=0,
+                               atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,F,H,Q", [(2, 128, 3, 289), (3, 257, 5, 129)])
 def test_law_and_queue_kernels_take_a_batch(cuda_device, B, F, H, Q):
@@ -371,7 +436,7 @@ def test_megakernel_law_without_k4_raises_on_cuda(cuda_device):
     topo, sched, cfg = sup.staggered(tc, steps=64, device=cuda_device)
     other = tc.Law("my_law", tc.LAWS["powertcp"].init,
                    tc.LAWS["powertcp"].update)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="no K4 path"):
         tc.simulate_slots(topo, sched, other, 6, backend="megakernel",
                           device=cuda_device)
 

@@ -227,7 +227,8 @@ def test_every_law_has_a_megakernel_backend():
 
 def test_k4_needs_cuda_and_a_k4_law():
     """``impl="cuda"`` and K4's wrapper refuse CPU tensors; a law without
-    a K4 path and a batched gamma raise when K4's inputs are built."""
+    a K4 path and a per-flow law scalar raise when K4's inputs are built;
+    a per-flow gamma reaches K4 as per-flow gamma and 1 - gamma."""
     import repro_torch.core as tc
     from repro_torch.core import fluid, megakernel as mk
     from repro_torch.kernels.fused_tick import fused_tick_block
@@ -246,11 +247,19 @@ def test_k4_needs_cuda_and_a_k4_law():
                          torch.zeros((1, 4), dtype=torch.int32))
     other = tc.Law("my_law", tc.LAWS["powertcp"].init,
                    tc.LAWS["powertcp"].update, backend="megakernel")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="no K4 path"):
         mk.make_tick(sim._replace(law=other)).k4_params()
-    batched = sim.law_cfg._replace(gamma=torch.tensor([[0.9], [0.8]]))
-    with pytest.raises(ValueError, match="gamma"):
-        mk.make_tick(sim._replace(law_cfg=batched)).k4_params()
+    n = int(sched.start.shape[0])
+    gamma = torch.linspace(0.5, 0.95, n)[None]
+    params = mk.make_tick(sim._replace(law_cfg=sim.law_cfg._replace(
+        gamma=gamma))).k4_params()
+    torch.testing.assert_close(params.config["gamma"], gamma, rtol=0,
+                               atol=0)
+    torch.testing.assert_close(params.config["omg"], 1.0 - gamma, rtol=0,
+                               atol=0)
+    per_flow = sim.law_cfg._replace(hpcc_eta=torch.full((1, n), 0.9))
+    with pytest.raises(ValueError, match="per scenario"):
+        mk.make_tick(sim._replace(law_cfg=per_flow)).k4_params()
 
 
 # -------------------------------------------------------------------------

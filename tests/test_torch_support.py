@@ -42,6 +42,7 @@ HERE = os.path.dirname(__file__)
 GOLDEN = os.path.join(HERE, "golden", "golden_laws.json")
 PAPER_REF = os.path.join(HERE, "golden", "torch_port_paper_seed1.json")
 SMOKE_REF = os.path.join(HERE, "golden", "torch_port_smoke_slots.json")
+FIG6_REF = os.path.join(HERE, "golden", "torch_port_fig6_paper.json")
 
 
 def apply_jax_shim() -> None:
@@ -128,6 +129,53 @@ PAPER_DT = 1e-6
 PAPER_STEPS = int((PAPER_DURATION + 0.01) / PAPER_DT)
 PAPER_SLOTS = 384
 PAPER_EXPECTED_FLOWS = 8.0
+
+# benchmarks/fig6_fct.py::run_paper_scale: the five laws on the paper
+# fabric at 60% load, 90 ms of arrivals + 40 ms drain (130 000 ticks),
+# the pool from ``suggest_slots``
+FIG6_LAWS = ("powertcp", "theta_powertcp", "hpcc", "timely", "dcqcn")
+FIG6_DURATION = 0.09
+FIG6_STEPS = int((FIG6_DURATION + 0.04) / PAPER_DT)
+FIG6_SEED = 1
+
+
+def fig6_stats(fct, size) -> dict:
+    """``benchmarks/common.py::fct_stats`` of one run: the p99.9 FCT (in
+    us) of the short (< 10 kB), medium (100 kB - 1 MB) and long (> 1 MB)
+    flows that completed, and the count completed."""
+    fct = np.asarray(fct, np.float64)
+    size = np.asarray(size, np.float64)
+    done = np.isfinite(fct) & np.isfinite(size)
+    out = {"completed": int(done.sum())}
+    for name, m in (("short", size < 10e3),
+                    ("med", (size >= 100e3) & (size <= 1e6)),
+                    ("long", size > 1e6)):
+        sel = done & m
+        out[f"{name}_p999_us"] = (float(np.percentile(fct[sel], 99.9)) * 1e6
+                                  if sel.any() else float("nan"))
+    return out
+
+
+def fig6_claims(stats: dict) -> bool:
+    """``run_paper_scale``'s four orderings on short-flow p99.9."""
+    p = {law: s["short_p999_us"] for law, s in stats.items()}
+    return bool(p["powertcp"] <= 1.10 * p["hpcc"]
+                and p["theta_powertcp"] <= 1.15 * p["hpcc"]
+                and p["powertcp"] < 0.9 * p["timely"]
+                and p["powertcp"] < 0.6 * p["dcqcn"])
+
+
+def fig6_scenario(core, **dev):
+    """(topo, schedule, cfg, slots) of ``run_paper_scale`` in either
+    package."""
+    fab = core.LeafSpine(**PAPER)
+    flows = core.poisson_websearch(fab, PAPER_LOAD, FIG6_DURATION, PAPER_DT,
+                                   seed=FIG6_SEED, **dev)
+    sched = core.make_schedule(flows)
+    cfg = core.SimConfig(dt=PAPER_DT, steps=FIG6_STEPS, hist=512,
+                         update_period=2e-6)
+    return (fab.topology(**dev), sched, cfg,
+            int(core.suggest_slots(sched, PAPER_DT)))
 
 
 def smoke_slots_pool(starts, fcts, max_tf, peak_concurrency,
@@ -422,7 +470,8 @@ def plain_ticks(tick, carry, due):
 
 
 def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
-                     expected_flows=8.0, maxdeg=None, overflows=None):
+                     expected_flows=8.0, maxdeg=None, overflows=None,
+                     law_cfg=None):
     """K4 against the plain megakernel tick on the card, from the same
     initial carry, for each K in ``blocks``: every carry leaf bit for bit
     (the gather table ``inv`` and its flag ``ovf`` included), and the
@@ -434,13 +483,15 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
     the plain tick's walk of the hop list is held too, or must never.
     Returns (the largest absolute difference in the two sums — every other
     value is equal —, the number of ticks with the table overflowed, the
-    largest number of contributors of a queue at the end)."""
+    largest number of contributors of a queue at the end). ``law_cfg``
+    (one scenario's) replaces the default config."""
     from repro_torch.core import fluid, megakernel as mk
     from repro_torch.kernels.queue_arrivals import max_degree
     dev = sched.start.device
-    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), law, slots,
-                              cfg=cfg, backend="megakernel", device=dev,
-                              expected_flows=expected_flows)
+    sim = fluid.make_slot_sim(
+        topo, tc.batch_of_one(sched), law, slots,
+        None if law_cfg is None else tc.batch_of_one(law_cfg), cfg=cfg,
+        backend="megakernel", device=dev, expected_flows=expected_flows)
     tick = mk.make_tick(sim, maxdeg=maxdeg)
     carry0 = tick.init_carry(fluid.init_slot_state(sim))
     due = torch.as_tensor(mk._due_table(sim.sched, int(cfg.steps), cfg.dt),
@@ -475,17 +526,18 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
 
 
 def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
-                          gate=True, expected_flows=8.0):
+                          gate=True, expected_flows=8.0, law_cfg=None):
     """K4's grid form against the plain block on the card: a batch of
     schedules ``sched`` ([B, N, ...], ``fluid.stack_flow_schedules``), one
     K4 block per scenario, against the plain tick of the batch, both with
     ``gate``, from the same initial carry, for each K in ``blocks``: every
     carry leaf bit for bit, and the records; their sums ``w_sum`` and
-    ``lam`` at rtol 1e-5 (K4 adds them in its block order). Returns the
-    largest absolute difference in those sums."""
+    ``lam`` at rtol 1e-5 (K4 adds them in its block order). ``law_cfg``
+    (stacked, as ``stack_law_configs`` builds it) replaces the default
+    config. Returns the largest absolute difference in those sums."""
     from repro_torch.core import fluid, megakernel as mk
     dev = sched.start.device
-    sim = fluid.make_slot_sim(topo, sched, law, slots, cfg=cfg,
+    sim = fluid.make_slot_sim(topo, sched, law, slots, law_cfg, cfg=cfg,
                               backend="megakernel", device=dev,
                               expected_flows=expected_flows)
     T = int(cfg.steps)
@@ -513,6 +565,41 @@ def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
                 err = max(err, float(torch.max(torch.abs(g.double()
                                                          - w.double()))))
     return err
+
+
+def k4_against_reference(tc, topo, sched, cfg, law, slots,
+                         expected_flows=8.0):
+    """``simulate_slots_batch`` with ``backend="megakernel"`` (K4 on the
+    card) against the eager ``backend="reference"`` slot engine over
+    ``cfg.steps`` ticks of one schedule: the final carry's windows, rate
+    caps, queues, progress, update times, rings, law state, admission
+    cursor and FCTs bit for bit (not the slots' retire bookkeeping: the
+    megakernel retires a drained slot on the tick it drains, the
+    reference on the next admission, which changes no trajectory), and
+    the records; their per-tick sums ``w_sum`` and ``lam`` at rtol 1e-5
+    (K4 adds them in its own order). Returns the number of flows
+    completed."""
+    runs = [tc.simulate_slots_batch(
+        topo, tc.batch_of_one(sched), law, slots, cfg=cfg, backend=b,
+        expected_flows=expected_flows, device=sched.start.device)
+        for b in ("megakernel", "reference")]
+    (got, grec), (want, wrec) = runs
+    for f in ("w", "rate_cap", "q", "out_rate", "remaining", "next_update",
+              "last_update", "hist_lam", "hist_q", "hist_out", "hist_w",
+              "law", "cursor", "fct"):
+        for (name, gv), (_, wv) in zip(tree_leaves(getattr(got, f), f),
+                                       tree_leaves(getattr(want, f), f)):
+            torch.testing.assert_close(
+                gv, wv, rtol=0, atol=0, equal_nan=True,
+                msg=lambda m, n=name: f"K4 against the reference {n}: {m}")
+    for f in wrec._fields:
+        g = getattr(grec, f)
+        tol = 1e-5 if f in ("w_sum", "lam") else 0.0
+        torch.testing.assert_close(
+            g, getattr(wrec, f).to(device=g.device, dtype=g.dtype),
+            rtol=tol, atol=0, equal_nan=True,
+            msg=lambda m, n=f: f"K4 against the reference rec.{n}: {m}")
+    return int(torch.isfinite(got.fct).sum())
 
 
 # -------------------------------------------------------------------------
