@@ -2,7 +2,7 @@
 """Wall time per tick of the port's main-path runs for two checkouts of
 the repo, alternating on one GPU: A, B, B, A.
 
-    python3 ab_main_path.py [--ticks N] TREE_A TREE_B
+    python3 ab_main_path.py [--ticks N] [--runs a,c,d,e] TREE_A TREE_B
 
 Each pass runs in a fresh process with ``TREE/src`` on its path (the
 tree's own kernels, built into ``TREE/build`` at first use) and times,
@@ -11,7 +11,8 @@ on the paper scenario of ``tests/golden/torch_port_paper_seed1.json``
 phase 6 through the public entry points: (a) ``simulate_slots`` fused,
 (c) ``simulate`` (padded) fused, (d) theta-PowerTCP ``simulate_slots``
 fused over the first N ticks (default 5 000), and (e) ``simulate_slots``
-megakernel over the whole 40 000 ticks. Each tree's first pass also
+megakernel over the whole 40 000 ticks (``--runs`` picks a subset, e.g.
+``--runs e`` for K4 alone). Each tree's first pass also
 times the build of its K4 source (``csrc/fused_tick.cu``, one ``nvcc``
 before any other kernel is built). Every run is warmed up first
 (a few ticks: the build and the first launches are not timed); the wall
@@ -40,14 +41,15 @@ RUNS = (("a", "slot", "powertcp", "fused"),
         ("e", "slot", "powertcp", "megakernel"))
 
 
-def child(tree: str, ticks: int) -> dict:
-    """One pass in this process over ``tree``'s port."""
+def child(tree: str, ticks: int, keys) -> dict:
+    """One pass in this process over ``tree``'s port, runs ``keys``."""
     sys.path[:0] = [os.path.join(tree, "src")]
     import torch
     import repro_torch.core as tc
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    built = _build.build(("fused_tick",))
+    built = _build.build([n for n in _build.SOURCES
+                          if n.partition("@")[0] == "fused_tick"])
     out = {"build_fused_tick_s": (time.perf_counter() - t0) if built
            else None}
     with open(os.path.join(ROOT, "tests", "golden",
@@ -77,6 +79,8 @@ def child(tree: str, ticks: int) -> dict:
                            backend=backend, device=dev)
 
     for key, engine, law, backend in RUNS:
+        if key not in keys:
+            continue
         steps = ref["steps"] if backend == "megakernel" else ticks
         run(engine, law, backend, 64)                       # warm-up
         torch.cuda.synchronize()
@@ -95,11 +99,16 @@ def child(tree: str, ticks: int) -> dict:
 def main():
     args = sys.argv[1:]
     if args and args[0] == "--child":
-        print(json.dumps(child(args[1], int(args[2]))), flush=True)
+        print(json.dumps(child(args[1], int(args[2]), args[3].split(","))),
+              flush=True)
         return
-    ticks = 5000
-    if args and args[0] == "--ticks":
-        ticks, args = int(args[1]), args[2:]
+    ticks, keys = 5000, [k for k, *_ in RUNS]
+    while args and args[0] in ("--ticks", "--runs"):
+        if args[0] == "--ticks":
+            ticks = int(args[1])
+        else:
+            keys = args[1].split(",")
+        args = args[2:]
     if len(args) != 2:
         sys.exit(__doc__)
     import torch
@@ -117,7 +126,8 @@ def main():
     for i in (0, 1, 1, 0):
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", trees[i],
-             str(ticks)], capture_output=True, text=True, timeout=1800)
+             str(ticks), ",".join(keys)], capture_output=True, text=True,
+            timeout=1800)
         if res.returncode:
             sys.stderr.write(res.stderr[-4000:])
             sys.exit(f"ab_main_path.py: the pass over {trees[i]} failed")
@@ -128,7 +138,7 @@ def main():
         passes[i].append(got)
         print(json.dumps({"tree": args[i], "runs": got}), flush=True)
     summary = {}
-    for key, *_ in RUNS:
+    for key in keys:
         means = [sum(p[key]["us_per_tick"] for p in passes[i]) / 2
                  for i in (0, 1)]
         if len({p[key]["completed"] for i in (0, 1)

@@ -102,9 +102,11 @@ exit, traceback) if anything in it is wrong:
    arrivals + 40 ms drain (130 000 ticks of 1 us, seed 1, 7 126 flows),
    the pool from ``suggest_slots`` (448 slots). First DCQCN's ``powf`` in
    K4's build against ``torch.pow`` over DCQCN's inputs (the same bits,
-   or the phase fails); then each of K4's eight laws (``powertcp``,
+   or the phase fails); then each of K4's nine laws (``powertcp``,
    ``theta_powertcp``, ``hpcc``, ``swift``, ``gradient_mimd``, ``timely``,
-   ``dcqcn``, ``reno``) held bit for bit to the plain megakernel tick
+   ``dcqcn``, ``reno``, and ``retcp`` with Fig. 8's slot-0 circuit
+   schedule and a 600 us prebuffer over the fabric's static rates) held
+   bit for bit to the plain megakernel tick
    over the first 3 launches and to the eager reference slot engine
    (``simulate_slots_batch``, ``backend="reference"``) over the first
    2 000 ticks (the final carry and the FCTs), and timed over the whole
@@ -119,6 +121,32 @@ exit, traceback) if anything in it is wrong:
    short-flow p99.9 within 1e-3); prints the short, medium and long p99.9
    and ``claims_hold`` (the four orderings of ``run_paper_scale``), which
    must equal ``repro``'s;
+6d. fig8: ``benchmarks/fig8_rdcn.py::run(quick=False)`` on the port, the
+   RDCN case study (claim C5) at full size: 8 flows at 25G into one VOQ
+   whose rate follows an optical-circuit schedule (100G for 225 us of
+   each 5 880 us week, 25G otherwise), 4 weeks (23 520 ticks of 1 us),
+   the schedules of slots 0 and 6; each law group of ``rdcn_specs``
+   (``powertcp``, ``theta_powertcp``, ``hpcc`` over both schedules,
+   ``retcp`` over prebuffers 1 800 and 600 us x both schedules) one
+   ``simulate_slots_batch(backend="megakernel", bw_fn=circuit_bw_at,
+   bw_params=stack_schedules(...))`` of 8 slots (368 K4 launches, nothing
+   else; K4 evaluates each scenario's schedule in its body every tick).
+   (i) K4's schedule evaluation against ``circuit_bw_at`` and reTCP's
+   ``circuit_up`` on the card over every tick, both schedules and
+   prebuffers: bit for bit; (ii) per point the circuit utilization, p99
+   queuing latency and mean queue within rtol 1e-5 of ``repro``'s
+   (``tests/golden/torch_port_fig8.json``) and ``claims_hold`` equal to
+   its; one ``{"fig8": {...}}`` line with ``fig8_rdcn``'s row names;
+   (iii) each group's K4, ``gate`` True and False, bit for bit the plain
+   tick over 3 launches and the eager padded reference
+   (``simulate_batch``, the same ``bw_params``) over the first 2 000
+   ticks (both schedules' first edges); (iv) the fused backend (K1/K2's
+   observe form and K3, a bandwidth row per scenario) for the PowerTCP
+   laws over the first week, one observe and one K3 launch a tick, held
+   to the reference's first-week utilization within 5e-3
+   (``smoke_rdcn``'s gate) and p99 within rtol 1e-3; (v) K4 timed over
+   each group's whole run (every launch, CUDA events; the bound of every
+   4th launch from ``k4_cost``);
 
 7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
    plain PyTorch versions at the serve run's shapes (K5: prefill q
@@ -179,7 +207,8 @@ batch is one launch of B blocks that share nothing.
 
 It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms;
 the TPU form's main-path launches are 0; K4's entry carries each law's
-phase-6c times under ``laws``), the nvidia-smi line,
+phase-6c times under ``laws`` and each Fig. 8 group's under ``fig8``),
+the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
 no result, when CUDA is not available or the checkout's sources are
 missing.
@@ -731,11 +760,13 @@ def k4_pool(carry, fluid, bw, law, dt):
 # K4's flops by law, counted from csrc/fused_tick.cu: per slot-hop, the
 # law's telemetry (PowerTCP's normalized power; HPCC's utilization; the
 # ECN marking); per slot, the law's update beyond PowerTCP's, which the
-# base ~34 a slot includes (DCQCN's powf taken as ~20)
-K4_HOP_FLOPS = {"powertcp": 8, "hpcc": 6, "dcqcn": 6, "reno": 6}
+# base ~34 a slot includes (DCQCN's powf taken as ~20; reTCP's floor of
+# its base window and circuit multiplier 2)
+K4_HOP_FLOPS = {"powertcp": 8, "hpcc": 6, "dcqcn": 6, "reno": 6,
+                "retcp": 6}
 K4_SLOT_FLOPS = {"powertcp": 0, "theta_powertcp": 5, "hpcc": 6,
                  "swift": 0, "gradient_mimd": 2, "timely": 14,
-                 "dcqcn": 36, "reno": 0}
+                 "dcqcn": 36, "reno": 0, "retcp": 2}
 
 
 def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post):
@@ -1312,22 +1343,26 @@ def phase_smoke_slots(torch, tc, kernels, sup, dev, smi):
     return launches, summaries, fields, grid
 
 
-def k4_grid_timing(torch, fluid, mk, sim, cfg, nblk, B):
-    """K4 over phase 6b's whole run, every launch, as one grid of B blocks
-    and as B launches of one block (the first scenario), CUDA events
-    between back-to-back launches; then the bound of each grid launch,
-    the sum over its scenarios of ``k4_cost`` from each scenario's pool
-    at the launch's edges (``k4_pool``)."""
+def k4_grid_timing(torch, fluid, mk, sim, cfg, nblk, B, bw_fn=None,
+                   bw_params=None, tag="smoke", bound_every=1):
+    """K4 over a whole run (phase 6b's, or a Fig. 8 group's with its
+    schedules ``bw_fn``/``bw_params``), every launch, as one grid of B
+    blocks and as B launches of one block (the first scenario), CUDA
+    events between back-to-back launches; then the bound of each grid
+    launch (of every ``bound_every``-th), the sum over its scenarios of
+    ``k4_cost`` from each scenario's pool at the launch's edges
+    (``k4_pool``)."""
     from repro_torch.core.types import scenario
     from repro_torch.kernels import ops
     T, K = int(cfg.steps), mk.DEFAULT_BLOCK
     law = sim.law.name
-    grid = mk.make_tick(sim)
+    grid = mk.make_tick(sim, bw_fn=bw_fn, bw_params=bw_params)
     carry0 = grid.init_carry(fluid.init_slot_state(sim))
     due = torch.as_tensor(mk._due_table(sim.sched, T, cfg.dt),
                           device=carry0.state.w.device)
     first = fluid.scenarios(sim, 0, 1)
-    one = mk.make_tick(first, maxdeg=grid.maxdeg)
+    one = mk.make_tick(first, maxdeg=grid.maxdeg, bw_fn=bw_fn,
+                       bw_params=fluid.part_of(bw_params, 0, 1))
 
     def clone(x):
         if isinstance(x, torch.Tensor):
@@ -1357,12 +1392,15 @@ def k4_grid_timing(torch, fluid, mk, sim, cfg, nblk, B):
     nsw, swdeg = ((0, 0) if static.sw_table is None
                   else tuple(static.sw_table.shape))
     carry = clone(carry0)
-    pre = [k4_pool(scenario(carry, b), fluid, static.bw, law, cfg.dt)
-           for b in range(B)]
-    bounds = []
+    pre, bounds = None, []
     for i in range(nblk):
+        if pre is None and i % bound_every == 0:
+            pre = [k4_pool(scenario(carry, b), fluid, static.bw, law, cfg.dt)
+                   for b in range(B)]
         carry, _ = ops.fused_tick_block(grid, carry, due[:, i * K:(i + 1) * K],
                                         record=False)
+        if pre is None:
+            continue
         post = [k4_pool(scenario(carry, b), fluid, static.bw, law, cfg.dt)
                 for b in range(B)]
         nbytes = flops = 0
@@ -1372,7 +1410,7 @@ def k4_grid_timing(torch, fluid, mk, sim, cfg, nblk, B):
             nbytes += nb_
             flops += fl_
         bounds.append(bound_ms(nbytes, flops))
-        pre = post
+        pre = post if bound_every == 1 else None
     bms = np.array([b for b, _ in bounds])
     by = max(set(b for _, b in bounds), key=[b for _, b in bounds].count)
     row = dict(grid_shape=f"B={B} S={S} H={H} Q+1={Q1} K={K}",
@@ -1380,7 +1418,7 @@ def k4_grid_timing(torch, fluid, mk, sim, cfg, nblk, B):
                grid_us_per_tick=float(ms_grid.mean()) / K * 1e3,
                grid_bound_ms=float(bms.mean()), grid_bound_by=by,
                grid1_ms=float(ms_one.mean()))
-    log(f"[smoke] time fused_tick_block grid ({row['grid_shape']}, {law}, "
+    log(f"[{tag}] time fused_tick_block grid ({row['grid_shape']}, {law}, "
         f"{nblk} launches over the whole run): mean {row['grid_ms']!r} ms "
         f"per launch ({row['grid_us_per_tick']!r} us per tick of the "
         f"batch), one block (seed 1 alone) {row['grid1_ms']!r} ms; bound "
@@ -1428,19 +1466,34 @@ def powf_probe(torch, dev):
     return int((a != b).sum()), int(ulp.max()), int(a.numel())
 
 
-def k4_law_timing(torch, tc, sup, dev, topo, sched, cfg, slots, law):
+def fig6_law_cfg(tc, sup, sched, law, dev):
+    """Phase 6c's config for ``law``: the paper default (None), and for
+    reTCP that with Fig. 8's slot-0 circuit schedule and a 600 us
+    prebuffer (the fabric's rates stay the topology's)."""
+    if law != "retcp":
+        return None
+    return tc.default_law_config(
+        sched, expected_flows=sup.PAPER_EXPECTED_FLOWS,
+        sched=tc.CircuitSchedule().params(dev), retcp_prebuffer=600e-6)
+
+
+def k4_law_timing(torch, tc, sup, dev, topo, sched, cfg, slots, law,
+                  law_cfg=None):
     """K4 over the whole run of ``cfg`` for ``law``: every launch timed
     (CUDA events between back-to-back launches), then a second pass from
     the same carry that counts the bound (``k4_cost``) of every
     ``FIG6_BOUND_EVERY``-th launch from its data and, at the middle
     launch, runs the plain block from the same carry (timed by the host
     clock, held bit for bit to K4's launch); both passes must end on the
-    same carry. Returns the row of the law."""
+    same carry. ``law_cfg`` (one scenario's) replaces the default config.
+    Returns the row of the law."""
     from repro_torch.core import fluid, megakernel as mk
     from repro_torch.kernels import ops, ref as kref
-    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), law, slots,
-                              cfg=cfg, backend="megakernel", device=dev,
-                              expected_flows=sup.PAPER_EXPECTED_FLOWS)
+    sim = fluid.make_slot_sim(
+        topo, tc.batch_of_one(sched), law, slots,
+        None if law_cfg is None else tc.batch_of_one(law_cfg), cfg=cfg,
+        backend="megakernel", device=dev,
+        expected_flows=sup.PAPER_EXPECTED_FLOWS)
     tick = mk.make_tick(sim)
     carry0 = tick.init_carry(fluid.init_slot_state(sim))
     T, K = int(cfg.steps), mk.DEFAULT_BLOCK
@@ -1504,7 +1557,7 @@ def k4_law_timing(torch, tc, sup, dev, topo, sched, cfg, slots, law):
 
 def phase_fig6(torch, tc, kernels, sup, dev, smi):
     """Phase 6c: ``benchmarks/fig6_fct.py::run_paper_scale`` on K4 (see the
-    module docstring). Returns (launches, the K4 rows of the eight laws,
+    module docstring). Returns (launches, the K4 rows of the nine laws,
     the runs' summaries)."""
     from repro_torch.kernels import fused_tick as ft
     with open(sup.FIG6_REF) as f:
@@ -1531,17 +1584,18 @@ def phase_fig6(torch, tc, kernels, sup, dev, smi):
     rows, err = {}, 0.0
     for law in ft.LAW_NAMES:
         t0 = time.perf_counter()
+        lcfg = fig6_law_cfg(tc, sup, sched, law, dev)
         e, _, _ = sup.k4_against_plain(tc, topo, sched, plain_cfg, law,
-                                       slots, (64,))
+                                       slots, (64,), law_cfg=lcfg)
         err = max(err, e)
         done = sup.k4_against_reference(tc, topo, sched, eager_cfg, law,
-                                        slots)
+                                        slots, law_cfg=lcfg)
         log(f"[fig6] {law}: K4 bitwise equal to the plain tick over "
             f"{FIG6_PLAIN_LAUNCHES} launches and to the reference slot "
             f"engine over {FIG6_EAGER_TICKS} ticks ({done} flows done) "
             f"({time.perf_counter() - t0:.1f} s)")
         rows[law] = k4_law_timing(torch, tc, sup, dev, topo, sched, cfg,
-                                  slots, law)
+                                  slots, law, lcfg)
         log(f"[fig6] time K4 {law} ({rows[law]['shape']}, "
             f"{rows[law]['launches']} launches, the whole "
             f"{cfg.steps}-tick run): mean {rows[law]['ms']!r} ms per launch "
@@ -1591,6 +1645,209 @@ def phase_fig6(torch, tc, kernels, sup, dev, smi):
     for row in rows.values():
         row["max_abs_err"] = err
     return launches, rows, summaries
+
+
+# -------------------------------------------------------------------------
+# phase 6d: benchmarks/fig8_rdcn.py::run (Fig. 8, the RDCN case study)
+# on K4
+# -------------------------------------------------------------------------
+
+# ticks over which each law group's K4 run is held to the eager padded
+# reference (both schedules' first edges: slot 0 at ticks 225 and 245,
+# slot 6 at 1 470 and 1 695), and launches over which K4 is held to its
+# plain tick
+FIG8_EAGER_TICKS = 2000
+FIG8_PLAIN_LAUNCHES = 3
+# the fused runs over the first week: the PowerTCP laws, held to the
+# reference's first-week metrics at smoke_rdcn's utilization gate and a
+# p99 tolerance
+FIG8_FUSED_LAWS = ("powertcp", "theta_powertcp")
+FIG8_FUSED_UTIL_ABS = 5e-3
+FIG8_FUSED_P99_RTOL = 1e-3
+FIG8_RTOL = 1e-5
+
+
+def fig8_schedule_probe(torch, tc, dev, ref, scheds):
+    """(i) K4's schedule evaluation (``fused_tick.schedule``, compiled with
+    K4's flags) over every tick of the run, for each schedule and
+    prebuffer: the VOQ's rate bit for bit ``circuit_bw_at``'s on the card
+    and reTCP's scaling flag ``circuit_up(t + prebuffer) | circuit_up(t)``.
+    Returns the number of up ticks of each schedule."""
+    from repro_torch.core import rdcn
+    from repro_torch.kernels import fused_tick as ft
+    T, dt = ref["steps"], ref["dt_s"]
+    t = torch.arange(T, dtype=torch.int32, device=dev).to(
+        torch.float32) * np.float32(dt)
+    ups = []
+    for sc in scheds:
+        p = sc.params(dev)
+        want_bw = tc.circuit_bw_at(t, p)[:, 0]
+        row = torch.stack(list(p))[None].contiguous()
+        for pb in ref["prebuffers_s"]:
+            bw, on = ft.schedule(row, 0, T, dt, torch.full(
+                (1,), pb, dtype=torch.float32, device=dev))
+            want_on = (tc.circuit_up(rdcn._plus_prebuffer(t, pb), p)
+                       | tc.circuit_up(t, p))
+            if not torch.equal(bw[0], want_bw) or \
+                    not torch.equal(on[0].bool(), want_on):
+                raise AssertionError(f"K4's schedule (slot {sc.slot}, "
+                                     f"prebuffer {pb}) differs from "
+                                     f"circuit_bw_at on the card")
+        ups.append(int((want_bw == p.circuit_bw).sum()))
+    return ups
+
+
+def fig8_records_equal(got, want, what):
+    """Two runs' records (a batch's), every field bit for bit but the
+    per-tick sums ``w_sum`` and ``lam`` (rtol 1e-5: K4 adds them in its
+    own order). Returns the largest absolute difference in those sums."""
+    import torch
+    err = 0.0
+    for f in want._fields:
+        g = getattr(got, f)
+        w = getattr(want, f).to(device=g.device, dtype=g.dtype)
+        tol = 1e-5 if f in ("w_sum", "lam") else 0.0
+        torch.testing.assert_close(g, w, rtol=tol, atol=0, equal_nan=True,
+                                   msg=lambda m, n=f: f"{what} rec.{n}: {m}")
+        if tol and g.numel():
+            err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
+
+
+def phase_fig8(torch, tc, kernels, sup, dev, smi):
+    """Phase 6d: ``benchmarks/fig8_rdcn.py::run`` (quick=False) on K4 (see
+    the module docstring). Returns (launches, K4's rows by law group,
+    the error in the record sums)."""
+    from repro_torch.core import fluid, megakernel as mk
+    from repro_torch.core.types import scenario
+    with open(sup.FIG8_REF) as f:
+        ref = json.load(f)
+    topo, flows, cfg, scheds = sup.fig8_scenario(tc, device=dev)
+    if cfg.steps != ref["steps"] or cfg.hist != ref["hist"]:
+        raise AssertionError("the port's Fig. 8 scenario differs from the "
+                             "reference's")
+    T, Q, week = cfg.steps, topo.num_queues, ref["week_ticks"]
+    by_slot = {sc.slot: sc for sc in scheds}
+    want = {(p["name"], p["slot"]): p for p in ref["points"]}
+    t0 = time.perf_counter()
+    ups = fig8_schedule_probe(torch, tc, dev, ref, scheds)
+    log(f"[fig8] K4's schedule, {T} ticks, slots {list(by_slot)} x "
+        f"prebuffers {ref['prebuffers_s']}: bitwise circuit_bw_at and "
+        f"circuit_up on the card ({ups} up ticks)")
+    src = tc.make_schedule(flows)
+    slots = int(flows.tau.shape[0])
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    rows, metrics, err = {}, {}, 0.0
+    for law, pbs in sup.FIG8_GROUPS:
+        pts, lcfg, bwp = sup.fig8_group(tc, law, pbs, src, scheds,
+                                        device=dev)
+        B = len(pts)
+        sb = tc.stack_flow_schedules([src] * B, Q)
+        bw = dict(bw_fn=tc.circuit_bw_at, bw_params=bwp)
+        # (iii) K4 against its plain tick and the eager padded reference
+        g0 = time.perf_counter()
+        for gate in (True, False):
+            err = max(err, sup.k4_grid_against_plain(
+                tc, topo, sb, cfg._replace(steps=FIG8_PLAIN_LAUNCHES * 64),
+                law, slots, (64,), gate=gate, law_cfg=lcfg, **bw))
+        ecfg = cfg._replace(steps=FIG8_EAGER_TICKS)
+        _, plcfg, _ = sup.fig8_group(tc, law, pbs, flows, scheds,
+                                     device=dev)
+        _, prec = tc.simulate_batch(topo, tc.stack_flows([flows] * B, Q),
+                                    law, plcfg, ecfg, device=dev, **bw)
+        for gate in (True, False):
+            sim = fluid.make_slot_sim(topo, sb, law, slots, lcfg, ecfg,
+                                      "megakernel", dev)
+            _, krec = mk.simulate_slots_mega(sim, gate=gate, **bw)
+            err = max(err, fig8_records_equal(
+                krec, prec, f"6d {law} K4 gate={gate} against the padded "
+                f"reference"))
+        log(f"[fig8] {law}: K4 (B={B}, gate True and False) bitwise equal "
+            f"to the plain tick over {FIG8_PLAIN_LAUNCHES} launches and to "
+            f"the eager padded reference (simulate_batch) over "
+            f"{FIG8_EAGER_TICKS} ticks ({time.perf_counter() - g0:.1f} s)")
+        # (ii) the grid on K4, through the entry point
+        (st, rec), wall, counts = timed_run(
+            torch, kernels, f"6d {law}",
+            {"fused_tick_block": -(-T // mk.DEFAULT_BLOCK)},
+            lambda: tc.simulate_slots_batch(
+                topo, sb, law, slots, lcfg, cfg, backend="megakernel",
+                device=dev, **bw))
+        for k, c in counts.items():
+            launches[k] += c
+        for b, (name, slot) in enumerate(pts):
+            m = sup.fig8_metrics(tc, scenario(rec, b), by_slot[slot])
+            w = want[(name, slot)]
+            for k in ("util", "p99_s", "mean_q"):
+                if not np.isclose(m[k], w[k], rtol=FIG8_RTOL, atol=0):
+                    raise AssertionError(
+                        f"6d {name} slot {slot}: {k} {m[k]!r} against the "
+                        f"reference's {w[k]!r}")
+            metrics[(name, slot)] = m
+        # (v) K4's time at Fig. 8's shape
+        row = k4_grid_timing(torch, fluid, mk, fluid.make_slot_sim(
+            topo, sb, law, slots, lcfg, cfg, "megakernel", dev), cfg,
+            -(-T // mk.DEFAULT_BLOCK), B, tag="fig8",
+            bound_every=FIG6_BOUND_EVERY, **bw)
+        row.update(wall_s=wall, wall_us_per_tick=wall / T * 1e6,
+                   points=[f"{n}@{s}" for n, s in pts])
+        rows[law] = row
+        log(f"[fig8] {law} megakernel, {T} ticks, B={B}: wall {wall:.3f} s "
+            f"({row['wall_us_per_tick']!r} us per tick of the batch); "
+            + "; ".join(f"{n} slot {s}: util {metrics[(n, s)]['util']!r} "
+                        f"p99 {metrics[(n, s)]['p99_s'] * 1e6!r} us"
+                        for n, s in pts) + f"; launches {counts}; {smi}")
+    # (iv) the fused backend over the first week
+    fused_dev = {}
+    for law in FIG8_FUSED_LAWS:
+        pts, plcfg, bwp = sup.fig8_group(tc, law, (None,), flows, scheds,
+                                         device=dev)
+        wcfg = cfg._replace(steps=week)
+        (_, rec), wall, counts = timed_run(
+            torch, kernels, f"6d {law} fused",
+            expected_launches(law, "fused", week),
+            lambda: tc.simulate_batch(
+                topo, tc.stack_flows([flows] * len(pts), Q), law,
+                plcfg._replace(gamma=0.9), wcfg, bw_fn=tc.circuit_bw_at,
+                bw_params=bwp, backend="fused", device=dev))
+        for k, c in counts.items():
+            launches[k] += c
+        for b, (name, slot) in enumerate(pts):
+            m = sup.fig8_metrics(tc, scenario(rec, b), by_slot[slot])
+            w = want[(name, slot)]
+            du = abs(m["util"] - w["week1_util"])
+            dp = abs(m["p99_s"] - w["week1_p99_s"]) / w["week1_p99_s"]
+            fused_dev[f"{name}@{slot}"] = dict(util_abs_err=du,
+                                               p99_rel_err=dp)
+            if du >= FIG8_FUSED_UTIL_ABS or dp >= FIG8_FUSED_P99_RTOL:
+                raise AssertionError(
+                    f"6d {name} fused slot {slot}: util {m['util']!r} p99 "
+                    f"{m['p99_s']!r} against the reference's first week "
+                    f"{w['week1_util']!r} / {w['week1_p99_s']!r}")
+        log(f"[fig8] {law} fused, first week ({week} ticks, B=2): wall "
+            f"{wall:.3f} s; " + "; ".join(
+                f"{k}: |d util| {v['util_abs_err']!r}, p99 rel err "
+                f"{v['p99_rel_err']!r}" for k, v in fused_dev.items()
+                if k.startswith(law + "@")) + f"; launches {counts}")
+    out = {}
+    for (name, slot), m in metrics.items():
+        if slot == 0:
+            out[name] = m
+    claims = sup.fig8_claims(out)
+    log(f"[fig8] claims_hold {claims} (reference {ref['claims_hold']})")
+    if claims != ref["claims_hold"]:
+        raise AssertionError("fig8 claims_hold differs from the reference's")
+    log("[fig8] " + json.dumps({"fig8": {
+        "claims_hold": claims,
+        "rows": [{"law": n, "circuit_util": m["util"],
+                  "p99_qlat_us": m["p99_s"] * 1e6,
+                  "mean_q_KB": m["mean_q"] / 1e3} for n, m in out.items()],
+        "util_slotmean": {n: float(np.mean([metrics[(n, s)]["util"]
+                                            for s in by_slot]))
+                          for n in out},
+        "fused_first_week": fused_dev}}))
+    log(f"[fig8] phase 6d: {time.perf_counter() - t0:.1f} s")
+    return launches, rows, err
 
 
 def phase_profile(torch, tc, sup, dev, summaries, ticks=200):
@@ -1994,6 +2251,14 @@ def main():
         launches[k] += n
     rows["fused_tick_block"]["laws"] = law_rows
     log(f"[time] + fig6: {time.perf_counter() - t0:.1f} s")
+    fig8_launches, fig8_rows, fig8_err = phase_fig8(torch, tc, kernels, sup,
+                                                    dev, smi)
+    for k, n in fig8_launches.items():
+        launches[k] += n
+    rows["fused_tick_block"]["fig8"] = fig8_rows
+    rows["fused_tick_block"]["max_abs_err"] = max(
+        rows["fused_tick_block"]["max_abs_err"], fig8_err)
+    log(f"[time] + fig8: {time.perf_counter() - t0:.1f} s")
     if profile:
         phase_profile(torch, tc, sup, dev, summaries)
         phase_profile_smoke(torch, tc, sup, dev, smoke_summ)

@@ -16,6 +16,9 @@ from .fluid import (FluidSim, LawTick, SlotSim, audit_carry_dtypes,
                     stack_flows, stack_law_configs, step)
 from . import backends  # noqa: F401  (registers the fused kernel backends)
 from .megakernel import MegaCarry, PendingFCT, make_tick, simulate_slots_mega
+from .rdcn import (CircuitSchedule, ScheduleParams, circuit_bw_at,
+                   circuit_up, circuit_utilization, make_retcp_law,
+                   queuing_latency_percentile, stack_schedules, voq_topology)
 from .network import (LeafSpine, make_flows_single, make_schedule,
                       schedule_as_flows, single_bottleneck)
 from .fabric import (CompiledPaths, Fabric, FabricBuilder, FabricRoutes,
@@ -38,6 +41,9 @@ __all__ = [
     "simulate_batch", "simulate_slots", "simulate_slots_batch", "slot_step",
     "stack_flow_schedules", "stack_flows", "stack_law_configs", "step",
     "MegaCarry", "PendingFCT", "make_tick", "simulate_slots_mega",
+    "CircuitSchedule", "ScheduleParams", "circuit_bw_at", "circuit_up",
+    "circuit_utilization", "make_retcp_law", "queuing_latency_percentile",
+    "stack_schedules", "voq_topology",
     "LeafSpine", "make_flows_single", "make_schedule", "schedule_as_flows",
     "single_bottleneck",
     "CompiledPaths", "Fabric", "FabricBuilder", "FabricRoutes",

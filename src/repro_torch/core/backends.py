@@ -99,7 +99,7 @@ def _kernel_args(static, cfg, tick) -> dict:
     slot = tick.slot_flow is not None
     return dict(
         hist_q=tick.hist_q, hist_w=tick.hist_w, path=tick.path,
-        tf_steps=tick.tf_steps, rtt_steps=tick.rtt_steps, bw=static.bw,
+        tf_steps=tick.tf_steps, rtt_steps=tick.rtt_steps, bw=tick.bw,
         tau=tick.tau, nic=tick.nic, theta_now=tick.theta_now, w=tick.w,
         gs_prev=tick.law_state.gamma_smooth, next_update=tick.next_update,
         last_update=tick.last_update, active=tick.active,

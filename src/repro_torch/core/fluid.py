@@ -50,13 +50,21 @@ admits. A batch runs the pass for every scenario on a tick where any
 scenario needs it (exact for the others, by the same argument: ``repro``'s
 ``slot_step`` runs it every tick). The reference backend rebuilds its
 in-order gather table on those ticks too, reading back the largest live
-queue degree.
+queue degree. The padded engine's reference sums go through a table of
+its live flows alike, rebuilt on the ticks where a flow starts
+(``_live_gather_step``).
+
+Time-varying bandwidth: ``bw_fn(t_sec)`` gives the queues' service
+rates each tick ([Q], shared by the batch, or [B, Q]); the batched entry
+points take ``bw_fn`` with ``bw_params`` (a tree of tensors with a
+leading batch axis, e.g. ``rdcn.stack_schedules``), and scenario b then
+runs at ``bw_fn(t, bw_params_b)``, evaluated for the whole batch in one
+call. Every phase of a tick reads that tick's rates.
 
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-item that brings it): time-varying bandwidth (``bw_fn``), allocators
-(``alloc_fn``), impairments, chunk streaming, checkpoints, fault
-injection, divergence guards, and laws that need the hop-feedback, pause
-or incast channels.
+item that brings it): allocators (``alloc_fn``), impairments, chunk
+streaming, checkpoints, fault injection, divergence guards, and laws
+that need the hop-feedback, pause or incast channels.
 """
 from __future__ import annotations
 
@@ -172,10 +180,11 @@ def _law_init(law: Law, shape: tuple, cfg: LawConfig):
     """``law.init`` for per-flow shape ``shape`` ([B, F]): a law builds
     [F] leaves (or broadcasts against the batch's config); each is made
     ``shape``, contiguous and a tensor of its own (DCQCN's init returns
-    one tensor for two leaves; K4 updates the carry in place)."""
+    one tensor for two leaves; K4 updates the carry in place). A state
+    may nest (reTCP's holds NewReno's)."""
     st = law.init(int(shape[-1]), cfg)
-    return type(st)(*[x.expand(shape).clone(
-        memory_format=torch.contiguous_format) for x in st])
+    return tree_map(lambda x: x.expand(shape).clone(
+        memory_format=torch.contiguous_format), st)
 
 
 def _marking(q: torch.Tensor, buf: torch.Tensor, cfg: LawConfig,
@@ -216,8 +225,8 @@ class FluidSim(NamedTuple):
     one topology, bound to a backend. ``incidence`` is the [B, H, F, Q+1]
     one-hot path incidence of the fused queue kernel (fused backend);
     ``inv`` the [B, Q+1, maxdeg] in-order gather table of the reference
-    queue update (reference backend; the padded engine's hop table is
-    static)."""
+    queue update (reference backend; ``simulate_batch`` keeps it over the
+    live flows, ``_live_gather_step``)."""
     topo: Topology
     flows: Flows
     law: Law
@@ -264,11 +273,36 @@ def init_state(sim: FluidSim) -> SimState:
     )
 
 
-def _bandwidth(topo: Topology) -> torch.Tensor:
-    """[Q+1] per-queue service rates (sentinel appended). Only the static
-    topology capacities are ported; schedules and impairments come later."""
+def _static_bandwidth(topo: Topology) -> torch.Tensor:
+    """[Q+1] the topology's per-queue service rates (sentinel appended)."""
     bw = topo.bandwidth
     return torch.cat([bw, bw.new_full((1,), 1e15)])
+
+
+def _bandwidth(topo: Topology, bw_fn, t_sec: float,
+               static: "_Static") -> torch.Tensor:
+    """The tick's per-queue service rates with the 1e15 sentinel appended:
+    the topology's [Q+1] without ``bw_fn``; else ``bw_fn(t_sec)``, [Q+1]
+    for a [Q] vector the batch shares, [B, Q+1] for one per scenario. A
+    vector of another length raises."""
+    if bw_fn is None:
+        return static.bw
+    bw = bw_fn(t_sec)
+    Q = topo.num_queues
+    if bw.dim() not in (1, 2) or bw.shape[-1] != Q:
+        raise ValueError(f"bw_fn returned a vector of shape "
+                         f"{tuple(bw.shape)}; the topology has {Q} queues")
+    bw = bw.to(torch.float32)
+    sentinel = static.bw[-1:]
+    if bw.dim() == 1:
+        return torch.cat([bw, sentinel])
+    return torch.cat([bw, sentinel.expand(bw.shape[0], 1)], -1)
+
+
+def _hop_bw(bw: torch.Tensor, path: torch.Tensor) -> torch.Tensor:
+    """Each hop's service rate: ``bw[path]``, per scenario for a [B, Q+1]
+    ``bw``."""
+    return bw[path] if bw.dim() == 1 else _take(bw, path)
 
 
 def _switch_queue_table(sw: np.ndarray, num_switches: int) -> np.ndarray:
@@ -294,7 +328,7 @@ def _make_static(topo: Topology, dt: float) -> _Static:
         sw = topo.switch_of_queue.cpu().numpy().astype(np.int64)
         sw_table = torch.as_tensor(
             _switch_queue_table(sw, int(topo.num_switches)), device=dev)
-    return _Static(bw=_bandwidth(topo), buf=buf, sw_table=sw_table,
+    return _Static(bw=_static_bandwidth(topo), buf=buf, sw_table=sw_table,
                    dt=torch.tensor(dt, dtype=torch.float32, device=dev))
 
 
@@ -316,8 +350,9 @@ def _buffer_caps(topo: Topology, q: torch.Tensor,
 
 
 def _queue_update(topo: Topology, dt: float, backend: str, incidence, inv,
-                  q, lam_del, valid, static: _Static):
-    """Queue-arrival accumulation + integration: (arrivals, out, q_new).
+                  q, lam_del, valid, static: _Static, bw: torch.Tensor):
+    """Queue-arrival accumulation + integration at the tick's service
+    rates ``bw`` ([Q+1], or [B, Q+1]): (arrivals, out, q_new).
 
     Reference backend: the masked per-hop rates summed per queue in
     ascending flat order through the gather table ``inv``. Fused backend:
@@ -326,7 +361,6 @@ def _queue_update(topo: Topology, dt: float, backend: str, incidence, inv,
     batch (leading axis on ``q``, ``lam_del``, ``inv``/``incidence``) is
     one gather, or one K3 launch.
     """
-    bw = static.bw
     caps = _buffer_caps(topo, q, static)
     if backend == "fused":
         arr, q_new = ops.queue_arrivals(
@@ -384,7 +418,8 @@ class LawTick(NamedTuple):
     config: per flow on the padded engine, per schedule entry on the slot
     engine, where ``slot_flow`` and ``n_flows`` (N) gather it into the
     slots. ``started`` (padded) holds the window of flows not yet started;
-    ``admit_t`` (slot) dates each occupant's admission."""
+    ``admit_t`` (slot) dates each occupant's admission; ``bw`` is the
+    tick's service rates, of which ``b_hop`` is gathered."""
     t: int
     t_sec: float
     ptr: int
@@ -394,6 +429,7 @@ class LawTick(NamedTuple):
     rows: torch.Tensor              # arange(F)
     path: torch.Tensor              # [B, F, H]
     valid: torch.Tensor             # [B, F, H] path < Q
+    bw: torch.Tensor                # the tick's rates, [Q+1] or [B, Q+1]
     b_hop: torch.Tensor             # [B, F, H] bw[path]
     tf_steps: torch.Tensor          # [B, F, H]
     rtt_steps: torch.Tensor
@@ -475,9 +511,8 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     """One tick of the padded engine over the batch (a leading scenario
     axis on every leaf, each op covering every scenario). Returns (new
     state, Record or None). The ring buffers of ``state`` are updated in
-    place and shared with the new state."""
-    if bw_fn is not None:
-        _unported("bw_fn", 8)
+    place and shared with the new state. ``bw_fn`` gives the tick's
+    service rates (``_bandwidth``)."""
     if alloc_fn is not None:
         _unported("alloc_fn", 13)
     topo, flows, cfg, static = sim.topo, sim.flows, sim.cfg, sim.static
@@ -488,6 +523,7 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     t_sec = _tick_time(t, dt)
     ptr = t % D
     fidx = torch.arange(F, device=flows.tau.device)
+    bw = _bandwidth(topo, bw_fn, t_sec, static)
 
     started = t_sec >= flows.start
     active = started & (state.remaining > 0.0) & (t_sec < flows.stop)
@@ -495,7 +531,7 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     path = flows.path
     valid = path < topo.num_queues
     q_hop = _take(state.q, path)                              # [B,F,H]
-    b_hop = static.bw[path]
+    b_hop = _hop_bw(bw, path)
     theta_now = flows.tau + _hop_sum(torch.where(valid, q_hop / b_hop, 0.0))
     lam = torch.where(active, torch.minimum(
         torch.minimum(state.w / theta_now, state.rate_cap), flows.nic_rate),
@@ -510,7 +546,8 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     lam_del = _ring(hist_lam, torch.remainder(ptr - flows.tf_steps, D),
                     fidx[:, None])                            # [B,F,H]
     arr, out, q_new = _queue_update(topo, dt, sim.backend, sim.incidence,
-                                    sim.inv, state.q, lam_del, valid, static)
+                                    sim.inv, state.q, lam_del, valid, static,
+                                    bw)
     hist_q, hist_out = state.hist_q, state.hist_out
     hist_q[..., ptr, :] = q_new
     hist_out[..., ptr, :] = out
@@ -520,7 +557,8 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     law_state, w, rate_cap, next_update, last_update = _observe_update(
         sim.law, static, cfg, LawTick(
             t=t, t_sec=t_sec, ptr=ptr, hist_q=hist_q, hist_out=hist_out,
-            hist_w=hist_w, rows=fidx, path=path, valid=valid, b_hop=b_hop,
+            hist_w=hist_w, rows=fidx, path=path, valid=valid, bw=bw,
+            b_hop=b_hop,
             tf_steps=flows.tf_steps, rtt_steps=flows.rtt_steps,
             tau=flows.tau, nic=flows.nic_rate, theta_now=theta_now,
             active=active, w=state.w, rate_cap=state.rate_cap,
@@ -544,11 +582,51 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     return new_state, rec
 
 
-def _run(sim, state, step_fn, record: bool):
-    """The tick loop: ``cfg.steps`` ticks, honouring ``cfg.record_every``
-    (one record per chunk of k ticks, the chunk's last tick; steps must
-    divide by k). Returns (final state, stacked Record or None); the
-    records are [B, T, ...], as ``repro``'s vmapped scan returns them."""
+def _live_gather_step(sim: FluidSim):
+    """``step`` with the padded engine's gather table over its live flows
+    only, rebuilt on each tick where a flow starts (reference backend).
+
+    A flow that has not started has sent nothing; one that stopped
+    sending (completed, or past ``stop``) has no delayed rate on any hop
+    once its longest hop delay has passed. Leaving those +0.0 terms out of
+    an in-order sum of non-negative rates changes no bit (the slot
+    engine's table of resident slots rests on the same fact), and the
+    table is as wide as the busiest queue's live flows instead of all the
+    flows that ever cross it. A rebuild reads back which flows have
+    stopped; a flow first seen stopped at tick t is dropped after tick
+    t + its hold. Returns ``step_fn(sim, state, bw_fn, record)``."""
+    flows, cfg, Q = sim.flows, sim.cfg, sim.topo.num_queues
+    start = flows.start.cpu().numpy().astype(np.float32)
+    stop = flows.stop.cpu().numpy().astype(np.float32)
+    path = flows.path.cpu().numpy()
+    hold = np.where(path < Q, flows.tf_steps.cpu().numpy(), 0).max(-1)
+    never = np.iinfo(np.int64).max
+    gone = np.full(start.shape, never, np.int64)
+    last = {"started": -1, "inv": None}
+
+    def step_fn(sim_, state, bw_fn=None, record=True):
+        t = state.t
+        t32 = np.float32(_tick_time(t, cfg.dt))
+        started = start <= t32
+        n = int(started.sum())
+        if n != last["started"]:
+            stopped = (state.remaining <= 0.0).cpu().numpy() | (t32 >= stop)
+            gone[:] = np.where(stopped & (gone == never), t + hold, gone)
+            live = torch.as_tensor(started & (t <= gone),
+                                   device=flows.path.device)
+            last.update(started=n, inv=_resident_gather(live, flows.path, Q))
+        return step(sim_._replace(inv=last["inv"]), state, bw_fn=bw_fn,
+                    record=record)
+
+    return step_fn
+
+
+def _run(sim, state, step_fn, record: bool, bw_fn=None):
+    """The tick loop: ``cfg.steps`` ticks of ``step_fn`` (with ``bw_fn``),
+    honouring ``cfg.record_every`` (one record per chunk of k ticks, the
+    chunk's last tick; steps must divide by k). Returns (final state,
+    stacked Record or None); the records are [B, T, ...], as ``repro``'s
+    vmapped scan returns them."""
     cfg = sim.cfg
     k = max(int(cfg.record_every), 1) if record else 1
     if cfg.steps % k:
@@ -557,7 +635,7 @@ def _run(sim, state, step_fn, record: bool):
     recs = []
     for i in range(cfg.steps):
         keep = record and (i + 1) % k == 0
-        state, rec = step_fn(sim, state, record=keep)
+        state, rec = step_fn(sim, state, bw_fn=bw_fn, record=keep)
         if keep:
             recs.append(rec)
     if not record:
@@ -781,8 +859,7 @@ def _admit_retire(sim: SlotSim, state: SlotState, due: int):
     start = sel(take(sched.start), state.start)
     fresh_law = _law_init(sim.law, tuple(gf.shape),
                           _gather_law_cfg(sim.law_cfg, gf, N))
-    law_state = type(state.law)(*[sel(f, o) for f, o
-                                  in zip(fresh_law, state.law)])
+    law_state = tree_map(sel, fresh_law, state.law)
     state = state._replace(
         slot_flow=slot_flow,
         cursor=state.cursor + n_admit,
@@ -824,8 +901,6 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     occupancy guards on delayed ring-buffer reads (history older than the
     occupant's admission reads as the ring-init values). Ring buffers and
     the FCT table are updated in place."""
-    if bw_fn is not None:
-        _unported("bw_fn", 8)
     if alloc_fn is not None:
         raise ValueError("alloc_fn is not supported on the slot path")
     topo, cfg, static = sim.topo, sim.cfg, sim.static
@@ -837,6 +912,7 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     t_sec = _tick_time(t, dt)
     ptr = t % D
     sidx = torch.arange(S, device=state.w.device)
+    bw = _bandwidth(topo, bw_fn, t_sec, static)
 
     # -- admit / retire, on ticks with an arrival due and not admitted ----
     due = _due_now(sim, t_sec)
@@ -857,7 +933,7 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     # -- instantaneous RTT and send rates ---------------------------------
     valid = path < Q
     q_hop = _take(state.q, path)                              # [B,S,H]
-    b_hop = static.bw[path]
+    b_hop = _hop_bw(bw, path)
     theta_now = tau + _hop_sum(torch.where(valid, q_hop / b_hop, 0.0))
     lam = torch.where(active, torch.minimum(
         torch.minimum(state.w / theta_now, state.rate_cap), nic), 0.0)
@@ -874,7 +950,7 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
                           0.0)
     arr, out, q_new = _queue_update(topo, dt, sim.backend, state.incidence,
                                     state.inv, state.q, lam_del, valid,
-                                    static)
+                                    static, bw)
     hist_q, hist_out = state.hist_q, state.hist_out
     hist_q[..., ptr, :] = q_new
     hist_out[..., ptr, :] = out
@@ -885,7 +961,8 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     law_state, w, rate_cap, next_update, last_update = _observe_update(
         sim.law, static, cfg, LawTick(
             t=t, t_sec=t_sec, ptr=ptr, hist_q=hist_q, hist_out=hist_out,
-            hist_w=hist_w, rows=sidx, path=path, valid=valid, b_hop=b_hop,
+            hist_w=hist_w, rows=sidx, path=path, valid=valid, bw=bw,
+            b_hop=b_hop,
             tf_steps=tf_steps, rtt_steps=state.rtt_steps, tau=tau, nic=nic,
             theta_now=theta_now, active=active, w=state.w,
             rate_cap=state.rate_cap, law_state=state.law,
@@ -1082,12 +1159,10 @@ def stack_flow_schedules(scheds: List[FlowSchedule],
                                       pad_queue) for s in scheds])
 
 
-def _check_batch_args(bw_fn, bw_params, impair_params, devices, dev):
+def _check_batch_args(impair_params, devices, dev):
     """The arguments of the batched entry points that belong to later
     ROADMAP items raise, naming the item; ``devices`` beyond one device
     is the sharded sweep (item 12; None where it is ignored)."""
-    if bw_fn is not None or bw_params is not None:
-        _unported("bw_fn / bw_params", 8)
     if impair_params is not None:
         _unported("impair_params", 10)
     if devices is None:
@@ -1100,9 +1175,10 @@ def _check_batch_args(bw_fn, bw_params, impair_params, devices, dev):
 
 def _batch_law_cfg(law_cfg: LawConfig, batch: int, backend: str):
     """A stacked LawConfig for the batched tick: per-scenario scalars [B]
-    become [B, 1] so they broadcast over flows; per-flow leaves [B, F]
-    stay. A fused backend needs one concrete gamma (its kernels take it
-    as a launch argument), so a stacked gamma raises as in ``repro``."""
+    become [B, 1] so they broadcast over flows (those of a nested leaf,
+    reTCP's ``sched``, too); per-flow leaves [B, F] stay. A fused backend
+    needs one concrete gamma (its kernels take it as a launch argument),
+    so a stacked gamma raises as in ``repro``."""
     if backend == "fused" and isinstance(law_cfg.gamma, torch.Tensor):
         raise ValueError("fused law backends need a concrete (non-traced) "
                          "gamma; use backend='reference' for gamma sweeps")
@@ -1114,18 +1190,42 @@ def _batch_law_cfg(law_cfg: LawConfig, batch: int, backend: str):
                                  f"{tuple(x.shape)}; expected a leading "
                                  f"batch axis of {batch}")
             return x.reshape(batch, 1) if x.dim() == 1 else x
+        if isinstance(x, tuple):
+            return type(x)(*[norm(v) for v in x])
         return x
     return type(law_cfg)(*[norm(x) for x in law_cfg])
+
+
+def part_of(tree, lo: int, hi: int):
+    """Scenarios ``lo:hi`` of a batched tree (views; None stays None)."""
+    return None if tree is None else tree_map(lambda v: v[lo:hi], tree)
 
 
 def scenarios(sim: SlotSim, lo: int, hi: int) -> SlotSim:
     """Of a ``SlotSim``: the batch of its scenarios ``lo:hi`` (views of the
     schedules, the law config and the host arrival times; the topology is
     shared)."""
-    def part(x):
-        return tree_map(lambda v: v[lo:hi], x)
-    return sim._replace(sched=part(sim.sched), law_cfg=part(sim.law_cfg),
-                        start_host=part(sim.start_host))
+    return sim._replace(sched=part_of(sim.sched, lo, hi),
+                        law_cfg=part_of(sim.law_cfg, lo, hi),
+                        start_host=part_of(sim.start_host, lo, hi))
+
+
+def batch_bw_fn(bw_fn, bw_params):
+    """The batch's one-argument bandwidth function: ``bw_fn`` itself
+    (shared by every scenario) without ``bw_params``, else ``t ->
+    bw_fn(t, bw_params)``, one row per scenario."""
+    if bw_params is None:
+        return bw_fn
+    return lambda t_sec: bw_fn(t_sec, bw_params)
+
+
+def _bw_params_on(bw_fn, bw_params, dev):
+    """``bw_params`` on the run's device; it needs a ``bw_fn``."""
+    if bw_params is None:
+        return None
+    if bw_fn is None:
+        raise ValueError("bw_params needs a bw_fn")
+    return _to(bw_params, dev)
 
 
 def _pad_inv(state: SlotState, width: int, fill: int) -> SlotState:
@@ -1158,15 +1258,20 @@ def simulate_batch(topo: Topology, flows: Flows, law_name: Union[str, Law],
     launch per tick for all B). Each scenario's trajectory is bit for bit
     its own run through ``simulate``.
 
-    ``bw_fn``/``bw_params`` (ROADMAP Queue 1 item 8), ``alloc_fn`` (13),
-    ``impair_params`` (10) and ``devices`` > 1 (12) raise
-    ``NotImplementedError``. Returns (final_states, records) with a
-    leading batch axis.
+    Time-varying bandwidth: without ``bw_params``, ``bw_fn(t)`` is shared
+    by every scenario; with ``bw_params`` (a tree of tensors with a
+    leading batch axis B, e.g. ``rdcn.stack_schedules``), scenario b runs
+    at ``bw_fn(t, bw_params_b)`` — ``bw_fn`` takes the whole stacked tree
+    and returns [B, Q].
+
+    ``alloc_fn`` (ROADMAP Queue 1 item 13), ``impair_params`` (10) and
+    ``devices`` > 1 (12) raise ``NotImplementedError``. Returns
+    (final_states, records) with a leading batch axis.
     """
     if alloc_fn is not None:
         _unported("alloc_fn", 13)
     dev = resolve_device(device)
-    _check_batch_args(bw_fn, bw_params, impair_params, devices, dev)
+    _check_batch_args(impair_params, devices, dev)
     _check_backend(backend)
     cfg = cfg or SimConfig()
     law = _resolve_law(law_name, backend)
@@ -1175,18 +1280,16 @@ def simulate_batch(topo: Topology, flows: Flows, law_name: Union[str, Law],
     law_cfg = (_batch_law_cfg(_to(law_cfg, dev), B, backend)
                if law_cfg is not None else
                default_law_config(flows, expected_flows=expected_flows))
-    Q = topo.num_queues
-    incidence = inv = None
-    if backend == "fused":
-        incidence = build_incidence(flows, Q)
-    else:
-        inv, _ = build_csr_gather(flows.path, Q, max_degree(flows.path, Q))
+    incidence = (build_incidence(flows, topo.num_queues)
+                 if backend == "fused" else None)
     sim = FluidSim(topo, flows, law, law_cfg, cfg, backend, incidence,
-                   _make_static(topo, cfg.dt), inv)
+                   _make_static(topo, cfg.dt))
+    bfn = batch_bw_fn(bw_fn, _bw_params_on(bw_fn, bw_params, dev))
     with torch.no_grad():
         state = init_state(sim)
         audit_carry_dtypes(state)
-        return _run(sim, state, step, record)
+        return _run(sim, state, step if backend == "fused"
+                    else _live_gather_step(sim), record, bfn)
 
 
 def simulate_slots_batch(topo: Topology, scheds: FlowSchedule,
@@ -1200,10 +1303,10 @@ def simulate_slots_batch(topo: Topology, scheds: FlowSchedule,
                          device="cuda"):
     """Batched twin of ``simulate_slots``: B schedules (a leading batch
     axis on every leaf, ``stack_flow_schedules``) through one pool size
-    ``slots`` on ``device``. ``law_cfg`` and the unported arguments as in
-    ``simulate_batch``. Returns (final ``SlotState``s, records) with a
-    leading batch axis; ``fct`` rows [B, N] are in each scenario's
-    schedule order.
+    ``slots`` on ``device``. ``law_cfg``, ``bw_fn``/``bw_params`` and the
+    unported arguments as in ``simulate_batch``. Returns (final
+    ``SlotState``s, records) with a leading batch axis; ``fct`` rows [B,
+    N] are in each scenario's schedule order.
 
     ``sequential=False`` advances the scenarios in lockstep, one op (or
     one kernel launch) per step for the whole batch; the admit/retire
@@ -1219,27 +1322,32 @@ def simulate_slots_batch(topo: Topology, scheds: FlowSchedule,
     gated tick: ``repro`` drops the gate under ``vmap`` only because a
     ``lax.cond`` there runs both branches, and a K4 block branches on its
     own scenario. ``devices`` is ignored with ``sequential``, as in
-    ``repro``.
+    ``repro``. On the card K4 carries a circuit schedule
+    (``rdcn.circuit_bw_at`` with ``bw_params``, or
+    ``CircuitSchedule.bw_fn()``) and no other ``bw_fn``.
     """
     dev = resolve_device(device)
-    _check_batch_args(bw_fn, bw_params, impair_params,
-                      None if sequential else devices, dev)
+    _check_batch_args(impair_params, None if sequential else devices, dev)
     sim = make_slot_sim(topo, scheds, law_name, slots, law_cfg, cfg,
                         backend, dev, expected_flows)
     B, N = int(sim.sched.start.shape[0]), _slot_n(sim)
+    bw_params = _bw_params_on(bw_fn, bw_params, dev)
     with torch.no_grad():
         if backend == "megakernel":
             from .megakernel import simulate_slots_mega
-            state, recs = simulate_slots_mega(sim, record=record,
-                                              sequential=sequential)
+            state, recs = simulate_slots_mega(
+                sim, record=record, sequential=sequential, bw_fn=bw_fn,
+                bw_params=bw_params)
         else:
-            parts = ([scenarios(sim, b, b + 1) for b in range(B)]
-                     if sequential else [sim])
+            parts = ([(b, b + 1) for b in range(B)] if sequential
+                     else [(0, B)])
             outs = []
-            for part in parts:
+            for lo, hi in parts:
+                part = scenarios(sim, lo, hi)
                 state = init_slot_state(part)
                 audit_carry_dtypes(state)
-                outs.append(_run(part, state, slot_step, record))
+                outs.append(_run(part, state, slot_step, record, batch_bw_fn(
+                    bw_fn, part_of(bw_params, lo, hi))))
             finals = [o[0] for o in outs]
             if finals[0].inv is not None:
                 width = max(int(f.inv.shape[-1]) for f in finals)

@@ -16,8 +16,10 @@ where ``upd_mask`` is set.
   dcqcn           DCQCN fluid approximation (ECN + alpha, RP increase stages)
   reno            NewReno-style AI/MD on loss
 
-``retcp`` (time-varying circuits) and the feedback-channel laws come with
-later slices.
+``retcp`` (NewReno with circuit-state feedback, for time-varying
+circuits) is registered by ``core/rdcn.py``, with the ``"reference"`` and
+``"megakernel"`` backends; it reads ``LawConfig.sched`` and
+``retcp_prebuffer``. The feedback-channel laws come with later slices.
 
 Numerics: ``repro`` wraps products in ``_pin``/``_nofma`` so that XLA and
 LLVM cannot reassociate them or contract them into FMAs. Eager PyTorch
@@ -73,7 +75,8 @@ class LawConfig(NamedTuple):
     dcqcn_f: int = 5
     # reno
     reno_md: float = 0.5
-    # retcp
+    # retcp (core/rdcn.py): its circuit schedule (a ScheduleParams, nested;
+    # ``fluid.stack_law_configs`` stacks it leaf by leaf) and prebuffer
     sched: tuple = None
     retcp_prebuffer: float = 0.0
     # feedback-channel laws

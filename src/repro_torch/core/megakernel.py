@@ -19,7 +19,9 @@ blocks of K ticks (``kernels.fused_tick.DEFAULT_BLOCK``). The tick is
     table's width (``build_csr_gather``'s overflow flag);
   * queue length, egress rate and queue gradient share one packed
     telemetry ring row ``[q | out | qdot]``, the gradient computed when
-    the row is written, so the delayed observation reads one ring.
+    the row is written, so the delayed observation reads one ring;
+  * a time-varying bandwidth (``bw_fn``, with ``bw_params`` per scenario)
+    is evaluated once per tick and read by every phase of it.
 
 Two lowerings, chosen by ``impl``:
 
@@ -28,10 +30,12 @@ Two lowerings, chosen by ``impl``:
     counterpart of ``repro``'s XLA lowering, and what the CPU runs;
   * ``"cuda"``: K4 (``kernels/fused_tick.py``, ``csrc/fused_tick.cu``), one
     launch per block of K ticks, with the busy tick (gated or not, as the
-    plain tick) and each law's arithmetic written by hand (the eight laws
-    of ``core/laws.py``, ``K4_LAWS``; a ``Law`` around another update
-    raises). The host uploads the due table once and reads nothing back
-    between blocks.
+    plain tick) and each law's arithmetic written by hand (the nine laws
+    of ``core/laws.py`` and ``core/rdcn.py``, ``K4_LAWS``; a ``Law``
+    around another update raises). The host uploads the due table once and reads nothing back
+    between blocks. K4 evaluates a circuit schedule in its own body every
+    tick (``rdcn.circuit_bw_at`` with ``bw_params``, or
+    ``CircuitSchedule.bw_fn()``); any other ``bw_fn`` raises there.
 
 The carry is a batch's, as the slot engine's is ([B, ...] leaves; one
 schedule runs as a batch of one). K4 takes it in one launch of B thread
@@ -60,6 +64,7 @@ from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
                                       suggest_maxdeg)
 from . import fluid
 from . import laws as _laws
+from . import rdcn
 from .types import MTU, PathObs, Record, SlotState, cat_trees
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -145,8 +150,9 @@ def _k4_lawp(lcfg, B: int, dev) -> tuple:
     leaf, divided; 0: a Python scalar, multiplied by its float32
     reciprocal, ``laws.div_config``). Each derived constant is rounded as
     the plain law rounds it (Python arithmetic in double for Python
-    scalars, float32 ops for tensor leaves). A leaf that varies per flow
-    raises."""
+    scalars, float32 ops for tensor leaves); reTCP's schedule
+    (``LawConfig.sched``, zeros without one) and prebuffer as float32. A
+    leaf that varies per flow raises."""
     span = lcfg.dcqcn_kmax - lcfg.dcqcn_kmin
     span = (torch.clamp_min(span, 1.0) if isinstance(span, torch.Tensor)
             else max(span, 1.0))
@@ -156,7 +162,11 @@ def _k4_lawp(lcfg, B: int, dev) -> tuple:
             return 1.0 / x.to(torch.float32)
         return float(np.float32(1.0) / np.float32(x))
 
-    vals = dict(hpcc_eta=lcfg.hpcc_eta, hpcc_inv_eta=inv(lcfg.hpcc_eta),
+    sched = lcfg.sched if lcfg.sched is not None else \
+        rdcn.ScheduleParams(*[0.0] * len(rdcn.ScheduleParams._fields))
+    vals = {f"retcp_{f}": getattr(sched, f)
+            for f in rdcn.ScheduleParams._fields}
+    vals.update(hpcc_eta=lcfg.hpcc_eta, hpcc_inv_eta=inv(lcfg.hpcc_eta),
                 hpcc_max_stage=lcfg.hpcc_max_stage,
                 timely_beta=lcfg.timely_beta,
                 timely_hai_n=lcfg.timely_hai_n, dcqcn_kmin=lcfg.dcqcn_kmin,
@@ -166,7 +176,8 @@ def _k4_lawp(lcfg, B: int, dev) -> tuple:
                 dcqcn_rai_hyper=5.0 * lcfg.dcqcn_rai,
                 dcqcn_timer=lcfg.dcqcn_timer,
                 dcqcn_cnp_timer=lcfg.dcqcn_cnp_timer,
-                dcqcn_f=lcfg.dcqcn_f, reno_md=lcfg.reno_md)
+                dcqcn_f=lcfg.dcqcn_f, reno_md=lcfg.reno_md,
+                retcp_prebuffer=lcfg.retcp_prebuffer)
     cols = []
     for f in _k4.LAW_PARAMS:
         x = torch.as_tensor(vals[f], device=dev).to(torch.float32)
@@ -179,8 +190,42 @@ def _k4_lawp(lcfg, B: int, dev) -> tuple:
             int(isinstance(span, torch.Tensor)))
 
 
-def _k4_params(sim, maxdeg: int) -> TickParams:
-    """The read-only inputs of K4 for one run."""
+def _k4_schedule(bw_fn, bw_params, B: int, Q: int, dev):
+    """The circuit schedule K4 evaluates in its body, [B, 6] float32 (the
+    fields of ``rdcn.ScheduleParams``), or None without ``bw_fn``. K4
+    carries ``rdcn.circuit_bw_at`` with stacked ``bw_params`` and
+    ``CircuitSchedule.bw_fn()`` (which carries its params); any other
+    ``bw_fn`` raises."""
+    if bw_fn is None:
+        return None
+    if bw_fn is rdcn.circuit_bw_at and isinstance(bw_params,
+                                                  rdcn.ScheduleParams):
+        p = bw_params
+    elif bw_params is None and isinstance(getattr(bw_fn, "params", None),
+                                          rdcn.ScheduleParams):
+        p = bw_fn.params
+    else:
+        raise NotImplementedError(
+            "the CUDA megakernel's K4 carries the circuit schedule only "
+            "(bw_fn=rdcn.circuit_bw_at with bw_params=stack_schedules(...), "
+            "or CircuitSchedule.bw_fn()); run another bw_fn on "
+            "backend='reference'")
+    if Q != 1:
+        raise ValueError(f"a circuit schedule serves one VOQ; the topology "
+                         f"has {Q} queues")
+    cols = []
+    for x in p:
+        x = torch.as_tensor(x, device=dev).to(torch.float32).reshape(-1)
+        if x.numel() not in (1, B):
+            raise ValueError(f"a schedule leaf of {x.numel()} values for "
+                             f"a batch of {B}")
+        cols.append(x.expand(B))
+    return torch.stack(cols, -1).contiguous()
+
+
+def _k4_params(sim, maxdeg: int, bw_fn=None, bw_params=None) -> TickParams:
+    """The read-only inputs of K4 for one run (``bw_fn``/``bw_params``:
+    the run's bandwidth, ``_k4_schedule``)."""
     law = sim.law
     entry = K4_LAWS.get(law.name)
     if entry is None or law.update is not entry[0]:
@@ -217,12 +262,14 @@ def _k4_params(sim, maxdeg: int) -> TickParams:
         s_stop=f32(sched.stop), s_size=f32(sched.size),
         config=_k4_config(law.name, sim.law_cfg, B, N, dev), lawp=lawp,
         bw=f32(static.bw), buf=f32(static.buf), sw_table=sw_table,
+        sched=_k4_schedule(bw_fn, bw_params, B, int(topo.num_queues), dev),
         switch_buffer=f32(topo.switch_buffer),
         switch_of_queue=i32(topo.switch_of_queue))
 
 
 def make_tick(sim, gate: bool = True, quiet: bool = False,
-              maxdeg: Optional[int] = None) -> Callable:
+              maxdeg: Optional[int] = None, bw_fn=None,
+              bw_params=None) -> Callable:
     """Build the plain megakernel tick of a batch (``sim`` a
     ``fluid.SlotSim``): ``tick(carry, due_t) -> (carry', Record)``,
     ``due_t`` the [B] int32 due counts of the tick.
@@ -235,7 +282,9 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
     with every pool empty and nothing due to the queue drain and the ring
     writes (exact for laws with ``masked_updates``). ``maxdeg`` overrides
     the gather table's width (default the batch's largest
-    ``suggest_maxdeg``).
+    ``suggest_maxdeg``). ``bw_fn``/``bw_params`` are the batch's
+    time-varying bandwidth, as ``fluid.simulate_slots_batch`` takes
+    them.
 
     ``tick.init_carry(state0)`` builds the matching ``MegaCarry``;
     ``tick.k4_params()`` the inputs of K4 (raises for a law without a K4
@@ -254,7 +303,8 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
     if maxdeg is None:
         maxdeg = _suggest_maxdeg(sched, Q, S)
     sidx = torch.arange(S, device=dev)
-    bw, buf = static.bw, static.buf
+    buf = static.buf
+    bfn = fluid.batch_bw_fn(bw_fn, bw_params)
 
     def slot_hold(st):
         return torch.amax(torch.where(st.path < Q, st.tf_steps, 0), dim=-1)
@@ -288,10 +338,10 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
             inv, ovf = gather_table(st2.path)
         return st2, pend, occupied, slot_hold(st2), inv, ovf
 
-    def integrate_queues(st, arr):
-        """The queue integration and the packed telemetry row, the
-        gradient computed over the operands the slot engine subtracts
-        when it reads the ring."""
+    def integrate_queues(st, arr, bw):
+        """The queue integration at the tick's rates ``bw`` and the packed
+        telemetry row, the gradient computed over the operands the slot
+        engine subtracts when it reads the ring."""
         caps = fluid._buffer_caps(topo, st.q, static)
         out, q_new = integrate_arrivals(arr, st.q, bw, caps, dt=dt)
         row = torch.cat([q_new, out, (q_new - st.q) * (1.0 / dt)], -1)
@@ -301,17 +351,18 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         return torch.minimum(torch.clamp_min(w, MTU),
                              8.0 * nic * tau + 8.0 * nic * theta_now)
 
-    def theta_of(st, q):
+    def theta_of(st, q, bw):
         valid = st.path < Q
         return st.tau + fluid._hop_sum(torch.where(
-            valid, fluid._take(q, st.path) / bw[st.path], 0.0))
+            valid, fluid._take(q, st.path) / fluid._hop_bw(bw, st.path),
+            0.0))
 
-    def quiet_tick(c, ptr):
+    def quiet_tick(c, ptr, bw):
         """Every pool empty, nothing due: the queues drain, the rings
         advance and the window clamp runs; nothing else can change."""
         st, pend, hold, inv, ovf = c
-        q_new, out, row = integrate_queues(st, torch.zeros_like(st.q))
-        w = window_clamp(st.w, st.nic_rate, st.tau, theta_of(st, st.q))
+        q_new, out, row = integrate_queues(st, torch.zeros_like(st.q), bw)
+        w = window_clamp(st.w, st.nic_rate, st.tau, theta_of(st, st.q, bw))
         lam = torch.zeros_like(st.w)
         st.hist_lam[:, ptr] = lam
         st.hist_w[:, ptr] = st.w
@@ -321,7 +372,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         return (st, pend, hold, inv, ovf, zero, zero,
                 torch.zeros((B,), dtype=torch.int32, device=dev), lam)
 
-    def busy_tick(c, ptr, due_t):
+    def busy_tick(c, ptr, due_t, bw):
         st, pend, hold, inv, ovf = c
         t = st.t
         t_sec = fluid._tick_time(t, dt)
@@ -341,8 +392,8 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         active = (occupied & (t_sec >= st.start) & (st.remaining > 0.0) &
                   (t_sec < st.stop))
         valid = path < Q
-        b_hop = bw[path]
-        theta_now = theta_of(st, st.q)
+        b_hop = fluid._hop_bw(bw, path)
+        theta_now = theta_of(st, st.q, bw)
         lam = torch.where(active, torch.minimum(
             torch.minimum(st.w / theta_now, st.rate_cap), nic), 0.0)
         hist_lam, hist_w, hist_q = st.hist_lam, st.hist_w, st.hist_q
@@ -361,7 +412,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         if bool(torch.any(ovf)):
             table, _ = build_csr_gather(path, Q, max_degree(path, Q))
         arr = csr_gather_arrivals(contrib, table, torch.zeros_like(st.q))
-        q_new, out, row = integrate_queues(st, arr)
+        q_new, out, row = integrate_queues(st, arr, bw)
         hist_q[:, ptr] = row
 
         # -- delayed observation: one packed ring --------------------------
@@ -420,12 +471,13 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         t_sec = fluid._tick_time(st.t, dt)
         ptr = st.t % D
         c = tuple(carry)
+        bw = fluid._bandwidth(topo, bfn, t_sec, static)
         if (gate and quiet and law.masked_updates
                 and bool(torch.all(due_t == st.cursor))
                 and not bool(torch.any(st.slot_flow < N))):
-            out = quiet_tick(c, ptr)
+            out = quiet_tick(c, ptr, bw)
         else:
-            out = busy_tick(c, ptr, due_t)
+            out = busy_tick(c, ptr, due_t, bw)
         st, pend, hold, inv, ovf, w_sum, lam_sum, n_act, lam = out
         rec = Record(t=torch.full((B,), t_sec, dtype=torch.float32,
                                   device=dev),
@@ -437,7 +489,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
 
     def k4_params() -> TickParams:
         if not k4:
-            k4.append(_k4_params(sim, maxdeg))
+            k4.append(_k4_params(sim, maxdeg, bw_fn, bw_params))
         return k4[0]
 
     tick.init_carry = init_carry
@@ -498,7 +550,8 @@ def run_blocks(tick, carry: MegaCarry, due: torch.Tensor, block: int,
 def simulate_slots_mega(sim, record: bool = True,
                         impl: Optional[str] = None,
                         block: Optional[int] = None, gate: bool = True,
-                        quiet: bool = False, sequential: bool = False):
+                        quiet: bool = False, sequential: bool = False,
+                        bw_fn=None, bw_params=None):
     """Run a batch of schedules (``sim`` a ``fluid.SlotSim``) through the
     megakernel backend, all scenarios with the batch's largest suggested
     gather-table width. Returns (final ``SlotState``, Record [B, T, ...]
@@ -513,6 +566,7 @@ def simulate_slots_mega(sim, record: bool = True,
     scenarios one after another (one block per launch). ``gate`` goes to
     the plain tick (``make_tick``) and to K4, ``quiet`` to the plain tick
     only (K4 runs the busy tick); neither changes the results.
+    ``bw_fn``/``bw_params`` as ``fluid.simulate_slots_batch`` takes them.
     """
     cfg = sim.cfg
     T = int(cfg.steps)
@@ -536,7 +590,9 @@ def simulate_slots_mega(sim, record: bool = True,
     finals, recs = [], []
     for lo, hi in parts:
         part = fluid.scenarios(sim, lo, hi)
-        tick = make_tick(part, gate=gate, quiet=quiet, maxdeg=maxdeg)
+        tick = make_tick(part, gate=gate, quiet=quiet, maxdeg=maxdeg,
+                         bw_fn=bw_fn,
+                         bw_params=fluid.part_of(bw_params, lo, hi))
         state0 = fluid.init_slot_state(part)
         fluid.audit_carry_dtypes(state0)
         carry, r = run_blocks(tick, tick.init_carry(state0), due[lo:hi], K,

@@ -5,13 +5,17 @@
 // src/repro/kernels/fused_tick.py, which runs K ticks of
 // src/repro/core/megakernel.py::make_tick in one pallas_call with the
 // whole carry resident in VMEM, for whatever law it is given. Here the
-// tick is written out by hand, with a routine for each of the eight laws
-// of repro_torch/core/laws.py (powertcp, theta_powertcp, hpcc, swift,
-// gradient_mimd, timely, dcqcn, reno; the law is a template parameter,
-// so each instantiation holds one law's code, and the launch's law id
-// picks the instantiation), in the order of the port's plain tick
+// tick is written out by hand, with a routine for each of the nine laws
+// of repro_torch/core/laws.py and core/rdcn.py (powertcp, theta_powertcp,
+// hpcc, swift, gradient_mimd, timely, dcqcn, reno, retcp; the law is a
+// template parameter, so each instantiation holds one law's code, and the
+// source is built once per law, -DVARIANT=<law id> (kernels/_build.py),
+// into a library of that law's instantiations, so that the laws compile
+// in parallel), in the order of the port's plain tick
 // (repro_torch/core/megakernel.py):
-//   1. t_sec and the ring pointer;
+//   1. t_sec and the ring pointer; under a circuit schedule (the Pallas
+//      kernel traces the bw_fn into its body), the tick's rate of the
+//      VOQ and each queue's q / bw at that rate;
 //   2. the gate: an arrival due and not admitted, or a freeable slot
 //      (gate = 0 opens it on every tick);
 //   3. on gated ticks: flush the freeable slots' pending FCTs, retire them,
@@ -30,8 +34,8 @@
 //      law's per-hop telemetry (PowerTCP's normalized power, HPCC's link
 //      utilization, the ECN marking of DCQCN and Reno), maxed over hops;
 //   8. on updating slots: the law update and the update timers; on every
-//      slot: DCQCN's rate clamp and the rate-based laws' rate cap, and the
-//      window clamp;
+//      slot: DCQCN's rate clamp, the rate-based laws' rate cap, reTCP's
+//      circuit multiplier, and the window clamp;
 //   9. progress, completions into the pending buffer, free_at;
 //  10. the record row, when recording.
 //
@@ -101,6 +105,13 @@
 // eta and stage limit, TIMELY's beta and HAI count, DCQCN's marking and
 // timers, Reno's decrease) come per scenario in lawp.
 //
+// Circuit schedule: with a schedule (a.sched, six floats per scenario, the
+// fields of core/rdcn.py::ScheduleParams; a block-uniform flag, one branch
+// a tick) each block classifies its tick as rdcn.circuit_up does: the
+// phase (t - t0) + 1e-7 taken mod week by jnp.mod's rule on fmodf (exact),
+// up on [0, day). reTCP reads its own schedule and prebuffer from lawp;
+// the two need not be the same.
+//
 // Numerics: built with -fmad=false (no contraction) and without fast
 // math, so every division is IEEE round-to-nearest; max/min propagate NaN
 // as torch.maximum/clamp do; rintf rounds half to even as torch.round;
@@ -141,18 +152,18 @@ enum Field {
   // law state (kernels/fused_tick.py::STATE_FIELDS)
   F_GAMMA_SMOOTH, F_PREV_THETA, F_U, F_WC, F_INC_STAGE, F_LAST_REF, F_RATE,
   F_NEG_COUNT, F_RC, F_RT, F_ALPHA, F_T_LAST_CUT, F_T_LAST_INC, F_LAST_CUT,
-  F_PEND_VAL,
+  F_W_BASE, F_PEND_VAL,
   // per-flow law config (CONFIG_FIELDS)
   F_BETA, F_CTAU, F_GAMMA, F_OMG, F_HBW, F_T_LOW, F_T_HIGH, F_TADD,
   kFields
 };
-constexpr int kStateFields = F_LAST_CUT - F_GAMMA_SMOOTH + 1;
+constexpr int kStateFields = F_W_BASE - F_GAMMA_SMOOTH + 1;
 constexpr int kConfigFields = F_TADD - F_BETA + 1;
 
 // law ids (kernels/fused_tick.py::LAW_NAMES)
 enum Law {
   kPowerTCP, kThetaPowerTCP, kHPCC, kSwift, kGradient, kTimely, kDCQCN,
-  kReno
+  kReno, kReTCP
 };
 
 // the per-scenario law constants (LAW_PARAMS)
@@ -160,9 +171,15 @@ enum LawParam {
   P_HPCC_ETA, P_HPCC_INV_ETA, P_HPCC_MAX_STAGE, P_TIMELY_BETA,
   P_TIMELY_HAI_N, P_DCQCN_KMIN, P_DCQCN_SPAN, P_DCQCN_INV_SPAN,
   P_DCQCN_PMAX, P_DCQCN_G, P_DCQCN_OMG, P_DCQCN_RAI, P_DCQCN_RAI_HYPER,
-  P_DCQCN_TIMER, P_DCQCN_CNP_TIMER, P_DCQCN_F, P_RENO_MD,
+  P_DCQCN_TIMER, P_DCQCN_CNP_TIMER, P_DCQCN_F, P_RENO_MD, P_RETCP_DAY,
+  P_RETCP_NIGHT, P_RETCP_WEEK, P_RETCP_T0, P_RETCP_CIRCUIT_BW,
+  P_RETCP_PACKET_BW, P_RETCP_PREBUFFER,
   kLawParams
 };
+
+// a bandwidth schedule's fields (kernels/fused_tick.py::SCHED_FIELDS)
+enum Sched { S_DAY, S_NIGHT, S_WEEK, S_T0, S_CIRCUIT_BW, S_PACKET_BW,
+             kSchedFields };
 
 }  // namespace
 
@@ -208,6 +225,7 @@ struct FusedTickArgs {
   const float* s_size;
   const float* law_cfg[kConfigFields];  // [N] each, null where unread
   const float* lawp;                    // [kLawParams] per scenario
+  const float* sched;  // [kSchedFields] per scenario; null: static rates
   // topology, read only
   const float* bw;
   const float* buf;
@@ -394,6 +412,16 @@ __device__ __forceinline__ float div_config(float x, float d, float inv_d,
   return divide ? x / d : x * inv_d;
 }
 
+// Is the circuit up at t (core/rdcn.py::circuit_up)? The phase
+// (t - t0) + 1e-7 mod week by jnp.mod's rule: fmodf, then + week where the
+// remainder is nonzero and its sign differs from week's.
+__device__ __forceinline__ bool circuit_up(float t, float day, float week,
+                                           float t0) {
+  float ph = fmodf((t - t0) + 1e-7f, week);
+  if (ph != 0.0f && ((week < 0.0f) != (ph < 0.0f))) ph = ph + week;
+  return ph >= 0.0f && ph < day;
+}
+
 // 1 + x for an int32 counter, wrapping as torch's int32 add does.
 __device__ __forceinline__ int inc_wrap(int x) {
   return static_cast<int>(static_cast<unsigned>(x) + 1u);
@@ -527,6 +555,7 @@ fused_tick_kernel(const FusedTickArgs a) {
   float* t_last_cut = at<float>(base, a.off[F_T_LAST_CUT]);
   float* t_last_inc = at<float>(base, a.off[F_T_LAST_INC]);
   float* last_cut = at<float>(base, a.off[F_LAST_CUT]);
+  float* w_base = at<float>(base, a.off[F_W_BASE]);
   float* betas = at<float>(base, a.off[F_BETA]);
   float* ctaus = at<float>(base, a.off[F_CTAU]);
   float* gammas = at<float>(base, a.off[F_GAMMA]);
@@ -549,6 +578,11 @@ fused_tick_kernel(const FusedTickArgs a) {
               dc_cnp_timer = lawp[P_DCQCN_CNP_TIMER];
   const int dc_f = static_cast<int>(lawp[P_DCQCN_F]);
   const float reno_md = lawp[P_RENO_MD];
+  const float rt_day = lawp[P_RETCP_DAY], rt_week = lawp[P_RETCP_WEEK],
+              rt_t0 = lawp[P_RETCP_T0], rt_pre = lawp[P_RETCP_PREBUFFER];
+  const float rt_ratio =
+      law == kReTCP ? lawp[P_RETCP_CIRCUIT_BW] / lawp[P_RETCP_PACKET_BW]
+                    : 1.0f;
 
   // the per-slot law config of flow g (clamped into [0, N)) into slot s
   auto load_config = [&](int s, int g) {
@@ -644,6 +678,28 @@ fused_tick_kernel(const FusedTickArgs a) {
     const int cursor = sh_cursor;
     const bool rec_row = a.record && ((k + 1) % a.record_every == 0);
     const int r = (k + 1) / a.record_every - 1;
+
+    // -- 1b. the tick's rate under a circuit schedule, and each queue's
+    //    q / bw at it (theta_now reads it) ---------------------------------
+    // (the schedule's address is taken here from the launch's arguments,
+    // so that no register holds it across the tick: K4 is at its limit)
+    if (a.sched) {
+      const float* sp = a.sched + (GRID ? blockIdx.x : 0) * kSchedFields;
+      const float bt = circuit_up(t_sec, sp[S_DAY], sp[S_WEEK], sp[S_T0])
+                           ? sp[S_CIRCUIT_BW]
+                           : sp[S_PACKET_BW];
+      for (int c = tid; c < Q; c += kThreads) {
+        bw[c] = bt;
+        qb[c] = q[c] / bt;
+      }
+      __syncthreads();
+    }
+    // reTCP's circuit multiplier for this tick (up at t + prebuffer or t)
+    float rt_mult = 1.0f;
+    if (law == kReTCP &&
+        (circuit_up(t_sec + rt_pre, rt_day, rt_week, rt_t0) ||
+         circuit_up(t_sec, rt_day, rt_week, rt_t0)))
+      rt_mult = rt_ratio;
 
     // -- 2. gate --------------------------------------------------------
     int need = 1;
@@ -758,6 +814,10 @@ fused_tick_kernel(const FusedTickArgs a) {
               break;
             case kReno:
               last_cut[s] = 0.0f;
+              break;
+            case kReTCP:
+              last_cut[s] = 0.0f;
+              w_base[s] = hbw * ctau * 1.0f;
               break;
             default:  // kSwift: no state
               break;
@@ -897,7 +957,7 @@ fused_tick_kernel(const FusedTickArgs a) {
             } else if (law == kHPCC) {
               // the link's utilization: q / max(b tau, 1) + mu / max(b, 1)
               gh = q_obs / pmax(b * ctau, 1.0f) + obs[SH + e] / pmax(b, 1.0f);
-            } else if (law == kDCQCN || law == kReno) {
+            } else if (law == kDCQCN || law == kReno || law == kReTCP) {
               // ECN marking (core/fluid.py::_marking), a hard mark near
               // the buffer's end
               const float r = div_config(q_obs - kmin, span, inv_span,
@@ -1037,6 +1097,14 @@ fused_tick_kernel(const FusedTickArgs a) {
             if (can_cut) last_cut[s] = t_sec;
             break;
           }
+          case kReTCP: {
+            // NewReno on the base window
+            const float wb = w_base[s];
+            const bool can_cut = hmax >= 1.0f && t_sec - last_cut[s] > theta_obs;
+            w_base[s] = pmax(can_cut ? wb * reno_md : wb + 1000.0f, 1000.0f);
+            if (can_cut) last_cut[s] = t_sec;
+            break;
+          }
         }
         next_update[s] = t_sec + (a.has_period ? a.update_period : th_now);
         last_update[s] = t_sec;
@@ -1050,6 +1118,13 @@ fused_tick_kernel(const FusedTickArgs a) {
         const float rc = pmin(pmax(rc_s[s], 0.001f * hb), hb);
         rc_s[s] = rc;
         rate_cap[s] = rc;
+      }
+      // reTCP on every slot: NewReno's floor on the base window, then the
+      // circuit multiplier on the output window
+      if (law == kReTCP) {
+        const float wb = pmax(w_base[s], 1000.0f);
+        w_base[s] = wb;
+        wl = wb * rt_mult;
       }
       wl = pmin(pmax(wl, 1000.0f), 8.0f * nic * tau + 8.0f * nic * th_now);
       ws[s] = wl;
@@ -1163,21 +1238,16 @@ int launch_law(const FusedTickArgs& a, cudaStream_t stream) {
 // One launch of K ticks for B scenarios. The wrapper fills the layout
 // offsets (and, when the layout is not in shared memory, a global scratch
 // buffer of B * layout_bytes) from kernels/fused_tick.py::layout.
+// This library's law (enum Law): the build passes -DVARIANT=<law id>.
+#ifndef VARIANT
+#error "build fused_tick.cu with -DVARIANT=<law id> (kernels/_build.py)"
+#endif
+static_assert(VARIANT >= kPowerTCP && VARIANT <= kReTCP, "unknown law id");
+
 extern "C" int fused_tick_block_f32(const FusedTickArgs* args, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (args->nlawp != kLawParams)
+  if (args->nlawp != kLawParams || args->law != VARIANT)
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (args->law) {
-    case kPowerTCP: return launch_law<kPowerTCP>(*args, s);
-    case kThetaPowerTCP: return launch_law<kThetaPowerTCP>(*args, s);
-    case kHPCC: return launch_law<kHPCC>(*args, s);
-    case kSwift: return launch_law<kSwift>(*args, s);
-    case kGradient: return launch_law<kGradient>(*args, s);
-    case kTimely: return launch_law<kTimely>(*args, s);
-    case kDCQCN: return launch_law<kDCQCN>(*args, s);
-    case kReno: return launch_law<kReno>(*args, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_law<VARIANT>(*args, static_cast<cudaStream_t>(stream));
 }
 
 namespace {
@@ -1197,6 +1267,41 @@ extern "C" int fused_tick_powf(const float* x, const float* y, float* out,
   if (n > 0)
     powf_kernel<<<(n + 255) / 256, 256, 0,
                   static_cast<cudaStream_t>(stream)>>>(x, y, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+__global__ void schedule_kernel(const float* sched, const float* pre,
+                                float* bw, uint8_t* on, int B, int t0, int T,
+                                float dt) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(B) * T) return;
+  const int b = static_cast<int>(i / T), k = static_cast<int>(i - b * T);
+  const float* sp = sched + b * kSchedFields;
+  const float t_sec = static_cast<float>(t0 + k) * dt;
+  bw[i] = circuit_up(t_sec, sp[S_DAY], sp[S_WEEK], sp[S_T0])
+              ? sp[S_CIRCUIT_BW]
+              : sp[S_PACKET_BW];
+  on[i] = circuit_up(t_sec + pre[b], sp[S_DAY], sp[S_WEEK], sp[S_T0]) ||
+          circuit_up(t_sec, sp[S_DAY], sp[S_WEEK], sp[S_T0]);
+}
+
+}  // namespace
+
+// K4's schedule evaluation alone, over ticks t0 .. t0 + T - 1 of B
+// schedules [B, kSchedFields]: the VOQ's rate [B, T] and reTCP's scaling
+// flag [B, T] (prebuffer pre[b]); chip_smoke.py holds it against
+// core/rdcn.py on the card.
+extern "C" int fused_tick_schedule(const float* sched, const float* pre,
+                                   float* bw, uint8_t* on, int B, int t0,
+                                   int T, float dt, void* stream) {
+  const long long n = static_cast<long long>(B) * T;
+  if (n > 0)
+    schedule_kernel<<<static_cast<int>((n + 255) / 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(sched, pre, bw, on,
+                                                           B, t0, T, dt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -59,8 +59,9 @@
 // _ObserveArgs (kernels/powertcp_step.py); outside the anonymous namespace,
 // since the extern "C" entry points take it.
 // Rows are the B*F flat flows (slots) of the batch; the rings are
-// [B, D, Q+1] (hist_q, hist_out) and [B, D, F] (hist_w); bw [Q+1] is
-// shared. Optional pointers are null where the engine has no such field:
+// [B, D, Q+1] (hist_q, hist_out) and [B, D, F] (hist_w); bw is [B, Q+1],
+// scenario b's row at b * bw_stride (0: one [Q+1] row the batch shares).
+// Optional pointers are null where the engine has no such field:
 // prev_theta / prev_out (Algorithm 1), hist_out (Algorithm 2), started
 // (the slot engine), admit_t and slot_flow (the padded engine). A law
 // config leaf is read by its mode: 0 one value per scenario ([B, 1]),
@@ -93,7 +94,7 @@ struct ObserveArgs {
   float* prev_out;
   float* next_out;
   float* last_out;
-  int B, F, H, D, Q, N, ptr, t, tau_mode, beta_mode, has_period;
+  int B, F, H, D, Q, N, ptr, t, tau_mode, beta_mode, has_period, bw_stride;
   float t_sec, dt, inv_dt, next_period, gamma, one_minus_gamma, w_min;
 };
 
@@ -263,6 +264,7 @@ __global__ void __launch_bounds__(kThreads)
     const float* hq = a.hist_q + static_cast<long long>(b) * D * Q1;
     const float* ho =
         LAW == 0 ? a.hist_out + static_cast<long long>(b) * D * Q1 : nullptr;
+    const float* bw = a.bw + static_cast<long long>(b) * a.bw_stride;
     float qo[MAXH], qp[MAXH], mu[MAXH], bh[MAXH];
 #pragma unroll
     for (int h = 0; h < MAXH; ++h) {
@@ -274,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
           qp[h] = hq[imod(oh[h] - 1, D) * Q1 + p[h]];
           mu[h] = ho[oh[h] * Q1 + p[h]];
         }
-        bh[h] = a.bw[p[h]];
+        bh[h] = bw[p[h]];
       }
     }
     const float ctau = a.cfg_tau[cfg_index(a.tau_mode, b, i, sf, a.N)];

@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 the checkout (``.gitignore`` lists ``build/``), as
 ``lib<name>-<hash>.so`` where the hash covers the source and the flags,
 and loaded with ``ctypes``. ``build()`` compiles several sources at once,
-one ``nvcc`` each, all started together.
+one ``nvcc`` each, all started together. A library named ``<name>@<k>``
+is ``csrc/<name>.cu`` built with ``-DVARIANT=<k>``: K4's source is built
+once per law (``fused_tick@<law id>``), since one ``nvcc`` for all its
+laws' instantiations took longer than every other source together.
 
 ``-fmad=false``: the plain versions (``kernels/ref.py``) round every
 product before the add, as ``repro`` does with ``laws._nofma``; an FMA
@@ -33,7 +36,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("powertcp_step", "queue_arrivals", "fused_tick", "rmsnorm",
+# K4's laws: kernels/fused_tick.py::LAW_NAMES (a test holds the count)
+K4_VARIANTS = 9
+SOURCES = ("powertcp_step", "queue_arrivals",
+           *(f"fused_tick@{i}" for i in range(K4_VARIANTS)), "rmsnorm",
            "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -62,11 +68,18 @@ def _nvcc() -> str:
     return path
 
 
+def _source(name: str):
+    """(``csrc`` source, extra nvcc flags) of library ``name``."""
+    base, _, variant = name.partition("@")
+    return CSRC / f"{base}.cu", ((f"-DVARIANT={variant}",) if variant
+                                  else ())
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD / f"lib{name}-{digest[:16]}.so"
+    src, extra = _source(name)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(
+        NVCC_FLAGS + extra).encode()).hexdigest()
+    return BUILD / f"lib{name.replace('@', '_')}-{digest[:16]}.so"
 
 
 def build(names=SOURCES) -> dict:
@@ -82,7 +95,8 @@ def build(names=SOURCES) -> dict:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, extra = _source(name)
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-o", str(tmp), str(src)]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)

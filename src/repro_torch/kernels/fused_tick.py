@@ -29,6 +29,16 @@ vmapped batch only because a ``lax.cond`` under ``vmap`` runs both of its
 branches; a K4 block branches on its own scenario's state, so that reason
 does not hold here, and the gated tick skips the admit/retire pass and
 the contributor lists' rebuild on the ticks that need neither.
+
+Time-varying bandwidth: ``TickParams.sched`` ([B, 6], the fields of
+``core.rdcn.ScheduleParams``) makes each block evaluate its scenario's
+circuit schedule at the start of every tick (the classification by
+``jnp.mod``'s rule on ``fmodf``), set the VOQ's rate from it and
+recompute each queue's q / bw before any phase reads them; without it
+(None) the topology's rates hold for the launch. The flag is one
+block-uniform branch a tick. ``fused_tick_schedule`` runs that
+evaluation alone, compiled with K4's flags, to hold it against
+``rdcn.circuit_bw_at`` on the card.
 """
 from __future__ import annotations
 
@@ -46,13 +56,14 @@ DEFAULT_BLOCK = 64
 
 # K4's laws; a law's id is its place here (``TickParams.law``)
 LAW_NAMES = ("powertcp", "theta_powertcp", "hpcc", "swift", "gradient_mimd",
-             "timely", "dcqcn", "reno")
+             "timely", "dcqcn", "reno", "retcp")
 # the state fields K4 stages, in ``enum Field``'s order; a law stages the
-# fields of its state NamedTuple (swift's ``dummy`` stays zeros in the
-# carry and is not staged); ``INT_STATE`` are int32
+# fields of its state NamedTuple, a nested one's flattened (reTCP's
+# NewReno ``last_cut`` and its ``w_base``; swift's ``dummy`` stays zeros
+# in the carry and is not staged); ``INT_STATE`` are int32
 STATE_FIELDS = ("gamma_smooth prev_theta u wc inc_stage last_ref rate "
                 "neg_count rc rt alpha t_last_cut t_last_inc "
-                "last_cut").split()
+                "last_cut w_base").split()
 INT_STATE = ("inc_stage", "neg_count")
 LAW_STATE = {
     "powertcp": ("gamma_smooth",),
@@ -63,6 +74,7 @@ LAW_STATE = {
     "timely": ("rate", "prev_theta", "neg_count"),
     "dcqcn": ("rc", "rt", "alpha", "t_last_cut", "t_last_inc", "inc_stage"),
     "reno": ("last_cut",),
+    "retcp": ("last_cut", "w_base"),
 }
 # the per-flow law config K4 reads through ``slot_flow`` (each [B, N]
 # float32): beta, tau, gamma and 1 - gamma (``omg``), host_bw and
@@ -73,7 +85,7 @@ LAW_CONFIG = {
     "powertcp": _EWMA, "theta_powertcp": _EWMA, "swift": _EWMA,
     "gradient_mimd": _EWMA, "hpcc": ("beta", "ctau", "hbw"),
     "timely": ("ctau", "hbw", "t_low", "t_high", "tadd"),
-    "dcqcn": ("ctau", "hbw"), "reno": (),
+    "dcqcn": ("ctau", "hbw"), "reno": (), "retcp": ("ctau", "hbw"),
 }
 # per-hop telemetry words a law reads from the packed ring: q, then the
 # egress rate (PowerTCP, HPCC), then the queue gradient (PowerTCP)
@@ -82,11 +94,17 @@ TELEMETRY = {"powertcp": 3, "hpcc": 2}
 # the integer ones hold small integers exactly. ``*_inv_*`` are the
 # float32 reciprocals a Python-scalar divisor is multiplied by
 # (``core.laws.div_config``), ``dcqcn_omg`` 1 - g and ``dcqcn_rai_hyper``
-# 5 * rai, each rounded as the plain law rounds it
+# 5 * rai, each rounded as the plain law rounds it; ``retcp_*`` reTCP's
+# own circuit schedule (``LawConfig.sched``) and prebuffer
 LAW_PARAMS = ("hpcc_eta hpcc_inv_eta hpcc_max_stage timely_beta "
               "timely_hai_n dcqcn_kmin dcqcn_span dcqcn_inv_span dcqcn_pmax "
               "dcqcn_g dcqcn_omg dcqcn_rai dcqcn_rai_hyper dcqcn_timer "
-              "dcqcn_cnp_timer dcqcn_f reno_md").split()
+              "dcqcn_cnp_timer dcqcn_f reno_md retcp_day retcp_night "
+              "retcp_week retcp_t0 retcp_circuit_bw retcp_packet_bw "
+              "retcp_prebuffer").split()
+# the fields of one scenario's bandwidth schedule (``TickParams.sched``),
+# ``core.rdcn.ScheduleParams``'
+SCHED_FIELDS = "day night week t0 circuit_bw packet_bw".split()
 
 
 class TickParams(NamedTuple):
@@ -123,6 +141,7 @@ class TickParams(NamedTuple):
     sw_table: Optional[torch.Tensor]  # [nsw, swdeg] int32
     switch_buffer: torch.Tensor     # [switches] float32
     switch_of_queue: torch.Tensor   # [Q] int32
+    sched: Optional[torch.Tensor] = None  # [B, 6] float32 bandwidth schedule
 
 
 class BlockRecords(NamedTuple):
@@ -200,7 +219,7 @@ _PTRS = (("cursor hw slot_flow admit_t free_at path tf_steps rtt_steps tau "
          + ("fct pend_flow pend_val hold inv ovf s_path s_tf s_rtt s_tau "
             "s_nic s_start s_stop s_size").split()
          + ["c_" + f for f in CONFIG_FIELDS]
-         + ("lawp bw buf sw_table switch_buffer switch_of_queue due rec_t "
+         + ("lawp sched bw buf sw_table switch_buffer switch_of_queue due rec_t "
             "rec_q rec_w_sum rec_thru rec_lam rec_lam_f rec_n_active "
             "scratch").split())
 _INTS = ("S N Q H D nsw swdeg nswb maxdeg K t0 record_every record law "
@@ -209,7 +228,8 @@ _INTS = ("S N Q H D nsw swdeg nswb maxdeg K t0 record_every record law "
 _NFIELDS = len(_fields(1, 1, 1, 0, 0, 1, 0))
 # the inputs K4 reads and never writes
 _READ_ONLY = set(("s_path s_tf s_rtt s_tau s_nic s_start s_stop s_size lawp "
-                  "bw buf sw_table switch_buffer switch_of_queue").split()
+                  "sched bw buf sw_table switch_buffer switch_of_queue")
+                 .split()
                  + ["c_" + f for f in CONFIG_FIELDS])
 _FLOATS = "dt inv_dt dt_alpha update_period".split()
 
@@ -222,6 +242,18 @@ class _Args(ctypes.Structure):
                 [("off", ctypes.c_int * _NFIELDS)])
 
 
+def state_leaves(law) -> dict:
+    """A law state's tensors by field name, a nested state's fields
+    flattened in order (reTCP's ``reno.last_cut``, then ``w_base``)."""
+    out = {}
+    for f, x in zip(law._fields, law):
+        if isinstance(x, tuple):
+            out.update(state_leaves(x))
+        else:
+            out[f] = x
+    return out
+
+
 def _mask(fields, staged) -> int:
     """Bit i set where ``fields[i]`` is among ``staged``."""
     return sum(1 << i for i, f in enumerate(fields) if f in staged)
@@ -232,11 +264,16 @@ _SIGNATURES = {
     "fused_tick_abi": [ctypes.POINTER(ctypes.c_int)],
     "fused_tick_powf": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                         ctypes.c_int, ctypes.c_void_p],
+    "fused_tick_schedule": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
 }
 
 
-def _lib():
-    lib = _build.library("fused_tick", _SIGNATURES)
+def _lib(law: int = 0):
+    """The library of law ``law``'s K4 (each law is built on its own,
+    ``_build.SOURCES``; every one also holds the probes)."""
+    lib = _build.library(f"fused_tick@{law}", _SIGNATURES)
     nf = ctypes.c_int()
     size = lib.fused_tick_abi(ctypes.byref(nf))
     if size != ctypes.sizeof(_Args) or nf.value != _NFIELDS:
@@ -277,11 +314,10 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
                          f"record_every ({re})")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     lname = LAW_NAMES[params.law]
-    law = st.law
-    if tuple(getattr(law, "_fields", ())) != (LAW_STATE[lname]
-                                              or ("dummy",)):
+    law = state_leaves(st.law)
+    if tuple(law) != (LAW_STATE[lname] or ("dummy",)):
         raise ValueError(f"fused_tick_block: the law state "
-                         f"{type(law).__name__} is not {lname}'s")
+                         f"{type(st.law).__name__} is not {lname}'s")
     if dev.type == "cuda" and (B < 1 or B > 65535):
         raise ValueError(f"fused_tick_block: a batch of {B} scenarios")
     # per scenario: (tensor, dtype, shape without the batch axis)
@@ -314,10 +350,12 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
     for f in ("s_tau", "s_nic", "s_start", "s_stop", "s_size"):
         leaves[f] = (getattr(params, f), f32, (N,))
     for f in LAW_STATE[lname]:
-        leaves[f] = (getattr(law, f), i32 if f in INT_STATE else f32, (S,))
+        leaves[f] = (law[f], i32 if f in INT_STATE else f32, (S,))
     for f in LAW_CONFIG[lname]:
         leaves["c_" + f] = (params.config[f], f32, (N,))
     leaves["lawp"] = (params.lawp, f32, (len(LAW_PARAMS),))
+    if params.sched is not None:
+        leaves["sched"] = (params.sched, f32, (len(SCHED_FIELDS),))
     leaves = {k: (x, dt, lead + shape) for k, (x, dt, shape)
               in leaves.items()}
     # the topology, shared by the batch
@@ -356,7 +394,7 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         lam=torch.empty(lead + (nrec,), dtype=f32, device=dev),
         lam_f=torch.empty(lead + (nrec, S), dtype=f32, device=dev),
         n_active=torch.empty(lead + (nrec,), dtype=i32, device=dev))
-    lib = _lib()
+    lib = _lib(params.law)
     nswb = int(params.switch_buffer.numel())
     lay = layout(S, H, Q, params.nsw, params.swdeg, nswb, params.law)
     scratch = torch.empty((16 if lay.smem else B * lay.nbytes,),
@@ -409,3 +447,25 @@ def powf(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
                                      out.data_ptr(), x.numel(), stream)
     _build.check(err, "fused_tick_powf")
     return out
+
+
+def schedule(sched: torch.Tensor, t0: int, T: int, dt: float,
+             prebuffer: torch.Tensor):
+    """K4's evaluation of a batch of circuit schedules (``sched`` [B, 6],
+    ``TickParams.sched``'s layout) over ticks ``t0 .. t0 + T - 1``,
+    compiled into K4's library with its flags: (the VOQ's rate [B, T] as
+    K4 sets it, and reTCP's scaling flag [B, T] — up at ``t +
+    prebuffer[b]`` or at ``t`` — as uint8). Not a K4 launch."""
+    B = int(sched.shape[0])
+    _build.check_tensors(
+        "fused_tick_schedule", {"sched": sched, "prebuffer": prebuffer},
+        {"sched": (B, len(SCHED_FIELDS)), "prebuffer": (B,)}, sched.device)
+    bw = torch.empty((B, T), dtype=torch.float32, device=sched.device)
+    on = torch.empty((B, T), dtype=torch.uint8, device=sched.device)
+    with torch.cuda.device(sched.device):
+        stream = torch.cuda.current_stream(sched.device).cuda_stream
+        err = _lib().fused_tick_schedule(
+            sched.data_ptr(), prebuffer.data_ptr(), bw.data_ptr(),
+            on.data_ptr(), B, int(t0), int(T), float(dt), stream)
+    _build.check(err, "fused_tick_schedule")
+    return bw, on

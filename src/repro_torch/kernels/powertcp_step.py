@@ -38,7 +38,8 @@ _OBS_PTRS = ("hist_q hist_out hist_w path tf_steps rtt_steps bw tau nic "
              "theta_now w gs_prev prev_theta next_update last_update active "
              "started admit_t slot_flow cfg_tau cfg_beta w_out gs_out "
              "prev_out next_out last_out").split()
-_OBS_INTS = "B F H D Q N ptr t tau_mode beta_mode has_period".split()
+_OBS_INTS = ("B F H D Q N ptr t tau_mode beta_mode has_period "
+             "bw_stride").split()
 _OBS_FLOATS = ("t_sec dt inv_dt next_period gamma one_minus_gamma "
                "w_min").split()
 MAX_HOPS = 16
@@ -179,7 +180,8 @@ def _observe_step(law, *, hist_q, hist_out, hist_w, path, tf_steps,
     leaves = {"hist_q": (hist_q, f32, (B, D, Q1)),
               "hist_w": (hist_w, f32, (B, D, F)),
               "path": (path, i32, hop), "tf_steps": (tf_steps, i32, hop),
-              "rtt_steps": (rtt_steps, i32, row), "bw": (bw, f32, (Q1,)),
+              "rtt_steps": (rtt_steps, i32, row),
+              "bw": (bw, f32, (Q1,) if bw.dim() == 1 else (B, Q1)),
               "tau": (tau, f32, row), "nic": (nic, f32, row),
               "theta_now": (theta_now, f32, row), "w": (w, f32, row),
               "gs_prev": (gs_prev, f32, row),
@@ -221,7 +223,8 @@ def _observe_step(law, *, hist_q, hist_out, hist_w, path, tf_steps,
         for k, v in dict(B=B, F=F, H=H, D=D, Q=Q1 - 1, N=nf or 0, ptr=ptr,
                          t=t, tau_mode=modes["cfg_tau"],
                          beta_mode=modes["cfg_beta"],
-                         has_period=int(update_period > 0.0)).items():
+                         has_period=int(update_period > 0.0),
+                         bw_stride=0 if bw.dim() == 1 else Q1).items():
             setattr(args, k, v)
         # the float32 values torch makes of these Python scalars
         nxt = float(np.float32(t_sec) + np.float32(update_period))
@@ -252,7 +255,9 @@ def powertcp_observe_step(*, hist_q, hist_out, hist_w, path, tf_steps,
     delayed per-hop INT telemetry of ``hist_q``/``hist_out`` [B, D, Q+1]
     along ``path`` [B, F, H] (``rtt_steps - tf_steps`` ticks back from ring
     row ``ptr``), the RTT sample and the ``w_old`` it dates in ``hist_w``
-    [B, D, F], ``upd = active & (t_sec >= next_update)``, ``dt_obs``, the
+    [B, D, F] (each hop's service rate from ``bw``, [Q+1] shared by the
+    batch or [B, Q+1] per scenario), ``upd = active & (t_sec >=
+    next_update)``, ``dt_obs``, the
     law on the rows' config (``cfg_tau``/``cfg_beta`` [B, 1], [B, F], or
     [B, n_flows] read at ``slot_flow``), the window clamp ``[w_min,
     8 nic tau + 8 nic theta_now]``, the hold of rows not ``started``

@@ -295,9 +295,7 @@ def test_unported_batch_arguments_raise():
     topo, flows, scheds, cfg = _sweep(tc, device="cpu")
     Q = topo.num_queues
     fb, sb = tc.stack_flows(flows, Q), tc.stack_flow_schedules(scheds, Q)
-    for kw, item in ((dict(bw_fn=lambda t: None), "item 8"),
-                     (dict(bw_params=object()), "item 8"),
-                     (dict(impair_params=object()), "item 10"),
+    for kw, item in ((dict(impair_params=object()), "item 10"),
                      (dict(devices=2), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             tc.simulate_batch(topo, fb, "powertcp", cfg=cfg, device="cpu",

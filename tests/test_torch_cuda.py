@@ -26,9 +26,14 @@ spelled in torch and itself run twice, at those rows and ragged ones;
 K4's grid form (a batch of B scenarios, one block each, B in 1-3, with
 and without gate) against each scenario's plain block, K1-K3 taking a
 batch in one launch, and the batched megakernel backend's launches;
-each of K4's eight laws against the plain tick, a per-flow gamma, a
-batch with per-scenario law constants, and DCQCN's ``powf`` against
-``torch.pow``;
+each of K4's eight classic and PowerTCP laws against the plain tick, a
+per-flow gamma, a batch with per-scenario law constants, and DCQCN's
+``powf`` against ``torch.pow``; K4 evaluating two circuit schedules in
+its body (Fig. 8's slots 0 and 6, a block each) for the PowerTCP laws,
+HPCC and reTCP (its own schedule and prebuffer), and a schedule shared
+by the batch, against the plain tick, and its schedule evaluation
+against ``circuit_bw_at`` over Fig. 8's 4 weeks; K1/K2's observe form
+and K3 with a bandwidth row per scenario;
 K1/K2's observe form (``powertcp_observe_step``,
 ``theta_powertcp_observe_step``) bit for bit against its plain version
 at the main path's shapes (S = 384, P = 2 406, B = 2 x 128, and a ragged
@@ -439,6 +444,130 @@ def test_megakernel_law_without_k4_raises_on_cuda(cuda_device):
     with pytest.raises(NotImplementedError, match="no K4 path"):
         tc.simulate_slots(topo, sched, other, 6, backend="megakernel",
                           device=cuda_device)
+
+
+# -------------------------------------------------------------------------
+# time-varying bandwidth (Fig. 8): K4's circuit schedule and reTCP, K1-K3
+# with a bandwidth per scenario
+# -------------------------------------------------------------------------
+
+def _fig8_grid(tc, law, pb, device, steps):
+    """Fig. 8's first ``steps`` ticks as the megakernel runs one law
+    group: slots 0 and 6 stacked, (topo, schedules, cfg, law config,
+    bw_params)."""
+    topo, flows, cfg, scheds = sup.fig8_scenario(tc, device=device)
+    sch = tc.make_schedule(flows)
+    _, lcfg, bwp = sup.fig8_group(tc, law, (pb,), sch, scheds,
+                                  device=device)
+    sb = tc.stack_flow_schedules([sch] * 2, topo.num_queues)
+    return topo, sb, cfg._replace(steps=steps), lcfg, bwp
+
+
+FIG8_K4_CASES = [("powertcp", None, True), ("theta_powertcp", None, True),
+                 ("hpcc", None, True), ("retcp", 1800e-6, True),
+                 ("retcp", 600e-6, True), ("powertcp", None, False),
+                 ("retcp", 600e-6, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law,pb,gate", FIG8_K4_CASES)
+def test_fused_tick_block_kernel_circuit_schedule(cuda_device, law, pb,
+                                                  gate):
+    """K4 evaluating two different circuit schedules (slots 0 and 6) in
+    its body, a block each, with reTCP's own schedule and prebuffer, over
+    Fig. 8's first 2 000 ticks (both schedules' first edges): every carry
+    leaf bit for bit the plain block of the batch, K = 64 and a ragged
+    K = 7."""
+    import repro_torch.core as tc
+    topo, sb, cfg, lcfg, bwp = _fig8_grid(tc, law, pb, cuda_device, 2000)
+    sup.k4_grid_against_plain(tc, topo, sb, cfg, law, 8, (64, 7), gate=gate,
+                              law_cfg=lcfg, bw_fn=tc.circuit_bw_at,
+                              bw_params=bwp)
+
+
+@pytest.mark.cuda
+def test_fused_tick_block_kernel_shared_schedule(cuda_device):
+    """One scenario with ``CircuitSchedule(slot=6).bw_fn()`` as its
+    bandwidth and reTCP reading slot 0's schedule (the two need not be
+    the same), against the plain tick."""
+    import repro_torch.core as tc
+    topo, flows, cfg, scheds = sup.fig8_scenario(tc, device=cuda_device)
+    sch = tc.make_schedule(flows)
+    lcfg = tc.default_law_config(sch, expected_flows=32.0,
+                                 sched=scheds[0].params(cuda_device),
+                                 retcp_prebuffer=600e-6)
+    sup.k4_against_plain(tc, topo, sch, cfg._replace(steps=2000), "retcp",
+                         8, (64,), law_cfg=lcfg,
+                         bw_fn=scheds[1].bw_fn(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot", [0, 6, 11, 23])
+def test_fused_tick_schedule_is_circuit_bw_at(cuda_device, slot):
+    """K4's schedule evaluation (``fused_tick.schedule``, compiled with
+    K4's flags) over every tick of Fig. 8's 4 weeks: the VOQ's rate equal
+    to ``circuit_bw_at``'s on the card, and reTCP's scaling flag to
+    ``circuit_up(t + prebuffer) | circuit_up(t)``, for each prebuffer."""
+    import repro_torch.core as tc
+    from repro_torch.core import rdcn
+    from repro_torch.kernels import fused_tick as ft
+    _, _, cfg, _ = sup.fig8_scenario(tc, device=cuda_device)
+    T = cfg.steps
+    sc = tc.CircuitSchedule(slot=slot)
+    p = sc.params(cuda_device)
+    t = torch.arange(T, dtype=torch.int32, device=cuda_device).to(
+        torch.float32) * np.float32(cfg.dt)
+    for pb in (0.0, 600e-6, 1800e-6):
+        sched = torch.stack(list(p))[None].contiguous()
+        bw, on = ft.schedule(sched, 0, T, cfg.dt, torch.full(
+            (1,), pb, dtype=torch.float32, device=cuda_device))
+        torch.testing.assert_close(bw[0], tc.circuit_bw_at(t, p)[:, 0],
+                                   rtol=0, atol=0)
+        want = (tc.circuit_up(rdcn._plus_prebuffer(t, pb), p)
+                | tc.circuit_up(t, p))
+        assert torch.equal(on[0].bool(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["powertcp", "theta_powertcp"])
+def test_observe_and_queue_kernels_take_a_bandwidth_per_scenario(
+        cuda_device, law):
+    """K1/K2's observe form and K3 with a [B, Q+1] bandwidth: rows that
+    differ by scenario against the plain version bit for bit (K3 at its
+    tolerance), and rows equal to the shared [Q+1] vector bit for bit the
+    shared call (stride 0)."""
+    import repro_torch.core as tc
+    from repro_torch.core import fluid
+    inp = sup.observe_inputs("slot", 2, 128, N=2436, seed=5)
+    law_b, static, cfg, x = sup.observe_tick(tc, inp, law, cuda_device)
+    fn, plain = tc.observe_step(law_b), _observe_plain(law)
+    shared = x.bw
+    rows = torch.stack([shared, torch.cat([shared[:-1] * 4.0,
+                                           shared[-1:]])])
+    for bw in (rows, shared.expand(2, -1).contiguous()):
+        xb = x._replace(bw=bw, b_hop=fluid._hop_bw(bw, x.path))
+        got = sup.tree_leaves(fn(law_b, static, cfg, xb))
+        for (_, g), (_, w) in zip(got, sup.tree_leaves(
+                plain(law_b, static, cfg, xb))):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    for (_, g), (_, w) in zip(got, sup.tree_leaves(
+            fn(law_b, static, cfg, x._replace(bw=shared)))):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    q = _on(sup.queue_inputs(3, 128, 289, seed=2), cuda_device)
+    kw = {k: torch.stack([v, v]) for k, v in q.items()}
+    kw["caps"] = q["caps"]
+    for out_rate in (torch.stack([q["out_rate"], q["out_rate"] * 4.0]),
+                     torch.stack([q["out_rate"]] * 2)):
+        got = queue_arrivals(**dict(kw, out_rate=out_rate),
+                             dt=sup.QUEUE_DT)
+        want = ref.queue_arrivals_ref(**dict(kw, out_rate=out_rate),
+                                      dt=sup.QUEUE_DT)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+    same = queue_arrivals(**dict(kw, out_rate=q["out_rate"]),
+                          dt=sup.QUEUE_DT)
+    for g, w in zip(got, same):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 # -------------------------------------------------------------------------

@@ -199,9 +199,6 @@ def test_unported_arguments_raise():
     import repro_torch.core as tc
     topo, flows, lcfg, cfg = sup.golden_scenario(tc, device="cpu")
     sched = tc.make_schedule(flows)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tc.simulate(topo, flows, "powertcp", lcfg, cfg,
-                    bw_fn=lambda t: None, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         tc.simulate_slots(topo, sched, "powertcp", 4, impair=object(),
                           device="cpu")

@@ -364,7 +364,7 @@ def test_sparse_queue_update_equals_reference_update():
     # the engine's queue update takes a batch: a batch of one
     inv, _ = build_csr_gather(path[None], Q, 16 * 3)
     ref = fluid._queue_update(topo, 1e-6, "reference", None, inv, q[None],
-                              lam[None], valid[None], static)
+                              lam[None], valid[None], static, static.bw)
     got = queue_arrivals_sparse(lam, path, valid, q, static.bw,
                                 fluid._buffer_caps(topo, q, static), dt=1e-6)
     for a, b in zip(got, ref):

@@ -12,7 +12,9 @@
   rebuilds its scenario (the constants of ``tools/gen_golden.py``) in
   either package.
 * seeded kernel inputs and the paper scenario's constants, shared by the
-  tests and ``chip_smoke.py``; ``smoke_slots_pool`` (the slot pool of
+  tests and ``chip_smoke.py``; Fig. 8's scenario and grid
+  (``fig8_scenario``, ``fig8_group``, ``fig8_metrics``; ``FIG8_REF``, the
+  reference metrics of ``repro``'s run); ``smoke_slots_pool`` (the slot pool of
   ``benchmarks/run.py::smoke_slots``) and ``SMOKE_REF``, the reference
   FCTs of its batched runs; ``observe_inputs`` / ``observe_tick`` (one
   tick's inputs to K1/K2's observe form); ``k4_against_plain`` and
@@ -176,6 +178,87 @@ def fig6_scenario(core, **dev):
                          update_period=2e-6)
     return (fab.topology(**dev), sched, cfg,
             int(core.suggest_slots(sched, PAPER_DT)))
+
+
+# benchmarks/fig8_rdcn.py (claim C5): ``rdcn_setup(weeks=4, slots=(0, 6))``
+# — 8 flows at 25G into one VOQ, 4 weeks of 1 us ticks — and
+# ``rdcn_specs``' grid: the three window laws and reTCP at both
+# prebuffers, each law one group whose scenarios are its (prebuffer,
+# schedule) pairs, prebuffer-major (``repro.core.sweep.expand``'s order)
+FIG8_REF = os.path.join(HERE, "golden", "torch_port_fig8.json")
+FIG8_SLOTS = (0, 6)
+FIG8_WEEKS = 4
+FIG8_PREBUFFERS = (1800e-6, 600e-6)
+FIG8_EXPECTED_FLOWS = 32.0
+FIG8_GROUPS = (("powertcp", (None,)), ("theta_powertcp", (None,)),
+               ("hpcc", (None,)), ("retcp", FIG8_PREBUFFERS))
+
+
+def fig8_scenario(core, weeks=FIG8_WEEKS, **dev):
+    """(topo, flows, cfg, schedules) of ``rdcn_setup`` in either
+    package."""
+    scheds = [core.CircuitSchedule(slot=s) for s in FIG8_SLOTS]
+    topo = core.voq_topology(scheds[0], **dev)
+    dt = 1e-6
+    flows = core.make_flows_single(8, tau=24e-6, nic=25 * 12.5e8,
+                                   sim_dt=dt, **dev)
+    cfg = core.SimConfig(dt=dt, steps=int(weeks * scheds[0].week / dt),
+                         hist=256, update_period=0.0)
+    return topo, flows, cfg, scheds
+
+
+def fig8_point_name(law, prebuffer) -> str:
+    """``fig8_rdcn.point_name``: reTCP's rows carry their prebuffer."""
+    if prebuffer is None:
+        return law
+    return f"retcp_{int(round(prebuffer * 1e6))}us"
+
+
+def fig8_group(core, law, prebuffers, src, scheds, **dev):
+    """One law group of the grid as ``run_sweep`` builds it: (the points
+    [(name, schedule slot)], the stacked law config, the stacked
+    schedules ``bw_params``), a scenario per (prebuffer, schedule). Each
+    config is the paper default over ``src`` (the flows or their
+    schedule) with ``expected_flows`` 32, the scenario's schedule as
+    ``sched`` and its prebuffer."""
+    pts, cfgs, sch = [], [], []
+    for pb in prebuffers:
+        for sc in scheds:
+            kw = {} if pb is None else {"retcp_prebuffer": pb}
+            cfgs.append(core.default_law_config(
+                src, expected_flows=FIG8_EXPECTED_FLOWS,
+                sched=sc.params(**dev), **kw))
+            pts.append((fig8_point_name(law, pb), sc.slot))
+            sch.append(sc)
+    return pts, core.stack_law_configs(cfgs), core.stack_schedules(sch,
+                                                                   **dev)
+
+
+def fig8_metrics(core, rec, sched, first=None) -> dict:
+    """``fig8_rdcn.point_metrics`` of one scenario's record (circuit
+    utilization and p99 queuing latency in s) and the mean queue, over
+    the first ``first`` ticks (default all)."""
+    n = first or int(rec.t.shape[0])
+    t, q, thru = rec.t[:n], rec.q[:n, 0], rec.thru[:n, 0]
+    if isinstance(q, torch.Tensor):
+        # the eager engines keep the record's times on the host
+        t = t.to(q.device)
+    util = core.circuit_utilization(t, thru, sched)
+    p99 = core.queuing_latency_percentile(q, t, sched, 99.0)
+    qh = np.asarray(q.cpu() if isinstance(q, torch.Tensor) else q)
+    return {"util": util, "p99_s": p99, "mean_q": float(qh.mean())}
+
+
+def fig8_claims(rows: dict) -> bool:
+    """``fig8_rdcn.run``'s claims over the slot-0 rows (``fig8_metrics``;
+    the latencies compared in us, as ``run`` compares them)."""
+    us = {k: v["p99_s"] * 1e6 for k, v in rows.items()}
+    p = rows["powertcp"]
+    return bool(p["util"] >= 0.85
+                and us["powertcp"] * 2 <= us["retcp_1800us"]
+                and us["powertcp"] * 2 <= us["retcp_600us"]
+                and p["util"] >= rows["hpcc"]["util"]
+                and us["powertcp"] <= 0.6 * us["hpcc"])
 
 
 def smoke_slots_pool(starts, fcts, max_tf, peak_concurrency,
@@ -390,7 +473,8 @@ def observe_tick(tc, inp, law, device="cpu"):
         t=inp["t"], t_sec=inp["t_sec"], ptr=inp["t"] % inp["D"],
         hist_q=on("hist_q"), hist_out=on("hist_out"), hist_w=on("hist_w"),
         rows=torch.arange(F, device=dev), path=path,
-        valid=path < inp["Q"], b_hop=bw[path], tf_steps=on("tf_steps"),
+        valid=path < inp["Q"], bw=bw, b_hop=bw[path],
+        tf_steps=on("tf_steps"),
         rtt_steps=on("rtt_steps"), tau=on("tau"), nic=on("nic"),
         theta_now=on("theta_now"), active=on("active"), w=on("w"),
         rate_cap=torch.full((B, F), float("inf"), device=dev),
@@ -471,7 +555,7 @@ def plain_ticks(tick, carry, due):
 
 def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
                      expected_flows=8.0, maxdeg=None, overflows=None,
-                     law_cfg=None):
+                     law_cfg=None, bw_fn=None):
     """K4 against the plain megakernel tick on the card, from the same
     initial carry, for each K in ``blocks``: every carry leaf bit for bit
     (the gather table ``inv`` and its flag ``ovf`` included), and the
@@ -484,7 +568,8 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
     Returns (the largest absolute difference in the two sums — every other
     value is equal —, the number of ticks with the table overflowed, the
     largest number of contributors of a queue at the end). ``law_cfg``
-    (one scenario's) replaces the default config."""
+    (one scenario's) replaces the default config; ``bw_fn`` (one
+    scenario's) is the run's time-varying bandwidth."""
     from repro_torch.core import fluid, megakernel as mk
     from repro_torch.kernels.queue_arrivals import max_degree
     dev = sched.start.device
@@ -492,7 +577,7 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
         topo, tc.batch_of_one(sched), law, slots,
         None if law_cfg is None else tc.batch_of_one(law_cfg), cfg=cfg,
         backend="megakernel", device=dev, expected_flows=expected_flows)
-    tick = mk.make_tick(sim, maxdeg=maxdeg)
+    tick = mk.make_tick(sim, maxdeg=maxdeg, bw_fn=bw_fn)
     carry0 = tick.init_carry(fluid.init_slot_state(sim))
     due = torch.as_tensor(mk._due_table(sim.sched, int(cfg.steps), cfg.dt),
                           device=dev)
@@ -526,7 +611,8 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
 
 
 def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
-                          gate=True, expected_flows=8.0, law_cfg=None):
+                          gate=True, expected_flows=8.0, law_cfg=None,
+                          bw_fn=None, bw_params=None):
     """K4's grid form against the plain block on the card: a batch of
     schedules ``sched`` ([B, N, ...], ``fluid.stack_flow_schedules``), one
     K4 block per scenario, against the plain tick of the batch, both with
@@ -534,14 +620,16 @@ def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
     carry leaf bit for bit, and the records; their sums ``w_sum`` and
     ``lam`` at rtol 1e-5 (K4 adds them in its block order). ``law_cfg``
     (stacked, as ``stack_law_configs`` builds it) replaces the default
-    config. Returns the largest absolute difference in those sums."""
+    config; ``bw_fn``/``bw_params`` are the batch's time-varying
+    bandwidth (``simulate_slots_batch``'s). Returns the largest absolute
+    difference in those sums."""
     from repro_torch.core import fluid, megakernel as mk
     dev = sched.start.device
     sim = fluid.make_slot_sim(topo, sched, law, slots, law_cfg, cfg=cfg,
                               backend="megakernel", device=dev,
                               expected_flows=expected_flows)
     T = int(cfg.steps)
-    grid = mk.make_tick(sim, gate=gate)
+    grid = mk.make_tick(sim, gate=gate, bw_fn=bw_fn, bw_params=bw_params)
     carry0 = grid.init_carry(fluid.init_slot_state(sim))
     due = torch.as_tensor(mk._due_table(sim.sched, T, cfg.dt), device=dev)
     want, wrec = mk.run_blocks(grid, tree_clone(carry0), due, T, "torch")
@@ -568,7 +656,7 @@ def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
 
 
 def k4_against_reference(tc, topo, sched, cfg, law, slots,
-                         expected_flows=8.0):
+                         expected_flows=8.0, law_cfg=None):
     """``simulate_slots_batch`` with ``backend="megakernel"`` (K4 on the
     card) against the eager ``backend="reference"`` slot engine over
     ``cfg.steps`` ticks of one schedule: the final carry's windows, rate
@@ -577,11 +665,13 @@ def k4_against_reference(tc, topo, sched, cfg, law, slots,
     megakernel retires a drained slot on the tick it drains, the
     reference on the next admission, which changes no trajectory), and
     the records; their per-tick sums ``w_sum`` and ``lam`` at rtol 1e-5
-    (K4 adds them in its own order). Returns the number of flows
+    (K4 adds them in its own order). ``law_cfg`` (one scenario's)
+    replaces the default config. Returns the number of flows
     completed."""
     runs = [tc.simulate_slots_batch(
-        topo, tc.batch_of_one(sched), law, slots, cfg=cfg, backend=b,
-        expected_flows=expected_flows, device=sched.start.device)
+        topo, tc.batch_of_one(sched), law, slots,
+        None if law_cfg is None else tc.batch_of_one(law_cfg), cfg=cfg,
+        backend=b, expected_flows=expected_flows, device=sched.start.device)
         for b in ("megakernel", "reference")]
     (got, grec), (want, wrec) = runs
     for f in ("w", "rate_cap", "q", "out_rate", "remaining", "next_update",
