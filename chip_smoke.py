@@ -102,10 +102,12 @@ exit, traceback) if anything in it is wrong:
    arrivals + 40 ms drain (130 000 ticks of 1 us, seed 1, 7 126 flows),
    the pool from ``suggest_slots`` (448 slots). First DCQCN's ``powf`` in
    K4's build against ``torch.pow`` over DCQCN's inputs (the same bits,
-   or the phase fails); then each of K4's nine laws (``powertcp``,
+   or the phase fails); then each of K4's 13 laws (``powertcp``,
    ``theta_powertcp``, ``hpcc``, ``swift``, ``gradient_mimd``, ``timely``,
-   ``dcqcn``, ``reno``, and ``retcp`` with Fig. 8's slot-0 circuit
-   schedule and a 600 us prebuffer over the fabric's static rates) held
+   ``dcqcn``, ``reno``, ``retcp`` with Fig. 8's slot-0 circuit
+   schedule and a 600 us prebuffer over the fabric's static rates, and
+   the feedback-channel laws ``fncc``, ``pulser``, ``backpressure`` and
+   ``pcc``) held
    bit for bit to the plain megakernel tick
    over the first 3 launches and to the eager reference slot engine
    (``simulate_slots_batch``, ``backend="reference"``) over the first
@@ -120,7 +122,10 @@ exit, traceback) if anything in it is wrong:
    (``tests/golden/torch_port_fig6_paper.json``: the same completion set,
    short-flow p99.9 within 1e-3); prints the short, medium and long p99.9
    and ``claims_hold`` (the four orderings of ``run_paper_scale``), which
-   must equal ``repro``'s;
+   must equal ``repro``'s; then the four feedback-channel laws through the
+   same entry point (2 032 K4 launches each), each held to ``repro``'s
+   FCTs of the same run (``tests/golden/torch_port_feedback.json``'s
+   ``paper``: the same completion set, short-flow p99.9 within 1e-3);
 6d. fig8: ``benchmarks/fig8_rdcn.py::run(quick=False)`` on the port, the
    RDCN case study (claim C5) at full size: 8 flows at 25G into one VOQ
    whose rate follows an optical-circuit schedule (100G for 225 us of
@@ -147,6 +152,27 @@ exit, traceback) if anything in it is wrong:
    (``smoke_rdcn``'s gate) and p99 within rtol 1e-3; (v) K4 timed over
    each group's whole run (every launch, CUDA events; the bound of every
    4th launch from ``k4_cost``);
+6e. feedback: ``benchmarks/feedback_fct.py::run(quick=False)`` on the port,
+   the four feedback-channel laws against the receiver-echo baselines on
+   the k = 4 fat-tree (16 hosts, 80 queues, 5-hop inter-pod ECMP paths):
+   the web-search leg (``fabric_fct.anchor_scenario(load=0.25,
+   duration=0.004)``: seed 3, 37 flows, 8 000 ticks, the pool from
+   ``suggest_slots``) and the incast leg (``incast_scenario``: three
+   bursts of fan-in 8 x 200 kB, 2 ms apart, 24 flows, 9 000 ticks, a slot
+   per flow). (i) Each of ``fncc``, ``pulser``, ``backpressure`` and
+   ``pcc`` with both legs as one batch (a slot per flow of the larger
+   leg): K4 with ``gate`` True and False bit for bit the plain tick and
+   the eager reference slot engine over the first 2 000 ticks (the
+   carry, the pause and sender-count rings included); (ii) the seven laws
+   of ``run`` (the four, ``powertcp``, ``hpcc``, ``timely``) over each
+   leg's whole run through ``simulate_slots_batch(backend="megakernel",
+   expected_flows=8.0)`` (125 and 141 K4 launches and nothing else), each
+   with ``repro``'s completion set and every FCT within rtol 1e-5 of
+   ``repro``'s (``tests/golden/torch_port_feedback.json``), and ``run``'s
+   verdict (every run's mean FCT defined) equal to ``repro``'s; one
+   ``{"feedback": {...}}`` line; (iii) each feedback law's K4 timed over
+   each leg's whole run (every launch, CUDA events; the bound of every
+   4th launch from ``k4_cost``; the plain block at the middle launch);
 
 7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
    plain PyTorch versions at the serve run's shapes (K5: prefill q
@@ -206,8 +232,10 @@ third pass of one tick per launch). K4 runs one block per scenario: a
 batch is one launch of B blocks that share nothing.
 
 It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms;
-the TPU form's main-path launches are 0; K4's entry carries each law's
-phase-6c times under ``laws`` and each Fig. 8 group's under ``fig8``),
+the TPU form's main-path launches are 0; K4's entry carries each of its
+13 laws' phase-6c times under ``laws``, each Fig. 8 group's under
+``fig8`` and each feedback law's on each fat-tree leg under
+``feedback``),
 the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
 no result, when CUDA is not available or the checkout's sources are
@@ -726,12 +754,15 @@ def k4_pool(carry, fluid, bw, law, dt):
     ``hist_lam`` back to its longest hop delay tf and of ``hist_w`` back
     to its window delay wd (from the delayed queue observation, as the
     tick computes it); per queue, the rows of the packed ``hist_q`` back
-    to the longest feedback delay tb of a hop on it, as many columns as
-    the law reads (``fused_tick.TELEMETRY``: PowerTCP 3, HPCC 2, the
-    others 1). Also the admission cursor, the FCTs written so far, the
-    gather table's live entries, the slots in use and the overflow
-    flag."""
+    to the longest feedback delay tb of a hop on it (the hop clock's tf
+    for congestion-point feedback), as many columns as the law reads
+    (``fused_tick.TELEMETRY``: PowerTCP 3, HPCC, FNCC, pulser and
+    backpressure 2, the others 1). Also the admission cursor, the FCTs
+    written so far, the gather table's live entries, the slots in use and
+    the overflow flag."""
     import torch
+    from repro_torch.core.fluid import feedback_delay
+    from repro_torch.core.laws import LAWS
     from repro_torch.kernels.fused_tick import TELEMETRY
     st = carry.state
     N = int(st.fct.shape[0]) - 1
@@ -740,7 +771,7 @@ def k4_pool(carry, fluid, bw, law, dt):
     occ = st.slot_flow < N
     valid = st.path < Q
     live = valid & occ[:, None]
-    tb = torch.clamp(st.rtt_steps[:, None] - st.tf_steps, 1, D - 2)
+    tb = feedback_delay(LAWS[law], st.tf_steps, st.rtt_steps, D)
     q_back = torch.zeros(Q + 1, dtype=torch.int32, device=tb.device)
     q_back.scatter_reduce_(0, st.path.flatten().long(),
                            torch.where(live, tb, 0).flatten(), "amax")
@@ -758,15 +789,18 @@ def k4_pool(carry, fluid, bw, law, dt):
 
 
 # K4's flops by law, counted from csrc/fused_tick.cu: per slot-hop, the
-# law's telemetry (PowerTCP's normalized power; HPCC's utilization; the
-# ECN marking); per slot, the law's update beyond PowerTCP's, which the
-# base ~34 a slot includes (DCQCN's powf taken as ~20; reTCP's floor of
-# its base window and circuit multiplier 2)
+# law's telemetry (PowerTCP's normalized power; HPCC's and FNCC's
+# utilization; the ECN marking; pulser's count, fair rate and its min;
+# backpressure's pause max); per slot, the law's update beyond PowerTCP's,
+# which the base ~34 a slot includes (DCQCN's powf taken as ~20; reTCP's
+# floor of its base window and circuit multiplier 2; PCC's five probes,
+# 7 each, and its excess, penalty and clip)
 K4_HOP_FLOPS = {"powertcp": 8, "hpcc": 6, "dcqcn": 6, "reno": 6,
-                "retcp": 6}
+                "retcp": 6, "fncc": 6, "pulser": 4, "backpressure": 1}
 K4_SLOT_FLOPS = {"powertcp": 0, "theta_powertcp": 5, "hpcc": 6,
                  "swift": 0, "gradient_mimd": 2, "timely": 14,
-                 "dcqcn": 36, "reno": 0, "retcp": 2}
+                 "dcqcn": 36, "reno": 0, "retcp": 2, "fncc": 2,
+                 "pulser": 4, "backpressure": 3, "pcc": 43}
 
 
 def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post):
@@ -781,18 +815,22 @@ def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post):
     the admitted flows read. Rows a launch writes and then reads are its
     own and cost nothing more. The slot vectors are the carry's 16 and
     the law's state (``fused_tick.LAW_STATE``), read and written, and its
-    per-slot config (``LAW_CONFIG``), read. Flops per tick: per slot-hop
+    per-slot config (``LAW_CONFIG``), read; a ring row is as wide as the
+    law's channels (``fused_tick.ring_channels``), and backpressure's
+    pause state is read and written. Flops per tick: per slot-hop
     ~6 for theta_now and theta_obs, plus the law's per-hop telemetry
     (``K4_HOP_FLOPS``); per slot ~34 (rate, PowerTCP's update, clamp,
     progress) plus the rest of the law's update (``K4_SLOT_FLOPS``); per
     valid hop one arrival add; per
     queue ~10 (caps, integration, gradient); per switch its fold."""
-    from repro_torch.kernels.fused_tick import LAW_CONFIG, LAW_STATE
+    from repro_torch.kernels.fused_tick import (LAW_CONFIG, LAW_STATE,
+                                                PAUSE_LAWS, ring_channels)
     admitted = post["cursor"] - pre["cursor"]
     inv = max(pre["inv"], post["inv"])
     words = (2 * S * (2 * H + 16 + len(LAW_STATE[law]))
-             + S * len(LAW_CONFIG[law]) + 4 * Q1
-             + K * (2 * S + 3 * Q1)
+             + S * len(LAW_CONFIG[law])
+             + (6 if law in PAUSE_LAWS else 4) * Q1
+             + K * (2 * S + ring_channels(law) * Q1)
              + sum(max(pre[k], post[k]) for k in ("lam", "q", "w"))
              + inv * (2 if admitted else 1) + post["fct"] - pre["fct"]
              + 3 * Q1 + nsw * (swdeg + 1) + K + admitted * (2 * H + 10))
@@ -850,15 +888,14 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
                         hist=sref["hist"],
                         update_period=sref["update_period_s"])
     for law in ("powertcp", "theta_powertcp"):
-        for gate in (True, False):
-            e = sup.k4_grid_against_plain(
-                tc, stopo, sb, scfg, law, sref["slots"], (64,), gate=gate,
-                expected_flows=sref["expected_flows"])
-            err = max(err, e)
-            log(f"[k4] {law}: grid of 2 blocks (seeds "
-                f"{[x['seed'] for x in sref['scenarios']]}), first "
-                f"{paper_ticks} ticks, S={sref['slots']}, gate={gate}: "
-                f"bitwise equal to each scenario's plain block")
+        e = sup.k4_grid_against_plain(
+            tc, stopo, sb, scfg, law, sref["slots"], (64,),
+            k4_gates=(True, False), expected_flows=sref["expected_flows"])
+        err = max(err, e)
+        log(f"[k4] {law}: grid of 2 blocks (seeds "
+            f"{[x['seed'] for x in sref['scenarios']]}), first "
+            f"{paper_ticks} ticks, S={sref['slots']}, gate True and False: "
+            f"bitwise equal to each scenario's plain block")
     row = k4_timing(torch, tc, sup, dev, ref, ptopo, psched)
     row["max_abs_err"] = err
     return row
@@ -1636,6 +1673,40 @@ def phase_fig6(torch, tc, kernels, sup, dev, smi):
             f"{summ['p999_rel_err']:.3g}), medium "
             f"{stats[law]['med_p999_us']!r}, long "
             f"{stats[law]['long_p999_us']!r}; launches {counts}")
+    # the four feedback laws through the entry point, against repro's
+    # FCTs of the same run
+    with open(sup.FEEDBACK_REF) as f:
+        fref = json.load(f)["paper"]
+    if fref["n_flows"] != n or fref["slots"] != slots or \
+            fref["schedule_sha256"] != ref["schedule_sha256"]:
+        raise AssertionError("the feedback reference's paper run differs "
+                             "from the port's fig6 schedule or pool")
+    for law in sup.FEEDBACK_LAWS:
+        (st, _), wall, counts = timed_run(
+            torch, kernels, f"6c {law}", want,
+            lambda law=law: tc.simulate_slots_batch(
+                topo, sb, law, slots, cfg=cfg, record=False,
+                backend="megakernel",
+                expected_flows=sup.PAPER_EXPECTED_FLOWS, device=dev))
+        for k, c in counts.items():
+            launches[k] += c
+        fct = st.fct[0, :n].double().cpu().numpy()
+        ref_fct = np.array([np.nan if x is None else x
+                            for x in fref["fct_s"][law]])
+        summ = compare_fct(f"6c {law}", fct, ref_fct, sizes)
+        fst = sup.fig6_stats(fct.astype(np.float32), sizes)
+        summ.update(run=f"6c {law}", law=law, wall_s=wall,
+                    us_per_tick=wall / cfg.steps * 1e6, launches=counts,
+                    **{k: fst[k] for k in ("short_p999_us", "med_p999_us",
+                                           "long_p999_us")})
+        summaries.append(summ)
+        log(f"[fig6] {law} megakernel, {cfg.steps} ticks, {slots} slots: "
+            f"wall {wall:.3f} s ({summ['us_per_tick']:.3f} us/tick), "
+            f"completed {summ['completed']}/{n} (the reference's set), "
+            f"p99.9 short {fst['short_p999_us']!r} us (reference "
+            f"{fref['stats'][law]['short_p999_us']!r}, rel err "
+            f"{summ['p999_rel_err']:.3g}), medium {fst['med_p999_us']!r}, "
+            f"long {fst['long_p999_us']!r}; launches {counts}")
     claims = sup.fig6_claims(stats)
     log(f"[fig6] claims_hold {claims} (reference {ref['claims_hold']})")
     if claims != ref["claims_hold"]:
@@ -1847,6 +1918,126 @@ def phase_fig8(torch, tc, kernels, sup, dev, smi):
                           for n in out},
         "fused_first_week": fused_dev}}))
     log(f"[fig8] phase 6d: {time.perf_counter() - t0:.1f} s")
+    return launches, rows, err
+
+
+# -------------------------------------------------------------------------
+# phase 6e: benchmarks/feedback_fct.py::run (the feedback-channel laws on
+# the k = 4 fat-tree) on K4
+# -------------------------------------------------------------------------
+
+# ticks over which each feedback law's K4 run is held to the plain tick
+# and the eager reference slot engine
+FEEDBACK_CHECK_TICKS = 2000
+# a run's FCTs against repro's
+FEEDBACK_RTOL = 1e-5
+
+
+def phase_feedback(torch, tc, kernels, sup, dev, smi):
+    """Phase 6e: ``benchmarks/feedback_fct.py::run`` (quick=False) on K4
+    (see the module docstring). Returns (launches, K4's rows by law and
+    leg, the error in the record sums)."""
+    with open(sup.FEEDBACK_REF) as f:
+        ref = json.load(f)
+    t0 = time.perf_counter()
+    legs = {}
+    for leg in sup.FEEDBACK_LEGS:
+        topo, sched, cfg, slots, bqs = sup.feedback_scenario(tc, leg,
+                                                             device=dev)
+        w = ref["legs"][leg]
+        got = (int(sched.start.shape[0]), slots, cfg.steps, list(bqs),
+               sup.schedule_checksum(sched.size.cpu().numpy(),
+                                     sched.start.cpu().numpy()))
+        if got != (w["n_flows"], w["slots"], w["steps"], w["victim_queues"],
+                   w["schedule_sha256"]):
+            raise AssertionError(f"6e {leg}: the port's scenario {got[:4]} "
+                                 f"differs from the reference's")
+        legs[leg] = (topo, sched, cfg, slots)
+    topo = legs["ws"][0]
+    # (i) each feedback law's K4 on the fat tree, both legs as one batch
+    # (a slot per flow of the larger leg), gate True and False, against
+    # the plain tick and the eager reference slot engine
+    sb = tc.stack_flow_schedules([legs[g][1] for g in sup.FEEDBACK_LEGS],
+                                 topo.num_queues)
+    S = max(legs[g][3] for g in sup.FEEDBACK_LEGS)
+    ccfg = legs["ws"][2]._replace(steps=FEEDBACK_CHECK_TICKS)
+    err = 0.0
+    for law in sup.FEEDBACK_LAWS:
+        c0 = time.perf_counter()
+        err = max(err, sup.k4_grid_against_plain(
+            tc, topo, sb, ccfg, law, S, (64,), k4_gates=(True, False),
+            expected_flows=sup.FEEDBACK_EXPECTED_FLOWS))
+        done = sup.k4_batch_against_reference(
+            tc, topo, sb, ccfg, law, S,
+            expected_flows=sup.FEEDBACK_EXPECTED_FLOWS, gates=(True, False))
+        log(f"[feedback] {law}: K4 (both legs, B=2, S={S}, H=5, gate True "
+            f"and False) bitwise equal to the plain tick and to the eager "
+            f"reference slot engine over {FEEDBACK_CHECK_TICKS} ticks "
+            f"({done} flows done) ({time.perf_counter() - c0:.1f} s)")
+    # (ii) the seven laws of run through the entry point, each leg whole
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    stats, runs = [], []
+    for leg, (topo, sched, cfg, slots) in legs.items():
+        n = int(sched.start.shape[0])
+        sizes = sched.size.double().cpu().numpy()
+        sbl = tc.stack_flow_schedules([sched], topo.num_queues)
+        for law in sup.FEEDBACK_LAWS + sup.FEEDBACK_BASELINES:
+            (st, _), wall, counts = timed_run(
+                torch, kernels, f"6e {leg} {law}",
+                expected_launches(law, "megakernel", cfg.steps),
+                lambda law=law: tc.simulate_slots_batch(
+                    topo, sbl, law, slots, cfg=cfg, record=False,
+                    backend="megakernel",
+                    expected_flows=sup.FEEDBACK_EXPECTED_FLOWS, device=dev))
+            for k, c in counts.items():
+                launches[k] += c
+            fct = st.fct[0, :n].double().cpu().numpy()
+            want = ref["legs"][leg]["runs"][law]
+            ref_fct = np.array([np.nan if x is None else x
+                                for x in want["fct_s"]])
+            done = np.isfinite(fct)
+            if not np.array_equal(done, np.isfinite(ref_fct)):
+                raise AssertionError(f"6e {leg} {law}: completion set "
+                                     f"differs from the reference's")
+            rel = float(np.max(np.abs(fct[done] - ref_fct[done])
+                               / ref_fct[done])) if done.any() else 0.0
+            if not rel <= FEEDBACK_RTOL:
+                raise AssertionError(f"6e {leg} {law}: FCT rel err {rel} "
+                                     f"against the reference's")
+            st_us = sup.feedback_fct_us(fct.astype(np.float32), sizes)
+            stats.append(st_us)
+            runs.append(dict(leg=leg, law=law, wall_s=wall,
+                             us_per_tick=wall / cfg.steps * 1e6,
+                             fct_max_rel_err=rel, launches=counts, **st_us))
+            log(f"[feedback] {leg} {law} megakernel, {cfg.steps} ticks, "
+                f"{slots} slots: wall {wall:.3f} s, completed "
+                f"{st_us['completed']}/{n} (the reference's set), largest "
+                f"FCT rel err {rel!r}, mean FCT {st_us['all_mean']!r} us "
+                f"(reference {want['stats']['all_mean']!r}), p99.9 "
+                f"{st_us['all_p']!r} us; launches {counts}")
+    verdict = sup.feedback_verdict(stats)
+    log(f"[feedback] run's verdict {verdict} (reference {ref['verdict']})")
+    if verdict != ref["verdict"]:
+        raise AssertionError("feedback_fct.run's verdict differs from the "
+                             "reference's")
+    log("[feedback] " + json.dumps({"feedback": {"verdict": verdict,
+                                                 "runs": runs}}))
+    # (iii) each feedback law's K4 timed over each leg's whole run
+    rows = {}
+    for leg, (topo, sched, cfg, slots) in legs.items():
+        for law in sup.FEEDBACK_LAWS:
+            row = k4_law_timing(torch, tc, sup, dev, topo, sched, cfg,
+                                slots, law)
+            row["max_abs_err"] = err
+            rows[f"{law}@{leg}"] = row
+            log(f"[feedback] time K4 {law} {leg} ({row['shape']}, "
+                f"{row['launches']} launches, the whole {cfg.steps}-tick "
+                f"run): mean {row['ms']!r} ms per launch "
+                f"({row['us_per_tick']!r} us per tick), median "
+                f"{row['ms_p50']!r}; plain block at the middle launch "
+                f"{row['plain_ms']!r} ms (bitwise equal); bound mean "
+                f"{row['bound_ms']!r} ms ({row['bound_by']}); {smi}")
+    log(f"[feedback] phase 6e: {time.perf_counter() - t0:.1f} s")
     return launches, rows, err
 
 
@@ -2259,6 +2450,14 @@ def main():
     rows["fused_tick_block"]["max_abs_err"] = max(
         rows["fused_tick_block"]["max_abs_err"], fig8_err)
     log(f"[time] + fig8: {time.perf_counter() - t0:.1f} s")
+    fb_launches, fb_rows, fb_err = phase_feedback(torch, tc, kernels, sup,
+                                                  dev, smi)
+    for k, n in fb_launches.items():
+        launches[k] += n
+    rows["fused_tick_block"]["feedback"] = fb_rows
+    rows["fused_tick_block"]["max_abs_err"] = max(
+        rows["fused_tick_block"]["max_abs_err"], fb_err)
+    log(f"[time] + feedback: {time.perf_counter() - t0:.1f} s")
     if profile:
         phase_profile(torch, tc, sup, dev, summaries)
         phase_profile_smoke(torch, tc, sup, dev, smoke_summ)

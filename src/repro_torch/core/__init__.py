@@ -1,5 +1,5 @@
 """PowerTCP core on PyTorch: control laws, power computation, fluid-model
-simulator (the main-path subset of ``repro.core``)."""
+simulator (the ported subset of ``repro.core``)."""
 from .types import (Flows, FlowSchedule, PathObs, Record, SimConfig,
                     SimState, SlotState, Topology, GBPS, KB, MB, MTU, US,
                     batch_of_one, from_numpy, pad_hops, resolve_device,
@@ -15,6 +15,8 @@ from .fluid import (FluidSim, LawTick, SlotSim, audit_carry_dtypes,
                     simulate_slots_batch, slot_step, stack_flow_schedules,
                     stack_flows, stack_law_configs, step)
 from . import backends  # noqa: F401  (registers the fused kernel backends)
+from .feedback import (FEEDBACK_LAWS, BackpressureState, FNCCState,
+                       PCCState, PulserState)
 from .megakernel import MegaCarry, PendingFCT, make_tick, simulate_slots_mega
 from .rdcn import (CircuitSchedule, ScheduleParams, circuit_bw_at,
                    circuit_up, circuit_utilization, make_retcp_law,
@@ -22,11 +24,11 @@ from .rdcn import (CircuitSchedule, ScheduleParams, circuit_bw_at,
 from .network import (LeafSpine, make_flows_single, make_schedule,
                       schedule_as_flows, single_bottleneck)
 from .fabric import (CompiledPaths, Fabric, FabricBuilder, FabricRoutes,
-                     compile_routes, ecmp_hash, leaf_spine_fabric,
+                     compile_routes, ecmp_hash, fat_tree, leaf_spine_fabric,
                      single_bottleneck_fabric)
-from .workload import (WEBSEARCH_CDF, peak_concurrency, poisson_websearch,
-                       poisson_websearch_schedule, suggest_slots,
-                       websearch_mean, websearch_sample)
+from .workload import (WEBSEARCH_CDF, incast_burst, peak_concurrency,
+                       poisson_websearch, poisson_websearch_schedule,
+                       suggest_slots, websearch_mean, websearch_sample)
 
 __all__ = [
     "Flows", "FlowSchedule", "PathObs", "Record", "SimConfig", "SimState",
@@ -40,6 +42,8 @@ __all__ = [
     "make_slot_sim", "pad_flows", "pad_schedule", "simulate",
     "simulate_batch", "simulate_slots", "simulate_slots_batch", "slot_step",
     "stack_flow_schedules", "stack_flows", "stack_law_configs", "step",
+    "FEEDBACK_LAWS", "BackpressureState", "FNCCState", "PCCState",
+    "PulserState",
     "MegaCarry", "PendingFCT", "make_tick", "simulate_slots_mega",
     "CircuitSchedule", "ScheduleParams", "circuit_bw_at", "circuit_up",
     "circuit_utilization", "make_retcp_law", "queuing_latency_percentile",
@@ -47,9 +51,9 @@ __all__ = [
     "LeafSpine", "make_flows_single", "make_schedule", "schedule_as_flows",
     "single_bottleneck",
     "CompiledPaths", "Fabric", "FabricBuilder", "FabricRoutes",
-    "compile_routes", "ecmp_hash", "leaf_spine_fabric",
+    "compile_routes", "ecmp_hash", "fat_tree", "leaf_spine_fabric",
     "single_bottleneck_fabric",
-    "WEBSEARCH_CDF", "peak_concurrency", "poisson_websearch",
+    "WEBSEARCH_CDF", "incast_burst", "peak_concurrency", "poisson_websearch",
     "poisson_websearch_schedule", "suggest_slots", "websearch_mean",
     "websearch_sample",
 ]

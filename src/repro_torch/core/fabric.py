@@ -1,7 +1,9 @@
 """Declarative fabric graph + routing compiler (twin of ``repro.core.fabric``).
 
-The leaf-spine and single-bottleneck subset; ``fat_tree``, hop-feedback
-reverse paths and per-link impairment classes come with later slices.
+The single-bottleneck, leaf-spine and fat-tree builders, and the
+reverse paths of hop-by-hop feedback (``Fabric.reverse_links``,
+``FabricRoutes.reverse_path`` / ``notify_delays``); per-link impairment
+classes come with a later slice.
 All path compilation is host numpy, bit-identical to ``repro``; only the
 emitted ``Topology``/``Flows`` are tensors, on the device asked for.
 
@@ -160,6 +162,20 @@ class Fabric:
         (a non-blocking fat-tree is injection-limited; an oversubscribed
         leaf-spine is uplink-limited)."""
         return min(self.uplink_capacity(), float(self.host_nic_rate().sum()))
+
+    def reverse_links(self) -> np.ndarray:
+        """[L] int32 id of each link's reverse link (the link declared
+        between the same node pair in the opposite direction), or -1 where
+        the fabric has none. Every builder here declares links in
+        symmetric pairs except ``single_bottleneck_fabric`` (a one-way
+        spine), where the hop-feedback derivations
+        (``FabricRoutes.reverse_path`` / ``notify_delays``) raise."""
+        idx = {(int(s), int(d)): l for l, (s, d)
+               in enumerate(zip(self.link_src, self.link_dst))}
+        out = np.full(len(self.link_src), -1, np.int32)
+        for l, (s, d) in enumerate(zip(self.link_src, self.link_dst)):
+            out[l] = idx.get((int(d), int(s)), -1)
+        return out
 
 
 class FabricBuilder:
@@ -427,6 +443,52 @@ class FabricRoutes:
         self._pairs[key] = cp
         return cp
 
+    def reverse_path(self, links) -> Tuple[int, ...]:
+        """The reverse-path walk of a forward link path: the reverse link
+        of each forward link, destination first (the order a
+        congestion-point notification travels). Raises ``ValueError`` if
+        a hop has no reverse link (a one-way fabric carries no hop
+        feedback)."""
+        rev = self.fabric.reverse_links()
+        out = []
+        for l in reversed(tuple(links)):
+            r = int(rev[int(l)])
+            if r < 0:
+                raise ValueError(
+                    f"link {int(l)} has no reverse link; fabric "
+                    f"'{self.fabric.name}' cannot route hop-by-hop "
+                    f"feedback")
+            out.append(r)
+        return tuple(out)
+
+    def notify_delays(self, src: int, dst: int) -> np.ndarray:
+        """[P, H] congestion-point notification delay of each hop of each
+        ECMP path of one pair: the reverse-path latency from hop h's
+        queue back to the sender (``Law.feedback == "hop"``). Accumulated
+        in forward hop order, in float64, as ``paths()`` accumulates
+        ``tf``, so on a symmetric fabric it equals the forward delay bit
+        for bit (the identity the engines' ``tf_steps`` hop clock rests
+        on). Padded hops keep 0. Raises on a fabric without reverse
+        links."""
+        f = self.fabric
+        rev = f.reverse_links()
+        cp = self.paths(src, dst)
+        nd = np.zeros((len(cp.links), self.H), np.float64)
+        for p, lp in enumerate(cp.links):
+            cum = 0.0
+            h = 0
+            for l in lp:
+                r = int(rev[l])
+                if r < 0:
+                    raise ValueError(
+                        f"link {l} has no reverse link; fabric "
+                        f"'{f.name}' cannot route hop-by-hop feedback")
+                if self._qid[l] >= 0:
+                    nd[p, h] = cum
+                    h += 1
+                cum = cum + float(f.link_delay[r])
+        return nd
+
     def select(self, src: np.ndarray, dst: np.ndarray,
                flow_ids: Optional[np.ndarray] = None,
                seed: Optional[int] = None):
@@ -576,7 +638,7 @@ def compile_routes(fabric: Fabric, seed: int = 0) -> FabricRoutes:
 
 
 # --------------------------------------------------------------------------
-# builders: the leaf-spine and single-bottleneck fabrics
+# builders: the single-bottleneck, leaf-spine and fat-tree fabrics
 # --------------------------------------------------------------------------
 
 def single_bottleneck_fabric(bandwidth: float = 25 * GBPS,
@@ -641,3 +703,66 @@ def leaf_spine_fabric(racks: int = 4, hosts_per_rack: int = 16,
         for h in range(H):
             b.add_link(hosts[r][h], tors[r], host_bw, d_host, queued=False)
     return b.build()
+
+
+def fat_tree(k: int = 4, host_bw: float = 25 * GBPS,
+             fabric_bw: float = 100 * GBPS, d_host: float = 1 * US,
+             d_fabric: float = 5 * US, buffer_per_port: float = 6e6,
+             switch_buffer: float = 24e6, dt_alpha: float = 1.0,
+             seed: int = 0) -> FabricRoutes:
+    """Compiled k-ary fat-tree (Al-Fares et al.): k pods of k/2 edge and
+    k/2 aggregation switches, (k/2)^2 cores, k^3/4 hosts.
+
+    Inter-pod paths are 5 queued hops (edge-up, agg-up, core-down,
+    agg-down, edge-host-down) with (k/2)^2 ECMP choices per pair;
+    intra-pod cross-edge paths are 3 hops with k/2 choices; same-edge
+    pairs take the single host-downlink hop. Queue blocks, in order:
+    edge->agg up, agg->core up, core->agg down, agg->edge down,
+    edge->host down.
+    """
+    if k < 2 or k % 2:
+        raise ValueError("fat-tree k must be even and >= 2")
+    half = k // 2
+    b = FabricBuilder("fat_tree", dt_alpha=dt_alpha)
+    # hosts: pod-major, edge-major
+    hosts = [b.add_host() for _ in range(k * half * half)]
+    edges = [[b.add_switch(TOR, switch_buffer) for _ in range(half)]
+             for _ in range(k)]
+    aggs = [[b.add_switch(AGG, switch_buffer) for _ in range(half)]
+            for _ in range(k)]
+    cores = [b.add_switch(CORE, switch_buffer) for _ in range(half * half)]
+
+    def host_id(pod, e, h):
+        return (pod * half + e) * half + h
+
+    for pod in range(k):                     # edge -> agg (up)
+        for e in range(half):
+            for a in range(half):
+                b.add_link(edges[pod][e], aggs[pod][a], fabric_bw,
+                           d_fabric, queued=True, buffer=buffer_per_port)
+    for pod in range(k):                     # agg -> core (up)
+        for a in range(half):
+            for j in range(half):
+                b.add_link(aggs[pod][a], cores[a * half + j], fabric_bw,
+                           d_fabric, queued=True, buffer=buffer_per_port)
+    for c in range(half * half):             # core -> agg (down)
+        for pod in range(k):
+            b.add_link(cores[c], aggs[pod][c // half], fabric_bw,
+                       d_fabric, queued=True, buffer=buffer_per_port)
+    for pod in range(k):                     # agg -> edge (down)
+        for a in range(half):
+            for e in range(half):
+                b.add_link(aggs[pod][a], edges[pod][e], fabric_bw,
+                           d_fabric, queued=True, buffer=buffer_per_port)
+    for pod in range(k):                     # edge -> host (down)
+        for e in range(half):
+            for h in range(half):
+                b.add_link(edges[pod][e], hosts[host_id(pod, e, h)],
+                           host_bw, d_host, queued=True,
+                           buffer=buffer_per_port)
+    for pod in range(k):                     # unqueued host uplinks
+        for e in range(half):
+            for h in range(half):
+                b.add_link(hosts[host_id(pod, e, h)], edges[pod][e],
+                           host_bw, d_host, queued=False)
+    return compile_routes(b.build(), seed=seed)

@@ -61,10 +61,18 @@ leading batch axis, e.g. ``rdcn.stack_schedules``), and scenario b then
 runs at ``bw_fn(t, bw_params_b)``, evaluated for the whole batch in one
 call. Every phase of a tick reads that tick's rates.
 
+Feedback channels (the laws of ``core/feedback.py``): a law with
+``feedback="hop"`` reads hop h's telemetry ``tf_h`` ticks old (the
+congested switch notifies the sender over the reverse path) instead of
+``rtt - tf_h``; ``uses_pause`` adds each queue's XON/XOFF state
+(``_pause_step``) and ``uses_incast`` each queue's count of flows
+sending into it (``_incast_count``), both written to rings of their own
+every tick and observed at the delayed row. A law that declares none of
+them carries none (``None`` leaves).
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
 item that brings it): allocators (``alloc_fn``), impairments, chunk
-streaming, checkpoints, fault injection, divergence guards, and laws
-that need the hop-feedback, pause or incast channels.
+streaming, checkpoints, fault injection and divergence guards.
 """
 from __future__ import annotations
 
@@ -107,9 +115,10 @@ def default_law_config(flows, gamma: float = 0.9,
 def _hop_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the (last) hop axis as a left-to-right chain — ``repro``'s
     fixed association; ``torch.sum`` would pick its own order."""
-    acc = x[..., 0]
-    for h in range(1, x.shape[-1]):
-        acc = acc + x[..., h]
+    cols = x.unbind(-1)
+    acc = cols[0]
+    for c in cols[1:]:
+        acc = acc + c
     return acc
 
 
@@ -127,14 +136,15 @@ def _xla_sum(x: torch.Tensor) -> torch.Tensor:
         m = -(-n // 32) * 32
         pad = m - n
         x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
-        x = x.reshape(tuple(x.shape[:-1]) + (m // 32, 32))
-        acc = x[..., 0]
-        for j in range(1, 32):
-            acc = acc + x[..., j]
+        cols = x.reshape(tuple(x.shape[:-1]) + (m // 32, 32)).unbind(-1)
+        acc = cols[0]
+        for c in cols[1:]:
+            acc = acc + c
         x, n = acc, m // 32
-    acc = x[..., 0]
-    for j in range(1, n):
-        acc = acc + x[..., j]
+    cols = x.unbind(-1)
+    acc = cols[0]
+    for c in cols[1:n]:
+        acc = acc + c
     return acc
 
 
@@ -206,6 +216,34 @@ def _marking(q: torch.Tensor, buf: torch.Tensor, cfg: LawConfig,
     return torch.where(hard, 1.0, p)
 
 
+def _pause_step(q_new: torch.Tensor, pause: torch.Tensor,
+                cfg: LawConfig) -> torch.Tensor:
+    """Per-queue XON/XOFF hysteresis (laws with ``uses_pause``): pause
+    rises at ``bp_xoff``, clears at ``bp_xon`` and holds in between, on
+    the integrated queue level. Comparisons only, so every engine gets the
+    same bits; a drained queue (q <= bp_xon) always clears, and the
+    sentinel queue stays 0. A stacked config's per-scenario thresholds
+    ([B, 1]) broadcast over the queues."""
+    return torch.where(q_new >= cfg.bp_xoff, 1.0,
+                       torch.where(q_new <= cfg.bp_xon, 0.0, pause))
+
+
+def _incast_count(path: torch.Tensor, valid: torch.Tensor,
+                  lam_del: torch.Tensor, inv: Optional[torch.Tensor],
+                  num_queues: int) -> torch.Tensor:
+    """Per-queue count of the flows whose delayed rate into it is
+    positive (laws with ``uses_incast``), [B, Q+1]: 1.0 per sending hop,
+    summed in order through the gather table ``inv`` (a table over the
+    hop entries of ``path``, its senders included; built here if None).
+    The counts are sums of ones, exact in any order; no scatter-add."""
+    sending = torch.where(valid & (lam_del > 0.0), 1.0, 0.0)
+    if inv is None:
+        inv, _ = build_csr_gather(path, num_queues,
+                                  max_degree(path, num_queues))
+    zeros = sending.new_zeros(tuple(path.shape[:-2]) + (num_queues + 1,))
+    return csr_gather_arrivals(sending, inv, zeros)
+
+
 def _tick_time(t: int, dt: float) -> float:
     """``t * dt`` rounded in float32, as the engines of ``repro`` compute
     it; exact as a Python float, so it enters tensor ops unchanged."""
@@ -270,7 +308,19 @@ def init_state(sim: FluidSim) -> SimState:
         next_update=flows.start + flows.tau,
         last_update=flows.start,
         law=_law_init(sim.law, lead + (F,), sim.law_cfg),
+        **_channels(sim.law, lead, D, Q, dev),
     )
+
+
+def _channels(law: Law, lead: tuple, D: int, Q: int, dev) -> dict:
+    """The feedback-channel leaves of an initial carry: the pause state
+    and its ring where the law declares ``uses_pause``, the sender-count
+    ring where it declares ``uses_incast`` (None otherwise)."""
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=torch.float32, device=dev)
+    return dict(pause=zeros(Q + 1) if law.uses_pause else None,
+                hist_pause=zeros(D, Q + 1) if law.uses_pause else None,
+                hist_inc=zeros(D, Q + 1) if law.uses_incast else None)
 
 
 def _static_bandwidth(topo: Topology) -> torch.Tensor:
@@ -341,8 +391,8 @@ def _buffer_caps(topo: Topology, q: torch.Tensor,
         return static.buf
     m = q[..., static.sw_table]                 # [..., switches, deg]
     used = torch.zeros_like(m[..., 0])
-    for j in range(m.shape[-1]):
-        used = used + m[..., j]
+    for col in m.unbind(-1):
+        used = used + col
     free = torch.clamp_min(topo.switch_buffer - used, 0.0)
     thr = topo.dt_alpha * free[..., topo.switch_of_queue]
     return torch.cat([torch.minimum(thr, topo.buffer),
@@ -375,16 +425,25 @@ def _queue_update(topo: Topology, dt: float, backend: str, incidence, inv,
     return arr, out, q_new
 
 
+def feedback_delay(law: Law, tf_steps, rtt_steps, D: int):
+    """[.., H] ticks by which each hop's telemetry reaches the sender:
+    ``rtt - tf_h`` for the receiver echo, ``tf_h`` for congestion-point
+    feedback (``law.feedback == "hop"``), clamped to [1, D - 2]."""
+    if law.feedback == "hop":
+        return torch.clamp(tf_steps, 1, D - 2)
+    return torch.clamp(rtt_steps[..., None] - tf_steps, 1, D - 2)
+
+
 def _observe(law: Law, law_cfg: LawConfig, static: _Static, cfg: SimConfig,
              ptr: int, hist_q, hist_out, path, valid, tf_steps, rtt_steps,
              tau, b_hop):
     """Delayed INT observation of each hop (stamped when a segment
-    dequeues there, back at the sender after ``rtt - tf_h``) and the RTT
-    sample rebuilt from it. Returns (q_obs, qdot, mu, ecn, theta_obs,
+    dequeues there, back at the sender after ``feedback_delay``) and the
+    RTT sample rebuilt from it. Returns (q_obs, qdot, mu, ecn, theta_obs,
     wold_delay). Telemetry a law declares it does not read
     (``Law.uses_qdot``/``uses_mu``/``uses_ecn``) is left out (None)."""
     D, dt = cfg.hist, cfg.dt
-    tb_steps = torch.clamp(rtt_steps[..., None] - tf_steps, 1, D - 2)
+    tb_steps = feedback_delay(law, tf_steps, rtt_steps, D)
     ohidx = torch.remainder(ptr - tb_steps, D)                # [F,H]
     q_obs = _ring(hist_q, ohidx, path)
     qdot = mu = ecn = None
@@ -419,7 +478,9 @@ class LawTick(NamedTuple):
     engine, where ``slot_flow`` and ``n_flows`` (N) gather it into the
     slots. ``started`` (padded) holds the window of flows not yet started;
     ``admit_t`` (slot) dates each occupant's admission; ``bw`` is the
-    tick's service rates, of which ``b_hop`` is gathered."""
+    tick's service rates, of which ``b_hop`` is gathered. ``hist_pause``
+    and ``hist_inc`` are the feedback-channel rings of a law that
+    declares them."""
     t: int
     t_sec: float
     ptr: int
@@ -447,6 +508,8 @@ class LawTick(NamedTuple):
     admit_t: Optional[torch.Tensor] = None
     slot_flow: Optional[torch.Tensor] = None
     n_flows: int = 0
+    hist_pause: Optional[torch.Tensor] = None   # [B, D, Q+1] (uses_pause)
+    hist_inc: Optional[torch.Tensor] = None     # [B, D, Q+1] (uses_incast)
 
 
 def _law_tick(update, law: Law, static: _Static, cfg: SimConfig,
@@ -471,8 +534,17 @@ def _law_tick(update, law: Law, static: _Static, cfg: SimConfig,
                             x.nic * x.tau)
     upd = x.active & (x.t_sec >= x.next_update)
     dt_obs = torch.clamp_min(x.t_sec - x.last_update, cfg.dt)
+    pause = incast = None
+    if law.uses_pause or law.uses_incast:
+        ohidx = torch.remainder(x.ptr - feedback_delay(
+            law, x.tf_steps, x.rtt_steps, D), D)
+        if law.uses_pause:
+            pause = _ring(x.hist_pause, ohidx, x.path)
+        if law.uses_incast:
+            incast = _ring(x.hist_inc, ohidx, x.path)
     obs = PathObs(q=q_obs, qdot=qdot, mu=mu, b=x.b_hop, valid=x.valid,
-                  theta=theta_obs, w_old=w_old, dt_obs=dt_obs, ecn_frac=ecn)
+                  theta=theta_obs, w_old=w_old, dt_obs=dt_obs, ecn_frac=ecn,
+                  pause=pause, incast=incast)
     law_state, w, rate_cap = update(x.law_state, obs, x.w, x.rate_cap, upd,
                                     law_cfg, x.t_sec)
     w = torch.minimum(torch.clamp_min(w, MTU),
@@ -496,13 +568,21 @@ def _observe_update(law: Law, static: _Static, cfg: SimConfig, x: LawTick):
     return _law_tick(law.update, law, static, cfg, x)
 
 
+def _record_sums(w, lam, active):
+    """The records' ``w_sum`` (of the active rows' windows) and ``lam``,
+    each in ``repro``'s order (``_xla_sum``), taken as one stacked sum:
+    the same adds on each row, half the launches."""
+    sums = _xla_sum(torch.stack([torch.where(active, w, 0.0), lam], -2))
+    return sums[..., 0], sums[..., 1]
+
+
 def _record(t_sec, q_new, w, out, lam, active) -> Record:
     """One tick's record, per scenario; the two float sums in ``repro``'s
-    order (``_xla_sum``)."""
+    order (``_record_sums``)."""
+    w_sum, lam_sum = _record_sums(w, lam, active)
     return Record(t=torch.full(tuple(w.shape[:-1]), t_sec,
                                dtype=torch.float32), q=q_new,
-                  w_sum=_xla_sum(torch.where(active, w, 0.0)),
-                  thru=out, lam=_xla_sum(lam), lam_f=lam,
+                  w_sum=w_sum, thru=out, lam=lam_sum, lam_f=lam,
                   n_active=torch.sum(active, dim=-1, dtype=torch.int32))
 
 
@@ -551,6 +631,8 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     hist_q, hist_out = state.hist_q, state.hist_out
     hist_q[..., ptr, :] = q_new
     hist_out[..., ptr, :] = out
+    pause_new = _write_channels(sim.law, law_cfg, state, ptr, q_new, path,
+                                valid, lam_del, sim.inv)
 
     # -- delayed observation and control-law update (the bound law's
     #    observe-and-update routine, or its backend's update) -------------
@@ -564,7 +646,8 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
             active=active, w=state.w, rate_cap=state.rate_cap,
             law_state=state.law, next_update=state.next_update,
             last_update=state.last_update, law_cfg=law_cfg,
-            started=started))
+            started=started, hist_pause=state.hist_pause,
+            hist_inc=state.hist_inc))
 
     # -- flow progress ------------------------------------------------------
     remaining = torch.where(active, state.remaining - lam * dt,
@@ -577,9 +660,27 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
         t=t + 1, w=w, rate_cap=rate_cap, q=q_new, out_rate=out,
         hist_lam=hist_lam, hist_q=hist_q, hist_out=hist_out, hist_w=hist_w,
         remaining=remaining, fct=fct, next_update=next_update,
-        last_update=last_update, law=law_state)
+        last_update=last_update, law=law_state, pause=pause_new,
+        hist_pause=state.hist_pause, hist_inc=state.hist_inc)
     rec = _record(t_sec, q_new, w, out, lam, active) if record else None
     return new_state, rec
+
+
+def _write_channels(law: Law, law_cfg: LawConfig, state, ptr: int, q_new,
+                    path, valid, lam_del, inv):
+    """This tick's feedback channels, written to their rings in place:
+    the pause hysteresis on the integrated queues (returned: the carry's
+    new ``pause``, None without the channel) and the sender counts of the
+    delayed rates ``lam_del`` (summed through the gather table ``inv``
+    of the tick's queue update)."""
+    pause_new = None
+    if law.uses_pause:
+        pause_new = _pause_step(q_new, state.pause, law_cfg)
+        state.hist_pause[..., ptr, :] = pause_new
+    if law.uses_incast:
+        state.hist_inc[..., ptr, :] = _incast_count(
+            path, valid, lam_del, inv, int(q_new.shape[-1]) - 1)
+    return pause_new
 
 
 def _live_gather_step(sim: FluidSim):
@@ -645,11 +746,7 @@ def _run(sim, state, step_fn, record: bool, bw_fn=None):
 
 def _resolve_law(law: Union[str, Law], backend: str) -> Law:
     """A law name (resolved through the registry) or a prebuilt ``Law``."""
-    law = law if isinstance(law, Law) else get_law(law, backend)
-    if law.feedback == "hop" or law.uses_pause or law.uses_incast:
-        _unported(f"law '{law.name}' (hop feedback / pause / incast "
-                  f"channels)", 9)
-    return law
+    return law if isinstance(law, Law) else get_law(law, backend)
 
 
 def _check_backend(backend: str):
@@ -791,6 +888,7 @@ def init_slot_state(sim: SlotSim) -> SlotState:
         incidence=incidence,
         inv=(None if sim.backend == "fused" else _resident_gather(
             torch.zeros(pool, dtype=torch.bool, device=dev), path0, Q)),
+        **_channels(sim.law, lead, D, Q, dev),
     )
 
 
@@ -954,6 +1052,8 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     hist_q, hist_out = state.hist_q, state.hist_out
     hist_q[..., ptr, :] = q_new
     hist_out[..., ptr, :] = out
+    pause_new = _write_channels(sim.law, sim.law_cfg, state, ptr, q_new,
+                                path, valid, lam_del, state.inv)
 
     # -- delayed observation (w_old before admission is the occupant's
     #    initial window, the padded engine's ring-init) and control-law
@@ -968,7 +1068,8 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
             rate_cap=state.rate_cap, law_state=state.law,
             next_update=state.next_update, last_update=state.last_update,
             law_cfg=sim.law_cfg, admit_t=state.admit_t,
-            slot_flow=state.slot_flow, n_flows=N))
+            slot_flow=state.slot_flow, n_flows=N,
+            hist_pause=state.hist_pause, hist_inc=state.hist_inc))
 
     # -- flow progress; FCT goes to the schedule-ordered table ------------
     remaining = torch.where(active, state.remaining - lam * dt,
@@ -987,7 +1088,8 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
         t=t + 1, w=w, rate_cap=rate_cap, q=q_new, out_rate=out,
         hist_lam=hist_lam, hist_q=hist_q, hist_out=hist_out, hist_w=hist_w,
         remaining=remaining, fct=fct, free_at=free_at,
-        next_update=next_update, last_update=last_update, law=law_state)
+        next_update=next_update, last_update=last_update, law=law_state,
+        pause=pause_new)
     rec = _record(t_sec, q_new, w, out, lam, active) if record else None
     return new_state, rec
 

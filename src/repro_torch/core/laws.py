@@ -19,7 +19,10 @@ where ``upd_mask`` is set.
 ``retcp`` (NewReno with circuit-state feedback, for time-varying
 circuits) is registered by ``core/rdcn.py``, with the ``"reference"`` and
 ``"megakernel"`` backends; it reads ``LawConfig.sched`` and
-``retcp_prebuffer``. The feedback-channel laws come with later slices.
+``retcp_prebuffer``. The feedback-channel laws (``fncc``, ``pulser``,
+``backpressure``, ``pcc``) are registered by ``core/feedback.py``, with
+the same two backends; they read the hop-feedback clock and the pause
+and incast channels (``ENGINE_CHANNELS``, ``FEEDBACK_MODELS``).
 
 Numerics: ``repro`` wraps products in ``_pin``/``_nofma`` so that XLA and
 LLVM cannot reassociate them or contract them into FMAs. Eager PyTorch

@@ -19,7 +19,10 @@ blocks of K ticks (``kernels.fused_tick.DEFAULT_BLOCK``). The tick is
     table's width (``build_csr_gather``'s overflow flag);
   * queue length, egress rate and queue gradient share one packed
     telemetry ring row ``[q | out | qdot]``, the gradient computed when
-    the row is written, so the delayed observation reads one ring;
+    the row is written, so the delayed observation reads one ring; the
+    feedback channels a law declares append their columns,
+    ``[.. | pause? | inc?]`` (``ring_channels``), so the columns before
+    them never move;
   * a time-varying bandwidth (``bw_fn``, with ``bw_params`` per scenario)
     is evaluated once per tick and read by every phase of it.
 
@@ -30,10 +33,11 @@ Two lowerings, chosen by ``impl``:
     counterpart of ``repro``'s XLA lowering, and what the CPU runs;
   * ``"cuda"``: K4 (``kernels/fused_tick.py``, ``csrc/fused_tick.cu``), one
     launch per block of K ticks, with the busy tick (gated or not, as the
-    plain tick) and each law's arithmetic written by hand (the nine laws
-    of ``core/laws.py`` and ``core/rdcn.py``, ``K4_LAWS``; a ``Law``
-    around another update raises). The host uploads the due table once and reads nothing back
-    between blocks. K4 evaluates a circuit schedule in its own body every
+    plain tick) and each law's arithmetic written by hand (the 13 laws
+    of ``core/laws.py``, ``core/rdcn.py`` and ``core/feedback.py``,
+    ``K4_LAWS``, with the hop clock and the pause and incast channels of
+    the feedback laws; a ``Law`` around another update raises). The host
+    uploads the due table once and reads nothing back between blocks. K4 evaluates a circuit schedule in its own body every
     tick (``rdcn.circuit_bw_at`` with ``bw_params``, or
     ``CircuitSchedule.bw_fn()``); any other ``bw_fn`` raises there.
 
@@ -81,9 +85,17 @@ class PendingFCT(NamedTuple):
     val: torch.Tensor               # [B, S] float32 completion time
 
 
+def ring_channels(law) -> int:
+    """Columns of the packed ring, in units of Q+1: ``[q | out | qdot]``,
+    then the pause state (``uses_pause``) and the sender count
+    (``uses_incast``) where the law declares them."""
+    return 3 + int(law.uses_pause) + int(law.uses_incast)
+
+
 class MegaCarry(NamedTuple):
     """Carry of the megakernel: the ``SlotState`` (its ``hist_q`` holds the
-    packed [D, 3(Q+1)] ring ``[q | out | qdot]``; ``hist_out`` and the
+    packed [D, nchan(Q+1)] ring ``[q | out | qdot | pause? | inc?]``,
+    ``ring_channels``; ``hist_out``, ``hist_pause``, ``hist_inc`` and the
     reference backend's ``inv`` ride as None), the pending FCTs, the
     per-slot drain hold, and the in-order gather table with its overflow
     flag. The hold and the table change only on admit/retire ticks."""
@@ -146,9 +158,10 @@ def _k4_config(name: str, lcfg, B: int, n: int, dev) -> dict:
 
 def _k4_lawp(lcfg, B: int, dev) -> tuple:
     """The per-scenario law constants of K4 ([B, len(LAW_PARAMS)] float32,
-    ``fused_tick.LAW_PARAMS``) and the two divisor modes (1: a tensor
-    leaf, divided; 0: a Python scalar, multiplied by its float32
-    reciprocal, ``laws.div_config``). Each derived constant is rounded as
+    ``fused_tick.LAW_PARAMS``) and the three divisor modes, of
+    ``hpcc_eta``, the marking span and ``fncc_eta`` (1: a tensor leaf,
+    divided; 0: a Python scalar, multiplied by its float32 reciprocal,
+    ``laws.div_config``). Each derived constant is rounded as
     the plain law rounds it (Python arithmetic in double for Python
     scalars, float32 ops for tensor leaves); reTCP's schedule
     (``LawConfig.sched``, zeros without one) and prebuffer as float32. A
@@ -177,7 +190,11 @@ def _k4_lawp(lcfg, B: int, dev) -> tuple:
                 dcqcn_timer=lcfg.dcqcn_timer,
                 dcqcn_cnp_timer=lcfg.dcqcn_cnp_timer,
                 dcqcn_f=lcfg.dcqcn_f, reno_md=lcfg.reno_md,
-                retcp_prebuffer=lcfg.retcp_prebuffer)
+                retcp_prebuffer=lcfg.retcp_prebuffer,
+                fncc_eta=lcfg.fncc_eta, fncc_inv_eta=inv(lcfg.fncc_eta),
+                pulser_n=lcfg.pulser_n, bp_xoff=lcfg.bp_xoff,
+                bp_xon=lcfg.bp_xon, bp_md=lcfg.bp_md, pcc_eps=lcfg.pcc_eps,
+                pcc_b=lcfg.pcc_b)
     cols = []
     for f in _k4.LAW_PARAMS:
         x = torch.as_tensor(vals[f], device=dev).to(torch.float32)
@@ -187,7 +204,8 @@ def _k4_lawp(lcfg, B: int, dev) -> tuple:
         cols.append(x.reshape(-1).expand(B))
     return (torch.stack(cols, -1).contiguous(),
             int(isinstance(lcfg.hpcc_eta, torch.Tensor)),
-            int(isinstance(span, torch.Tensor)))
+            int(isinstance(span, torch.Tensor)),
+            int(isinstance(lcfg.fncc_eta, torch.Tensor)))
 
 
 def _k4_schedule(bw_fn, bw_params, B: int, Q: int, dev):
@@ -235,7 +253,7 @@ def _k4_params(sim, maxdeg: int, bw_fn=None, bw_params=None) -> TickParams:
     topo, sched, cfg, static = sim.topo, sim.sched, sim.cfg, sim.static
     dev = sched.start.device
     B, N = int(sched.start.shape[0]), fluid._slot_n(sim)
-    lawp, div_eta, div_span = _k4_lawp(sim.law_cfg, B, dev)
+    lawp, div_eta, div_span, div_fncc = _k4_lawp(sim.law_cfg, B, dev)
 
     def i32(x):
         return x.to(device=dev, dtype=torch.int32).contiguous()
@@ -255,7 +273,7 @@ def _k4_params(sim, maxdeg: int, bw_fn=None, bw_params=None) -> TickParams:
         inv_dt=float(np.float32(1.0 / cfg.dt)),
         dt_alpha=float(np.float32(topo.dt_alpha)),
         update_period=float(np.float32(cfg.update_period)),
-        div_eta=div_eta, div_span=div_span,
+        div_eta=div_eta, div_span=div_span, div_fncc=div_fncc,
         s_path=i32(sched.path), s_tf=i32(sched.tf_steps),
         s_rtt=i32(sched.rtt_steps), s_tau=f32(sched.tau),
         s_nic=f32(sched.nic_rate), s_start=f32(sched.start),
@@ -302,6 +320,9 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
     dt = cfg.dt
     if maxdeg is None:
         maxdeg = _suggest_maxdeg(sched, Q, S)
+    nchan = ring_channels(law)
+    off_pause = 3 * Q1
+    off_inc = (3 + int(law.uses_pause)) * Q1
     sidx = torch.arange(S, device=dev)
     buf = static.buf
     bfn = fluid.batch_bw_fn(bw_fn, bw_params)
@@ -317,9 +338,10 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         inv0, ovf0 = gather_table(state0.path)
         return MegaCarry(
             state=state0._replace(
-                hist_q=torch.zeros((B, D, 3 * Q1), dtype=torch.float32,
+                hist_q=torch.zeros((B, D, nchan * Q1), dtype=torch.float32,
                                    device=dev),
-                hist_out=None, inv=None, incidence=None),
+                hist_out=None, inv=None, incidence=None, hist_pause=None,
+                hist_inc=None),
             pend=PendingFCT(
                 torch.full((B, S), N, dtype=torch.int32, device=dev),
                 torch.full((B, S), float("nan"), dtype=torch.float32,
@@ -338,14 +360,23 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
             inv, ovf = gather_table(st2.path)
         return st2, pend, occupied, slot_hold(st2), inv, ovf
 
-    def integrate_queues(st, arr, bw):
+    def integrate_queues(st, arr, bw, inc=None):
         """The queue integration at the tick's rates ``bw`` and the packed
         telemetry row, the gradient computed over the operands the slot
-        engine subtracts when it reads the ring."""
+        engine subtracts when it reads the ring; then the declared
+        channels: the pause hysteresis on the integrated queues and the
+        sender counts ``inc``. Returns (q_new, out, row, the new pause
+        state or None)."""
         caps = fluid._buffer_caps(topo, st.q, static)
         out, q_new = integrate_arrivals(arr, st.q, bw, caps, dt=dt)
-        row = torch.cat([q_new, out, (q_new - st.q) * (1.0 / dt)], -1)
-        return q_new, out, row
+        parts = [q_new, out, (q_new - st.q) * (1.0 / dt)]
+        pause_new = None
+        if law.uses_pause:
+            pause_new = fluid._pause_step(q_new, st.pause, sim.law_cfg)
+            parts.append(pause_new)
+        if law.uses_incast:
+            parts.append(inc)
+        return q_new, out, torch.cat(parts, -1), pause_new
 
     def window_clamp(w, nic, tau, theta_now):
         return torch.minimum(torch.clamp_min(w, MTU),
@@ -361,13 +392,18 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         """Every pool empty, nothing due: the queues drain, the rings
         advance and the window clamp runs; nothing else can change."""
         st, pend, hold, inv, ovf = c
-        q_new, out, row = integrate_queues(st, torch.zeros_like(st.q), bw)
+        # no slot sends: the sender counts are zero; the pause state
+        # follows the drain
+        q_new, out, row, pause_new = integrate_queues(
+            st, torch.zeros_like(st.q), bw,
+            torch.zeros_like(st.q) if law.uses_incast else None)
         w = window_clamp(st.w, st.nic_rate, st.tau, theta_of(st, st.q, bw))
         lam = torch.zeros_like(st.w)
         st.hist_lam[:, ptr] = lam
         st.hist_w[:, ptr] = st.w
         st.hist_q[:, ptr] = row
-        st = st._replace(t=st.t + 1, w=w, q=q_new, out_rate=out)
+        st = st._replace(t=st.t + 1, w=w, q=q_new, out_rate=out,
+                         pause=pause_new)
         zero = torch.zeros((B,), dtype=torch.float32, device=dev)
         return (st, pend, hold, inv, ovf, zero, zero,
                 torch.zeros((B,), dtype=torch.int32, device=dev), lam)
@@ -412,11 +448,14 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         if bool(torch.any(ovf)):
             table, _ = build_csr_gather(path, Q, max_degree(path, Q))
         arr = csr_gather_arrivals(contrib, table, torch.zeros_like(st.q))
-        q_new, out, row = integrate_queues(st, arr, bw)
+        inc = (fluid._incast_count(path, valid, lam_del, table, Q)
+               if law.uses_incast else None)
+        q_new, out, row, pause_new = integrate_queues(st, arr, bw, inc)
         hist_q[:, ptr] = row
 
-        # -- delayed observation: one packed ring --------------------------
-        tb_steps = torch.clamp(st.rtt_steps[..., None] - tf_steps, 1, D - 2)
+        # -- delayed observation: one packed ring (the hop clock for
+        #    congestion-point feedback) ------------------------------------
+        tb_steps = fluid.feedback_delay(law, tf_steps, st.rtt_steps, D)
         ohidx = torch.remainder(ptr - tb_steps, D)
         q_obs = fluid._ring(hist_q, ohidx, path)
         mu = fluid._ring(hist_q, ohidx, path + Q1) if law.uses_mu else None
@@ -436,7 +475,11 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         dt_obs = torch.clamp_min(t_sec - st.last_update, dt)
         obs = PathObs(q=q_obs, qdot=qdot, mu=mu, b=b_hop, valid=valid,
                       theta=theta_obs, w_old=w_old, dt_obs=dt_obs,
-                      ecn_frac=ecn)
+                      ecn_frac=ecn,
+                      pause=(fluid._ring(hist_q, ohidx, path + off_pause)
+                             if law.uses_pause else None),
+                      incast=(fluid._ring(hist_q, ohidx, path + off_inc)
+                              if law.uses_incast else None))
 
         # -- control law (the registered reference update) ----------------
         law_state, w, rate_cap = law.update(
@@ -460,10 +503,9 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         st = st._replace(
             t=t + 1, w=w, rate_cap=rate_cap, q=q_new, out_rate=out,
             remaining=remaining, free_at=free_at, next_update=next_update,
-            last_update=last_update, law=law_state)
+            last_update=last_update, law=law_state, pause=pause_new)
         return (st, pend, hold, inv, ovf,
-                fluid._xla_sum(torch.where(active, w, 0.0)),
-                fluid._xla_sum(lam),
+                *fluid._record_sums(w, lam, active),
                 torch.sum(active, dim=-1, dtype=torch.int32), lam)
 
     def tick(carry: MegaCarry, due_t):
@@ -505,14 +547,23 @@ def default_impl(device) -> str:
     return "cuda" if torch.device(device).type == "cuda" else "torch"
 
 
-def _unpack_state(carry: MegaCarry, N: int, Q1: int) -> SlotState:
+def _unpack_state(carry: MegaCarry, N: int, Q1: int, law=None) -> SlotState:
     """Final flush of the pending FCTs and the packed ring split back into
-    the ``SlotState`` layout."""
+    the ``SlotState`` layout (with ``law``, the rings of its feedback
+    channels too)."""
     st, pend = carry.state, carry.pend
     fct, _ = _flush_pending(st.fct, pend, pend.flow < N, N)
-    return st._replace(fct=fct, admitted=fluid._host_count(st.cursor),
-                       hist_q=st.hist_q[..., :Q1].contiguous(),
-                       hist_out=st.hist_q[..., Q1:2 * Q1].contiguous())
+    ring = st.hist_q
+
+    def cols(k):
+        return ring[..., k * Q1:(k + 1) * Q1].contiguous()
+
+    pause = law is not None and law.uses_pause
+    incast = law is not None and law.uses_incast
+    return st._replace(
+        fct=fct, admitted=fluid._host_count(st.cursor), hist_q=cols(0),
+        hist_out=cols(1), hist_pause=cols(3) if pause else None,
+        hist_inc=cols(3 + int(pause)) if incast else None)
 
 
 def block_size(steps: int, record_every: int = 1,
@@ -597,7 +648,8 @@ def simulate_slots_mega(sim, record: bool = True,
         fluid.audit_carry_dtypes(state0)
         carry, r = run_blocks(tick, tick.init_carry(state0), due[lo:hi], K,
                               impl, record, re)
-        finals.append(_unpack_state(carry, fluid._slot_n(sim), Q + 1))
+        finals.append(_unpack_state(carry, fluid._slot_n(sim), Q + 1,
+                                    sim.law))
         recs.append(r)
     return cat_trees(finals), (cat_trees(recs) if record else None)
 

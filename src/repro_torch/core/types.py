@@ -110,6 +110,10 @@ class PathObs(NamedTuple):
     w_old: torch.Tensor             # [F] window one RTT ago
     dt_obs: torch.Tensor            # [F] seconds since previous update
     ecn_frac: torch.Tensor          # [F] fraction of marked traffic
+    # feedback channels: None unless the law declares them
+    # (``Law.uses_pause`` / ``uses_incast``)
+    pause: Optional[torch.Tensor] = None   # [F, H] per-hop pause state (0/1)
+    incast: Optional[torch.Tensor] = None  # [F, H] per-hop live senders
 
 
 class SimConfig(NamedTuple):
@@ -135,6 +139,10 @@ class SimState(NamedTuple):
     next_update: torch.Tensor       # [F]
     last_update: torch.Tensor       # [F]
     law: tuple                      # law-specific NamedTuple of [F] tensors
+    # feedback channels: None unless the law declares them
+    pause: Optional[torch.Tensor] = None       # [Q+1] XON/XOFF state
+    hist_pause: Optional[torch.Tensor] = None  # [D, Q+1]
+    hist_inc: Optional[torch.Tensor] = None    # [D, Q+1] live senders
 
 
 class SlotState(NamedTuple):
@@ -177,6 +185,10 @@ class SlotState(NamedTuple):
     fct: torch.Tensor               # [N] (+1 drop cell while running)
     incidence: Optional[torch.Tensor] = None  # [H, S, Q+1] (fused backend)
     inv: Optional[torch.Tensor] = None  # [Q+1, maxdeg] int32 (reference)
+    # feedback channels (as ``SimState``'s): None unless declared
+    pause: Optional[torch.Tensor] = None       # [Q+1]
+    hist_pause: Optional[torch.Tensor] = None  # [D, Q+1]
+    hist_inc: Optional[torch.Tensor] = None    # [D, Q+1]
 
 
 class Record(NamedTuple):

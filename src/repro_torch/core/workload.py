@@ -1,5 +1,5 @@
-"""Traffic generation (twin of the main-path subset of
-``repro.core.workload``): web-search flow sizes and Poisson arrivals, and
+"""Traffic generation (twin of a subset of ``repro.core.workload``):
+web-search flow sizes and Poisson arrivals, repeated incast bursts, and
 the slot-pool sizing helpers of the flow-slot engine.
 
 Generators take a *fabric*: any object with ``n_hosts``,
@@ -15,6 +15,8 @@ flow-size CDF of Alizadeh et al. (DCTCP, SIGCOMM'10): heavy-tailed, mean
 flows.
 """
 from __future__ import annotations
+
+from typing import List, Tuple
 
 import numpy as np
 
@@ -51,6 +53,11 @@ def websearch_sample(rng: np.random.Generator, n: int) -> np.ndarray:
     return np.exp(np.interp(u, c, np.log(s))).astype(np.float64)
 
 
+def _groups(fabric) -> np.ndarray:
+    """[n_hosts] cross-group key (rack / edge attachment)."""
+    return np.asarray(fabric.host_group())
+
+
 def poisson_websearch(fabric, load: float, duration: float,
                       sim_dt: float, seed: int = 0,
                       cross_rack_only: bool = True, device="cuda") -> Flows:
@@ -71,7 +78,7 @@ def poisson_websearch(fabric, load: float, duration: float,
     dst = rng.integers(0, nh, size=n)
     if cross_rack_only:
         # re-draw destinations until cross-group (vectorized best effort)
-        grp = np.asarray(fabric.host_group())
+        grp = _groups(fabric)
         for _ in range(8):
             same = grp[src] == grp[dst]
             if not same.any():
@@ -92,6 +99,39 @@ def poisson_websearch_schedule(fabric, load: float,
                                            seed=seed,
                                            cross_rack_only=cross_rack_only,
                                            device=device))
+
+
+def incast_burst(fabric, fan_in: int, req_bytes: float, n_bursts: int,
+                 period: float, sim_dt: float, seed: int = 0,
+                 start: float = 0.0, rotate_victims: bool = True,
+                 device="cuda") -> Tuple[Flows, List[int]]:
+    """Repeated synchronized incast bursts (the Pulser-style workload).
+
+    Burst ``k`` fires at ``start + k * period``: a victim (rotating
+    round-robin across hosts, or host 0 with ``rotate_victims=False``)
+    receives ``req_bytes`` from each of ``fan_in`` distinct cross-group
+    senders at once. Returns (flows on ``device``, the victim's ingress
+    queue per burst)."""
+    rng = np.random.default_rng(seed)
+    grp = _groups(fabric)
+    nh = fabric.n_hosts
+    src_l, dst_l, sz_l, st_l, bqs = [], [], [], [], []
+    for k in range(n_bursts):
+        victim = int((k * max(nh // max(n_bursts, 1), 1)) % nh) \
+            if rotate_victims else 0
+        others = np.nonzero(grp != grp[victim])[0]
+        senders = rng.choice(others, size=fan_in,
+                             replace=fan_in > len(others))
+        src_l.append(senders)
+        dst_l.append(np.full(fan_in, victim))
+        sz_l.append(np.full(fan_in, req_bytes))
+        st_l.append(np.full(fan_in, start + k * period))
+        bqs.append(fabric.host_ingress_queue(victim))
+    flows = fabric.make_flows(np.concatenate(src_l).astype(np.int64),
+                              np.concatenate(dst_l).astype(np.int64),
+                              np.concatenate(sz_l), np.concatenate(st_l),
+                              sim_dt, seed=seed, device=device)
+    return flows, bqs
 
 
 def peak_concurrency(starts: np.ndarray, ends: np.ndarray) -> int:

@@ -5,9 +5,10 @@
 // src/repro/kernels/fused_tick.py, which runs K ticks of
 // src/repro/core/megakernel.py::make_tick in one pallas_call with the
 // whole carry resident in VMEM, for whatever law it is given. Here the
-// tick is written out by hand, with a routine for each of the nine laws
-// of repro_torch/core/laws.py and core/rdcn.py (powertcp, theta_powertcp,
-// hpcc, swift, gradient_mimd, timely, dcqcn, reno, retcp; the law is a
+// tick is written out by hand, with a routine for each of the 13 laws of
+// repro_torch/core/laws.py, core/rdcn.py and core/feedback.py (powertcp,
+// theta_powertcp, hpcc, swift, gradient_mimd, timely, dcqcn, reno, retcp,
+// fncc, pulser, backpressure, pcc; the law is a
 // template parameter, so each instantiation holds one law's code, and the
 // source is built once per law, -DVARIANT=<law id> (kernels/_build.py),
 // into a library of that law's instantiations, so that the laws compile
@@ -29,10 +30,13 @@
 //   5. per switch: its occupancy, its ports added in port order;
 //   6. per queue: the in-order arrival sum from +0.0, the Dynamic-
 //      Thresholds cap, the integration and the packed [q | out | qdot]
-//      ring row;
+//      ring row, with the law's feedback channel appended (backpressure:
+//      the queue's XON/XOFF state; pulser: its count of sending hops);
 //   7. on updating slots: theta_obs, the w_old delay and w_old, and the
-//      law's per-hop telemetry (PowerTCP's normalized power, HPCC's link
-//      utilization, the ECN marking of DCQCN and Reno), maxed over hops;
+//      law's per-hop telemetry (PowerTCP's normalized power, HPCC's and
+//      FNCC's link utilization, the ECN marking of DCQCN and Reno, the
+//      pause state of backpressure, pulser's sender count and fair
+//      share), maxed (the share: min'd) over hops;
 //   8. on updating slots: the law update and the update timers; on every
 //      slot: DCQCN's rate clamp, the rate-based laws' rate cap, reTCP's
 //      circuit multiplier, and the window clamp;
@@ -105,6 +109,18 @@
 // eta and stage limit, TIMELY's beta and HAI count, DCQCN's marking and
 // timers, Reno's decrease) come per scenario in lawp.
 //
+// Feedback channels (core/feedback.py): whether a law reads its
+// telemetry over the hop clock (tf_h ticks old, congestion-point
+// feedback, instead of rtt - tf_h), carries each queue's pause state or
+// counts each queue's sending hops is a property of the instantiation
+// (kHop, kPause, kInc below), so a law without a channel pays nothing for
+// it. The pause state (one float a queue, staged; the sentinel's stays 0)
+// goes through core/fluid.py::_pause_step's hysteresis after the
+// integration; the count is taken over the queue's contributor list, the
+// walk of the arrival sum: a hop entry counts 1.0 where its delayed rate
+// is positive. Each is written to its column of the ring, appended after
+// [q | out | qdot], and the observation reads it at ptr - tb.
+//
 // Circuit schedule: with a schedule (a.sched, six floats per scenario, the
 // fields of core/rdcn.py::ScheduleParams; a block-uniform flag, one branch
 // a tick) each block classifies its tick as rdcn.circuit_up does: the
@@ -141,8 +157,8 @@ enum Field {
   F_CONTRIB, F_OBS, F_THETA_NOW, F_LAM, F_ACT, F_FREEF, F_SW_USED,
   F_CSR_OFF, F_CSR_LIST, F_CSR_POS, F_CSR_HIST,
   // queues and the read-only topology
-  F_Q, F_OUT_RATE, F_QB, F_BW, F_BUF, F_SWITCH_OF_QUEUE, F_SW_TABLE,
-  F_SWITCH_BUFFER,
+  F_Q, F_OUT_RATE, F_QB, F_BW, F_BUF, F_PAUSE, F_SWITCH_OF_QUEUE,
+  F_SW_TABLE, F_SWITCH_BUFFER,
   // hops
   F_PATH, F_TF_STEPS,
   // slots
@@ -163,7 +179,7 @@ constexpr int kConfigFields = F_TADD - F_BETA + 1;
 // law ids (kernels/fused_tick.py::LAW_NAMES)
 enum Law {
   kPowerTCP, kThetaPowerTCP, kHPCC, kSwift, kGradient, kTimely, kDCQCN,
-  kReno, kReTCP
+  kReno, kReTCP, kFNCC, kPulser, kBackpressure, kPCC
 };
 
 // the per-scenario law constants (LAW_PARAMS)
@@ -173,7 +189,8 @@ enum LawParam {
   P_DCQCN_PMAX, P_DCQCN_G, P_DCQCN_OMG, P_DCQCN_RAI, P_DCQCN_RAI_HYPER,
   P_DCQCN_TIMER, P_DCQCN_CNP_TIMER, P_DCQCN_F, P_RENO_MD, P_RETCP_DAY,
   P_RETCP_NIGHT, P_RETCP_WEEK, P_RETCP_T0, P_RETCP_CIRCUIT_BW,
-  P_RETCP_PACKET_BW, P_RETCP_PREBUFFER,
+  P_RETCP_PACKET_BW, P_RETCP_PREBUFFER, P_FNCC_ETA, P_FNCC_INV_ETA,
+  P_PULSER_N, P_BP_XOFF, P_BP_XON, P_BP_MD, P_PCC_EPS, P_PCC_B,
   kLawParams
 };
 
@@ -208,6 +225,7 @@ struct FusedTickArgs {
   float* next_update;
   float* last_update;
   void* law_state[kStateFields];  // [S] each, null where the law lacks it
+  float* pause;  // [Q+1] XON/XOFF state (backpressure), else null
   float* fct;
   int* pend_flow;
   float* pend_val;
@@ -249,6 +267,7 @@ struct FusedTickArgs {
   int due_stride;  // ints from one scenario's due row to the next
   int div_eta;     // 1: divide by hpcc_eta, 0: multiply by its reciprocal
   int div_span;    // the same for DCQCN's marking span
+  int div_fncc;    // the same for fncc_eta
   int smask;       // bit i: law state field i staged
   int cmask;       // bit j: law config field j staged
   int nlawp;       // kLawParams
@@ -464,7 +483,14 @@ fused_tick_kernel(const FusedTickArgs a) {
   float* const g_q = a.q + sQ1;
   float* const g_out_rate = a.out_rate + sQ1;
   float* const g_hist_lam = a.hist_lam + sS * a.D;
-  float* const g_hist_q = a.hist_q + sQ1 * 3 * a.D;
+  // the law's feedback channels and the ring's width (in Q+1 columns)
+  constexpr bool kHop =
+      LAW == kFNCC || LAW == kPulser || LAW == kBackpressure;
+  constexpr bool kPause = LAW == kBackpressure;
+  constexpr bool kInc = LAW == kPulser;
+  constexpr int kChan = 3 + (kPause ? 1 : 0) + (kInc ? 1 : 0);
+  float* const g_hist_q = a.hist_q + sQ1 * kChan * a.D;
+  float* const g_pause = kPause ? a.pause + sQ1 : nullptr;
   float* const g_hist_w = a.hist_w + sS * a.D;
   float* const g_remaining = a.remaining + sS;
   float* const g_next_update = a.next_update + sS;
@@ -519,6 +545,7 @@ fused_tick_kernel(const FusedTickArgs a) {
   float* qb = at<float>(base, a.off[F_QB]);  // q / bw, each queue's delay
   float* bw = at<float>(base, a.off[F_BW]);
   float* buf = at<float>(base, a.off[F_BUF]);
+  float* pause = at<float>(base, a.off[F_PAUSE]);  // [Q1] (kPause)
   int* sw_of_q = at<int>(base, a.off[F_SWITCH_OF_QUEUE]);
   int* sw_table = at<int>(base, a.off[F_SW_TABLE]);
   float* sw_buffer = at<float>(base, a.off[F_SWITCH_BUFFER]);
@@ -583,6 +610,11 @@ fused_tick_kernel(const FusedTickArgs a) {
   const float rt_ratio =
       law == kReTCP ? lawp[P_RETCP_CIRCUIT_BW] / lawp[P_RETCP_PACKET_BW]
                     : 1.0f;
+  const float fncc_eta = lawp[P_FNCC_ETA],
+              fncc_inv_eta = lawp[P_FNCC_INV_ETA],
+              pulser_n = lawp[P_PULSER_N], bp_xoff = lawp[P_BP_XOFF],
+              bp_xon = lawp[P_BP_XON], bp_md = lawp[P_BP_MD],
+              pcc_eps = lawp[P_PCC_EPS], pcc_b = lawp[P_PCC_B];
 
   // the per-slot law config of flow g (clamped into [0, N)) into slot s
   auto load_config = [&](int s, int g) {
@@ -651,6 +683,7 @@ fused_tick_kernel(const FusedTickArgs a) {
       qb[i] = qv / bv;
       bw[i] = bv;
       buf[i] = fv;
+      if (kPause) pause[i] = g_pause[i];
     }
     if (i < Q) sw_of_q[i] = so;
     if (i < nsw_all) sw_table[i] = st;
@@ -819,7 +852,16 @@ fused_tick_kernel(const FusedTickArgs a) {
               last_cut[s] = 0.0f;
               w_base[s] = hbw * ctau * 1.0f;
               break;
-            default:  // kSwift: no state
+            case kFNCC:
+              u_s[s] = 1.0f;
+              break;
+            case kBackpressure:
+              last_cut[s] = 0.0f;
+              break;
+            case kPCC:
+              rate_s[s] = hbw * 1.0f;
+              break;
+            default:  // kSwift, kPulser: no state
               break;
           }
         }
@@ -875,10 +917,17 @@ fused_tick_kernel(const FusedTickArgs a) {
           ld = g_hist_lam[imod(ptr - tf, D) * S + s];
         contrib[csr_pos[e]] = ld;
         if (upd && p < Q) {
-          const int oh = imod(ptr - iclamp(rtt - tf, 1, D - 2), D);
-          const float* orow = g_hist_q + static_cast<long long>(oh) * 3 * Q1;
+          // the receiver echo is rtt - tf_h old, congestion-point
+          // feedback tf_h
+          const int tb = kHop ? tf : rtt - tf;
+          const int oh = imod(ptr - iclamp(tb, 1, D - 2), D);
+          const float* orow =
+              g_hist_q + static_cast<long long>(oh) * kChan * Q1;
           obs[e] = orow[p];
-          if (law == kPowerTCP || law == kHPCC) obs[SH + e] = orow[Q1 + p];
+          if (law == kPowerTCP || law == kHPCC || law == kFNCC)
+            obs[SH + e] = orow[Q1 + p];
+          // the feedback channel, the ring's fourth column
+          if (kPause || kInc) obs[SH + e] = orow[3 * Q1 + p];
           if (law == kPowerTCP) obs[2 * SH + e] = orow[2 * Q1 + p];
         }
       }
@@ -894,12 +943,17 @@ fused_tick_kernel(const FusedTickArgs a) {
     __syncthreads();
 
     // -- 6. queues: arrivals, caps, integration, packed ring row --------
-    float* hrow = g_hist_q + static_cast<long long>(ptr) * 3 * Q1;
+    float* hrow = g_hist_q + static_cast<long long>(ptr) * kChan * Q1;
     for (int c = tid; c < Q1; c += kThreads) {
-      float arr = 0.0f;
+      // the arrivals, and (pulser) the hops sending into the queue
+      float arr = 0.0f, cnt = 0.0f;
       const int hi = csr_off[c + 1];
 #pragma unroll 8
-      for (int j = csr_off[c]; j < hi; ++j) arr = arr + contrib[j];
+      for (int j = csr_off[c]; j < hi; ++j) {
+        const float x = contrib[j];
+        arr = arr + x;
+        if (kInc) cnt = x > 0.0f ? cnt + 1.0f : cnt;
+      }
       float cap = buf[c];
       if (a.nsw > 0 && c < Q) {
         const int sw = sw_of_q[c];
@@ -916,6 +970,14 @@ fused_tick_kernel(const FusedTickArgs a) {
       hrow[c] = qn;
       hrow[Q1 + c] = out;
       hrow[2 * Q1 + c] = (qn - qc) * a.inv_dt;
+      if (kPause) {
+        // XON/XOFF hysteresis on the integrated level (_pause_step)
+        const float pz = qn >= bp_xoff ? 1.0f
+                         : (qn <= bp_xon ? 0.0f : pause[c]);
+        pause[c] = pz;
+        hrow[3 * Q1 + c] = pz;
+      }
+      if (kInc) hrow[3 * Q1 + c] = cnt;
       if (rec_row) {
         g_rec_q[r * Q1 + c] = qn;
         g_rec_thru[r * Q1 + c] = out;
@@ -937,7 +999,9 @@ fused_tick_kernel(const FusedTickArgs a) {
         const float ctau = (cmask >> (F_CTAU - F_BETA)) & 1 ? ctaus[s] : 0.0f;
         // theta_obs, and the law's per-hop telemetry maxed over the hops
         // (a sentinel hop gives 0, as the plain tick's where(valid, ., 0))
-        float acc = 0.0f, hmax = 0.0f;
+        // (pulser: hmax the largest sender count, smin the tightest fair
+        // rate b / max(n, 1) over hops with a sender)
+        float acc = 0.0f, hmax = 0.0f, smin = __int_as_float(0x7f800000);
         for (int h = 0; h < H; ++h) {
           const int e = s * H + h;
           const int p = spath[e];
@@ -954,9 +1018,15 @@ fused_tick_kernel(const FusedTickArgs a) {
               const float base_ = bdp * b;
               const float power = current * voltage;
               gh = power * (1.0f / pmax(base_, 1.0f));
-            } else if (law == kHPCC) {
+            } else if (law == kHPCC || law == kFNCC) {
               // the link's utilization: q / max(b tau, 1) + mu / max(b, 1)
               gh = q_obs / pmax(b * ctau, 1.0f) + obs[SH + e] / pmax(b, 1.0f);
+            } else if (law == kPulser) {
+              const float n = obs[SH + e];
+              gh = n;
+              if (n > 0.0f) smin = pmin(smin, b / pmax(n, 1.0f));
+            } else if (law == kBackpressure) {
+              gh = obs[SH + e];
             } else if (law == kDCQCN || law == kReno || law == kReTCP) {
               // ECN marking (core/fluid.py::_marking), a hard mark near
               // the buffer's end
@@ -1105,6 +1175,62 @@ fused_tick_kernel(const FusedTickArgs a) {
             if (can_cut) last_cut[s] = t_sec;
             break;
           }
+          case kFNCC: {
+            // the direct fixed point w_old / (u / eta) + beta, smoothed
+            const float u = smooth(u_s[s], hmax, dt_obs, ctau);
+            const float target =
+                w_old /
+                    pmax(div_config(u, fncc_eta, fncc_inv_eta, a.div_fncc),
+                         1e-6f) +
+                betas[s];
+            wl = pmax(gammas[s] * target + omgs[s] * w, 1000.0f);
+            u_s[s] = u;
+            break;
+          }
+          case kPulser: {
+            // a hop at pulser_n senders or more: down to the fair share
+            const float w_fair = pmax(smin * ctau, 1000.0f);
+            const float w_new =
+                hmax >= pulser_n ? pmin(w, w_fair) : w + betas[s];
+            wl = pmax(w_new, 1000.0f);
+            break;
+          }
+          case kBackpressure: {
+            // a paused hop: cut at most once per RTT; else add beta
+            const bool paused = hmax > 0.5f;
+            const bool can_cut = paused && t_sec - last_cut[s] > theta_obs;
+            const float w_new =
+                can_cut ? w * bp_md : (paused ? w : w + betas[s]);
+            wl = pmax(w_new, 1000.0f);
+            if (can_cut) last_cut[s] = t_sec;
+            break;
+          }
+          case kPCC: {
+            // five probe rates scored; the first best wins (a NaN score
+            // beats every number, as jnp.argmax takes it)
+            const float hb = hbws[s];
+            const float excess =
+                pmax(theta_obs - ctau, 0.0f) / pmax(ctau, 1e-12f);
+            const float penalty = pcc_b / pmax(hb, 1.0f);
+            const float r0 = rate_s[s];
+            float best_r = 0.0f, best_s = 0.0f;
+#pragma unroll
+            for (int j = 0; j < 5; ++j) {
+              const float m = 1.0f + pcc_eps * static_cast<float>(j - 2);
+              const float r = r0 * m;
+              const float waste = hb / pmax(r, 1.0f);
+              const float cost = (excess * r) * penalty;
+              const float sc = -waste - cost;
+              if (j == 0 || sc > best_s || (sc != sc && best_s == best_s)) {
+                best_r = r;
+                best_s = sc;
+              }
+            }
+            const float r_new = pmin(pmax(best_r, 0.001f * hb), hb);
+            rate_s[s] = r_new;
+            wl = pmax(r_new * theta_obs, 1000.0f);
+            break;
+          }
         }
         next_update[s] = t_sec + (a.has_period ? a.update_period : th_now);
         last_update[s] = t_sec;
@@ -1112,7 +1238,7 @@ fused_tick_kernel(const FusedTickArgs a) {
       // the rate-based laws' rate is the rate cap on every slot; DCQCN
       // clamps it to [0.001, 1] x host_bw on every slot (an identity on
       // in-range rates)
-      if (law == kTimely) rate_cap[s] = rate_s[s];
+      if (law == kTimely || law == kPCC) rate_cap[s] = rate_s[s];
       if (law == kDCQCN && !upd) {
         const float hb = hbws[s];
         const float rc = pmin(pmax(rc_s[s], 0.001f * hb), hb);
@@ -1193,6 +1319,7 @@ fused_tick_kernel(const FusedTickArgs a) {
   for (int c = tid; c < Q1; c += kThreads) {
     g_q[c] = q[c];
     g_out_rate[c] = out_rate[c];
+    if (kPause) g_pause[c] = pause[c];
   }
   if (rebuilt) {
     // the carry's gather table, as build_csr_gather builds it: each real
@@ -1242,7 +1369,7 @@ int launch_law(const FusedTickArgs& a, cudaStream_t stream) {
 #ifndef VARIANT
 #error "build fused_tick.cu with -DVARIANT=<law id> (kernels/_build.py)"
 #endif
-static_assert(VARIANT >= kPowerTCP && VARIANT <= kReTCP, "unknown law id");
+static_assert(VARIANT >= kPowerTCP && VARIANT <= kPCC, "unknown law id");
 
 extern "C" int fused_tick_block_f32(const FusedTickArgs* args, void* stream) {
   if (args->nlawp != kLawParams || args->law != VARIANT)

@@ -37,7 +37,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 # K4's laws: kernels/fused_tick.py::LAW_NAMES (a test holds the count)
-K4_VARIANTS = 9
+K4_VARIANTS = 13
 SOURCES = ("powertcp_step", "queue_arrivals",
            *(f"fused_tick@{i}" for i in range(K4_VARIANTS)), "rmsnorm",
            "flash_attention")

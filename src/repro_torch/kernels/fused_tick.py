@@ -56,7 +56,8 @@ DEFAULT_BLOCK = 64
 
 # K4's laws; a law's id is its place here (``TickParams.law``)
 LAW_NAMES = ("powertcp", "theta_powertcp", "hpcc", "swift", "gradient_mimd",
-             "timely", "dcqcn", "reno", "retcp")
+             "timely", "dcqcn", "reno", "retcp", "fncc", "pulser",
+             "backpressure", "pcc")
 # the state fields K4 stages, in ``enum Field``'s order; a law stages the
 # fields of its state NamedTuple, a nested one's flattened (reTCP's
 # NewReno ``last_cut`` and its ``w_base``; swift's ``dummy`` stays zeros
@@ -75,6 +76,10 @@ LAW_STATE = {
     "dcqcn": ("rc", "rt", "alpha", "t_last_cut", "t_last_inc", "inc_stage"),
     "reno": ("last_cut",),
     "retcp": ("last_cut", "w_base"),
+    "fncc": ("u",),
+    "pulser": (),
+    "backpressure": ("last_cut",),
+    "pcc": ("rate",),
 }
 # the per-flow law config K4 reads through ``slot_flow`` (each [B, N]
 # float32): beta, tau, gamma and 1 - gamma (``omg``), host_bw and
@@ -86,22 +91,34 @@ LAW_CONFIG = {
     "gradient_mimd": _EWMA, "hpcc": ("beta", "ctau", "hbw"),
     "timely": ("ctau", "hbw", "t_low", "t_high", "tadd"),
     "dcqcn": ("ctau", "hbw"), "reno": (), "retcp": ("ctau", "hbw"),
+    "fncc": _EWMA, "pulser": ("beta", "ctau"), "backpressure": ("beta",),
+    "pcc": ("ctau", "hbw"),
 }
 # per-hop telemetry words a law reads from the packed ring: q, then the
-# egress rate (PowerTCP, HPCC), then the queue gradient (PowerTCP)
-TELEMETRY = {"powertcp": 3, "hpcc": 2}
+# egress rate (PowerTCP, HPCC, FNCC) or the law's feedback channel (the
+# pause state of backpressure, the sender count of pulser), then the
+# queue gradient (PowerTCP)
+TELEMETRY = {"powertcp": 3, "hpcc": 2, "fncc": 2, "pulser": 2,
+             "backpressure": 2}
+# the feedback channels a law's ring appends to [q | out | qdot]
+# (``core.megakernel.ring_channels``); backpressure also carries each
+# queue's pause state
+PAUSE_LAWS = ("backpressure",)
+INCAST_LAWS = ("pulser",)
 # the per-scenario law constants (``TickParams.lawp`` [B, len]), float32;
 # the integer ones hold small integers exactly. ``*_inv_*`` are the
 # float32 reciprocals a Python-scalar divisor is multiplied by
 # (``core.laws.div_config``), ``dcqcn_omg`` 1 - g and ``dcqcn_rai_hyper``
 # 5 * rai, each rounded as the plain law rounds it; ``retcp_*`` reTCP's
-# own circuit schedule (``LawConfig.sched``) and prebuffer
+# own circuit schedule (``LawConfig.sched``) and prebuffer; then the
+# feedback-channel laws' scalars
 LAW_PARAMS = ("hpcc_eta hpcc_inv_eta hpcc_max_stage timely_beta "
               "timely_hai_n dcqcn_kmin dcqcn_span dcqcn_inv_span dcqcn_pmax "
               "dcqcn_g dcqcn_omg dcqcn_rai dcqcn_rai_hyper dcqcn_timer "
               "dcqcn_cnp_timer dcqcn_f reno_md retcp_day retcp_night "
               "retcp_week retcp_t0 retcp_circuit_bw retcp_packet_bw "
-              "retcp_prebuffer").split()
+              "retcp_prebuffer fncc_eta fncc_inv_eta pulser_n bp_xoff "
+              "bp_xon bp_md pcc_eps pcc_b").split()
 # the fields of one scenario's bandwidth schedule (``TickParams.sched``),
 # ``core.rdcn.ScheduleParams``'
 SCHED_FIELDS = "day night week t0 circuit_bw packet_bw".split()
@@ -126,6 +143,7 @@ class TickParams(NamedTuple):
     update_period: float            # 0: once per measured RTT
     div_eta: int                    # 1: divide by hpcc_eta, 0: multiply
     div_span: int                   # the same for the marking span
+    div_fncc: int                   # the same for fncc_eta
     s_path: torch.Tensor            # [N, H] int32
     s_tf: torch.Tensor              # [N, H] int32
     s_rtt: torch.Tensor             # [N] int32
@@ -163,14 +181,20 @@ WARPS = 16
 SMEM_BUDGET = 227 * 1024 - 2048
 
 
+def ring_channels(name: str) -> int:
+    """Columns of law ``name``'s packed ring in units of Q+1
+    (``core.megakernel.ring_channels``)."""
+    return 3 + (name in PAUSE_LAWS) + (name in INCAST_LAWS)
+
+
 def _fields(S, H, Q, nsw, swdeg, nswb, law):
     """(name, 4-byte words) of every field K4 stages, in the order of
     ``enum Field`` in ``csrc/fused_tick.cu``: the tick's temporaries and
     the contributor lists (CSR offsets, entries, each entry's place, the
-    per-warp counts), the queues (with each queue's q / bw) and the
-    topology, the hops, the slots: their carry, the law state and config
-    of law ``law`` (an index into ``LAW_NAMES``; a field the law lacks
-    takes no words)."""
+    per-warp counts), the queues (with each queue's q / bw, and the
+    pause state of a law with that channel) and the topology, the hops,
+    the slots: their carry, the law state and config of law ``law`` (an
+    index into ``LAW_NAMES``; a field the law lacks takes no words)."""
     name = LAW_NAMES[law]
     SH, Q1 = S * H, Q + 1
     slot_fields = ("slot_flow admit_t free_at rtt_steps hold pend_flow tau "
@@ -181,7 +205,7 @@ def _fields(S, H, Q, nsw, swdeg, nswb, law):
              ("sw_used", nsw), ("csr_off", Q1 + 1), ("csr_list", SH),
              ("csr_pos", SH), ("csr_hist", WARPS * Q1),
              ("q", Q1), ("out_rate", Q1), ("qb", Q1), ("bw", Q1),
-             ("buf", Q1),
+             ("buf", Q1), ("pause", Q1 if name in PAUSE_LAWS else 0),
              ("switch_of_queue", Q), ("sw_table", nsw * swdeg),
              ("switch_buffer", nswb),
              ("path", SH), ("tf_steps", SH)]
@@ -216,15 +240,15 @@ def layout(S, H, Q, nsw, swdeg, nswb, law) -> Layout:
 _PTRS = (("cursor hw slot_flow admit_t free_at path tf_steps rtt_steps tau "
           "nic start stop w rate_cap q out_rate hist_lam hist_q hist_w "
           "remaining next_update last_update").split() + STATE_FIELDS
-         + ("fct pend_flow pend_val hold inv ovf s_path s_tf s_rtt s_tau "
-            "s_nic s_start s_stop s_size").split()
+         + ("pause fct pend_flow pend_val hold inv ovf s_path s_tf s_rtt "
+            "s_tau s_nic s_start s_stop s_size").split()
          + ["c_" + f for f in CONFIG_FIELDS]
          + ("lawp sched bw buf sw_table switch_buffer switch_of_queue due rec_t "
             "rec_q rec_w_sum rec_thru rec_lam rec_lam_f rec_n_active "
             "scratch").split())
 _INTS = ("S N Q H D nsw swdeg nswb maxdeg K t0 record_every record law "
          "has_period use_smem layout_bytes B gate due_stride div_eta "
-         "div_span smask cmask nlawp").split()
+         "div_span div_fncc smask cmask nlawp").split()
 _NFIELDS = len(_fields(1, 1, 1, 0, 0, 1, 0))
 # the inputs K4 reads and never writes
 _READ_ONLY = set(("s_path s_tf s_rtt s_tau s_nic s_start s_stop s_size lawp "
@@ -284,20 +308,38 @@ def _lib(law: int = 0):
     return lib
 
 
-def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
-                     record: bool = True, record_every: int = 1,
-                     gate: bool = True):
-    """Run K ticks of the megakernel in one launch of K4, K the length of
-    ``due_block`` (int32, the due counts of the block's ticks). ``carry``
-    is a ``core.megakernel.MegaCarry`` of CUDA tensors; every leaf is
-    updated in place and the returned carry holds the same tensors with
-    the tick counter advanced by K. A batch's carry ([B, ...] leaves, the
-    schedule and law config of ``params`` [B, N, ...], ``due_block``
-    [B, K], rows of a wider table allowed) launches B blocks, one per
-    scenario; the topology is shared. ``gate=False`` runs the admit/retire
-    pass and the contributor lists' rebuild on every tick. Returns
-    (carry', ``BlockRecords`` of every ``record_every``-th tick — [B,
-    nrec, ...] for a batch — or None)."""
+# The argument structs of recent launches, filled and checked once per
+# run: keyed by the identity of the run's tensors (the carry is updated in
+# place, so a run's launches share them), which the entry keeps alive so
+# that no id is reused while it is cached. A launch then sets only its
+# own fields (the tick, K, the due counts, the record rows).
+_ARGS_CACHE: dict = {}
+_ARGS_CACHE_MAX = 16
+
+
+def _run_tensors(params: TickParams, carry) -> list:
+    """Every tensor a launch's argument struct points at, but the due
+    counts and the records."""
+    st = carry.state
+    out = [st.cursor, st.hw, st.slot_flow, st.admit_t, st.free_at, st.path,
+           st.tf_steps, st.rtt_steps, st.tau, st.nic_rate, st.start, st.stop,
+           st.w, st.rate_cap, st.q, st.out_rate, st.hist_lam, st.hist_q,
+           st.hist_w, st.remaining, st.next_update, st.last_update, st.fct,
+           st.pause, carry.pend.flow, carry.pend.val, carry.hold, carry.inv,
+           carry.ovf, params.lawp, params.sched]
+    out += list(state_leaves(st.law).values()) + list(params.config.values())
+    return [x for x in out if isinstance(x, torch.Tensor)]
+
+
+def _launch_args(params: TickParams, carry):
+    """(the argument struct of a run's launches with every field but the
+    per-launch ones set, the batch's leading shape); checked and filled
+    on the first launch of a run, then taken from the cache."""
+    tens = _run_tensors(params, carry)
+    key = (id(params),) + tuple((id(x), x.data_ptr()) for x in tens)
+    hit = _ARGS_CACHE.get(key)
+    if hit is not None:
+        return hit[0], hit[1]
     st = carry.state
     dev = st.w.device
     lead = tuple(st.w.shape[:-1])
@@ -307,11 +349,6 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         B *= n
     N, Q, D, M = params.N, params.Q, params.D, params.maxdeg
     Q1 = Q + 1
-    K = int(due_block.shape[-1])
-    re = max(int(record_every), 1)
-    if record and K % re:
-        raise ValueError(f"fused_tick_block: K ({K}) must be a multiple of "
-                         f"record_every ({re})")
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     lname = LAW_NAMES[params.law]
     law = state_leaves(st.law)
@@ -333,7 +370,7 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         "w": (st.w, f32, (S,)), "rate_cap": (st.rate_cap, f32, (S,)),
         "q": (st.q, f32, (Q1,)), "out_rate": (st.out_rate, f32, (Q1,)),
         "hist_lam": (st.hist_lam, f32, (D, S)),
-        "hist_q": (st.hist_q, f32, (D, 3 * Q1)),
+        "hist_q": (st.hist_q, f32, (D, ring_channels(lname) * Q1)),
         "hist_w": (st.hist_w, f32, (D, S)),
         "remaining": (st.remaining, f32, (S,)),
         "next_update": (st.next_update, f32, (S,)),
@@ -349,6 +386,8 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
     }
     for f in ("s_tau", "s_nic", "s_start", "s_stop", "s_size"):
         leaves[f] = (getattr(params, f), f32, (N,))
+    if lname in PAUSE_LAWS:
+        leaves["pause"] = (st.pause, f32, (Q1,))
     for f in LAW_STATE[lname]:
         leaves[f] = (law[f], i32 if f in INT_STATE else f32, (S,))
     for f in LAW_CONFIG[lname]:
@@ -377,14 +416,67 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
             if k not in _READ_ONLY]
     if len(set(ptrs)) != len(ptrs):
         raise ValueError("fused_tick_block: two carry leaves share memory")
+    nswb = int(params.switch_buffer.numel())
+    lay = layout(S, H, Q, params.nsw, params.swdeg, nswb, params.law)
+    scratch = torch.empty((16 if lay.smem else B * lay.nbytes,),
+                          dtype=torch.uint8, device=dev)
+    args = _Args()
+    for f, (x, _, _) in leaves.items():
+        setattr(args, f, x.data_ptr())
+    args.scratch = scratch.data_ptr()
+    for f, val in dict(S=S, N=N, Q=Q, H=H, D=D, nsw=params.nsw,
+                          swdeg=params.swdeg, nswb=nswb, maxdeg=M,
+                          law=params.law,
+                          has_period=int(params.update_period > 0.0),
+                          use_smem=int(lay.smem),
+                          layout_bytes=lay.nbytes, B=B,
+                          div_eta=params.div_eta,
+                          div_span=params.div_span,
+                          div_fncc=params.div_fncc,
+                          smask=_mask(STATE_FIELDS, LAW_STATE[lname]),
+                          cmask=_mask(CONFIG_FIELDS, LAW_CONFIG[lname]),
+                          nlawp=len(LAW_PARAMS)).items():
+        setattr(args, f, val)
+    args.off[:] = lay.offsets
+    for f in _FLOATS:
+        setattr(args, f, getattr(params, f))
+    if len(_ARGS_CACHE) >= _ARGS_CACHE_MAX:
+        _ARGS_CACHE.clear()
+    _ARGS_CACHE[key] = (args, lead, (params, tens, scratch))
+    return args, lead
+
+
+def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
+                     record: bool = True, record_every: int = 1,
+                     gate: bool = True):
+    """Run K ticks of the megakernel in one launch of K4, K the length of
+    ``due_block`` (int32, the due counts of the block's ticks). ``carry``
+    is a ``core.megakernel.MegaCarry`` of CUDA tensors; every leaf is
+    updated in place and the returned carry holds the same tensors with
+    the tick counter advanced by K. A batch's carry ([B, ...] leaves, the
+    schedule and law config of ``params`` [B, N, ...], ``due_block``
+    [B, K], rows of a wider table allowed) launches B blocks, one per
+    scenario; the topology is shared. ``gate=False`` runs the admit/retire
+    pass and the contributor lists' rebuild on every tick. The tensors are
+    checked and the argument struct filled on a run's first launch
+    (``_launch_args``). Returns (carry', ``BlockRecords`` of every
+    ``record_every``-th tick — [B, nrec, ...] for a batch — or None)."""
+    st = carry.state
+    dev = st.w.device
+    K = int(due_block.shape[-1])
+    re = max(int(record_every), 1)
+    if record and K % re:
+        raise ValueError(f"fused_tick_block: K ({K}) must be a multiple of "
+                         f"record_every ({re})")
+    args, lead = _launch_args(params, carry)
+    i32, f32 = torch.int32, torch.float32
     # the due counts: each scenario's K contiguous, rows of any stride
     if (due_block.dtype != i32 or due_block.device != dev
             or tuple(due_block.shape) != lead + (K,)
             or (K > 1 and due_block.stride(-1) != 1)):
         raise ValueError(f"fused_tick_block: due_block must be int32 "
                          f"{lead + (K,)} on {dev} with contiguous rows")
-    due_stride = int(due_block.stride(0)) if lead else K
-
+    S, Q1 = int(st.w.shape[-1]), params.Q + 1
     nrec = K // re if record else 0
     recs = BlockRecords(
         t=torch.empty(lead + (nrec,), dtype=f32, device=dev),
@@ -394,36 +486,14 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         lam=torch.empty(lead + (nrec,), dtype=f32, device=dev),
         lam_f=torch.empty(lead + (nrec, S), dtype=f32, device=dev),
         n_active=torch.empty(lead + (nrec,), dtype=i32, device=dev))
-    lib = _lib(params.law)
-    nswb = int(params.switch_buffer.numel())
-    lay = layout(S, H, Q, params.nsw, params.swdeg, nswb, params.law)
-    scratch = torch.empty((16 if lay.smem else B * lay.nbytes,),
-                          dtype=torch.uint8, device=dev)
-
-    args = _Args()
-    for f, (x, _, _) in leaves.items():
-        setattr(args, f, x.data_ptr())
     args.due = due_block.data_ptr()
+    args.due_stride = int(due_block.stride(0)) if lead else K
     for name in BlockRecords._fields:
         setattr(args, "rec_" + name, getattr(recs, name).data_ptr())
-    args.scratch = scratch.data_ptr()
-    for f, val in dict(S=S, N=N, Q=Q, H=H, D=D, nsw=params.nsw,
-                          swdeg=params.swdeg, nswb=nswb, maxdeg=M, K=K,
-                          t0=int(st.t), record_every=re,
-                          record=int(bool(record)), law=params.law,
-                          has_period=int(params.update_period > 0.0),
-                          use_smem=int(lay.smem),
-                          layout_bytes=lay.nbytes, B=B, gate=int(bool(gate)),
-                          due_stride=due_stride, div_eta=params.div_eta,
-                          div_span=params.div_span,
-                          smask=_mask(STATE_FIELDS, LAW_STATE[lname]),
-                          cmask=_mask(CONFIG_FIELDS, LAW_CONFIG[lname]),
-                          nlawp=len(LAW_PARAMS)).items():
-        setattr(args, f, val)
-    args.off[:] = lay.offsets
-    for f in _FLOATS:
-        setattr(args, f, getattr(params, f))
+    args.K, args.t0, args.record_every = K, int(st.t), re
+    args.record, args.gate = int(bool(record)), int(bool(gate))
     if K:
+        lib = _lib(params.law)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.fused_tick_block_f32(ctypes.byref(args), stream)

@@ -171,8 +171,8 @@ def csr_gather_arrivals(contrib: torch.Tensor, inv: torch.Tensor,
     rows = torch.arange(B, device=inv.device).view(B, 1, 1)
     m = padded[rows, inv]                             # [B, Q+1, maxdeg]
     arr = zero
-    for j in range(inv.shape[-1]):
-        arr = arr + m[..., j]
+    for col in m.unbind(-1):
+        arr = arr + col
     return arr
 
 

@@ -26,9 +26,12 @@ spelled in torch and itself run twice, at those rows and ragged ones;
 K4's grid form (a batch of B scenarios, one block each, B in 1-3, with
 and without gate) against each scenario's plain block, K1-K3 taking a
 batch in one launch, and the batched megakernel backend's launches;
-each of K4's eight classic and PowerTCP laws against the plain tick, a
+each of K4's thirteen laws against the plain tick, a
 per-flow gamma, a batch with per-scenario law constants, and DCQCN's
-``powf`` against ``torch.pow``; K4 evaluating two circuit schedules in
+``powf`` against ``torch.pow``; the four feedback-channel laws on the
+fat tree's 5-hop paths (both legs of ``benchmarks/feedback_fct.py``,
+``gate`` True and False, S >= N and S < N) and as a batch with their
+scalars per scenario; K4 evaluating two circuit schedules in
 its body (Fig. 8's slots 0 and 6, a block each) for the PowerTCP laws,
 HPCC and reTCP (its own schedule and prebuffer), and a schedule shared
 by the batch, against the plain tick, and its schedule evaluation
@@ -228,7 +231,8 @@ def test_fused_tick_block_kernel_grid(cuda_device, B, gate, law):
 
 
 K4_LAW_NAMES = ("powertcp", "theta_powertcp", "hpcc", "swift",
-                "gradient_mimd", "timely", "dcqcn", "reno")
+                "gradient_mimd", "timely", "dcqcn", "reno", "fncc", "pulser",
+                "backpressure", "pcc")
 
 
 @pytest.mark.cuda
@@ -273,6 +277,67 @@ def test_fused_tick_block_kernel_grid_per_scenario_config(cuda_device, law):
                                                   (0.97, 80e6, 5e5)))]
     sup.k4_grid_against_plain(tc, topo, sched, cfg, law, 6, (64,),
                               law_cfg=tc.stack_law_configs(cfgs))
+
+
+# the feedback-channel laws at the fat tree's shape: the first ticks of
+# both legs of benchmarks/feedback_fct.py (quick), 5-hop paths
+FEEDBACK_K4_STEPS = 1500
+
+
+def _feedback_leg(tc, leg, device):
+    return sup.feedback_scenario(tc, leg, quick=True,
+                                 steps=FEEDBACK_K4_STEPS, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("leg", sup.FEEDBACK_LEGS)
+@pytest.mark.parametrize("law", sup.FEEDBACK_LAWS)
+def test_fused_tick_block_kernel_feedback_law_fat_tree(cuda_device, law, leg,
+                                                       gate):
+    """Each feedback law's K4 (the hop clock, the pause and sender-count
+    columns of the ring) against the plain tick on the fat tree's 5-hop
+    paths, every carry leaf bit for bit, ``gate`` True and False, K = 64
+    and a ragged 7, a slot per flow and a pool of 10."""
+    import repro_torch.core as tc
+    topo, sched, cfg, slots, _ = _feedback_leg(tc, leg, cuda_device)
+    sb = tc.stack_flow_schedules([sched], topo.num_queues)
+    for S in (slots, 10):
+        sup.k4_grid_against_plain(tc, topo, sb, cfg, law, S, (64, 7),
+                                  gate=gate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", sup.FEEDBACK_LAWS)
+def test_fused_tick_block_kernel_feedback_grid_per_scenario_config(
+        cuda_device, law):
+    """Both fat-tree legs as one batch whose ``fncc_eta``, ``pulser_n``,
+    ``bp_xoff`` / ``bp_xon`` and PCC's ``pcc_eps`` / ``pcc_b`` differ by
+    scenario (``stack_law_configs``: K4 divides by the stacked eta), K4's
+    grid against the plain block of the batch."""
+    import repro_torch.core as tc
+    legs = [_feedback_leg(tc, leg, cuda_device) for leg in sup.FEEDBACK_LEGS]
+    topo, cfg = legs[0][0], legs[0][2]
+    sb = tc.stack_flow_schedules([lg[1] for lg in legs], topo.num_queues)
+    cfgs = [tc.default_law_config(type(sb)(*[x[b] for x in sb]),
+                                  expected_flows=8.0, **kw)
+            for b, kw in enumerate(sup.FEEDBACK_BATCH_SCALARS)]
+    sup.k4_grid_against_plain(tc, topo, sb, cfg, law, int(sb.start.shape[-1]),
+                              (64,), law_cfg=tc.stack_law_configs(cfgs))
+
+
+@pytest.mark.cuda
+def test_megakernel_feedback_law_without_k4_raises_on_cuda(cuda_device):
+    """A feedback law whose update is not the registered one has no K4
+    path: the megakernel backend raises on the card, falling back to
+    nothing."""
+    import repro_torch.core as tc
+    topo, sched, cfg, _, _ = _feedback_leg(tc, "incast", cuda_device)
+    law = tc.LAWS["backpressure"]
+    other = law._replace(update=lambda *a: law.update(*a))
+    with pytest.raises(NotImplementedError, match="no K4 path"):
+        tc.simulate_slots(topo, sched, other, 16, cfg=cfg._replace(steps=64),
+                          backend="megakernel", device=cuda_device)
 
 
 @pytest.mark.cuda

@@ -180,6 +180,81 @@ def fig6_scenario(core, **dev):
             int(core.suggest_slots(sched, PAPER_DT)))
 
 
+# benchmarks/feedback_fct.py::run: the four feedback-channel laws and the
+# receiver-echo baselines on the k = 4 fat-tree (5-hop inter-pod ECMP
+# paths), one leg of web-search arrivals (``fabric_fct.anchor_scenario``:
+# load 0.25, seed 3, the pool from ``suggest_slots``) and one of repeated
+# incast bursts (``incast_scenario``: fan-in 8 of 200 kB, 2 ms apart,
+# seed 1, a slot per flow); ``FEEDBACK_REF`` holds ``repro``'s slot-engine
+# FCTs of both legs (``quick=False``) and of the four laws at phase 6c's
+# paper scale
+FEEDBACK_REF = os.path.join(HERE, "golden", "torch_port_feedback.json")
+FEEDBACK_LAWS = ("fncc", "pulser", "backpressure", "pcc")
+FEEDBACK_BASELINES = ("powertcp", "hpcc", "timely")
+FEEDBACK_DT = 1e-6
+FEEDBACK_EXPECTED_FLOWS = 8.0
+FEEDBACK_LEGS = ("ws", "incast")
+# a batch of two whose feedback-law scalars differ by scenario
+FEEDBACK_BATCH_SCALARS = (
+    dict(fncc_eta=0.9, pulser_n=4.0, bp_xoff=5e5, bp_xon=2e5, pcc_eps=0.05,
+         pcc_b=512.0),
+    dict(fncc_eta=0.97, pulser_n=8.0, bp_xoff=2e6, bp_xon=1e6, pcc_eps=0.1,
+         pcc_b=200.0))
+
+
+def feedback_scenario(core, leg, quick=False, steps=None, **dev):
+    """(topo, schedule, cfg, slots, victim queues) of one leg of
+    ``feedback_fct.run`` in either package: ``"ws"`` (web-search over 4
+    ms, 2 ms quick, plus 4 ms of drain) or ``"incast"`` (3 bursts, 2
+    quick; 9 000 ticks); ``steps`` cuts the run (the widths unchanged)."""
+    dt = FEEDBACK_DT
+    ft = core.fat_tree(4)
+    if leg == "ws":
+        duration = 0.002 if quick else 0.004
+        flows = core.poisson_websearch(ft, 0.25, duration, dt, seed=3,
+                                       **dev)
+        bqs = []
+        sched = core.make_schedule(flows)
+        cfg = core.SimConfig(dt=dt, steps=int((duration + 0.004) / dt),
+                             hist=512, update_period=2e-6)
+        slots = int(core.suggest_slots(sched, dt))
+    else:
+        flows, bqs = core.incast_burst(ft, fan_in=8, req_bytes=2e5,
+                                       n_bursts=2 if quick else 3,
+                                       period=2e-3, sim_dt=dt, seed=1,
+                                       **dev)
+        sched = core.make_schedule(flows)
+        cfg = core.SimConfig(dt=dt, steps=9000, hist=512,
+                             update_period=2e-6)
+        slots = int(sched.start.shape[0])
+    if steps is not None:
+        cfg = cfg._replace(steps=int(steps))
+    return ft.topology(**dev), sched, cfg, slots, bqs
+
+
+def feedback_fct_us(fct, size) -> dict:
+    """``feedback_fct._fct_us`` of one run: ``fct_stats``' p99.9 and mean
+    FCTs (us) of the short (< 10 kB) and of all flows that completed,
+    None where none did, and the count completed."""
+    fct = np.asarray(fct, np.float64)
+    size = np.asarray(size, np.float64)
+    done = np.isfinite(fct) & np.isfinite(size)
+    out = {"completed": int(done.sum())}
+    for name, m in (("short", size < 10e3), ("all", np.ones_like(done))):
+        sel = done & m
+        for stat, fn in (("p", lambda x: np.percentile(x, 99.9)),
+                         ("mean", np.mean)):
+            out[f"{name}_{stat}"] = (round(float(fn(fct[sel])) * 1e6, 3)
+                                     if sel.any() else None)
+    return out
+
+
+def feedback_verdict(rows) -> bool:
+    """``feedback_fct.run``'s return: every run's mean FCT is defined
+    (``rows``: each run's ``feedback_fct_us``)."""
+    return all(r["all_mean"] is not None for r in rows)
+
+
 # benchmarks/fig8_rdcn.py (claim C5): ``rdcn_setup(weeks=4, slots=(0, 6))``
 # — 8 flows at 25G into one VOQ, 4 weeks of 1 us ticks — and
 # ``rdcn_specs``' grid: the three window laws and reTCP at both
@@ -612,17 +687,19 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
 
 def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
                           gate=True, expected_flows=8.0, law_cfg=None,
-                          bw_fn=None, bw_params=None):
+                          bw_fn=None, bw_params=None, k4_gates=None):
     """K4's grid form against the plain block on the card: a batch of
     schedules ``sched`` ([B, N, ...], ``fluid.stack_flow_schedules``), one
     K4 block per scenario, against the plain tick of the batch, both with
     ``gate``, from the same initial carry, for each K in ``blocks``: every
     carry leaf bit for bit, and the records; their sums ``w_sum`` and
-    ``lam`` at rtol 1e-5 (K4 adds them in its block order). ``law_cfg``
-    (stacked, as ``stack_law_configs`` builds it) replaces the default
-    config; ``bw_fn``/``bw_params`` are the batch's time-varying
-    bandwidth (``simulate_slots_batch``'s). Returns the largest absolute
-    difference in those sums."""
+    ``lam`` at rtol 1e-5 (K4 adds them in its block order). ``k4_gates``
+    runs K4 with each of those gates against the one plain run (the plain
+    tick's ``gate`` changes none of its bits). ``law_cfg`` (stacked, as
+    ``stack_law_configs`` builds it) replaces the default config;
+    ``bw_fn``/``bw_params`` are the batch's time-varying bandwidth
+    (``simulate_slots_batch``'s). Returns the largest absolute difference
+    in those sums."""
     from repro_torch.core import fluid, megakernel as mk
     dev = sched.start.device
     sim = fluid.make_slot_sim(topo, sched, law, slots, law_cfg, cfg=cfg,
@@ -634,21 +711,23 @@ def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
     due = torch.as_tensor(mk._due_table(sim.sched, T, cfg.dt), device=dev)
     want, wrec = mk.run_blocks(grid, tree_clone(carry0), due, T, "torch")
     err = 0.0
-    for K in blocks:
+    runs = [(K, g) for g in (k4_gates or (gate,)) for K in blocks]
+    for K, g in runs:
+        grid.gate = bool(g)
         got, grec = mk.run_blocks(grid, tree_clone(carry0), due, K, "cuda")
         torch.cuda.synchronize()
         assert got.state.t == want.state.t, (K, got.state.t, want.state.t)
         for (name, g), (_, w) in zip(tree_leaves(got), tree_leaves(want)):
             torch.testing.assert_close(
                 g, w, rtol=0, atol=0, equal_nan=True,
-                msg=lambda m, n=name: f"K4 grid K={K} {n}: {m}")
+                msg=lambda m, n=name: f"K4 grid K={K} gate={g} {n}: {m}")
         for f in grec._fields:
             g = getattr(grec, f)
             w = getattr(wrec, f).to(device=g.device, dtype=g.dtype)
             tol = 1e-5 if f in ("w_sum", "lam") else 0.0
             torch.testing.assert_close(
                 g, w, rtol=tol, atol=0, equal_nan=True,
-                msg=lambda m, n=f: f"K4 grid K={K} rec.{n}: {m}")
+                msg=lambda m, n=f: f"K4 grid K={K} gate={g} rec.{n}: {m}")
             if tol and g.numel():
                 err = max(err, float(torch.max(torch.abs(g.double()
                                                          - w.double()))))
@@ -657,39 +736,63 @@ def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
 
 def k4_against_reference(tc, topo, sched, cfg, law, slots,
                          expected_flows=8.0, law_cfg=None):
+    """``k4_batch_against_reference`` for one schedule (``law_cfg``, one
+    scenario's, replaces the default config)."""
+    return k4_batch_against_reference(
+        tc, topo, tc.batch_of_one(sched), cfg, law, slots, expected_flows,
+        None if law_cfg is None else tc.batch_of_one(law_cfg))
+
+
+def k4_batch_against_reference(tc, topo, sched, cfg, law, slots,
+                               expected_flows=8.0, law_cfg=None,
+                               gates=(True,)):
     """``simulate_slots_batch`` with ``backend="megakernel"`` (K4 on the
-    card) against the eager ``backend="reference"`` slot engine over
-    ``cfg.steps`` ticks of one schedule: the final carry's windows, rate
-    caps, queues, progress, update times, rings, law state, admission
-    cursor and FCTs bit for bit (not the slots' retire bookkeeping: the
-    megakernel retires a drained slot on the tick it drains, the
-    reference on the next admission, which changes no trajectory), and
-    the records; their per-tick sums ``w_sum`` and ``lam`` at rtol 1e-5
-    (K4 adds them in its own order). ``law_cfg`` (one scenario's)
-    replaces the default config. Returns the number of flows
-    completed."""
-    runs = [tc.simulate_slots_batch(
-        topo, tc.batch_of_one(sched), law, slots,
-        None if law_cfg is None else tc.batch_of_one(law_cfg), cfg=cfg,
-        backend=b, expected_flows=expected_flows, device=sched.start.device)
-        for b in ("megakernel", "reference")]
-    (got, grec), (want, wrec) = runs
+    card, with each of ``gates``) against the eager
+    ``backend="reference"`` slot engine over ``cfg.steps`` ticks of a
+    batch of schedules ``sched`` ([B, N, ...]): the final carry's windows,
+    rate caps, queues, progress, update times, rings (the feedback
+    channels' included), law state, admission cursor and FCTs bit for bit
+    (not the slots' retire bookkeeping: the megakernel retires a drained
+    slot on the tick it drains, the reference on the next admission,
+    which changes no trajectory), and the records; their per-tick sums
+    ``w_sum`` and ``lam`` at rtol 1e-5 (K4 adds them in its own order).
+    ``law_cfg`` (stacked) replaces the default config. Returns the number
+    of flows completed."""
+    from repro_torch.core import fluid, megakernel as mk
+    dev = sched.start.device
+    want, wrec = tc.simulate_slots_batch(
+        topo, sched, law, slots, law_cfg, cfg=cfg, backend="reference",
+        expected_flows=expected_flows, device=dev)
+    for gate in gates:
+        sim = fluid.make_slot_sim(topo, sched, law, slots, law_cfg, cfg,
+                                  "megakernel", dev, expected_flows)
+        got, grec = mk.simulate_slots_mega(sim, gate=gate)
+        got = got._replace(fct=got.fct[..., :int(sched.start.shape[-1])])
+        _same_state(got, grec, want, wrec, f"gate={gate}")
+    return int(torch.isfinite(want.fct).sum())
+
+
+def _same_state(got, grec, want, wrec, what):
+    """``k4_batch_against_reference``'s comparison of two runs."""
     for f in ("w", "rate_cap", "q", "out_rate", "remaining", "next_update",
               "last_update", "hist_lam", "hist_q", "hist_out", "hist_w",
-              "law", "cursor", "fct"):
-        for (name, gv), (_, wv) in zip(tree_leaves(getattr(got, f), f),
-                                       tree_leaves(getattr(want, f), f)):
+              "law", "cursor", "fct", "pause", "hist_pause", "hist_inc"):
+        gl, wl = tree_leaves(getattr(got, f), f), tree_leaves(
+            getattr(want, f), f)
+        assert len(gl) == len(wl), (what, f, len(gl), len(wl))
+        for (name, gv), (_, wv) in zip(gl, wl):
             torch.testing.assert_close(
                 gv, wv, rtol=0, atol=0, equal_nan=True,
-                msg=lambda m, n=name: f"K4 against the reference {n}: {m}")
+                msg=lambda m, n=name: f"K4 ({what}) against the reference "
+                                      f"{n}: {m}")
     for f in wrec._fields:
         g = getattr(grec, f)
         tol = 1e-5 if f in ("w_sum", "lam") else 0.0
         torch.testing.assert_close(
             g, getattr(wrec, f).to(device=g.device, dtype=g.dtype),
             rtol=tol, atol=0, equal_nan=True,
-            msg=lambda m, n=f: f"K4 against the reference rec.{n}: {m}")
-    return int(torch.isfinite(got.fct).sum())
+            msg=lambda m, n=f: f"K4 ({what}) against the reference "
+                               f"rec.{n}: {m}")
 
 
 # -------------------------------------------------------------------------
