@@ -2,7 +2,7 @@
 """Wall time per tick of the port's main-path runs for two checkouts of
 the repo, alternating on one GPU: A, B, B, A.
 
-    python3 ab_main_path.py [--ticks N] [--runs a,c,d,e] TREE_A TREE_B
+    python3 ab_main_path.py [--ticks N] [--runs a,c,d,e,g,h] TREE_A TREE_B
 
 Each pass runs in a fresh process with ``TREE/src`` on its path (the
 tree's own kernels, built into ``TREE/build`` at first use) and times,
@@ -11,12 +11,17 @@ on the paper scenario of ``tests/golden/torch_port_paper_seed1.json``
 phase 6 through the public entry points: (a) ``simulate_slots`` fused,
 (c) ``simulate`` (padded) fused, (d) theta-PowerTCP ``simulate_slots``
 fused over the first N ticks (default 5 000), and (e) ``simulate_slots``
-megakernel over the whole 40 000 ticks (``--runs`` picks a subset, e.g.
-``--runs e`` for K4 alone). Each tree's first pass also
+megakernel over the whole 40 000 ticks; then, on phase 6c's scenario
+(``benchmarks/fig6_fct.py::run_paper_scale``: 130 000 ticks, 448 slots),
+(g) ``powertcp`` and (h) ``dcqcn`` megakernel (``--runs`` picks a
+subset, e.g. ``--runs e`` for K4 alone; (g) and (h) only when named).
+Each tree's first pass also
 times the build of its K4 source (``csrc/fused_tick.cu``, one ``nvcc``
 before any other kernel is built). Every run is warmed up first
-(a few ticks: the build and the first launches are not timed); the wall
-clock is the host's, around work that ends in
+(a few ticks: the build and the first launches are not timed), then
+timed ``REPS`` times and its median taken: the first timed run of a
+process is at times 15-25% slower than the next ones;
+the wall clock is the host's, around work that ends in
 ``torch.cuda.synchronize()``. Prints one JSON line per pass and, last, the
 mean of each tree's two passes per run with the card's name and power
 limit, and whether every pass gave the same FCTs bit for bit (a
@@ -38,7 +43,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 RUNS = (("a", "slot", "powertcp", "fused"),
         ("c", "padded", "powertcp", "fused"),
         ("d", "slot", "theta_powertcp", "fused"),
-        ("e", "slot", "powertcp", "megakernel"))
+        ("e", "slot", "powertcp", "megakernel"),
+        ("g", "fig6", "powertcp", "megakernel"),
+        ("h", "fig6", "dcqcn", "megakernel"))
+
+
+# timed runs of each run in a pass; the median is kept
+REPS = 3
 
 
 def child(tree: str, ticks: int, keys) -> dict:
@@ -64,9 +75,21 @@ def child(tree: str, ticks: int, keys) -> dict:
     topo = fab.topology(device=dev)
     pflows = tc.schedule_as_flows(sched)
 
+    if {"g", "h"} & set(keys):
+        sys.path.insert(0, os.path.join(ROOT, "tests"))
+        import test_torch_support as sup
+        fig6 = sup.fig6_scenario(tc, device=dev)
+
     def run(engine, law, backend, steps):
         cfg = tc.SimConfig(dt=ref["dt_s"], steps=steps, hist=ref["hist"],
                            update_period=ref["update_period_s"])
+        if engine == "fig6":
+            ftopo, fsched, fcfg, fslots = fig6
+            return tc.simulate_slots(
+                ftopo, fsched, law, fslots, tc.default_law_config(
+                    fsched, expected_flows=sup.PAPER_EXPECTED_FLOWS),
+                fcfg._replace(steps=steps), record=False, backend=backend,
+                device=dev)
         if engine == "slot":
             lcfg = tc.default_law_config(
                 sched, expected_flows=ref["expected_flows"])
@@ -81,15 +104,19 @@ def child(tree: str, ticks: int, keys) -> dict:
     for key, engine, law, backend in RUNS:
         if key not in keys:
             continue
-        steps = ref["steps"] if backend == "megakernel" else ticks
+        steps = (fig6[2].steps if engine == "fig6" else ref["steps"]
+                 if backend == "megakernel" else ticks)
         run(engine, law, backend, 64)                       # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st, _ = run(engine, law, backend, steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        walls = []
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, _ = run(engine, law, backend, steps)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = sorted(walls)[len(walls) // 2]
         done = int(torch.isfinite(st.fct).sum())
-        out[key] = dict(steps=steps, wall_s=wall,
+        out[key] = dict(steps=steps, wall_s=wall, walls_s=walls,
                         us_per_tick=wall / steps * 1e6, completed=done,
                         fct_sha256=hashlib.sha256(
                             st.fct.cpu().numpy().tobytes()).hexdigest())
@@ -102,7 +129,7 @@ def main():
         print(json.dumps(child(args[1], int(args[2]), args[3].split(","))),
               flush=True)
         return
-    ticks, keys = 5000, [k for k, *_ in RUNS]
+    ticks, keys = 5000, [k for k, e, *_ in RUNS if e != "fig6"]
     while args and args[0] in ("--ticks", "--runs"):
         if args[0] == "--ticks":
             ticks = int(args[1])
@@ -151,7 +178,8 @@ def main():
                                 p[key]["fct_sha256"] for i in (0, 1)
                                 for p in passes[i]}) == 1)
     print(smi, flush=True)
-    print(json.dumps({"trees": args, "ticks": ticks, "device": smi,
+    print(json.dumps({"trees": args, "ticks": ticks, "reps": REPS,
+                      "device": smi,
                       "build_fused_tick_s": [builds.get(0), builds.get(1)],
                       "runs": summary}), flush=True)
 

@@ -20,7 +20,9 @@ exit, traceback) if anything in it is wrong:
    shapes (B = 2 scenarios of S = 128 slots and of F = 2 436 padded
    flows, and a ragged B = 3), one launch for the batch, each scenario
    bit for bit a launch of its own; then each timed (CUDA graph replays
-   of many launches, median of rounds) beside its plain version and, for
+   of many launches, median of rounds) beside its plain version (K3's,
+   which reads its columns' depths back to the host, eagerly between
+   CUDA events) and, for
    K3, ``torch.einsum`` (the library yardstick, used nowhere in the
    port), K1 and K3 also at the batched shapes. Then K1/K2 in the
    engines' form, ``powertcp_observe_step`` and
@@ -35,8 +37,9 @@ exit, traceback) if anything in it is wrong:
    (``observe_cost``);
 4. K4 ``fused_tick_block`` (the megakernel, 64 ticks per launch; PowerTCP
    and theta-PowerTCP here, every law in phase 6c) against
-   its plain version from the same initial carry, every carry leaf bit
-   for bit (the records' per-tick sums at rtol 1e-5): the 12-flow anchor
+   its plain version from the same initial carry, every carry leaf and
+   record field bit for bit (K4 adds the records' per-tick sums in
+   XLA:CPU's order, as the plain tick does): the 12-flow anchor
    of ``tests/test_megakernel.py`` with K in {1, 7, 64}, S < N for both
    laws, S = 1, and the first 2 000 ticks of the paper scenario for both
    laws, each with the gather table at its suggested width, and the
@@ -173,6 +176,36 @@ exit, traceback) if anything in it is wrong:
    ``{"feedback": {...}}`` line; (iii) each feedback law's K4 timed over
    each leg's whole run (every launch, CUDA events; the bound of every
    4th launch from ``k4_cost``; the plain block at the middle launch);
+6f. impair: per-link impairments (``core/impair.py``; K4 evaluates each
+   queued link's capacity, loss and jitter processes in its body every
+   tick; phase 4 holds that evaluation alone, ``fused_tick.impair``, bit
+   for bit against ``core/impair.py`` over 8 000 ticks of this phase's
+   regimes and one of every kind). All on K4 through the public entry
+   points: (1) the ``"impair"`` leg of ``tests/golden/golden_laws.json``
+   for all 13 laws (the single bottleneck under its mixed regime, the
+   slot engine with a slot per flow) at the golden tolerances, each
+   unlike its clean leg; (2) ``benchmarks/impair_fct.py::smoke_impair``'s
+   anchor (the k = 4 fat tree, web-search at load 0.25, seed 3, 4 ms + 4
+   ms of drain: 8 000 ticks, 37 flows, a slot each) under
+   ``anchor_impairments``' mixed regime (ToR -> host links oscillating
+   down to 2.5 GB/s over 200 us, every other link ``netem(loss=0.01,
+   jitter=1e-6)``) for ``powertcp``, ``hpcc`` and ``timely``: K4 bit for
+   bit the plain tick over the first 2 000 ticks (gate True; powertcp
+   also False), then the whole run with ``repro``'s completion set and
+   every FCT within rtol 1e-5 (``tests/golden/torch_port_impair.json``);
+   (3) the four regimes (mixed, oscillate, lossy, clean) stacked as one
+   ``simulate_slots_batch(impair_params=...)`` of powertcp (one K4 launch
+   of 4 blocks per 64 ticks), each scenario within rtol 1e-5 of
+   ``repro``'s, the clean one bit for bit the unimpaired K4 run; (4) the
+   impaired pass of ``fabric_fct._fabric16_anchor_bitmatch`` on the
+   paper's 256-host leaf-spine (web-search at load 0.3 over 1.2 ms, seed
+   11, 3 000 ticks, 56 slots for 52 flows, the mixed regime) for
+   ``powertcp``, ``backpressure`` and ``pulser``, against ``repro``'s
+   FCTs; (5) the eager padded and slot reference engines over the first
+   2 000 ticks of (2), every record field and FCT bit for bit K4's; (6)
+   K4 timed launch by launch over each run of (2)-(4) (CUDA events; the
+   bound of every 4th launch from ``k4_cost``, the regime's read
+   included), printed with the card's name and power limit;
 
 7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
    plain PyTorch versions at the serve run's shapes (K5: prefill q
@@ -234,8 +267,8 @@ batch is one launch of B blocks that share nothing.
 It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms;
 the TPU form's main-path launches are 0; K4's entry carries each of its
 13 laws' phase-6c times under ``laws``, each Fig. 8 group's under
-``fig8`` and each feedback law's on each fat-tree leg under
-``feedback``),
+``fig8``, each feedback law's on each fat-tree leg under
+``feedback`` and each impaired run's of phase 6f under ``impair``),
 the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
 no result, when CUDA is not available or the checkout's sources are
@@ -319,6 +352,25 @@ def graph_ms(torch, fn, reps=100, rounds=7):
         b = torch.cuda.Event(enable_timing=True)
         a.record()
         g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
+
+
+def eager_ms(torch, fn, reps=20, rounds=3):
+    """Time of one ``fn()`` call where ``fn`` reads values back to the host
+    (no CUDA graph can hold it): ``reps`` calls between CUDA events after
+    a warm-up, the median round over ``reps``; host time included."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
@@ -559,7 +611,7 @@ def phase_kernels(torch, sup, dev):
             shape=f"H={H} F={F} Q+1={Q}",
             ms=graph_ms(torch,
                         lambda: queue_arrivals(**kw, dt=sup.QUEUE_DT)),
-            plain_ms=graph_ms(torch, lambda: ref.queue_arrivals_ref(
+            plain_ms=eager_ms(torch, lambda: ref.queue_arrivals_ref(
                 **kw, dt=sup.QUEUE_DT)),
             bound_ms=b, bound_by=by,
             library_ms=graph_ms(torch,
@@ -587,8 +639,8 @@ def phase_kernels(torch, sup, dev):
             shape=f"B={B} H={H} F={F} Q+1={Q}",
             ms=graph_ms(torch,
                         lambda: queue_arrivals(**kq, dt=sup.QUEUE_DT)),
-            plain_ms=graph_ms(torch, lambda: ref.queue_arrivals_ref(
-                **kq, dt=sup.QUEUE_DT), reps=20, rounds=3),
+            plain_ms=eager_ms(torch, lambda: ref.queue_arrivals_ref(
+                **kq, dt=sup.QUEUE_DT), reps=5),
             bound_ms=b, bound_by=by,
             library_ms=graph_ms(torch, lambda: torch.einsum(
                 "bhf,bhfq->bq", lam, oh)))
@@ -803,7 +855,7 @@ K4_SLOT_FLOPS = {"powertcp": 0, "theta_powertcp": 5, "hpcc": 6,
                  "pulser": 4, "backpressure": 3, "pcc": 43}
 
 
-def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post):
+def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post, impair=False):
     """Bytes and flops of one K-tick launch of K4, counted from
     ``csrc/fused_tick.cu`` and this launch's data (``k4_pool`` at its
     first and last tick; the larger count of the two where the pool
@@ -822,7 +874,12 @@ def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post):
     (``K4_HOP_FLOPS``); per slot ~34 (rate, PowerTCP's update, clamp,
     progress) plus the rest of the law's update (``K4_SLOT_FLOPS``); per
     valid hop one arrival add; per
-    queue ~10 (caps, integration, gradient); per switch its fold."""
+    queue ~10 (caps, integration, gradient); per switch its fold. Under an
+    impairment regime (``impair``) the launch also reads the regime's 10
+    rows of Q words, and each tick spends ~20 float ops per queue on its
+    processes (the epoch's and the wave's divisions, the remainder, the
+    four kinds' rates, the loss and the jitter; the integer hash is not
+    counted) and 2 per slot-hop (the survival product and the jitter)."""
     from repro_torch.kernels.fused_tick import (LAW_CONFIG, LAW_STATE,
                                                 PAUSE_LAWS, ring_channels)
     admitted = post["cursor"] - pre["cursor"]
@@ -833,9 +890,11 @@ def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post):
              + K * (2 * S + ring_channels(law) * Q1)
              + sum(max(pre[k], post[k]) for k in ("lam", "q", "w"))
              + inv * (2 if admitted else 1) + post["fct"] - pre["fct"]
-             + 3 * Q1 + nsw * (swdeg + 1) + K + admitted * (2 * H + 10))
+             + 3 * Q1 + nsw * (swdeg + 1) + K + admitted * (2 * H + 10)
+             + (10 * (Q1 - 1) if impair else 0))
     per_tick = S * H * (6 + K4_HOP_FLOPS.get(law, 0) + 1) \
-        + S * (34 + K4_SLOT_FLOPS[law]) + 10 * Q1 + nsw * swdeg
+        + S * (34 + K4_SLOT_FLOPS[law]) + 10 * Q1 + nsw * swdeg \
+        + ((Q1 - 1) * 20 + 2 * S * H if impair else 0)
     return 4 * words, K * per_tick
 
 
@@ -896,8 +955,10 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
             f"{[x['seed'] for x in sref['scenarios']]}), first "
             f"{paper_ticks} ticks, S={sref['slots']}, gate True and False: "
             f"bitwise equal to each scenario's plain block")
+    held = impair_probe(torch, tc, sup, dev)
     row = k4_timing(torch, tc, sup, dev, ref, ptopo, psched)
     row["max_abs_err"] = err
+    row["impair_values_held"] = held
     return row
 
 
@@ -1515,22 +1576,26 @@ def fig6_law_cfg(tc, sup, sched, law, dev):
 
 
 def k4_law_timing(torch, tc, sup, dev, topo, sched, cfg, slots, law,
-                  law_cfg=None):
+                  law_cfg=None, impair=None):
     """K4 over the whole run of ``cfg`` for ``law``: every launch timed
     (CUDA events between back-to-back launches), then a second pass from
-    the same carry that counts the bound (``k4_cost``) of every
-    ``FIG6_BOUND_EVERY``-th launch from its data and, at the middle
-    launch, runs the plain block from the same carry (timed by the host
-    clock, held bit for bit to K4's launch); both passes must end on the
-    same carry. ``law_cfg`` (one scenario's) replaces the default config.
-    Returns the row of the law."""
+    the same carry that counts the bound (``k4_cost``, summed over the
+    scenarios of a batch) of every ``FIG6_BOUND_EVERY``-th launch from its
+    data and, at the middle launch, runs the plain block from the same
+    carry (timed by the host clock, held bit for bit to K4's launch);
+    both passes must end on the same carry. ``sched`` is one schedule or
+    a batch ([B, N] leaves, one K4 block each); ``law_cfg`` (one
+    scenario's) replaces the default config; ``impair`` is the run's
+    impairment regime. Returns the row of the law."""
     from repro_torch.core import fluid, megakernel as mk
     from repro_torch.kernels import ops, ref as kref
+    batch = sched if sched.start.dim() == 2 else tc.batch_of_one(sched)
     sim = fluid.make_slot_sim(
-        topo, tc.batch_of_one(sched), law, slots,
+        topo, batch, law, slots,
         None if law_cfg is None else tc.batch_of_one(law_cfg), cfg=cfg,
         backend="megakernel", device=dev,
-        expected_flows=sup.PAPER_EXPECTED_FLOWS)
+        expected_flows=sup.PAPER_EXPECTED_FLOWS, impair=impair)
+    B = int(batch.start.shape[0])
     tick = mk.make_tick(sim)
     carry0 = tick.init_carry(fluid.init_slot_state(sim))
     T, K = int(cfg.steps), mk.DEFAULT_BLOCK
@@ -1555,9 +1620,12 @@ def k4_law_timing(torch, tc, sup, dev, topo, sched, cfg, slots, law,
                   else tuple(static.sw_table.shape))
     carry = sup.tree_clone(carry0)
     bounds = []
+
+    def pools(c):
+        return [k4_pool(tc.scenario(c, b), fluid, static.bw, law, cfg.dt)
+                for b in range(B)]
     for i in range(n):
-        pre = (k4_pool(tc.scenario(carry, 0), fluid, static.bw, law, cfg.dt)
-               if i % FIG6_BOUND_EVERY == 0 else None)
+        pre = pools(carry) if i % FIG6_BOUND_EVERY == 0 else None
         if i == n // 2:
             pc = sup.tree_clone(carry)
             torch.cuda.synchronize()
@@ -1574,10 +1642,11 @@ def k4_law_timing(torch, tc, sup, dev, topo, sched, cfg, slots, law,
                     g, w, rtol=0, atol=0, equal_nan=True,
                     msg=lambda m, nm=name: f"K4 {law} launch {i} {nm}: {m}")
         if pre is not None:
-            post = k4_pool(tc.scenario(carry, 0), fluid, static.bw, law,
-                           cfg.dt)
-            bounds.append(bound_ms(*k4_cost(S, H, Q1, blocks[i].shape[-1],
-                                            nsw, swdeg, law, pre, post)))
+            cost = [k4_cost(S, H, Q1, blocks[i].shape[-1], nsw, swdeg, law,
+                            a, b, impair is not None)
+                    for a, b in zip(pre, pools(carry))]
+            bounds.append(bound_ms(sum(x for x, _ in cost),
+                                   sum(y for _, y in cost)))
     for (name, g), (_, w) in zip(sup.tree_leaves(carry),
                                  sup.tree_leaves(end1)):
         torch.testing.assert_close(
@@ -1585,7 +1654,8 @@ def k4_law_timing(torch, tc, sup, dev, topo, sched, cfg, slots, law,
             msg=lambda m, nm=name: f"K4 {law} timing pass 2 {nm}: {m}")
     bms = np.array([b for b, _ in bounds])
     by = max(set(b for _, b in bounds), key=[b for _, b in bounds].count)
-    return dict(shape=f"S={S} H={H} Q+1={Q1} D={cfg.hist} K={K}",
+    return dict(shape=(f"B={B} " if B > 1 else "")
+                + f"S={S} H={H} Q+1={Q1} D={cfg.hist} K={K}",
                 launches=n, ms=float(ms.mean()),
                 us_per_tick=float(ms.sum()) / T * 1e3,
                 ms_p50=float(np.median(ms)), plain_ms=plain_ms,
@@ -1769,19 +1839,19 @@ def fig8_schedule_probe(torch, tc, dev, ref, scheds):
 
 
 def fig8_records_equal(got, want, what):
-    """Two runs' records (a batch's), every field bit for bit but the
-    per-tick sums ``w_sum`` and ``lam`` (rtol 1e-5: K4 adds them in its
-    own order). Returns the largest absolute difference in those sums."""
+    """Two runs' records (a batch's), every field bit for bit (K4 adds the
+    per-tick sums ``w_sum`` and ``lam`` in the plain tick's order).
+    Returns the largest absolute difference in those sums (0.0)."""
     import torch
     err = 0.0
     for f in want._fields:
         g = getattr(got, f)
         w = getattr(want, f).to(device=g.device, dtype=g.dtype)
-        tol = 1e-5 if f in ("w_sum", "lam") else 0.0
-        torch.testing.assert_close(g, w, rtol=tol, atol=0, equal_nan=True,
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True,
                                    msg=lambda m, n=f: f"{what} rec.{n}: {m}")
-        if tol and g.numel():
-            err = max(err, float((g.double() - w.double()).abs().max()))
+        if f in ("w_sum", "lam") and g.numel():
+            err = max(err, float(torch.nan_to_num(
+                (g.double() - w.double()).abs().max())))
     return err
 
 
@@ -2039,6 +2109,296 @@ def phase_feedback(torch, tc, kernels, sup, dev, smi):
                 f"{row['bound_ms']!r} ms ({row['bound_by']}); {smi}")
     log(f"[feedback] phase 6e: {time.perf_counter() - t0:.1f} s")
     return launches, rows, err
+
+
+# -------------------------------------------------------------------------
+# phase 6f: per-link impairments (benchmarks/impair_fct.py) on K4
+# -------------------------------------------------------------------------
+
+# ticks over which the impaired K4 runs are held to the plain tick and
+# the eager reference engines
+IMPAIR_CHECK_TICKS = 2000
+# a run's FCTs against repro's
+IMPAIR_RTOL = 1e-5
+
+
+def impair_probe(torch, tc, sup, dev, T=8000):
+    """K4's evaluation of a regime alone (``fused_tick.impair``, compiled
+    with K4's flags) against ``core/impair.py`` on the card, bit for bit
+    over ticks 0 .. T - 1: phase 6f's four regimes of the fat tree as one
+    stacked [4, 10, Q] regime, the paper fabric's, and one of every
+    process and loss kind (zero periods, phases before t = 0, seeds above
+    2^31). Returns the number of (tick, queue) values held."""
+    from repro_torch.core import impair as ti, megakernel as mk
+    from repro_torch.kernels import fused_tick as ft
+    rows, bw = sup.impair_kind_rows()
+    every = ti._params_from_procs([ti.LinkProcess(**r) for r in rows], bw,
+                                  device=dev)
+    ft4 = tc.fat_tree(4)
+    four = tc.stack_impairments(list(sup.impair_regimes(
+        tc, ft4, device=dev).values()))
+    paper = sup.impair_paper_scenario(tc, device=dev)[-1]
+    held = 0
+    for name, reg in (("the fat tree's four regimes", four),
+                      ("the paper fabric's", paper), ("every kind", every)):
+        Q = int(reg.kind.shape[-1])
+        lead = tuple(reg.kind.shape[:-1])
+        B = lead[0] if lead else 1
+        imp = mk._k4_impair(reg, B, Q, dev)
+        gb, gk, gj = ft.impair(imp, 0, T, 1e-6)
+        t = (torch.arange(T, device=dev).to(torch.float32) * 1e-6)[:, None]
+        for b in range(B):
+            p = ti.ImpairmentParams(*[x[b] for x in reg]) if lead else reg
+            keep, jit = ti.impair_vectors(t, p)
+            for g, w, what in ((gb[b], ti.link_bw_at(t, p), "rate"),
+                               (gk[b], keep[..., :Q], "survival fraction"),
+                               (gj[b], jit[..., :Q], "jitter")):
+                if not torch.equal(g, w):
+                    bad = int((g != w).sum())
+                    raise AssertionError(f"K4's impairment evaluation "
+                                         f"({name}, {what}) differs from "
+                                         f"core/impair.py at {bad} values")
+            held += T * Q
+        log(f"[k4] impairment evaluation ({name}, {B} x {Q} queues, ticks "
+            f"0-{T - 1}): rate, survival fraction and jitter bitwise equal "
+            f"to core/impair.py")
+    return held
+
+
+def impair_fcts(key, fct, want, rtol=IMPAIR_RTOL):
+    """A run's FCTs (schedule order) against ``repro``'s: the same
+    completion set and every FCT within ``rtol``. Returns the largest
+    relative error."""
+    ref_fct = np.array([np.nan if x is None else x for x in want])
+    done = np.isfinite(fct)
+    if not np.array_equal(done, np.isfinite(ref_fct)):
+        raise AssertionError(f"6f {key}: completion set differs from the "
+                             f"reference's")
+    rel = float(np.max(np.abs(fct[done] - ref_fct[done]) / ref_fct[done])) \
+        if done.any() else 0.0
+    if not rel <= rtol:
+        raise AssertionError(f"6f {key}: FCT rel err {rel} against the "
+                             f"reference's")
+    return rel
+
+
+def golden_in_flow_order(sup, sched, st, rec):
+    """A slot run (S >= N) of the golden scenario in the golden file's
+    layout (``sup.pack``): its FCTs and final windows taken back to flow
+    order."""
+    import torch
+    order = sched.order.long()
+    fct = torch.empty_like(st.fct)
+    fct[order] = st.fct
+    w = torch.empty_like(st.w[:order.shape[0]])
+    w[order] = st.w[:order.shape[0]]
+    return sup.pack(st._replace(fct=fct, w=w), rec)
+
+
+def phase_impair(torch, tc, kernels, sup, dev, smi):
+    """Phase 6f: per-link impairments on K4 (see the module docstring).
+    Returns (launches, K4's rows by run)."""
+    with open(sup.IMPAIR_REF) as f:
+        ref = json.load(f)
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in kernels.LAUNCHES}
+
+    def count(c):
+        for k, n in c.items():
+            launches[k] += n
+
+    # (1) the golden "impair" legs, 13 laws, the slot engine on K4
+    golden = sup.golden()
+    for law in sorted(golden):
+        topo, flows, lcfg, cfg = sup.golden_scenario(tc, device=dev)
+        if law == "retcp":
+            lcfg = lcfg._replace(sched=tc.CircuitSchedule(
+                day=50e-6, night=10e-6, matchings=2).params(dev))
+        reg = sup.golden_impair_regime(tc, topo, device=dev)
+        sched = tc.make_schedule(flows)
+        n = int(sched.start.shape[0])
+        (st, rec), _, c = timed_run(
+            torch, kernels, f"6f golden {law}",
+            expected_launches(law, "megakernel", cfg.steps),
+            lambda: tc.simulate_slots(topo, sched, law, n, lcfg, cfg,
+                                      backend="megakernel", impair=reg,
+                                      device=dev))
+        count(c)
+        got = golden_in_flow_order(sup, sched, st, rec)
+        sup.check_golden(law, got, golden[law]["impair"], leg="[impair]")
+        if got["q"] == golden[law]["q"]:
+            raise AssertionError(f"6f golden {law}: the regime was a no-op")
+    log(f"[impair] the golden traces' impaired leg, 13 laws, slot engine "
+        f"on K4: within the golden tolerances, each unlike its clean leg")
+
+    # (2) smoke_impair's anchor under the mixed regime
+    topo, sched, cfg, S, regimes = sup.impair_anchor_scenario(tc,
+                                                              device=dev)
+    meta = ref["anchor"]["scenario"]
+    got = dict(n_flows=int(sched.start.shape[0]), slots=S, steps=cfg.steps,
+               schedule_sha256=sup.schedule_checksum(
+                   sched.size.cpu().numpy(), sched.start.cpu().numpy()))
+    if got != meta:
+        raise AssertionError(f"6f: the port's anchor {got} differs from the "
+                             f"reference's {meta}")
+    sb = tc.stack_flow_schedules([sched], topo.num_queues)
+    mixed = tc.stack_impairments([regimes["mixed"]])
+    ccfg = cfg._replace(steps=IMPAIR_CHECK_TICKS)
+    ef = sup.IMPAIR_EXPECTED_FLOWS
+    for law in sup.IMPAIR_LAWS:
+        c0 = time.perf_counter()
+        gates = (True, False) if law == "powertcp" else (True,)
+        sup.k4_grid_against_plain(tc, topo, sb, ccfg, law, S, (64,),
+                                  k4_gates=gates, expected_flows=ef,
+                                  impair=mixed)
+        log(f"[impair] {law}: K4 (mixed regime, S={S}, H=5, gate "
+            f"{' and '.join(map(str, gates))}) bitwise equal to the plain "
+            f"tick over {IMPAIR_CHECK_TICKS} ticks "
+            f"({time.perf_counter() - c0:.1f} s)")
+    runs, rows = [], {}
+    n = meta["n_flows"]
+    for law in sup.IMPAIR_LAWS:
+        (st, _), wall, c = timed_run(
+            torch, kernels, f"6f anchor {law}",
+            expected_launches(law, "megakernel", cfg.steps),
+            lambda law=law: tc.simulate_slots_batch(
+                topo, sb, law, S, cfg=cfg, record=False,
+                backend="megakernel", expected_flows=ef,
+                impair_params=mixed, device=dev))
+        count(c)
+        fct = st.fct[0, :n].double().cpu().numpy()
+        rel = impair_fcts(f"anchor {law}", fct, ref["anchor"]["fct_s"][law])
+        runs.append(dict(run="anchor", law=law, wall_s=wall,
+                         fct_max_rel_err=rel, launches=c,
+                         completed=int(np.isfinite(fct).sum())))
+        log(f"[impair] anchor {law} megakernel (mixed), {cfg.steps} ticks, "
+            f"{S} slots: wall {wall:.3f} s, completed "
+            f"{runs[-1]['completed']}/{n} (the reference's set), largest "
+            f"FCT rel err {rel!r}; launches {c}")
+        row = k4_law_timing(torch, tc, sup, dev, topo, sched, cfg, S, law,
+                            impair=regimes["mixed"])
+        rows[f"{law}@anchor"] = row
+        log(f"[impair] time K4 {law} anchor mixed ({row['shape']}, "
+            f"{row['launches']} launches): mean {row['ms']!r} ms per launch "
+            f"({row['us_per_tick']!r} us per tick), median "
+            f"{row['ms_p50']!r}; plain block at the middle launch "
+            f"{row['plain_ms']!r} ms (bitwise equal); bound mean "
+            f"{row['bound_ms']!r} ms ({row['bound_by']}); {smi}")
+
+    # (3) the four regimes as one batch: one K4 grid launch of 4 blocks
+    names = list(sup.IMPAIR_REGIMES)
+    s4 = tc.stack_flow_schedules([sched] * len(names), topo.num_queues)
+    r4 = tc.stack_impairments([regimes[r] for r in names])
+    (st4, rec4), wall, c = timed_run(
+        torch, kernels, "6f regimes",
+        expected_launches("powertcp", "megakernel", cfg.steps),
+        lambda: tc.simulate_slots_batch(
+            topo, s4, "powertcp", S, cfg=cfg, backend="megakernel",
+            expected_flows=ef, impair_params=r4, device=dev))
+    count(c)
+    means = {}
+    for b, r in enumerate(names):
+        fct = st4.fct[b, :n].double().cpu().numpy()
+        rel = impair_fcts(f"regime {r}", fct,
+                          ref["regimes"]["fct_s"][r])
+        means[r] = float(np.mean(fct[np.isfinite(fct)]) * 1e6)
+        runs.append(dict(run="regimes", regime=r, law="powertcp",
+                         fct_max_rel_err=rel,
+                         fct_impair_mean_us=means[r]))
+    (stc, recc), _, c = timed_run(
+        torch, kernels, "6f clean",
+        expected_launches("powertcp", "megakernel", cfg.steps),
+        lambda: tc.simulate_slots_batch(
+            topo, sb, "powertcp", S, cfg=cfg, backend="megakernel",
+            expected_flows=ef, device=dev))
+    count(c)
+    b = names.index("clean")
+    torch.testing.assert_close(st4.fct[b], stc.fct[0], rtol=0, atol=0,
+                               equal_nan=True)
+    fig8_records_equal(type(rec4)(*[x[b:b + 1] for x in rec4]), recc,
+                       "6f clean regime against the unimpaired K4 run")
+    log(f"[impair] the four regimes as one batch (powertcp, one K4 launch "
+        f"of {len(names)} blocks per 64 ticks, {c['fused_tick_block']} "
+        f"launches): each within rtol {IMPAIR_RTOL} of the reference; mean "
+        f"FCT (us) {means}; the clean scenario bitwise the unimpaired K4 "
+        f"run (every record and FCT); wall {wall:.3f} s")
+    row = k4_law_timing(torch, tc, sup, dev, topo, s4, cfg, S, "powertcp",
+                        impair=r4)
+    rows["powertcp@regimes"] = row
+    log(f"[impair] time K4 powertcp, the four regimes ({row['shape']}, B=4, "
+        f"{row['launches']} launches): mean {row['ms']!r} ms per launch "
+        f"({row['us_per_tick']!r} us per tick); bound mean "
+        f"{row['bound_ms']!r} ms; {smi}")
+
+    # (4) the paper's 256-host fabric, impaired
+    ptopo, psched, pcfg, pS, preg = sup.impair_paper_scenario(tc,
+                                                              device=dev)
+    pmeta = ref["paper"]["scenario"]
+    got = dict(n_flows=int(psched.start.shape[0]), slots=pS,
+               steps=pcfg.steps, schedule_sha256=sup.schedule_checksum(
+                   psched.size.cpu().numpy(), psched.start.cpu().numpy()))
+    if got != pmeta:
+        raise AssertionError(f"6f: the port's paper scenario {got} differs "
+                             f"from the reference's {pmeta}")
+    psb = tc.stack_flow_schedules([psched], ptopo.num_queues)
+    pn = pmeta["n_flows"]
+    for law in sup.IMPAIR_PAPER_LAWS:
+        (st, _), wall, c = timed_run(
+            torch, kernels, f"6f paper {law}",
+            expected_launches(law, "megakernel", pcfg.steps),
+            lambda law=law: tc.simulate_slots_batch(
+                ptopo, psb, law, pS, cfg=pcfg, record=False,
+                backend="megakernel", expected_flows=ef,
+                impair_params=preg, device=dev))
+        count(c)
+        fct = st.fct[0, :pn].double().cpu().numpy()
+        rel = impair_fcts(f"paper {law}", fct, ref["paper"]["fct_s"][law])
+        runs.append(dict(run="paper", law=law, wall_s=wall,
+                         fct_max_rel_err=rel, launches=c,
+                         completed=int(np.isfinite(fct).sum())))
+        row = k4_law_timing(torch, tc, sup, dev, ptopo, psched, pcfg, pS,
+                            law, impair=preg)
+        rows[f"{law}@paper"] = row
+        log(f"[impair] paper fabric {law} megakernel (mixed), "
+            f"{pcfg.steps} ticks, {pS} slots: completed "
+            f"{runs[-1]['completed']}/{pn} (the reference's set), largest "
+            f"FCT rel err {rel!r}; K4 ({row['shape']}) mean {row['ms']!r} "
+            f"ms per launch ({row['us_per_tick']!r} us per tick), bound "
+            f"{row['bound_ms']!r} ms; {smi}")
+
+    # (5) one impaired run of each eager engine against K4
+    lcfg = tc.default_law_config(tc.schedule_as_flows(sched),
+                                 expected_flows=ef)
+    mixed1 = regimes["mixed"]
+    (kst, krec), _, c = timed_run(
+        torch, kernels, "6f eager check, K4",
+        expected_launches("powertcp", "megakernel", ccfg.steps),
+        lambda: tc.simulate_slots(topo, sched, "powertcp", S, lcfg, ccfg,
+                                  backend="megakernel", impair=mixed1,
+                                  device=dev))
+    count(c)
+    for what, fn in (
+            ("slot reference", lambda: tc.simulate_slots(
+                topo, sched, "powertcp", S, lcfg, ccfg, impair=mixed1,
+                device=dev)),
+            ("padded reference", lambda: tc.simulate(
+                topo, tc.schedule_as_flows(sched), "powertcp", lcfg, ccfg,
+                impair=mixed1, device=dev))):
+        (est, erec), wall, _ = timed_run(torch, kernels, f"6f {what}", {},
+                                         fn)
+        torch.testing.assert_close(kst.fct, est.fct, rtol=0, atol=0,
+                                   equal_nan=True,
+                                   msg=lambda m, w=what: f"6f {w} fct: {m}")
+        fig8_records_equal(krec, erec, f"6f K4 against the {what}")
+        log(f"[impair] the eager {what} (mixed, powertcp, first "
+            f"{IMPAIR_CHECK_TICKS} ticks, wall {wall:.1f} s): every record "
+            f"field and FCT bitwise K4's "
+            f"({int(torch.isfinite(kst.fct).sum())} flows done)")
+    log("[impair] " + json.dumps({"impair": {"runs": runs}}))
+    log("[impair] K4 us per tick: " + json.dumps(
+        {k: v["us_per_tick"] for k, v in rows.items()}) + f"; {smi}")
+    log(f"[impair] phase 6f: {time.perf_counter() - t0:.1f} s")
+    return launches, rows
 
 
 def phase_profile(torch, tc, sup, dev, summaries, ticks=200):
@@ -2458,6 +2818,11 @@ def main():
     rows["fused_tick_block"]["max_abs_err"] = max(
         rows["fused_tick_block"]["max_abs_err"], fb_err)
     log(f"[time] + feedback: {time.perf_counter() - t0:.1f} s")
+    imp_launches, imp_rows = phase_impair(torch, tc, kernels, sup, dev, smi)
+    for k, n in imp_launches.items():
+        launches[k] += n
+    rows["fused_tick_block"]["impair"] = imp_rows
+    log(f"[time] + impair: {time.perf_counter() - t0:.1f} s")
     if profile:
         phase_profile(torch, tc, sup, dev, summaries)
         phase_profile_smoke(torch, tc, sup, dev, smoke_summ)

@@ -2,8 +2,9 @@
 
 The single-bottleneck, leaf-spine and fat-tree builders, and the
 reverse paths of hop-by-hop feedback (``Fabric.reverse_links``,
-``FabricRoutes.reverse_path`` / ``notify_delays``); per-link impairment
-classes come with a later slice.
+``FabricRoutes.reverse_path`` / ``notify_delays``), and the per-link
+impairment classes a builder declares (``FabricBuilder.impair_class``,
+compiled by ``core.impair.fabric_impairments``).
 All path compilation is host numpy, bit-identical to ``repro``; only the
 emitted ``Topology``/``Flows`` are tensors, on the device asked for.
 
@@ -69,6 +70,11 @@ class Fabric:
     link_queued: np.ndarray             # [L] bool
     switch_buffer: np.ndarray           # [n_switches] float64 bytes
     dt_alpha: float = 1.0
+    # per-link-class impairment processes: ((src_tier, dst_tier),
+    # ``core.impair.LinkProcess``) pairs declared with
+    # ``FabricBuilder.impair_class``, compiled by
+    # ``core.impair.fabric_impairments``
+    impair_rules: tuple = ()
 
     @property
     def n_nodes(self) -> int:
@@ -189,6 +195,7 @@ class FabricBuilder:
         self.tier: List[int] = []
         self.sw_buffer: List[float] = []
         self.links: List[Tuple[int, int, float, float, bool, float]] = []
+        self.impair_rules: List[Tuple[Tuple[int, int], object]] = []
 
     def add_host(self) -> int:
         if any(t != HOST for t in self.tier):
@@ -208,6 +215,16 @@ class FabricBuilder:
         self.links.append((src, dst, float(bw), float(delay), bool(queued),
                            float(buffer)))
 
+    def impair_class(self, src_tier: int, dst_tier: int, proc):
+        """Attach an impairment process (``core.impair.LinkProcess``, e.g.
+        an ``impair.netem`` preset) to every queued link of one
+        (src_tier, dst_tier) class; ``core.impair.fabric_impairments``
+        compiles the built fabric's regime. The last declaration per class
+        wins."""
+        self.impair_rules = [r for r in self.impair_rules
+                             if r[0] != (src_tier, dst_tier)]
+        self.impair_rules.append(((src_tier, dst_tier), proc))
+
     def build(self) -> Fabric:
         n_hosts = sum(1 for t in self.tier if t == HOST)
         ls = self.links
@@ -222,6 +239,7 @@ class FabricBuilder:
             link_queued=np.asarray([l[4] for l in ls], bool),
             switch_buffer=np.asarray(self.sw_buffer, np.float64),
             dt_alpha=self.dt_alpha,
+            impair_rules=tuple(self.impair_rules),
         )
 
 

@@ -70,9 +70,20 @@ sending into it (``_incast_count``), both written to rings of their own
 every tick and observed at the delayed row. A law that declares none of
 them carries none (``None`` leaves).
 
+Per-link impairments (``core/impair.py``): ``impair`` (an
+``ImpairmentParams``; ``impair_params`` on the batched entry points, a
+regime per scenario or one shared) drives the tick's rates through
+``_bandwidth``, folds the survival fraction ``keep`` into each queue's
+accumulated arrivals (``apply_loss``) and, as a per-path product
+(``_hop_keep``), into the goodput, and adds the jitter to each hop's
+q / b in the RTT sums (on the padded engine only for flows that have
+started: the slot engine holds a flow only from its start). The fused
+backend rejects a regime (``UnsupportedFeature``), and ``bw_fn`` with
+``impair`` raises ``ValueError``, as in ``repro``.
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-item that brings it): allocators (``alloc_fn``), impairments, chunk
-streaming, checkpoints, fault injection and divergence guards.
+item that brings it): allocators (``alloc_fn``), chunk streaming,
+checkpoints, fault injection and divergence guards.
 """
 from __future__ import annotations
 
@@ -82,9 +93,11 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
+from ..kernels.queue_arrivals import (apply_loss, build_csr_gather,
+                                      csr_gather_arrivals,
                                       integrate_arrivals, max_degree,
                                       one_hot_incidence, update_incidence)
+from .impair import ImpairmentParams, impair_vectors, link_bw_at
 from .laws import Law, LawConfig, div_config, get_law, observe_step
 from .types import (MTU, Flows, FlowSchedule, PathObs, Record, SimConfig,
                     SimState, SlotState, Topology, batch_of_one, cat_trees,
@@ -98,6 +111,34 @@ def _unported(what: str, item: int):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 item "
         f"{item})")
+
+
+class UnsupportedFeature(NotImplementedError):
+    """An engine's declared rejection of a feature combination, with a
+    ``hint`` naming the supported route (``repro.core.faults``' class)."""
+
+    def __init__(self, message: str, hint: str = ""):
+        self.hint = hint
+        super().__init__(message + (f" (hint: {hint})" if hint else ""))
+
+
+def _check_impair(impair, bw_fn, backend: str):
+    """The entry points' check of a regime: the fused backend rejects
+    impairments (its dense arrival sum reassociates the sums the loss fold
+    scales), and ``bw_fn`` with ``impair`` would be two owners of one
+    bandwidth vector."""
+    if impair is None:
+        return
+    if backend == "fused":
+        raise UnsupportedFeature(
+            "impairments are not supported on the fused backend (its "
+            "incidence matmul reassociates the arrival sums, so the "
+            "bit-for-bit loss fold has no home there)",
+            hint="use the reference or megakernel backend")
+    if bw_fn is not None:
+        raise ValueError("bw_fn and impair are mutually exclusive "
+                         "bandwidth drivers (wrap the schedule as a "
+                         "KIND_SCHEDULE impairment process instead)")
 
 
 def default_law_config(flows, gamma: float = 0.9,
@@ -119,6 +160,20 @@ def _hop_sum(x: torch.Tensor) -> torch.Tensor:
     acc = cols[0]
     for c in cols[1:]:
         acc = acc + c
+    return acc
+
+
+def _hop_keep(keep: torch.Tensor, path: torch.Tensor,
+              valid: torch.Tensor) -> torch.Tensor:
+    """Each row's survival fraction: the product of ``keep`` ([Q+1] or
+    [B, Q+1]) over its valid hops, left to right (``_hop_sum``'s fixed
+    association); an invalid hop is exactly 1.0, so an all-ones ``keep``
+    gives exactly 1.0."""
+    k_hop = _hop_bw(keep, path)
+    cols, ok = k_hop.unbind(-1), valid.unbind(-1)
+    acc = torch.where(ok[0], cols[0], 1.0)
+    for c, v in zip(cols[1:], ok[1:]):
+        acc = acc * torch.where(v, c, 1.0)
     return acc
 
 
@@ -274,6 +329,7 @@ class FluidSim(NamedTuple):
     incidence: Optional[torch.Tensor] = None
     static: Optional[_Static] = None
     inv: Optional[torch.Tensor] = None
+    impair: Optional[ImpairmentParams] = None   # [Q] or [B, Q] leaves
 
 
 def build_incidence(flows: Flows, num_queues: int) -> torch.Tensor:
@@ -330,14 +386,18 @@ def _static_bandwidth(topo: Topology) -> torch.Tensor:
 
 
 def _bandwidth(topo: Topology, bw_fn, t_sec: float,
-               static: "_Static") -> torch.Tensor:
+               static: "_Static", impair=None) -> torch.Tensor:
     """The tick's per-queue service rates with the 1e15 sentinel appended:
-    the topology's [Q+1] without ``bw_fn``; else ``bw_fn(t_sec)``, [Q+1]
-    for a [Q] vector the batch shares, [B, Q+1] for one per scenario. A
-    vector of another length raises."""
-    if bw_fn is None:
+    under a regime ``impair``, ``impair.link_bw_at``; else the topology's
+    [Q+1] without ``bw_fn``; else ``bw_fn(t_sec)``. [Q+1] for a [Q]
+    vector the batch shares, [B, Q+1] for one per scenario. A vector of
+    another length raises."""
+    if impair is not None:
+        bw = link_bw_at(t_sec, impair)
+    elif bw_fn is None:
         return static.bw
-    bw = bw_fn(t_sec)
+    else:
+        bw = bw_fn(t_sec)
     Q = topo.num_queues
     if bw.dim() not in (1, 2) or bw.shape[-1] != Q:
         raise ValueError(f"bw_fn returned a vector of shape "
@@ -400,12 +460,15 @@ def _buffer_caps(topo: Topology, q: torch.Tensor,
 
 
 def _queue_update(topo: Topology, dt: float, backend: str, incidence, inv,
-                  q, lam_del, valid, static: _Static, bw: torch.Tensor):
+                  q, lam_del, valid, static: _Static, bw: torch.Tensor,
+                  keep=None):
     """Queue-arrival accumulation + integration at the tick's service
     rates ``bw`` ([Q+1], or [B, Q+1]): (arrivals, out, q_new).
 
     Reference backend: the masked per-hop rates summed per queue in
-    ascending flat order through the gather table ``inv``. Fused backend:
+    ascending flat order through the gather table ``inv``, then scaled by
+    the survival fractions ``keep`` under a regime (``apply_loss``, on
+    the accumulated sums). Fused backend:
     K3 over the incidence (``out_rate=bw`` is exact there — when q == 0
     and arr < bw the clip at 0 reproduces ``out = min(arr, bw)``). A
     batch (leading axis on ``q``, ``lam_del``, ``inv``/``incidence``) is
@@ -421,6 +484,8 @@ def _queue_update(topo: Topology, dt: float, backend: str, incidence, inv,
         return arr, out, q_new
     contrib = torch.where(valid, lam_del, 0.0)
     arr = csr_gather_arrivals(contrib, inv, torch.zeros_like(q))
+    if keep is not None:
+        arr = apply_loss(arr, keep)
     out, q_new = integrate_arrivals(arr, q, bw, caps, dt=dt)
     return arr, out, q_new
 
@@ -436,10 +501,11 @@ def feedback_delay(law: Law, tf_steps, rtt_steps, D: int):
 
 def _observe(law: Law, law_cfg: LawConfig, static: _Static, cfg: SimConfig,
              ptr: int, hist_q, hist_out, path, valid, tf_steps, rtt_steps,
-             tau, b_hop):
+             tau, b_hop, jit_hop=None):
     """Delayed INT observation of each hop (stamped when a segment
     dequeues there, back at the sender after ``feedback_delay``) and the
-    RTT sample rebuilt from it. Returns (q_obs, qdot, mu, ecn, theta_obs,
+    RTT sample rebuilt from it, each hop's q / b plus its jitter
+    ``jit_hop`` under a regime. Returns (q_obs, qdot, mu, ecn, theta_obs,
     wold_delay). Telemetry a law declares it does not read
     (``Law.uses_qdot``/``uses_mu``/``uses_ecn``) is left out (None)."""
     D, dt = cfg.hist, cfg.dt
@@ -455,7 +521,10 @@ def _observe(law: Law, law_cfg: LawConfig, static: _Static, cfg: SimConfig,
     if law.uses_ecn:
         ecn = torch.amax(torch.where(
             valid, _marking(q_obs, static.buf[path], law_cfg), 0.0), dim=-1)
-    theta_obs = tau + _hop_sum(torch.where(valid, q_obs / b_hop, 0.0))
+    qb_obs = q_obs / b_hop
+    if jit_hop is not None:
+        qb_obs = qb_obs + jit_hop
+    theta_obs = tau + _hop_sum(torch.where(valid, qb_obs, 0.0))
     wold_delay = torch.clamp(torch.round(theta_obs / static.dt)
                              .to(torch.int32), 1, D - 2)
     return q_obs, qdot, mu, ecn, theta_obs, wold_delay
@@ -480,7 +549,8 @@ class LawTick(NamedTuple):
     ``admit_t`` (slot) dates each occupant's admission; ``bw`` is the
     tick's service rates, of which ``b_hop`` is gathered. ``hist_pause``
     and ``hist_inc`` are the feedback-channel rings of a law that
-    declares them."""
+    declares them; ``jit_hop`` [B, F, H] the jitter each hop adds to the
+    RTT sample under a regime."""
     t: int
     t_sec: float
     ptr: int
@@ -510,6 +580,7 @@ class LawTick(NamedTuple):
     n_flows: int = 0
     hist_pause: Optional[torch.Tensor] = None   # [B, D, Q+1] (uses_pause)
     hist_inc: Optional[torch.Tensor] = None     # [B, D, Q+1] (uses_incast)
+    jit_hop: Optional[torch.Tensor] = None      # [B, F, H] (a regime)
 
 
 def _law_tick(update, law: Law, static: _Static, cfg: SimConfig,
@@ -527,7 +598,7 @@ def _law_tick(update, law: Law, static: _Static, cfg: SimConfig,
         law_cfg = _gather_law_cfg(law_cfg, gf, x.n_flows)
     q_obs, qdot, mu, ecn, theta_obs, wold_delay = _observe(
         law, law_cfg, static, cfg, x.ptr, x.hist_q, x.hist_out, x.path,
-        x.valid, x.tf_steps, x.rtt_steps, x.tau, x.b_hop)
+        x.valid, x.tf_steps, x.rtt_steps, x.tau, x.b_hop, x.jit_hop)
     w_old = _ring(x.hist_w, torch.remainder(x.ptr - wold_delay, D), x.rows)
     if x.admit_t is not None:
         w_old = torch.where(x.t - wold_delay >= x.admit_t, w_old,
@@ -592,7 +663,8 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     axis on every leaf, each op covering every scenario). Returns (new
     state, Record or None). The ring buffers of ``state`` are updated in
     place and shared with the new state. ``bw_fn`` gives the tick's
-    service rates (``_bandwidth``)."""
+    service rates (``_bandwidth``), unless ``sim.impair`` holds a regime,
+    which also gives the tick's loss and jitter (``impair_vectors``)."""
     if alloc_fn is not None:
         _unported("alloc_fn", 13)
     topo, flows, cfg, static = sim.topo, sim.flows, sim.cfg, sim.static
@@ -603,7 +675,9 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     t_sec = _tick_time(t, dt)
     ptr = t % D
     fidx = torch.arange(F, device=flows.tau.device)
-    bw = _bandwidth(topo, bw_fn, t_sec, static)
+    bw = _bandwidth(topo, bw_fn, t_sec, static, sim.impair)
+    keep, jit = (impair_vectors(t_sec, sim.impair)
+                 if sim.impair is not None else (None, None))
 
     started = t_sec >= flows.start
     active = started & (state.remaining > 0.0) & (t_sec < flows.stop)
@@ -612,7 +686,14 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     valid = path < topo.num_queues
     q_hop = _take(state.q, path)                              # [B,F,H]
     b_hop = _hop_bw(bw, path)
-    theta_now = flows.tau + _hop_sum(torch.where(valid, q_hop / b_hop, 0.0))
+    qb_now = q_hop / b_hop
+    jit_hop = None
+    if jit is not None:
+        # a flow sees the jitter once it has started: the slot engine
+        # holds a flow (and reads a hop's jitter) only from its start
+        jit_hop = torch.where(started[..., None], _hop_bw(jit, path), 0.0)
+        qb_now = qb_now + jit_hop
+    theta_now = flows.tau + _hop_sum(torch.where(valid, qb_now, 0.0))
     lam = torch.where(active, torch.minimum(
         torch.minimum(state.w / theta_now, state.rate_cap), flows.nic_rate),
         0.0)
@@ -627,7 +708,7 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
                     fidx[:, None])                            # [B,F,H]
     arr, out, q_new = _queue_update(topo, dt, sim.backend, sim.incidence,
                                     sim.inv, state.q, lam_del, valid, static,
-                                    bw)
+                                    bw, keep)
     hist_q, hist_out = state.hist_q, state.hist_out
     hist_q[..., ptr, :] = q_new
     hist_out[..., ptr, :] = out
@@ -647,10 +728,12 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
             law_state=state.law, next_update=state.next_update,
             last_update=state.last_update, law_cfg=law_cfg,
             started=started, hist_pause=state.hist_pause,
-            hist_inc=state.hist_inc))
+            hist_inc=state.hist_inc, jit_hop=jit_hop))
 
-    # -- flow progress ------------------------------------------------------
-    remaining = torch.where(active, state.remaining - lam * dt,
+    # -- flow progress (under loss, the goodput is the surviving share) ----
+    remaining = torch.where(active,
+                            state.remaining - _goodput(lam, keep, path,
+                                                       valid) * dt,
                             state.remaining)
     done = active & (remaining <= 0.0)
     fct = torch.where(done & torch.isnan(state.fct),
@@ -664,6 +747,12 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
         hist_pause=state.hist_pause, hist_inc=state.hist_inc)
     rec = _record(t_sec, q_new, w, out, lam, active) if record else None
     return new_state, rec
+
+
+def _goodput(lam, keep, path, valid):
+    """The rates that arrive: ``lam`` times each row's path survival
+    fraction under a regime (``_hop_keep``), else ``lam``."""
+    return lam if keep is None else lam * _hop_keep(keep, path, valid)
 
 
 def _write_channels(law: Law, law_cfg: LawConfig, state, ptr: int, q_new,
@@ -786,14 +875,13 @@ def simulate(topo: Topology, flows: Flows, law_name: Union[str, Law],
     """Run a scenario through the padded engine on ``device``: a batch of
     one through ``simulate_batch``. Returns (final ``SimState``, ``Record``
     or None). ``backend="fused"`` sends the law update and the queue
-    update through the CUDA kernels (their plain versions on the CPU)."""
-    if impair is not None:
-        _unported("impair", 10)
+    update through the CUDA kernels (their plain versions on the CPU).
+    ``impair`` is a per-link regime (``core.impair``, [Q] leaves)."""
     state, recs = simulate_batch(
         topo, batch_of_one(flows), law_name,
         None if law_cfg is None else batch_of_one(law_cfg), cfg,
         bw_fn=bw_fn, alloc_fn=alloc_fn, record=record, backend=backend,
-        device=device)
+        impair_params=impair, device=device)
     return scenario(state, 0), (None if recs is None else scenario(recs, 0))
 
 
@@ -816,6 +904,7 @@ class SlotSim(NamedTuple):
     backend: str = "reference"
     static: Optional[_Static] = None
     start_host: Optional[np.ndarray] = None
+    impair: Optional[ImpairmentParams] = None   # [Q] or [B, Q] leaves
 
 
 def _slot_n(sim: SlotSim) -> int:
@@ -1010,7 +1099,9 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     t_sec = _tick_time(t, dt)
     ptr = t % D
     sidx = torch.arange(S, device=state.w.device)
-    bw = _bandwidth(topo, bw_fn, t_sec, static)
+    bw = _bandwidth(topo, bw_fn, t_sec, static, sim.impair)
+    keep, jit = (impair_vectors(t_sec, sim.impair)
+                 if sim.impair is not None else (None, None))
 
     # -- admit / retire, on ticks with an arrival due and not admitted ----
     due = _due_now(sim, t_sec)
@@ -1032,7 +1123,12 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
     valid = path < Q
     q_hop = _take(state.q, path)                              # [B,S,H]
     b_hop = _hop_bw(bw, path)
-    theta_now = tau + _hop_sum(torch.where(valid, q_hop / b_hop, 0.0))
+    qb_now = q_hop / b_hop
+    # a slot holds its flow from its start: no gate on the jitter
+    jit_hop = None if jit is None else _hop_bw(jit, path)
+    if jit_hop is not None:
+        qb_now = qb_now + jit_hop
+    theta_now = tau + _hop_sum(torch.where(valid, qb_now, 0.0))
     lam = torch.where(active, torch.minimum(
         torch.minimum(state.w / theta_now, state.rate_cap), nic), 0.0)
 
@@ -1048,7 +1144,7 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
                           0.0)
     arr, out, q_new = _queue_update(topo, dt, sim.backend, state.incidence,
                                     state.inv, state.q, lam_del, valid,
-                                    static, bw)
+                                    static, bw, keep)
     hist_q, hist_out = state.hist_q, state.hist_out
     hist_q[..., ptr, :] = q_new
     hist_out[..., ptr, :] = out
@@ -1069,10 +1165,13 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
             next_update=state.next_update, last_update=state.last_update,
             law_cfg=sim.law_cfg, admit_t=state.admit_t,
             slot_flow=state.slot_flow, n_flows=N,
-            hist_pause=state.hist_pause, hist_inc=state.hist_inc))
+            hist_pause=state.hist_pause, hist_inc=state.hist_inc,
+            jit_hop=jit_hop))
 
     # -- flow progress; FCT goes to the schedule-ordered table ------------
-    remaining = torch.where(active, state.remaining - lam * dt,
+    remaining = torch.where(active,
+                            state.remaining - _goodput(lam, keep, path,
+                                                       valid) * dt,
                             state.remaining)
     done = active & (remaining <= 0.0)
     fct = state.fct
@@ -1099,13 +1198,15 @@ def make_slot_sim(topo: Topology, sched: FlowSchedule,
                   law_cfg: Optional[LawConfig] = None,
                   cfg: Optional[SimConfig] = None,
                   backend: str = "reference", device="cuda",
-                  expected_flows: float = 1.0) -> SlotSim:
+                  expected_flows: float = 1.0, impair=None) -> SlotSim:
     """Bind a batch of schedules ([B, N, ...] leaves; ``batch_of_one`` for
     one) to a pool of ``slots`` and a backend on ``device``: the
     ``SlotSim`` that ``simulate_slots_batch`` runs. ``law_cfg`` is a
     stacked LawConfig (leading batch axis on every tensor leaf), or None
-    for the paper default with ``expected_flows``."""
+    for the paper default with ``expected_flows``; ``impair`` a per-link
+    regime, [Q] leaves shared by the batch or [B, Q]."""
     _check_backend(backend)
+    _check_impair(impair, None, backend)
     cfg = cfg or SimConfig()
     dev = resolve_device(device)
     law = _resolve_law(law_name, backend)
@@ -1116,7 +1217,8 @@ def make_slot_sim(topo: Topology, sched: FlowSchedule,
                default_law_config(sched, expected_flows=expected_flows))
     return SlotSim(topo, sched, law, law_cfg, cfg, int(slots), backend,
                    _make_static(topo, cfg.dt),
-                   sched.start.cpu().numpy().astype(np.float32))
+                   sched.start.cpu().numpy().astype(np.float32),
+                   _impair_on(impair, B, int(topo.num_queues), dev))
 
 
 def simulate_slots(topo: Topology, sched: FlowSchedule,
@@ -1134,9 +1236,8 @@ def simulate_slots(topo: Topology, sched: FlowSchedule,
     ``network.schedule_as_flows(sched)`` bit for bit; smaller pools delay
     the admission of flows that arrive while the pool is full.
     ``law_cfg`` tensors with an [N] flow axis are gathered into slots on
-    admission."""
-    if impair is not None:
-        _unported("impair", 10)
+    admission. ``impair`` is a per-link regime (``core.impair``, [Q]
+    leaves)."""
     if chunk is not None:
         _unported("chunk streaming (chunk=)", 11)
     if checkpoint is not None or faults is not None or guard:
@@ -1144,7 +1245,8 @@ def simulate_slots(topo: Topology, sched: FlowSchedule,
     state, recs = simulate_slots_batch(
         topo, batch_of_one(sched), law_name, slots,
         None if law_cfg is None else batch_of_one(law_cfg), cfg,
-        bw_fn=bw_fn, record=record, backend=backend, device=device)
+        bw_fn=bw_fn, record=record, backend=backend, impair_params=impair,
+        device=device)
     return scenario(state, 0), (None if recs is None else scenario(recs, 0))
 
 
@@ -1261,18 +1363,33 @@ def stack_flow_schedules(scheds: List[FlowSchedule],
                                       pad_queue) for s in scheds])
 
 
-def _check_batch_args(impair_params, devices, dev):
+def _check_batch_args(devices, dev):
     """The arguments of the batched entry points that belong to later
     ROADMAP items raise, naming the item; ``devices`` beyond one device
     is the sharded sweep (item 12; None where it is ignored)."""
-    if impair_params is not None:
-        _unported("impair_params", 10)
     if devices is None:
         return
     n = ((torch.cuda.device_count() if dev.type == "cuda" else 1)
          if devices == "auto" else int(devices))
     if n > 1:
         _unported(f"devices={devices!r} (a sweep sharded over devices)", 12)
+
+
+def _impair_on(impair, batch: int, num_queues: int, dev):
+    """A regime on the run's device: [Q] leaves (shared by the batch) or
+    [B, Q] (one per scenario); another shape raises."""
+    if impair is None:
+        return None
+    shape = tuple(impair.kind.shape)
+    if shape not in ((num_queues,), (batch, num_queues)):
+        raise ValueError(f"an impairment regime of shape {shape}; the run "
+                         f"takes ({num_queues},) or ({batch}, "
+                         f"{num_queues})")
+    for x in impair:
+        if tuple(x.shape) != shape:
+            raise ValueError("the leaves of an impairment regime differ "
+                             "in shape")
+    return _to(impair, dev)
 
 
 def _batch_law_cfg(law_cfg: LawConfig, batch: int, backend: str):
@@ -1303,13 +1420,22 @@ def part_of(tree, lo: int, hi: int):
     return None if tree is None else tree_map(lambda v: v[lo:hi], tree)
 
 
+def impair_part(impair, lo: int, hi: int):
+    """Scenarios ``lo:hi`` of a regime: a shared one ([Q] leaves) as it
+    is, one per scenario sliced."""
+    if impair is None or impair.kind.dim() == 1:
+        return impair
+    return part_of(impair, lo, hi)
+
+
 def scenarios(sim: SlotSim, lo: int, hi: int) -> SlotSim:
     """Of a ``SlotSim``: the batch of its scenarios ``lo:hi`` (views of the
-    schedules, the law config and the host arrival times; the topology is
-    shared)."""
+    schedules, the law config, the host arrival times and a per-scenario
+    regime; the topology is shared)."""
     return sim._replace(sched=part_of(sim.sched, lo, hi),
                         law_cfg=part_of(sim.law_cfg, lo, hi),
-                        start_host=part_of(sim.start_host, lo, hi))
+                        start_host=part_of(sim.start_host, lo, hi),
+                        impair=impair_part(sim.impair, lo, hi))
 
 
 def batch_bw_fn(bw_fn, bw_params):
@@ -1366,15 +1492,22 @@ def simulate_batch(topo: Topology, flows: Flows, law_name: Union[str, Law],
     at ``bw_fn(t, bw_params_b)`` — ``bw_fn`` takes the whole stacked tree
     and returns [B, Q].
 
-    ``alloc_fn`` (ROADMAP Queue 1 item 13), ``impair_params`` (10) and
-    ``devices`` > 1 (12) raise ``NotImplementedError``. Returns
-    (final_states, records) with a leading batch axis.
+    Per-link impairments: ``impair_params`` is a regime (``core.impair``)
+    with [B, Q] leaves (``stack_impairments``, one per scenario) or [Q]
+    leaves (shared), evaluated once a tick for the whole batch. The fused
+    backend rejects it (``UnsupportedFeature``), and so does ``bw_fn``
+    (``ValueError``).
+
+    ``alloc_fn`` (ROADMAP Queue 1 item 13) and ``devices`` > 1 (12) raise
+    ``NotImplementedError``. Returns (final_states, records) with a
+    leading batch axis.
     """
     if alloc_fn is not None:
         _unported("alloc_fn", 13)
     dev = resolve_device(device)
-    _check_batch_args(impair_params, devices, dev)
+    _check_batch_args(devices, dev)
     _check_backend(backend)
+    _check_impair(impair_params, bw_fn, backend)
     cfg = cfg or SimConfig()
     law = _resolve_law(law_name, backend)
     topo, flows = _to(topo, dev), _to(flows, dev)
@@ -1385,7 +1518,9 @@ def simulate_batch(topo: Topology, flows: Flows, law_name: Union[str, Law],
     incidence = (build_incidence(flows, topo.num_queues)
                  if backend == "fused" else None)
     sim = FluidSim(topo, flows, law, law_cfg, cfg, backend, incidence,
-                   _make_static(topo, cfg.dt))
+                   _make_static(topo, cfg.dt),
+                   impair=_impair_on(impair_params, B, int(topo.num_queues),
+                                     dev))
     bfn = batch_bw_fn(bw_fn, _bw_params_on(bw_fn, bw_params, dev))
     with torch.no_grad():
         state = init_state(sim)
@@ -1405,8 +1540,9 @@ def simulate_slots_batch(topo: Topology, scheds: FlowSchedule,
                          device="cuda"):
     """Batched twin of ``simulate_slots``: B schedules (a leading batch
     axis on every leaf, ``stack_flow_schedules``) through one pool size
-    ``slots`` on ``device``. ``law_cfg``, ``bw_fn``/``bw_params`` and the
-    unported arguments as in ``simulate_batch``. Returns (final
+    ``slots`` on ``device``. ``law_cfg``, ``bw_fn``/``bw_params``,
+    ``impair_params`` and the unported arguments as in
+    ``simulate_batch``. Returns (final
     ``SlotState``s, records) with a leading batch axis; ``fct`` rows [B,
     N] are in each scenario's schedule order.
 
@@ -1426,12 +1562,14 @@ def simulate_slots_batch(topo: Topology, scheds: FlowSchedule,
     own scenario. ``devices`` is ignored with ``sequential``, as in
     ``repro``. On the card K4 carries a circuit schedule
     (``rdcn.circuit_bw_at`` with ``bw_params``, or
-    ``CircuitSchedule.bw_fn()``) and no other ``bw_fn``.
+    ``CircuitSchedule.bw_fn()``) and no other ``bw_fn``, and evaluates a
+    regime's processes in its body.
     """
     dev = resolve_device(device)
-    _check_batch_args(impair_params, None if sequential else devices, dev)
+    _check_batch_args(None if sequential else devices, dev)
+    _check_impair(impair_params, bw_fn, backend)
     sim = make_slot_sim(topo, scheds, law_name, slots, law_cfg, cfg,
-                        backend, dev, expected_flows)
+                        backend, dev, expected_flows, impair_params)
     B, N = int(sim.sched.start.shape[0]), _slot_n(sim)
     bw_params = _bw_params_on(bw_fn, bw_params, dev)
     with torch.no_grad():

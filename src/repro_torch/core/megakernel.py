@@ -24,7 +24,11 @@ blocks of K ticks (``kernels.fused_tick.DEFAULT_BLOCK``). The tick is
     ``[.. | pause? | inc?]`` (``ring_channels``), so the columns before
     them never move;
   * a time-varying bandwidth (``bw_fn``, with ``bw_params`` per scenario)
-    is evaluated once per tick and read by every phase of it.
+    is evaluated once per tick and read by every phase of it; so is a
+    per-link impairment regime (``sim.impair``, ``core/impair.py``): its
+    rates, the survival fractions that scale each queue's accumulated
+    arrivals and each slot's goodput, and the jitter added to each hop's
+    q / b in the RTT sums.
 
 Two lowerings, chosen by ``impl``:
 
@@ -37,9 +41,12 @@ Two lowerings, chosen by ``impl``:
     of ``core/laws.py``, ``core/rdcn.py`` and ``core/feedback.py``,
     ``K4_LAWS``, with the hop clock and the pause and incast channels of
     the feedback laws; a ``Law`` around another update raises). The host
-    uploads the due table once and reads nothing back between blocks. K4 evaluates a circuit schedule in its own body every
-    tick (``rdcn.circuit_bw_at`` with ``bw_params``, or
-    ``CircuitSchedule.bw_fn()``); any other ``bw_fn`` raises there.
+    uploads the due table once and reads nothing back between blocks.
+    K4 evaluates a circuit schedule in its own body every tick
+    (``rdcn.circuit_bw_at`` with ``bw_params``, or
+    ``CircuitSchedule.bw_fn()``; any other ``bw_fn`` raises there), and
+    each queued link's capacity, loss and jitter processes under a
+    regime (its hash, epochs and selects as ``core/impair.py`` has them).
 
 The carry is a batch's, as the slot engine's is ([B, ...] leaves; one
 schedule runs as a batch of one). K4 takes it in one launch of B thread
@@ -66,9 +73,11 @@ from ..kernels.fused_tick import DEFAULT_BLOCK, TickParams
 from ..kernels.queue_arrivals import (build_csr_gather, csr_gather_arrivals,
                                       integrate_arrivals, max_degree,
                                       suggest_maxdeg)
+from ..kernels.queue_arrivals import apply_loss
 from . import fluid
 from . import laws as _laws
 from . import rdcn
+from .impair import ImpairmentParams, impair_vectors
 from .types import MTU, PathObs, Record, SlotState, cat_trees
 
 _INT32_MAX = np.iinfo(np.int32).max
@@ -241,9 +250,27 @@ def _k4_schedule(bw_fn, bw_params, B: int, Q: int, dev):
     return torch.stack(cols, -1).contiguous()
 
 
+def _k4_impair(impair, B: int, Q: int, dev):
+    """A regime as K4 reads it: int32 [10, Q] (shared by the batch) or
+    [B, 10, Q], the fields of ``ImpairmentParams`` in order, the floats as
+    their bits and the seed as its uint32 bits; None without a regime."""
+    if impair is None:
+        return None
+    rows = []
+    for f, x in zip(ImpairmentParams._fields, impair):
+        x = x.to(dev)
+        if x.dtype == torch.float32:
+            x = x.contiguous().view(torch.int32)
+        elif f == "seed":
+            x = torch.where(x >= 2 ** 31, x - 2 ** 32, x)
+        rows.append(x.to(torch.int32))
+    return torch.stack(rows, -2).contiguous()
+
+
 def _k4_params(sim, maxdeg: int, bw_fn=None, bw_params=None) -> TickParams:
     """The read-only inputs of K4 for one run (``bw_fn``/``bw_params``:
-    the run's bandwidth, ``_k4_schedule``)."""
+    the run's bandwidth, ``_k4_schedule``; ``sim.impair``: its regime,
+    ``_k4_impair``)."""
     law = sim.law
     entry = K4_LAWS.get(law.name)
     if entry is None or law.update is not entry[0]:
@@ -281,6 +308,7 @@ def _k4_params(sim, maxdeg: int, bw_fn=None, bw_params=None) -> TickParams:
         config=_k4_config(law.name, sim.law_cfg, B, N, dev), lawp=lawp,
         bw=f32(static.bw), buf=f32(static.buf), sw_table=sw_table,
         sched=_k4_schedule(bw_fn, bw_params, B, int(topo.num_queues), dev),
+        impair=_k4_impair(sim.impair, B, int(topo.num_queues), dev),
         switch_buffer=f32(topo.switch_buffer),
         switch_of_queue=i32(topo.switch_of_queue))
 
@@ -302,7 +330,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
     the gather table's width (default the batch's largest
     ``suggest_maxdeg``). ``bw_fn``/``bw_params`` are the batch's
     time-varying bandwidth, as ``fluid.simulate_slots_batch`` takes
-    them.
+    them; ``sim.impair`` its impairment regime.
 
     ``tick.init_carry(state0)`` builds the matching ``MegaCarry``;
     ``tick.k4_params()`` the inputs of K4 (raises for a law without a K4
@@ -326,6 +354,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
     sidx = torch.arange(S, device=dev)
     buf = static.buf
     bfn = fluid.batch_bw_fn(bw_fn, bw_params)
+    impair = sim.impair
 
     def slot_hold(st):
         return torch.amax(torch.where(st.path < Q, st.tf_steps, 0), dim=-1)
@@ -382,22 +411,26 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         return torch.minimum(torch.clamp_min(w, MTU),
                              8.0 * nic * tau + 8.0 * nic * theta_now)
 
-    def theta_of(st, q, bw):
+    def theta_of(st, q, bw, jit):
+        """tau plus each valid hop's q / b and, under a regime, its
+        jitter."""
         valid = st.path < Q
-        return st.tau + fluid._hop_sum(torch.where(
-            valid, fluid._take(q, st.path) / fluid._hop_bw(bw, st.path),
-            0.0))
+        qb = fluid._take(q, st.path) / fluid._hop_bw(bw, st.path)
+        if jit is not None:
+            qb = qb + fluid._hop_bw(jit, st.path)
+        return st.tau + fluid._hop_sum(torch.where(valid, qb, 0.0))
 
-    def quiet_tick(c, ptr, bw):
+    def quiet_tick(c, ptr, bw, jit):
         """Every pool empty, nothing due: the queues drain, the rings
         advance and the window clamp runs; nothing else can change."""
         st, pend, hold, inv, ovf = c
-        # no slot sends: the sender counts are zero; the pause state
-        # follows the drain
+        # no slot sends: the sender counts are zero, and so are the
+        # arrivals the loss would scale; the pause state follows the drain
         q_new, out, row, pause_new = integrate_queues(
             st, torch.zeros_like(st.q), bw,
             torch.zeros_like(st.q) if law.uses_incast else None)
-        w = window_clamp(st.w, st.nic_rate, st.tau, theta_of(st, st.q, bw))
+        w = window_clamp(st.w, st.nic_rate, st.tau,
+                         theta_of(st, st.q, bw, jit))
         lam = torch.zeros_like(st.w)
         st.hist_lam[:, ptr] = lam
         st.hist_w[:, ptr] = st.w
@@ -408,7 +441,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         return (st, pend, hold, inv, ovf, zero, zero,
                 torch.zeros((B,), dtype=torch.int32, device=dev), lam)
 
-    def busy_tick(c, ptr, due_t, bw):
+    def busy_tick(c, ptr, due_t, bw, keep, jit):
         st, pend, hold, inv, ovf = c
         t = st.t
         t_sec = fluid._tick_time(t, dt)
@@ -429,7 +462,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
                   (t_sec < st.stop))
         valid = path < Q
         b_hop = fluid._hop_bw(bw, path)
-        theta_now = theta_of(st, st.q, bw)
+        theta_now = theta_of(st, st.q, bw, jit)
         lam = torch.where(active, torch.minimum(
             torch.minimum(st.w / theta_now, st.rate_cap), nic), 0.0)
         hist_lam, hist_w, hist_q = st.hist_lam, st.hist_w, st.hist_q
@@ -448,6 +481,8 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         if bool(torch.any(ovf)):
             table, _ = build_csr_gather(path, Q, max_degree(path, Q))
         arr = csr_gather_arrivals(contrib, table, torch.zeros_like(st.q))
+        if keep is not None:
+            arr = apply_loss(arr, keep)
         inc = (fluid._incast_count(path, valid, lam_del, table, Q)
                if law.uses_incast else None)
         q_new, out, row, pause_new = integrate_queues(st, arr, bw, inc)
@@ -464,8 +499,10 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         ecn = (torch.amax(torch.where(
             valid, fluid._marking(q_obs, buf[path], cfg_slot), 0.0), dim=-1)
             if law.uses_ecn else None)
-        theta_obs = tau + fluid._hop_sum(torch.where(valid, q_obs / b_hop,
-                                                     0.0))
+        qb_obs = q_obs / b_hop
+        if jit is not None:
+            qb_obs = qb_obs + fluid._hop_bw(jit, path)
+        theta_obs = tau + fluid._hop_sum(torch.where(valid, qb_obs, 0.0))
         wold_delay = torch.clamp(torch.round(theta_obs / static.dt)
                                  .to(torch.int32), 1, D - 2)
         w_old = fluid._ring(hist_w, torch.remainder(ptr - wold_delay, D),
@@ -490,8 +527,9 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         last_update = torch.where(upd, t_sec, st.last_update)
 
         # -- progress; completions park in the pending buffer -------------
-        remaining = torch.where(active, st.remaining - lam * dt,
-                                st.remaining)
+        remaining = torch.where(
+            active, st.remaining - fluid._goodput(lam, keep, path, valid) * dt,
+            st.remaining)
         done = active & (remaining <= 0.0)
         pend = PendingFCT(
             torch.where(done, st.slot_flow, pend.flow),
@@ -513,13 +551,15 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         t_sec = fluid._tick_time(st.t, dt)
         ptr = st.t % D
         c = tuple(carry)
-        bw = fluid._bandwidth(topo, bfn, t_sec, static)
+        bw = fluid._bandwidth(topo, bfn, t_sec, static, impair)
+        keep, jit = (impair_vectors(t_sec, impair) if impair is not None
+                     else (None, None))
         if (gate and quiet and law.masked_updates
                 and bool(torch.all(due_t == st.cursor))
                 and not bool(torch.any(st.slot_flow < N))):
-            out = quiet_tick(c, ptr, bw)
+            out = quiet_tick(c, ptr, bw, jit)
         else:
-            out = busy_tick(c, ptr, due_t, bw)
+            out = busy_tick(c, ptr, due_t, bw, keep, jit)
         st, pend, hold, inv, ovf, w_sum, lam_sum, n_act, lam = out
         rec = Record(t=torch.full((B,), t_sec, dtype=torch.float32,
                                   device=dev),

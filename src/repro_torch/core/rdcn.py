@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from .fluid import _xla_sum
+from .impair import _EDGE_NUDGE
 from .laws import Law, LawConfig, register_law, reno_init, reno_update
 from .types import GBPS, US, Topology, resolve_device
 
@@ -64,11 +65,9 @@ class ScheduleParams(NamedTuple):
 
 
 # Schedule edges fall exactly on ticks; sampling 0.1us past the tick
-# start keeps the classification off the float32 knife edge, so every
-# compiled form of the phase classifies each tick alike (see ``repro``)
-_EDGE_NUDGE = 1e-7
-
-
+# start (``_EDGE_NUDGE``, shared with the impairment processes) keeps the
+# classification off the float32 knife edge, so every compiled form of
+# the phase classifies each tick alike (see ``repro``)
 def circuit_up(t_sec, p: ScheduleParams) -> torch.Tensor:
     """Is the circuit serving this pair at ``t_sec`` (elementwise)?"""
     ph = torch.remainder(t_sec - p.t0 + _EDGE_NUDGE, p.week)

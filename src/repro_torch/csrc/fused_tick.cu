@@ -16,7 +16,9 @@
 // (repro_torch/core/megakernel.py):
 //   1. t_sec and the ring pointer; under a circuit schedule (the Pallas
 //      kernel traces the bw_fn into its body), the tick's rate of the
-//      VOQ and each queue's q / bw at that rate;
+//      VOQ and each queue's q / bw at that rate; under an impairment
+//      regime, each queue's rate, survival fraction and jitter, and its
+//      q / bw + jitter;
 //   2. the gate: an arrival due and not admitted, or a freeable slot
 //      (gate = 0 opens it on every tick);
 //   3. on gated ticks: flush the freeable slots' pending FCTs, retire them,
@@ -28,7 +30,8 @@
 //      per-hop rates (masked before admission) and the delayed queue
 //      observations, read from the rings together;
 //   5. per switch: its occupancy, its ports added in port order;
-//   6. per queue: the in-order arrival sum from +0.0, the Dynamic-
+//   6. per queue: the in-order arrival sum from +0.0 (times the queue's
+//      survival fraction under a regime), the Dynamic-
 //      Thresholds cap, the integration and the packed [q | out | qdot]
 //      ring row, with the law's feedback channel appended (backpressure:
 //      the queue's XON/XOFF state; pulser: its count of sending hops);
@@ -40,8 +43,11 @@
 //   8. on updating slots: the law update and the update timers; on every
 //      slot: DCQCN's rate clamp, the rate-based laws' rate cap, reTCP's
 //      circuit multiplier, and the window clamp;
-//   9. progress, completions into the pending buffer, free_at;
-//  10. the record row, when recording.
+//   9. progress (under a regime, of the goodput: the rate times the
+//      survival fractions of the slot's hops, multiplied in hop order),
+//      completions into the pending buffer, free_at;
+//  10. the record row, when recording, its sums w_sum and lam in the
+//      plain tick's order (XLA:CPU's, core/fluid.py::_xla_sum).
 //
 // Bound: not bytes. One tick touches ~1 150 hop entries, 384 slots and 289
 // queues at the paper's scale (a few tens of kB), but its phases depend on
@@ -128,16 +134,30 @@
 // up on [0, day). reTCP reads its own schedule and prebuffer from lawp;
 // the two need not be the same.
 //
+// Impairments: with a regime (a.imp, the fields of
+// core/impair.py::ImpairmentParams as int32 rows [10, Q], the floats as
+// their bits; one per scenario, or shared with a stride of 0; null
+// without one) the launch takes the instantiation with IMP (a clean run
+// holds none of this code: a runtime branch on the pointer cost clean
+// PowerTCP 5% a tick at the paper's shape), and each queue's processes are
+// evaluated at the start of every tick as core/impair.py evaluates them:
+// the epoch floor(((t - t0) + 1e-7) / max(period, 1e-6)) converted to
+// int32 as XLA converts (saturating, NaN to 0: cvt.rmi), the lowbias32
+// hash in native uint32 over (seed ^ salt, queue id, epoch), its top 24
+// bits the draw; all four capacity kinds computed, then selected. The
+// queue's rate, survival fraction 1 - loss and jitter go to shared
+// memory; q / bw + jitter is each queue's delay (exact: the jitter is
+// added per queue before the hop sums, as the slot tick adds it per hop).
+//
 // Numerics: built with -fmad=false (no contraction) and without fast
 // math, so every division is IEEE round-to-nearest; max/min propagate NaN
 // as torch.maximum/clamp do; rintf rounds half to even as torch.round;
 // every float constant arrives as the float32 value PyTorch rounds it to;
 // a law-config divisor divides, or multiplies by its float32 reciprocal,
 // as core/laws.py::div_config does; DCQCN's powf is CUDA's, as
-// torch.pow's on the card; no float atomics. The carry then equals the
-// plain tick's bit for bit.
-// The per-tick record sums (w_sum, lam) add in this kernel's fixed order,
-// not in the plain tick's (XLA:CPU's, core/fluid.py::_xla_sum).
+// torch.pow's on the card; no float atomics; the record sums add in
+// XLA:CPU's order. The carry and the records then equal the plain tick's
+// bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -156,8 +176,10 @@ enum Field {
   // tick temporaries and the contributor lists
   F_CONTRIB, F_OBS, F_THETA_NOW, F_LAM, F_ACT, F_FREEF, F_SW_USED,
   F_CSR_OFF, F_CSR_LIST, F_CSR_POS, F_CSR_HIST,
-  // queues and the read-only topology
-  F_Q, F_OUT_RATE, F_QB, F_BW, F_BUF, F_PAUSE, F_SWITCH_OF_QUEUE,
+  // queues (the regime's survival fractions and jitter) and the read-only
+  // topology
+  F_Q, F_OUT_RATE, F_QB, F_BW, F_KEEP, F_JIT, F_BUF, F_PAUSE,
+  F_SWITCH_OF_QUEUE,
   F_SW_TABLE, F_SWITCH_BUFFER,
   // hops
   F_PATH, F_TF_STEPS,
@@ -197,6 +219,15 @@ enum LawParam {
 // a bandwidth schedule's fields (kernels/fused_tick.py::SCHED_FIELDS)
 enum Sched { S_DAY, S_NIGHT, S_WEEK, S_T0, S_CIRCUIT_BW, S_PACKET_BW,
              kSchedFields };
+
+// an impairment regime's rows (core/impair.py::ImpairmentParams' fields)
+enum Imp { I_KIND, I_BW_HI, I_BW_LO, I_PERIOD, I_UP, I_T0, I_LOSS,
+           I_LOSS_KIND, I_JITTER, I_SEED, kImpFields };
+// process and loss kinds, and the hash salts (core/impair.py)
+constexpr int kKindSchedule = 1, kKindOscillate = 2, kKindFading = 3;
+constexpr int kLossRandom = 1;
+constexpr unsigned kSaltBw = 0x9c83a5d1u, kSaltLoss = 0x2c1b3c6du,
+                   kSaltJit = 0x66e9d5a7u;
 
 }  // namespace
 
@@ -244,6 +275,7 @@ struct FusedTickArgs {
   const float* law_cfg[kConfigFields];  // [N] each, null where unread
   const float* lawp;                    // [kLawParams] per scenario
   const float* sched;  // [kSchedFields] per scenario; null: static rates
+  const int* imp;      // [kImpFields, Q] regime; null: none
   // topology, read only
   const float* bw;
   const float* buf;
@@ -271,6 +303,7 @@ struct FusedTickArgs {
   int smask;       // bit i: law state field i staged
   int cmask;       // bit j: law config field j staged
   int nlawp;       // kLawParams
+  int imp_stride;  // ints from one scenario's regime to the next (0: shared)
   float dt, inv_dt, dt_alpha, update_period;
   int off[kFields];
 };
@@ -306,18 +339,6 @@ __device__ int block_sum_int(int v, int* wbuf) {
   if ((threadIdx.x & 31) == 0) wbuf[threadIdx.x >> 5] = v;
   __syncthreads();
   int tot = 0;
-  for (int i = 0; i < kWarps; ++i) tot += wbuf[i];
-  return tot;
-}
-
-// Block-wide sum of one float per thread, in a fixed order (a shuffle
-// tree in each warp, then the warps in order).
-__device__ float block_sum_float(float v, float* wbuf) {
-  for (int o = 16; o; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) wbuf[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float tot = 0.0f;
   for (int i = 0; i < kWarps; ++i) tot += wbuf[i];
   return tot;
 }
@@ -441,6 +462,102 @@ __device__ __forceinline__ bool circuit_up(float t, float day, float week,
   return ph >= 0.0f && ph < day;
 }
 
+// lowbias32 (core/impair.py::_mix32)
+__device__ __forceinline__ unsigned mix32(unsigned x) {
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  x ^= x >> 15;
+  x *= 0x846ca68bu;
+  x ^= x >> 16;
+  return x;
+}
+
+// a uniform draw in [0, 1) of the stream (seed ^ salt, queue qid, epoch)
+__device__ __forceinline__ float u01(unsigned seed, unsigned salt,
+                                     unsigned qid, unsigned epoch) {
+  unsigned h = mix32(seed ^ salt);
+  h = mix32(h ^ (qid * 0x9E3779B9u));
+  h = mix32(h ^ epoch);
+  return static_cast<float>(h >> 8) * (1.0f / 16777216.0f);
+}
+
+// Queue c's rate, survival fraction and jitter at t under the regime r
+// ([kImpFields, Q]; core/impair.py's link_bw_at, 1 - link_loss_at and
+// link_jitter_at, with queue id c).
+__device__ void impair_at(const int* r, int Q, int c, float t, float* bw,
+                          float* keep, float* jit) {
+  const int kind = r[I_KIND * Q + c], lkind = r[I_LOSS_KIND * Q + c];
+  const float hi = __int_as_float(r[I_BW_HI * Q + c]);
+  const float lo = __int_as_float(r[I_BW_LO * Q + c]);
+  const float period = __int_as_float(r[I_PERIOD * Q + c]);
+  const float up = __int_as_float(r[I_UP * Q + c]);
+  const float t0 = __int_as_float(r[I_T0 * Q + c]);
+  const float loss = __int_as_float(r[I_LOSS * Q + c]);
+  const float jitter = __int_as_float(r[I_JITTER * Q + c]);
+  const unsigned seed = static_cast<unsigned>(r[I_SEED * Q + c]);
+  const float x = (t - t0) + 1e-7f;
+  // the epoch: floor, then int32 (saturating, NaN to 0), then uint32
+  const unsigned e = static_cast<unsigned>(__float2int_rd(x / pmax(period,
+                                                                   1e-6f)));
+  const unsigned qid = static_cast<unsigned>(c);
+  // every kind, then the select (an untaken one may be NaN)
+  float ph = fmodf(x, period);
+  if (ph != 0.0f && ((period < 0.0f) != (ph < 0.0f))) ph = ph + period;
+  const float sched = (ph >= 0.0f && ph < up) ? hi : lo;
+  const float frac = ph / period;
+  const float tri = 1.0f - fabsf(2.0f * frac - 1.0f);
+  const float osc = lo + (hi - lo) * tri;
+  const float fad = lo + (hi - lo) * u01(seed, kSaltBw, qid, e);
+  *bw = kind == kKindSchedule   ? sched
+        : kind == kKindOscillate ? osc
+        : kind == kKindFading    ? fad
+                                 : hi;
+  const float l = lkind == kLossRandom ? loss * u01(seed, kSaltLoss, qid, e)
+                                       : loss;
+  *keep = 1.0f - pmin(pmax(l, 0.0f), 0.999f);
+  *jit = pmax(jitter * u01(seed, kSaltJit, qid, e), 0.0f);
+}
+
+// The sums of a[0..n) and b[0..n) in XLA:CPU's order for jnp.sum
+// (core/fluid.py::_xla_sum): while more than 32 values are left, pad them
+// to a multiple of 32 with pad / 2 zeros in front and sum each window of
+// 32 left to right (a window's zeros add nothing); then the rest left to
+// right. a and b are overwritten; thread 0 gets the sums. Called by the
+// whole block.
+__device__ void xla_sum2(float* a, float* b, int n, float* sa, float* sb) {
+  const int tid = threadIdx.x;
+  while (n > 32) {
+    const int m = (n + 31) / 32 * 32, nw = m / 32;
+    const int lo = 32 * tid - (m - n) / 2;
+    float x = 0.0f, y = 0.0f;
+    if (tid < nw) {
+      const int i0 = max(lo, 0), i1 = min(lo + 32, n);
+      x = a[i0];
+      y = b[i0];
+      for (int i = i0 + 1; i < i1; ++i) {
+        x = x + a[i];
+        y = y + b[i];
+      }
+    }
+    __syncthreads();
+    if (tid < nw) {
+      a[tid] = x;
+      b[tid] = y;
+    }
+    __syncthreads();
+    n = nw;
+  }
+  if (tid == 0) {
+    float x = a[0], y = b[0];
+    for (int i = 1; i < n; ++i) {
+      x = x + a[i];
+      y = y + b[i];
+    }
+    *sa = x;
+    *sb = y;
+  }
+}
+
 // 1 + x for an int32 counter, wrapping as torch's int32 add does.
 __device__ __forceinline__ int inc_wrap(int x) {
   return static_cast<int>(static_cast<unsigned>(x) + 1u);
@@ -450,13 +567,13 @@ __device__ __forceinline__ int inc_wrap(int x) {
 // routines. SMEM: the working set in shared memory (else in the global
 // scratch buffer). GRID: a launch of several scenarios, one block each
 // (without it the pointers are used as given, and the offsets below fold
-// away).
-template <int LAW, bool SMEM, bool GRID>
+// away). IMP: an impairment regime (a.imp non-null); a clean run takes
+// the instantiation without its code.
+template <int LAW, bool SMEM, bool GRID, bool IMP>
 __global__ void __launch_bounds__(kThreads)
 fused_tick_kernel(const FusedTickArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int wbuf_i[kWarps];
-  __shared__ float wbuf_f[kWarps];
   __shared__ int sh_cursor, sh_hw;
   __shared__ int sh_due[kDueChunk];
 
@@ -544,6 +661,8 @@ fused_tick_kernel(const FusedTickArgs a) {
   float* out_rate = at<float>(base, a.off[F_OUT_RATE]);
   float* qb = at<float>(base, a.off[F_QB]);  // q / bw, each queue's delay
   float* bw = at<float>(base, a.off[F_BW]);
+  float* keep = at<float>(base, a.off[F_KEEP]);  // [Q1] (a regime)
+  float* jit = at<float>(base, a.off[F_JIT]);    // [Q1] (a regime)
   float* buf = at<float>(base, a.off[F_BUF]);
   float* pause = at<float>(base, a.off[F_PAUSE]);  // [Q1] (kPause)
   int* sw_of_q = at<int>(base, a.off[F_SWITCH_OF_QUEUE]);
@@ -684,6 +803,11 @@ fused_tick_kernel(const FusedTickArgs a) {
       bw[i] = bv;
       buf[i] = fv;
       if (kPause) pause[i] = g_pause[i];
+      if (IMP) {
+        // the sentinel's identities; the queues' are set every tick
+        keep[i] = 1.0f;
+        jit[i] = 0.0f;
+      }
     }
     if (i < Q) sw_of_q[i] = so;
     if (i < nsw_all) sw_table[i] = st;
@@ -724,6 +848,19 @@ fused_tick_kernel(const FusedTickArgs a) {
       for (int c = tid; c < Q; c += kThreads) {
         bw[c] = bt;
         qb[c] = q[c] / bt;
+      }
+      __syncthreads();
+    }
+    // -- 1c. under an impairment regime, each queue's processes ----------
+    if (IMP) {
+      const int* r = a.imp + (GRID ? blockIdx.x : 0) * a.imp_stride;
+      for (int c = tid; c < Q; c += kThreads) {
+        float bc, kc, jc;
+        impair_at(r, Q, c, t_sec, &bc, &kc, &jc);
+        bw[c] = bc;
+        keep[c] = kc;
+        jit[c] = jc;
+        qb[c] = q[c] / bc + jc;
       }
       __syncthreads();
     }
@@ -954,6 +1091,8 @@ fused_tick_kernel(const FusedTickArgs a) {
         arr = arr + x;
         if (kInc) cnt = x > 0.0f ? cnt + 1.0f : cnt;
       }
+      // the loss folds into the accumulated arrivals
+      if (IMP) arr = arr * keep[c];
       float cap = buf[c];
       if (a.nsw > 0 && c < Q) {
         const int sw = sw_of_q[c];
@@ -1010,6 +1149,7 @@ fused_tick_kernel(const FusedTickArgs a) {
             const float q_obs = obs[e];
             const float b = bw[p];
             x = q_obs / b;
+            if (IMP) x = x + jit[p];
             if (law == kPowerTCP) {
               // NORMPOWER: (qdot + mu)(q + b tau) * (1 / max(b^2 tau, 1))
               const float current = obs[2 * SH + e] + obs[SH + e];
@@ -1255,9 +1395,23 @@ fused_tick_kernel(const FusedTickArgs a) {
       wl = pmin(pmax(wl, 1000.0f), 8.0f * nic * tau + 8.0f * nic * th_now);
       ws[s] = wl;
 
-      // progress; a completion parks in the pending buffer
+      // progress (of the goodput under a regime: the rate times the
+      // survival fractions of the slot's hops, in hop order); a
+      // completion parks in the pending buffer
       float rem = remaining[s];
-      if (active) rem = rem - lam * dt;
+      if (active) {
+        float good = lam;
+        if (IMP) {
+          float hk = 1.0f;
+          for (int h = 0; h < H; ++h) {
+            const int p = spath[s * H + h];
+            const float kh = p < Q ? keep[p] : 1.0f;
+            hk = h ? hk * kh : kh;
+          }
+          good = lam * hk;
+        }
+        rem = rem - good * dt;
+      }
       remaining[s] = rem;
       const bool done = active && rem <= 0.0f;
       if (done) {
@@ -1268,16 +1422,19 @@ fused_tick_kernel(const FusedTickArgs a) {
                           free_at[s] == kInt32Max && !done;
       if (done || expire) free_at[s] = t + hold[s] + 1;
 
-      if (rec_row) g_rec_lam_f[r * S + s] = lam;
-      w_sum += active ? wl : 0.0f;
-      lam_sum += lam;
+      if (rec_row) {
+        g_rec_lam_f[r * S + s] = lam;
+        // the record sums' terms: the active slots' windows (in the slot's
+        // theta_now cell, read above) and the rates (lam_s)
+        theta_now[s] = active ? wl : 0.0f;
+      }
       n_act += active;
     }
 
     // -- 10. record row ---------------------------------------------------
     if (rec_row) {
-      w_sum = block_sum_float(w_sum, wbuf_f);
-      lam_sum = block_sum_float(lam_sum, wbuf_f);
+      __syncthreads();
+      xla_sum2(theta_now, lam_s, S, &w_sum, &lam_sum);
       n_act = block_sum_int(n_act, wbuf_i);
       if (tid == 0) {
         g_rec_t[r] = t_sec;
@@ -1337,10 +1494,11 @@ fused_tick_kernel(const FusedTickArgs a) {
   }
 }
 
-template <int LAW, bool GRID>
+template <int LAW, bool GRID, bool IMP>
 int launch(const FusedTickArgs& a, cudaStream_t stream) {
   if (a.use_smem) {
-    void (*kern)(const FusedTickArgs) = fused_tick_kernel<LAW, true, GRID>;
+    void (*kern)(const FusedTickArgs) =
+        fused_tick_kernel<LAW, true, GRID, IMP>;
     const size_t smem = static_cast<size_t>(a.layout_bytes);
     if (smem > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
@@ -1350,14 +1508,22 @@ int launch(const FusedTickArgs& a, cudaStream_t stream) {
     }
     kern<<<a.B, kThreads, smem, stream>>>(a);
   } else {
-    fused_tick_kernel<LAW, false, GRID><<<a.B, kThreads, 0, stream>>>(a);
+    fused_tick_kernel<LAW, false, GRID, IMP><<<a.B, kThreads, 0, stream>>>(
+        a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int LAW, bool IMP>
+int launch_grid(const FusedTickArgs& a, cudaStream_t stream) {
+  return a.B > 1 ? launch<LAW, true, IMP>(a, stream)
+                 : launch<LAW, false, IMP>(a, stream);
+}
+
 template <int LAW>
 int launch_law(const FusedTickArgs& a, cudaStream_t stream) {
-  return a.B > 1 ? launch<LAW, true>(a, stream) : launch<LAW, false>(a, stream);
+  return a.imp ? launch_grid<LAW, true>(a, stream)
+               : launch_grid<LAW, false>(a, stream);
 }
 
 }  // namespace
@@ -1429,6 +1595,39 @@ extern "C" int fused_tick_schedule(const float* sched, const float* pre,
     schedule_kernel<<<static_cast<int>((n + 255) / 256), 256, 0,
                       static_cast<cudaStream_t>(stream)>>>(sched, pre, bw, on,
                                                            B, t0, T, dt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+__global__ void impair_kernel(const int* imp, int stride, int B, int Q,
+                              int t0, int T, float dt, float* bw,
+                              float* keep, float* jit) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(B) * T * Q) return;
+  const int c = static_cast<int>(i % Q);
+  const long long bk = i / Q;
+  const int b = static_cast<int>(bk / T), k = static_cast<int>(bk % T);
+  const float t_sec = static_cast<float>(t0 + k) * dt;
+  impair_at(imp + static_cast<long long>(b) * stride, Q, c, t_sec, bw + i,
+            keep + i, jit + i);
+}
+
+}  // namespace
+
+// K4's evaluation of an impairment regime alone, over ticks t0 .. t0 + T
+// - 1 of B scenarios (imp [kImpFields, Q] per scenario, stride ints
+// apart; 0: shared): each queue's rate, survival fraction and jitter
+// [B, T, Q]; chip_smoke.py holds it against core/impair.py on the card.
+extern "C" int fused_tick_impair(const int* imp, int stride, int B, int Q,
+                                 int t0, int T, float dt, float* bw,
+                                 float* keep, float* jit, void* stream) {
+  const long long n = static_cast<long long>(B) * T * Q;
+  if (n > 0)
+    impair_kernel<<<static_cast<int>((n + 255) / 256), 256, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+        imp, stride, B, Q, t0, T, dt, bw, keep, jit);
   return static_cast<int>(cudaGetLastError());
 }
 

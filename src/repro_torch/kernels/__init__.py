@@ -12,6 +12,7 @@ Kernels (each: a wrapper module + a plain PyTorch version in ``ref.py``;
   queue_arrivals       K3, dense fluid-queue update, plus the in-order
                        sparse helpers of the reference backend
                        (build_csr_gather / csr_gather_arrivals /
+                       apply_loss /
                        ordered_scatter_add / integrate_arrivals /
                        queue_arrivals_sparse)
   fused_tick_block     K4, K whole ticks of the megakernel slot engine
@@ -31,7 +32,8 @@ from .flash_attention import flash_attention
 from .fused_tick import DEFAULT_BLOCK, fused_tick_block
 from .powertcp_step import (powertcp_observe_step, powertcp_step,
                             theta_powertcp_observe_step, theta_powertcp_step)
-from .queue_arrivals import (build_csr_gather, csr_gather_arrivals,
+from .queue_arrivals import (apply_loss, build_csr_gather,
+                             csr_gather_arrivals,
                              integrate_arrivals, ordered_scatter_add,
                              queue_arrivals, queue_arrivals_sparse,
                              update_incidence)
@@ -39,7 +41,7 @@ from .rmsnorm import rmsnorm
 
 __all__ = ["ops", "ref", "LAUNCHES", "build", "reset_launches",
            "powertcp_step", "theta_powertcp_step", "powertcp_observe_step",
-           "theta_powertcp_observe_step", "build_csr_gather",
+           "theta_powertcp_observe_step", "apply_loss", "build_csr_gather",
            "csr_gather_arrivals", "ordered_scatter_add", "queue_arrivals",
            "update_incidence", "integrate_arrivals", "queue_arrivals_sparse",
            "DEFAULT_BLOCK", "fused_tick_block", "flash_attention",

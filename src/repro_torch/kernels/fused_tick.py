@@ -39,6 +39,17 @@ recompute each queue's q / bw before any phase reads them; without it
 block-uniform branch a tick. ``fused_tick_schedule`` runs that
 evaluation alone, compiled with K4's flags, to hold it against
 ``rdcn.circuit_bw_at`` on the card.
+
+Impairments: ``TickParams.impair`` (a regime of ``core.impair``, packed
+by ``core.megakernel._k4_impair`` as int32 rows [10, Q], shared by the
+batch, or [B, 10, Q]) makes each block evaluate every queued link's
+capacity, loss and jitter processes at the start of every tick and keep
+the rates, survival fractions and jitters in shared memory (``keep`` and
+``jit``, 2 (Q+1) floats of the layout); the arrivals, the observation,
+theta and the goodput read them. Whether a launch carries a regime picks
+the kernel's instantiation, so a clean run executes none of that code.
+``impair`` runs the evaluation alone, compiled with K4's flags, to hold
+it against ``core.impair`` on the card.
 """
 from __future__ import annotations
 
@@ -122,6 +133,10 @@ LAW_PARAMS = ("hpcc_eta hpcc_inv_eta hpcc_max_stage timely_beta "
 # the fields of one scenario's bandwidth schedule (``TickParams.sched``),
 # ``core.rdcn.ScheduleParams``'
 SCHED_FIELDS = "day night week t0 circuit_bw packet_bw".split()
+# the rows of an impairment regime (``TickParams.impair``),
+# ``core.impair.ImpairmentParams``' fields
+IMPAIR_FIELDS = ("kind bw_hi bw_lo period up t0 loss loss_kind jitter "
+                 "seed").split()
 
 
 class TickParams(NamedTuple):
@@ -160,6 +175,7 @@ class TickParams(NamedTuple):
     switch_buffer: torch.Tensor     # [switches] float32
     switch_of_queue: torch.Tensor   # [Q] int32
     sched: Optional[torch.Tensor] = None  # [B, 6] float32 bandwidth schedule
+    impair: Optional[torch.Tensor] = None  # [10, Q] / [B, 10, Q] int32 regime
 
 
 class BlockRecords(NamedTuple):
@@ -187,14 +203,15 @@ def ring_channels(name: str) -> int:
     return 3 + (name in PAUSE_LAWS) + (name in INCAST_LAWS)
 
 
-def _fields(S, H, Q, nsw, swdeg, nswb, law):
+def _fields(S, H, Q, nsw, swdeg, nswb, law, impair=False):
     """(name, 4-byte words) of every field K4 stages, in the order of
     ``enum Field`` in ``csrc/fused_tick.cu``: the tick's temporaries and
     the contributor lists (CSR offsets, entries, each entry's place, the
-    per-warp counts), the queues (with each queue's q / bw, and the
-    pause state of a law with that channel) and the topology, the hops,
-    the slots: their carry, the law state and config of law ``law`` (an
-    index into ``LAW_NAMES``; a field the law lacks takes no words)."""
+    per-warp counts), the queues (with each queue's q / bw, under an
+    impairment regime its survival fraction and jitter, and the pause
+    state of a law with that channel) and the topology, the hops, the
+    slots: their carry, the law state and config of law ``law`` (an index
+    into ``LAW_NAMES``; a field the law lacks takes no words)."""
     name = LAW_NAMES[law]
     SH, Q1 = S * H, Q + 1
     slot_fields = ("slot_flow admit_t free_at rtt_steps hold pend_flow tau "
@@ -205,6 +222,7 @@ def _fields(S, H, Q, nsw, swdeg, nswb, law):
              ("sw_used", nsw), ("csr_off", Q1 + 1), ("csr_list", SH),
              ("csr_pos", SH), ("csr_hist", WARPS * Q1),
              ("q", Q1), ("out_rate", Q1), ("qb", Q1), ("bw", Q1),
+             ("keep", Q1 if impair else 0), ("jit", Q1 if impair else 0),
              ("buf", Q1), ("pause", Q1 if name in PAUSE_LAWS else 0),
              ("switch_of_queue", Q), ("sw_table", nsw * swdeg),
              ("switch_buffer", nswb),
@@ -226,12 +244,13 @@ class Layout(NamedTuple):
     smem: bool
 
 
-def layout(S, H, Q, nsw, swdeg, nswb, law) -> Layout:
+def layout(S, H, Q, nsw, swdeg, nswb, law, impair=False) -> Layout:
     """K4's layout for S slots of H hops, Q queues, ``nsw`` switches of
     ``swdeg`` ports in the Dynamic-Thresholds fold (0: off), ``nswb``
-    switch buffers, and law ``law`` (an index into ``LAW_NAMES``)."""
+    switch buffers, law ``law`` (an index into ``LAW_NAMES``) and, with
+    ``impair``, an impairment regime."""
     offsets, at = [], 0
-    for _, words in _fields(S, H, Q, nsw, swdeg, nswb, law):
+    for _, words in _fields(S, H, Q, nsw, swdeg, nswb, law, impair):
         offsets.append(at)
         at += -(-4 * words // 16) * 16
     return Layout(tuple(offsets), at, at <= SMEM_BUDGET)
@@ -243,16 +262,16 @@ _PTRS = (("cursor hw slot_flow admit_t free_at path tf_steps rtt_steps tau "
          + ("pause fct pend_flow pend_val hold inv ovf s_path s_tf s_rtt "
             "s_tau s_nic s_start s_stop s_size").split()
          + ["c_" + f for f in CONFIG_FIELDS]
-         + ("lawp sched bw buf sw_table switch_buffer switch_of_queue due rec_t "
-            "rec_q rec_w_sum rec_thru rec_lam rec_lam_f rec_n_active "
+         + ("lawp sched imp bw buf sw_table switch_buffer switch_of_queue due "
+            "rec_t rec_q rec_w_sum rec_thru rec_lam rec_lam_f rec_n_active "
             "scratch").split())
 _INTS = ("S N Q H D nsw swdeg nswb maxdeg K t0 record_every record law "
          "has_period use_smem layout_bytes B gate due_stride div_eta "
-         "div_span div_fncc smask cmask nlawp").split()
+         "div_span div_fncc smask cmask nlawp imp_stride").split()
 _NFIELDS = len(_fields(1, 1, 1, 0, 0, 1, 0))
 # the inputs K4 reads and never writes
 _READ_ONLY = set(("s_path s_tf s_rtt s_tau s_nic s_start s_stop s_size lawp "
-                  "sched bw buf sw_table switch_buffer switch_of_queue")
+                  "sched imp bw buf sw_table switch_buffer switch_of_queue")
                  .split()
                  + ["c_" + f for f in CONFIG_FIELDS])
 _FLOATS = "dt inv_dt dt_alpha update_period".split()
@@ -291,6 +310,8 @@ _SIGNATURES = {
     "fused_tick_schedule": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                             ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                             ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    "fused_tick_impair": [ctypes.c_void_p] + [ctypes.c_int] * 5
+                         + [ctypes.c_float] + [ctypes.c_void_p] * 4,
 }
 
 
@@ -326,7 +347,7 @@ def _run_tensors(params: TickParams, carry) -> list:
            st.w, st.rate_cap, st.q, st.out_rate, st.hist_lam, st.hist_q,
            st.hist_w, st.remaining, st.next_update, st.last_update, st.fct,
            st.pause, carry.pend.flow, carry.pend.val, carry.hold, carry.inv,
-           carry.ovf, params.lawp, params.sched]
+           carry.ovf, params.lawp, params.sched, params.impair]
     out += list(state_leaves(st.law).values()) + list(params.config.values())
     return [x for x in out if isinstance(x, torch.Tensor)]
 
@@ -395,8 +416,14 @@ def _launch_args(params: TickParams, carry):
     leaves["lawp"] = (params.lawp, f32, (len(LAW_PARAMS),))
     if params.sched is not None:
         leaves["sched"] = (params.sched, f32, (len(SCHED_FIELDS),))
+    imp = params.impair
+    shared = imp is not None and imp.dim() == 2
+    if imp is not None and not shared:
+        leaves["imp"] = (imp, i32, (len(IMPAIR_FIELDS), Q))
     leaves = {k: (x, dt, lead + shape) for k, (x, dt, shape)
               in leaves.items()}
+    if shared:
+        leaves["imp"] = (imp, i32, (len(IMPAIR_FIELDS), Q))
     # the topology, shared by the batch
     leaves["bw"] = (params.bw, f32, (Q1,))
     leaves["buf"] = (params.buf, f32, (Q1,))
@@ -417,7 +444,8 @@ def _launch_args(params: TickParams, carry):
     if len(set(ptrs)) != len(ptrs):
         raise ValueError("fused_tick_block: two carry leaves share memory")
     nswb = int(params.switch_buffer.numel())
-    lay = layout(S, H, Q, params.nsw, params.swdeg, nswb, params.law)
+    lay = layout(S, H, Q, params.nsw, params.swdeg, nswb, params.law,
+                 imp is not None)
     scratch = torch.empty((16 if lay.smem else B * lay.nbytes,),
                           dtype=torch.uint8, device=dev)
     args = _Args()
@@ -435,7 +463,9 @@ def _launch_args(params: TickParams, carry):
                           div_fncc=params.div_fncc,
                           smask=_mask(STATE_FIELDS, LAW_STATE[lname]),
                           cmask=_mask(CONFIG_FIELDS, LAW_CONFIG[lname]),
-                          nlawp=len(LAW_PARAMS)).items():
+                          nlawp=len(LAW_PARAMS),
+                          imp_stride=(0 if imp is None or shared
+                                      else len(IMPAIR_FIELDS) * Q)).items():
         setattr(args, f, val)
     args.off[:] = lay.offsets
     for f in _FLOATS:
@@ -539,3 +569,26 @@ def schedule(sched: torch.Tensor, t0: int, T: int, dt: float,
             on.data_ptr(), B, int(t0), int(T), float(dt), stream)
     _build.check(err, "fused_tick_schedule")
     return bw, on
+
+
+def impair(imp: torch.Tensor, t0: int, T: int, dt: float):
+    """K4's evaluation of an impairment regime (``imp``, ``TickParams.
+    impair``'s layout: int32 [10, Q], or [B, 10, Q] one per scenario)
+    over ticks ``t0 .. t0 + T - 1``, compiled into K4's library with its
+    flags: each queue's (rate, survival fraction, jitter), each [B, T, Q]
+    float32 (B = 1 for a shared regime). Not a K4 launch."""
+    nf = len(IMPAIR_FIELDS)
+    Q = int(imp.shape[-1])
+    B = 1 if imp.dim() == 2 else int(imp.shape[0])
+    _build.check_tensors("fused_tick_impair", {"imp": imp},
+                         {"imp": tuple(imp.shape[:-2]) + (nf, Q)},
+                         imp.device, dtypes={"imp": torch.int32})
+    out = [torch.empty((B, T, Q), dtype=torch.float32, device=imp.device)
+           for _ in range(3)]
+    with torch.cuda.device(imp.device):
+        stream = torch.cuda.current_stream(imp.device).cuda_stream
+        err = _lib().fused_tick_impair(
+            imp.data_ptr(), nf * Q, B, Q, int(t0), int(T), float(dt),
+            *[x.data_ptr() for x in out], stream)
+    _build.check(err, "fused_tick_impair")
+    return tuple(out)

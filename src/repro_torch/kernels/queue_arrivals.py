@@ -200,6 +200,14 @@ def ordered_scatter_add(zero: torch.Tensor, idx: torch.Tensor,
     return csr_gather_arrivals(vals[None], inv[:, :n], zero[None])[0]
 
 
+def apply_loss(arr: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """Per-link loss folded into the accumulated queue arrivals: ``arr *
+    keep`` (each queue's survival fraction, [Q+1] or per scenario [B,
+    Q+1]), after the in-order sum and before the integration, so every
+    engine scales the same sum. A keep of 1.0 is exact."""
+    return arr * keep
+
+
 def integrate_arrivals(arr: torch.Tensor, q: torch.Tensor, bw: torch.Tensor,
                        caps: torch.Tensor, *, dt: float):
     """The fluid-queue integration shared by the sparse queue forms:

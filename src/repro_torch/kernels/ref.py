@@ -6,8 +6,8 @@ CPU tensor, and what ``chip_smoke.py`` holds each CUDA kernel against on
 the card: K1 and K2 bit for bit (the kernels are built with
 ``-fmad=false`` and round every product the way these do), K3 at rtol
 1e-5 (its arrival sum runs in another order), K4 bit for bit on every
-carry leaf (the per-tick record sums ``w_sum`` and ``lam`` at rtol 1e-5:
-K4 adds them in its block order, the plain tick in XLA:CPU's), K5 at
+carry leaf and record field (K4 adds the record sums ``w_sum`` and
+``lam`` in the plain tick's order, XLA:CPU's), K5 at
 2e-5 in float32 and 2e-2 in bfloat16 (the tolerances ``tests/test_kernels.py`` holds the Pallas
 kernel to: the online softmax adds in another order and rescales), K6 at
 rtol 1e-5 in float32 and one bfloat16 ulp in bfloat16 (its square sum
@@ -89,9 +89,32 @@ def theta_powertcp_step_ref(theta, prev_theta, tau, w, w_old, gs_prev,
     return w_out, gs_out, prev_out
 
 
+def _ordered_colsum(p):
+    """Each column of ``p`` [F, Q] summed over its rows in ascending row
+    order, from +0.0. Only the nonzero products are walked: adding an
+    exact zero to such a sum changes no bit."""
+    nz = p != 0.0
+    F, Q = p.shape
+    rank = torch.cumsum(nz, dim=0, dtype=torch.int64) - 1
+    deg = int(nz.sum(dim=0).max()) if p.numel() else 0
+    table = torch.full((max(deg, 1), Q), F, dtype=torch.int64,
+                       device=p.device)
+    rows, cols = torch.nonzero(nz, as_tuple=True)
+    table[rank[rows, cols], cols] = rows
+    padded = torch.cat([p, p.new_zeros(1, Q)])
+    col = torch.arange(Q, device=p.device)
+    acc = p.new_zeros(Q)
+    for j in range(deg):
+        acc = acc + padded[table[j], col]
+    return acc
+
+
 def queue_arrivals_ref(lam_del, onehot, q, out_rate, caps, dt):
     """Dense fluid-queue update: arrivals are the incidence-weighted sum
     of the delayed per-hop rates, then q' = clip(q + (arr - out) dt, 0, caps).
+    The sum is hop-major, as ``repro``'s Pallas kernel takes it: each
+    hop's products summed over the flows in ascending order, and the hops'
+    partials added in hop order.
 
     lam_del: [H,F]; onehot: [H,F,Q]; q/out_rate/caps: [Q]. A batch
     ([B,H,F], [B,H,F,Q], q [B,Q], out_rate/caps [Q] or [B,Q]) is summed
@@ -104,7 +127,9 @@ def queue_arrivals_ref(lam_del, onehot, q, out_rate, caps, dt):
             caps if caps.dim() == 1 else caps[b], dt)
             for b in range(onehot.shape[0])]
         return tuple(torch.stack(x) for x in zip(*out))
-    arr = torch.sum(lam_del[:, :, None] * onehot, dim=(0, 1))
+    arr = torch.zeros_like(q)
+    for h in range(int(onehot.shape[0])):
+        arr = arr + _ordered_colsum(lam_del[h][:, None] * onehot[h])
     q_new = torch.minimum(torch.clamp_min(q + (arr - out_rate) * dt, 0.0),
                           caps)
     return arr, q_new

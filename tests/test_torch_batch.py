@@ -295,7 +295,10 @@ def test_unported_batch_arguments_raise():
     topo, flows, scheds, cfg = _sweep(tc, device="cpu")
     Q = topo.num_queues
     fb, sb = tc.stack_flows(flows, Q), tc.stack_flow_schedules(scheds, Q)
-    for kw, item in ((dict(impair_params=object()), "item 10"),
+    # a regime is ported (item 10); the fused backend rejects it with a
+    # NotImplementedError, as repro's UnsupportedFeature
+    for kw, item in ((dict(impair_params=tc.no_impairment(topo),
+                           backend="fused"), "fused backend"),
                      (dict(devices=2), "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             tc.simulate_batch(topo, fb, "powertcp", cfg=cfg, device="cpu",

@@ -8,7 +8,7 @@ or 2 406 padded flows, H = 3, Q+1 = 289), ragged ones and the edges of
 its row chunks and column tiles, and bit for bit against its order
 spelled in torch and against itself run twice (the elected combine); K4
 ``fused_tick_block`` against the plain megakernel block on every carry
-leaf bit for bit (the records' ``w_sum``/``lam`` sums at rtol 1e-5) at
+leaf and record bit for bit at
 the anchor shapes of ``tests/test_megakernel.py``, with the gather table
 at its suggested width and narrowed until it overflows (a queue 46
 contributors past it, and one at exactly its width), on a pool too large
@@ -35,8 +35,10 @@ scalars per scenario; K4 evaluating two circuit schedules in
 its body (Fig. 8's slots 0 and 6, a block each) for the PowerTCP laws,
 HPCC and reTCP (its own schedule and prebuffer), and a schedule shared
 by the batch, against the plain tick, and its schedule evaluation
-against ``circuit_bw_at`` over Fig. 8's 4 weeks; K1/K2's observe form
-and K3 with a bandwidth row per scenario;
+against ``circuit_bw_at`` over Fig. 8's 4 weeks; K4 under per-link
+impairments (one law per feedback channel, a regime per scenario and a
+shared one) and its evaluation of a regime against ``core/impair.py``;
+K1/K2's observe form and K3 with a bandwidth row per scenario;
 K1/K2's observe form (``powertcp_observe_step``,
 ``theta_powertcp_observe_step``) bit for bit against its plain version
 at the main path's shapes (S = 384, P = 2 406, B = 2 x 128, and a ragged
@@ -591,6 +593,53 @@ def test_fused_tick_schedule_is_circuit_bw_at(cuda_device, slot):
         want = (tc.circuit_up(rdcn._plus_prebuffer(t, pb), p)
                 | tc.circuit_up(t, p))
         assert torch.equal(on[0].bool(), want)
+
+
+@pytest.mark.cuda
+def test_fused_tick_impair_is_core_impair(cuda_device):
+    """K4's evaluation of an impairment regime alone
+    (``fused_tick.impair``, compiled with K4's flags) over 3 000 ticks:
+    each queue's rate, survival fraction and jitter bit for bit
+    ``core/impair.py``'s on the card, for the fat tree's four regimes
+    stacked (one per scenario) and for one shared regime."""
+    import repro_torch.core as tc
+    from repro_torch.core import impair as ti, megakernel as mk
+    from repro_torch.kernels import fused_tick as ft
+    regs = sup.impair_regimes(tc, tc.fat_tree(4), device=cuda_device)
+    T = 3000
+    t = (torch.arange(T, device=cuda_device).to(torch.float32)
+         * 1e-6)[:, None]
+    four = tc.stack_impairments(list(regs.values()))
+    for reg, B in ((four, 4), (regs["mixed"], 1)):
+        Q = int(reg.kind.shape[-1])
+        gb, gk, gj = ft.impair(mk._k4_impair(reg, B, Q, cuda_device), 0, T,
+                               1e-6)
+        for b in range(B):
+            p = ti.ImpairmentParams(*[x[b] for x in reg]) if B > 1 else reg
+            keep, jit = ti.impair_vectors(t, p)
+            assert torch.equal(gb[b], ti.link_bw_at(t, p))
+            assert torch.equal(gk[b], keep[:, :Q])
+            assert torch.equal(gj[b], jit[:, :Q])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", [True, False])
+@pytest.mark.parametrize("law", ["powertcp", "fncc", "backpressure",
+                                 "pulser"])
+def test_fused_tick_block_kernel_impaired(cuda_device, law, gate):
+    """One law per feedback channel (receiver echo, the hop clock, the
+    pause and the sender-count columns) on the fat tree under the mixed
+    regime, K4 against the plain tick over 1 000 ticks, every carry leaf
+    and record bit for bit: a batch of two regimes (one per scenario, K =
+    64 and a ragged 7) and one regime shared by the batch."""
+    import repro_torch.core as tc
+    topo, sched, cfg, S, regs = sup.impair_anchor_scenario(
+        tc, steps=1000, device=cuda_device)
+    sb = tc.stack_flow_schedules([sched] * 2, topo.num_queues)
+    for reg in (tc.stack_impairments([regs["mixed"], regs["oscillate"]]),
+                regs["lossy"]):
+        sup.k4_grid_against_plain(tc, topo, sb, cfg, law, S, (64, 7),
+                                  gate=gate, impair=reg)
 
 
 @pytest.mark.cuda

@@ -199,8 +199,10 @@ def test_unported_arguments_raise():
     import repro_torch.core as tc
     topo, flows, lcfg, cfg = sup.golden_scenario(tc, device="cpu")
     sched = tc.make_schedule(flows)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tc.simulate_slots(topo, sched, "powertcp", 4, impair=object(),
+    # impairments are ported (item 10); the fused backend rejects them
+    with pytest.raises(NotImplementedError, match="fused backend"):
+        tc.simulate_slots(topo, sched, "powertcp", 4,
+                          impair=tc.no_impairment(topo), backend="fused",
                           device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         tc.simulate_slots(topo, sched, "powertcp", 4, chunk=2,

@@ -336,6 +336,104 @@ def fig8_claims(rows: dict) -> bool:
                 and us["powertcp"] <= 0.6 * us["hpcc"])
 
 
+# benchmarks/impair_fct.py (per-link impairments, DESIGN.md section 17):
+# ``smoke_impair``'s anchor, the k = 4 fat tree's web-search leg of 4 ms
+# plus 4 ms of drain (``feedback_scenario``'s, a slot per flow) under
+# ``anchor_impairments``' regimes, and the impaired pass of
+# ``fabric_fct._fabric16_anchor_bitmatch`` on the paper's 256-host
+# leaf-spine; ``IMPAIR_REF`` holds ``repro``'s slot-engine FCTs of both
+IMPAIR_REF = os.path.join(HERE, "golden", "torch_port_impair.json")
+IMPAIR_LAWS = ("powertcp", "hpcc", "timely")
+IMPAIR_REGIMES = ("mixed", "oscillate", "lossy", "clean")
+IMPAIR_PAPER_LAWS = ("powertcp", "backpressure", "pulser")
+IMPAIR_EXPECTED_FLOWS = 8.0
+
+
+def golden_impair_regime(core, topo, **dev):
+    """``tools/gen_golden.py::impair_regime`` in either package: the golden
+    scenario's one link oscillating down to 10 GB/s over 50 us, with 1%
+    random loss and 1 us jitter (seed 7)."""
+    bw = topo.bandwidth
+    bw = np.asarray(bw.cpu() if isinstance(bw, torch.Tensor) else bw,
+                    np.float32)
+    proc = core.LinkProcess(kind="oscillate", bw_lo=10 * core.GBPS,
+                            period=50 * core.US, loss=0.01, random_loss=True,
+                            jitter=1e-6, seed=7)
+    return core.impair._params_from_procs([proc], bw, **dev)
+
+
+def impair_kind_rows(n=64, seed=0):
+    """``LinkProcess`` fields (dicts) of ``n`` links of every process and
+    loss kind, with random periods (zero ones among them), phases before
+    and after 0 and seeds over the whole uint32 range, and the links'
+    rates."""
+    rng = np.random.default_rng(seed)
+    kinds = ("const", "schedule", "oscillate", "fading")
+    rows = []
+    for i in range(n):
+        k = kinds[i % 4]
+        per = float(rng.choice([0.0, 1e-6, 3e-6, 50e-6])
+                    if k in ("const", "fading")
+                    else rng.choice([1e-6, 7e-6, 200e-6]))
+        rows.append(dict(kind=k, bw_lo=float(rng.uniform(1e9, 5e9)),
+                         period=per, up=per * 0.4,
+                         t0=float(rng.uniform(-1e-4, 1e-3)),
+                         loss=float(rng.uniform(0, 0.5)),
+                         random_loss=bool(i % 3),
+                         jitter=float(rng.uniform(0, 2e-6)),
+                         seed=int(rng.integers(0, 2 ** 32))))
+    return rows, rng.uniform(1e9, 1.25e10, n).astype(np.float32)
+
+
+def impair_regimes(core, ft, **dev):
+    """``impair_fct.anchor_impairments(ft)`` in either package: the
+    ToR -> host links oscillating down to 2.5 GB/s over 200 us (seed 5),
+    every other link ``netem(loss=0.01, jitter=1e-6, seed=9)``, each alone,
+    and the zero preset; by name, in ``IMPAIR_REGIMES``' order."""
+    tor, host = core.fabric.TOR, core.fabric.HOST
+    osc = core.LinkProcess(kind="oscillate", bw_lo=2.5e9, period=200e-6,
+                           seed=5)
+    lossy = core.netem(loss=0.01, jitter=1e-6, seed=9)
+    return {
+        "mixed": core.fabric_impairments(ft, rules={(tor, host): osc},
+                                         default=lossy, **dev),
+        "oscillate": core.fabric_impairments(ft, rules={(tor, host): osc},
+                                             **dev),
+        "lossy": core.fabric_impairments(ft, default=lossy, **dev),
+        "clean": core.no_impairment(ft.topology(**dev)),
+    }
+
+
+def impair_anchor_scenario(core, steps=None, **dev):
+    """(topo, schedule, cfg, slots, regimes) of ``smoke_impair``'s anchor:
+    37 flows over 8 000 ticks, a slot per flow (``steps`` cuts the run)."""
+    topo, sched, cfg, _, _ = feedback_scenario(core, "ws", steps=steps,
+                                               **dev)
+    return (topo, sched, cfg, int(sched.start.shape[0]),
+            impair_regimes(core, core.fat_tree(4), **dev))
+
+
+def impair_paper_scenario(core, **dev):
+    """(topo, schedule, cfg, slots, regime) of the impaired pass of
+    ``fabric_fct._fabric16_anchor_bitmatch``: the paper's leaf-spine (8
+    racks of 32 hosts, 2 spines), web-search at load 0.3 over 1.2 ms, seed
+    11, 3 000 ticks, the pool ``suggest_slots`` rounded up to 8, and the
+    mixed regime."""
+    ls = core.compile_routes(core.leaf_spine_fabric(**PAPER))
+    sched = core.make_schedule(core.poisson_websearch(ls, 0.3, 0.0012,
+                                                      PAPER_DT, seed=11,
+                                                      **dev))
+    slots = -(-int(core.suggest_slots(sched, PAPER_DT)) // 8) * 8
+    cfg = core.SimConfig(dt=PAPER_DT, steps=3000, hist=512,
+                         update_period=2e-6)
+    tor, host = core.fabric.TOR, core.fabric.HOST
+    imp = core.fabric_impairments(
+        ls, rules={(tor, host): core.LinkProcess(
+            kind="oscillate", bw_lo=2.5e9, period=200e-6, seed=5)},
+        default=core.netem(loss=0.01, jitter=1e-6, seed=9), **dev)
+    return ls.topology(**dev), sched, cfg, slots, imp
+
+
 def smoke_slots_pool(starts, fcts, max_tf, peak_concurrency,
                      dt=PAPER_DT) -> int:
     """The slot pool of ``benchmarks/run.py::smoke_slots``: the largest
@@ -436,7 +534,14 @@ def queue_arrivals_in_k3_order(lam_del, onehot, q, out_rate, caps, dt):
     order, the 4 groups of a 64-row chunk added in order, the chunks'
     partials summed in 4 contiguous runs of ceil(chunks / 4) in chunk
     order, the runs added in order; then the integration. Elementwise
-    float32 ops, so on the card too it rounds as the kernel does."""
+    float32 ops, so on the card too it rounds as the kernel does.
+
+    The rows are r = h * F + f, so a chunk may span two hops: this is not
+    the plain version's order (``kernels/ref.py::queue_arrivals_ref``,
+    hop-major, each hop's flows added one after another, as ``repro``'s
+    Pallas kernel adds them), which would make each queue's sum a chain
+    of H * F dependent adds on the card; K3 is held to the plain version
+    at rtol 1e-5."""
     H, F, Q = onehot.shape
     R = H * F
     rows = K3_GROUPS * K3_GROUP_ROWS
@@ -633,11 +738,10 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
                      law_cfg=None, bw_fn=None):
     """K4 against the plain megakernel tick on the card, from the same
     initial carry, for each K in ``blocks``: every carry leaf bit for bit
-    (the gather table ``inv`` and its flag ``ovf`` included), and the
-    records; their per-tick sums ``w_sum`` and ``lam`` at rtol 1e-5,
-    because K4 adds them in its own fixed order and the plain tick in
-    XLA:CPU's (``fluid._xla_sum``). ``maxdeg`` narrows the gather table (default
-    ``suggest_maxdeg``); ``overflows`` (by default True where ``maxdeg``
+    (the gather table ``inv`` and its flag ``ovf`` included), and every
+    record field (K4 adds the sums ``w_sum`` and ``lam`` in XLA:CPU's
+    order, ``fluid._xla_sum``, as the plain tick does). ``maxdeg``
+    narrows the gather table (default ``suggest_maxdeg``); ``overflows`` (by default True where ``maxdeg``
     is given) says whether the table must overflow on some tick, so that
     the plain tick's walk of the hop list is held too, or must never.
     Returns (the largest absolute difference in the two sums — every other
@@ -672,39 +776,48 @@ def k4_against_plain(tc, topo, sched, cfg, law, slots, blocks,
             torch.testing.assert_close(
                 g, w, rtol=0, atol=0, equal_nan=True,
                 msg=lambda m, n=name: f"K4 K={K} {n}: {m}")
-        for f in grec._fields:
-            g = getattr(grec, f)
-            w = getattr(wrec, f).to(g.dtype)
-            tol = 1e-5 if f in ("w_sum", "lam") else 0.0
-            torch.testing.assert_close(
-                g, w, rtol=tol, atol=0, equal_nan=True,
-                msg=lambda m, n=f: f"K4 K={K} rec.{n}: {m}")
-            if tol and g.numel():
-                err = max(err, float(torch.max(torch.abs(g.double()
-                                                         - w.double()))))
+        err = max(err, _records_equal(grec, wrec, f"K4 K={K}"))
     return err, n_ovf, max_degree(want.state.path, int(topo.num_queues))
+
+
+def _records_equal(grec, wrec, what) -> float:
+    """Every record field of K4's run ``grec`` bit for bit the plain
+    run's ``wrec``. Returns the largest absolute difference of the sums
+    ``w_sum`` and ``lam`` (0.0 where they are equal)."""
+    err = 0.0
+    for f in grec._fields:
+        g = getattr(grec, f)
+        w = getattr(wrec, f).to(device=g.device, dtype=g.dtype)
+        if f in ("w_sum", "lam") and g.numel():
+            err = max(err, float(torch.nan_to_num(torch.max(torch.abs(
+                g.double() - w.double())))))
+        torch.testing.assert_close(
+            g, w, rtol=0, atol=0, equal_nan=True,
+            msg=lambda m, n=f: f"{what} rec.{n}: {m}")
+    return err
 
 
 def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
                           gate=True, expected_flows=8.0, law_cfg=None,
-                          bw_fn=None, bw_params=None, k4_gates=None):
+                          bw_fn=None, bw_params=None, k4_gates=None,
+                          impair=None):
     """K4's grid form against the plain block on the card: a batch of
     schedules ``sched`` ([B, N, ...], ``fluid.stack_flow_schedules``), one
     K4 block per scenario, against the plain tick of the batch, both with
     ``gate``, from the same initial carry, for each K in ``blocks``: every
-    carry leaf bit for bit, and the records; their sums ``w_sum`` and
-    ``lam`` at rtol 1e-5 (K4 adds them in its block order). ``k4_gates``
+    carry leaf and every record field bit for bit. ``k4_gates``
     runs K4 with each of those gates against the one plain run (the plain
     tick's ``gate`` changes none of its bits). ``law_cfg`` (stacked, as
     ``stack_law_configs`` builds it) replaces the default config;
     ``bw_fn``/``bw_params`` are the batch's time-varying bandwidth
-    (``simulate_slots_batch``'s). Returns the largest absolute difference
-    in those sums."""
+    (``simulate_slots_batch``'s), ``impair`` its impairment regime (one
+    per scenario or shared). Returns the largest absolute difference in
+    the record sums (0.0)."""
     from repro_torch.core import fluid, megakernel as mk
     dev = sched.start.device
     sim = fluid.make_slot_sim(topo, sched, law, slots, law_cfg, cfg=cfg,
                               backend="megakernel", device=dev,
-                              expected_flows=expected_flows)
+                              expected_flows=expected_flows, impair=impair)
     T = int(cfg.steps)
     grid = mk.make_tick(sim, gate=gate, bw_fn=bw_fn, bw_params=bw_params)
     carry0 = grid.init_carry(fluid.init_slot_state(sim))
@@ -721,16 +834,7 @@ def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
             torch.testing.assert_close(
                 g, w, rtol=0, atol=0, equal_nan=True,
                 msg=lambda m, n=name: f"K4 grid K={K} gate={g} {n}: {m}")
-        for f in grec._fields:
-            g = getattr(grec, f)
-            w = getattr(wrec, f).to(device=g.device, dtype=g.dtype)
-            tol = 1e-5 if f in ("w_sum", "lam") else 0.0
-            torch.testing.assert_close(
-                g, w, rtol=tol, atol=0, equal_nan=True,
-                msg=lambda m, n=f: f"K4 grid K={K} gate={g} rec.{n}: {m}")
-            if tol and g.numel():
-                err = max(err, float(torch.max(torch.abs(g.double()
-                                                         - w.double()))))
+        err = max(err, _records_equal(grec, wrec, f"K4 grid K={K} gate={g}"))
     return err
 
 
@@ -754,10 +858,9 @@ def k4_batch_against_reference(tc, topo, sched, cfg, law, slots,
     channels' included), law state, admission cursor and FCTs bit for bit
     (not the slots' retire bookkeeping: the megakernel retires a drained
     slot on the tick it drains, the reference on the next admission,
-    which changes no trajectory), and the records; their per-tick sums
-    ``w_sum`` and ``lam`` at rtol 1e-5 (K4 adds them in its own order).
-    ``law_cfg`` (stacked) replaces the default config. Returns the number
-    of flows completed."""
+    which changes no trajectory), and every record field. ``law_cfg``
+    (stacked) replaces the default config. Returns the number of flows
+    completed."""
     from repro_torch.core import fluid, megakernel as mk
     dev = sched.start.device
     want, wrec = tc.simulate_slots_batch(
@@ -785,14 +888,7 @@ def _same_state(got, grec, want, wrec, what):
                 gv, wv, rtol=0, atol=0, equal_nan=True,
                 msg=lambda m, n=name: f"K4 ({what}) against the reference "
                                       f"{n}: {m}")
-    for f in wrec._fields:
-        g = getattr(grec, f)
-        tol = 1e-5 if f in ("w_sum", "lam") else 0.0
-        torch.testing.assert_close(
-            g, getattr(wrec, f).to(device=g.device, dtype=g.dtype),
-            rtol=tol, atol=0, equal_nan=True,
-            msg=lambda m, n=f: f"K4 ({what}) against the reference "
-                               f"rec.{n}: {m}")
+    _records_equal(grec, wrec, f"K4 ({what}) against the reference")
 
 
 # -------------------------------------------------------------------------
