@@ -40,11 +40,12 @@ exit, traceback) if anything in it is wrong:
    its plain version from the same initial carry, every carry leaf and
    record field bit for bit (K4 adds the records' per-tick sums in
    XLA:CPU's order, as the plain tick does): the 12-flow anchor
-   of ``tests/test_megakernel.py`` with K in {1, 7, 64}, S < N for both
-   laws, S = 1, and the first 2 000 ticks of the paper scenario for both
-   laws, each with the gather table at its suggested width, and the
-   anchor and the paper ticks again with the table narrowed until it
-   overflows (the plain tick then walks the hop list; K4's contributor
+   of ``tests/test_megakernel.py`` with K in {1, 7, 64} and S = 1, the
+   gather table at its suggested width, and the anchor (PowerTCP) and
+   the first 2 000 ticks of the paper scenario (both laws) with the
+   table narrowed until it overflows (phase 6c holds every law at paper
+   scale at the suggested width, with slots recycled at its middle
+   launch; the plain tick then walks the hop list; K4's contributor
    lists are never truncated, and it writes the table and its flag as
    the plain tick does); K4's grid form (one block per scenario) on the
    first 2 000 ticks of phase 6b's two seeds, both laws, ``gate`` True
@@ -206,6 +207,32 @@ exit, traceback) if anything in it is wrong:
    K4 timed launch by launch over each run of (2)-(4) (CUDA events; the
    bound of every 4th launch from ``k4_cost``, the regime's read
    included), printed with the card's name and power limit;
+6g. fault: chunk-streamed K4, checkpoint/resume and a K4 sweep
+   (``benchmarks/fault_fct.py``, ``impair_fct.run``). K4 runs every
+   segment of a chunk-streamed megakernel run, reading its admissions
+   from the segment's window of the schedule (each run's K4 launches
+   must be one per 64 ticks of every segment, and nothing else): (a)
+   ``crash_resume_paper_scale`` at full size (the paper fabric, seed 1,
+   load 0.6, 8 ms of arrivals: 643 flows in 256 slots over 16 000 ticks)
+   with ``chunk=2048`` bit for bit the unchunked K4 run in every
+   ``fault_fct._bitmatch`` field; snapshots every 6 000 ticks (keep 2),
+   a crash injected at 9 000, ``resume_slots`` from 6 000 bit for bit
+   the uninterrupted run with its record from tick 0; the completion set
+   ``repro``'s and every FCT within rtol 1e-5 of
+   ``tests/golden/torch_port_fault.json``; (b) ``chunk=256`` (C = S <
+   N) bit for bit the unchunked run, and again with ``guard=True``; the
+   three runs timed without records (wall, and K4's device time from
+   ``torch.profiler``, per tick; segments and launches); (c) run (e)'s
+   scenario with ``chunk=512``: FCTs and final carry bit for bit run
+   (e)'s of phase 6; (d) K4 on a window (``win_off > 0``, C < N; the
+   window of (b) from its first boundary, 2 000 ticks) for powertcp and
+   fncc, gate True and False, bit for bit the plain block; (e)
+   ``impair_fct.run(quick=False)``'s grid (powertcp, hpcc, timely x the
+   four regimes) through ``run_sweep(backend="megakernel",
+   fault_tolerant=True)``: no fallback, no failure, every point
+   completes, and the points 6f ran bit for bit 6f's K4 FCTs; (f)
+   ``guard_divergence`` on the reference backend: ``repro``'s law, tick
+   and field, and NaN carried through unguarded;
 
 7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
    plain PyTorch versions at the serve run's shapes (K5: prefill q
@@ -268,7 +295,8 @@ It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms;
 the TPU form's main-path launches are 0; K4's entry carries each of its
 13 laws' phase-6c times under ``laws``, each Fig. 8 group's under
 ``fig8``, each feedback law's on each fat-tree leg under
-``feedback`` and each impaired run's of phase 6f under ``impair``),
+``feedback``, each impaired run's of phase 6f under ``impair`` and
+phase 6g's chunked runs under ``chunk``),
 the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
 no result, when CUDA is not available or the checkout's sources are
@@ -905,30 +933,39 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
     check = sup.k4_against_plain
     topo, sched, cfg = sup.staggered(tc, device=dev)
     err = 0.0
+    c0 = time.perf_counter()
+
+    def secs():
+        nonlocal c0
+        c, c0 = time.perf_counter() - c0, time.perf_counter()
+        return f"{c:.1f} s"
+    # recycled slots (S < N) at the suggested width are held by this
+    # phase's timing pass (the plain block at five launches of the paper
+    # run, S = 384 < N) and phase 6c (each law's middle launch); theta's
+    # overflowed table by its paper check below
     for law, slots, blocks, maxdeg in (
             ("powertcp", 16, (1, 7, 64), None),
-            ("powertcp", 6, (64,), None),       # S < N: recycled slots
-            ("theta_powertcp", 6, (64,), None),
-            ("powertcp", 16, (1, 64), 2),       # the table overflows
-            ("theta_powertcp", 6, (64,), 2)):
+            ("powertcp", 16, (1, 64), 2)):      # the table overflows
         e, n_ovf, _ = check(tc, topo, sched, cfg, law, slots, blocks,
                             maxdeg=maxdeg)
         err = max(err, e)
         log(f"[k4] {law}: anchor 12 flows x 4000 ticks, S={slots}, K in "
             f"{blocks}, table width {maxdeg or 'suggested'} (overflowed on "
-            f"{n_ovf} ticks): bitwise equal")
+            f"{n_ovf} ticks): bitwise equal ({secs()})")
     e, _, _ = check(tc, *sup.single_slot(tc, device=dev), "powertcp", 1,
                     (64,))
     err = max(err, e)
-    log("[k4] S=1, 3 flows x 4000 ticks: bitwise equal")
+    log(f"[k4] S=1, 3 flows x 4000 ticks: bitwise equal ({secs()})")
 
     with open(sup.PAPER_REF) as f:
         ref = json.load(f)
     ptopo, psched = paper_scenario(tc, sup, dev, ref)
     pcfg = tc.SimConfig(dt=ref["dt_s"], steps=paper_ticks, hist=ref["hist"],
                         update_period=ref["update_period_s"])
-    for law, maxdeg in (("powertcp", None), ("theta_powertcp", None),
-                        ("powertcp", 4), ("theta_powertcp", 4)):
+    # at the suggested width phase 6c holds every law at paper scale (K4
+    # against the plain tick, and the reference slot engine over 2 000
+    # ticks); the narrowed table's overflow is held only here
+    for law, maxdeg in (("powertcp", 4), ("theta_powertcp", 4)):
         e, n_ovf, deg = check(tc, ptopo, psched, pcfg, law, ref["slots"],
                               (64,), expected_flows=ref["expected_flows"],
                               maxdeg=maxdeg)
@@ -936,7 +973,7 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
         log(f"[k4] {law}: paper scenario, first {paper_ticks} ticks, "
             f"S={ref['slots']}, table width {maxdeg or 'suggested'} "
             f"(overflowed on {n_ovf} ticks, busiest queue {deg} "
-            f"contributors): bitwise equal")
+            f"contributors): bitwise equal ({secs()})")
     # the grid form: both seeds of phase 6b's sweep in one launch of two
     # blocks, against each scenario's plain block, with and without gate
     with open(sup.SMOKE_REF) as f:
@@ -954,9 +991,11 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
         log(f"[k4] {law}: grid of 2 blocks (seeds "
             f"{[x['seed'] for x in sref['scenarios']]}), first "
             f"{paper_ticks} ticks, S={sref['slots']}, gate True and False: "
-            f"bitwise equal to each scenario's plain block")
+            f"bitwise equal to each scenario's plain block ({secs()})")
     held = impair_probe(torch, tc, sup, dev)
+    log(f"[k4] impairment evaluation probes: {secs()}")
     row = k4_timing(torch, tc, sup, dev, ref, ptopo, psched)
+    log(f"[k4] timing over the paper run (three passes): {secs()}")
     row["max_abs_err"] = err
     row["impair_values_held"] = held
     return row
@@ -1142,7 +1181,7 @@ def run_main(torch, tc, kernels, dev, ref, topo, sched, key, engine, law,
         raise AssertionError(f"run ({key}): non-finite FCTs")
     return fct, dict(run=key, engine=engine, law=law, backend=backend,
                      steps=steps, wall_s=wall, us_per_tick=wall / steps * 1e6,
-                     launches=launches)
+                     launches=launches), st
 
 
 def ref_done_by(ref_fct, start, tau, dt, ticks, margin):
@@ -1193,11 +1232,12 @@ def phase_main(torch, tc, kernels, sup, dev):
     start = sched.start.double().cpu().numpy()
     tau = sched.tau.double().cpu().numpy()
     launches = {k: 0 for k in kernels.LAUNCHES}
-    summaries = []
+    summaries, finals = [], {}
     for key, engine, law, backend in MAIN_RUNS:
         steps = ref["steps"] if backend == "megakernel" else EAGER_TICKS
-        fct, summ = run_main(torch, tc, kernels, dev, ref, topo, sched, key,
-                             engine, law, backend, steps)
+        fct, summ, finals[key] = run_main(torch, tc, kernels, dev, ref, topo,
+                                          sched, key, engine, law, backend,
+                                          steps)
         ref_fct = np.array([np.nan if x is None else x
                             for x in ref["fct_s"][law]])
         ref_done, near = ref_done_by(ref_fct, start, tau, ref["dt_s"], steps,
@@ -1215,7 +1255,7 @@ def phase_main(torch, tc, kernels, sup, dev):
             f"{summ['p999_rel_err']:.3g}), largest per-flow FCT rel err "
             f"{summ['fct_max_rel_err']!r}, launches {summ['launches']}")
     log("[main] " + json.dumps({"main_path": summaries}))
-    return launches, summaries
+    return launches, summaries, finals
 
 
 # -------------------------------------------------------------------------
@@ -2255,7 +2295,7 @@ def phase_impair(torch, tc, kernels, sup, dev, smi):
             f"{' and '.join(map(str, gates))}) bitwise equal to the plain "
             f"tick over {IMPAIR_CHECK_TICKS} ticks "
             f"({time.perf_counter() - c0:.1f} s)")
-    runs, rows = [], {}
+    runs, rows, k4_fct = [], {}, {}
     n = meta["n_flows"]
     for law in sup.IMPAIR_LAWS:
         (st, _), wall, c = timed_run(
@@ -2266,6 +2306,7 @@ def phase_impair(torch, tc, kernels, sup, dev, smi):
                 backend="megakernel", expected_flows=ef,
                 impair_params=mixed, device=dev))
         count(c)
+        k4_fct[(law, "mixed")] = st.fct[0, :n].clone()
         fct = st.fct[0, :n].double().cpu().numpy()
         rel = impair_fcts(f"anchor {law}", fct, ref["anchor"]["fct_s"][law])
         runs.append(dict(run="anchor", law=law, wall_s=wall,
@@ -2298,6 +2339,7 @@ def phase_impair(torch, tc, kernels, sup, dev, smi):
     count(c)
     means = {}
     for b, r in enumerate(names):
+        k4_fct[("powertcp", r)] = st4.fct[b, :n].clone()
         fct = st4.fct[b, :n].double().cpu().numpy()
         rel = impair_fcts(f"regime {r}", fct,
                           ref["regimes"]["fct_s"][r])
@@ -2398,6 +2440,324 @@ def phase_impair(torch, tc, kernels, sup, dev, smi):
     log("[impair] K4 us per tick: " + json.dumps(
         {k: v["us_per_tick"] for k, v in rows.items()}) + f"; {smi}")
     log(f"[impair] phase 6f: {time.perf_counter() - t0:.1f} s")
+    return launches, rows, k4_fct
+
+
+# -------------------------------------------------------------------------
+# phase 6g: chunk-streamed K4, checkpoint/resume and a K4 sweep
+# (benchmarks/fault_fct.py, benchmarks/impair_fct.py::run)
+# -------------------------------------------------------------------------
+
+# phase 6g's runs: fault_fct's chunk, the clamp floor (= S), run (e)'s
+# chunk; K4 against the plain block on a window from the first boundary
+# of the chunk-256 run, over FAULT_WINDOW_TICKS ticks
+FAULT_CHUNKS = (2048, 256)
+FAULT_MAIN_CHUNK = 512
+FAULT_WINDOW_FROM = 2048
+FAULT_WINDOW_TICKS = 2000
+FAULT_WINDOW_LAWS = ("powertcp", "fncc")
+FAULT_RTOL = 1e-5
+FAULT_TIME_REPS = 3
+
+
+def chunk_launches():
+    """K4 launches a chunk-streamed megakernel run makes: one per 64 ticks
+    of each segment (segments are powers of two), one for a shorter
+    segment (``fluid.LAST_CHUNKED``, the run's segments)."""
+    from repro_torch.core import fluid
+    return sum(max(1, L // 64) for L in fluid.LAST_CHUNKED["ticks"])
+
+
+def chunk_run(torch, kernels, key, fn, crash=None):
+    """A chunk-streamed megakernel run with the launch counts zeroed just
+    before and read just after: K4 and nothing else, one launch per 64
+    ticks of every segment (so every segment ran on K4). ``crash`` is the
+    ``InjectedCrash`` class the run must raise. Returns (result or the
+    crash, wall seconds, launches, segments)."""
+    from repro_torch.core import fluid
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if crash is None:
+        out = fn()
+    else:
+        try:
+            fn()
+            raise AssertionError(f"run ({key}): the injected crash did "
+                                 f"not fire")
+        except crash as e:
+            out = e
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = {"fused_tick_block": chunk_launches()}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"run ({key}): {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    return out, wall, launches, fluid.LAST_CHUNKED["segments"]
+
+
+def k4_device_us(torch, fn):
+    """K4's device time (us) in ``fn()`` from ``torch.profiler``: the sum of
+    the self device time of the kernels named ``fused_tick``; None where
+    the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(_self_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "fused_tick" in e.key)
+    return us or None
+
+
+def phase_fault(torch, tc, kernels, sup, dev, smi, main_final, impair_fct):
+    """Phase 6g: chunk-streamed K4, checkpoint/resume and a K4 sweep (see
+    the module docstring). ``main_final`` is run (e)'s final state (phase
+    6), ``impair_fct`` phase 6f's K4 FCTs by (law, regime). Returns
+    (launches, K4's rows)."""
+    import tempfile
+    from repro_torch.core import fluid
+    with open(sup.FAULT_REF) as f:
+        ref = json.load(f)
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in kernels.LAUNCHES}
+
+    def count(c):
+        for k, n in c.items():
+            launches[k] += n
+
+    def bitmatch(got, want, what):
+        bad = sup.resume_mismatches(got[0], got[1], want[0], want[1])
+        if bad:
+            raise AssertionError(f"6g {what}: {bad} differ")
+
+    # (a) fault_fct.crash_resume_paper_scale at full size
+    topo, sched, cfg, S, every, crash = sup.fault_scenario(tc, device=dev)
+    n = int(sched.start.shape[0])
+    got = dict(n_flows=n, slots=S, steps=cfg.steps, every=every,
+               crash=crash, schedule_sha256=sup.schedule_checksum(
+                   sched.size.cpu().numpy(), sched.start.cpu().numpy()))
+    if got != ref["scenario"]:
+        raise AssertionError(f"6g: the port's scenario {got} differs from "
+                             f"the reference's {ref['scenario']}")
+    lcfg = tc.default_law_config(tc.schedule_as_flows(sched),
+                                 expected_flows=8.0)
+
+    def run(chunk=None, record=True, **kw):
+        return lambda: tc.simulate_slots(
+            topo, sched, "powertcp", S, lcfg, cfg, record=record,
+            backend="megakernel", chunk=chunk, device=dev, **kw)
+
+    whole, _, c = timed_run(
+        torch, kernels, "6g unchunked",
+        expected_launches("powertcp", "megakernel", cfg.steps), run())
+    count(c)
+    chunked, _, c, segs = chunk_run(torch, kernels, "6g chunk 2048",
+                                    run(FAULT_CHUNKS[0]))
+    count(c)
+    bitmatch(chunked, whole, f"chunk {FAULT_CHUNKS[0]} against unchunked")
+    fct = whole[0].fct.double().cpu().numpy()
+    want = np.array([np.nan if x is None else x for x in ref["fct_s"]])
+    if not np.array_equal(np.isfinite(fct), np.isfinite(want)):
+        raise AssertionError(f"6g: completion set {int(np.isfinite(fct).sum())}"
+                             f" differs from the reference's "
+                             f"{int(np.isfinite(want).sum())}")
+    done = np.isfinite(want)
+    rel = float(np.max(np.abs(fct[done] - want[done]) / want[done]))
+    if not rel <= FAULT_RTOL:
+        raise AssertionError(f"6g: FCT rel err {rel} against the golden")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-ckpt-") as d:
+        ck = tc.CheckpointSpec(path=os.path.join(d, "ck"), every=every,
+                               keep=2)
+        e, _, c, _ = chunk_run(
+            torch, kernels, "6g crash",
+            run(FAULT_CHUNKS[0], checkpoint=ck,
+                faults=tc.crash_at_tick(crash)), crash=tc.InjectedCrash)
+        count(c)
+        if e.tick != crash:
+            raise AssertionError(f"6g: the crash fired at {e.tick}, not "
+                                 f"{crash}")
+        resume_tick = tc.latest_checkpoint(ck.path)
+        if resume_tick != every:
+            raise AssertionError(f"6g: the newest snapshot is at "
+                                 f"{resume_tick}, not {every}")
+        resumed, wall_r, c, _ = chunk_run(
+            torch, kernels, "6g resume",
+            lambda: tc.resume_slots(topo, sched, "powertcp", S, ck,
+                                    law_cfg=lcfg, cfg=cfg,
+                                    backend="megakernel",
+                                    chunk=FAULT_CHUNKS[0], device=dev))
+        count(c)
+    bitmatch(resumed, chunked, "resumed against uninterrupted")
+    if int(resumed[1].q.shape[0]) != cfg.steps:
+        raise AssertionError("6g: the resumed record does not start at 0")
+    log(f"[fault] (a) fault_fct's paper scale ({n} flows, {S} slots, "
+        f"{cfg.steps} ticks): chunk {FAULT_CHUNKS[0]} ({segs} segments) "
+        f"bitwise the unchunked K4 run; crash at {crash}, resumed from "
+        f"{resume_tick} (wall {wall_r:.3f} s) bitwise the uninterrupted "
+        f"run, its record from tick 0; completion set the reference's "
+        f"({int(done.sum())}/{n}), largest FCT rel err {rel!r}")
+
+    # (b) the clamp floor: C = S, narrower than the schedule
+    chunked, _, c, segs = chunk_run(torch, kernels, "6g chunk 256",
+                                    run(FAULT_CHUNKS[1]))
+    count(c)
+    offs = list(fluid.LAST_CHUNKED["win_off"])
+    bitmatch(chunked, whole, f"chunk {FAULT_CHUNKS[1]} against unchunked")
+    guarded, _, c, _ = chunk_run(torch, kernels, "6g chunk 256 guarded",
+                                 run(FAULT_CHUNKS[1], guard=True))
+    count(c)
+    bitmatch(guarded, whole, "guarded chunk 256 against unchunked")
+    log(f"[fault] (b) chunk {FAULT_CHUNKS[1]} (C = S = {S} < N = {n}; "
+        f"{segs} segments, window offsets {offs[0]}..{offs[-1]}): bitwise "
+        f"the unchunked K4 run, and again with guard=True")
+
+    # timing: the three runs without records, wall (the median of
+    # FAULT_TIME_REPS runs) and K4's device time
+    rows = {}
+    for key, chunk in (("unchunked", None),) + tuple(
+            (f"chunk {c_}", c_) for c_ in FAULT_CHUNKS):
+        fn = run(chunk, record=False)
+        walls = []
+        for _ in range(FAULT_TIME_REPS):
+            if chunk is None:
+                _, wall, c = timed_run(
+                    torch, kernels, f"6g time {key}",
+                    expected_launches("powertcp", "megakernel", cfg.steps),
+                    fn)
+                segs = 1
+            else:
+                _, wall, c, segs = chunk_run(torch, kernels,
+                                             f"6g time {key}", fn)
+            walls.append(wall)
+        count(c)
+        wall = float(np.median(walls))
+        dev_us = k4_device_us(torch, fn)
+        rows[key] = dict(
+            segments=segs, launches=c["fused_tick_block"],
+            wall_us_per_tick=wall / cfg.steps * 1e6,
+            device_us_per_tick=(None if dev_us is None
+                                else dev_us / cfg.steps))
+    base = rows["unchunked"]
+    for key, row in rows.items():
+        row["wall_over_unchunked"] = (row["wall_us_per_tick"]
+                                      / base["wall_us_per_tick"])
+        row["device_over_unchunked"] = (
+            None if row["device_us_per_tick"] is None
+            or base["device_us_per_tick"] is None
+            else row["device_us_per_tick"] / base["device_us_per_tick"])
+        log(f"[fault] time {key}: {row['segments']} segments, "
+            f"{row['launches']} K4 launches, wall "
+            f"{row['wall_us_per_tick']!r} us/tick "
+            f"({row['wall_over_unchunked']!r} of unchunked), K4 device "
+            f"{row['device_us_per_tick']!r} us/tick "
+            f"({row['device_over_unchunked']!r}); {smi}")
+
+    # (c) run (e)'s scenario, chunk 512: bitwise run (e) of phase 6
+    with open(sup.PAPER_REF) as f:
+        pref = json.load(f)
+    ptopo, psched = paper_scenario(tc, sup, dev, pref)
+    pcfg = tc.SimConfig(dt=pref["dt_s"], steps=pref["steps"],
+                        hist=pref["hist"],
+                        update_period=pref["update_period_s"])
+    plcfg = tc.default_law_config(psched,
+                                  expected_flows=pref["expected_flows"])
+    (pst, _), wall, c, segs = chunk_run(
+        torch, kernels, "6g (e) chunk 512",
+        lambda: tc.simulate_slots(ptopo, psched, "powertcp", pref["slots"],
+                                  plcfg, pcfg, record=False,
+                                  backend="megakernel",
+                                  chunk=FAULT_MAIN_CHUNK, device=dev))
+    count(c)
+    for (name, g), (_, w) in zip(sup.tree_leaves(pst),
+                                 sup.tree_leaves(main_final)):
+        torch.testing.assert_close(
+            g, w, rtol=0, atol=0, equal_nan=True,
+            msg=lambda m, nm=name: f"6g (c) against run (e) {nm}: {m}")
+    rows[f"(e) chunk {FAULT_MAIN_CHUNK}"] = dict(
+        segments=segs, launches=c["fused_tick_block"],
+        wall_us_per_tick=wall / pcfg.steps * 1e6)
+    log(f"[fault] (c) run (e)'s scenario ({int(psched.start.shape[0])} "
+        f"flows, {pref['slots']} slots, {pcfg.steps} ticks), chunk "
+        f"{FAULT_MAIN_CHUNK} ({segs} segments, {c['fused_tick_block']} K4 "
+        f"launches, wall {wall / pcfg.steps * 1e6:.3f} us/tick): FCTs and "
+        f"final carry bitwise run (e)'s")
+
+    # (d) K4 on a window against the plain block
+    for law in FAULT_WINDOW_LAWS:
+        c0 = time.perf_counter()
+        w0, C, N, _ = sup.k4_window_against_plain(
+            tc, topo, sched, cfg, law, S, FAULT_CHUNKS[1], FAULT_WINDOW_FROM,
+            FAULT_WINDOW_TICKS)
+        log(f"[fault] (d) {law}: K4 on the window of {C} rows at {w0} (N = "
+            f"{N}), ticks {FAULT_WINDOW_FROM}-"
+            f"{FAULT_WINDOW_FROM + FAULT_WINDOW_TICKS - 1}, gate True and "
+            f"False: bitwise the plain block "
+            f"({time.perf_counter() - c0:.1f} s)")
+
+    # (e) impair_fct.run(quick=False)'s grid through K4
+    itopo, isched, icfg, iS, regimes = sup.impair_anchor_scenario(
+        tc, device=dev)
+    names = list(sup.IMPAIR_REGIMES)
+    spec = tc.SweepSpec(laws=list(sup.IMPAIR_LAWS),
+                        flows=[tc.schedule_as_flows(isched)],
+                        impairments=[regimes[r] for r in names],
+                        expected_flows=sup.IMPAIR_EXPECTED_FLOWS,
+                        slots=int(tc.suggest_slots(isched, icfg.dt)),
+                        backend="megakernel")
+    res, wall, c = timed_run(
+        torch, kernels, "6g sweep",
+        {"fused_tick_block": len(spec.laws) * -(-icfg.steps // 64)},
+        lambda: tc.run_sweep(spec, itopo, icfg, record=False,
+                             fault_tolerant=True, device=dev))
+    count(c)
+    if res.fallbacks != () or res.failures != ():
+        raise AssertionError(f"6g sweep: fallbacks {res.fallbacks}, "
+                             f"failures {res.failures}")
+    held, verdict = 0, True
+    ni = int(isched.start.shape[0])
+    for p in res.points:
+        got = res.state(p.index).fct[:ni]
+        key = (p.law, names[p.impair_idx])
+        if key in impair_fct:
+            torch.testing.assert_close(
+                got, impair_fct[key], rtol=0, atol=0, equal_nan=True,
+                msg=lambda m, k=key: f"6g sweep {k} against 6f: {m}")
+            held += 1
+        verdict &= bool(torch.isfinite(got).any())
+    if held != len(impair_fct) or not verdict:
+        raise AssertionError(f"6g sweep: {held} points held to 6f, verdict "
+                             f"{verdict}")
+    log(f"[fault] (e) impair_fct.run's grid ({len(res.points)} points, "
+        f"{len(spec.laws)} K4 grids of {len(names)} blocks, "
+        f"{c['fused_tick_block']} launches, wall {wall:.3f} s) through "
+        f"run_sweep(fault_tolerant=True): no fallback, no failure; "
+        f"{held} points bitwise 6f's K4 runs; every point completes")
+
+    # (f) fault_fct.guard_divergence, reference backend
+    gtopo, gsched, gcfg = sup.bottleneck18(tc, hist=512, device=dev)
+    bad = tc.poison_law("powertcp", at_t=sup.FAULT_GUARD_AT)
+    try:
+        tc.simulate_slots(gtopo, gsched, bad, 8, cfg=gcfg, chunk=8,
+                          guard=True, device=dev)
+        raise AssertionError("6g: the guarded poisoned run did not diverge")
+    except tc.DivergenceError as e:
+        diag = dict(law=e.law, tick=e.tick, field=e.field)
+    if diag != ref["guard"]:
+        raise AssertionError(f"6g: diagnosis {diag}, the reference's "
+                             f"{ref['guard']}")
+    gst, _ = tc.simulate_slots(gtopo, gsched, bad, 8, cfg=gcfg, chunk=8,
+                               device=dev)
+    field = tc.first_divergent_field(gst)
+    if not field:
+        raise AssertionError("6g: the unguarded poisoned run carried no NaN")
+    log(f"[fault] (f) guard_divergence on the card: DivergenceError "
+        f"{diag} (the reference's); unguarded, NaN carried through "
+        f"('{field}')")
+    log("[fault] " + json.dumps({"fault": rows}))
+    log(f"[fault] phase 6g: {time.perf_counter() - t0:.1f} s")
     return launches, rows
 
 
@@ -2787,7 +3147,7 @@ def main():
     log(f"[time] + K4: {time.perf_counter() - t0:.1f} s")
     phase_goldens(tc, sup, dev)
     log(f"[time] + goldens: {time.perf_counter() - t0:.1f} s")
-    launches, summaries = phase_main(torch, tc, kernels, sup, dev)
+    launches, summaries, finals = phase_main(torch, tc, kernels, sup, dev)
     log(f"[time] + main path: {time.perf_counter() - t0:.1f} s")
     smoke_launches, smoke_summ, _, grid = phase_smoke_slots(
         torch, tc, kernels, sup, dev, smi)
@@ -2818,11 +3178,18 @@ def main():
     rows["fused_tick_block"]["max_abs_err"] = max(
         rows["fused_tick_block"]["max_abs_err"], fb_err)
     log(f"[time] + feedback: {time.perf_counter() - t0:.1f} s")
-    imp_launches, imp_rows = phase_impair(torch, tc, kernels, sup, dev, smi)
+    imp_launches, imp_rows, imp_fct = phase_impair(torch, tc, kernels, sup,
+                                                   dev, smi)
     for k, n in imp_launches.items():
         launches[k] += n
     rows["fused_tick_block"]["impair"] = imp_rows
     log(f"[time] + impair: {time.perf_counter() - t0:.1f} s")
+    fault_launches, fault_rows = phase_fault(torch, tc, kernels, sup, dev,
+                                             smi, finals["e"], imp_fct)
+    for k, n in fault_launches.items():
+        launches[k] += n
+    rows["fused_tick_block"]["chunk"] = fault_rows
+    log(f"[time] + fault: {time.perf_counter() - t0:.1f} s")
     if profile:
         phase_profile(torch, tc, sup, dev, summaries)
         phase_profile_smoke(torch, tc, sup, dev, smoke_summ)

@@ -1,6 +1,9 @@
 """PowerTCP core on PyTorch: control laws, power computation, fluid-model
-simulator, per-link impairments (the ported subset of ``repro.core``)."""
-from .types import (Flows, FlowSchedule, PathObs, Record, SimConfig,
+simulator, per-link impairments, chunk-streamed runs with checkpoints,
+guards and injected faults, sweeps and the ODE analysis (the ported subset
+of ``repro.core``)."""
+from .types import (CheckpointSpec, Flows, FlowSchedule, PathObs, Record,
+                    SimConfig,
                     SimState, SlotState, Topology, GBPS, KB, MB, MTU, US,
                     batch_of_one, from_numpy, pad_hops, resolve_device,
                     scenario)
@@ -8,13 +11,19 @@ from .laws import (LAWS, LAW_BACKENDS, OBSERVE_STEPS, Law, LawConfig,
                    get_law, law_backends, norm_power_int, norm_power_theta,
                    observe_step, register_backend, register_law,
                    register_observe_step)
-from .fluid import (FluidSim, LawTick, SlotSim, UnsupportedFeature,
-                    audit_carry_dtypes,
+from .faults import (FaultSpec, InjectedCrash, TransientFault,
+                     UnsupportedFeature, crash_at_chunk, crash_at_tick,
+                     is_transient, poison_law)
+from .guard import (DivergenceError, check_divergence, finite_flags,
+                    first_divergent_field)
+from .fluid import (FluidSim, LawTick, SlotSim, audit_carry_dtypes,
                     build_incidence, default_law_config, init_slot_state,
                     init_state, make_slot_sim, pad_flows, pad_schedule,
-                    simulate, simulate_batch, simulate_slots,
+                    resume_slots, simulate, simulate_batch, simulate_slots,
                     simulate_slots_batch, slot_step, stack_flow_schedules,
                     stack_flows, stack_law_configs, step)
+from .ckpt import (checkpoint_ticks, latest_checkpoint, load_checkpoint,
+                   read_meta, save_checkpoint)
 from . import backends  # noqa: F401  (registers the fused kernel backends)
 from .feedback import (FEEDBACK_LAWS, BackpressureState, FNCCState,
                        PCCState, PulserState)
@@ -34,16 +43,25 @@ from .fabric import (CompiledPaths, Fabric, FabricBuilder, FabricRoutes,
 from .workload import (WEBSEARCH_CDF, incast_burst, peak_concurrency,
                        poisson_websearch, poisson_websearch_schedule,
                        suggest_slots, websearch_mean, websearch_sample)
+from .sweep import (FALLBACK_CHAIN, PointFailure, SweepPoint, SweepResult,
+                    SweepSpec, expand, run_sweep)
+from . import analysis
 
 __all__ = [
-    "Flows", "FlowSchedule", "PathObs", "Record", "SimConfig", "SimState",
+    "CheckpointSpec", "Flows", "FlowSchedule", "PathObs", "Record", "SimConfig", "SimState",
     "SlotState", "Topology", "GBPS", "KB", "MB", "MTU", "US",
     "batch_of_one", "from_numpy", "pad_hops", "resolve_device", "scenario",
     "LAWS", "LAW_BACKENDS", "OBSERVE_STEPS", "Law", "LawConfig", "get_law",
     "law_backends", "norm_power_int", "norm_power_theta", "observe_step",
     "register_backend", "register_law", "register_observe_step",
-    "FluidSim", "LawTick", "SlotSim", "UnsupportedFeature",
-    "audit_carry_dtypes", "build_incidence",
+    "FaultSpec", "InjectedCrash", "TransientFault", "UnsupportedFeature",
+    "crash_at_chunk", "crash_at_tick", "is_transient", "poison_law",
+    "DivergenceError", "check_divergence", "finite_flags",
+    "first_divergent_field",
+    "FluidSim", "LawTick", "SlotSim", "audit_carry_dtypes",
+    "build_incidence", "resume_slots",
+    "checkpoint_ticks", "latest_checkpoint", "load_checkpoint", "read_meta",
+    "save_checkpoint",
     "default_law_config", "init_slot_state", "init_state",
     "make_slot_sim", "pad_flows", "pad_schedule", "simulate",
     "simulate_batch", "simulate_slots", "simulate_slots_batch", "slot_step",
@@ -65,4 +83,6 @@ __all__ = [
     "WEBSEARCH_CDF", "incast_burst", "peak_concurrency", "poisson_websearch",
     "poisson_websearch_schedule", "suggest_slots", "websearch_mean",
     "websearch_sample",
+    "FALLBACK_CHAIN", "PointFailure", "SweepPoint", "SweepResult",
+    "SweepSpec", "expand", "run_sweep", "analysis",
 ]

@@ -81,9 +81,17 @@ started: the slot engine holds a flow only from its start). The fused
 backend rejects a regime (``UnsupportedFeature``), and ``bw_fn`` with
 ``impair`` raises ``ValueError``, as in ``repro``.
 
-Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-item that brings it): allocators (``alloc_fn``), chunk streaming,
-checkpoints, fault injection and divergence guards.
+Chunk-streamed runs (``simulate_slots(..., chunk=C)``): the slot engine
+reads the schedule through a C-row window that follows the admission
+cursor (``SlotSim.win_off``, the window's global base; ``n_flows``, the
+whole schedule's N), on the reference and megakernel backends, bit for
+bit the single-shot run for every C. The segment boundaries are also
+where checkpoints are written (``core/ckpt.py``, ``resume_slots``), the
+divergence guard runs (``core/guard.py``) and injected crashes fire
+(``core/faults.py``).
+
+Not ported yet (raises ``NotImplementedError`` naming the ROADMAP item
+that brings it): allocators (``alloc_fn``).
 """
 from __future__ import annotations
 
@@ -93,16 +101,17 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from .faults import InjectedCrash, UnsupportedFeature
 from ..kernels.queue_arrivals import (apply_loss, build_csr_gather,
                                       csr_gather_arrivals,
                                       integrate_arrivals, max_degree,
                                       one_hot_incidence, update_incidence)
 from .impair import ImpairmentParams, impair_vectors, link_bw_at
 from .laws import Law, LawConfig, div_config, get_law, observe_step
-from .types import (MTU, Flows, FlowSchedule, PathObs, Record, SimConfig,
-                    SimState, SlotState, Topology, batch_of_one, cat_trees,
-                    pad_hops, resolve_device, scenario, stack_trees,
-                    tree_map)
+from .types import (MTU, CheckpointSpec, Flows, FlowSchedule, PathObs,
+                    Record, SimConfig, SimState, SlotState, Topology,
+                    batch_of_one, cat_trees, pad_hops, resolve_device,
+                    scenario, stack_trees, tree_map)
 
 _INT32_MAX = np.iinfo(np.int32).max
 
@@ -111,15 +120,6 @@ def _unported(what: str, item: int):
     raise NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 item "
         f"{item})")
-
-
-class UnsupportedFeature(NotImplementedError):
-    """An engine's declared rejection of a feature combination, with a
-    ``hint`` naming the supported route (``repro.core.faults``' class)."""
-
-    def __init__(self, message: str, hint: str = ""):
-        self.hint = hint
-        super().__init__(message + (f" (hint: {hint})" if hint else ""))
 
 
 def _check_impair(impair, bw_fn, backend: str):
@@ -848,15 +848,28 @@ def _to(x, dev):
     return tree_map(lambda v: v.to(dev), x)
 
 
+# the host's own leaves of a carry: the tick counter and the copy of the
+# cursors (int64), never on the device
+_HOST_LEAVES = ("t", "admitted")
+
+
 def audit_carry_dtypes(state) -> None:
-    """Raise unless every tensor of the carry is float32, int32 or bool
-    (host tick counters are Python ints). A stray float64/int64 tensor
-    would double the carried state."""
+    """Raise unless every tensor of the carry, and every numpy array that
+    stands in for one (a snapshot's raw leaves, ``core/ckpt.py``), is
+    float32, int32 or bool (the host's tick counter and cursor copy are
+    not device leaves). A stray float64/int64 leaf would double the
+    carried state."""
     ok = (torch.float32, torch.int32, torch.bool)
+    ok_np = (np.dtype(np.float32), np.dtype(np.int32), np.dtype(np.bool_))
 
     def walk(x, name):
         if isinstance(x, torch.Tensor):
             if x.dtype not in ok:
+                raise TypeError(f"carry leaf {name} has dtype {x.dtype}; "
+                                f"expected float32/int32")
+        elif isinstance(x, np.ndarray):
+            if x.dtype not in ok_np and name.rsplit(".", 1)[-1] \
+                    not in _HOST_LEAVES:
                 raise TypeError(f"carry leaf {name} has dtype {x.dtype}; "
                                 f"expected float32/int32")
         elif isinstance(x, tuple):
@@ -894,7 +907,15 @@ class SlotSim(NamedTuple):
     on one topology, bound to a slot pool of ``slots`` (S) and a backend.
     ``start_host`` [B, N] is the schedules' arrival times on the host
     (float32 numpy), where the admission search runs; ``static`` the
-    per-topology constants."""
+    per-topology constants.
+
+    A chunk-streamed run (``simulate_slots(..., chunk=)``) binds ``sched``
+    (and ``start_host``) to a C-row window of the whole schedule:
+    ``win_off`` is then the window's global base index (a host int) and
+    ``n_flows`` the whole schedule's flow count N. Sentinels (``slot_flow
+    == N``), the FCT table and the [N] law config keep their global
+    meaning; only the schedule rows are read at ``f - win_off``. Both stay
+    None on whole-schedule runs."""
     topo: Topology
     sched: FlowSchedule
     law: Law
@@ -905,10 +926,15 @@ class SlotSim(NamedTuple):
     static: Optional[_Static] = None
     start_host: Optional[np.ndarray] = None
     impair: Optional[ImpairmentParams] = None   # [Q] or [B, Q] leaves
+    n_flows: Optional[int] = None
+    win_off: Optional[int] = None
 
 
 def _slot_n(sim: SlotSim) -> int:
-    """Global flow count N (per scenario)."""
+    """Global flow count N (per scenario): the whole schedule's, even when
+    ``sim.sched`` is a chunk window."""
+    if sim.n_flows is not None:
+        return int(sim.n_flows)
     return int(sim.sched.start.shape[-1])
 
 
@@ -1004,6 +1030,11 @@ def _admit_retire(sim: SlotSim, state: SlotState, due: int):
     Admitted slots gather the flow's metadata and re-init window, timers
     and law state exactly as ``init_state`` would. Returns (state,
     resident mask).
+
+    On a chunk window (``sim.win_off`` set) the schedule rows are read at
+    the window-local index ``f - win_off`` (clamped into the window; the
+    rows of slots not admitted this tick are masked out), the law config
+    at the global index ``f``, as ``repro`` splits them.
     """
     sched = sim.sched
     S = int(state.w.shape[-1])
@@ -1032,6 +1063,8 @@ def _admit_retire(sim: SlotSim, state: SlotState, due: int):
     rank = torch.cumsum(admit, -1, dtype=i32) - 1
     slot_flow = torch.where(admit, state.cursor[..., None] + rank, slot_flow)
     gf = torch.clamp(slot_flow, 0, N - 1)
+    gw = gf if sim.win_off is None else torch.clamp(
+        slot_flow - int(sim.win_off), 0, int(sched.start.shape[-1]) - 1)
 
     def sel(new, old):
         return torch.where(
@@ -1039,7 +1072,7 @@ def _admit_retire(sim: SlotSim, state: SlotState, due: int):
             new, old)
 
     def take(x):
-        return _take(x, gf)
+        return _take(x, gw)
 
     tau = sel(take(sched.tau), state.tau)
     nic = sel(take(sched.nic_rate), state.nic_rate)
@@ -1073,10 +1106,12 @@ def _admit_retire(sim: SlotSim, state: SlotState, due: int):
 
 def _due_now(sim: SlotSim, t_sec: float) -> np.ndarray:
     """Each scenario's schedule entries with ``start <= t_sec`` (float32),
-    counted on the host ([B])."""
+    counted on the host ([B]); on a chunk window, searched in the window
+    and rebased by its offset."""
     t32 = np.float32(t_sec)
-    return np.array([np.searchsorted(row, t32, side="right")
-                     for row in sim.start_host], np.int64)
+    due = np.array([np.searchsorted(row, t32, side="right")
+                    for row in sim.start_host], np.int64)
+    return due if sim.win_off is None else due + int(sim.win_off)
 
 
 def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
@@ -1221,14 +1256,289 @@ def make_slot_sim(topo: Topology, sched: FlowSchedule,
                    _impair_on(impair, B, int(topo.num_queues), dev))
 
 
+# --------------------------------------------------------------------------
+# Chunk-streamed schedules, checkpoints, guards and injected crashes
+# --------------------------------------------------------------------------
+
+# the inert values of a schedule's padding rows (``pad_flows``'), by field
+_PAD_ROWS = dict(path=None, tf_steps=1, rtt_steps=1, tau=20e-6,
+                 nic_rate=1e9, size=np.inf, start=np.inf, stop=np.inf,
+                 weight=1.0, order=-1)
+
+
+def _host_window(sched_np: FlowSchedule, w0: int, chunk: int,
+                 pad_queue: int) -> FlowSchedule:
+    """The C-row window ``sched[w0:w0+C]`` of a host (numpy) schedule,
+    padded with inert rows past the schedule's end so that every window
+    has C rows."""
+    n = int(sched_np.start.shape[0])
+    end = min(w0 + chunk, n)
+    add = chunk - (end - w0)
+    rows = []
+    for f, x in zip(FlowSchedule._fields, sched_np):
+        x = x[w0:end]
+        if add > 0:
+            fill = pad_queue if f == "path" else _PAD_ROWS[f]
+            x = np.concatenate([x, np.full((add,) + x.shape[1:], fill,
+                                           x.dtype)])
+        rows.append(x)
+    return FlowSchedule(*rows)
+
+
+def _safe_ticks(start_np: np.ndarray, w0: int, chunk: int, t0: int,
+                t_end: int, dt: float) -> int:
+    """Ticks from ``t0`` during which no schedule entry beyond the window
+    ``[w0, w0+C)`` becomes due: within them the window-rebased admission
+    search equals the whole schedule's. 0 means entry ``w0+C`` is already
+    due at ``t0``; the loop then runs a single tick (exact because
+    C >= S caps a tick's admissions at the free pool)."""
+    n = int(start_np.shape[0])
+    if w0 + chunk >= n:
+        return t_end - t0
+    lim = np.float32(start_np[w0 + chunk])
+    if not np.isfinite(lim):
+        return t_end - t0
+    # t_sec(t) = f32(t) * f32(dt), the engines' product (nondecreasing in
+    # t): the first due tick by bisection
+    dtf = np.float32(dt)
+
+    def f(t):
+        return np.float32(t) * dtf
+
+    if f(t0) >= lim:
+        return 0
+    if f(t_end - 1) < lim:
+        return t_end - t0
+    lo, hi = t0, t_end - 1            # f(lo) < lim <= f(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if f(mid) >= lim:
+            hi = mid
+        else:
+            lo = mid
+    return hi - t0
+
+
+_CHUNK_SEG_MAX = 4096                 # longest single segment (ticks)
+# the last chunk-streamed run, segment by segment (kept up to date as it
+# runs, so also after a crash): the window's rows, the segments' count,
+# lengths and window offsets (read by ``chip_smoke.py``'s timing)
+LAST_CHUNKED: dict = {}
+
+
+def _window_tensors(win: FlowSchedule, dev) -> FlowSchedule:
+    """A host window as the run's resident [1, C, ...] tensors (copies:
+    the window is refilled in place, and a host slice is a view of the
+    caller's schedule)."""
+    return FlowSchedule(*[torch.tensor(x[None], device=dev) for x in win])
+
+
+def _fill_window(dst: FlowSchedule, win: FlowSchedule) -> None:
+    """Copy a host window into the resident window tensors, in place (the
+    megakernel's argument struct points at them for the whole run)."""
+    for d, x in zip(dst, win):
+        d.copy_(torch.from_numpy(np.ascontiguousarray(x))[None])
+
+
+def _cat_records(parts: list, dev) -> Record:
+    """Record segments joined on the tick axis, as tensors: each field on
+    the device of a segment run here (a restored trace is numpy)."""
+    live = next((r for r in parts if isinstance(r.q, torch.Tensor)), None)
+    out = []
+    for i, f in enumerate(Record._fields):
+        d = getattr(live, f).device if live is not None else dev
+        out.append(torch.cat([torch.as_tensor(r[i], device=d)
+                              for r in parts], dim=1))
+    return Record(*out)
+
+
+def _simulate_slots_chunked(sim: SlotSim, chunk: int, bw_fn, record: bool,
+                            checkpoint: Optional[CheckpointSpec] = None,
+                            faults=None, guard: bool = False,
+                            resume: bool = False,
+                            resume_tick: Optional[int] = None):
+    """The host's segment loop (``repro``'s ``_simulate_slots_chunked``):
+    each segment advances L ticks against a C-row window of the schedule;
+    between segments the cursor is read and the window re-anchored at it.
+    Segment lengths keep the window-rebased admission equal to the whole
+    schedule's (``_safe_ticks``) and are powers of two, cut to the
+    checkpoint cadence and the crash tick, as ``repro`` cuts them; the
+    carry (pool, queues, rings, law state, the megakernel's carry) crosses
+    the boundaries unchanged, so the run is bit for bit the single-shot
+    run whatever C. ``sim`` is a batch of one on the whole schedule
+    (``make_slot_sim``).
+
+    On the megakernel backend one resident window of C rows is refilled
+    in place each segment and its offset passed to every launch, so K4's
+    arguments are set up once per run; the gather table's width comes
+    from the whole schedule (``suggest_maxdeg``), and each segment's due
+    counts are ``w0 + searchsorted(window starts, f32(t) * f32(dt))`` on
+    the host, the grid of ``megakernel._due_table``. A segment runs
+    through ``megakernel.run_blocks``: K4 on the card, the plain block on
+    the CPU (blocks of 64 ticks; a shorter segment is one launch).
+
+    Segment boundaries are the fault-tolerance seam: ``checkpoint``
+    snapshots the carry and the trace so far at the cadence's multiples
+    and at the end; ``guard`` runs the divergence check; ``faults`` fires
+    an ``InjectedCrash`` after the boundary's checkpoint is written.
+    ``resume`` restores the newest (or ``resume_tick``) snapshot into the
+    carry built by the same init and continues."""
+    cfg = sim.cfg
+    if record and int(cfg.record_every) > 1:
+        raise ValueError("chunk-streamed runs record every tick; "
+                         "record_every > 1 is not supported with chunk=")
+    if sim.backend == "fused":
+        raise ValueError("chunk= is not supported on the fused backend")
+    if int(sim.sched.start.shape[0]) != 1:
+        raise ValueError("the chunk-streamed loop runs one schedule")
+    mega = sim.backend == "megakernel"
+    dev = sim.sched.start.device
+    sched_np = FlowSchedule(*[x[0].cpu().numpy().copy() for x in sim.sched])
+    N = int(sched_np.start.shape[0])
+    S = int(sim.slots)
+    Q = int(sim.topo.num_queues)
+    T = int(cfg.steps)
+    # C >= S makes the 1-tick fallback exact: one tick admits at most
+    # n_free <= S entries, which the C-clamped due count never truncates
+    C = min(max(int(chunk), S), max(N, 1))
+    start_np = np.asarray(sched_np.start, np.float32)
+
+    win0 = _host_window(sched_np, 0, C, Q)
+    simw = sim._replace(sched=_window_tensors(win0, dev), n_flows=N,
+                        win_off=0, start_host=win0.start[None])
+    state0 = init_slot_state(simw)
+    audit_carry_dtypes(state0)
+    if mega:
+        from .megakernel import (DEFAULT_BLOCK, _suggest_maxdeg,
+                                 _unpack_state, default_impl, make_tick,
+                                 run_blocks)
+        tick = make_tick(simw, gate=True,
+                         maxdeg=_suggest_maxdeg(sim.sched, Q, S),
+                         bw_fn=bw_fn)
+        impl = default_impl(dev)
+        carry = tick.init_carry(state0)
+    else:
+        carry = state0
+
+    recs = []
+    t0 = 0
+    seg_idx = 0
+    scenario_meta = dict(law=sim.law.name, steps=T, slots=S, flows=N,
+                         mega=mega)
+    if resume:
+        from . import ckpt as _ckpt
+        if checkpoint is None:
+            raise ValueError("resume requires a CheckpointSpec")
+        tick_r = (int(resume_tick) if resume_tick is not None
+                  else _ckpt.latest_checkpoint(checkpoint.path))
+        if tick_r is None:
+            raise FileNotFoundError(
+                f"no ckpt-*.npz snapshot in {checkpoint.path!r}")
+        rec_template = (Record(*[np.zeros(0)] * len(Record._fields))
+                        if record else None)
+        meta, carry, recs0 = _ckpt.load_checkpoint(
+            checkpoint.path, tick_r, carry, rec_template=rec_template)
+        saved = {k: meta.get(k) for k in scenario_meta}
+        if saved != scenario_meta:
+            raise ValueError(
+                f"checkpoint scenario mismatch: snapshot was written by "
+                f"{saved}, resume was asked for {scenario_meta} — "
+                f"resume_slots must be called with the original run's "
+                f"scenario arguments")
+        if record:
+            recs.append(recs0)
+        t0 = int(meta["tick"])
+
+    crash_tick = faults.crash_tick if faults is not None else None
+    crash_seg = faults.crash_segment if faults is not None else None
+    every = int(checkpoint.every) if checkpoint is not None else 0
+
+    def maybe_checkpoint(t_now):
+        if checkpoint is None:
+            return
+        if every > 0 and t_now % every != 0 and t_now < T:
+            return
+        from . import ckpt as _ckpt
+        rcat = (Record(*[np.concatenate([_ckpt._host(r[i]) for r in recs],
+                                        axis=1)
+                         for i in range(len(Record._fields))])
+                if record else None)
+        _ckpt.save_checkpoint(checkpoint, t_now, carry, recs=rcat,
+                              meta=dict(scenario_meta, record=record))
+
+    dtf = np.float32(cfg.dt)
+    stats = LAST_CHUNKED
+    stats.clear()
+    stats.update(window=C, segments=0, ticks=[], win_off=[])
+    while t0 < T:
+        # the admission cursor: the host's copy on the reference backend,
+        # one read from the device on the megakernel's
+        w0 = (int(carry.state.cursor[0]) if mega
+              else int(carry.admitted[0]))
+        safe = _safe_ticks(start_np, w0, C, t0, T, cfg.dt)
+        allowed = max(1, min(max(safe, 1), T - t0, _CHUNK_SEG_MAX))
+        # clamped to the next cadence multiple and the crash tick, the
+        # pow2 floor below lands boundaries exactly on them
+        if every > 0:
+            allowed = min(allowed, ((t0 // every) + 1) * every - t0)
+        if crash_tick is not None and t0 < crash_tick:
+            allowed = min(allowed, crash_tick - t0)
+        L = 1 << (allowed.bit_length() - 1)       # pow2 floor, >= 1
+        win = _host_window(sched_np, w0, C, Q)
+        _fill_window(simw.sched, win)
+        if mega:
+            tick.win_off = w0
+            t_grid = np.arange(t0, t0 + L, dtype=np.int32).astype(
+                np.float32) * dtf
+            due = (w0 + np.searchsorted(win.start, t_grid, side="right")
+                   ).astype(np.int32)
+            carry, rec = run_blocks(
+                tick, carry, torch.as_tensor(due[None], device=dev),
+                min(DEFAULT_BLOCK, L), impl, record)
+        else:
+            simw = simw._replace(win_off=w0, start_host=win.start[None])
+            seg = []
+            for _ in range(L):
+                carry, r = slot_step(simw, carry, bw_fn=bw_fn,
+                                     record=record)
+                if record:
+                    seg.append(r)
+            rec = (Record(*[torch.stack(list(x), dim=1) for x in zip(*seg)])
+                   if record else None)
+        if record:
+            recs.append(rec)
+        t0 += L
+        seg_idx += 1
+        stats["segments"] += 1
+        stats["ticks"].append(L)
+        stats["win_off"].append(w0)
+        if guard:
+            from .guard import check_divergence
+            check_divergence(carry.state if mega else carry,
+                             sim.law.name, t0)
+        maybe_checkpoint(t0)
+        # the crash fires after the boundary's checkpoint is written: the
+        # process dies after its last durable snapshot
+        if crash_tick is not None and t0 >= crash_tick:
+            raise InjectedCrash(t0, seg_idx)
+        if crash_seg is not None and seg_idx >= crash_seg:
+            raise InjectedCrash(t0, seg_idx)
+
+    recs = _cat_records(recs, dev) if record else None
+    if mega:
+        carry = _unpack_state(carry, N, Q + 1, sim.law)
+    state = carry._replace(fct=carry.fct[..., :N])
+    return scenario(state, 0), (None if recs is None else scenario(recs, 0))
+
+
 def simulate_slots(topo: Topology, sched: FlowSchedule,
                    law_name: Union[str, Law], slots: int,
                    law_cfg: Optional[LawConfig] = None,
                    cfg: Optional[SimConfig] = None,
                    bw_fn=None, record: bool = True,
                    backend: str = "reference", chunk=None, impair=None,
-                   checkpoint=None, faults=None, guard: bool = False,
-                   device="cuda"):
+                   checkpoint: Optional[CheckpointSpec] = None,
+                   faults=None, guard: bool = False, device="cuda"):
     """Run a schedule through a bounded pool of ``slots`` active slots on
     ``device``: a batch of one through ``simulate_slots_batch``. Returns
     (final ``SlotState``, ``Record`` or None); ``final.fct`` is [N] in
@@ -1237,17 +1547,87 @@ def simulate_slots(topo: Topology, sched: FlowSchedule,
     the admission of flows that arrive while the pool is full.
     ``law_cfg`` tensors with an [N] flow axis are gathered into slots on
     admission. ``impair`` is a per-link regime (``core.impair``, [Q]
-    leaves)."""
-    if chunk is not None:
-        _unported("chunk streaming (chunk=)", 11)
-    if checkpoint is not None or faults is not None or guard:
-        _unported("checkpoint / faults / guard", 11)
+    leaves).
+
+    ``chunk=C`` streams the schedule through the run in C-row windows
+    (reference and megakernel backends; ``_simulate_slots_chunked``), bit
+    for bit the single-shot run for every C (clamped up to S); not with
+    ``record_every > 1`` or the fused backend (``ValueError``).
+    ``checkpoint=CheckpointSpec(path)`` snapshots the carry and the trace
+    at segment boundaries (``resume_slots`` continues from the newest),
+    ``guard=True`` runs the divergence check at each boundary
+    (``core/guard.py``: ``DivergenceError`` naming law, tick and field),
+    and ``faults`` injects a deterministic crash (``core/faults.py``). The
+    three ride the chunk-streamed loop, with a window of the whole
+    schedule when ``chunk`` is None; the fused backend rejects them
+    (``UnsupportedFeature``)."""
+    if checkpoint is not None or faults is not None or guard or \
+            chunk is not None:
+        cfg = cfg or SimConfig()
+        sim = make_slot_sim(topo, batch_of_one(sched), law_name, slots,
+                            None if law_cfg is None
+                            else batch_of_one(law_cfg), cfg, backend,
+                            device, impair=impair)
+        _check_impair(impair, bw_fn, backend)
+        if checkpoint is not None or faults is not None or guard:
+            if backend == "fused":
+                raise UnsupportedFeature(
+                    "checkpoint/fault/guard execution rides the "
+                    "chunk-streamed loop, which the fused backend does "
+                    "not support",
+                    hint="use the reference or megakernel backend")
+            C = int(chunk) if chunk is not None else _slot_n(sim)
+            with torch.no_grad():
+                return _simulate_slots_chunked(
+                    sim, C, bw_fn, record, checkpoint=checkpoint,
+                    faults=faults, guard=guard)
+        with torch.no_grad():
+            return _simulate_slots_chunked(sim, int(chunk), bw_fn, record)
     state, recs = simulate_slots_batch(
         topo, batch_of_one(sched), law_name, slots,
         None if law_cfg is None else batch_of_one(law_cfg), cfg,
         bw_fn=bw_fn, record=record, backend=backend, impair_params=impair,
         device=device)
     return scenario(state, 0), (None if recs is None else scenario(recs, 0))
+
+
+def resume_slots(topo: Topology, sched: FlowSchedule,
+                 law_name: Union[str, Law], slots: int,
+                 checkpoint: CheckpointSpec,
+                 law_cfg: Optional[LawConfig] = None,
+                 cfg: Optional[SimConfig] = None,
+                 bw_fn=None, record: bool = True,
+                 backend: str = "reference", chunk=None, impair=None,
+                 faults=None, guard: bool = False,
+                 tick: Optional[int] = None, device="cuda"):
+    """Continue a checkpointed ``simulate_slots`` run.
+
+    Call with the original run's scenario arguments (a snapshot holds only
+    the carry and the recorded trace; laws and schedules are rebuilt, not
+    deserialized) and the same ``checkpoint`` spec. The newest snapshot
+    (or ``tick``) is restored into a carry built by the same init (its
+    law / steps / slots / flows / engine metadata must match, or this
+    raises ``ValueError``) and the run continues to its end,
+    checkpointing onward at the same cadence. Returns ``(final SlotState,
+    Record)`` with the Record covering the whole trace from tick 0, bit
+    for bit the uninterrupted run's. The fused backend raises
+    ``UnsupportedFeature``."""
+    cfg = cfg or SimConfig()
+    _check_impair(impair, bw_fn, backend)
+    if backend == "fused":
+        raise UnsupportedFeature(
+            "checkpoint/resume rides the chunk-streamed loop, which "
+            "the fused backend does not support",
+            hint="use the reference or megakernel backend")
+    sim = make_slot_sim(topo, batch_of_one(sched), law_name, slots,
+                        None if law_cfg is None else batch_of_one(law_cfg),
+                        cfg, backend, device, impair=impair)
+    C = int(chunk) if chunk is not None else _slot_n(sim)
+    with torch.no_grad():
+        return _simulate_slots_chunked(sim, C, bw_fn, record,
+                                       checkpoint=checkpoint, faults=faults,
+                                       guard=guard, resume=True,
+                                       resume_tick=tick)
 
 
 # --------------------------------------------------------------------------

@@ -270,7 +270,9 @@ def _k4_impair(impair, B: int, Q: int, dev):
 def _k4_params(sim, maxdeg: int, bw_fn=None, bw_params=None) -> TickParams:
     """The read-only inputs of K4 for one run (``bw_fn``/``bw_params``:
     the run's bandwidth, ``_k4_schedule``; ``sim.impair``: its regime,
-    ``_k4_impair``)."""
+    ``_k4_impair``). The schedule rows are ``sim.sched``'s, a chunk
+    window's on a chunk-streamed run (the same tensors, refilled in place
+    each segment), and N the whole schedule's."""
     law = sim.law
     entry = K4_LAWS.get(law.name)
     if entry is None or law.update is not entry[0]:
@@ -335,6 +337,13 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
     ``tick.init_carry(state0)`` builds the matching ``MegaCarry``;
     ``tick.k4_params()`` the inputs of K4 (raises for a law without a K4
     path); ``tick.gate`` is the ``gate`` K4 runs with.
+
+    On a chunk window (``sim.win_off`` set, ``sim.sched`` the window's
+    rows; the chunk loop passes the whole schedule's ``maxdeg``),
+    ``tick.win_off`` is the window's global base, which the loop sets
+    before each segment: the plain tick and K4 read the admitted rows at
+    ``f - tick.win_off`` and the law config at ``f``. It is 0 on a
+    whole-schedule run.
     """
     topo, cfg, law, static = sim.topo, sim.cfg, sim.law, sim.static
     sched = sim.sched
@@ -384,7 +393,10 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
         freeable = ((st.slot_flow < N) & (st.t >= st.free_at) &
                     (pend.flow < N))
         fct, pend = _flush_pending(st.fct, pend, freeable, N)
-        st2, occupied = fluid._admit_retire(sim, st._replace(fct=fct), due_t)
+        simw = (sim if sim.win_off is None
+                else sim._replace(win_off=tick.win_off))
+        st2, occupied = fluid._admit_retire(simw, st._replace(fct=fct),
+                                            due_t)
         if bool(torch.any(st2.cursor > st.cursor)):
             inv, ovf = gather_table(st2.path)
         return st2, pend, occupied, slot_hold(st2), inv, ovf
@@ -578,6 +590,7 @@ def make_tick(sim, gate: bool = True, quiet: bool = False,
     tick.k4_params = k4_params
     tick.maxdeg = maxdeg
     tick.gate = bool(gate)
+    tick.win_off = 0 if sim.win_off is None else int(sim.win_off)
     return tick
 
 

@@ -191,6 +191,27 @@ class SlotState(NamedTuple):
     hist_inc: Optional[torch.Tensor] = None    # [D, Q+1]
 
 
+class CheckpointSpec(NamedTuple):
+    """Chunk-boundary checkpointing policy (``repro.core.types``').
+
+    ``simulate_slots(..., checkpoint=CheckpointSpec(path))`` snapshots the
+    full carry (pool vectors, queues, telemetry rings, law state, the
+    megakernel's gather table and pending buffers) plus the recorded trace
+    so far at chunk-segment boundaries, each snapshot one atomically
+    renamed ``ckpt-<tick>.npz`` (``core/ckpt.py``); ``fluid.resume_slots``
+    continues from the newest snapshot bit for bit.
+
+    ``every`` is the cadence in simulated ticks: the loop shortens
+    segments so that boundaries land exactly on its multiples (0: a
+    snapshot at every segment boundary). ``keep`` bounds how many
+    snapshots stay on disk (the oldest are removed after each successful
+    write).
+    """
+    path: str
+    every: int = 0
+    keep: int = 2
+
+
 class Record(NamedTuple):
     """Per-step recordings (subsampled by ``record_every``), stacked over
     the recorded steps."""

@@ -263,7 +263,8 @@ struct FusedTickArgs {
   int* hold;
   int* inv;
   uint8_t* ovf;
-  // schedule and law config, read only
+  // schedule (C rows from the global index win_off) and law config ([N]),
+  // read only
   const int* s_path;
   const int* s_tf;
   const int* s_rtt;
@@ -304,6 +305,8 @@ struct FusedTickArgs {
   int cmask;       // bit j: law config field j staged
   int nlawp;       // kLawParams
   int imp_stride;  // ints from one scenario's regime to the next (0: shared)
+  int C;           // schedule rows per scenario (N, or a chunk window's)
+  int win_off;     // global index of the first schedule row (window base)
   float dt, inv_dt, dt_alpha, update_period;
   int off[kFields];
 };
@@ -581,7 +584,7 @@ fused_tick_kernel(const FusedTickArgs a) {
   // stride (the topology is shared)
   const long long sb = GRID ? static_cast<long long>(blockIdx.x) : 0;
   const long long sS = sb * a.S, sSH = sS * a.H, sN = sb * a.N;
-  const long long sNH = sN * a.H, sQ1 = sb * (a.Q + 1);
+  const long long sC = sb * a.C, sCH = sC * a.H, sQ1 = sb * (a.Q + 1);
   const long long nrec = a.record ? a.K / a.record_every : 0;
   int* const g_cursor = a.cursor + sb;
   int* const g_hw = a.hw + sb;
@@ -618,14 +621,14 @@ fused_tick_kernel(const FusedTickArgs a) {
   int* const g_hold = a.hold + sS;
   int* const g_inv = a.inv + sQ1 * a.maxdeg;
   uint8_t* const g_ovf = a.ovf + sb;
-  const int* const g_s_path = a.s_path + sNH;
-  const int* const g_s_tf = a.s_tf + sNH;
-  const int* const g_s_rtt = a.s_rtt + sN;
-  const float* const g_s_tau = a.s_tau + sN;
-  const float* const g_s_nic = a.s_nic + sN;
-  const float* const g_s_start = a.s_start + sN;
-  const float* const g_s_stop = a.s_stop + sN;
-  const float* const g_s_size = a.s_size + sN;
+  const int* const g_s_path = a.s_path + sCH;
+  const int* const g_s_tf = a.s_tf + sCH;
+  const int* const g_s_rtt = a.s_rtt + sC;
+  const float* const g_s_tau = a.s_tau + sC;
+  const float* const g_s_nic = a.s_nic + sC;
+  const float* const g_s_start = a.s_start + sC;
+  const float* const g_s_stop = a.s_stop + sC;
+  const float* const g_s_size = a.s_size + sC;
   const float* const lawp = a.lawp + sb * a.nlawp;
   const int* const g_due = a.due + sb * a.due_stride;
   float* const g_rec_t = a.rec_t + sb * nrec;
@@ -923,28 +926,32 @@ fused_tick_kernel(const FusedTickArgs a) {
         const int inc_a = block_scan_int(adm, wbuf_i, &tot_a);
         if (adm) {
           const int f = cursor + c_adm + inc_a - 1;
+          // the law config at the global index, the schedule's rows at
+          // the window's
           const int g = min(max(f, 0), N - 1);
+          const int gw = min(max(f - a.win_off, 0), a.C - 1);
           slot_flow[s] = f;
           admit_t[s] = t;
           free_at[s] = kInt32Max;
           int hmax = 0;
           for (int h = 0; h < H; ++h) {
-            const int p = g_s_path[g * H + h];
-            const int tf = g_s_tf[g * H + h];
+            const int p = g_s_path[gw * H + h];
+            const int tf = g_s_tf[gw * H + h];
             spath[s * H + h] = p;
             tf_steps[s * H + h] = tf;
             if (p < Q) hmax = max(hmax, tf);
           }
           hold[s] = hmax;
-          rtt_steps[s] = g_s_rtt[g];
-          const float tau = g_s_tau[g], nic = g_s_nic[g], st = g_s_start[g];
+          rtt_steps[s] = g_s_rtt[gw];
+          const float tau = g_s_tau[gw], nic = g_s_nic[gw],
+                      st = g_s_start[gw];
           taus[s] = tau;
           nics[s] = nic;
           start[s] = st;
-          stop[s] = g_s_stop[g];
+          stop[s] = g_s_stop[gw];
           ws[s] = nic * tau;
           rate_cap[s] = __int_as_float(0x7f800000);
-          remaining[s] = g_s_size[g];
+          remaining[s] = g_s_size[gw];
           next_update[s] = st + tau;
           last_update[s] = st;
           load_config(s, g);

@@ -50,6 +50,14 @@ theta and the goodput read them. Whether a launch carries a regime picks
 the kernel's instantiation, so a clean run executes none of that code.
 ``impair`` runs the evaluation alone, compiled with K4's flags, to hold
 it against ``core.impair`` on the card.
+
+Chunk windows: the schedule rows of ``TickParams`` (``s_*``) may be a C-row
+window of the whole schedule (a chunk-streamed run, ``core.fluid``'s
+loop); ``fused_tick_block``'s ``win_off`` is then the window's global
+base, and admission reads the rows of flow f at ``clamp(f - win_off, 0,
+C - 1)``, while the law config, the FCT table and the free-slot sentinel
+keep the global f and N. A whole-schedule run passes ``win_off = 0`` with
+C = N.
 """
 from __future__ import annotations
 
@@ -141,10 +149,11 @@ IMPAIR_FIELDS = ("kind bw_hi bw_lo period up t0 loss loss_kind jitter "
 
 class TickParams(NamedTuple):
     """The read-only inputs of K4 for one run (built by
-    ``core.megakernel``): the schedule, the law config (per flow, and per
-    scenario in ``lawp``), the topology and the run's float32 constants.
-    ``config`` maps each of the law's ``LAW_CONFIG`` fields to its [B, N]
-    tensor."""
+    ``core.megakernel``): the schedule (its C rows, the whole schedule's
+    N or a chunk window's), the law config (per flow, and per scenario in
+    ``lawp``), the topology and the run's float32 constants. ``config``
+    maps each of the law's ``LAW_CONFIG`` fields to its [B, N] tensor;
+    ``N`` is the whole schedule's flow count."""
     law: int                        # index into LAW_NAMES
     N: int
     Q: int
@@ -159,10 +168,10 @@ class TickParams(NamedTuple):
     div_eta: int                    # 1: divide by hpcc_eta, 0: multiply
     div_span: int                   # the same for the marking span
     div_fncc: int                   # the same for fncc_eta
-    s_path: torch.Tensor            # [N, H] int32
-    s_tf: torch.Tensor              # [N, H] int32
-    s_rtt: torch.Tensor             # [N] int32
-    s_tau: torch.Tensor             # [N] float32
+    s_path: torch.Tensor            # [C, H] int32 (C = N, or a window)
+    s_tf: torch.Tensor              # [C, H] int32
+    s_rtt: torch.Tensor             # [C] int32
+    s_tau: torch.Tensor             # [C] float32
     s_nic: torch.Tensor
     s_start: torch.Tensor
     s_stop: torch.Tensor
@@ -267,7 +276,7 @@ _PTRS = (("cursor hw slot_flow admit_t free_at path tf_steps rtt_steps tau "
             "scratch").split())
 _INTS = ("S N Q H D nsw swdeg nswb maxdeg K t0 record_every record law "
          "has_period use_smem layout_bytes B gate due_stride div_eta "
-         "div_span div_fncc smask cmask nlawp imp_stride").split()
+         "div_span div_fncc smask cmask nlawp imp_stride C win_off").split()
 _NFIELDS = len(_fields(1, 1, 1, 0, 0, 1, 0))
 # the inputs K4 reads and never writes
 _READ_ONLY = set(("s_path s_tf s_rtt s_tau s_nic s_start s_stop s_size lawp "
@@ -369,6 +378,7 @@ def _launch_args(params: TickParams, carry):
     for n in lead:
         B *= n
     N, Q, D, M = params.N, params.Q, params.D, params.maxdeg
+    C = int(params.s_start.shape[-1])
     Q1 = Q + 1
     i32, f32, b8 = torch.int32, torch.float32, torch.bool
     lname = LAW_NAMES[params.law]
@@ -401,12 +411,12 @@ def _launch_args(params: TickParams, carry):
         "pend_val": (carry.pend.val, f32, (S,)),
         "hold": (carry.hold, i32, (S,)), "inv": (carry.inv, i32, (Q1, M)),
         "ovf": (carry.ovf, b8, ()),
-        "s_path": (params.s_path, i32, (N, H)),
-        "s_tf": (params.s_tf, i32, (N, H)),
-        "s_rtt": (params.s_rtt, i32, (N,)),
+        "s_path": (params.s_path, i32, (C, H)),
+        "s_tf": (params.s_tf, i32, (C, H)),
+        "s_rtt": (params.s_rtt, i32, (C,)),
     }
     for f in ("s_tau", "s_nic", "s_start", "s_stop", "s_size"):
-        leaves[f] = (getattr(params, f), f32, (N,))
+        leaves[f] = (getattr(params, f), f32, (C,))
     if lname in PAUSE_LAWS:
         leaves["pause"] = (st.pause, f32, (Q1,))
     for f in LAW_STATE[lname]:
@@ -465,7 +475,8 @@ def _launch_args(params: TickParams, carry):
                           cmask=_mask(CONFIG_FIELDS, LAW_CONFIG[lname]),
                           nlawp=len(LAW_PARAMS),
                           imp_stride=(0 if imp is None or shared
-                                      else len(IMPAIR_FIELDS) * Q)).items():
+                                      else len(IMPAIR_FIELDS) * Q),
+                          C=C, win_off=0).items():
         setattr(args, f, val)
     args.off[:] = lay.offsets
     for f in _FLOATS:
@@ -478,7 +489,7 @@ def _launch_args(params: TickParams, carry):
 
 def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
                      record: bool = True, record_every: int = 1,
-                     gate: bool = True):
+                     gate: bool = True, win_off: int = 0):
     """Run K ticks of the megakernel in one launch of K4, K the length of
     ``due_block`` (int32, the due counts of the block's ticks). ``carry``
     is a ``core.megakernel.MegaCarry`` of CUDA tensors; every leaf is
@@ -487,7 +498,9 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
     schedule and law config of ``params`` [B, N, ...], ``due_block``
     [B, K], rows of a wider table allowed) launches B blocks, one per
     scenario; the topology is shared. ``gate=False`` runs the admit/retire
-    pass and the contributor lists' rebuild on every tick. The tensors are
+    pass and the contributor lists' rebuild on every tick. ``win_off`` is
+    the global index of the first schedule row of ``params`` (a chunk
+    window's base; 0 for the whole schedule). The tensors are
     checked and the argument struct filled on a run's first launch
     (``_launch_args``). Returns (carry', ``BlockRecords`` of every
     ``record_every``-th tick — [B, nrec, ...] for a batch — or None)."""
@@ -499,6 +512,9 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         raise ValueError(f"fused_tick_block: K ({K}) must be a multiple of "
                          f"record_every ({re})")
     args, lead = _launch_args(params, carry)
+    if not 0 <= int(win_off) <= params.N:
+        raise ValueError(f"fused_tick_block: a window offset of {win_off} "
+                         f"in a schedule of {params.N} flows")
     i32, f32 = torch.int32, torch.float32
     # the due counts: each scenario's K contiguous, rows of any stride
     if (due_block.dtype != i32 or due_block.device != dev
@@ -522,6 +538,7 @@ def fused_tick_block(params: TickParams, carry, due_block: torch.Tensor, *,
         setattr(args, "rec_" + name, getattr(recs, name).data_ptr())
     args.K, args.t0, args.record_every = K, int(st.t), re
     args.record, args.gate = int(bool(record)), int(bool(gate))
+    args.win_off = int(win_off)
     if K:
         lib = _lib(params.law)
         with torch.cuda.device(dev):

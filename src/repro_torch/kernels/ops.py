@@ -50,13 +50,14 @@ def queue_arrivals(lam_del, onehot, q, out_rate, caps, *, dt):
 
 def fused_tick_block(tick, carry, due_block, *, record=True, record_every=1):
     """K ticks of the megakernel over a batch's carry: K4 on CUDA tensors
-    (with ``tick.k4_params()`` and ``tick.gate``, one block per
-    scenario), the plain tick loop on CPU tensors."""
+    (with ``tick.k4_params()``, ``tick.gate`` and the schedule window's
+    offset ``tick.win_off``, one block per scenario), the plain tick loop
+    on CPU tensors."""
     if on_cuda(carry.state.w):
         return _tick.fused_tick_block(tick.k4_params(), carry, due_block,
                                       record=record,
                                       record_every=record_every,
-                                      gate=tick.gate)
+                                      gate=tick.gate, win_off=tick.win_off)
     return ref.fused_tick_block_ref(tick, carry, due_block, record=record,
                                     record_every=record_every)
 

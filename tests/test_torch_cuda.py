@@ -44,6 +44,10 @@ K1/K2's observe form (``powertcp_observe_step``,
 at the main path's shapes (S = 384, P = 2 406, B = 2 x 128, and a ragged
 5-hop batch), both update modes, and a fused run of each engine
 launching one observe kernel and one K3 a tick and nothing else;
+K4 on a chunk window (``win_off > 0``, C < N) against the plain block,
+chunk-streamed K4 runs bit for bit the unchunked run over
+``CHUNK_GRID``, a crash resumed on K4 bit for bit, and a fault-tolerant
+megakernel sweep with no fallback and no failure;
 and the REDUCED qwen3-14b model on the
 card against the port on the CPU at the tight bar of
 ``tests/test_torch_lm.py``. Every test takes the ``cuda_device``
@@ -640,6 +644,98 @@ def test_fused_tick_block_kernel_impaired(cuda_device, law, gate):
                 regs["lossy"]):
         sup.k4_grid_against_plain(tc, topo, sb, cfg, law, S, (64, 7),
                                   gate=gate, impair=reg)
+
+
+# -------------------------------------------------------------------------
+# K4 on a chunk window: chunk-streamed runs, resume, sweeps
+# -------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["powertcp", "fncc"])
+def test_fused_tick_block_kernel_on_a_chunk_window(cuda_device, law):
+    """K4 reading a chunk window (``win_off > 0``, C < N: the schedule
+    rows at ``f - win_off``, the law config at ``f``) against the plain
+    block on the same window, gate True and False, every carry leaf and
+    record bit for bit: the 18-flow bottleneck from tick 600, a window of
+    8 rows."""
+    import repro_torch.core as tc
+    topo, sched, cfg = sup.bottleneck18(tc, device=cuda_device)
+    w0, C, N, _ = sup.k4_window_against_plain(tc, topo, sched, cfg, law, 8,
+                                              8, 600, 300)
+    assert w0 > 0 and C < N
+
+
+def _chunk_k4(tc, chunk, dev, **kw):
+    topo, sched, cfg = sup.bottleneck18(tc, steps=1500, device=dev)
+    lcfg = tc.default_law_config(tc.schedule_as_flows(sched),
+                                 expected_flows=8.0)
+    return tc.simulate_slots(topo, sched, "powertcp", 8, lcfg, cfg,
+                             backend="megakernel", chunk=chunk, device=dev,
+                             **kw)
+
+
+@pytest.mark.cuda
+def test_chunked_k4_is_unchunked_k4(cuda_device):
+    """Over ``CHUNK_GRID`` the chunk-streamed megakernel run (K4 on every
+    segment) is bit for bit the unchunked K4 run, and K4 launched on every
+    segment."""
+    import repro_torch.core as tc
+    from repro_torch import kernels
+    from repro_torch.core import fluid
+    want = _chunk_k4(tc, None, cuda_device)
+    for chunk in sup.CHUNK_GRID:
+        kernels.reset_launches()
+        got = _chunk_k4(tc, chunk, cuda_device)
+        bad = sup.resume_mismatches(got[0], got[1], want[0], want[1])
+        assert not bad, (chunk, bad)
+        assert kernels.LAUNCHES["fused_tick_block"] >= \
+            fluid.LAST_CHUNKED["segments"]
+
+
+@pytest.mark.cuda
+def test_k4_resume_is_bit_for_bit(cuda_device, tmp_path):
+    """Inject -> crash -> resume on K4: the resumed run (from tick 600)
+    is bit for bit the uninterrupted one."""
+    import repro_torch.core as tc
+    ck = tc.CheckpointSpec(path=str(tmp_path), every=300, keep=2)
+    want = _chunk_k4(tc, 8, cuda_device)
+    with pytest.raises(tc.InjectedCrash):
+        _chunk_k4(tc, 8, cuda_device, checkpoint=ck,
+                  faults=tc.crash_at_tick(700))
+    assert tc.latest_checkpoint(str(tmp_path)) == 600
+    topo, sched, cfg = sup.bottleneck18(tc, steps=1500, device=cuda_device)
+    lcfg = tc.default_law_config(tc.schedule_as_flows(sched),
+                                 expected_flows=8.0)
+    got = tc.resume_slots(topo, sched, "powertcp", 8, ck, law_cfg=lcfg,
+                          cfg=cfg, backend="megakernel", chunk=8,
+                          device=cuda_device)
+    assert not sup.resume_mismatches(got[0], got[1], want[0], want[1])
+
+
+@pytest.mark.cuda
+def test_k4_sweep_is_fault_tolerant_without_fallback(cuda_device):
+    """``run_sweep(backend="megakernel", fault_tolerant=True)`` on the
+    fat tree's anchor under two regimes: no fallback, no failure, and each
+    point bit for bit its own K4 run."""
+    import repro_torch.core as tc
+    topo, sched, cfg, S, regs = sup.impair_anchor_scenario(
+        tc, steps=2000, device=cuda_device)
+    fl = tc.schedule_as_flows(sched)
+    names = ("mixed", "clean")
+    spec = tc.SweepSpec(laws=("powertcp", "hpcc"), flows=[fl],
+                        impairments=[regs[n] for n in names],
+                        expected_flows=8.0, slots=S, backend="megakernel")
+    res = tc.run_sweep(spec, topo, cfg, record=False, fault_tolerant=True,
+                       device=cuda_device)
+    assert res.fallbacks == () and res.failures == ()
+    for p in res.points:
+        st, _ = tc.simulate_slots(
+            topo, sched, p.law, S,
+            tc.default_law_config(sched, expected_flows=8.0), cfg,
+            record=False, backend="megakernel",
+            impair=regs[names[p.impair_idx]], device=cuda_device)
+        torch.testing.assert_close(res.state(p.index).fct, st.fct, rtol=0,
+                                   atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda

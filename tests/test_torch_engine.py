@@ -204,9 +204,14 @@ def test_unported_arguments_raise():
         tc.simulate_slots(topo, sched, "powertcp", 4,
                           impair=tc.no_impairment(topo), backend="fused",
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tc.simulate_slots(topo, sched, "powertcp", 4, chunk=2,
-                          device="cpu")
+    # chunk streaming and sweeps are ported (item 11); the sharded sweep
+    # (item 12) and allocators (item 13) are not
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tc.run_sweep(tc.SweepSpec(laws=["powertcp"], flows=[flows]), topo,
+                     cfg, devices=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        tc.simulate(topo, flows, "powertcp", lcfg, cfg,
+                    alloc_fn=lambda *a: None, device="cpu")
 
 
 def _imports(path):

@@ -434,6 +434,72 @@ def impair_paper_scenario(core, **dev):
     return ls.topology(**dev), sched, cfg, slots, imp
 
 
+# benchmarks/fault_fct.py: ``crash_resume_paper_scale`` (the paper's
+# 256-host fabric, web-search at load 0.6 over 8 ms plus 8 ms of drain,
+# seed 1, the pool from ``suggest_slots``, megakernel backend; snapshots
+# every 3/8 of the run, a crash at 9/16) and ``guard_divergence`` (18 flows
+# on one 100 Gbps bottleneck, PowerTCP poisoned from 0.5 ms, chunk 8,
+# guarded). ``FAULT_REF`` holds ``repro``'s FCTs of the first and its
+# diagnosis of the second
+FAULT_REF = os.path.join(HERE, "golden", "torch_port_fault.json")
+FAULT_LOAD, FAULT_DURATION, FAULT_SEED = 0.6, 0.008, 1
+FAULT_CHUNK = 2048
+FAULT_GUARD_AT = 0.5e-3
+# test_chunk_stream.py's adversarial chunk sizes: C < S (clamped up),
+# C == S, primes, C == N and C > N
+CHUNK_GRID = [1, 3, 7, 8, 13, 18, 29, 40]
+
+
+def fault_scenario(core, **dev):
+    """(topo, schedule, cfg, slots, checkpoint cadence, crash tick) of
+    ``fault_fct.crash_resume_paper_scale`` in either package."""
+    fab = core.LeafSpine(**PAPER)
+    flows = core.poisson_websearch(fab, FAULT_LOAD, FAULT_DURATION,
+                                   PAPER_DT, seed=FAULT_SEED, **dev)
+    sched = core.make_schedule(flows)
+    steps = int((FAULT_DURATION + 0.008) / PAPER_DT)
+    cfg = core.SimConfig(dt=PAPER_DT, steps=steps, hist=512,
+                         update_period=2e-6)
+    return (fab.topology(**dev), sched, cfg,
+            int(core.suggest_slots(sched, PAPER_DT)),
+            max(1, (steps * 3) // 8), (steps * 9) // 16)
+
+
+def bottleneck18(core, steps=2500, hist=256, seed=2, **dev):
+    """``tests/test_chunk_stream.py::_scenario`` in either package: 18
+    flows of 60-300 kB on one 100 Gbps bottleneck, starting in the first
+    1.2 ms (``fault_fct.guard_divergence`` runs it with ``hist=512``)."""
+    B = 100 * core.GBPS
+    topo = core.single_bottleneck(bandwidth=B, buffer=16e6, **dev)
+    rng = np.random.default_rng(seed)
+    n = 18
+    flows = core.make_flows_single(n, tau=20 * core.US, nic=B,
+                                   sizes=rng.uniform(6e4, 3e5, n),
+                                   starts=rng.uniform(0.0, 1.2e-3, n),
+                                   sim_dt=1e-6, **dev)
+    return (topo, core.make_schedule(flows),
+            core.SimConfig(dt=1e-6, steps=steps, hist=hist))
+
+
+def resume_mismatches(st_a, rec_a, st_b, rec_b) -> list:
+    """The fields of ``fault_fct._bitmatch`` (the resume contract) in
+    which two runs differ: the queue trace, FCTs, windows, per-slot rates,
+    sums, the cursor and the rings; [] when they are bit for bit equal."""
+    def host(x):
+        return np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x)
+
+    pairs = dict(q=(rec_a.q, rec_b.q), fct=(st_a.fct, st_b.fct),
+                 w=(st_a.w, st_b.w), lam_f=(rec_a.lam_f, rec_b.lam_f),
+                 w_sum=(rec_a.w_sum, rec_b.w_sum),
+                 n_active=(rec_a.n_active, rec_b.n_active),
+                 hist_q=(st_a.hist_q, st_b.hist_q),
+                 hist_w=(st_a.hist_w, st_b.hist_w),
+                 hist_lam=(st_a.hist_lam, st_b.hist_lam),
+                 cursor=(st_a.cursor, st_b.cursor))
+    return [k for k, (a, b) in pairs.items()
+            if not np.array_equal(host(a), host(b), equal_nan=True)]
+
+
 def smoke_slots_pool(starts, fcts, max_tf, peak_concurrency,
                      dt=PAPER_DT) -> int:
     """The slot pool of ``benchmarks/run.py::smoke_slots``: the largest
@@ -836,6 +902,61 @@ def k4_grid_against_plain(tc, topo, sched, cfg, law, slots, blocks,
                 msg=lambda m, n=name: f"K4 grid K={K} gate={g} {n}: {m}")
         err = max(err, _records_equal(grec, wrec, f"K4 grid K={K} gate={g}"))
     return err
+
+
+def k4_window_against_plain(tc, topo, sched, cfg, law, slots, chunk,
+                            t_from, ticks, gates=(True, False),
+                            expected_flows=8.0):
+    """K4 on a chunk window against the plain block on the card: the run
+    of one schedule is brought to tick ``t_from`` by K4 on the whole
+    schedule, then from that carry the window of ``chunk`` rows at the
+    admission cursor (``win_off > 0`` and C < N, both asserted, with no
+    flow beyond the window due over the ``ticks`` ticks that follow) runs
+    those ticks through K4 with each of ``gates`` and through the plain
+    block: every carry leaf and record field bit for bit. Returns
+    (win_off, C, N, the largest absolute difference of the record sums
+    (0.0))."""
+    from repro_torch.core import fluid, megakernel as mk
+    dev = sched.start.device
+    cfg = cfg._replace(steps=t_from + ticks)
+    sim = fluid.make_slot_sim(topo, tc.batch_of_one(sched), law, slots,
+                              cfg=cfg, backend="megakernel", device=dev,
+                              expected_flows=expected_flows)
+    whole = mk.make_tick(sim)
+    due = torch.as_tensor(mk._due_table(sim.sched, t_from + ticks, cfg.dt),
+                          device=dev)
+    carry, _ = mk.run_blocks(whole, whole.init_carry(
+        fluid.init_slot_state(sim)), due[:, :t_from], 64, "cuda",
+        record=False)
+    N, Q = fluid._slot_n(sim), int(topo.num_queues)
+    w0 = int(carry.state.cursor[0])
+    C = min(max(int(chunk), int(slots)), N)
+    host = tc.FlowSchedule(*[x[0].cpu().numpy() for x in sim.sched])
+    assert 0 < w0 and C < N, (w0, C, N)
+    assert fluid._safe_ticks(host.start, w0, C, t_from, t_from + ticks,
+                             cfg.dt) >= ticks
+    win = fluid._host_window(host, w0, C, Q)
+    simw = sim._replace(sched=fluid._window_tensors(win, dev), n_flows=N,
+                        win_off=w0, start_host=win.start[None])
+    tick = mk.make_tick(simw, maxdeg=whole.maxdeg)
+    t_grid = np.arange(t_from, t_from + ticks, dtype=np.int32).astype(
+        np.float32) * np.float32(cfg.dt)
+    due_w = w0 + np.searchsorted(win.start, t_grid, side="right")
+    assert np.array_equal(due_w, due[0, t_from:].cpu().numpy())
+    due_w = torch.as_tensor(due_w.astype(np.int32)[None], device=dev)
+    want, wrec = mk.run_blocks(tick, tree_clone(carry), due_w, ticks,
+                               "torch")
+    err = 0.0
+    for g in gates:
+        tick.gate = bool(g)
+        got, grec = mk.run_blocks(tick, tree_clone(carry), due_w, 64, "cuda")
+        torch.cuda.synchronize()
+        for (name, a), (_, b) in zip(tree_leaves(got), tree_leaves(want)):
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=0, equal_nan=True,
+                msg=lambda m, n=name: f"K4 window gate={g} {n}: {m}")
+        err = max(err, _records_equal(grec, wrec, f"K4 window gate={g}"))
+    return w0, C, N, err
 
 
 def k4_against_reference(tc, topo, sched, cfg, law, slots,
