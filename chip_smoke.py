@@ -40,15 +40,16 @@ exit, traceback) if anything in it is wrong:
    its plain version from the same initial carry, every carry leaf and
    record field bit for bit (K4 adds the records' per-tick sums in
    XLA:CPU's order, as the plain tick does): the 12-flow anchor
-   of ``tests/test_megakernel.py`` with K in {1, 7, 64} and S = 1, the
+   of ``tests/test_megakernel.py`` with K in {1, 7, 64} and S = 1 (their
+   first ``K4_ANCHOR_TICKS``, 2 000 of 4 000 ticks), the
    gather table at its suggested width, and the anchor (PowerTCP) and
-   the first 2 000 ticks of the paper scenario (both laws) with the
+   the first 1 000 ticks of the paper scenario (both laws) with the
    table narrowed until it overflows (phase 6c holds every law at paper
    scale at the suggested width, with slots recycled at its middle
    launch; the plain tick then walks the hop list; K4's contributor
    lists are never truncated, and it writes the table and its flag as
    the plain tick does); K4's grid form (one block per scenario) on the
-   first 2 000 ticks of phase 6b's two seeds, both laws, ``gate`` True
+   first 1 000 ticks of phase 6b's two seeds, both laws, ``gate`` True
    and False, against each scenario's plain block; then timed over the
    whole 40 000-tick paper
    run, every launch (CUDA events between back-to-back launches), with a
@@ -66,10 +67,9 @@ exit, traceback) if anything in it is wrong:
    ``simulate_slots`` fused; (e) ``simulate_slots`` megakernel; (f)
    theta-PowerTCP, ``simulate_slots`` megakernel (each a batch of one
    through the batched engines of phase 6b). The eager runs (a)-(d) are
-   cut to their first ``EAGER_TICKS`` (10 000) ticks, the widths
+   cut to their first ``EAGER_TICKS`` (3 000) ticks, the widths
    unchanged, so that the script stays inside its time limit (phase 6b
-   runs the same engines over the whole 40 000 ticks); (e) and (f) run
-   the whole 40 000. Each run starts with the kernel launch counts at
+   cuts its eager runs alike); (e) and (f) run the whole 40 000. Each run starts with the kernel launch counts at
    zero; the fused runs must launch their law's observe kernel and K3
    once per tick (K1/K2's TPU form never),
    the megakernel runs K4 once per 64 ticks (625 times) and nothing
@@ -84,18 +84,27 @@ exit, traceback) if anything in it is wrong:
    complete.
 6b. smoke_slots: ``benchmarks/run.py::smoke_slots`` on the port's batched
    entry points: seeds 1 and 2 of the same scenario as one batch, (1)
-   ``simulate_batch`` reference (padded); (2) the slot pool sized from
-   those FCTs as ``smoke_slots`` sizes it; (3) ``simulate_slots_batch``
-   reference; (4) megakernel, ``sequential=True`` (K4 one block per
+   ``simulate_batch`` reference (padded) over the first ``EAGER_TICKS``
+   ticks (cut for time, as (3) and (6) are), every FCT of the flows done
+   by then bit for bit ``repro``'s; (2) the slot pool sized as
+   ``smoke_slots`` sizes it from the padded run's whole-run FCTs
+   (``repro``'s, which (1) matches as far as it runs) through the port's
+   ``peak_concurrency``, equal to ``repro``'s; (3)
+   ``simulate_slots_batch`` reference over the first ``EAGER_TICKS``
+   ticks, held to ``repro``'s FCTs on the flows it completes by then and
+   bit for bit to (4) there; (4) megakernel, ``sequential=True`` (K4 one block per
    launch, 1 250 launches); (5) megakernel, ``sequential=False`` (K4 a
    grid of two blocks, 625 launches), bit for bit (4) in every FCT, and
    again with ``gate=False``, bit for bit (5); (6) ``simulate_slots_batch``
    fused (one K1 observe-kernel and one K3 launch per tick for both
-   seeds); (7) the
+   seeds) over the first ``EAGER_TICKS`` ticks, held to the flows
+   ``repro`` completes by then (the flows within 8 ticks of the cut left
+   out, as phase 6's fused runs); (7) the
    single-bottleneck bit-match anchors ``fct_slot_exact_bitmatch`` and
    ``fct_mega_exact_bitmatch``. Launch counts zeroed before and checked
-   after each run. ``smoke_ok``'s slot and megakernel gates (completed
-   sets match, p99.9 rel err < 1e-3 slot vs padded and mega vs slot, both
+   after each run. ``smoke_ok``'s slot and megakernel gates over the
+   eager runs' cut (completed sets match, p99.9 rel err < 1e-3 slot vs
+   padded and mega vs slot; both
    anchors), and every run held to ``repro``'s FCTs for both seeds
    (``tests/golden/torch_port_smoke_slots.json``: the same completion
    set, short-flow p99.9 within 1e-3). Prints ``smoke_slots``'s
@@ -115,7 +124,8 @@ exit, traceback) if anything in it is wrong:
    bit for bit to the plain megakernel tick
    over the first 3 launches and to the eager reference slot engine
    (``simulate_slots_batch``, ``backend="reference"``) over the first
-   2 000 ticks (the final carry and the FCTs), and timed over the whole
+   ``FIG6_EAGER_TICKS`` (500) ticks (the final carry and the FCTs),
+   and timed over the whole
    run (every launch, CUDA events; the bound of every 4th launch counted
    from its data; the plain block at the middle launch, host clock, held
    bit for bit). Then the five laws of ``run_paper_scale``
@@ -166,7 +176,7 @@ exit, traceback) if anything in it is wrong:
    per flow). (i) Each of ``fncc``, ``pulser``, ``backpressure`` and
    ``pcc`` with both legs as one batch (a slot per flow of the larger
    leg): K4 with ``gate`` True and False bit for bit the plain tick and
-   the eager reference slot engine over the first 2 000 ticks (the
+   the eager reference slot engine over the first 1 200 ticks (the
    carry, the pause and sender-count rings included); (ii) the seven laws
    of ``run`` (the four, ``powertcp``, ``hpcc``, ``timely``) over each
    leg's whole run through ``simulate_slots_batch(backend="megakernel",
@@ -191,7 +201,7 @@ exit, traceback) if anything in it is wrong:
    ``anchor_impairments``' mixed regime (ToR -> host links oscillating
    down to 2.5 GB/s over 200 us, every other link ``netem(loss=0.01,
    jitter=1e-6)``) for ``powertcp``, ``hpcc`` and ``timely``: K4 bit for
-   bit the plain tick over the first 2 000 ticks (gate True; powertcp
+   bit the plain tick over the first 1 200 ticks (gate True; powertcp
    also False), then the whole run with ``repro``'s completion set and
    every FCT within rtol 1e-5 (``tests/golden/torch_port_impair.json``);
    (3) the four regimes (mixed, oscillate, lossy, clean) stacked as one
@@ -203,7 +213,7 @@ exit, traceback) if anything in it is wrong:
    11, 3 000 ticks, 56 slots for 52 flows, the mixed regime) for
    ``powertcp``, ``backpressure`` and ``pulser``, against ``repro``'s
    FCTs; (5) the eager padded and slot reference engines over the first
-   2 000 ticks of (2), every record field and FCT bit for bit K4's; (6)
+   1 200 ticks of (2), every record field and FCT bit for bit K4's; (6)
    K4 timed launch by launch over each run of (2)-(4) (CUDA events; the
    bound of every 4th launch from ``k4_cost``, the regime's read
    included), printed with the card's name and power limit;
@@ -233,6 +243,32 @@ exit, traceback) if anything in it is wrong:
    completes, and the points 6f ran bit for bit 6f's K4 FCTs; (f)
    ``guard_divergence`` on the reference backend: ``repro``'s law, tick
    and field, and NaN carried through unguarded;
+6h. shard: the sharded slot engine (``core/shardslots.py``, each rank a
+   slot block and a queue block, the ranks meeting in
+   ``torch.distributed`` collectives; no kernel of its own), every run
+   bit for bit K4's: (1) at world 1 over NCCL (a one-rank group from a
+   ``HashStore``) on 6f's impaired pass of the paper leaf-spine (52
+   flows, 56 slots), its first ``SHARD_PAPER_TICKS`` (1 000) of 3 000
+   ticks: powertcp clean, and powertcp, backpressure and pulser under
+   the mixed regime, each against K4's run of the same ticks (every
+   trajectory leaf of the final state, every record field), the impaired
+   ones' finished flows also against 6f's whole K4 runs' FCTs; (2) the
+   full-width headline, ``fabric_fct.smoke_fabric16``'s scenario (the
+   k = 16 fat tree, 1 024 hosts and 5 120 queues, web-search at load 0.6
+   plus 64 rotating incasts over 85 ms: 109 186 flows; 1 024 slots,
+   chunk 2 048, the degraded-spine regime) over its first
+   ``SHARD16_TICKS`` (2 000) of 10 000 ticks at world 1, against K4's
+   chunked run of the same ticks, with the wall per tick, the
+   collectives per tick, ``comm_census``'s bytes, K4's device time and
+   the sharded tick's device time and busy share over its first 200
+   ticks (``torch.profiler``); (3) two gloo ranks
+   on the one card (``shardcomm.spawn``; gloo's collectives staged
+   through the host): (1)'s impaired powertcp pass over its first
+   ``SHARD_SPAWN_TICKS`` (500) ticks, bit for bit K4 and (1)'s first
+   500 ticks, and ``impair_fct.run``'s grid
+   as a K4 sweep split over the two ranks (``run_sweep(devices=2)``),
+   every point bit for bit 6g's unsharded sweep, with no fallback and no
+   failure;
 
 7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
    plain PyTorch versions at the serve run's shapes (K5: prefill q
@@ -295,8 +331,9 @@ It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms;
 the TPU form's main-path launches are 0; K4's entry carries each of its
 13 laws' phase-6c times under ``laws``, each Fig. 8 group's under
 ``fig8``, each feedback law's on each fat-tree leg under
-``feedback``, each impaired run's of phase 6f under ``impair`` and
-phase 6g's chunked runs under ``chunk``),
+``feedback``, each impaired run's of phase 6f under ``impair``,
+phase 6g's chunked runs under ``chunk`` and phase 6h's sharded runs,
+with the K4 runs they are held to, under ``shard``),
 the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
 no result, when CUDA is not available or the checkout's sources are
@@ -352,6 +389,37 @@ SOURCES = {
 
 def log(*args):
     print(*args, flush=True)
+
+
+def mark(msg):
+    """A ``[time]`` line, on stderr as well, where the end of a stopped
+    run's output shows how far it got."""
+    log(msg)
+    print(msg, file=sys.stderr, flush=True)
+
+
+# seconds after which the script stops itself (its limit is 1 200 s, the
+# build included): every thread's stack on stderr, the ranks it spawned
+# killed, exit code 1
+DEADLINE_S = 1170
+
+
+def arm_deadline():
+    """Stop the script at ``DEADLINE_S`` (see there); a daemon timer."""
+    import faulthandler
+    import multiprocessing
+    import threading
+
+    def stop():
+        print(f"[deadline] still running after {DEADLINE_S} s: stopping",
+              file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        for p in multiprocessing.active_children():
+            p.kill()
+        os._exit(1)
+    timer = threading.Timer(DEADLINE_S, stop)
+    timer.daemon = True
+    timer.start()
 
 
 # -------------------------------------------------------------------------
@@ -799,9 +867,10 @@ def smoke_scenario(tc, sup, dev, ref):
     return fab.topology(device=dev), flows, scheds
 
 
-# ticks of the eager main-path runs (a)-(d): the first quarter of the
-# 40 000-tick paper run, to keep the script inside its time limit
-EAGER_TICKS = 10_000
+# ticks of the eager main-path runs (a)-(d) and of 6b.3 and 6b.6: the
+# first 3 000 of the 40 000-tick paper run, to keep the script inside its
+# time limit
+EAGER_TICKS = 3_000
 MAIN_RUNS = (("a", "slot", "powertcp", "fused"),
              ("b", "slot", "powertcp", "reference"),
              ("c", "padded", "powertcp", "fused"),
@@ -926,12 +995,18 @@ def k4_cost(S, H, Q1, K, nsw, swdeg, law, pre, post, impair=False):
     return 4 * words, K * per_tick
 
 
-def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
+# ticks of phase 4's anchors (their tests run 4 000; every flow starts
+# in the first 1 500), cut to keep the script inside its time limit
+K4_ANCHOR_TICKS = 2000
+
+
+def phase_k4(torch, tc, sup, dev, paper_ticks=1000):
     """K4 against its plain version at the anchor shapes, with the gather
     table at its suggested width and narrowed until it overflows, then
     timed over a whole paper run. Returns the kernels-line row of K4."""
     check = sup.k4_against_plain
     topo, sched, cfg = sup.staggered(tc, device=dev)
+    cfg = cfg._replace(steps=K4_ANCHOR_TICKS)
     err = 0.0
     c0 = time.perf_counter()
 
@@ -949,13 +1024,16 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
         e, n_ovf, _ = check(tc, topo, sched, cfg, law, slots, blocks,
                             maxdeg=maxdeg)
         err = max(err, e)
-        log(f"[k4] {law}: anchor 12 flows x 4000 ticks, S={slots}, K in "
+        log(f"[k4] {law}: anchor 12 flows x {K4_ANCHOR_TICKS} ticks, "
+            f"S={slots}, K in "
             f"{blocks}, table width {maxdeg or 'suggested'} (overflowed on "
             f"{n_ovf} ticks): bitwise equal ({secs()})")
-    e, _, _ = check(tc, *sup.single_slot(tc, device=dev), "powertcp", 1,
-                    (64,))
+    stopo, ssched, scfg = sup.single_slot(tc, device=dev)
+    e, _, _ = check(tc, stopo, ssched, scfg._replace(steps=K4_ANCHOR_TICKS),
+                    "powertcp", 1, (64,))
     err = max(err, e)
-    log(f"[k4] S=1, 3 flows x 4000 ticks: bitwise equal ({secs()})")
+    log(f"[k4] S=1, 3 flows x {K4_ANCHOR_TICKS} ticks: bitwise equal "
+        f"({secs()})")
 
     with open(sup.PAPER_REF) as f:
         ref = json.load(f)
@@ -963,8 +1041,9 @@ def phase_k4(torch, tc, sup, dev, paper_ticks=2000):
     pcfg = tc.SimConfig(dt=ref["dt_s"], steps=paper_ticks, hist=ref["hist"],
                         update_period=ref["update_period_s"])
     # at the suggested width phase 6c holds every law at paper scale (K4
-    # against the plain tick, and the reference slot engine over 2 000
-    # ticks); the narrowed table's overflow is held only here
+    # against the plain tick, and the reference slot engine over its
+    # first FIG6_EAGER_TICKS ticks); the narrowed table's overflow is held
+    # only here
     for law, maxdeg in (("powertcp", 4), ("theta_powertcp", 4)):
         e, n_ovf, deg = check(tc, ptopo, psched, pcfg, law, ref["slots"],
                               (64,), expected_flows=ref["expected_flows"],
@@ -1340,17 +1419,35 @@ def phase_smoke_slots(torch, tc, kernels, sup, dev, smi):
     launches = {k: 0 for k in kernels.LAUNCHES}
     summaries, fcts = [], {}
 
-    def record(key, what, golden, st, wall, counts, order=False):
+    def record(key, what, golden, st, wall, counts, order=False, ticks=None,
+               margin=8, exact=False):
+        """A run's summary, its FCTs held to repro's per seed; a run cut to
+        its first ``ticks`` ticks against the flows the reference
+        completes by then (the fused run's last bits differ: the flows
+        within ``margin`` ticks of the cut are left out; 0 for a
+        reference run); ``exact``: each FCT bit for bit repro's."""
         rows = fct_rows(st.fct, scheds, order)
         fcts[key] = rows
-        summ = dict(run=key, what=what, wall_s=wall,
-                    us_per_tick=wall / steps * 1e6,
-                    us_per_tick_per_scenario=wall / steps / B * 1e6,
+        n_ticks = steps if ticks is None else ticks
+        summ = dict(run=key, what=what, wall_s=wall, ticks=n_ticks,
+                    us_per_tick=wall / n_ticks * 1e6,
+                    us_per_tick_per_scenario=wall / n_ticks / B * 1e6,
                     launches=counts, scenarios=[])
         for i, (row, want) in enumerate(zip(rows, refs[golden])):
+            done = near = None
+            if ticks is not None:
+                done, near = ref_done_by(
+                    want, scheds[i].start.double().cpu().numpy(),
+                    scheds[i].tau.double().cpu().numpy(), ref["dt_s"],
+                    ticks, margin)
             summ["scenarios"].append(compare_fct(
                 f"{key} seed {ref['scenarios'][i]['seed']}", row, want,
-                sizes[i]))
+                sizes[i], done, near))
+            fin = np.isfinite(row)
+            if exact and not np.array_equal(row[fin], want[fin]):
+                raise AssertionError(f"run ({key}) seed "
+                                     f"{ref['scenarios'][i]['seed']}: FCTs "
+                                     f"differ from repro's {golden} FCTs")
         for k, n in counts.items():
             launches[k] += n
         summaries.append(summ)
@@ -1363,28 +1460,48 @@ def phase_smoke_slots(torch, tc, kernels, sup, dev, smi):
                         f"per-flow rel err {c['fct_max_rel_err']!r}"
                         for c in summ["scenarios"]))
 
-    # (1) the padded engine, batched (reference backend)
+    # (1) the padded engine, batched (reference backend), over the first
+    # EAGER_TICKS ticks (cut with phase 6's eager runs, to keep the script
+    # inside its time limit): every FCT of the flows done by the cut bit
+    # for bit repro's
     (st_p, _), wall, counts = timed_run(
         torch, kernels, "6b.1", {}, lambda: tc.simulate_batch(
-            topo, fb, "powertcp", cfg=cfg, record=False, expected_flows=ef,
-            device=dev))
-    record("6b.1", "simulate_batch reference", "padded", st_p, wall, counts,
-           order=True)
+            topo, fb, "powertcp", cfg=cfg._replace(steps=EAGER_TICKS),
+            record=False, expected_flows=ef, device=dev))
+    record("6b.1", f"simulate_batch reference, first {EAGER_TICKS} ticks",
+           "padded", st_p, wall, counts, order=True, ticks=EAGER_TICKS,
+           margin=0, exact=True)
     padded_s = wall
-    # (2) the pool from the port's own padded FCTs, as smoke_slots sizes it
+    # (2) the pool as smoke_slots sizes it, from the padded engine's
+    # whole-run FCTs in its own flow order: repro's, which (1) matches bit
+    # for bit as far as it runs (its peak concurrency falls at tick 20 916
+    # for seed 2), through the port's peak_concurrency
+    flow_rows = []
+    for s_i, row in zip(scheds, refs["padded"]):
+        flow_row = np.empty_like(row)
+        flow_row[s_i.order.cpu().numpy()] = row
+        flow_rows.append(flow_row)
     slots = sup.smoke_slots_pool(
-        [s.start.cpu().numpy() for s in scheds],
-        [st_p.fct[i].cpu().numpy() for i in range(B)],
+        [s.start.cpu().numpy() for s in scheds], flow_rows,
         max(int(s.tf_steps.max()) for s in scheds), tc.peak_concurrency)
-    log(f"[smoke] (6b.2) pool from the port's padded FCTs: {slots} slots "
-        f"(repro's: {ref['slots']})")
-    # (3) the slot engine, batched (reference backend)
+    if slots != ref["slots"]:
+        raise AssertionError(f"6b.2: pool {slots}, repro's {ref['slots']}")
+    log(f"[smoke] (6b.2) pool from the padded FCTs (repro's whole run, "
+        f"(1)'s bit for bit over its cut): {slots} slots (repro's: "
+        f"{ref['slots']})")
+    # (3) the slot engine, batched (reference backend), over the first
+    # EAGER_TICKS ticks (cut with phase 6's eager runs, to keep the script
+    # inside its time limit): held to repro's slot FCTs on the flows done
+    # by the cut, and below bit for bit to K4's whole run (4), whose FCTs
+    # stand for the slot engine's in smoke_ok's whole-run gates
     (st_s, _), wall, counts = timed_run(
         torch, kernels, "6b.3", {}, lambda: tc.simulate_slots_batch(
-            topo, sb, "powertcp", slots, cfg=cfg, record=False,
+            topo, sb, "powertcp", slots,
+            cfg=cfg._replace(steps=EAGER_TICKS), record=False,
             expected_flows=ef, device=dev))
-    record("6b.3", "simulate_slots_batch reference", "slot", st_s, wall,
-           counts)
+    record("6b.3", f"simulate_slots_batch reference, first {EAGER_TICKS} "
+           f"ticks", "slot", st_s, wall, counts, ticks=EAGER_TICKS,
+           margin=0)
     slot_s = wall
     # (4)/(5) the megakernel: scenario after scenario (K4 grid 1), then
     # the whole batch per launch (grid 2)
@@ -1404,6 +1521,25 @@ def phase_smoke_slots(torch, tc, kernels, sup, dev, smi):
     if not torch.equal(mega[True][0].fct.nan_to_num(-1.0),
                        mega[False][0].fct.nan_to_num(-1.0)):
         raise AssertionError("K4 grid 2 differs from grid 1 in some FCT")
+    # the cut reference slot run (3) against K4's whole run: the flows K4
+    # completes by the cut, each FCT bit for bit
+    cut_match = []
+    for i, (fs_i, fm_i) in enumerate(zip(fcts["6b.3"], fcts["6b.4"])):
+        k4_done, _ = ref_done_by(fm_i, scheds[i].start.double().cpu().numpy(),
+                                 scheds[i].tau.double().cpu().numpy(),
+                                 ref["dt_s"], EAGER_TICKS, 0)
+        done = np.isfinite(fs_i)
+        cut_match.append(bool(np.array_equal(done, k4_done)))
+        if not cut_match[-1] or not np.array_equal(fs_i[done], fm_i[done]):
+            raise AssertionError(
+                f"6b.3 seed {ref['scenarios'][i]['seed']}: the reference "
+                f"slot engine's first {EAGER_TICKS} ticks differ from K4's "
+                f"run ({done.sum()} flows done against K4's "
+                f"{k4_done.sum()})")
+    n_done = ", ".join(str(int(np.isfinite(x).sum())) for x in fcts["6b.3"])
+    log(f"[smoke] (6b.3) the reference slot engine's first {EAGER_TICKS} "
+        f"ticks bit for bit K4's whole run (4): the same flows done by the "
+        f"cut ({n_done} per seed), each FCT equal")
     # the ungated tick on the card: the same bits
     sim = fluid.make_slot_sim(topo, sb, "powertcp", slots, cfg=cfg,
                               backend="megakernel", device=dev,
@@ -1425,23 +1561,32 @@ def phase_smoke_slots(torch, tc, kernels, sup, dev, smi):
         f"grid-{B} run (wall {wall_ungated:.3f} s); grid {B} bitwise equal "
         f"to grid 1 in every FCT")
     # (6) the slot engine, batched, fused: one K1 (observe form) and one K3
-    # per tick
+    # per tick, over the first EAGER_TICKS ticks (phase 6's fused runs
+    # are cut alike; (a) and (d) hold K1/K3 on the paper run)
     (st_f, _), wall, counts = timed_run(
         torch, kernels, "6b.6",
-        expected_launches("powertcp", "fused", steps),
+        expected_launches("powertcp", "fused", EAGER_TICKS),
         lambda: tc.simulate_slots_batch(
-            topo, sb, "powertcp", slots, cfg=cfg, record=False,
-            backend="fused", expected_flows=ef, device=dev))
-    record("6b.6", "simulate_slots_batch fused", "slot", st_f, wall, counts)
+            topo, sb, "powertcp", slots, cfg=cfg._replace(steps=EAGER_TICKS),
+            record=False, backend="fused", expected_flows=ef, device=dev))
+    record("6b.6", f"simulate_slots_batch fused, first {EAGER_TICKS} ticks",
+           "slot", st_f, wall, counts, ticks=EAGER_TICKS)
     # (7) the single-bottleneck anchors
     exact, mega_exact = smoke_anchors(torch, tc, dev)
 
-    # smoke_ok's fields, computed as smoke_slots computes them
-    fp, fs, fm = (np.concatenate(fcts[k]) for k in ("6b.1", "6b.3", "6b.4"))
+    # smoke_ok's fields, computed as smoke_slots computes them, over the
+    # eager runs' cut: the padded (1) and slot (3) reference runs, and K4's
+    # whole run (4) on the flows done by the cut (K4's whole run is held
+    # to repro's above)
+    fp, fc, fm = (np.concatenate(fcts[k]) for k in ("6b.1", "6b.3", "6b.4"))
     size = np.concatenate(sizes)
-    short = np.isfinite(fp) & np.isfinite(fs) & (size < 10e3)
-    pp, ps, pm = p999(fp, short), p999(fs, short), p999(fm, short)
+    short = np.isfinite(fp) & np.isfinite(fc) & (size < 10e3)
+    pp, pc = p999(fp, short), p999(fc, short)
+    cut_short = np.isfinite(fc) & (size < 10e3)
+    pm = p999(fm, cut_short)
     mega_s = mega[True][1]
+    padded_us = padded_s / EAGER_TICKS * 1e6
+    slot_us = slot_s / EAGER_TICKS * 1e6
     fields = {
         "fct_slot_hosts": ref["fabric"]["racks"]
         * ref["fabric"]["hosts_per_rack"],
@@ -1449,20 +1594,20 @@ def phase_smoke_slots(torch, tc, kernels, sup, dev, smi):
         "fct_slot_steps_per_point": steps,
         "fct_slot_flows": int(sum(s.start.shape[0] for s in scheds)),
         "fct_slot_slots": slots,
-        "fct_slot_padded_s": padded_s, "fct_slot_stream_s": slot_s,
-        "fct_slot_padded_points_per_s": B / padded_s,
-        "fct_slot_points_per_s": B / slot_s,
-        "fct_slot_speedup": padded_s / slot_s,
+        "fct_slot_eager_ticks": EAGER_TICKS,
+        "fct_slot_padded_s": padded_s, "fct_slot_padded_us_per_tick":
+        padded_us, "fct_slot_stream_s": slot_s,
+        "fct_slot_stream_us_per_tick": slot_us,
+        "fct_slot_speedup": padded_us / slot_us,
         "fct_slot_completed_match": bool(
-            (np.isfinite(fp) == np.isfinite(fs)).all()),
-        "fct_slot_p999_rel_err": abs(ps - pp) / max(pp, 1e-12),
+            (np.isfinite(fp) == np.isfinite(fc)).all()),
+        "fct_slot_p999_rel_err": abs(pc - pp) / max(pp, 1e-12),
         "fct_slot_exact_bitmatch": exact,
         "fct_mega_s": mega_s, "fct_mega_points_per_s": B / mega_s,
-        "fct_mega_speedup": slot_s / mega_s,
+        "fct_mega_speedup": slot_us / (mega_s / steps * 1e6),
         "fct_mega_mode": "sequential",
-        "fct_mega_completed_match": bool(
-            (np.isfinite(fs) == np.isfinite(fm)).all()),
-        "fct_mega_p999_rel_err": abs(pm - ps) / max(ps, 1e-12),
+        "fct_mega_completed_match": all(cut_match),
+        "fct_mega_p999_rel_err": abs(pm - pc) / max(pc, 1e-12),
         "fct_mega_exact_bitmatch": mega_exact,
         "fct_mega_grid_s": mega[False][1],
         "fct_mega_grid_speedup": mega_s / mega[False][1],
@@ -1576,8 +1721,9 @@ def _self_device_us(evt) -> float:
 # phase 6c: benchmarks/fig6_fct.py::run_paper_scale's five laws on K4
 # -------------------------------------------------------------------------
 
-# ticks of phase 6c's checks against the eager reference slot engine
-FIG6_EAGER_TICKS = 2000
+# ticks of phase 6c's checks against the eager reference slot engine (cut
+# with phase 6's eager runs to keep the script inside its time limit)
+FIG6_EAGER_TICKS = 500
 # launches of the paper run over which K4 is held to its plain tick
 FIG6_PLAIN_LAUNCHES = 3
 # every how many launches phase 6c's timing pass counts a launch's bound
@@ -2038,7 +2184,7 @@ def phase_fig8(torch, tc, kernels, sup, dev, smi):
 
 # ticks over which each feedback law's K4 run is held to the plain tick
 # and the eager reference slot engine
-FEEDBACK_CHECK_TICKS = 2000
+FEEDBACK_CHECK_TICKS = 1200
 # a run's FCTs against repro's
 FEEDBACK_RTOL = 1e-5
 
@@ -2157,7 +2303,7 @@ def phase_feedback(torch, tc, kernels, sup, dev, smi):
 
 # ticks over which the impaired K4 runs are held to the plain tick and
 # the eager reference engines
-IMPAIR_CHECK_TICKS = 2000
+IMPAIR_CHECK_TICKS = 1200
 # a run's FCTs against repro's
 IMPAIR_RTOL = 1e-5
 
@@ -2237,7 +2383,8 @@ def golden_in_flow_order(sup, sched, st, rec):
 
 def phase_impair(torch, tc, kernels, sup, dev, smi):
     """Phase 6f: per-link impairments on K4 (see the module docstring).
-    Returns (launches, K4's rows by run)."""
+    Returns (launches, K4's rows by run, K4's FCTs by (law, regime) of
+    the anchor, K4's FCTs by law of the paper fabric's impaired pass)."""
     with open(sup.IMPAIR_REF) as f:
         ref = json.load(f)
     t0 = time.perf_counter()
@@ -2384,6 +2531,7 @@ def phase_impair(torch, tc, kernels, sup, dev, smi):
                              f"from the reference's {pmeta}")
     psb = tc.stack_flow_schedules([psched], ptopo.num_queues)
     pn = pmeta["n_flows"]
+    paper_fct = {}
     for law in sup.IMPAIR_PAPER_LAWS:
         (st, _), wall, c = timed_run(
             torch, kernels, f"6f paper {law}",
@@ -2393,6 +2541,7 @@ def phase_impair(torch, tc, kernels, sup, dev, smi):
                 backend="megakernel", expected_flows=ef,
                 impair_params=preg, device=dev))
         count(c)
+        paper_fct[law] = st.fct[0, :pn].clone()
         fct = st.fct[0, :pn].double().cpu().numpy()
         rel = impair_fcts(f"paper {law}", fct, ref["paper"]["fct_s"][law])
         runs.append(dict(run="paper", law=law, wall_s=wall,
@@ -2440,7 +2589,7 @@ def phase_impair(torch, tc, kernels, sup, dev, smi):
     log("[impair] K4 us per tick: " + json.dumps(
         {k: v["us_per_tick"] for k, v in rows.items()}) + f"; {smi}")
     log(f"[impair] phase 6f: {time.perf_counter() - t0:.1f} s")
-    return launches, rows, k4_fct
+    return launches, rows, k4_fct, paper_fct
 
 
 # -------------------------------------------------------------------------
@@ -2516,7 +2665,7 @@ def phase_fault(torch, tc, kernels, sup, dev, smi, main_final, impair_fct):
     """Phase 6g: chunk-streamed K4, checkpoint/resume and a K4 sweep (see
     the module docstring). ``main_final`` is run (e)'s final state (phase
     6), ``impair_fct`` phase 6f's K4 FCTs by (law, regime). Returns
-    (launches, K4's rows)."""
+    (launches, K4's rows, the K4 sweep's FCTs by point)."""
     import tempfile
     from repro_torch.core import fluid
     with open(sup.FAULT_REF) as f:
@@ -2718,8 +2867,10 @@ def phase_fault(torch, tc, kernels, sup, dev, smi, main_final, impair_fct):
                              f"failures {res.failures}")
     held, verdict = 0, True
     ni = int(isched.start.shape[0])
+    sweep_fct = {}
     for p in res.points:
         got = res.state(p.index).fct[:ni]
+        sweep_fct[p.index] = got.clone()
         key = (p.law, names[p.impair_idx])
         if key in impair_fct:
             torch.testing.assert_close(
@@ -2758,6 +2909,352 @@ def phase_fault(torch, tc, kernels, sup, dev, smi, main_final, impair_fct):
         f"('{field}')")
     log("[fault] " + json.dumps({"fault": rows}))
     log(f"[fault] phase 6g: {time.perf_counter() - t0:.1f} s")
+    return launches, rows, sweep_fct
+
+
+# -------------------------------------------------------------------------
+# phase 6h: the sharded slot engine (core/shardslots.py) over
+# torch.distributed, held bit for bit against K4
+# -------------------------------------------------------------------------
+
+# 6h.1's runs on the paper fabric's impaired pass: (law, impaired), over
+# its first SHARD_PAPER_TICKS of 3 000 ticks
+SHARD_PAPER_RUNS = (("powertcp", False), ("powertcp", True),
+                    ("backpressure", True), ("pulser", True))
+SHARD_PAPER_TICKS = 1000
+# 6h.2: fabric_fct.smoke_fabric16's pool, chunk and tick horizon, of
+# which the first SHARD16_TICKS run
+SHARD16_SLOTS, SHARD16_CHUNK, SHARD16_STEPS = 1024, 2048, 10_000
+SHARD16_TICKS = 2000
+# ticks of the sharded fabric16 run profiled for its device time
+SHARD16_PROFILE_TICKS = 200
+# 6h.3: the two gloo ranks' run of 6h.1's impaired powertcp pass
+SHARD_SPAWN_TICKS = 500
+
+
+def fabric16_scenario(tc, dev):
+    """``benchmarks/fabric_fct.py::fabric16_scenario`` and
+    ``smoke_fabric16``'s run in the port: the k = 16 fat tree (1 024
+    hosts, 5 120 queues), web-search at load 0.6 over 85 ms (seed 5) plus
+    64 rotating incasts of 16 x 150 kB (seed 6, from 100 us), one
+    time-sorted schedule; ``smoke_fabric16``'s degraded spine (every
+    AGG <-> CORE link oscillating down to 40 GB/s over 500 us, seed 7;
+    every other link 0.2% random loss, seed 13); its config cut to the
+    first ``SHARD16_TICKS`` ticks. Returns (fabric, topology, schedule,
+    config, law config, regime)."""
+    import torch
+    ft = tc.fat_tree(16)
+    dt, duration = 1e-6, 0.085
+    fw = tc.poisson_websearch(ft, 0.6, duration, dt, seed=5, device=dev)
+    fi, _ = tc.incast_burst(ft, fan_in=16, req_bytes=1.5e5, n_bursts=64,
+                            period=duration / 64, sim_dt=dt, seed=6,
+                            start=1e-4, device=dev)
+    sched = tc.make_schedule(tc.Flows(*[torch.cat([a, b])
+                                        for a, b in zip(fw, fi)]))
+    cfg = tc.SimConfig(dt=dt, steps=SHARD16_TICKS, hist=512,
+                       update_period=2e-6)
+    lcfg = tc.default_law_config(tc.schedule_as_flows(sched),
+                                 expected_flows=8.0)
+    agg, core = tc.fabric.AGG, tc.fabric.CORE
+    spine = tc.LinkProcess(kind="oscillate", bw_lo=40e9, period=500e-6,
+                           seed=7)
+    imp = tc.fabric_impairments(
+        ft, rules={(agg, core): spine, (core, agg): spine},
+        default=tc.netem(loss=0.002, jitter=0.0, seed=13), device=dev)
+    return ft, ft.topology(device=dev), sched, cfg, lcfg, imp
+
+
+# the final-state leaves held between two runs (those of
+# ``test_torch_support._same_state``: not the slots' retire bookkeeping,
+# since K4 retires a drained slot on the tick it drains and the eager
+# engines at the next admission, which changes no trajectory)
+SAME_STATE = ("w", "rate_cap", "q", "out_rate", "remaining", "next_update",
+              "last_update", "hist_lam", "hist_q", "hist_out", "hist_w",
+              "law", "cursor", "fct", "pause", "hist_pause", "hist_inc")
+
+
+def same_state(torch, sup, got, want, what):
+    """Two final slot states, ``SAME_STATE``'s leaves bit for bit (NaN
+    equal to NaN; the FCT tables cut to the shorter)."""
+    for f in SAME_STATE:
+        gl = sup.tree_leaves(getattr(got, f), f)
+        wl = sup.tree_leaves(getattr(want, f), f)
+        if len(gl) != len(wl):
+            raise AssertionError(f"{what} {f}: {len(gl)} leaves against "
+                                 f"{len(wl)}")
+        for (name, g), (_, w) in zip(gl, wl):
+            if f == "fct":
+                n = min(g.shape[-1], w.shape[-1])
+                g, w = g[..., :n], w[..., :n]
+            torch.testing.assert_close(
+                g, w.to(g.device), rtol=0, atol=0, equal_nan=True,
+                msg=lambda m, n=name: f"{what} {n}: {m}")
+
+
+def shard_rank(group, ticks, ef):
+    """Phase 6h.3 on one of two gloo ranks sharing the card (spawned by
+    ``shardcomm.spawn``): 6h.1's impaired powertcp pass over its first
+    ``ticks`` ticks through the sharded engine, then ``impair_fct.run``'s
+    grid as a K4 sweep split over the ranks (``run_sweep(devices=2)``).
+    Returns, on the host, the run's state and record, its statistics,
+    wall and launches, and the sweep's per-point FCTs, fallbacks,
+    failures, wall and launches."""
+    import torch
+    import repro_torch.core as tc
+    import test_torch_support as sup
+    from repro_torch import kernels
+    from repro_torch.core.shardslots import LAST_SHARDED
+    from repro_torch.core.types import tree_map
+    dev = group.device
+    topo, sched, cfg, S, imp = sup.impair_paper_scenario(tc, device=dev)
+    cfg = cfg._replace(steps=ticks)
+    lcfg = tc.default_law_config(tc.schedule_as_flows(sched),
+                                 expected_flows=ef)
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, rec = tc.simulate_slots_sharded(topo, sched, "powertcp", S, lcfg,
+                                        cfg, impair=imp, group=group,
+                                        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    def host(tree):
+        return tree_map(lambda x: x.cpu() if isinstance(x, torch.Tensor)
+                        else x, tree)
+
+    run = dict(state=host(st), rec=host(rec), stats=dict(LAST_SHARDED),
+               wall_s=wall, launches=dict(kernels.LAUNCHES))
+    itopo, isched, icfg, _, regimes = sup.impair_anchor_scenario(tc,
+                                                                 device=dev)
+    spec = tc.SweepSpec(laws=list(sup.IMPAIR_LAWS),
+                        flows=[tc.schedule_as_flows(isched)],
+                        impairments=[regimes[r] for r in sup.IMPAIR_REGIMES],
+                        expected_flows=ef,
+                        slots=int(tc.suggest_slots(isched, icfg.dt)),
+                        backend="megakernel")
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = tc.run_sweep(spec, itopo, icfg, record=False, devices=group.world,
+                       fault_tolerant=True, device=dev)
+    torch.cuda.synchronize()
+    ni = int(isched.start.shape[0])
+    sweep = dict(fct={p.index: res.state(p.index).fct[:ni].cpu()
+                      for p in res.points},
+                 fallbacks=res.fallbacks, failures=res.failures,
+                 wall_s=time.perf_counter() - t0,
+                 launches=dict(kernels.LAUNCHES),
+                 k4_per_rank=len(spec.laws) * -(-icfg.steps // 64))
+    return run, sweep
+
+
+def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
+    """Phase 6h: the sharded slot engine over ``torch.distributed`` (see
+    the module docstring). ``paper_fct`` is phase 6f's K4 FCTs of the
+    paper fabric's impaired pass by law, ``sweep_fct`` phase 6g's K4
+    sweep FCTs by point. Returns (launches, rows)."""
+    from repro_torch.core import fluid, shardcomm
+    from repro_torch.core.shardslots import LAST_SHARDED
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    rows = {}
+    ef = sup.IMPAIR_EXPECTED_FLOWS
+
+    def count(c):
+        for k, n in c.items():
+            launches[k] += n
+
+    def stats_line(wall, ticks):
+        st = dict(LAST_SHARDED)
+        return dict(wall_s=wall, us_per_tick=wall / ticks * 1e6,
+                    collectives_per_tick=st["collectives"] / ticks,
+                    rebuilds=st["rebuilds"],
+                    overflow_ticks=st["overflow_ticks"],
+                    segments=st["segments"], geometry=st["geometry"])
+
+    # (1) world 1 over NCCL, the paper fabric's impaired pass, against K4
+    group = shardcomm.one_rank_group(dev)
+    if group.backend != "nccl" or group.world != 1:
+        raise AssertionError(f"6h.1: expected a one-rank NCCL group, got "
+                             f"{group}")
+    ptopo, psched, pcfg, pS, preg = sup.impair_paper_scenario(tc,
+                                                              device=dev)
+    pcfg = pcfg._replace(steps=SHARD_PAPER_TICKS)
+    lcfg = tc.default_law_config(tc.schedule_as_flows(psched),
+                                 expected_flows=ef)
+    ref61 = {}
+    for law, impaired in SHARD_PAPER_RUNS:
+        imp = preg if impaired else None
+        tag = f"{law} {'mixed' if impaired else 'clean'}"
+        (kst, krec), _, c = timed_run(
+            torch, kernels, f"6h.1 K4 {tag}",
+            expected_launches(law, "megakernel", pcfg.steps),
+            lambda: tc.simulate_slots(ptopo, psched, law, pS, lcfg, pcfg,
+                                      backend="megakernel", impair=imp,
+                                      device=dev))
+        count(c)
+        (sst, srec), wall, _ = timed_run(
+            torch, kernels, f"6h.1 sharded {tag}", {},
+            lambda: tc.simulate_slots_sharded(ptopo, psched, law, pS, lcfg,
+                                              pcfg, impair=imp,
+                                              group=group, device=dev))
+        row = stats_line(wall, pcfg.steps)
+        same_state(torch, sup, sst, kst, f"6h.1 {tag} against K4")
+        fig8_records_equal(srec, krec, f"6h.1 {tag} against K4")
+        if impaired:
+            # the flows done by the cut: 6f's whole-run K4 FCTs
+            done = torch.isfinite(sst.fct)
+            torch.testing.assert_close(
+                sst.fct[done], paper_fct[law].to(sst.fct.device)[done],
+                rtol=0, atol=0, msg=lambda m, t=tag: f"6h.1 {t} against "
+                                                     f"6f's K4 FCTs: {m}")
+            ref61[law] = (sst, srec)
+        rows[f"{law}@paper{'-mixed' if impaired else ''}"] = row
+        log(f"[shard] (6h.1) {tag}, world 1 over NCCL ({pS} slots, "
+            f"{pcfg.steps} ticks, {row['geometry']['Qb']} queue rows, "
+            f"cap {row['geometry']['cap']}, rebuild every "
+            f"{row['geometry']['rb_every']}): wall {wall:.3f} s, "
+            f"{row['us_per_tick']:.2f} us/tick, "
+            f"{row['collectives_per_tick']:.3f} collectives/tick "
+            f"({row['rebuilds']} rebuilds, {row['overflow_ticks']} overflow "
+            f"ticks); state, FCTs ({int(torch.isfinite(sst.fct).sum())} "
+            f"done) and every record field bitwise K4's"
+            + ("; those FCTs bitwise 6f's whole K4 run" if impaired
+               else "")
+            + f"; {smi}")
+
+    # (2) the full-width headline: fabric16 at world 1 against chunked K4
+    c0 = time.perf_counter()
+    ft, topo16, sched16, cfg16, lcfg16, imp16 = fabric16_scenario(tc, dev)
+    n16 = int(sched16.start.shape[0])
+    H16 = int(sched16.path.shape[-1])
+    Q16 = int(topo16.num_queues)
+    mi = tc.shard_geometry(sched16, SHARD16_SLOTS, Q16, 1)
+    census = tc.comm_census(mi, SHARD16_SLOTS, H16, Q16, record=False)
+    build_s = time.perf_counter() - c0
+    (kst, _), kwall, c, segs = chunk_run(
+        torch, kernels, "6h.2 K4", lambda: tc.simulate_slots(
+            topo16, sched16, "powertcp", SHARD16_SLOTS, lcfg16, cfg16,
+            record=False, backend="megakernel", chunk=SHARD16_CHUNK,
+            impair=imp16, device=dev))
+    count(c)
+    (sst, _), wall, _ = timed_run(
+        torch, kernels, "6h.2 sharded", {},
+        lambda: tc.simulate_slots_sharded(
+            topo16, sched16, "powertcp", SHARD16_SLOTS, lcfg16, cfg16,
+            record=False, chunk=SHARD16_CHUNK, impair=imp16, group=group,
+            device=dev))
+    row = stats_line(wall, cfg16.steps)
+    same_state(torch, sup, sst, kst, "6h.2 fabric16 against K4")
+    done = int(torch.isfinite(sst.fct).sum())
+    # K4's device time (torch.profiler, one more pass), and the sharded
+    # tick's device time and launches over its first
+    # SHARD16_PROFILE_TICKS ticks
+    k4_us = k4_device_us(torch, lambda: tc.simulate_slots(
+        topo16, sched16, "powertcp", SHARD16_SLOTS, lcfg16, cfg16,
+        record=False, backend="megakernel", chunk=SHARD16_CHUNK,
+        impair=imp16, device=dev))
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tc.simulate_slots_sharded(
+            topo16, sched16, "powertcp", SHARD16_SLOTS, lcfg16,
+            cfg16._replace(steps=SHARD16_PROFILE_TICKS), record=False,
+            chunk=SHARD16_CHUNK, impair=imp16, group=group, device=dev)
+        torch.cuda.synchronize()
+    devs = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    prof_us = sum(_self_device_us(e) for e in devs) / SHARD16_PROFILE_TICKS
+    row.update(k4_device_us_per_tick=(None if k4_us is None
+                                      else k4_us / cfg16.steps),
+               device_us_per_tick=prof_us,
+               device_launches_per_tick=sum(e.count for e in devs)
+               / SHARD16_PROFILE_TICKS,
+               busy_share=prof_us / row["us_per_tick"])
+    row.update(hosts=ft.n_hosts, queues=Q16, flows=n16,
+               slots=SHARD16_SLOTS, chunk=SHARD16_CHUNK,
+               ticks=cfg16.steps, of_steps=SHARD16_STEPS, completed=done,
+               k4_wall_s=kwall, k4_us_per_tick=kwall / cfg16.steps * 1e6,
+               k4_launches=c["fused_tick_block"], k4_segments=segs,
+               census=census, build_s=build_s)
+    rows["powertcp@fabric16"] = row
+    log(f"[shard] (6h.2) fabric16: k = 16 fat tree ({ft.n_hosts} hosts, "
+        f"{Q16} queues), {n16} flows, {SHARD16_SLOTS} slots, chunk "
+        f"{SHARD16_CHUNK}, degraded spine, first {cfg16.steps} of "
+        f"{SHARD16_STEPS} ticks (scenario built in {build_s:.1f} s): "
+        f"sharded world 1 wall {wall:.3f} s, {row['us_per_tick']:.2f} "
+        f"us/tick, {row['collectives_per_tick']:.3f} collectives/tick "
+        f"({row['rebuilds']} rebuilds, {row['overflow_ticks']} overflow "
+        f"ticks, {row['segments']} segments); K4 chunked wall {kwall:.3f} s "
+        f"({row['k4_us_per_tick']:.2f} us/tick, {c['fused_tick_block']} "
+        f"launches, {segs} segments; K4 device "
+        f"{row['k4_device_us_per_tick']!r} us/tick); the sharded tick's "
+        f"first {SHARD16_PROFILE_TICKS} ticks profiled: device "
+        f"{prof_us:.2f} us/tick, {row['device_launches_per_tick']:.1f} "
+        f"launches/tick, busy share {row['busy_share']!r}; final state and "
+        f"FCTs ({done} done) bitwise K4's; comm_census "
+        f"{json.dumps(census)}; {smi}")
+
+    # (3) two gloo ranks on the one card
+    c0 = time.perf_counter()
+    run, sweep = shardcomm.spawn(shard_rank, 2, (SHARD_SPAWN_TICKS, ef),
+                                 backend="gloo", device=dev)
+    spawn_s = time.perf_counter() - c0
+    st2, rec2 = run["state"], run["rec"]
+    ccfg = pcfg._replace(steps=SHARD_SPAWN_TICKS)
+    (kst, krec), _, c = timed_run(
+        torch, kernels, "6h.3 K4",
+        expected_launches("powertcp", "megakernel", ccfg.steps),
+        lambda: tc.simulate_slots(ptopo, psched, "powertcp", pS, lcfg, ccfg,
+                                  backend="megakernel", impair=preg,
+                                  device=dev))
+    count(c)
+    same_state(torch, sup, st2, kst, "6h.3 two gloo ranks against K4")
+    fig8_records_equal(rec2, krec, "6h.3 two gloo ranks against K4")
+    one = ref61["powertcp"][1]
+    fig8_records_equal(rec2, type(one)(*[x[:SHARD_SPAWN_TICKS]
+                                         for x in one]),
+                       "6h.3 two gloo ranks against 6h.1's first ticks")
+    if run["stats"]["ndev"] != 2 or any(run["launches"].values()):
+        raise AssertionError(f"6h.3: {run['stats']}, launches "
+                             f"{run['launches']}")
+    if sweep["fallbacks"] != () or sweep["failures"] != ():
+        raise AssertionError(f"6h.3 sweep: fallbacks {sweep['fallbacks']}, "
+                             f"failures {sweep['failures']}")
+    if sweep["fct"].keys() != sweep_fct.keys():
+        raise AssertionError("6h.3 sweep: its points are not 6g's")
+    for i, fct in sweep["fct"].items():
+        torch.testing.assert_close(
+            fct, sweep_fct[i].cpu(), rtol=0, atol=0, equal_nan=True,
+            msg=lambda m, i=i: f"6h.3 sweep point {i} against 6g's: {m}")
+    k4 = sweep["launches"]["fused_tick_block"]
+    if k4 != sweep["k4_per_rank"] or sum(sweep["launches"].values()) != k4:
+        raise AssertionError(f"6h.3 sweep rank 0 launches "
+                             f"{sweep['launches']}, expected K4 "
+                             f"{sweep['k4_per_rank']}")
+    launches["fused_tick_block"] += k4
+    st = run["stats"]
+    rows["powertcp@paper-mixed-2ranks"] = dict(
+        wall_s=run["wall_s"],
+        us_per_tick=run["wall_s"] / SHARD_SPAWN_TICKS * 1e6,
+        collectives_per_tick=st["collectives"] / SHARD_SPAWN_TICKS,
+        rebuilds=st["rebuilds"], overflow_ticks=st["overflow_ticks"],
+        geometry=st["geometry"], spawn_s=spawn_s,
+        sweep_wall_s=sweep["wall_s"], sweep_k4_launches_rank0=k4)
+    r = rows["powertcp@paper-mixed-2ranks"]
+    log(f"[shard] (6h.3) two gloo ranks on the card (host-staged "
+        f"collectives): powertcp mixed, {SHARD_SPAWN_TICKS} ticks, wall "
+        f"{run['wall_s']:.3f} s, {r['us_per_tick']:.2f} us/tick, "
+        f"{r['collectives_per_tick']:.3f} collectives/tick "
+        f"({st['rebuilds']} rebuilds, {st['overflow_ticks']} overflow "
+        f"ticks): state bitwise K4's, every record field bitwise K4's and "
+        f"6h.1's first {SHARD_SPAWN_TICKS} ticks; run_sweep(devices=2) over "
+        f"impair_fct.run's grid on K4 ({len(sweep['fct'])} points, {k4} K4 "
+        f"launches on rank 0, wall {sweep['wall_s']:.3f} s): no fallback, "
+        f"no failure, every point bitwise 6g's unsharded K4 sweep; spawn "
+        f"and both ranks' work {spawn_s:.1f} s; {smi}")
+    torch.distributed.destroy_process_group()
+    log("[shard] " + json.dumps({"shard": rows}))
+    log(f"[shard] phase 6h: {time.perf_counter() - t0:.1f} s")
     return launches, rows
 
 
@@ -3129,6 +3626,7 @@ def kernels_line(rows, launches):
 
 
 def main():
+    arm_deadline()
     import torch
     name, smi = phase_probe(torch)
     sys.path[:0] = [SRC, os.path.join(ROOT, "tests")]
@@ -3142,26 +3640,26 @@ def main():
     phase_build(kernels)
     rows = phase_kernels(torch, sup, dev)
     rows.update(phase_observe(torch, tc, sup, dev))
-    log(f"[time] build + kernels: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] build + kernels: {time.perf_counter() - t0:.1f} s")
     rows["fused_tick_block"] = phase_k4(torch, tc, sup, dev)
-    log(f"[time] + K4: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] + K4: {time.perf_counter() - t0:.1f} s")
     phase_goldens(tc, sup, dev)
-    log(f"[time] + goldens: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] + goldens: {time.perf_counter() - t0:.1f} s")
     launches, summaries, finals = phase_main(torch, tc, kernels, sup, dev)
-    log(f"[time] + main path: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] + main path: {time.perf_counter() - t0:.1f} s")
     smoke_launches, smoke_summ, _, grid = phase_smoke_slots(
         torch, tc, kernels, sup, dev, smi)
     log("[smoke] " + json.dumps({"smoke_runs": smoke_summ}))
     for k, n in smoke_launches.items():
         launches[k] += n
     rows["fused_tick_block"].update(grid)
-    log(f"[time] + smoke_slots: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] + smoke_slots: {time.perf_counter() - t0:.1f} s")
     fig6_launches, law_rows, _ = phase_fig6(torch, tc, kernels, sup, dev,
                                             smi)
     for k, n in fig6_launches.items():
         launches[k] += n
     rows["fused_tick_block"]["laws"] = law_rows
-    log(f"[time] + fig6: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] + fig6: {time.perf_counter() - t0:.1f} s")
     fig8_launches, fig8_rows, fig8_err = phase_fig8(torch, tc, kernels, sup,
                                                     dev, smi)
     for k, n in fig8_launches.items():
@@ -3169,7 +3667,7 @@ def main():
     rows["fused_tick_block"]["fig8"] = fig8_rows
     rows["fused_tick_block"]["max_abs_err"] = max(
         rows["fused_tick_block"]["max_abs_err"], fig8_err)
-    log(f"[time] + fig8: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] + fig8: {time.perf_counter() - t0:.1f} s")
     fb_launches, fb_rows, fb_err = phase_feedback(torch, tc, kernels, sup,
                                                   dev, smi)
     for k, n in fb_launches.items():
@@ -3177,29 +3675,35 @@ def main():
     rows["fused_tick_block"]["feedback"] = fb_rows
     rows["fused_tick_block"]["max_abs_err"] = max(
         rows["fused_tick_block"]["max_abs_err"], fb_err)
-    log(f"[time] + feedback: {time.perf_counter() - t0:.1f} s")
-    imp_launches, imp_rows, imp_fct = phase_impair(torch, tc, kernels, sup,
-                                                   dev, smi)
+    mark(f"[time] + feedback: {time.perf_counter() - t0:.1f} s")
+    imp_launches, imp_rows, imp_fct, paper_fct = phase_impair(
+        torch, tc, kernels, sup, dev, smi)
     for k, n in imp_launches.items():
         launches[k] += n
     rows["fused_tick_block"]["impair"] = imp_rows
-    log(f"[time] + impair: {time.perf_counter() - t0:.1f} s")
-    fault_launches, fault_rows = phase_fault(torch, tc, kernels, sup, dev,
-                                             smi, finals["e"], imp_fct)
+    mark(f"[time] + impair: {time.perf_counter() - t0:.1f} s")
+    fault_launches, fault_rows, sweep_fct = phase_fault(
+        torch, tc, kernels, sup, dev, smi, finals["e"], imp_fct)
     for k, n in fault_launches.items():
         launches[k] += n
     rows["fused_tick_block"]["chunk"] = fault_rows
-    log(f"[time] + fault: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] + fault: {time.perf_counter() - t0:.1f} s")
+    shard_launches, shard_rows = phase_shard(torch, tc, kernels, sup, dev,
+                                             smi, paper_fct, sweep_fct)
+    for k, n in shard_launches.items():
+        launches[k] += n
+    rows["fused_tick_block"]["shard"] = shard_rows
+    mark(f"[time] + shard: {time.perf_counter() - t0:.1f} s")
     if profile:
         phase_profile(torch, tc, sup, dev, summaries)
         phase_profile_smoke(torch, tc, sup, dev, smoke_summ)
-        log(f"[time] + profile: {time.perf_counter() - t0:.1f} s")
+        mark(f"[time] + profile: {time.perf_counter() - t0:.1f} s")
     rows.update(phase_lm_kernels(torch, sup, dev))
-    log(f"[time] + LM kernels: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] + LM kernels: {time.perf_counter() - t0:.1f} s")
     serve_launches, serve_summ = phase_serve(torch, kernels, sup, dev,
                                              profile)
     log("[serve] " + json.dumps({"serve": serve_summ}))
-    log(f"[time] + serve: {time.perf_counter() - t0:.1f} s")
+    mark(f"[time] + serve: {time.perf_counter() - t0:.1f} s")
     for k in LM_KERNELS:
         launches[k] = serve_launches[k]
 

@@ -1,7 +1,7 @@
 """PowerTCP core on PyTorch: control laws, power computation, fluid-model
 simulator, per-link impairments, chunk-streamed runs with checkpoints,
-guards and injected faults, sweeps and the ODE analysis (the ported subset
-of ``repro.core``)."""
+guards and injected faults, sweeps, the sharded single-scenario engine and
+the ODE analysis (the ported subset of ``repro.core``)."""
 from .types import (CheckpointSpec, Flows, FlowSchedule, PathObs, Record,
                     SimConfig,
                     SimState, SlotState, Topology, GBPS, KB, MB, MTU, US,
@@ -19,7 +19,8 @@ from .guard import (DivergenceError, check_divergence, finite_flags,
 from .fluid import (FluidSim, LawTick, SlotSim, audit_carry_dtypes,
                     build_incidence, default_law_config, init_slot_state,
                     init_state, make_slot_sim, pad_flows, pad_schedule,
-                    resume_slots, simulate, simulate_batch, simulate_slots,
+                    resolve_devices, resume_slots, simulate,
+                    simulate_batch, simulate_slots,
                     simulate_slots_batch, slot_step, stack_flow_schedules,
                     stack_flows, stack_law_configs, step)
 from .ckpt import (checkpoint_ticks, latest_checkpoint, load_checkpoint,
@@ -43,6 +44,9 @@ from .fabric import (CompiledPaths, Fabric, FabricBuilder, FabricRoutes,
 from .workload import (WEBSEARCH_CDF, incast_burst, peak_concurrency,
                        poisson_websearch, poisson_websearch_schedule,
                        suggest_slots, websearch_mean, websearch_sample)
+from .shardcomm import ShardGroup
+from .shardslots import (ShardInfo, comm_census, shard_geometry,
+                         simulate_slots_sharded)
 from .sweep import (FALLBACK_CHAIN, PointFailure, SweepPoint, SweepResult,
                     SweepSpec, expand, run_sweep)
 from . import analysis
@@ -59,7 +63,7 @@ __all__ = [
     "DivergenceError", "check_divergence", "finite_flags",
     "first_divergent_field",
     "FluidSim", "LawTick", "SlotSim", "audit_carry_dtypes",
-    "build_incidence", "resume_slots",
+    "build_incidence", "resolve_devices", "resume_slots",
     "checkpoint_ticks", "latest_checkpoint", "load_checkpoint", "read_meta",
     "save_checkpoint",
     "default_law_config", "init_slot_state", "init_state",
@@ -83,6 +87,8 @@ __all__ = [
     "WEBSEARCH_CDF", "incast_burst", "peak_concurrency", "poisson_websearch",
     "poisson_websearch_schedule", "suggest_slots", "websearch_mean",
     "websearch_sample",
+    "ShardGroup", "ShardInfo", "comm_census", "shard_geometry",
+    "simulate_slots_sharded",
     "FALLBACK_CHAIN", "PointFailure", "SweepPoint", "SweepResult",
     "SweepSpec", "expand", "run_sweep", "analysis",
 ]

@@ -101,6 +101,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from . import shardcomm
 from .faults import InjectedCrash, UnsupportedFeature
 from ..kernels.queue_arrivals import (apply_loss, build_csr_gather,
                                       csr_gather_arrivals,
@@ -915,7 +916,12 @@ class SlotSim(NamedTuple):
     ``n_flows`` the whole schedule's flow count N. Sentinels (``slot_flow
     == N``), the FCT table and the [N] law config keep their global
     meaning; only the schedule rows are read at ``f - win_off``. Both stay
-    None on whole-schedule runs."""
+    None on whole-schedule runs.
+
+    ``sync`` (a ``_BatchSync``) is set on a rank's part of a batch split
+    over a process group: the admit/retire pass then runs on the ticks
+    the whole batch needs it, and the gather table takes the whole
+    batch's width, as in the unsharded batch."""
     topo: Topology
     sched: FlowSchedule
     law: Law
@@ -928,6 +934,7 @@ class SlotSim(NamedTuple):
     impair: Optional[ImpairmentParams] = None   # [Q] or [B, Q] leaves
     n_flows: Optional[int] = None
     win_off: Optional[int] = None
+    sync: Optional[object] = None
 
 
 def _slot_n(sim: SlotSim) -> int:
@@ -1008,14 +1015,18 @@ def init_slot_state(sim: SlotSim) -> SlotState:
 
 
 def _resident_gather(resident: torch.Tensor, path: torch.Tensor,
-                     num_queues: int) -> torch.Tensor:
+                     num_queues: int, sync=None) -> torch.Tensor:
     """The reference backend's in-order gather table over the resident
     slots' hops (int32 [B, Q+1, maxdeg], maxdeg the largest over the
-    batch). Only resident slots can send, so leaving the others out keeps
-    the sums bit-identical and the table narrow; reads the largest queue
-    degree back from the device."""
+    batch, or over the whole split batch with ``sync``). Only resident
+    slots can send, so leaving the others out keeps the sums bit-identical
+    and the table narrow; reads the largest queue degree back from the
+    device."""
     live = torch.where(resident[..., None], path, num_queues)
-    inv, _ = build_csr_gather(live, num_queues, max_degree(live, num_queues))
+    width = max_degree(live, num_queues)
+    if sync is not None:
+        width = sync.width(width)
+    inv, _ = build_csr_gather(live, num_queues, width)
     return inv.to(torch.int32)
 
 
@@ -1140,13 +1151,16 @@ def slot_step(sim: SlotSim, state: SlotState, bw_fn=None, alloc_fn=None,
 
     # -- admit / retire, on ticks with an arrival due and not admitted ----
     due = _due_now(sim, t_sec)
-    if np.any(due > state.admitted):
+    if (np.any(due > state.admitted) if sim.sync is None
+            else sim.sync.due(t_sec)):
         due = torch.as_tensor(due, dtype=torch.int32, device=state.w.device)
         state, occupied = _admit_retire(sim, state, due)
         state = state._replace(admitted=_host_count(state.cursor))
+        if sim.sync is not None:
+            sim.sync.admitted(state.admitted)
         if sim.backend != "fused":
             state = state._replace(
-                inv=_resident_gather(occupied, state.path, Q))
+                inv=_resident_gather(occupied, state.path, Q, sim.sync))
     else:
         occupied = state.slot_flow < N
     path, tf_steps, tau, nic = (state.path, state.tf_steps, state.tau,
@@ -1743,16 +1757,111 @@ def stack_flow_schedules(scheds: List[FlowSchedule],
                                       pad_queue) for s in scheds])
 
 
-def _check_batch_args(devices, dev):
-    """The arguments of the batched entry points that belong to later
-    ROADMAP items raise, naming the item; ``devices`` beyond one device
-    is the sharded sweep (item 12; None where it is ignored)."""
+def resolve_devices(devices, group=None) -> int:
+    """The batched engines' ``devices`` (``repro``'s contract, over the
+    ranks of a process group): None/0/1 -> 1; ``"auto"`` -> the group's
+    size (``group``, else the initialized default group; 1 with none); an
+    int is clamped to it, as ``repro`` clamps to the devices present."""
     if devices is None:
-        return
-    n = ((torch.cuda.device_count() if dev.type == "cuda" else 1)
-         if devices == "auto" else int(devices))
-    if n > 1:
-        _unported(f"devices={devices!r} (a sweep sharded over devices)", 12)
+        return 1
+    world = shardcomm.world_size(group)
+    n = world if devices == "auto" else int(devices)
+    return max(1, min(n, world))
+
+
+def _pad_batch(tree, pad: int):
+    """Repeat the last scenario ``pad`` times on the batch axis (filler
+    runs whose outputs are sliced off)."""
+    if pad == 0 or tree is None:
+        return tree
+    return tree_map(lambda x: torch.cat(
+        [x, x[-1:].expand((pad,) + tuple(x.shape[1:]))]), tree)
+
+
+def _gather_batch(tree, group, batch: int):
+    """Every rank's part of a batched result joined on the batch axis and
+    cut to ``batch`` rows: tensor leaves through one all-gather each (on
+    the group's device, back to their own), the host's numpy leaves
+    (``admitted``) likewise. (The reference gather tables already share
+    the whole batch's width, ``_BatchSync.width``.)"""
+    def leaf(x):
+        if isinstance(x, np.ndarray):
+            return leaf(torch.as_tensor(x)).numpy()
+        y = group.all_gather(x.to(group.device), tiled=True)
+        return y[:batch].to(x.device)
+    return tree_map(leaf, tree)
+
+
+class _BatchSync:
+    """The admission gate of the whole batch on one rank of a split batch
+    (``SlotSim.sync``): the unsharded batch runs the admit/retire pass for
+    every scenario on a tick where any scenario has an arrival due and
+    not yet admitted, and widens every scenario's gather table to the
+    batch's largest degree. Each rank keeps every scenario's arrival times
+    and, after each pass, its cursors all-gathered, so every rank takes
+    the same decision and the run is leaf for leaf the unsharded one."""
+
+    def __init__(self, group, start_all: np.ndarray):
+        self.group = group
+        self.start = start_all                    # [B_pad, N] float32
+        self.cursors = np.zeros(start_all.shape[0], np.int64)
+
+    def due(self, t_sec: float) -> bool:
+        t32 = np.float32(t_sec)
+        return any(np.searchsorted(row, t32, side="right") > c
+                   for row, c in zip(self.start, self.cursors))
+
+    def admitted(self, local: np.ndarray) -> None:
+        x = torch.as_tensor(np.asarray(local, np.int64), dtype=torch.int64)
+        self.cursors = self.group.all_gather(
+            x.to(self.group.device), tiled=True).cpu().numpy()
+
+    def width(self, local: int) -> int:
+        w = self.group.all_gather(torch.tensor([int(local)],
+                                               device=self.group.device))
+        return int(w.max())
+
+
+def _shard_batch(run, batched, law_cfg, bw_params, impair, batch: int,
+                 n: int, device):
+    """A batch split over the ``n`` ranks of the process group (every rank
+    calls the entry point with the whole batch): padded to a multiple of
+    ``n`` by repeating its last scenario, each rank runs its contiguous
+    slice through ``run(batched, law_cfg, bw_params, impair)`` (the
+    entry point on one device), and the parts are all-gathered and the pad
+    cut off. The split comes after stacking, so every scenario keeps the
+    whole batch's padded flow count and runs bit for bit as in the
+    unsharded batch. A shared regime ([Q] leaves) is not split. A rank
+    that fails makes every rank raise (agreed through the group before
+    any result moves)."""
+    group = shardcomm.current_group(resolve_device(device))
+    if n != group.world:
+        raise ValueError(f"devices resolves to {n} ranks; the process "
+                         f"group has {group.world}")
+    pad = -batch % n
+    per = (batch + pad) // n
+    lo, hi = group.rank * per, (group.rank + 1) * per
+    shared = impair is not None and impair.kind.dim() == 1
+    sync = None
+    if isinstance(batched, FlowSchedule):
+        sync = _BatchSync(group, _pad_batch(batched.start, pad).cpu().numpy()
+                          .astype(np.float32))
+    args = [part_of(_pad_batch(x, pad), lo, hi)
+            for x in (batched, law_cfg, bw_params)]
+    args.append(impair if shared or impair is None
+                else part_of(_pad_batch(impair, pad), lo, hi))
+    err = None
+    try:
+        out = run(*args, sync=sync) if sync is not None else run(*args)
+    except Exception as e:
+        err = e
+    if group.any(err is not None):
+        if err is not None:
+            raise err
+        raise RuntimeError("another rank of the sharded batch failed")
+    state, recs = out
+    return (_gather_batch(state, group, batch),
+            None if recs is None else _gather_batch(recs, group, batch))
 
 
 def _impair_on(impair, batch: int, num_queues: int, dev):
@@ -1878,14 +1987,30 @@ def simulate_batch(topo: Topology, flows: Flows, law_name: Union[str, Law],
     backend rejects it (``UnsupportedFeature``), and so does ``bw_fn``
     (``ValueError``).
 
-    ``alloc_fn`` (ROADMAP Queue 1 item 13) and ``devices`` > 1 (12) raise
+    ``devices`` > 1 (or ``"auto"``, ``resolve_devices``) splits the batch
+    over the ranks of the process group: every rank calls this with the
+    whole batch, runs its contiguous slice and gets the whole result
+    (``_shard_batch``), each scenario bit for bit its unsharded run.
+    Without a process group it resolves to one device, as ``repro``
+    clamps to the devices present.
+
+    ``alloc_fn`` (ROADMAP Queue 1 item 13) raises
     ``NotImplementedError``. Returns (final_states, records) with a
     leading batch axis.
     """
     if alloc_fn is not None:
         _unported("alloc_fn", 13)
     dev = resolve_device(device)
-    _check_batch_args(devices, dev)
+    n = resolve_devices(devices)
+    if n > 1:
+        return _shard_batch(
+            lambda f, lc, bp, ip: simulate_batch(
+                topo, f, law_name, lc, cfg, bw_fn=bw_fn, bw_params=bp,
+                record=record, backend=backend,
+                expected_flows=expected_flows, impair_params=ip,
+                device=dev),
+            flows, law_cfg, bw_params, impair_params,
+            int(flows.tau.shape[0]), n, dev)
     _check_backend(backend)
     _check_impair(impair_params, bw_fn, backend)
     cfg = cfg or SimConfig()
@@ -1943,13 +2068,32 @@ def simulate_slots_batch(topo: Topology, scheds: FlowSchedule,
     ``repro``. On the card K4 carries a circuit schedule
     (``rdcn.circuit_bw_at`` with ``bw_params``, or
     ``CircuitSchedule.bw_fn()``) and no other ``bw_fn``, and evaluates a
-    regime's processes in its body.
+    regime's processes in its body. ``devices`` splits the batch over the
+    ranks of the process group, as in ``simulate_batch``.
     """
     dev = resolve_device(device)
-    _check_batch_args(None if sequential else devices, dev)
+    n = 1 if sequential else resolve_devices(devices)
+    if n > 1:
+        return _shard_batch(
+            lambda sc, lc, bp, ip, sync: _slots_batch(
+                topo, sc, law_name, slots, lc, cfg, bw_fn, bp, record,
+                backend, expected_flows, False, ip, dev, sync),
+            scheds, law_cfg, bw_params, impair_params,
+            int(scheds.start.shape[0]), n, dev)
+    return _slots_batch(topo, scheds, law_name, slots, law_cfg, cfg, bw_fn,
+                        bw_params, record, backend, expected_flows,
+                        sequential, impair_params, dev, None)
+
+
+def _slots_batch(topo, scheds, law_name, slots, law_cfg, cfg, bw_fn,
+                 bw_params, record, backend, expected_flows, sequential,
+                 impair_params, dev, sync):
+    """``simulate_slots_batch`` on one device (``sync``: the whole batch's
+    admission gate on a rank of a split batch, ``_BatchSync``)."""
     _check_impair(impair_params, bw_fn, backend)
     sim = make_slot_sim(topo, scheds, law_name, slots, law_cfg, cfg,
                         backend, dev, expected_flows, impair_params)
+    sim = sim._replace(sync=sync)
     B, N = int(sim.sched.start.shape[0]), _slot_n(sim)
     bw_params = _bw_params_on(bw_fn, bw_params, dev)
     with torch.no_grad():

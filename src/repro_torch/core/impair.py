@@ -137,31 +137,38 @@ def _epoch(t_sec, p: ImpairmentParams) -> torch.Tensor:
     return _floor_i32(ph / torch.clamp_min(p.period, 1e-6)) & _M32
 
 
-def _u01(t_sec, p: ImpairmentParams, salt: int, qid0=0) -> torch.Tensor:
+def _u01(t_sec, p: ImpairmentParams, salt, qid0=0) -> torch.Tensor:
     """[Q] uniform draws in [0, 1): the hash chain (seed ^ salt) -> link
     id -> epoch, its top 24 bits scaled to float32 (exact). ``qid0``
     offsets the link ids of a row slice of the full regime, so the slice
-    draws the full evaluation's values."""
+    draws the full evaluation's values. A tuple of K salts hashes them in
+    one pass: [K, Q] draws."""
     n = int(p.kind.shape[-1])
     qid = (int(qid0) + torch.arange(n, dtype=torch.int64,
                                     device=p.kind.device)) & _M32
+    if isinstance(salt, tuple):
+        salt = torch.tensor(salt, dtype=torch.int64,
+                            device=p.seed.device).view(
+                                (len(salt),) + (1,) * p.seed.dim())
     h = _mix32(p.seed ^ salt)
     h = _mix32(h ^ _mul32(qid, 0x9E3779B9))
     h = _mix32(h ^ _epoch(t_sec, p))
     return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
-def link_bw_at(t_sec, p: ImpairmentParams, qid0=0) -> torch.Tensor:
+def link_bw_at(t_sec, p: ImpairmentParams, qid0=0, u=None) -> torch.Tensor:
     """[Q] per-link service rates at ``t_sec`` (bytes/s): the four kinds
     evaluated, then selected (``repro``'s nested ``where``). The schedule
-    branch is ``rdcn.circuit_up``'s ops."""
+    branch is ``rdcn.circuit_up``'s ops. ``u``: the capacity draws, when
+    already hashed (``regime_at``)."""
     ph = torch.remainder(t_sec - p.t0 + _EDGE_NUDGE, p.period)
     up = (ph >= 0.0) & (ph < p.up)
     sched = torch.where(up, p.bw_hi, p.bw_lo)
     frac = ph / p.period
     tri = 1.0 - torch.abs(2.0 * frac - 1.0)
     osc = p.bw_lo + (p.bw_hi - p.bw_lo) * tri
-    u = _u01(t_sec, p, _SALT_BW, qid0)
+    if u is None:
+        u = _u01(t_sec, p, _SALT_BW, qid0)
     fad = p.bw_lo + (p.bw_hi - p.bw_lo) * u
     bw = torch.where(p.kind == KIND_SCHEDULE, sched,
                      torch.where(p.kind == KIND_OSCILLATE, osc,
@@ -170,20 +177,34 @@ def link_bw_at(t_sec, p: ImpairmentParams, qid0=0) -> torch.Tensor:
     return bw.to(torch.float32)
 
 
-def link_loss_at(t_sec, p: ImpairmentParams, qid0=0) -> torch.Tensor:
+def link_loss_at(t_sec, p: ImpairmentParams, qid0=0,
+                 u=None) -> torch.Tensor:
     """[Q] per-link loss fractions at ``t_sec``, clipped to [0,
     ``LOSS_MAX``]: a draw in [0, loss) per epoch (``LOSS_RANDOM``) or the
     fraction itself. A zero ``loss`` row is exactly 0.0."""
-    u = _u01(t_sec, p, _SALT_LOSS, qid0)
+    if u is None:
+        u = _u01(t_sec, p, _SALT_LOSS, qid0)
     loss = torch.where(p.loss_kind == LOSS_RANDOM, p.loss * u, p.loss)
     return torch.clamp(loss.to(torch.float32), 0.0, LOSS_MAX)
 
 
-def link_jitter_at(t_sec, p: ImpairmentParams, qid0=0) -> torch.Tensor:
+def link_jitter_at(t_sec, p: ImpairmentParams, qid0=0,
+                   u=None) -> torch.Tensor:
     """[Q] per-link added queuing delay at ``t_sec`` (seconds): a draw in
     [0, jitter] per epoch; a zero ``jitter`` row is exactly +0.0."""
-    u = _u01(t_sec, p, _SALT_JIT, qid0)
+    if u is None:
+        u = _u01(t_sec, p, _SALT_JIT, qid0)
     return torch.clamp_min(p.jitter * u, 0.0)
+
+
+def regime_at(t_sec, p: ImpairmentParams, qid0=0):
+    """(``link_bw_at``, ``1 - link_loss_at``, ``link_jitter_at``) at
+    ``t_sec``, the three draws of every link hashed in one pass: the same
+    values for a third of the hash's ops (the sharded engine's regime)."""
+    u = _u01(t_sec, p, (_SALT_BW, _SALT_LOSS, _SALT_JIT), qid0)
+    return (link_bw_at(t_sec, p, qid0, u[0]),
+            1.0 - link_loss_at(t_sec, p, qid0, u[1]),
+            link_jitter_at(t_sec, p, qid0, u[2]))
 
 
 def impair_vectors(t_sec, p: ImpairmentParams):

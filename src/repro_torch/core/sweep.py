@@ -31,8 +31,10 @@ backend fallback (``FALLBACK_CHAIN``) on ``UnsupportedFeature`` and on
 nothing else, per-point isolation when a whole group still fails, and the
 post-hoc divergence scan of the finished rows.
 
-The sharded forms (``devices`` other than None, ``shard_scenario=True``)
-belong to ROADMAP Queue 1 item 12 and raise ``NotImplementedError``.
+``devices`` splits each group's batch over the ranks of the process
+group (``fluid.simulate_batch``'s ``devices``); ``shard_scenario=True``
+runs each point alone through the sharded slot engine
+(``shardslots.simulate_slots_sharded``), its pool split over the ranks.
 """
 from __future__ import annotations
 
@@ -44,8 +46,8 @@ import numpy as np
 import torch
 
 from .faults import UnsupportedFeature, is_transient
-from .fluid import (_pad_inv, _to, _unported, default_law_config,
-                    pad_flows, simulate_batch, simulate_slots_batch,
+from .fluid import (_pad_inv, _to, default_law_config, pad_flows,
+                    simulate_batch, simulate_slots_batch,
                     stack_flow_schedules, stack_flows, stack_law_configs)
 from .guard import first_divergent_field
 from .impair import ImpairmentParams, stack_impairments
@@ -327,9 +329,25 @@ def _stack_rows(rows):
     return stack_trees(rows)
 
 
+def _stack_points(sts, rcs, record: bool):
+    """Per-point results (state, record) stacked on a new batch axis, a
+    failed point (None) an inert NaN row (``_nan_filler``); None when
+    every point failed."""
+    tmpl = next((s for s in sts if s is not None), None)
+    if tmpl is None:
+        return None
+    fill_s = _nan_filler(tmpl)
+    rtmpl = next((r for r in rcs if r is not None), None)
+    fill_r = _nan_filler(rtmpl) if rtmpl is not None else None
+    return (_stack_rows([fill_s if s is None else s for s in sts]),
+            stack_trees([fill_r if r is None else r for r in rcs])
+            if record else None)
+
+
 def run_sweep(spec: SweepSpec, topo: Optional[Topology] = None,
               cfg: Optional[SimConfig] = None, record: bool = True,
               devices=None, shard_scenario: bool = False,
+              chunk: Optional[int] = None,
               fault_tolerant: bool = False, retries: int = 1,
               backoff_s: float = 0.25, device="cuda") -> SweepResult:
     """Expand ``spec`` and run it on ``device``: one batch per (topology,
@@ -348,17 +366,28 @@ def run_sweep(spec: SweepSpec, topo: Optional[Topology] = None,
     bit for bit a clean run of the same spec (the batch's scenarios share
     nothing). Without it the first exception propagates unchanged.
 
-    ``devices`` other than None and ``shard_scenario=True`` (the sharded
-    engine, ROADMAP Queue 1 item 12) raise ``NotImplementedError``; so
-    ``repro``'s ``chunk``, which only the sharded form reads, comes with
-    item 12.
+    ``devices`` goes to the batched engines: with a process group of
+    several ranks, every rank calls ``run_sweep`` and each group's batch
+    is split over them (bit for bit the unsharded sweep).
+    ``shard_scenario=True`` instead runs each point alone, its slot pool
+    and queue accumulation split over the ranks
+    (``shardslots.simulate_slots_sharded``; ``chunk`` streams each
+    point's schedule): it needs a slot spec, the reference backend and no
+    RDCN schedule axis (``ValueError``), and is bit for bit the batched
+    slot path. Under ``fault_tolerant`` a sharded point is retried on
+    transient failures and otherwise recorded as a ``PointFailure`` of
+    backend ``"sharded"``; it never falls back to another engine.
     """
-    if devices is not None:
-        _unported(f"run_sweep(devices={devices!r}) (a sweep sharded over "
-                  f"devices)", 12)
     if shard_scenario:
-        _unported("run_sweep(shard_scenario=True) (the sharded slot "
-                  "engine)", 12)
+        if spec.slots is None:
+            raise ValueError("shard_scenario requires a slot spec "
+                             "(spec.slots)")
+        if any(be != "reference" for be in spec.backend_axis):
+            raise ValueError("shard_scenario supports the reference "
+                             "backend only")
+        if spec.schedules is not None:
+            raise ValueError("shard_scenario does not support an RDCN "
+                             "schedule axis")
     dev = resolve_device(device)
     if spec.topologies is not None:
         if topo is not None:
@@ -412,6 +441,13 @@ def run_sweep(spec: SweepSpec, topo: Optional[Topology] = None,
                     [_to(imp_group[p.impair_idx], dev) for p in rows])
                     if imp_group is not None else None)
 
+                if shard_scenario:
+                    states[key], records[key] = _run_sharded_points(
+                        spec, topo_t, law, rows, lcfgs, scheds, imp_group,
+                        cfg, record, devices, chunk, fault_tolerant,
+                        retries, backoff_s, failures, dev)
+                    continue
+
                 def run_group(be_, rows=rows, lcfgs=lcfgs, bw_fn=bw_fn,
                               bw_params=bw_params,
                               impair_params=impair_params, topo_t=topo_t,
@@ -424,15 +460,15 @@ def run_sweep(spec: SweepSpec, topo: Optional[Topology] = None,
                             topo_t, sb, law, spec.slots,
                             stack_law_configs(lcfgs), cfg, bw_fn=bw_fn,
                             bw_params=bw_params, record=record,
-                            backend=be_, impair_params=impair_params,
-                            device=dev)
+                            backend=be_, devices=devices,
+                            impair_params=impair_params, device=dev)
                     fb = stack_flows([padded[p.flows_idx] for p in rows],
                                      topo_t.num_queues)
                     return simulate_batch(
                         topo_t, fb, law, stack_law_configs(lcfgs), cfg,
                         bw_fn=bw_fn, bw_params=bw_params, record=record,
-                        backend=be_, impair_params=impair_params,
-                        device=dev)
+                        backend=be_, devices=devices,
+                        impair_params=impair_params, device=dev)
 
                 def run_point(p, lcfg, be_, bw_fn=bw_fn, topo_t=topo_t,
                               padded=padded, scheds=scheds,
@@ -494,19 +530,11 @@ def run_sweep(spec: SweepSpec, topo: Optional[Topology] = None,
                             st_i = rec_i = None
                         sts.append(st_i)
                         rcs.append(rec_i)
-                    tmpl = next((s for s in sts if s is not None), None)
-                    if tmpl is None:
+                    stacked = _stack_points(sts, rcs, record)
+                    if stacked is None:
                         states[key] = records[key] = None
                         continue
-                    fill_s = _nan_filler(tmpl)
-                    rtmpl = next((r for r in rcs if r is not None), None)
-                    fill_r = (_nan_filler(rtmpl) if rtmpl is not None
-                              else None)
-                    states[key] = _stack_rows(
-                        [fill_s if s is None else s for s in sts])
-                    records[key] = (stack_trees(
-                        [fill_r if r is None else r for r in rcs])
-                        if record else None)
+                    states[key], records[key] = stacked
 
                 # post-hoc divergence scan: a poisoned point runs to its
                 # end inside the batch (NaN does not raise); flag its row
@@ -523,3 +551,40 @@ def run_sweep(spec: SweepSpec, topo: Optional[Topology] = None,
                             f"carry", 1))
     return SweepResult(tuple(points), states, records,
                        tuple(failures), tuple(fallbacks))
+
+
+def _run_sharded_points(spec: SweepSpec, topo_t, law, rows, lcfgs, scheds,
+                        imp_group, cfg, record: bool, devices, chunk,
+                        fault_tolerant: bool, retries: int, backoff_s: float,
+                        failures: list, dev):
+    """A group's points one by one through the sharded slot engine
+    (``repro``'s route, ``sweep.py:489-530``): each point's regime rides
+    un-stacked, the rows are stacked after. Fault-tolerant: bounded retry
+    (``_run_degraded`` from ``"reference"``, whose chain is empty), then a
+    ``PointFailure(..., "sharded", "run", ...)`` and a NaN row."""
+    from .shardslots import simulate_slots_sharded
+
+    def run_point(p, lcfg):
+        imp_p = (_to(imp_group[p.impair_idx], dev)
+                 if imp_group is not None else None)
+        return simulate_slots_sharded(
+            topo_t, scheds[p.flows_idx], law, spec.slots, lcfg, cfg,
+            record=record, devices=devices, chunk=chunk, impair=imp_p,
+            device=dev)
+
+    sts, rcs = [], []
+    for p, lcfg in zip(rows, lcfgs):
+        if not fault_tolerant:
+            st_i, rec_i = run_point(p, lcfg)
+        else:
+            try:
+                (st_i, rec_i), _, _ = _run_degraded(
+                    "reference", lambda b, p=p, lcfg=lcfg: run_point(p, lcfg),
+                    retries, backoff_s)
+            except Exception as e:
+                failures.append(PointFailure(p.index, p.law, "sharded",
+                                             "run", repr(e), retries + 1))
+                st_i = rec_i = None
+        sts.append(st_i)
+        rcs.append(rec_i)
+    return _stack_points(sts, rcs, record) or (None, None)

@@ -33,7 +33,7 @@ from .fused_tick import DEFAULT_BLOCK, fused_tick_block
 from .powertcp_step import (powertcp_observe_step, powertcp_step,
                             theta_powertcp_observe_step, theta_powertcp_step)
 from .queue_arrivals import (apply_loss, build_csr_gather,
-                             csr_gather_arrivals,
+                             build_csr_gather_padded, csr_gather_arrivals,
                              integrate_arrivals, ordered_scatter_add,
                              queue_arrivals, queue_arrivals_sparse,
                              update_incidence)
@@ -42,6 +42,7 @@ from .rmsnorm import rmsnorm
 __all__ = ["ops", "ref", "LAUNCHES", "build", "reset_launches",
            "powertcp_step", "theta_powertcp_step", "powertcp_observe_step",
            "theta_powertcp_observe_step", "apply_loss", "build_csr_gather",
+           "build_csr_gather_padded",
            "csr_gather_arrivals", "ordered_scatter_add", "queue_arrivals",
            "update_incidence", "integrate_arrivals", "queue_arrivals_sparse",
            "DEFAULT_BLOCK", "fused_tick_block", "flash_attention",

@@ -157,6 +157,23 @@ def build_csr_gather(path: torch.Tensor, num_queues: int, maxdeg: int):
     return inv[:-1].reshape(B, Q1, maxdeg), overflow
 
 
+def build_csr_gather_padded(path: torch.Tensor, num_queues: int,
+                            maxdeg: int, rows: int):
+    """``build_csr_gather`` padded to ``rows`` queue rows ([B, rows,
+    maxdeg]): the sharded engine (``core/shardslots.py``) splits the table
+    row-wise over its ranks, ``rows`` the queue count rounded up to a
+    multiple of the rank count. Pad rows hold only the sentinel index
+    S*H, which ``csr_gather_arrivals`` maps to +0.0; ``overflow`` keeps
+    its whole-table meaning."""
+    inv, overflow = build_csr_gather(path, num_queues, maxdeg)
+    extra = rows - (num_queues + 1)
+    if extra > 0:
+        nnz = int(path.reshape(path.shape[0], -1).shape[1])
+        inv = torch.cat([inv, inv.new_full((int(inv.shape[0]), extra,
+                                            maxdeg), nnz)], 1)
+    return inv, overflow
+
+
 def csr_gather_arrivals(contrib: torch.Tensor, inv: torch.Tensor,
                         zero: torch.Tensor) -> torch.Tensor:
     """Arrival sums of a batch from its inverted incidence (``inv`` [B,

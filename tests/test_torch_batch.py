@@ -297,15 +297,24 @@ def test_unported_batch_arguments_raise():
     fb, sb = tc.stack_flows(flows, Q), tc.stack_flow_schedules(scheds, Q)
     # a regime is ported (item 10); the fused backend rejects it with a
     # NotImplementedError, as repro's UnsupportedFeature
-    for kw, item in ((dict(impair_params=tc.no_impairment(topo),
-                           backend="fused"), "fused backend"),
-                     (dict(devices=2), "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
-            tc.simulate_batch(topo, fb, "powertcp", cfg=cfg, device="cpu",
-                              **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            tc.simulate_slots_batch(topo, sb, "powertcp", SLOTS, cfg=cfg,
-                                    device="cpu", **kw)
+    kw = dict(impair_params=tc.no_impairment(topo), backend="fused")
+    with pytest.raises(NotImplementedError, match="fused backend"):
+        tc.simulate_batch(topo, fb, "powertcp", cfg=cfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="fused backend"):
+        tc.simulate_slots_batch(topo, sb, "powertcp", SLOTS, cfg=cfg,
+                                device="cpu", **kw)
+    # devices is ported (item 12): without a process group of several
+    # ranks it clamps to one device, as repro clamps to the devices present
+    short = cfg._replace(steps=8)
+    for run in (lambda **k: tc.simulate_batch(topo, fb, "powertcp",
+                                              cfg=short, record=False,
+                                              device="cpu", **k),
+                lambda **k: tc.simulate_slots_batch(topo, sb, "powertcp",
+                                                    SLOTS, cfg=short,
+                                                    record=False,
+                                                    device="cpu", **k)):
+        torch.testing.assert_close(run(devices=2)[0].w, run()[0].w,
+                                   rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="item 13"):
         tc.simulate_batch(topo, fb, "powertcp", cfg=cfg,
                           alloc_fn=lambda *a: None, device="cpu")

@@ -48,6 +48,9 @@ K4 on a chunk window (``win_off > 0``, C < N) against the plain block,
 chunk-streamed K4 runs bit for bit the unchunked run over
 ``CHUNK_GRID``, a crash resumed on K4 bit for bit, and a fault-tolerant
 megakernel sweep with no fallback and no failure;
+the sharded slot engine (``simulate_slots_sharded``) at one rank over
+NCCL and over two gloo ranks sharing the card, against K4 on the paper
+leaf-spine's impaired anchor;
 and the REDUCED qwen3-14b model on the
 card against the port on the CPU at the tight bar of
 ``tests/test_torch_lm.py``. Every test takes the ``cuda_device``
@@ -971,3 +974,66 @@ def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     return tree.numpy()
+
+
+# the sharded engine's card checks: the paper leaf-spine's impaired pass
+# (52 flows, 56 slots), its first SHARD_TICKS ticks
+SHARD_TICKS = 600
+SHARD_STATE = ("w", "rate_cap", "q", "out_rate", "remaining", "next_update",
+               "last_update", "hist_lam", "hist_q", "hist_out", "hist_w",
+               "law", "cursor", "fct", "pause", "hist_pause", "hist_inc")
+
+
+def _shard_run(device, group=None, law="powertcp"):
+    import repro_torch.core as tc
+    topo, sched, cfg, S, imp = sup.impair_paper_scenario(tc, device=device)
+    cfg = cfg._replace(steps=SHARD_TICKS)
+    lcfg = tc.default_law_config(tc.schedule_as_flows(sched),
+                                 expected_flows=8.0)
+    if group is False:
+        return tc.simulate_slots(topo, sched, law, S, lcfg, cfg,
+                                 backend="megakernel", impair=imp,
+                                 device=device)
+    return tc.simulate_slots_sharded(topo, sched, law, S, lcfg, cfg,
+                                     impair=imp, group=group, device=device)
+
+
+def _same_shard_run(got, want):
+    for f in SHARD_STATE:
+        for (n, g), (_, w) in zip(sup.tree_leaves(getattr(got[0], f), f),
+                                  sup.tree_leaves(getattr(want[0], f), f)):
+            torch.testing.assert_close(g, w.to(g.device), rtol=0, atol=0,
+                                       equal_nan=True, msg=n)
+    for f in got[1]._fields:
+        g, w = getattr(got[1], f), getattr(want[1], f)
+        torch.testing.assert_close(g, w.to(g.device, g.dtype), rtol=0,
+                                   atol=0, equal_nan=True, msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["powertcp", "backpressure", "pulser"])
+def test_sharded_one_rank_nccl_against_k4(cuda_device, law):
+    """World 1 over NCCL (the one-rank default group): every trajectory
+    leaf and record field K4's, one law per feedback channel."""
+    from repro_torch.core import shardcomm
+    group = shardcomm.current_group(cuda_device)
+    assert group.world == 1
+    _same_shard_run(_shard_run(cuda_device, group, law),
+                    _shard_run(cuda_device, False, law))
+
+
+def _card_rank(group):
+    from repro_torch.core.types import tree_map
+    st, rec = _shard_run(group.device, group)
+    return tree_map(lambda x: x.cpu(), st), tree_map(lambda x: x.cpu(), rec)
+
+
+@pytest.mark.cuda
+def test_sharded_two_gloo_ranks_on_the_card(cuda_device):
+    """Two gloo ranks on the one card (host-staged collectives): bit for
+    bit the one-rank run and K4."""
+    from repro_torch.core import shardcomm
+    got = shardcomm.spawn(_card_rank, 2, backend="gloo", device=cuda_device)
+    _same_shard_run(got, _shard_run(cuda_device,
+                                    shardcomm.current_group(cuda_device)))
+    _same_shard_run(got, _shard_run(cuda_device, False))

@@ -204,11 +204,17 @@ def test_unported_arguments_raise():
         tc.simulate_slots(topo, sched, "powertcp", 4,
                           impair=tc.no_impairment(topo), backend="fused",
                           device="cpu")
-    # chunk streaming and sweeps are ported (item 11); the sharded sweep
-    # (item 12) and allocators (item 13) are not
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tc.run_sweep(tc.SweepSpec(laws=["powertcp"], flows=[flows]), topo,
-                     cfg, devices=2, device="cpu")
+    # chunk streaming, sweeps (item 11) and the sharded sweep (item 12)
+    # are ported: without a process group of several ranks, devices=2
+    # clamps to one device, as repro clamps to the devices present
+    spec = tc.SweepSpec(laws=["powertcp"], flows=[flows])
+    assert tc.resolve_devices(2) == 1
+    one = tc.run_sweep(spec, topo, cfg, record=False, device="cpu")
+    two = tc.run_sweep(spec, topo, cfg, record=False, devices=2,
+                       device="cpu")
+    torch.testing.assert_close(two.states[0].fct, one.states[0].fct,
+                               rtol=0, atol=0, equal_nan=True)
+    # allocators (item 13) are not
     with pytest.raises(NotImplementedError, match="item 13"):
         tc.simulate(topo, flows, "powertcp", lcfg, cfg,
                     alloc_fn=lambda *a: None, device="cpu")

@@ -1,8 +1,8 @@
 """The port's fault taxonomy, crash injection and divergence guards, on
 the CPU.
 
-Mirrors ``tests/test_faults.py`` (the sharded seams belong to ROADMAP
-Queue 1 item 12):
+Mirrors ``tests/test_faults.py`` (its sharded seams are held in
+``test_torch_shard.py``):
 
 * the taxonomy: ``UnsupportedFeature`` at every declared rejection seam,
   with a hint, still a ``NotImplementedError``; ``is_transient`` (a CUDA

@@ -255,12 +255,24 @@ def test_topology_axis_and_misuse_guards():
 
 
 def test_sharded_forms_raise_naming_item_12():
+    """The sharded forms are ported (item 12): in one process ``devices``
+    clamps to one device, and ``shard_scenario=True`` runs each point
+    through the sharded slot engine; both are bit for bit the plain
+    sweep (over the grid's first 300 ticks). Over several ranks they are
+    held in ``test_torch_shard_mesh.py``."""
     tc = _tc()
     spec, topo, cfg = _grid(tc, 6, device="cpu")
+    cfg = cfg._replace(steps=300)
+    base = tc.run_sweep(spec, topo, cfg, record=False, device="cpu")
     for kw in (dict(devices="auto"), dict(devices=2),
                dict(shard_scenario=True)):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tc.run_sweep(spec, topo, cfg, device="cpu", **kw)
+        got = tc.run_sweep(spec, topo, cfg, record=False, device="cpu",
+                           **kw)
+        assert got.points == base.points
+        for k in base.states:
+            torch.testing.assert_close(got.states[k].fct,
+                                       base.states[k].fct, rtol=0, atol=0,
+                                       equal_nan=True)
 
 
 # -------------------------------------------------------------------------
