@@ -248,7 +248,7 @@ exit, traceback) if anything in it is wrong:
    ``torch.distributed`` collectives; no kernel of its own), every run
    bit for bit K4's: (1) at world 1 over NCCL (a one-rank group from a
    ``HashStore``) on 6f's impaired pass of the paper leaf-spine (52
-   flows, 56 slots), its first ``SHARD_PAPER_TICKS`` (1 000) of 3 000
+   flows, 56 slots), its first ``SHARD_PAPER_TICKS`` (500) of 3 000
    ticks: powertcp clean, and powertcp, backpressure and pulser under
    the mixed regime, each against K4's run of the same ticks (every
    trajectory leaf of the final state, every record field), the impaired
@@ -257,7 +257,7 @@ exit, traceback) if anything in it is wrong:
    k = 16 fat tree, 1 024 hosts and 5 120 queues, web-search at load 0.6
    plus 64 rotating incasts over 85 ms: 109 186 flows; 1 024 slots,
    chunk 2 048, the degraded-spine regime) over its first
-   ``SHARD16_TICKS`` (2 000) of 10 000 ticks at world 1, against K4's
+   ``SHARD16_TICKS`` (1 000) of 10 000 ticks at world 1, against K4's
    chunked run of the same ticks, with the wall per tick, the
    collectives per tick, ``comm_census``'s bytes, K4's device time and
    the sharded tick's device time and busy share over its first 200
@@ -269,6 +269,44 @@ exit, traceback) if anything in it is wrong:
    as a K4 sweep split over the two ranks (``run_sweep(devices=2)``),
    every point bit for bit 6g's unsharded sweep, with no fallback and no
    failure;
+6i. incast: Fig. 4, HOMA, the other generators and the outer sync
+   (``tests/golden/torch_port_fig4.json`` and
+   ``torch_port_generators.json``, made by ``repro`` on the CPU): (1)
+   ``fig4_incast.run``'s setup (the 64-host leaf-spine, ``incast_flows``
+   at fan-in 10 and 63 of 500 kB with the long-lived flow, 8 000 ticks,
+   ``update_period`` 2 us, ``hist`` 512, ``expected_flows`` 16), both
+   incasts as one batch of a slot per flow on K4 (a grid of two blocks,
+   125 launches and nothing else) for ``powertcp``, ``theta_powertcp``,
+   ``hpcc``, ``timely`` and ``dcqcn``: K4 bit for bit the plain tick over
+   the first 1 200 ticks (powertcp) or 3 launches (the others); every
+   FCT, the victim queue's depth and throughput traces within rtol 1e-5
+   of ``repro``'s padded ``simulate_batch``, ``_metrics``' four values
+   (the drain time within a tick) and ``claims_hold`` equal to its; K4's
+   device time (``torch.profiler``); (2) HOMA (``homa_alloc_fn`` over
+   ``reno``, overcommit 1, as ``common.run_law`` runs it) on the padded
+   reference engine: Fig. 4's 10:1 incast (padded to 64 flows), its first
+   2 000 of 8 000 ticks, and Fig. 6's web-search leg (the 64-host
+   leaf-spine, load 0.6, seed 1, 604 flows), its first 1 000 of 70 000
+   ticks, each held to ``repro``'s FCTs and queue traces of the same
+   ticks; the wall per tick, the tick's device time and busy share over
+   its first 200 ticks and the allocator's device time alone
+   (``torch.profiler``); (3) the paper-scale generators on K4 (powertcp,
+   the pool from ``suggest_slots``): ``permutation_traffic`` at load 0.6
+   over 12 ms and ``synthetic_incast_workload`` at 20 000 requests/s of
+   1 MB over 12 ms on the 256-host fabric (seed 1, 25 000 ticks), and
+   ``all_to_all_flows`` on the k = 4 fat tree (240 flows of 100 kB,
+   starts over 100 us, 4 000 ticks): ``repro``'s completion set, every
+   FCT within rtol 1e-5, the all-flow p99.9 within 1e-3, and the
+   short-flow (under 10 kB) p99.9 within 1e-3 on the permutation leg (the
+   other two legs have no flow under 10 kB: 62.5 kB responses, 100 kB);
+   K4's wall and device time per tick; (4) ``commsched``'s outer sync of
+   one qwen3-14b decoder layer at full width (330 311 936 float32
+   parameters in 11 leaves, window 2) at world 1 over NCCL and over two
+   gloo ranks on the one card (``shardcomm.spawn``, host-staged
+   gathers): every leaf of the new anchor, error feedback and momentum
+   bit for bit the one-process spelling
+   (``test_torch_support.outer_sync_spelled``), at most 2 gathers in
+   flight; wall seconds a sync and the bytes gathered;
 
 7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
    plain PyTorch versions at the serve run's shapes (K5: prefill q
@@ -332,13 +370,15 @@ the TPU form's main-path launches are 0; K4's entry carries each of its
 13 laws' phase-6c times under ``laws``, each Fig. 8 group's under
 ``fig8``, each feedback law's on each fat-tree leg under
 ``feedback``, each impaired run's of phase 6f under ``impair``,
-phase 6g's chunked runs under ``chunk`` and phase 6h's sharded runs,
-with the K4 runs they are held to, under ``shard``),
+phase 6g's chunked runs under ``chunk``, phase 6h's sharded runs,
+with the K4 runs they are held to, under ``shard``, and phase 6i's K4
+runs under ``incast``),
 the nvidia-smi line,
 and last ``{"ok": true, "device": {...}}``. It exits non-zero, printing
 no result, when CUDA is not available or the checkout's sources are
 missing.
 """
+import base64
 import json
 import os
 import subprocess
@@ -1275,11 +1315,21 @@ def ref_done_by(ref_fct, start, tau, dt, ticks, margin):
                 np.isfinite(t) & (np.abs(t - ticks) <= margin))
 
 
-def compare_fct(key, fct, ref_fct, sizes, ref_done=None, near=None):
+def fcts_of(lst):
+    """A golden's FCT list as float64, None (a flow not completed) as
+    NaN."""
+    return np.array([np.nan if x is None else x for x in lst], np.float64)
+
+
+def compare_fct(key, fct, ref_fct, sizes, ref_done=None, near=None,
+                rtol=None, all_p999=False):
     """A run's FCTs against the reference's: the same completion set (the
     reference's ``ref_done`` for a cut run, the flows ``near`` its cut
-    left out) and the short-flow p99.9 within 1e-3 over the flows both
-    complete."""
+    left out) and, over the flows both complete, the short-flow p99.9
+    within 1e-3 (where the run has short flows: ``short_p999_us`` is
+    None where it has none), with ``all_p999`` the all-flow p99.9 too,
+    and with ``rtol`` every FCT within it."""
+    fct = np.asarray(fct, np.float64)
     done = np.isfinite(fct)
     if ref_done is None:
         ref_done = np.isfinite(ref_fct)
@@ -1289,18 +1339,34 @@ def compare_fct(key, fct, ref_fct, sizes, ref_done=None, near=None):
                              f"reference ({done[keep].sum()} vs "
                              f"{ref_done[keep].sum()})")
     done = done & ref_done & keep
-    short = done & (sizes < 10e3)
-    p = float(np.percentile(fct[short], 99.9))
-    pr = float(np.percentile(ref_fct[short], 99.9))
-    rel = abs(p - pr) / max(pr, 1e-12)
-    if not rel < 1e-3:
-        raise AssertionError(f"run ({key}): short-flow p99.9 {p} vs "
-                             f"reference {pr} (rel err {rel})")
-    return dict(completed=int(done.sum()), n_flows=int(fct.size),
-                short_p999_us=p * 1e6, ref_short_p999_us=pr * 1e6,
-                p999_rel_err=rel,
-                fct_max_rel_err=float(np.max(np.abs(fct[done] - ref_fct[done])
-                                             / ref_fct[done])))
+    out = dict(completed=int(done.sum()), n_flows=int(fct.size),
+               short_p999_us=None, ref_short_p999_us=None, p999_rel_err=None,
+               fct_max_rel_err=(float(np.max(np.abs(fct[done] - ref_fct[done])
+                                             / ref_fct[done]))
+                                if done.any() else 0.0),
+               bitwise=bool(np.array_equal(fct[keep], ref_fct[keep],
+                                           equal_nan=True)))
+    if rtol is not None and not out["fct_max_rel_err"] <= rtol:
+        raise AssertionError(f"run ({key}): FCT rel err "
+                             f"{out['fct_max_rel_err']} against the "
+                             f"reference's")
+    sets = [("short", done & (sizes < 10e3))]
+    if all_p999:
+        sets.append(("all", done))
+    for name, sel in sets:
+        if not sel.any():
+            continue
+        p = float(np.percentile(fct[sel], 99.9))
+        pr = float(np.percentile(ref_fct[sel], 99.9))
+        rel = abs(p - pr) / max(pr, 1e-12)
+        if not rel < 1e-3:
+            raise AssertionError(f"run ({key}): {name}-flow p99.9 {p} vs "
+                                 f"reference {pr} (rel err {rel})")
+        out[f"{name}_p999_us"] = p * 1e6
+        out[f"ref_{name}_p999_us"] = pr * 1e6
+        out["p999_rel_err" if name == "short" else f"{name}_p999_rel_err"] \
+            = rel
+    return out
 
 
 def phase_main(torch, tc, kernels, sup, dev):
@@ -1317,8 +1383,7 @@ def phase_main(torch, tc, kernels, sup, dev):
         fct, summ, finals[key] = run_main(torch, tc, kernels, dev, ref, topo,
                                           sched, key, engine, law, backend,
                                           steps)
-        ref_fct = np.array([np.nan if x is None else x
-                            for x in ref["fct_s"][law]])
+        ref_fct = fcts_of(ref["fct_s"][law])
         ref_done, near = ref_done_by(ref_fct, start, tau, ref["dt_s"], steps,
                                      8 if backend == "fused" else 0)
         summ.update(compare_fct(key, fct, ref_fct, sizes, ref_done, near))
@@ -1911,8 +1976,7 @@ def phase_fig6(torch, tc, kernels, sup, dev, smi):
         for k, c in counts.items():
             launches[k] += c
         fct = st.fct[0, :n].double().cpu().numpy()
-        ref_fct = np.array([np.nan if x is None else x
-                            for x in ref["fct_s"][law]])
+        ref_fct = fcts_of(ref["fct_s"][law])
         summ = compare_fct(f"6c {law}", fct, ref_fct, sizes)
         stats[law] = sup.fig6_stats(fct.astype(np.float32), sizes)
         summ.update(run=f"6c {law}", law=law, wall_s=wall,
@@ -1947,8 +2011,7 @@ def phase_fig6(torch, tc, kernels, sup, dev, smi):
         for k, c in counts.items():
             launches[k] += c
         fct = st.fct[0, :n].double().cpu().numpy()
-        ref_fct = np.array([np.nan if x is None else x
-                            for x in fref["fct_s"][law]])
+        ref_fct = fcts_of(fref["fct_s"][law])
         summ = compare_fct(f"6c {law}", fct, ref_fct, sizes)
         fst = sup.fig6_stats(fct.astype(np.float32), sizes)
         summ.update(run=f"6c {law}", law=law, wall_s=wall,
@@ -2249,8 +2312,7 @@ def phase_feedback(torch, tc, kernels, sup, dev, smi):
                 launches[k] += c
             fct = st.fct[0, :n].double().cpu().numpy()
             want = ref["legs"][leg]["runs"][law]
-            ref_fct = np.array([np.nan if x is None else x
-                                for x in want["fct_s"]])
+            ref_fct = fcts_of(want["fct_s"])
             done = np.isfinite(fct)
             if not np.array_equal(done, np.isfinite(ref_fct)):
                 raise AssertionError(f"6e {leg} {law}: completion set "
@@ -2355,7 +2417,7 @@ def impair_fcts(key, fct, want, rtol=IMPAIR_RTOL):
     """A run's FCTs (schedule order) against ``repro``'s: the same
     completion set and every FCT within ``rtol``. Returns the largest
     relative error."""
-    ref_fct = np.array([np.nan if x is None else x for x in want])
+    ref_fct = fcts_of(want)
     done = np.isfinite(fct)
     if not np.array_equal(done, np.isfinite(ref_fct)):
         raise AssertionError(f"6f {key}: completion set differs from the "
@@ -2921,11 +2983,11 @@ def phase_fault(torch, tc, kernels, sup, dev, smi, main_final, impair_fct):
 # its first SHARD_PAPER_TICKS of 3 000 ticks
 SHARD_PAPER_RUNS = (("powertcp", False), ("powertcp", True),
                     ("backpressure", True), ("pulser", True))
-SHARD_PAPER_TICKS = 1000
+SHARD_PAPER_TICKS = 500
 # 6h.2: fabric_fct.smoke_fabric16's pool, chunk and tick horizon, of
 # which the first SHARD16_TICKS run
 SHARD16_SLOTS, SHARD16_CHUNK, SHARD16_STEPS = 1024, 2048, 10_000
-SHARD16_TICKS = 2000
+SHARD16_TICKS = 1000
 # ticks of the sharded fabric16 run profiled for its device time
 SHARD16_PROFILE_TICKS = 200
 # 6h.3: the two gloo ranks' run of 6h.1's impaired powertcp pass
@@ -3104,6 +3166,9 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
         if impaired:
             # the flows done by the cut: 6f's whole-run K4 FCTs
             done = torch.isfinite(sst.fct)
+            if not bool(done.any()):
+                raise AssertionError(f"6h.1 {tag}: no flow done by tick "
+                                     f"{pcfg.steps} to hold to 6f's FCTs")
             torch.testing.assert_close(
                 sst.fct[done], paper_fct[law].to(sst.fct.device)[done],
                 rtol=0, atol=0, msg=lambda m, t=tag: f"6h.1 {t} against "
@@ -3122,6 +3187,9 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
             + ("; those FCTs bitwise 6f's whole K4 run" if impaired
                else "")
             + f"; {smi}")
+
+    mark(f"[time] 6h.1 paper fabric, world 1: "
+         f"{time.perf_counter() - t0:.1f} s")
 
     # (2) the full-width headline: fabric16 at world 1 against chunked K4
     c0 = time.perf_counter()
@@ -3147,6 +3215,9 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
     row = stats_line(wall, cfg16.steps)
     same_state(torch, sup, sst, kst, "6h.2 fabric16 against K4")
     done = int(torch.isfinite(sst.fct).sum())
+    mark(f"[time] 6h.2 fabric16 build, K4 and sharded runs: "
+         f"{time.perf_counter() - c0:.1f} s")
+    c1 = time.perf_counter()
     # K4's device time (torch.profiler, one more pass), and the sharded
     # tick's device time and launches over its first
     # SHARD16_PROFILE_TICKS ticks
@@ -3177,6 +3248,8 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
                k4_launches=c["fused_tick_block"], k4_segments=segs,
                census=census, build_s=build_s)
     rows["powertcp@fabric16"] = row
+    mark(f"[time] 6h.2 fabric16 profiled passes: "
+         f"{time.perf_counter() - c1:.1f} s")
     log(f"[shard] (6h.2) fabric16: k = 16 fat tree ({ft.n_hosts} hosts, "
         f"{Q16} queues), {n16} flows, {SHARD16_SLOTS} slots, chunk "
         f"{SHARD16_CHUNK}, degraded spine, first {cfg16.steps} of "
@@ -3199,6 +3272,7 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
     run, sweep = shardcomm.spawn(shard_rank, 2, (SHARD_SPAWN_TICKS, ef),
                                  backend="gloo", device=dev)
     spawn_s = time.perf_counter() - c0
+    mark(f"[time] 6h.3 two gloo ranks, spawned: {spawn_s:.1f} s")
     st2, rec2 = run["state"], run["rec"]
     ccfg = pcfg._replace(steps=SHARD_SPAWN_TICKS)
     (kst, krec), _, c = timed_run(
@@ -3255,6 +3329,375 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
     torch.distributed.destroy_process_group()
     log("[shard] " + json.dumps({"shard": rows}))
     log(f"[shard] phase 6h: {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
+# -------------------------------------------------------------------------
+# phase 6i: Fig. 4's incast, HOMA, the paper-scale generators, outer sync
+# -------------------------------------------------------------------------
+
+# 6i.1: K4 held to the plain tick over the first FIG4_PLAIN_TICKS ticks
+# for powertcp, over its first FIG4_PLAIN_LAUNCHES launches for the other
+# four laws; the whole runs held to repro's at FIG4_RTOL
+FIG4_PLAIN_TICKS = 1200
+FIG4_PLAIN_LAUNCHES = 3
+FIG4_RTOL = 1e-5
+# 6i.2: the ticks of Fig. 6's HOMA leg run under torch.profiler, and the
+# allocator's calls profiled alone
+HOMA_PROFILE_TICKS = 200
+# 6i.3: the generators' FCTs against repro's
+GEN_RTOL = 1e-5
+# 6i.4: the outer sync's in-flight bound and the trees' seeds
+OUTER_WINDOW = 2
+OUTER_SEEDS = (101, 102, 103, 104)
+
+
+def b64_f32(s):
+    return np.frombuffer(base64.b64decode(s), np.float32)
+
+
+def hold_trace(key, got, want, rtol, atol):
+    """A trace within ``atol + rtol * |want|`` of the reference's. Returns
+    (the largest error relative to max(|want|, 1), bit for bit)."""
+    got = np.asarray(got, np.float64).ravel()
+    want = np.asarray(want, np.float64).ravel()
+    if got.shape != want.shape:
+        raise AssertionError(f"{key}: {got.shape} against {want.shape}")
+    err = np.abs(got - want)
+    if not (err <= atol + rtol * np.abs(want)).all():
+        i = int(np.argmax(err - rtol * np.abs(want)))
+        raise AssertionError(f"{key}: {got[i]!r} against {want[i]!r} at {i}")
+    return (float(np.max(err / np.maximum(np.abs(want), 1.0)))
+            if err.size else 0.0, bool(np.array_equal(got, want)))
+
+
+def fct_checksum(sup, flows):
+    return sup.schedule_checksum(flows.size.cpu().numpy(),
+                                 flows.start.cpu().numpy())
+
+
+def phase_incast(torch, tc, kernels, sup, dev, smi):
+    """Phase 6i (see the module docstring). Returns (launches, rows)."""
+    with open(sup.FIG4_REF) as f:
+        ref = json.load(f)
+    with open(sup.GENERATORS_REF) as f:
+        gref = json.load(f)
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    rows = {}
+
+    def count(c):
+        for k, n in c.items():
+            launches[k] += n
+
+    # (1) Fig. 4: both incasts as one batch on K4, five laws
+    c0 = time.perf_counter()
+    fab, topo, flows, bq, cfg = sup.fig4_scenario(tc, device=dev)
+    sc = ref["scenario"]
+    got = [bq, cfg.steps] + [fct_checksum(sup, f) for f in flows]
+    want = [sc["bq"], sc["steps"]] + [sc[f"checksum_{fan}"]
+                                      for fan in sup.FIG4_FANS]
+    if got != want:
+        raise AssertionError(f"6i.1: the port's scenario {got[:2]} differs "
+                             f"from the reference's {want[:2]}")
+    sb = tc.stack_flow_schedules([tc.make_schedule(f) for f in flows],
+                                 topo.num_queues)
+    S = int(sb.start.shape[-1])
+    ef = sup.FIG4_EXPECTED_FLOWS
+    err = 0.0
+    for law in sup.FIG4_LAWS:
+        ticks = (FIG4_PLAIN_TICKS if law == "powertcp"
+                 else FIG4_PLAIN_LAUNCHES * 64)
+        err = max(err, sup.k4_grid_against_plain(
+            tc, topo, sb, cfg._replace(steps=ticks), law, S, (64,),
+            expected_flows=ef))
+        log(f"[incast] (6i.1) {law}: K4 (B=2, S={S}) bitwise equal to the "
+            f"plain tick over the first {ticks} ticks")
+    mark(f"[time] 6i.1 K4 against the plain tick: "
+         f"{time.perf_counter() - c0:.1f} s")
+    c0 = time.perf_counter()
+    bdp = sup.fig4_bdp(fab)
+    res = {fan: {} for fan in sup.FIG4_FANS}
+    for law in sup.FIG4_LAWS:
+        (st, rec), wall, c = timed_run(
+            torch, kernels, f"6i.1 {law}",
+            expected_launches(law, "megakernel", cfg.steps),
+            lambda law=law: tc.simulate_slots_batch(
+                topo, sb, law, S, cfg=cfg, backend="megakernel",
+                expected_flows=ef, device=dev))
+        count(c)
+        row = dict(wall_s=wall, us_per_tick=wall / cfg.steps * 1e6,
+                   launches=c["fused_tick_block"])
+        for i, (fan, fl) in enumerate(zip(sup.FIG4_FANS, flows)):
+            leg = ref["laws"][law][str(fan)]
+            key = f"6i.1 {law} {fan}:1"
+            fct = st.fct[i].cpu().numpy()
+            q = rec.q[i, :, bq].cpu().numpy()
+            th = rec.thru[i, :, bq].cpu().numpy()
+            h = compare_fct(key, fct, fcts_of(leg["fct_s"]),
+                            sb.size[i].cpu().numpy(), rtol=FIG4_RTOL)
+            done, frel, fbit = (h["completed"], h["fct_max_rel_err"],
+                                h["bitwise"])
+            qrel, qbit = hold_trace(key + " q", q, b64_f32(leg["q"]),
+                                    FIG4_RTOL, 0.5)
+            trel, tbit = hold_trace(key + " thru", th, b64_f32(leg["thru"]),
+                                    FIG4_RTOL, 0.5)
+            m = sup.fig4_metrics(fl.size.cpu().numpy(), fct, q,
+                                 th / fab.host_bw, cfg.steps, cfg.dt, bdp)
+            for k, v in m.items():
+                w = leg["metrics"][k]
+                # a drain time is whole ticks: one tick of slack
+                tol = cfg.dt * 1e6 if k == "drain_us" else \
+                    FIG4_RTOL * abs(w) + 1e-9
+                if not abs(v - w) <= tol:
+                    raise AssertionError(f"{key} {k}: {v!r} against the "
+                                         f"reference's {w!r}")
+            res[fan][law] = m
+            row[f"{fan}to1"] = dict(completed=done, fct_max_rel_err=frel,
+                                    q_max_rel_err=qrel,
+                                    thru_max_rel_err=trel,
+                                    bitwise=fbit and qbit and tbit, **m)
+            log(f"[incast] (6i.1) {law} {fan}:1 on K4 ({cfg.steps} ticks): "
+                f"{done} responses done (the reference's set), FCT rel err "
+                f"{frel!r}, victim queue q / thru rel err {qrel!r} / "
+                f"{trel!r} (bitwise {fbit and qbit and tbit}); peak "
+                f"{m['peak_q_MB']!r} MB, end {m['end_q_KB']!r} KB, drain "
+                f"{m['drain_us']!r} us, dip {m['dip_after']!r}")
+        rows[f"{law}@fig4"] = row
+        log(f"[incast] (6i.1) {law}: wall {wall:.3f} s for both incasts, "
+            f"{row['us_per_tick']:.2f} us/tick, {row['launches']} K4 "
+            f"launches; {smi}")
+    claims = sup.fig4_claims(res[10], res[63], fab)
+    if claims != ref["claims_hold"]:
+        raise AssertionError(f"6i.1: claims_hold {claims}, the reference's "
+                             f"{ref['claims_hold']}")
+    k4_us = k4_device_us(torch, lambda: tc.simulate_slots_batch(
+        topo, sb, "powertcp", S, cfg=cfg, record=False,
+        backend="megakernel", expected_flows=ef, device=dev))
+    rows["powertcp@fig4"]["k4_device_us_per_tick"] = (
+        None if k4_us is None else k4_us / cfg.steps)
+    log(f"[incast] (6i.1) fig4_incast claims_hold {claims} (the "
+        f"reference's); K4 device {rows['powertcp@fig4']['k4_device_us_per_tick']!r} "
+        f"us/tick for both incasts (powertcp, torch.profiler); {smi}")
+    mark(f"[time] 6i.1 Fig. 4 runs: {time.perf_counter() - c0:.1f} s")
+
+    # (2) HOMA on the padded engine (the reference backend)
+    c0 = time.perf_counter()
+    hfab, htopo, hflows, hbq, hcfg = sup.fig4_scenario(
+        tc, steps=sup.HOMA_FIG4_STEPS, device=dev)
+    n = max(int(f.tau.shape[0]) for f in hflows)
+    hfl, halloc, hlcfg = sup.homa_run_args(tc, hfab, hflows[0], pad_to=n,
+                                           expected_flows=16.0)
+    (st, rec), wall, _ = timed_run(
+        torch, kernels, "6i.2 HOMA fig4", {},
+        lambda: tc.simulate(htopo, hfl, "reno", hlcfg, hcfg,
+                            alloc_fn=halloc, device=dev))
+    href = ref["homa"]["fig4_10"]
+    h = compare_fct("6i.2 fig4 10:1", st.fct.cpu().numpy(),
+                    fcts_of(href["fct_s"]), hfl.size.cpu().numpy(),
+                    rtol=FIG4_RTOL)
+    done, frel, fbit = h["completed"], h["fct_max_rel_err"], h["bitwise"]
+    qrel, qbit = hold_trace("6i.2 fig4 10:1 q", rec.q[:, hbq].cpu().numpy(),
+                            b64_f32(href["q"]), FIG4_RTOL, 0.5)
+    trel, tbit = hold_trace("6i.2 fig4 10:1 thru",
+                            rec.thru[:, hbq].cpu().numpy(),
+                            b64_f32(href["thru"]), FIG4_RTOL, 0.5)
+    rows["homa@fig4"] = dict(wall_s=wall, ticks=hcfg.steps,
+                             us_per_tick=wall / hcfg.steps * 1e6,
+                             flows=n, completed=done, fct_max_rel_err=frel,
+                             q_max_rel_err=qrel,
+                             bitwise=fbit and qbit and tbit)
+    log(f"[incast] (6i.2) HOMA (reno + receiver grants, overcommit 1) on "
+        f"Fig. 4's 10:1 incast, padded reference, {n} flows, first "
+        f"{hcfg.steps} of {sup.FIG4_STEPS} ticks: wall {wall:.3f} s, "
+        f"{rows['homa@fig4']['us_per_tick']:.2f} us/tick; {done} responses "
+        f"done (the reference's set), FCT rel err {frel!r}, victim q / "
+        f"thru rel err {qrel!r} / {trel!r} (bitwise "
+        f"{fbit and qbit and tbit}); {smi}")
+    wfab, wtopo, wflows, wcfg = sup.homa_ws_scenario(tc, device=dev)
+    wref = ref["homa"]["ws"]
+    if fct_checksum(sup, wflows) != wref["checksum"]:
+        raise AssertionError("6i.2: the web-search leg differs from the "
+                             "reference's")
+    wfl, walloc, wlcfg = sup.homa_run_args(tc, wfab, wflows)
+    (st, rec), wall, _ = timed_run(
+        torch, kernels, "6i.2 HOMA web-search", {},
+        lambda: tc.simulate(wtopo, wfl, "reno", wlcfg, wcfg,
+                            alloc_fn=walloc, device=dev))
+    h = compare_fct("6i.2 web-search", st.fct.cpu().numpy(),
+                    fcts_of(wref["fct_s"]), wfl.size.cpu().numpy(),
+                    rtol=FIG4_RTOL)
+    done, frel, fbit = h["completed"], h["fct_max_rel_err"], h["bitwise"]
+    qrel, qbit = hold_trace("6i.2 web-search q", rec.q.cpu().numpy(),
+                            b64_f32(wref["q"]), FIG4_RTOL, 0.5)
+    F = int(wfl.tau.shape[0])
+    from torch.profiler import ProfilerActivity, profile
+    pcfg = wcfg._replace(steps=HOMA_PROFILE_TICKS)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tc.simulate(wtopo, wfl, "reno", wlcfg, pcfg, alloc_fn=walloc,
+                    record=False, device=dev)
+        torch.cuda.synchronize()
+    devs = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    tick_us = sum(_self_device_us(e) for e in devs) / HOMA_PROFILE_TICKS
+    tick_launches = sum(e.count for e in devs) / HOMA_PROFILE_TICKS
+    # the allocator alone, on the run's final state
+    t_sec = float(np.float32(wcfg.steps) * np.float32(wcfg.dt))
+    active = ((wfl.start <= t_sec) & (st.remaining > 0.0)
+              & (t_sec < wfl.stop))
+    walloc(st.remaining, active, t_sec, wfl, st.rate_cap)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(HOMA_PROFILE_TICKS):
+            walloc(st.remaining, active, t_sec, wfl, st.rate_cap)
+        torch.cuda.synchronize()
+    adevs = [e for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    alloc_us = sum(_self_device_us(e) for e in adevs) / HOMA_PROFILE_TICKS
+    rows["homa@ws"] = dict(
+        wall_s=wall, ticks=wcfg.steps, flows=F,
+        us_per_tick=wall / wcfg.steps * 1e6, completed=done,
+        fct_max_rel_err=frel, q_max_rel_err=qrel, bitwise=fbit and qbit,
+        device_us_per_tick=tick_us, device_launches_per_tick=tick_launches,
+        busy_share=tick_us / (wall / wcfg.steps * 1e6),
+        alloc_device_us=alloc_us,
+        alloc_launches=sum(e.count for e in adevs) / HOMA_PROFILE_TICKS,
+        alloc_device_share=alloc_us / tick_us if tick_us else None)
+    r = rows["homa@ws"]
+    log(f"[incast] (6i.2) HOMA on Fig. 6's web-search leg (64 hosts, load "
+        f"0.6, seed 1, {F} flows), padded reference, first {wcfg.steps} of "
+        f"{int((sup.HOMA_WS_DURATION + 0.04) / wcfg.dt)} ticks: wall "
+        f"{wall:.3f} s, {r['us_per_tick']:.2f} us/tick; {done} flows done "
+        f"(the reference's set), FCT rel err {frel!r}, q rel err {qrel!r} "
+        f"(bitwise {fbit and qbit}); first {HOMA_PROFILE_TICKS} ticks "
+        f"profiled: device {tick_us:.2f} us/tick, {tick_launches:.1f} "
+        f"launches/tick, busy share {r['busy_share']!r}; the allocator "
+        f"alone {alloc_us:.2f} us a call ({r['alloc_launches']:.1f} "
+        f"launches), {r['alloc_device_share']!r} of the tick's device "
+        f"time; {smi}")
+    mark(f"[time] 6i.2 HOMA: {time.perf_counter() - c0:.1f} s")
+
+    # (3) the paper-scale generators on K4
+    c0 = time.perf_counter()
+    for leg in sup.GEN_LEGS:
+        b0 = time.perf_counter()
+        gtopo, gsched, gcfg, slots = sup.generator_scenario(tc, leg,
+                                                            device=dev)
+        build_s = time.perf_counter() - b0
+        r = gref[leg]
+        N = int(gsched.start.shape[0])
+        got = (fct_checksum(sup, gsched), slots, gcfg.steps, N)
+        if got != (r["checksum"], r["slots"], r["steps"], r["n_flows"]):
+            raise AssertionError(f"6i.3 {leg}: the port's scenario "
+                                 f"{got[1:]} differs from the reference's")
+        lcfg = tc.default_law_config(tc.schedule_as_flows(gsched),
+                                     expected_flows=sup.GEN_EXPECTED_FLOWS)
+
+        def run(cfg_=gcfg, gtopo=gtopo, gsched=gsched, slots=slots,
+                lcfg=lcfg):
+            return tc.simulate_slots(gtopo, gsched, sup.GEN_LAW, slots,
+                                     lcfg, cfg_, record=False,
+                                     backend="megakernel", device=dev)
+        (st, _), wall, c = timed_run(
+            torch, kernels, f"6i.3 {leg}",
+            expected_launches(sup.GEN_LAW, "megakernel", gcfg.steps), run)
+        count(c)
+        h = compare_fct(f"6i.3 {leg}", st.fct.cpu().numpy(),
+                        fcts_of(r["fct_s"]), gsched.size.cpu().numpy(),
+                        rtol=GEN_RTOL, all_p999=True)
+        done, frel, fbit = h["completed"], h["fct_max_rel_err"], h["bitwise"]
+        k4_us = k4_device_us(torch, run)
+        rows[f"{sup.GEN_LAW}@{leg}"] = dict(
+            flows=N, slots=slots, ticks=gcfg.steps, wall_s=wall,
+            us_per_tick=wall / gcfg.steps * 1e6,
+            k4_device_us_per_tick=(None if k4_us is None
+                                   else k4_us / gcfg.steps),
+            launches=c["fused_tick_block"], completed=done,
+            fct_max_rel_err=frel, bitwise=fbit,
+            short_p999_us=h["short_p999_us"], all_p999_us=h["all_p999_us"],
+            build_s=build_s)
+        log(f"[incast] (6i.3) {leg}: {N} flows, {slots} slots, "
+            f"{gcfg.steps} ticks on K4 ({c['fused_tick_block']} launches, "
+            f"scenario built in {build_s:.1f} s): wall {wall:.3f} s, "
+            f"{wall / gcfg.steps * 1e6:.2f} us/tick, K4 device "
+            f"{rows[f'{sup.GEN_LAW}@{leg}']['k4_device_us_per_tick']!r} "
+            f"us/tick; {done} done (the reference's set), FCT rel err "
+            f"{frel!r} (bitwise {fbit}), short p99.9 {h['short_p999_us']!r} "
+            f"us (None: no flow under 10 kB), all p99.9 "
+            f"{h['all_p999_us']!r} us (each within 1e-3 of the "
+            f"reference's); {smi}")
+    mark(f"[time] 6i.3 generators: {time.perf_counter() - c0:.1f} s")
+
+    # (4) the outer sync of one qwen3-14b decoder layer
+    c0 = time.perf_counter()
+    from repro_torch.commsched import make_outer_sync
+    from repro_torch.core import shardcomm
+    shapes = sup.qwen3_layer_shapes()
+    group = shardcomm.one_rank_group(dev)
+    if group.backend != "nccl" or group.world != 1:
+        raise AssertionError(f"6i.4: expected a one-rank NCCL group, got "
+                             f"{group}")
+    s = OUTER_SEEDS
+    anchor = sup.outer_tree(shapes, s[0], device=dev)
+    mom = sup.outer_tree(shapes, s[1], scale=0.01, device=dev)
+    local = sup.outer_tree(shapes, s[2], scale=0.1, device=dev)
+    efb = sup.outer_tree(shapes, s[3], scale=1e-3, device=dev)
+    leaves = sup.sorted_leaves(anchor)
+    nparam = sum(int(x.numel()) for x in leaves)
+    sync = make_outer_sync(group, window=OUTER_WINDOW)
+    walls = []
+    for _ in range(2):          # the first call also starts NCCL
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        out = sync(anchor, local, efb, mom)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - w0)
+    stats = dict(sync.stats)
+    got = sup.sorted_leaves(out[0]) + sup.sorted_leaves(out[1]) + sup.sorted_leaves(out[2])
+    del out
+    wa, we, wm = sup.outer_sync_spelled(anchor, [local], [efb], mom)
+    for i, (g, w) in enumerate(zip(got, wa + we[0] + wm)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"6i.4 world 1: leaf {i} differs from the "
+                                 f"one-process spelling")
+    if stats["gathers"] != len(leaves) or \
+            stats["max_in_flight"] != OUTER_WINDOW:
+        raise AssertionError(f"6i.4 world 1: {stats}")
+    del got, wa, we, wm, anchor, mom, local, efb
+    torch.distributed.destroy_process_group()
+    free_memory(torch)
+    rows["outer_sync@world1-nccl"] = dict(
+        params=nparam, leaves=len(leaves), window=OUTER_WINDOW,
+        wall_s=walls[1], first_wall_s=walls[0], bytes=stats["bytes"],
+        max_in_flight=stats["max_in_flight"])
+    log(f"[incast] (6i.4) outer sync of one qwen3-14b decoder layer "
+        f"({nparam} float32 params, {len(leaves)} leaves, window "
+        f"{OUTER_WINDOW}) at world 1 over NCCL: {walls[1]:.3f} s a sync "
+        f"(first {walls[0]:.3f} s), {stats['bytes']} bytes gathered, at "
+        f"most {stats['max_in_flight']} gathers in flight; every leaf of "
+        f"the anchor, error feedback and momentum bitwise the one-process "
+        f"spelling; {smi}")
+    w0 = time.perf_counter()
+    two = shardcomm.spawn(sup.outer_sync_rank, 2,
+                          (shapes, OUTER_WINDOW, OUTER_SEEDS),
+                          backend="gloo", device=dev)
+    spawn_s = time.perf_counter() - w0
+    if two["bad"] != [0, 0] or two["leaves"] != len(leaves) \
+            or two["gathers"] != [len(leaves)] * 2 \
+            or two["max_in_flight"] != [OUTER_WINDOW] * 2:
+        raise AssertionError(f"6i.4 two gloo ranks: {two}")
+    rows["outer_sync@2ranks-gloo"] = dict(
+        params=nparam, leaves=len(leaves), window=OUTER_WINDOW,
+        wall_s=two["wall_s"], bytes=two["bytes"], spawn_s=spawn_s)
+    log(f"[incast] (6i.4) two gloo ranks on the card (host-staged "
+        f"gathers): {two['wall_s']:.3f} s a sync on rank 0, "
+        f"{two['bytes']} bytes gathered a rank, at most "
+        f"{OUTER_WINDOW} gathers in flight on each rank; each rank's "
+        f"result bitwise the spelling over both pods (spawn and both "
+        f"ranks' work {spawn_s:.1f} s); {smi}")
+    mark(f"[time] 6i.4 outer sync: {time.perf_counter() - c0:.1f} s")
+    log("[incast] " + json.dumps({"incast": rows}))
+    log(f"[incast] phase 6i: {time.perf_counter() - t0:.1f} s")
     return launches, rows
 
 
@@ -3694,6 +4137,15 @@ def main():
         launches[k] += n
     rows["fused_tick_block"]["shard"] = shard_rows
     mark(f"[time] + shard: {time.perf_counter() - t0:.1f} s")
+    incast_launches, incast_rows = phase_incast(torch, tc, kernels, sup, dev,
+                                                smi)
+    for k, n in incast_launches.items():
+        launches[k] += n
+    # K4's runs (HOMA and the outer sync run no kernel: their rows are in
+    # the [incast] line)
+    rows["fused_tick_block"]["incast"] = {
+        k: v for k, v in incast_rows.items() if "launches" in v}
+    mark(f"[time] + incast: {time.perf_counter() - t0:.1f} s")
     if profile:
         phase_profile(torch, tc, sup, dev, summaries)
         phase_profile_smoke(torch, tc, sup, dev, smoke_summ)

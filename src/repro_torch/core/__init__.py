@@ -1,7 +1,8 @@
 """PowerTCP core on PyTorch: control laws, power computation, fluid-model
 simulator, per-link impairments, chunk-streamed runs with checkpoints,
-guards and injected faults, sweeps, the sharded single-scenario engine and
-the ODE analysis (the ported subset of ``repro.core``)."""
+guards and injected faults, sweeps, the sharded single-scenario engine,
+the traffic generators with the HOMA allocator, and the ODE analysis
+(the ported subset of ``repro.core``)."""
 from .types import (CheckpointSpec, Flows, FlowSchedule, PathObs, Record,
                     SimConfig,
                     SimState, SlotState, Topology, GBPS, KB, MB, MTU, US,
@@ -41,9 +42,12 @@ from .network import (LeafSpine, make_flows_single, make_schedule,
 from .fabric import (CompiledPaths, Fabric, FabricBuilder, FabricRoutes,
                      compile_routes, ecmp_hash, fat_tree, leaf_spine_fabric,
                      single_bottleneck_fabric)
-from .workload import (WEBSEARCH_CDF, incast_burst, peak_concurrency,
-                       poisson_websearch, poisson_websearch_schedule,
-                       suggest_slots, websearch_mean, websearch_sample)
+from .workload import (WEBSEARCH_CDF, all_to_all_flows, homa_alloc_fn,
+                       incast_burst, incast_flows, peak_concurrency,
+                       permutation_traffic, poisson_websearch,
+                       poisson_websearch_schedule, suggest_slots,
+                       synthetic_incast_workload, websearch_mean,
+                       websearch_sample)
 from .shardcomm import ShardGroup
 from .shardslots import (ShardInfo, comm_census, shard_geometry,
                          simulate_slots_sharded)
@@ -84,9 +88,10 @@ __all__ = [
     "CompiledPaths", "Fabric", "FabricBuilder", "FabricRoutes",
     "compile_routes", "ecmp_hash", "fat_tree", "leaf_spine_fabric",
     "single_bottleneck_fabric",
-    "WEBSEARCH_CDF", "incast_burst", "peak_concurrency", "poisson_websearch",
-    "poisson_websearch_schedule", "suggest_slots", "websearch_mean",
-    "websearch_sample",
+    "WEBSEARCH_CDF", "all_to_all_flows", "homa_alloc_fn", "incast_burst",
+    "incast_flows", "peak_concurrency", "permutation_traffic",
+    "poisson_websearch", "poisson_websearch_schedule", "suggest_slots",
+    "synthetic_incast_workload", "websearch_mean", "websearch_sample",
     "ShardGroup", "ShardInfo", "comm_census", "shard_geometry",
     "simulate_slots_sharded",
     "FALLBACK_CHAIN", "PointFailure", "SweepPoint", "SweepResult",

@@ -90,8 +90,12 @@ where checkpoints are written (``core/ckpt.py``, ``resume_slots``), the
 divergence guard runs (``core/guard.py``) and injected crashes fire
 (``core/faults.py``).
 
-Not ported yet (raises ``NotImplementedError`` naming the ROADMAP item
-that brings it): allocators (``alloc_fn``).
+Allocators: ``alloc_fn(remaining, active, t_sec, flows, rate_cap)`` on the
+padded engine (``simulate``, ``simulate_batch``; every padded backend)
+replaces the rate caps for the next tick, after the law update and the
+window clip and before flow progress, as in ``repro``
+(``workload.homa_alloc_fn``, the paper's HOMA baseline). The slot path
+rejects it (``ValueError``), as ``repro`` does.
 """
 from __future__ import annotations
 
@@ -115,12 +119,6 @@ from .types import (MTU, CheckpointSpec, Flows, FlowSchedule, PathObs,
                     scenario, stack_trees, tree_map)
 
 _INT32_MAX = np.iinfo(np.int32).max
-
-
-def _unported(what: str, item: int):
-    raise NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, Queue 1 item "
-        f"{item})")
 
 
 def _check_impair(impair, bw_fn, backend: str):
@@ -665,9 +663,9 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
     state, Record or None). The ring buffers of ``state`` are updated in
     place and shared with the new state. ``bw_fn`` gives the tick's
     service rates (``_bandwidth``), unless ``sim.impair`` holds a regime,
-    which also gives the tick's loss and jitter (``impair_vectors``)."""
-    if alloc_fn is not None:
-        _unported("alloc_fn", 13)
+    which also gives the tick's loss and jitter (``impair_vectors``).
+    ``alloc_fn`` replaces the rate caps after the law update, before flow
+    progress."""
     topo, flows, cfg, static = sim.topo, sim.flows, sim.cfg, sim.static
     law_cfg = sim.law_cfg
     D, dt = cfg.hist, cfg.dt
@@ -730,6 +728,8 @@ def step(sim: FluidSim, state: SimState, bw_fn=None, alloc_fn=None,
             last_update=state.last_update, law_cfg=law_cfg,
             started=started, hist_pause=state.hist_pause,
             hist_inc=state.hist_inc, jit_hop=jit_hop))
+    if alloc_fn is not None:
+        rate_cap = alloc_fn(state.remaining, active, t_sec, flows, rate_cap)
 
     # -- flow progress (under loss, the goodput is the surviving share) ----
     remaining = torch.where(active,
@@ -785,7 +785,8 @@ def _live_gather_step(sim: FluidSim):
     table is as wide as the busiest queue's live flows instead of all the
     flows that ever cross it. A rebuild reads back which flows have
     stopped; a flow first seen stopped at tick t is dropped after tick
-    t + its hold. Returns ``step_fn(sim, state, bw_fn, record)``."""
+    t + its hold. Returns ``step_fn(sim, state, bw_fn, record,
+    alloc_fn)``."""
     flows, cfg, Q = sim.flows, sim.cfg, sim.topo.num_queues
     start = flows.start.cpu().numpy().astype(np.float32)
     stop = flows.stop.cpu().numpy().astype(np.float32)
@@ -795,7 +796,7 @@ def _live_gather_step(sim: FluidSim):
     gone = np.full(start.shape, never, np.int64)
     last = {"started": -1, "inv": None}
 
-    def step_fn(sim_, state, bw_fn=None, record=True):
+    def step_fn(sim_, state, bw_fn=None, record=True, alloc_fn=None):
         t = state.t
         t32 = np.float32(_tick_time(t, cfg.dt))
         started = start <= t32
@@ -807,13 +808,14 @@ def _live_gather_step(sim: FluidSim):
                                    device=flows.path.device)
             last.update(started=n, inv=_resident_gather(live, flows.path, Q))
         return step(sim_._replace(inv=last["inv"]), state, bw_fn=bw_fn,
-                    record=record)
+                    record=record, alloc_fn=alloc_fn)
 
     return step_fn
 
 
-def _run(sim, state, step_fn, record: bool, bw_fn=None):
-    """The tick loop: ``cfg.steps`` ticks of ``step_fn`` (with ``bw_fn``),
+def _run(sim, state, step_fn, record: bool, bw_fn=None, alloc_fn=None):
+    """The tick loop: ``cfg.steps`` ticks of ``step_fn`` (with ``bw_fn``
+    and ``alloc_fn``),
     honouring ``cfg.record_every`` (one record per chunk of k ticks, the
     chunk's last tick; steps must divide by k). Returns (final state,
     stacked Record or None); the records are [B, T, ...], as ``repro``'s
@@ -826,7 +828,8 @@ def _run(sim, state, step_fn, record: bool, bw_fn=None):
     recs = []
     for i in range(cfg.steps):
         keep = record and (i + 1) % k == 0
-        state, rec = step_fn(sim, state, bw_fn=bw_fn, record=keep)
+        state, rec = step_fn(sim, state, bw_fn=bw_fn, record=keep,
+                             alloc_fn=alloc_fn)
         if keep:
             recs.append(rec)
     if not record:
@@ -1994,19 +1997,20 @@ def simulate_batch(topo: Topology, flows: Flows, law_name: Union[str, Law],
     Without a process group it resolves to one device, as ``repro``
     clamps to the devices present.
 
-    ``alloc_fn`` (ROADMAP Queue 1 item 13) raises
-    ``NotImplementedError``. Returns (final_states, records) with a
-    leading batch axis.
+    ``alloc_fn`` (``workload.homa_alloc_fn``) replaces every scenario's
+    rate caps once a tick, after the law update; it sees the batch's
+    [B, F] leaves, and on a batch split over ranks its rank's part (an
+    allocator whose receivers are [B, F] needs the batch whole; one
+    sharing [F] receivers, as ``repro``'s under ``vmap``, takes any
+    split). Returns (final_states, records) with a leading batch axis.
     """
-    if alloc_fn is not None:
-        _unported("alloc_fn", 13)
     dev = resolve_device(device)
     n = resolve_devices(devices)
     if n > 1:
         return _shard_batch(
             lambda f, lc, bp, ip: simulate_batch(
                 topo, f, law_name, lc, cfg, bw_fn=bw_fn, bw_params=bp,
-                record=record, backend=backend,
+                alloc_fn=alloc_fn, record=record, backend=backend,
                 expected_flows=expected_flows, impair_params=ip,
                 device=dev),
             flows, law_cfg, bw_params, impair_params,
@@ -2031,7 +2035,7 @@ def simulate_batch(topo: Topology, flows: Flows, law_name: Union[str, Law],
         state = init_state(sim)
         audit_carry_dtypes(state)
         return _run(sim, state, step if backend == "fused"
-                    else _live_gather_step(sim), record, bfn)
+                    else _live_gather_step(sim), record, bfn, alloc_fn)
 
 
 def simulate_slots_batch(topo: Topology, scheds: FlowSchedule,

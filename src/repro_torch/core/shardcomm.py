@@ -102,18 +102,29 @@ class ShardGroup:
         dist.all_to_all_single(out, src, group=self.pg)
         return out.to(dev).to(dtype)
 
-    def all_gather(self, x: torch.Tensor, tiled: bool = False
-                   ) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, tiled: bool = False,
+                   async_op: bool = False):
+        """Every rank's ``x`` as [world, ...] rows (``tiled``: the rows
+        concatenated along dim 0). With ``async_op`` the gather is only
+        issued, and the call returns a function that waits for it and
+        gives the result."""
         dtype = x.dtype
         src, dev = self._io(x)
         out = src.new_empty((self.world * int(src.numel()),))
         self.calls += 1
-        self._gather(out, src.reshape(-1), group=self.pg)
-        out = out.to(dev).to(dtype).reshape((self.world,) + tuple(x.shape))
-        if tiled:
-            out = out.reshape((self.world * int(x.shape[0]),)
-                              + tuple(x.shape[1:]))
-        return out
+        work = self._gather(out, src.reshape(-1), group=self.pg,
+                            async_op=async_op)
+
+        def wait() -> torch.Tensor:
+            if work is not None:
+                work.wait()
+            rows = out.to(dev).to(dtype).reshape((self.world,)
+                                                 + tuple(x.shape))
+            if tiled:
+                rows = rows.reshape((self.world * int(x.shape[0]),)
+                                    + tuple(x.shape[1:]))
+            return rows
+        return wait if async_op else wait()
 
     def any(self, flag) -> bool:
         """The psum-agreed flag, read on the host (one read)."""

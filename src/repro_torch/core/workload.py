@@ -1,6 +1,8 @@
-"""Traffic generation (twin of a subset of ``repro.core.workload``):
-web-search flow sizes and Poisson arrivals, repeated incast bursts, and
-the slot-pool sizing helpers of the flow-slot engine.
+"""Traffic generation (twin of ``repro.core.workload``): web-search flow
+sizes and Poisson arrivals, incast (single-shot and repeated bursts),
+permutation and all-to-all matrices, the distributed-file-system incast,
+the slot-pool sizing helpers of the flow-slot engine, and a
+receiver-driven (HOMA-like) grant allocator for the padded engine.
 
 Generators take a *fabric*: any object with ``n_hosts``,
 ``host_group()``, ``load_capacity()`` and
@@ -16,9 +18,10 @@ flows.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 import numpy as np
+import torch
 
 from .network import make_schedule
 from .types import Flows, FlowSchedule, KB, MB
@@ -101,6 +104,78 @@ def poisson_websearch_schedule(fabric, load: float,
                                            device=device))
 
 
+def permutation_traffic(fabric, load: float, duration: float,
+                        sim_dt: float, seed: int = 0,
+                        cross_rack_only: bool = True,
+                        device="cuda") -> Flows:
+    """Poisson web-search arrivals over a fixed random permutation matrix:
+    one derangement ``perm`` per seed (re-drawn, best effort, until no
+    host maps inside its own group with ``cross_rack_only``), senders
+    arriving Poisson at ``load * load_capacity()`` total byte-rate, every
+    flow from host ``s`` going to ``perm[s]``."""
+    rng = np.random.default_rng(seed)
+    nh = fabric.n_hosts
+    grp = _groups(fabric)
+    perm = rng.permutation(nh)
+    for _ in range(64):
+        bad = perm == np.arange(nh)
+        if cross_rack_only:
+            bad |= grp[perm] == grp
+        if not bad.any():
+            break
+        if bad.sum() == 1:
+            # a lone offender swaps with any other host
+            i = int(bad.nonzero()[0][0])
+            j = int(rng.integers(0, nh))
+            perm[[i, j]] = perm[[j, i]]
+        else:
+            # a cyclic shift among the offenders fixes most at once
+            idx = bad.nonzero()[0]
+            perm[idx] = perm[np.roll(idx, 1)]
+    cap = fabric.load_capacity()
+    lam = load * cap / websearch_mean()
+    n = max(int(lam * duration * 1.2) + 16, 16)
+    starts = np.cumsum(rng.exponential(1.0 / lam, size=n))
+    starts = starts[starts < duration]
+    n = len(starts)
+    sizes = websearch_sample(rng, n)
+    src = rng.integers(0, nh, size=n)
+    dst = perm[src]
+    return fabric.make_flows(src, dst, sizes, starts, sim_dt, seed=seed,
+                             device=device)
+
+
+def incast_flows(fabric, fan_in: int, req_bytes: float,
+                 sim_dt: float, victim: int = 0, start: float = 0.0,
+                 long_flow: bool = True, seed: int = 0,
+                 device="cuda") -> Tuple[Flows, int]:
+    """``fan_in`` senders in other groups (distinct hosts, drawn with
+    replacement only when there are fewer such hosts) respond at once to
+    ``victim``; with ``long_flow`` a long-lived flow to the same victim,
+    from the first host of the other groups that is not a sender, runs
+    from before the incast (``start = -1``, ``size = inf``: paper Fig. 4's
+    setup). Returns (flows on ``device``, the victim's ingress queue)."""
+    rng = np.random.default_rng(seed)
+    grp = _groups(fabric)
+    others = np.nonzero(grp != grp[victim])[0]
+    senders = rng.choice(others, size=fan_in, replace=fan_in > len(others))
+    src = senders
+    dst = np.full(fan_in, victim)
+    sizes = np.full(fan_in, req_bytes)
+    starts = np.full(fan_in, start)
+    if long_flow:
+        free = ~np.isin(others, senders)
+        lf_src = others[free][0] if free.any() else others[0]
+        src = np.concatenate([[lf_src], src])
+        dst = np.concatenate([[victim], dst])
+        sizes = np.concatenate([[np.inf], sizes])
+        starts = np.concatenate([[-1.0], starts])   # running before incast
+    flows = fabric.make_flows(src.astype(np.int64), dst.astype(np.int64),
+                              sizes, starts, sim_dt, seed=seed,
+                              device=device)
+    return flows, fabric.host_ingress_queue(victim)
+
+
 def incast_burst(fabric, fan_in: int, req_bytes: float, n_bursts: int,
                  period: float, sim_dt: float, seed: int = 0,
                  start: float = 0.0, rotate_victims: bool = True,
@@ -132,6 +207,51 @@ def incast_burst(fabric, fan_in: int, req_bytes: float, n_bursts: int,
                               np.concatenate(sz_l), np.concatenate(st_l),
                               sim_dt, seed=seed, device=device)
     return flows, bqs
+
+
+def all_to_all_flows(fabric, bytes_per_pair: float, sim_dt: float,
+                     start: float = 0.0, stagger: float = 0.0,
+                     seed: int = 0, device="cuda") -> Flows:
+    """Every ordered host pair exchanges ``bytes_per_pair`` (a shuffle or
+    collective matrix); ``stagger`` > 0 jitters the starts uniformly in
+    [0, stagger). Quadratic in ``n_hosts``: for small fabrics (the k = 4
+    fat tree: 240 pairs)."""
+    rng = np.random.default_rng(seed)
+    nh = fabric.n_hosts
+    src, dst = np.nonzero(~np.eye(nh, dtype=bool))
+    n = len(src)
+    starts = np.full(n, start)
+    if stagger > 0:
+        starts = starts + rng.uniform(0.0, stagger, size=n)
+    return fabric.make_flows(src, dst, np.full(n, bytes_per_pair), starts,
+                             sim_dt, seed=seed, device=device)
+
+
+def synthetic_incast_workload(fabric, request_rate: float,
+                              req_bytes: float, duration: float,
+                              sim_dt: float, seed: int = 0,
+                              device="cuda") -> Flows:
+    """Distributed-file-system workload (paper section 4.1): each request
+    picks a victim and 16 servers in other groups, which respond at once
+    with ``req_bytes / 16`` each."""
+    rng = np.random.default_rng(seed)
+    fan_in = 16
+    n_req = max(int(request_rate * duration), 1)
+    req_t = np.sort(rng.uniform(0, duration, size=n_req))
+    src_l, dst_l, sz_l, st_l = [], [], [], []
+    grp = _groups(fabric)
+    nh = fabric.n_hosts
+    for t in req_t:
+        victim = rng.integers(0, nh)
+        others = np.nonzero(grp != grp[victim])[0]
+        senders = rng.choice(others, size=fan_in, replace=False)
+        src_l.append(senders)
+        dst_l.append(np.full(fan_in, victim))
+        sz_l.append(np.full(fan_in, req_bytes / fan_in))
+        st_l.append(np.full(fan_in, t))
+    return fabric.make_flows(np.concatenate(src_l), np.concatenate(dst_l),
+                             np.concatenate(sz_l), np.concatenate(st_l),
+                             sim_dt, seed=seed, device=device)
 
 
 def peak_concurrency(starts: np.ndarray, ends: np.ndarray) -> int:
@@ -168,3 +288,58 @@ def suggest_slots(sched: FlowSchedule, sim_dt: float,
     peak = max(peak_concurrency(starts, starts + dur + hold), 1)
     rounded = ((peak + round_to - 1) // round_to) * round_to
     return max(min(rounded, n), 1)
+
+
+# --------------------------------------------------------------------------
+# HOMA-like receiver-driven allocation (simplified)
+# --------------------------------------------------------------------------
+
+def homa_alloc_fn(receiver, downlink_bw: float, overcommit: int,
+                  tau: torch.Tensor, start: torch.Tensor) -> Callable:
+    """Returns ``alloc(remaining, active, t_sec, flows, rate_cap)``, the
+    padded engine's allocator (``simulate(..., alloc_fn=)``) over its
+    batched layout ([B, F] leaves; one scenario is a batch of one).
+
+    Scheduled: each receiver grants its downlink to its ``overcommit``
+    shortest-remaining active flows (ties to the lower flow index).
+    Unscheduled: a flow younger than one base RTT (``t_sec - start <
+    tau``, in float32) sends at its line rate. ``receiver`` is [F]
+    (shared by the batch) or [B, F]; ``tau`` and ``start`` are float32
+    tensors on the engine's device, [F] or [B, F]. The grants are
+    recomputed every tick the allocator is called."""
+    recv_host = np.asarray(receiver.cpu() if isinstance(receiver,
+                                                        torch.Tensor)
+                           else receiver).astype(np.int64)
+    nrecv = int(recv_host.max()) + 1 if recv_host.size else 1
+    on = {}
+
+    def alloc(remaining, active, t_sec, flows, rate_cap):
+        dev = remaining.device
+        if dev not in on:
+            on[dev] = torch.as_tensor(recv_host, device=dev)
+        key = torch.where(active, remaining, float("inf"))
+        # +0.0 and -0.0 tie, as in jax's sort comparator
+        key = torch.where(key == 0.0, 0.0, key)
+        recv = on[dev].expand(key.shape)
+        F = int(key.shape[-1])
+        # jnp.lexsort((key, recv)): by receiver, ties by key, then by
+        # index; two stable sorts, the secondary key first
+        by_key = torch.sort(key, dim=-1, stable=True).indices
+        recv_k = torch.gather(recv, -1, by_key)
+        by_recv = torch.sort(recv_k, dim=-1, stable=True).indices
+        order = torch.gather(by_key, -1, by_recv)
+        recv_sorted = torch.gather(recv_k, -1, by_recv)
+        pos = torch.arange(F, device=dev).expand(key.shape)
+        group_start = torch.full(tuple(key.shape[:-1]) + (nrecv,), F,
+                                 dtype=torch.int64, device=dev)
+        group_start = group_start.scatter_reduce(-1, recv_sorted, pos,
+                                                 "amin")
+        rank_sorted = pos - torch.gather(group_start, -1, recv_sorted)
+        rank = torch.zeros_like(rank_sorted).scatter(-1, order, rank_sorted)
+        granted = active & (rank < overcommit) & torch.isfinite(key)
+        unscheduled = active & ((t_sec - start) < tau)
+        cap = torch.where(granted, downlink_bw, 0.0)
+        cap = torch.where(unscheduled, flows.nic_rate, cap)
+        return cap.to(torch.float32)
+
+    return alloc

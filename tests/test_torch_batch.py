@@ -315,9 +315,16 @@ def test_unported_batch_arguments_raise():
                                                     device="cpu", **k)):
         torch.testing.assert_close(run(devices=2)[0].w, run()[0].w,
                                    rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tc.simulate_batch(topo, fb, "powertcp", cfg=cfg,
-                          alloc_fn=lambda *a: None, device="cpu")
+    # allocators are ported (item 13): one that hands back the law's rate
+    # caps changes no bit of the batch's run
+    keep = tc.simulate_batch(topo, fb, "powertcp", cfg=short,
+                             alloc_fn=lambda r, a, t, f, cap: cap,
+                             device="cpu")
+    for g, w in zip(keep, tc.simulate_batch(topo, fb, "powertcp", cfg=short,
+                                            device="cpu")):
+        for (name, x), (_, y) in zip(sup.tree_leaves(g), sup.tree_leaves(w)):
+            torch.testing.assert_close(x, y, rtol=0, atol=0, equal_nan=True,
+                                       msg=lambda m, n=name: f"{n}: {m}")
     # as in repro, the sequential slot engine ignores ``devices``
     st, _ = tc.simulate_slots_batch(topo, sb, "powertcp", SLOTS,
                                     cfg=cfg._replace(steps=8), devices=2,

@@ -51,6 +51,11 @@ megakernel sweep with no fallback and no failure;
 the sharded slot engine (``simulate_slots_sharded``) at one rank over
 NCCL and over two gloo ranks sharing the card, against K4 on the paper
 leaf-spine's impaired anchor;
+HOMA's allocator on the card bit for bit its CPU result, HOMA through
+the padded engine on the card against ``repro``'s golden run, Fig. 4's
+two incasts (the long-lived flow from ``start = -1``) as a K4 grid
+against the plain tick, and ``commsched``'s outer sync over a one-rank
+NCCL group against its one-process spelling;
 and the REDUCED qwen3-14b model on the
 card against the port on the CPU at the tight bar of
 ``tests/test_torch_lm.py``. Every test takes the ``cuda_device``
@@ -1037,3 +1042,100 @@ def test_sharded_two_gloo_ranks_on_the_card(cuda_device):
     _same_shard_run(got, _shard_run(cuda_device,
                                     shardcomm.current_group(cuda_device)))
     _same_shard_run(got, _shard_run(cuda_device, False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("oc", [1, 3])
+def test_homa_allocator_on_card_is_its_cpu_result(cuda_device, oc):
+    """HOMA's allocator on CUDA tensors bit for bit its CPU result: ties,
+    inf and NaN keys, +0.0 and -0.0, inactive flows, many receivers, a
+    [B, F] batch of receivers."""
+    import repro_torch.core as tc
+    rng = np.random.default_rng(oc)
+    B, F = 3, 700
+    recv = rng.integers(0, 9, (B, F))
+    rem = rng.choice(np.float32([0.0, -0.0, 5e4, 1e5, np.inf, np.nan]),
+                     (B, F))
+    rem[:, ::3] = rng.uniform(1e3, 1e6, (B, F))[:, ::3]
+    active = rng.random((B, F)) < 0.8
+    tau = rng.uniform(5e-6, 3e-5, (B, F)).astype(np.float32)
+    start = rng.uniform(0.0, 2e-4, (B, F)).astype(np.float32)
+    nic = rng.choice(np.float32([3.125e9, 1.25e10]), (B, F))
+    t_sec = float(np.float32(1e-4))
+
+    class Nic:
+        pass
+
+    out = []
+    for dev in ("cpu", cuda_device):
+        on = {k: torch.as_tensor(v, device=dev) for k, v in
+              dict(rem=rem, active=active, tau=tau, start=start,
+                   nic=nic).items()}
+        fl = Nic()
+        fl.nic_rate = on["nic"]
+        alloc = tc.homa_alloc_fn(recv, 25e9 / 8, oc, on["tau"], on["start"])
+        out.append(alloc(on["rem"], on["active"], t_sec, fl, None).cpu())
+    torch.testing.assert_close(out[1], out[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_fig4_incast_k4_against_plain(cuda_device):
+    """Fig. 4's 10:1 and 63:1 incasts (the long-lived flow admitted at
+    tick 0 with ``start = -1``, ``size = inf``) as one K4 grid of two
+    blocks, bit for bit the plain tick over 640 ticks."""
+    import repro_torch.core as tc
+    _, topo, flows, _, cfg = sup.fig4_scenario(tc, steps=640,
+                                               device=cuda_device)
+    sb = tc.stack_flow_schedules([tc.make_schedule(f) for f in flows],
+                                 topo.num_queues)
+    for law in ("powertcp", "hpcc"):
+        sup.k4_grid_against_plain(tc, topo, sb, cfg, law,
+                                  int(sb.start.shape[-1]), (1, 64),
+                                  expected_flows=sup.FIG4_EXPECTED_FLOWS)
+
+
+@pytest.mark.cuda
+def test_homa_padded_on_card_matches_golden(cuda_device):
+    """HOMA on Fig. 4's 10:1 incast through the padded reference engine
+    on the card: the golden's FCTs and victim queue trace (``repro``'s
+    CPU run) over its 2 000 ticks."""
+    import base64
+    import json
+    import repro_torch.core as tc
+    fab, topo, flows, bq, cfg = sup.fig4_scenario(
+        tc, steps=sup.HOMA_FIG4_STEPS, device=cuda_device)
+    fl, alloc, lcfg = sup.homa_run_args(tc, fab, flows[0], pad_to=64,
+                                        expected_flows=16.0)
+    st, rec = tc.simulate(topo, fl, "reno", lcfg, cfg, alloc_fn=alloc,
+                          device=cuda_device)
+    with open(sup.FIG4_REF) as f:
+        ref = json.load(f)["homa"]["fig4_10"]
+    want = np.array([np.nan if x is None else x for x in ref["fct_s"]],
+                    np.float32)
+    np.testing.assert_array_equal(st.fct.cpu().numpy(), want)
+    np.testing.assert_allclose(
+        rec.q[:, bq].cpu().numpy(),
+        np.frombuffer(base64.b64decode(ref["q"]), np.float32),
+        rtol=1e-5, atol=0.5)
+
+
+@pytest.mark.cuda
+def test_outer_sync_nccl_world_one(cuda_device):
+    """The outer sync over a one-rank NCCL group on the card: bit for bit
+    the one-process spelling, at most ``window`` gathers in flight."""
+    from repro_torch.commsched import make_outer_sync
+    from repro_torch.core import shardcomm
+    group = shardcomm.current_group(cuda_device)
+    assert group.world == 1
+    shapes = sup.outer_tree_shapes()
+    anchor = sup.outer_tree(shapes, 1, device=cuda_device)
+    mom = sup.outer_tree(shapes, 2, scale=0.01, device=cuda_device)
+    local = sup.outer_tree(shapes, 3, scale=0.1, device=cuda_device)
+    ef = sup.outer_tree(shapes, 4, scale=1e-3, device=cuda_device)
+    sync = make_outer_sync(group, window=2)
+    got = sync(anchor, local, ef, mom)
+    want = sup.outer_sync_spelled(anchor, [local], [ef], mom)
+    for g, w in zip(sup.sorted_leaves(got[0]) + sup.sorted_leaves(got[1])
+                    + sup.sorted_leaves(got[2]), want[0] + want[1][0] + want[2]):
+        assert torch.equal(g, w)
+    assert sync.stats["max_in_flight"] == 2

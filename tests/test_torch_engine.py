@@ -214,10 +214,12 @@ def test_unported_arguments_raise():
                        device="cpu")
     torch.testing.assert_close(two.states[0].fct, one.states[0].fct,
                                rtol=0, atol=0, equal_nan=True)
-    # allocators (item 13) are not
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tc.simulate(topo, flows, "powertcp", lcfg, cfg,
-                    alloc_fn=lambda *a: None, device="cpu")
+    # allocators (item 13) are ported to the padded engine; the slot path
+    # rejects them, as repro does
+    with pytest.raises(ValueError, match="not supported on the slot path"):
+        tc.slot_step(tc.make_slot_sim(topo, tc.batch_of_one(sched),
+                                      "powertcp", 4, device="cpu"),
+                     None, alloc_fn=lambda *a: None)
 
 
 def _imports(path):
@@ -233,25 +235,26 @@ def _imports(path):
     return out
 
 
-PORT_SUBPACKAGES = ("core", "kernels", "configs", "models", "serve")
+PORT_SUBPACKAGES = ("core", "kernels", "configs", "models", "serve",
+                    "commsched")
 
 
 @pytest.mark.parametrize("sub", PORT_SUBPACKAGES)
 def test_port_imports_neither_jax_nor_repro(sub):
     """Every file of the subpackage (and ``chip_smoke.py``, checked with
-    ``core``) imports neither jax nor ``repro``, and importing the
-    subpackage loads neither."""
+    ``core``) imports neither jax, ``repro`` nor ``benchmarks``, and
+    importing the subpackage loads none of them."""
     files = [os.path.join(REPO, "chip_smoke.py")] if sub == "core" else []
     pkg = os.path.join(REPO, "src", "repro_torch", sub)
     for root, _, names in os.walk(pkg):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert files
     for path in files:
-        bad = _imports(path) & {"jax", "jaxlib", "repro"}
+        bad = _imports(path) & {"jax", "jaxlib", "repro", "benchmarks"}
         assert not bad, f"{path} imports {bad}"
     code = (f"import sys; import repro_torch.{sub}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'repro')]; assert not bad, bad")
+            "('jax', 'repro', 'benchmarks')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     subprocess.run([sys.executable, "-c", code], check=True, env=env)
 

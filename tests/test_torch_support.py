@@ -21,7 +21,14 @@
   ``k4_grid_against_plain`` (K4, and its grid of one block per scenario,
   against the plain megakernel block on the card); the sum orders of K3 and K5 spelled in
   torch (``queue_arrivals_in_k3_order``, ``flash_in_k5_order``,
-  ``rmsnorm_in_k6_order``) and the
+  ``rmsnorm_in_k6_order``); Fig. 4's scenario, metrics and verdict
+  (``fig4_*``, ``FIG4_REF``), HOMA's run arguments (``receiver_ids``, a
+  copy of ``benchmarks/common.py::_receiver_ids``; ``homa_run_args``,
+  ``homa_ws_scenario``), the generator legs of phase 6i
+  (``generator_scenario``, ``GENERATORS_REF``), the outer sync's trees
+  (``outer_tree``, ``qwen3_layer_shapes``), its one-process spelling
+  (``outer_sync_spelled``, with ``fma_spelled``) and its spawned rank
+  (``outer_sync_rank``); and the
   edge shapes the kernels are held at; the LM slice's shapes and bars
   (``SERVE_*``, ``LM_TIGHT_*``, ``lm_teacher_forced``); and the
   ``cuda_device`` fixture that
@@ -1183,6 +1190,320 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
     return torch.device("cuda")
+
+
+# benchmarks/fig4_incast.py::run: a victim already receiving a long-lived
+# flow is hit by 10 and 63 synchronized 500 kB responses on the 64-host
+# leaf-spine, both fan-ins one batch, 8 000 ticks; ``FIG4_REF`` holds
+# ``repro``'s padded runs of the five window laws and its HOMA runs
+# (``HOMA_*``: Fig. 4's 10:1 and Fig. 6's web-search leg, cut to their
+# first ticks)
+FIG4_REF = os.path.join(HERE, "golden", "torch_port_fig4.json")
+FIG4_LAWS = ("powertcp", "theta_powertcp", "hpcc", "timely", "dcqcn")
+FIG4_FANS = (10, 63)
+FIG4_REQ_BYTES = 500e3
+FIG4_DT = 1e-6
+FIG4_STEPS = 8000
+FIG4_EXPECTED_FLOWS = 16.0
+HOMA_FIG4_STEPS = 2000
+HOMA_WS_STEPS = 1000
+HOMA_WS_LOAD, HOMA_WS_DURATION, HOMA_WS_SEED = 0.6, 0.03, 1
+
+
+def fig4_scenario(core, steps=FIG4_STEPS, **dev):
+    """(fabric, topo, the two incasts' flows [10:1, 63:1], the victim's
+    ingress queue, cfg) of ``fig4_incast.run`` in either package."""
+    fab = core.LeafSpine()
+    flows, bq = [], None
+    for fan in FIG4_FANS:
+        fl, bq = core.incast_flows(fab, fan, req_bytes=FIG4_REQ_BYTES,
+                                   sim_dt=FIG4_DT, **dev)
+        flows.append(fl)
+    cfg = core.SimConfig(dt=FIG4_DT, steps=steps, hist=512,
+                         update_period=2e-6)
+    return fab, fab.topology(**dev), flows, bq, cfg
+
+
+def fig4_bdp(fab) -> float:
+    """``fig4_incast.run``'s bdp: the host rate times 4 one-way hops."""
+    return fab.host_bw * 4 * (2 * fab.d_host + 2 * fab.d_fabric)
+
+
+def fig4_metrics(size, fct, q, th, steps, dt, bdp) -> dict:
+    """``fig4_incast._metrics``: the victim queue's peak (MB) and final
+    (KB) depth, its drain time (us) from the peak to below 1.5 BDP, and
+    the throughput dip over the 2 000 ticks after the last response
+    completes. ``size`` is the scenario's (unpadded) sizes, ``fct`` its
+    FCT row, ``q`` and ``th`` the victim queue's depth and normalized
+    throughput traces (numpy)."""
+    roll = np.convolve(th, np.ones(100) / 100, mode="valid")
+    size = np.asarray(size)
+    fct = np.asarray(fct)[:size.shape[0]]
+    fin = np.isfinite(size) & np.isfinite(fct)
+    done_t = fct[fin].max() if fin.any() else np.nan
+    di = int(min(done_t / dt, steps - 400)) if np.isfinite(done_t) \
+        else steps - 400
+    dip = 1.0 - float(roll[di:di + 2000].min())
+    pk = int(q.argmax())
+    near0 = q < 1.5 * bdp
+    drain = (np.argmax(near0[pk:]) + pk) if near0[pk:].any() else steps
+    return {"peak_q_MB": float(q.max() / 1e6), "end_q_KB": float(q[-1] / 1e3),
+            "drain_us": float(drain - pk) * dt * 1e6, "dip_after": dip}
+
+
+def fig4_claims(small: dict, big: dict, fab) -> bool:
+    """``fig4_incast.run``'s verdict over the 10:1 (``small``) and 63:1
+    (``big``) metrics by law."""
+    p, h, d = small["powertcp"], small["hpcc"], small["dcqcn"]
+    rtt2 = 2 * (2 * fab.d_host + 2 * fab.d_fabric)
+    beta_hat_63 = 64 * fab.host_bw * rtt2 / 16.0 / 1e3
+    return bool(p["end_q_KB"] < 150.0
+                and p["dip_after"] <= h["dip_after"] + 0.02
+                and d["peak_q_MB"] > 4 * p["peak_q_MB"]
+                and abs(big["powertcp"]["end_q_KB"] - beta_hat_63)
+                <= 0.5 * beta_hat_63
+                and big["powertcp"]["end_q_KB"]
+                < 0.5 * big["timely"]["end_q_KB"])
+
+
+def receiver_ids(flows, fabric) -> np.ndarray:
+    """``benchmarks/common.py::_receiver_ids``: each flow's receiver host,
+    read from the last host-downlink queue of its path (0 for a flow with
+    none, as a padded flow)."""
+    path = np.asarray(flows.path.cpu() if isinstance(flows.path, torch.Tensor)
+                      else flows.path)
+    R, S = fabric.racks, fabric.spines
+    base = 2 * R * S
+    recv = np.zeros(path.shape[0], np.int64)
+    for i in range(path.shape[0]):
+        hops = path[i][path[i] < fabric.num_queues]
+        host_q = [q for q in hops if q >= base]
+        recv[i] = (host_q[-1] - base) if host_q else 0
+    return recv
+
+
+def homa_run_args(core, fab, flows, pad_to=None, expected_flows=8.0):
+    """``common.run_law(law="homa")``'s arguments for one scenario:
+    (flows padded to ``pad_to``, the allocator with overcommit 1, the
+    law config). The law is ``reno``, whose window never binds: the
+    grants cap the rate."""
+    if pad_to is not None:
+        flows = core.pad_flows(flows, pad_to, fab.num_queues)
+    alloc = core.homa_alloc_fn(receiver_ids(flows, fab), fab.host_bw, 1,
+                               flows.tau, flows.start)
+    return flows, alloc, core.default_law_config(
+        flows, expected_flows=expected_flows)
+
+
+def homa_ws_scenario(core, steps=HOMA_WS_STEPS, **dev):
+    """(fabric, topo, flows, cfg) of ``fig6_fct.run_load(0.6)``'s HOMA leg
+    for seed 1 (the 64-host leaf-spine, 30 ms of web-search arrivals),
+    cut to its first ``steps`` ticks."""
+    fab = core.LeafSpine()
+    flows = core.poisson_websearch(fab, HOMA_WS_LOAD, HOMA_WS_DURATION,
+                                   FIG4_DT, seed=HOMA_WS_SEED, **dev)
+    cfg = core.SimConfig(dt=FIG4_DT, steps=steps, hist=512,
+                         update_period=2e-6)
+    return fab, fab.topology(**dev), flows, cfg
+
+
+# the paper-scale generators on the 256-host fabric: permutation traffic
+# at load 0.6 and the section 4.1 incast workload (20 000 requests/s of
+# 1 MB, 16 responses each) over 12 ms, seed 1, 25 000 ticks, the pool
+# from ``suggest_slots``; and the all-to-all matrix on the k = 4 fat tree
+# (240 flows of 100 kB, starts jittered over 100 us), 4 000 ticks.
+# ``GENERATORS_REF`` holds ``repro``'s slot-engine FCTs of the three
+GENERATORS_REF = os.path.join(HERE, "golden", "torch_port_generators.json")
+GEN_LEGS = ("permutation", "synthetic_incast", "all_to_all")
+GEN_DURATION = 0.012
+GEN_STEPS = 25_000
+GEN_A2A_STEPS = 4000
+GEN_A2A_BYTES = 1e5
+GEN_A2A_STAGGER = 100e-6
+GEN_LAW = "powertcp"
+GEN_EXPECTED_FLOWS = 8.0
+
+
+def generator_scenario(core, leg, steps=None, **dev):
+    """(topo, schedule, cfg, slots) of one generator leg in either
+    package; ``steps`` cuts the run."""
+    dt = PAPER_DT
+    if leg == "all_to_all":
+        fab = core.fat_tree(4)
+        flows = core.all_to_all_flows(fab, GEN_A2A_BYTES, dt,
+                                      stagger=GEN_A2A_STAGGER, **dev)
+        T = GEN_A2A_STEPS
+    else:
+        fab = core.LeafSpine(**PAPER)
+        if leg == "permutation":
+            flows = core.permutation_traffic(fab, PAPER_LOAD, GEN_DURATION,
+                                             dt, seed=1, **dev)
+        else:
+            flows = core.synthetic_incast_workload(fab, 20_000.0, 1e6,
+                                                   GEN_DURATION, dt, seed=1,
+                                                   **dev)
+        T = GEN_STEPS
+    sched = core.make_schedule(flows)
+    cfg = core.SimConfig(dt=dt, steps=T if steps is None else int(steps),
+                         hist=512, update_period=2e-6)
+    return (fab.topology(**dev), sched, cfg,
+            int(core.suggest_slots(sched, dt)))
+
+
+# the outer sync: a small tree for the CPU tests, whose dict keys are not
+# in sorted order (the flatten order sorts them)
+def outer_tree_shapes():
+    return {"w_out": (33, 17), "emb": (257,),
+            "blocks": [{"z": (64, 8), "a": (1000,)}, {"z": (5,), "a": (3, 7)}],
+            "b": (1,)}
+
+
+def outer_tree(shapes, seed, scale=1.0, device="cpu"):
+    """A float32 tree shaped as ``shapes`` (nested dicts and lists of
+    shapes) of normal draws times ``scale``, from a ``torch.Generator`` on
+    ``device`` seeded with ``seed``, leaf after leaf in the flatten order
+    (dict keys sorted); the dicts keep ``shapes``' key order."""
+    g = torch.Generator(device=device).manual_seed(int(seed))
+
+    def build(x):
+        if isinstance(x, dict):
+            vals = {k: build(x[k]) for k in sorted(x)}
+            return {k: vals[k] for k in x}
+        if isinstance(x, list):
+            return [build(v) for v in x]
+        t = torch.empty(tuple(x), dtype=torch.float32, device=device)
+        return t.normal_(0.0, 1.0, generator=g).mul_(scale)
+
+    return build(shapes)
+
+
+def qwen3_layer_shapes():
+    """The shapes of one qwen3-14b decoder layer at full width (the port's
+    ``block_specs``: d_model 5120, 40 / 8 heads of 128, d_ff 17 408;
+    330 311 936 parameters)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import block_specs
+    from repro_torch.models.spec import is_spec
+
+    def walk(t):
+        return tuple(t.shape) if is_spec(t) else {k: walk(v)
+                                                  for k, v in t.items()}
+    return walk(block_specs(get_config("qwen3-14b")))
+
+
+def sorted_leaves(tree):
+    """The tensors of nested dicts and lists, dict keys sorted (JAX's
+    flatten order)."""
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in sorted_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [v for x in tree for v in sorted_leaves(x)]
+    return [tree]
+
+
+def fma_spelled(a, b, c):
+    """float32 ``a * b + c`` with one rounding: the float64 product is
+    exact, and the float64 sum ``head`` with its error ``tail`` (TwoSum)
+    is the exact result; ``head`` rounded to nearest float32 is right
+    except where ``head`` is a float32 midpoint and ``tail`` points past
+    it, where the neighbour on ``tail``'s side is."""
+    a, b, c = (torch.as_tensor(v).to(torch.float64) for v in (a, b, c))
+    p = a * b
+    head = p + c
+    z = head - p
+    tail = (p - (head - z)) + (c - z)
+    r = head.to(torch.float32)
+    r64 = r.to(torch.float64)
+    other = torch.nextafter(r, torch.where(
+        head > r64, float("inf"), float("-inf")).to(torch.float32))
+    mid = (r64 + other.to(torch.float64)) * 0.5
+    past = ((tail > 0) & (r64 < head)) | ((tail < 0) & (r64 > head))
+    fix = torch.isfinite(head) & (head != r64) & (head == mid) & past
+    return torch.where(fix, other, r)
+
+
+def outer_sync_spelled(anchor, locals_, efs, mom, outer_lr=0.7,
+                       momentum=0.9):
+    """The outer sync over P pods spelled in one process, leaf by leaf in
+    the flatten order: each pod's ``y = (anchor - local) + ef``, its scale
+    ``max(|y|, 1e-12) * float32(1/127)``, ``q = clip(round(y / scale))``
+    and error feedback ``y - q * scale`` (one rounding); the de-quantized
+    blocks ``q * scale`` summed in pod order, times ``float32(1/P)``
+    (P > 1); then ``mom' = momentum * mom + mean`` and ``anchor' = anchor
+    - outer_lr * (momentum * mom' + mean)``, each with one rounding.
+    Returns (the new anchor's leaves, [each pod's new error feedback
+    leaves], the new momentum's leaves)."""
+    P = len(locals_)
+    recip = torch.tensor(np.float32(1.0) / np.float32(127.0))
+    a_l, m_l = sorted_leaves(anchor), sorted_leaves(mom)
+    l_l = [sorted_leaves(t) for t in locals_]
+    e_l = [sorted_leaves(t) for t in efs]
+    new_a, new_m, new_e = [], [], [[] for _ in range(P)]
+    for i, a in enumerate(a_l):
+        deq = []
+        for p in range(P):
+            y = (a.float() - l_l[p][i].float()) + e_l[p][i]
+            mx = torch.clamp(torch.max(torch.abs(y)),
+                             min=np.float32(1e-12))
+            scale = mx * recip.to(y.device)
+            q = torch.clamp(torch.round(y / scale), -127, 127)
+            new_e[p].append(fma_spelled(-q, scale, y))
+            deq.append(q * scale)
+        total = deq[0]
+        for p in range(1, P):
+            total = total + deq[p]
+        if P > 1:
+            total = total * torch.tensor(np.float32(1.0) / np.float32(P),
+                                         device=total.device)
+        m = fma_spelled(np.float32(momentum), m_l[i].float(), total)
+        inner = fma_spelled(np.float32(momentum), m, total)
+        new_a.append(fma_spelled(-np.float32(outer_lr), inner,
+                                 a.float()).to(a.dtype))
+        new_m.append(m)
+    return new_a, new_e, new_m
+
+
+def outer_sync_rank(group, shapes, window, seeds):
+    """One pod of a spawned outer sync (``shardcomm.spawn``): every rank
+    builds on its device the replicated anchor and momentum and every
+    pod's local parameters and error feedback from ``seeds`` (rank r is
+    pod r), runs ``make_outer_sync(group, window=window)`` on its own
+    (timed), and compares its result with ``outer_sync_spelled`` over all
+    pods, bit for bit. Returns rank 0's view: each rank's number of
+    mismatching leaves, gathers and most gathers in flight, the leaf
+    count, the bytes gathered and rank 0's wall seconds."""
+    import time as _time
+    from repro_torch.commsched import make_outer_sync
+    dev = group.device
+    P = group.world
+    anchor = outer_tree(shapes, seeds[0], device=dev)
+    mom = outer_tree(shapes, seeds[1], scale=0.01, device=dev)
+    locals_ = [outer_tree(shapes, seeds[2] + p, scale=0.1, device=dev)
+               for p in range(P)]
+    efs = [outer_tree(shapes, seeds[3] + p, scale=1e-3, device=dev)
+           for p in range(P)]
+    sync = make_outer_sync(group, window=window)
+    r = group.rank
+    group.barrier()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = _time.perf_counter()
+    got_a, got_e, got_m = sync(anchor, locals_[r], efs[r], mom)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = _time.perf_counter() - t0
+    got = sorted_leaves(got_a) + sorted_leaves(got_e) + sorted_leaves(got_m)
+    del got_a, got_e, got_m
+    want_a, want_e, want_m = outer_sync_spelled(anchor, locals_, efs, mom)
+    bad = 0
+    for g, w in zip(got, want_a + want_e[r] + want_m):
+        bad += int(not torch.equal(g, w))
+    counts = group.all_gather(torch.tensor([bad, sync.stats["gathers"],
+                                            sync.stats["max_in_flight"]],
+                                           device=dev))
+    return dict(bad=counts[:, 0].tolist(), gathers=counts[:, 1].tolist(),
+                max_in_flight=counts[:, 2].tolist(),
+                leaves=len(want_a), bytes=sync.stats["bytes"], wall_s=wall)
 
 
 # -------------------------------------------------------------------------
