@@ -67,7 +67,7 @@ exit, traceback) if anything in it is wrong:
    ``simulate_slots`` fused; (e) ``simulate_slots`` megakernel; (f)
    theta-PowerTCP, ``simulate_slots`` megakernel (each a batch of one
    through the batched engines of phase 6b). The eager runs (a)-(d) are
-   cut to their first ``EAGER_TICKS`` (3 000) ticks, the widths
+   cut to their first ``EAGER_TICKS`` (2 000) ticks, the widths
    unchanged, so that the script stays inside its time limit (phase 6b
    cuts its eager runs alike); (e) and (f) run the whole 40 000. Each run starts with the kernel launch counts at
    zero; the fused runs must launch their law's observe kernel and K3
@@ -260,12 +260,14 @@ exit, traceback) if anything in it is wrong:
    ``SHARD16_TICKS`` (1 000) of 10 000 ticks at world 1, against K4's
    chunked run of the same ticks, with the wall per tick, the
    collectives per tick, ``comm_census``'s bytes, K4's device time and
-   the sharded tick's device time and busy share over its first 200
-   ticks (``torch.profiler``); (3) two gloo ranks
+   its bound from the shapes (``k4_cost`` with an empty pool), and
+   the sharded tick's device time and busy share over its first
+   ``SHARD16_PROFILE_TICKS`` (50) ticks (``torch.profiler``); (3) two
+   gloo ranks
    on the one card (``shardcomm.spawn``; gloo's collectives staged
    through the host): (1)'s impaired powertcp pass over its first
-   ``SHARD_SPAWN_TICKS`` (500) ticks, bit for bit K4 and (1)'s first
-   500 ticks, and ``impair_fct.run``'s grid
+   ``SHARD_SPAWN_TICKS`` (250) ticks, bit for bit K4 and (1)'s first
+   250 ticks, and ``impair_fct.run``'s grid
    as a K4 sweep split over the two ranks (``run_sweep(devices=2)``),
    every point bit for bit 6g's unsharded sweep, with no fallback and no
    failure;
@@ -289,8 +291,8 @@ exit, traceback) if anything in it is wrong:
    leaf-spine, load 0.6, seed 1, 604 flows), its first 1 000 of 70 000
    ticks, each held to ``repro``'s FCTs and queue traces of the same
    ticks; the wall per tick, the tick's device time and busy share over
-   its first 200 ticks and the allocator's device time alone
-   (``torch.profiler``); (3) the paper-scale generators on K4 (powertcp,
+   its first ``HOMA_PROFILE_TICKS`` (50) ticks and the allocator's device
+   time alone over as many calls (``torch.profiler``); (3) the paper-scale generators on K4 (powertcp,
    the pool from ``suggest_slots``): ``permutation_traffic`` at load 0.6
    over 12 ms and ``synthetic_incast_workload`` at 20 000 requests/s of
    1 MB over 12 ms on the 256-host fabric (seed 1, 25 000 ticks), and
@@ -335,13 +337,45 @@ exit, traceback) if anything in it is wrong:
    time, ms per decode step, tokens/s and the peak device memory. The
    memory is freed before and after, so that the ~60 GB of params never
    meet another phase's tensors.
+9. train: the one-card trainer (``repro_torch.train``). (9a) K5's and
+   K6's backward kernels (``flash_attention_bwd``: dq, then dk/dv;
+   ``rmsnorm_bwd``: row chunks, then their dscale partials in chunk
+   order) against their plain versions at the training shapes (K5 bwd:
+   q [1,40,1024,128] over k/v [1,8,1024,128], causal, bf16, o and the
+   LSE from K5's forward; a float32 case and the REDUCED model's head
+   dim 16; K6 bwd: [1024, 5120] and [40960, 128] rows, bf16 and float32),
+   within 2e-2 (bf16) / 2e-5 (float32) of the largest gradient and bit
+   for bit against a second launch; each timed (CUDA-graph replays)
+   beside its plain version and autograd of the PyTorch call
+   (``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``,
+   ``F.rms_norm``: the backward alone, its kernels' device time from
+   ``torch.profiler``), with its bound. (9b) qwen3-14b at full width (d_model 5 120, 40 / 8 heads,
+   head_dim 128, d_ff 17 408, vocab 151 936), depth cut to
+   ``TRAIN_LAYERS`` (4) of 40 layers, float32 params drawn on the card
+   from ``tcfg.seed``, ``train_preset("qwen3_14b")`` (8 microbatches,
+   remat ``"full"``) over ``DataConfig(batch=8, seq=1024)``, 5 steps
+   through ``train_driver``: every loss finite, the parameters moved,
+   each step's launches exactly those ``train_expected_launches``
+   derives (K5 and K6 twice a block per microbatch, their backward
+   kernels once, ``ln_f`` once), peak memory under ``TRAIN_PEAK_GB``;
+   prints the wall per step, tokens/s, model TFLOP/s and peak GB. (9c)
+   the REDUCED qwen3-14b (bf16 compute) under
+   ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
+   set before the first cuBLAS call): a run that crashes after step 5,
+   resumed from its checkpoint, bit for bit the uninterrupted run in
+   its losses and every parameter; then float32 compute from
+   ``numpy_params`` for 10 steps, the losses within
+   ``sup.TRAIN_LOSS_BAR`` of ``tests/golden/torch_port_train.json``
+   (``repro`` on the CPU).
 
 ``--profile`` adds a phase after 6b: each main-path and 6b run under
 ``torch.profiler`` (the first 200 ticks of the eager runs, the whole
 40 000 ticks of the megakernel runs), with the device time and device
 launches per tick, the device-busy share and the kernels that take the
-most device time; and phase 8 runs the serve run a second time under
-``torch.profiler``, with K5's and K6's share of its device time.
+most device time; phase 8 runs the serve run a second time under
+``torch.profiler``, with K5's and K6's share of its device time; and 9b
+runs one more train step under it, with the shares of K5, K5 bwd, K6,
+K6 bwd, the casts and cuBLAS.
 
 The redesigned kernels (``src/repro_torch/csrc``): K3 is a split
 reduction over 64-row chunks of the incidence on a grid of 64-column
@@ -365,7 +399,8 @@ the table's overflow flag and by the launch's admit ticks (counted by a
 third pass of one tick per launch). K4 runs one block per scenario: a
 batch is one launch of B blocks that share nothing.
 
-It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms;
+It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms,
+and K5's and K6's backward kernels with 9b's launches of one step;
 the TPU form's main-path launches are 0; K4's entry carries each of its
 13 laws' phase-6c times under ``laws``, each Fig. 8 group's under
 ``fig8``, each feedback law's on each fat-tree leg under
@@ -400,11 +435,13 @@ OBSERVE_KERNELS = ("powertcp_observe_step", "theta_powertcp_observe_step")
 SIM_KERNELS = ("powertcp_step", "theta_powertcp_step") + OBSERVE_KERNELS + (
     "queue_arrivals", "fused_tick_block")
 LM_KERNELS = ("flash_attention", "rmsnorm")
-KERNELS = SIM_KERNELS + LM_KERNELS
+# the trainer's backward kernels (phase 9)
+TRAIN_KERNELS = ("flash_attention_bwd", "rmsnorm_bwd")
+KERNELS = SIM_KERNELS + LM_KERNELS + TRAIN_KERNELS
 # the kernels the main path runs (K1/K2's TPU form stays in the kernels
 # line, held and timed in phase 3, with its main-path launches: 0)
 PATH_KERNELS = OBSERVE_KERNELS + ("queue_arrivals", "fused_tick_block") \
-    + LM_KERNELS
+    + LM_KERNELS + TRAIN_KERNELS
 REPLACES = {
     "powertcp_step": "src/repro/kernels/powertcp_step.py:51",
     "theta_powertcp_step": "src/repro/kernels/powertcp_step.py:101",
@@ -414,6 +451,11 @@ REPLACES = {
     "fused_tick_block": "src/repro/kernels/fused_tick.py:74",
     "flash_attention": "src/repro/kernels/flash_attention.py:98",
     "rmsnorm": "src/repro/kernels/rmsnorm.py:26",
+    # no Pallas backward: the gradient jax.grad takes through these
+    "flash_attention_bwd": "src/repro/models/layers.py:200 (jax.grad "
+                           "through _sdpa)",
+    "rmsnorm_bwd": "src/repro/models/layers.py:124 (jax.grad through "
+                   "norm_apply)",
 }
 SOURCES = {
     "powertcp_step": "src/repro_torch/csrc/powertcp_step.cu",
@@ -424,6 +466,8 @@ SOURCES = {
     "fused_tick_block": "src/repro_torch/csrc/fused_tick.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "rmsnorm": "src/repro_torch/csrc/rmsnorm.cu",
+    "flash_attention_bwd": "src/repro_torch/csrc/flash_attention.cu",
+    "rmsnorm_bwd": "src/repro_torch/csrc/rmsnorm.cu",
 }
 
 
@@ -907,10 +951,10 @@ def smoke_scenario(tc, sup, dev, ref):
     return fab.topology(device=dev), flows, scheds
 
 
-# ticks of the eager main-path runs (a)-(d) and of 6b.3 and 6b.6: the
-# first 3 000 of the 40 000-tick paper run, to keep the script inside its
-# time limit
-EAGER_TICKS = 3_000
+# ticks of the eager main-path runs (a)-(d) and of 6b.1, 6b.3 and 6b.6:
+# the first 2 000 of the 40 000-tick paper run, to keep the script inside
+# its time limit (3 000 until the trainer's phase 9 was added)
+EAGER_TICKS = 2_000
 MAIN_RUNS = (("a", "slot", "powertcp", "fused"),
              ("b", "slot", "powertcp", "reference"),
              ("c", "padded", "powertcp", "fused"),
@@ -2988,10 +3032,12 @@ SHARD_PAPER_TICKS = 500
 # which the first SHARD16_TICKS run
 SHARD16_SLOTS, SHARD16_CHUNK, SHARD16_STEPS = 1024, 2048, 10_000
 SHARD16_TICKS = 1000
-# ticks of the sharded fabric16 run profiled for its device time
-SHARD16_PROFILE_TICKS = 200
-# 6h.3: the two gloo ranks' run of 6h.1's impaired powertcp pass
-SHARD_SPAWN_TICKS = 500
+# ticks of the sharded fabric16 run profiled for its device time (200
+# until phase 9 was added)
+SHARD16_PROFILE_TICKS = 50
+# 6h.3: the two gloo ranks' run of 6h.1's impaired powertcp pass (500
+# ticks until phase 9 was added)
+SHARD_SPAWN_TICKS = 250
 
 
 def fabric16_scenario(tc, dev):
@@ -3241,6 +3287,19 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
                device_launches_per_tick=sum(e.count for e in devs)
                / SHARD16_PROFILE_TICKS,
                busy_share=prof_us / row["us_per_tick"])
+    # K4's bound at this shape from its shapes alone (k4_cost with an empty
+    # pool: the ring rows, gather entries, admissions and FCTs a launch's
+    # data adds are left out, which can only lower the bound)
+    from repro_torch.core import fluid
+    from repro_torch.kernels.fused_tick import DEFAULT_BLOCK
+    sw = fluid._make_static(topo16, cfg16.dt).sw_table
+    nsw, swdeg = (0, 0) if sw is None else tuple(sw.shape)
+    empty = dict(cursor=0, inv=0, lam=0, q=0, w=0, fct=0)
+    k4_b, k4_by = bound_ms(*k4_cost(SHARD16_SLOTS, H16, Q16 + 1,
+                                    DEFAULT_BLOCK, nsw, swdeg, "powertcp",
+                                    empty, empty, impair=True))
+    row.update(k4_bound_ms_per_launch=k4_b, k4_bound_by=k4_by,
+               k4_bound_us_per_tick=k4_b / DEFAULT_BLOCK * 1e3)
     row.update(hosts=ft.n_hosts, queues=Q16, flows=n16,
                slots=SHARD16_SLOTS, chunk=SHARD16_CHUNK,
                ticks=cfg16.steps, of_steps=SHARD16_STEPS, completed=done,
@@ -3260,7 +3319,10 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
         f"ticks, {row['segments']} segments); K4 chunked wall {kwall:.3f} s "
         f"({row['k4_us_per_tick']:.2f} us/tick, {c['fused_tick_block']} "
         f"launches, {segs} segments; K4 device "
-        f"{row['k4_device_us_per_tick']!r} us/tick); the sharded tick's "
+        f"{row['k4_device_us_per_tick']!r} us/tick, bound "
+        f"{row['k4_bound_us_per_tick']!r} us/tick ({k4_by}, from the "
+        f"shapes: S {SHARD16_SLOTS}, H {H16}, Q+1 {Q16 + 1}, K "
+        f"{DEFAULT_BLOCK}, {nsw} switches of {swdeg})); the sharded tick's "
         f"first {SHARD16_PROFILE_TICKS} ticks profiled: device "
         f"{prof_us:.2f} us/tick, {row['device_launches_per_tick']:.1f} "
         f"launches/tick, busy share {row['busy_share']!r}; final state and "
@@ -3343,8 +3405,8 @@ FIG4_PLAIN_TICKS = 1200
 FIG4_PLAIN_LAUNCHES = 3
 FIG4_RTOL = 1e-5
 # 6i.2: the ticks of Fig. 6's HOMA leg run under torch.profiler, and the
-# allocator's calls profiled alone
-HOMA_PROFILE_TICKS = 200
+# allocator's calls profiled alone (200 until phase 9 was added)
+HOMA_PROFILE_TICKS = 50
 # 6i.3: the generators' FCTs against repro's
 GEN_RTOL = 1e-5
 # 6i.4: the outer sync's in-flight bound and the trees' seeds
@@ -4048,6 +4110,347 @@ def phase_serve(torch, kernels, sup, dev, profile=False):
     return launches, summ
 
 
+# -------------------------------------------------------------------------
+# phase 9: the one-card trainer (K5's and K6's backward kernels, qwen3-14b
+# at full width cut to TRAIN_LAYERS layers, the REDUCED crash/resume and
+# golden)
+# -------------------------------------------------------------------------
+
+# 9b: qwen3-14b at full width, depth cut to TRAIN_LAYERS of 40 layers;
+# train_preset's microbatching over DataConfig(batch=8, seq=1024)
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_RUN_STEPS = 4, 8, 1024, 5
+# 9b asserts its peak device memory stays under this (GB)
+TRAIN_PEAK_GB = 75.0
+# 9a's shapes: K5 bwd (B, H, KV, T, S, D, bf16), causal; K6 bwd (N, D)
+FLASH_BWD_CASES = ((1, 40, 8, 1024, 1024, 128, True),
+                   (1, 4, 2, 128, 128, 64, False),
+                   (2, 4, 2, 32, 32, 16, True))
+NORM_BWD_ROWS = ((1024, 5120), (1024 * 40, 128))
+
+
+def flash_bwd_cost(B, H, KV, T, S, D, itemsize=2):
+    """K5's backward, causal with the queries at the last T of S: q, o, do
+    and k, v read once, dq, dk, dv written once, the float32 LSE read;
+    10·D flops (five products, each a multiply and an add) per visible
+    query-key pair: S and dP recomputed, dV, dK and dQ."""
+    pairs = sum(min(S, t + S - T + 1) for t in range(T))
+    return ((4 * B * H * T * D + 4 * B * KV * S * D) * itemsize
+            + 4 * B * H * T), 10 * B * H * D * pairs
+
+
+def rmsnorm_bwd_cost(N, D, itemsize=2):
+    """K6's backward: x and dy read and dx written once, the float32 scale
+    read and its gradient written; ~12 flops an element (two sums, dx's
+    four products and a difference, dscale's two products and add)."""
+    return 3 * N * D * itemsize + 8 * D, 12 * N * D
+
+
+def train_expected_launches(cfg, tcfg):
+    """Per train step, from the code: per microbatch each layer's block
+    runs K5 once and K6 four times (ln1, ln2, q_norm, k_norm), twice
+    under remat "full" (the forward and its recompute in the backward),
+    and each of their backward kernels once; ``ln_f``, outside the
+    groups, K6 and its backward once."""
+    L, k = cfg.num_layers, max(tcfg.microbatch, 1)
+    fwd = {"none": 1, "full": 2}[tcfg.remat]
+    return {"flash_attention": fwd * L * k, "flash_attention_bwd": L * k,
+            "rmsnorm": (fwd * 4 * L + 1) * k, "rmsnorm_bwd": (4 * L + 1) * k}
+
+
+def phase_train_kernels(torch, sup, dev):
+    """9a: K5's and K6's backward kernels against their plain versions at
+    the training shapes and bit for bit against a second launch, then
+    timed beside the plain version and autograd of the PyTorch call.
+    Returns {name: row} for the kernels line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    err = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
+    rel = dict(err)
+    flash = {}
+    for i, (B, H, KV, T, S, D, bf16) in enumerate(FLASH_BWD_CASES):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q, k, v, do = (torch.as_tensor(a, device=dev).to(dt) for a in
+                       sup.flash_bwd_inputs(B, H, KV, T, S, D, seed=T + D))
+        o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+        torch.cuda.synchronize()
+        bar = sup.BWD_BAR_BF16 if bf16 else sup.BWD_BAR_F32
+        for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+            r = sup.rel_err(g, w)
+            if not r <= bar:
+                raise AssertionError(f"flash_attention_bwd {name} "
+                                     f"{list(q.shape)}: {r} of the largest "
+                                     f"gradient (bar {bar})")
+            torch.testing.assert_close(a, g, rtol=0, atol=0)
+            e = float((g.float() - w.float()).abs().max())
+            err["flash_attention_bwd"] = max(err["flash_attention_bwd"], e)
+            rel["flash_attention_bwd"] = max(rel["flash_attention_bwd"], r)
+            log(f"[train] flash_attention_bwd {name} q {list(q.shape)} k/v "
+                f"{list(k.shape)} {dt}: max abs err {e!r}, {r!r} of the "
+                f"largest gradient (bar {bar}); bitwise equal to a second "
+                f"launch")
+        if i == 0:          # the training shape, timed below
+            flash = dict(q=q, k=k, v=v, o=o, lse=lse, do=do)
+    norm = {}
+    for N, Dn in NORM_BWD_ROWS:
+        x, s, dy = (torch.as_tensor(a, device=dev)
+                    for a in sup.rmsnorm_bwd_inputs(N, Dn, seed=N))
+        for dt in (torch.bfloat16, torch.float32):
+            xd, dyd = x.to(dt), dy.to(dt)
+            got = rmsnorm_bwd(xd, s, dyd)
+            again = rmsnorm_bwd(xd, s, dyd)
+            want = ref.rmsnorm_bwd_ref(xd, s, dyd)
+            torch.cuda.synchronize()
+            bar = sup.BWD_BAR_BF16 if dt == torch.bfloat16 else \
+                sup.BWD_BAR_F32
+            for name, g, a, w in zip(("dx", "dscale"), got, again, want):
+                r = sup.rel_err(g, w)
+                if not r <= bar:
+                    raise AssertionError(f"rmsnorm_bwd {name} [{N}, {Dn}] "
+                                         f"{dt}: {r} (bar {bar})")
+                torch.testing.assert_close(a, g, rtol=0, atol=0)
+                e = float((g.float() - w.float()).abs().max())
+                err["rmsnorm_bwd"] = max(err["rmsnorm_bwd"], e)
+                rel["rmsnorm_bwd"] = max(rel["rmsnorm_bwd"], r)
+                log(f"[train] rmsnorm_bwd {name} [{N}, {Dn}] {dt}: max abs "
+                    f"err {e!r}, {r!r} of the largest gradient (bar {bar});"
+                    f" bitwise equal to a second launch")
+        norm[(N, Dn)] = (x.to(torch.bfloat16), s, dy.to(torch.bfloat16))
+
+    def autograd_ms(fn, ins, grads, reps=20):
+        """Device time of the backward alone of ``fn(*ins)`` (its graph kept
+        between calls): the self device time of its kernels over ``reps``
+        calls (``torch.profiler``), so that the autograd engine's host time
+        between launches is not counted."""
+        from torch.profiler import ProfilerActivity, profile
+        leaves = [t.detach().requires_grad_() for t in ins]
+        out = fn(*leaves)
+        torch.autograd.grad(out, leaves, grads, retain_graph=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                torch.autograd.grad(out, leaves, grads, retain_graph=True)
+            torch.cuda.synchronize()
+        return sum(_self_device_us(e) for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   ) / reps / 1e3
+
+    f = flash
+    B, H, KV, T, S, D, _ = FLASH_BWD_CASES[0]
+    nbytes, flops = flash_bwd_cost(B, H, KV, T, S, D)
+    b, by = bound_ms(nbytes, flops, PEAK_BF16_S)
+    args = (f["q"], f["k"], f["v"], f["o"], f["lse"], f["do"])
+    k5 = dict(
+        shape=f"q [{B},{H},{T},{D}] k/v [{B},{KV},{S},{D}] bf16, causal",
+        ms=graph_ms(torch, lambda: flash_attention_bwd(*args)),
+        plain_ms=graph_ms(torch, lambda: ref.flash_attention_bwd_ref(*args),
+                          reps=10, rounds=3),
+        bound_ms=b, bound_by=by,
+        library_ms=autograd_ms(
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True),
+            (f["q"], f["k"], f["v"]), f["do"]),
+        max_abs_err=err["flash_attention_bwd"],
+        max_rel_err=rel["flash_attention_bwd"])
+    rows = {}
+    for tag, (N, Dn) in zip(("", "qk_"), NORM_BWD_ROWS):
+        x, s, dy = norm[(N, Dn)]
+        nbytes, flops = rmsnorm_bwd_cost(N, Dn)
+        b, by = bound_ms(nbytes, flops)
+        rows[tag] = dict(
+            shape=f"x [{N},{Dn}] bf16, scale f32",
+            ms=graph_ms(torch, lambda: rmsnorm_bwd(x, s, dy)),
+            plain_ms=eager_ms(torch, lambda: ref.rmsnorm_bwd_ref(x, s, dy),
+                              reps=1, rounds=1),
+            bound_ms=b, bound_by=by,
+            library_ms=autograd_ms(
+                lambda x_, s_: F.rms_norm(x_, (Dn,), s_, 1e-6),
+                (x, s.to(torch.bfloat16)), dy))
+    k6 = dict(rows[""], max_abs_err=err["rmsnorm_bwd"],
+              max_rel_err=rel["rmsnorm_bwd"])
+    for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms"):
+        k6["qk_" + key] = rows["qk_"][key]
+    out = {"flash_attention_bwd": k5, "rmsnorm_bwd": k6}
+    for name, row in out.items():
+        log(f"[train] time {name}: " + json.dumps(row))
+    return out
+
+
+def _train_shares(torch, prof):
+    """The share of a profiled train step's device time that K5, K5 bwd,
+    K6, K6 bwd, the dtype casts and cuBLAS take (by kernel name)."""
+    devs = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(_self_device_us(e) for e in devs)
+    groups = {"K5": ("flash_tiled",), "K5_bwd": ("flash_bwd_",),
+              "K6": ("rmsnorm_kernel",), "K6_bwd": ("rmsnorm_bwd_",),
+              "casts": ("copy",), "cublas": ("gemm", "cutlass", "xmma",
+                                             "nvjet", "cublas")}
+    share = {g: sum(_self_device_us(e) for e in devs
+                    if any(n in e.key for n in names)) / max(total, 1e-9)
+             for g, names in groups.items()}
+    top = [(e.key[:90], _self_device_us(e) / 1e3, e.count)
+           for e in sorted(devs, key=_self_device_us, reverse=True)[:10]]
+    return total, share, top
+
+
+def phase_train(torch, kernels, sup, dev, profile=False):
+    """9b: qwen3-14b at full width cut to TRAIN_LAYERS layers through
+    ``train_driver`` (see the module docstring). Returns (launches of one
+    step, summary)."""
+    import dataclasses
+    from repro_torch import configs, models
+    from repro_torch.launch import train_preset
+    from repro_torch.train import DataConfig, init_opt, train_driver
+    free_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(configs.get_config("qwen3-14b"),
+                              num_layers=TRAIN_LAYERS)
+    tcfg = train_preset("qwen3_14b")
+    dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    specs = models.lm_specs(cfg)
+    n_params = models.num_params(specs)
+    t0 = time.perf_counter()
+    params = models.init_params(
+        specs, torch.Generator(device=dev).manual_seed(tcfg.seed), dev)
+    opt = init_opt(params, tcfg)
+    def probe():
+        return (params["ln_f"]["scale"].clone(),
+                params["blocks"]["b0_attn"]["attn"]["wq"][0, :64].clone())
+    before = probe()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    want = train_expected_launches(cfg, tcfg)
+    stamps, per_step = [], []
+
+    def hook(k, p, o, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        per_step.append(dict(kernels.LAUNCHES))
+        kernels.reset_launches()
+
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    stamps.append(time.perf_counter())
+    out = train_driver(cfg, tcfg, dcfg, steps=TRAIN_RUN_STEPS, hooks=[hook],
+                       params=params, opt=opt, device=dev)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = out["losses"]
+    for i, launched in enumerate(per_step):
+        for name, n in launched.items():
+            if n != want.get(name, 0):
+                raise AssertionError(f"train step {i}: {name} launched {n} "
+                                     f"times, expected {want.get(name, 0)}")
+    if len(losses) != TRAIN_RUN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"train: losses {losses}")
+    moved = [bool((a != b).any()) for a, b in zip(before, probe())]
+    if not all(moved):
+        raise AssertionError(f"train: parameters did not move ({moved}: "
+                             f"ln_f's scale, a row of wq)")
+    if peak > TRAIN_PEAK_GB:
+        raise AssertionError(f"train: peak {peak} GB over {TRAIN_PEAK_GB}")
+    steps = np.diff(stamps)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 12 * cfg.head_dim * cfg.num_heads * pairs * TRAIN_BATCH \
+        * cfg.num_layers
+    flops = 6 * n_params * tokens + attn
+    steady = float(np.median(steps[1:]))
+    summ = dict(layers=cfg.num_layers, of_layers=40, params=n_params,
+                init_s=init_s, microbatch=tcfg.microbatch, remat=tcfg.remat,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+                step_s=[float(x) for x in steps], steady_step_s=steady,
+                tokens_per_s=tokens / steady,
+                model_tflop_per_step=flops / 1e12,
+                model_tflops=flops / steady / 1e12, peak_gb=peak,
+                launches_per_step=per_step[0])
+    log(f"[train] (9b) {cfg.name} at full width, {cfg.num_layers} of 40 "
+        f"layers ({n_params} params, drawn in {init_s:.2f} s), "
+        f"train_preset (microbatch {tcfg.microbatch}, remat {tcfg.remat}), "
+        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses {losses}; wall per step "
+        f"{summ['step_s']} s (steady {steady!r} s: "
+        f"{summ['tokens_per_s']!r} tokens/s, {summ['model_tflops']!r} "
+        f"model TFLOP/s of {summ['model_tflop_per_step']!r} TFLOP a step); "
+        f"peak {peak!r} GB; launches a step {per_step[0]} (as derived); "
+        f"parameters moved")
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            train_driver(cfg, tcfg, dcfg, steps=1, params=out["params"],
+                         opt=out["opt"], device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        total, share, top = _train_shares(torch, prof)
+        summ.update(profile_device_ms=total / 1e3, profile_wall_s=wall,
+                    device_share=share)
+        log(f"[profile] (9b) train step: device {total / 1e3:.1f} ms of "
+            f"{wall * 1e3:.1f} ms wall (busy share {total / 1e6 / wall!r}); "
+            f"share of device time: {json.dumps(share)}")
+        for key, ms, n in top:
+            log(f"[profile] (9b)   {ms:9.3f} ms  {n:6d} calls  {key}")
+    del params, opt, out, before
+    free_memory(torch)
+    return per_step[0], summ
+
+
+def phase_train_reduced(torch, sup, dev):
+    """9c: the REDUCED qwen3-14b on the card: crash and resume bit for bit
+    under deterministic algorithms, and the golden's losses."""
+    import dataclasses
+    import tempfile
+    from repro_torch import configs, models
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.spec import _leaves
+    from repro_torch.train import (CrashInjected, DataConfig, init_opt,
+                                   train_driver)
+    cfg = configs.reduced_config("qwen3-14b")
+    tcfg = TrainConfig(**sup.TRAIN_TCFG)
+    dcfg = DataConfig(**sup.TRAIN_DCFG)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as d:
+            ref, res = sup.crash_restart(train_driver, CrashInjected, cfg,
+                                         tcfg, dcfg, d, dev)
+        start = res["start_step"]
+        if ref["losses"][start:] != res["losses"]:
+            raise AssertionError(f"9c: resumed losses {res['losses']} "
+                                 f"against {ref['losses'][start:]}")
+        for a, b in zip(_leaves(ref["params"]), _leaves(res["params"])):
+            torch.testing.assert_close(b, a, rtol=0, atol=0)
+        log(f"[train] (9c) {cfg.name} ({cfg.compute_dtype} compute) crash "
+            f"after step 5, resumed from step {start}: losses "
+            f"{res['losses']} and every parameter bitwise the uninterrupted "
+            f"run's, under torch.use_deterministic_algorithms(True)")
+        gold = sup.train_golden()
+        fcfg = dataclasses.replace(cfg, compute_dtype="float32")
+        params = models.params_from_numpy(
+            sup.numpy_params(models.lm_specs(fcfg), sup.TRAIN_PARAM_SEED),
+            dev)
+        out = train_driver(fcfg, tcfg, dcfg, steps=sup.TRAIN_STEPS,
+                           params=params, opt=init_opt(params, tcfg),
+                           device=dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = float(np.max(np.abs(np.array(out["losses"])
+                               - np.array(gold["losses"]))))
+    if not diff <= sup.TRAIN_LOSS_BAR:
+        raise AssertionError(f"9c: losses {out['losses']} against the "
+                             f"golden's {gold['losses']} (max diff {diff})")
+    log(f"[train] (9c) golden: {fcfg.name}, float32 compute, "
+        f"{sup.TRAIN_STEPS} steps from numpy params (seed "
+        f"{sup.TRAIN_PARAM_SEED}): losses {out['losses']}, max diff "
+        f"{diff!r} from repro's (bar {sup.TRAIN_LOSS_BAR})")
+    return dict(resume_start=start, golden_max_diff=diff)
+
+
 def kernels_line(rows, launches):
     line = []
     for k in KERNELS:
@@ -4070,6 +4473,9 @@ def kernels_line(rows, launches):
 
 def main():
     arm_deadline()
+    # cuBLAS's deterministic workspace (9c runs under
+    # torch.use_deterministic_algorithms), set before its first call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     name, smi = phase_probe(torch)
     sys.path[:0] = [SRC, os.path.join(ROOT, "tests")]
@@ -4158,6 +4564,24 @@ def main():
     mark(f"[time] + serve: {time.perf_counter() - t0:.1f} s")
     for k in LM_KERNELS:
         launches[k] = serve_launches[k]
+    t9 = time.perf_counter()
+    rows.update(phase_train_kernels(torch, sup, dev))
+    mark(f"[time] 9a backward kernels: {time.perf_counter() - t9:.1f} s")
+    t9b = time.perf_counter()
+    train_launches, train_summ = phase_train(torch, kernels, sup, dev,
+                                             profile)
+    log("[train] " + json.dumps({"train": train_summ}))
+    mark(f"[time] 9b qwen3-14b train: {time.perf_counter() - t9b:.1f} s")
+    t9c = time.perf_counter()
+    reduced = phase_train_reduced(torch, sup, dev)
+    log("[train] " + json.dumps({"train_reduced": reduced}))
+    mark(f"[time] 9c REDUCED crash/resume and golden: "
+         f"{time.perf_counter() - t9c:.1f} s")
+    mark(f"[time] + train: {time.perf_counter() - t0:.1f} s")
+    for k in TRAIN_KERNELS:
+        launches[k] = train_launches[k]
+    for k in LM_KERNELS:
+        rows[k]["train_launches_per_step"] = train_launches[k]
 
     for k in PATH_KERNELS:
         if launches[k] == 0:

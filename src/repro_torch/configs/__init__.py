@@ -1,7 +1,8 @@
-"""Model configuration (twin of ``repro.configs``; ``ModelConfig`` and the
-qwen3-14b entry of the registry)."""
-from .base import ModelConfig
+"""Model, shape, mesh and training configuration (twin of
+``repro.configs``; the qwen3-14b entry of the registry)."""
+from .base import MeshConfig, ModelConfig, SHAPES, ShapeConfig, TrainConfig
 from .registry import PORTED, canon, get_config, padded_vocab, reduced_config
 
-__all__ = ["ModelConfig", "PORTED", "canon", "get_config", "padded_vocab",
+__all__ = ["MeshConfig", "ModelConfig", "SHAPES", "ShapeConfig",
+           "TrainConfig", "PORTED", "canon", "get_config", "padded_vocab",
            "reduced_config"]

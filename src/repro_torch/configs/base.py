@@ -1,9 +1,9 @@
-"""The model configuration dataclass (twin of ``repro.configs.base``).
+"""Config dataclasses: model architecture, input shapes, mesh, training
+(twin of ``repro.configs.base``).
 
-Only ``ModelConfig`` is ported; the shape, mesh and training configs come
-with the training and sharding slices (ROADMAP.md, Queue 1 items 14-15).
-The fields are ``repro``'s, all of them, so a configuration reads the same
-in both packages.
+The fields and defaults are ``repro``'s, all of them, so a configuration
+reads the same in both packages. ``MeshConfig`` is carried for the
+multi-card slice; the one-card trainer reads none of it.
 """
 from __future__ import annotations
 
@@ -80,3 +80,69 @@ class ModelConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str                        # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axes if a in ("pod", "data"))
+
+    @property
+    def model_size(self) -> int:
+        return self.shape[self.axes.index("model")]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    microbatch: int = 0              # number of accumulation microbatches
+    remat: str = "full"              # full|dots|none|nested
+    accum_dtype: str = "float32"     # bfloat16 halves grad-accum memory
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    adam_b1: float = 0.9
+    adam_b2: float = 0.95
+    moments_dtype: str = "float32"   # bfloat16 to halve optimizer memory
+    seed: int = 0
+    # multi-pod DCN strategy: "sync" per-step psum | "diloco" H-step outer
+    multipod_strategy: str = "sync"
+    diloco_h: int = 16
+    diloco_outer_lr: float = 0.7
+    diloco_outer_momentum: float = 0.9
+    grad_compression: str = "none"   # none|int8_ef
+    # PowerTCP-scheduled chunked DCN reduction
+    comm_buckets: int = 4

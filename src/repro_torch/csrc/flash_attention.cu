@@ -81,6 +81,10 @@
 //
 // Every sum runs in a fixed order and the only atomic elects a block, so
 // the result is the same from run to run.
+//
+// Training: with FlashArgs::lse set, the tiled forms (which then serve
+// every T) also write each query row's float32 log-sum-exp, and the
+// backward kernels below (FlashBwdArgs) recompute P from it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,6 +106,62 @@ struct FlashArgs {
   float scale;
   float* part;            // split_mma's partials: [rows, D] then [rows, 2]
   unsigned int* count;    // split_mma's B * KV zeroed election counters
+  float* lse;             // null, or [B, H, T] float32: each row's
+                          // log-sum-exp of its scaled scores (the tiled
+                          // forms then serve every T)
+};
+
+// ---------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------
+//
+// Stands for jax.grad through the attention (the Pallas kernel has no
+// backward; src/repro/models/layers.py::_sdpa is what repro
+// differentiates). Given the forward's output o, its float32 log-sum-exp
+// lse [B, H, T] and the output's gradient do:
+//   p = exp(s - lse) (0 where masked), delta = rowsum(do * o),
+//   ds = p * (dp - delta) with dp = do . v,
+//   dq = scale * ds K,  dk = scale * ds^T Q,  dv = p^T dO,
+// dk and dv summed over the G query heads of a kv head. Causal with no
+// window, or no mask at all (the wrapper raises for a window). Two
+// kernels, launched in this order on the stream, neither with a float
+// atomic, each sum in a fixed order (the same bits run to run):
+// * dq: one block per (b, head, query tile); it first takes delta for its
+//   rows (written to a [B, H, T] buffer for the second kernel), then walks
+//   the key tiles in order, adding ds K into registers;
+// * dk/dv: one block per (b, kv head, key tile); it walks the group's G
+//   heads in ascending order and, for each, the query tiles in order,
+//   adding ds^T Q and p^T dO into registers.
+// Bound at the training shape (T = S = 1 024, D = 128, causal): about
+// 10 D flops per visible pair (five products) over the bytes of q, k, v,
+// o, do and the three gradients, ~1 300 flops a byte: the tensor cores.
+// bfloat16 runs on mma.sync as the forward does, p and ds split into bf16
+// halves (p_hi + p_lo), so each keeps ~16 bits of its float32 value;
+// float32 runs scalar CUDA-core forms, a warp a query row (dq) or a key
+// row (dk/dv), lane j taking key (query) j of a 32-wide tile.
+
+struct FlashBwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;     // [B, H, T]
+  float* delta;         // [B, H, T], written by the dq kernel
+  void* dq;
+  void* dk;
+  void* dv;
+  long long q_sb, q_sh, q_st;   // element strides (the D stride is 1)
+  long long k_sb, k_sh, k_ss;
+  long long v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_st;
+  long long do_sb, do_sh, do_st;
+  long long dq_sb, dq_sh, dq_st;
+  long long dk_sb, dk_sh, dk_ss;
+  long long dv_sb, dv_sh, dv_ss;
+  int B, H, KV, T, S, D;
+  int causal;
+  float scale;
 };
 
 namespace {
@@ -259,6 +319,9 @@ __global__ void __launch_bounds__(kBQ * 32)
   }
   if (!row) return;
   const float denom = fmaxf(l, 1e-30f);
+  if (a.lse != nullptr && lane == 0) {
+    a.lse[(static_cast<long long>(b) * a.H + h) * a.T + t] = m + logf(l);
+  }
   Tin* og = static_cast<Tin*>(a.o) + b * a.o_sb + h * a.o_sh +
             static_cast<long long>(t) * a.o_st;
 #pragma unroll
@@ -341,7 +404,7 @@ __global__ void __launch_bounds__(kSplitWarps * 32)
 
 template <typename Tin, int D>
 int launch_d(const Args& a, cudaStream_t stream) {
-  if (a.T <= kSplitMaxT) {
+  if (a.T <= kSplitMaxT && a.lse == nullptr) {
     flash_split<Tin, D><<<dim3(a.T, a.H, a.B), kSplitWarps * 32, 0,
                           stream>>>(a);
     return static_cast<int>(cudaGetLastError());
@@ -366,6 +429,7 @@ int launch_d(const Args& a, cudaStream_t stream) {
 using bf16 = __nv_bfloat16;
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kTileQ = 64;        // query rows per tiled_mma block
 constexpr int kTiledWarps = kTileQ / 16;       // 16 query rows a warp
 constexpr int kSplitKeys = 64;    // keys per split_mma block
@@ -659,8 +723,13 @@ __global__ void __launch_bounds__(kTiledWarps * 32, 3)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = r0 + g + 8 * r;
-    const float denom = fmaxf(quad_sum(l[r]), 1e-30f);
+    const float lsum = quad_sum(l[r]);
+    const float denom = fmaxf(lsum, 1e-30f);
     if (t >= a.T) continue;
+    if (a.lse != nullptr && tig == 0) {   // m is in log2 units
+      a.lse[(static_cast<long long>(b) * a.H + h) * a.T + t] =
+          (m[r] + log2f(lsum)) * kLn2;
+    }
     bf16* orow = og + static_cast<long long>(t) * a.o_st + 2 * tig;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
@@ -927,7 +996,8 @@ __global__ void __launch_bounds__(kSplitMmaWarps * 32)
   if (tid == 0) a.count[bk] = 0u;
 }
 
-int set_smem(void (*kernel)(Args), int bytes) {
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
@@ -937,7 +1007,7 @@ int splits(int S) { return S > 0 ? (S + kSplitKeys - 1) / kSplitKeys : 1; }
 
 template <int D>
 int launch_mma(const Args& a, cudaStream_t stream) {
-  if (a.T <= kSplitMaxT) {
+  if (a.T <= kSplitMaxT && a.lse == nullptr) {
     const int smem = SplitMma<D>::kSmem + 2 * (a.H / a.KV) * a.T * 4;
     const int e = set_smem(flash_split_mma<D>, smem);
     if (e != 0) return e;
@@ -974,6 +1044,571 @@ int launch(const Args* a, void* stream, bool bf) {
   }
 }
 
+// ---------------------------------------------------------------------
+// backward (FlashBwdArgs; see the note at its definition)
+// ---------------------------------------------------------------------
+
+using BArgs = FlashBwdArgs;
+
+// Query t (a row of T, at position t + S - T) sees key j.
+__device__ __forceinline__ bool sees(const BArgs& a, int t, int j) {
+  return t < a.T && j < a.S && (!a.causal || j <= t + (a.S - a.T));
+}
+
+// The keys [0, end) that query t sees (t < T).
+__device__ __forceinline__ int seen_end(const BArgs& a, int t) {
+  return a.causal ? max(0, min(a.S, t + (a.S - a.T) + 1)) : a.S;
+}
+
+// float32, dq: a block of kBQ warps per (b, head, kBQ query rows), a warp
+// a row; key tiles of kBK keys (K and V float32 in shared memory), lane j
+// scoring key j, then ds_j broadcast by a shuffle into the lane's columns.
+template <int D>
+__global__ void __launch_bounds__(kBQ * 32)
+    flash_bwd_dq_f32(const BArgs a) {
+  constexpr int DPL = (D + 31) / 32;
+  extern __shared__ float smem[];
+  float* ks = smem;                         // [kBK][D + 1]
+  float* vs = ks + kBK * (D + 1);           // [kBK][D + 1]
+  float* qs = vs + kBK * (D + 1);           // [kBQ][D]
+  float* dos = qs + kBQ * D;                // [kBQ][D]
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
+  const int kvh = h / (a.H / a.KV);
+  const float* qg = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kg = static_cast<const float*>(a.k) + b * a.k_sb +
+                    kvh * a.k_sh;
+  const float* vg = static_cast<const float*>(a.v) + b * a.v_sb +
+                    kvh * a.v_sh;
+  const float* og = static_cast<const float*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* dog = static_cast<const float*>(a.dout) + b * a.do_sb +
+                     h * a.do_sh;
+  const long long row0 = (static_cast<long long>(b) * a.H + h) * a.T;
+
+  for (int idx = threadIdx.x; idx < kBQ * D; idx += blockDim.x) {
+    const int r = idx / D, c = idx % D;
+    const bool ok = q0 + r < a.T;
+    const long long t = q0 + r;
+    qs[idx] = ok ? qg[t * a.q_st + c] : 0.0f;
+    dos[idx] = ok ? dog[t * a.do_st + c] : 0.0f;
+  }
+  const int t = q0 + w;
+  const bool row = t < a.T;
+  float dl = 0.0f, lse = 0.0f;
+  if (row) {
+    float part = 0.0f;
+    for (int c = lane; c < D; c += 32) {
+      part += dog[static_cast<long long>(t) * a.do_st + c] *
+              og[static_cast<long long>(t) * a.o_st + c];
+    }
+    dl = warp_sum(part);
+    lse = a.lse[row0 + t];
+    if (lane == 0) a.delta[row0 + t] = dl;
+  }
+  const int bhi = seen_end(a, min(q0 + kBQ, a.T) - 1);
+  const int hi = row ? seen_end(a, t) : 0;
+  float acc[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) acc[i] = 0.0f;
+  for (int k0 = 0; k0 < bhi; k0 += kBK) {
+    __syncthreads();    // the previous tile is consumed (and q is staged)
+    for (int idx = threadIdx.x; idx < kBK * D; idx += blockDim.x) {
+      const int r = idx / D, c = idx % D;
+      const long long key = k0 + r;
+      const bool ok = key < a.S;
+      ks[r * (D + 1) + c] = ok ? kg[key * a.k_ss + c] : 0.0f;
+      vs[r * (D + 1) + c] = ok ? vg[key * a.v_ss + c] : 0.0f;
+    }
+    __syncthreads();
+    if (!row || k0 >= hi) continue;                     // warp-uniform
+    const float* qr = qs + w * D;
+    const float* dr = dos + w * D;
+    const float* kr = ks + lane * (D + 1);
+    const float* vr = vs + lane * (D + 1);
+    float s = 0.0f, dp = 0.0f;
+    for (int c = 0; c < D; ++c) {
+      s += qr[c] * kr[c];
+      dp += dr[c] * vr[c];
+    }
+    const float p = sees(a, t, k0 + lane) ? expf(s * a.scale - lse) : 0.0f;
+    const float ds = p * (dp - dl);
+    for (int j = 0; j < kBK; ++j) {
+      const float dsj = __shfl_sync(0xffffffffu, ds, j);
+      const float* kj = ks + j * (D + 1) + lane;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        if (has_col<D>(lane, i)) acc[i] += dsj * kj[32 * i];
+      }
+    }
+  }
+  if (!row) return;
+  float* dqg = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh +
+               static_cast<long long>(t) * a.dq_st;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    if (has_col<D>(lane, i)) dqg[lane + 32 * i] = acc[i] * a.scale;
+  }
+}
+
+// float32, dk/dv: a block of kBQ warps per (b, kv head, kBQ keys), a warp
+// a key; query tiles of kBK queries of each of the group's heads in turn,
+// lane i scoring query i.
+template <int D>
+__global__ void __launch_bounds__(kBQ * 32)
+    flash_bwd_dkv_f32(const BArgs a) {
+  constexpr int DPL = (D + 31) / 32;
+  extern __shared__ float smem[];
+  float* qs = smem;                         // [kBK][D + 1]
+  float* dos = qs + kBK * (D + 1);          // [kBK][D + 1]
+  float* kr_s = dos + kBK * (D + 1);        // [kBQ][D]
+  float* vr_s = kr_s + kBQ * D;             // [kBQ][D]
+  float* ls = vr_s + kBQ * D;               // [kBK]
+  float* dls = ls + kBK;                    // [kBK]
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBQ;
+  const int G = a.H / a.KV;
+  const float* kg = static_cast<const float*>(a.k) + b * a.k_sb +
+                    kvh * a.k_sh;
+  const float* vg = static_cast<const float*>(a.v) + b * a.v_sb +
+                    kvh * a.v_sh;
+  for (int idx = threadIdx.x; idx < kBQ * D; idx += blockDim.x) {
+    const int r = idx / D, c = idx % D;
+    const long long key = k0 + r;
+    const bool ok = key < a.S;
+    kr_s[idx] = ok ? kg[key * a.k_ss + c] : 0.0f;
+    vr_s[idx] = ok ? vg[key * a.v_ss + c] : 0.0f;
+  }
+  const int j = k0 + w;
+  const bool key_ok = j < a.S;
+  // the first query tile with a query that sees key k0
+  const int tbeg = a.causal ? (max(0, k0 - (a.S - a.T)) / kBK) * kBK : 0;
+  float dk[DPL], dv[DPL];
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) dk[i] = dv[i] = 0.0f;
+  for (int hq = 0; hq < G; ++hq) {
+    const int h = kvh * G + hq;
+    const float* qg = static_cast<const float*>(a.q) + b * a.q_sb +
+                      h * a.q_sh;
+    const float* dog = static_cast<const float*>(a.dout) + b * a.do_sb +
+                       h * a.do_sh;
+    const long long row0 = (static_cast<long long>(b) * a.H + h) * a.T;
+    for (int t0 = tbeg; t0 < a.T; t0 += kBK) {
+      __syncthreads();  // the previous tile is consumed (and k/v staged)
+      for (int idx = threadIdx.x; idx < kBK * D; idx += blockDim.x) {
+        const int r = idx / D, c = idx % D;
+        const long long t = t0 + r;
+        const bool ok = t < a.T;
+        qs[r * (D + 1) + c] = ok ? qg[t * a.q_st + c] : 0.0f;
+        dos[r * (D + 1) + c] = ok ? dog[t * a.do_st + c] : 0.0f;
+      }
+      for (int i = threadIdx.x; i < kBK; i += blockDim.x) {
+        const bool ok = t0 + i < a.T;
+        ls[i] = ok ? a.lse[row0 + t0 + i] : 0.0f;
+        dls[i] = ok ? a.delta[row0 + t0 + i] : 0.0f;
+      }
+      __syncthreads();
+      if (!key_ok) continue;                            // warp-uniform
+      const float* kr = kr_s + w * D;
+      const float* vr = vr_s + w * D;
+      const float* qr = qs + lane * (D + 1);
+      const float* dr = dos + lane * (D + 1);
+      float s = 0.0f, dp = 0.0f;
+      for (int c = 0; c < D; ++c) {
+        s += qr[c] * kr[c];
+        dp += dr[c] * vr[c];
+      }
+      const float p =
+          sees(a, t0 + lane, j) ? expf(s * a.scale - ls[lane]) : 0.0f;
+      const float ds = p * (dp - dls[lane]);
+      for (int i2 = 0; i2 < kBK; ++i2) {
+        const float pj = __shfl_sync(0xffffffffu, p, i2);
+        const float dsj = __shfl_sync(0xffffffffu, ds, i2);
+        const float* dq2 = dos + i2 * (D + 1) + lane;
+        const float* q2 = qs + i2 * (D + 1) + lane;
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          if (has_col<D>(lane, i)) {
+            dv[i] += pj * dq2[32 * i];
+            dk[i] += dsj * q2[32 * i];
+          }
+        }
+      }
+    }
+  }
+  if (!key_ok) return;
+  float* dkg = static_cast<float*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh +
+               static_cast<long long>(j) * a.dk_ss;
+  float* dvg = static_cast<float*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh +
+               static_cast<long long>(j) * a.dv_ss;
+#pragma unroll
+  for (int i = 0; i < DPL; ++i) {
+    if (has_col<D>(lane, i)) {
+      dkg[lane + 32 * i] = dk[i] * a.scale;
+      dvg[lane + 32 * i] = dv[i];
+    }
+  }
+}
+
+template <int D>
+struct BwdMma {
+  static constexpr int BK = 32;        // keys (dq) or queries (dk/dv) a tile
+  static constexpr int LD = D + 8;     // shared row stride, as the forward's
+  // dq: Q and dO [kTileQ][LD], K and V [2][BK][LD]; dk/dv: K and V
+  // [kTileQ][LD], Q and dO [2][BK][LD], then lse and delta [2][BK] floats
+  static constexpr int kSmemDq = (2 * kTileQ + 4 * BK) * LD * 2;
+  static constexpr int kSmemDkv = kSmemDq + 4 * BK * 4;
+};
+
+// bfloat16, dq on mma.sync: a block of 4 warps per (b, head, 64 query
+// rows), 16 rows a warp; the block's Q and dO tiles stay in shared memory,
+// K and V come in double-buffered 32-key tiles by cp.async. Per tile:
+// S = Q K^T and dP = dO V^T on the tensor cores, p and ds on the
+// accumulator fragments, dq += (ds_hi + ds_lo) K.
+template <int D>
+__global__ void __launch_bounds__(kTiledWarps * 32)
+    flash_bwd_dq_mma(const BArgs a) {
+  using C = BwdMma<D>;
+  constexpr int BK = C::BK, LD = C::LD, NS = BK / 8, ND = D / 8;
+  constexpr int KD = D / 16, CH = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);     // [kTileQ][LD]
+  bf16* dos = qs + kTileQ * LD;                      // [kTileQ][LD]
+  bf16* ks = dos + kTileQ * LD;                      // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                       // [2][BK][LD]
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTileQ;   // heaviest first
+  const int kvh = h / (a.H / a.KV);
+  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const bf16* og = static_cast<const bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const bf16* dog = static_cast<const bf16*>(a.dout) + b * a.do_sb +
+                    h * a.do_sh;
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb +
+                   kvh * a.k_sh;
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb +
+                   kvh * a.v_sh;
+  const long long row0 = (static_cast<long long>(b) * a.H + h) * a.T;
+  const float sc = a.scale * kLog2e;
+
+  for (int i = tid; i < kTileQ * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH, t = q0 + r;
+    const bool ok = t < a.T;
+    const long long tt = static_cast<long long>(t);
+    cp_async16(qs + r * LD + c * 8, ok ? qg + tt * a.q_st + c * 8 : qg, ok);
+    cp_async16(dos + r * LD + c * 8, ok ? dog + tt * a.do_st + c * 8 : dog,
+               ok);
+  }
+  auto load_kv = [&](int k0, int buf) {
+    bf16* kd = ks + buf * BK * LD;
+    bf16* vd = vs + buf * BK * LD;
+    for (int i = tid; i < BK * CH; i += blockDim.x) {
+      const int r = i / CH, c = i % CH, key = k0 + r;
+      const bool ok = key < a.S;
+      const long long kk = static_cast<long long>(key);
+      cp_async16(kd + r * LD + c * 8, ok ? kg + kk * a.k_ss + c * 8 : kg,
+                 ok);
+      cp_async16(vd + r * LD + c * 8, ok ? vg + kk * a.v_ss + c * 8 : vg,
+                 ok);
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // rows g and g + 8 of the warp: delta (a quarter of the row a lane of
+  // the quad, then the quad's butterfly), the log-sum-exp in log2 units,
+  // and the end of the keys each sees
+  const int r0 = q0 + 16 * w;
+  const bool active = r0 < a.T;
+  float dl[2], ls2[2];
+  int rhi[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = r0 + g + 8 * r;
+    float part = 0.0f;
+    if (t < a.T) {
+      const long long tt = static_cast<long long>(t);
+      for (int c = tig; c < D; c += 4) {
+        part += __bfloat162float(dog[tt * a.do_st + c]) *
+                __bfloat162float(og[tt * a.o_st + c]);
+      }
+    }
+    dl[r] = quad_sum(part);
+    ls2[r] = t < a.T ? a.lse[row0 + t] * kLog2e : 0.0f;
+    rhi[r] = t < a.T ? seen_end(a, t) : 0;
+    if (tig == 0 && t < a.T) a.delta[row0 + t] = dl[r];
+  }
+  const int bhi = seen_end(a, min(q0 + kTileQ, a.T) - 1);
+  const int hi_min = active ? seen_end(a, r0) : 0;
+  const int hi_max = active ? seen_end(a, min(r0 + 15, a.T - 1)) : 0;
+  const bool rows_full = r0 + 16 <= a.T;
+
+  float dq[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
+  }
+  int buf = 0;
+  for (int k0 = 0; k0 < bhi; k0 += BK, buf ^= 1) {
+    if (k0 + BK < bhi) load_kv(k0 + BK, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();        // this tile (and, at the first, Q and dO)
+    if (active && k0 < hi_max) {
+      const bf16* kt = ks + buf * BK * LD;
+      const bf16* vt = vs + buf * BK * LD;
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned qa[4], da[4];
+        load_a<LD>(qa, qs + 16 * w * LD, kk, lane);
+        load_a<LD>(da, dos + 16 * w * LD, kk, lane);
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {
+          mma_qk<LD>(s + j, qa, kt, 8 * j, kk, lane);
+          mma_qk<LD>(dp + j, da, vt, 8 * j, kk, lane);
+        }
+      }
+      const bool full = rows_full && k0 + BK <= hi_min;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * j + 2 * tig + (e & 1);
+          const int r = e >> 1;
+          const bool ok = full || key < rhi[r];
+          const float p = ok ? exp2_approx(s[j][e] * sc - ls2[r]) : 0.0f;
+          s[j][e] = p * (dp[j][e] - dl[r]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        unsigned dhi[4], dlo[4];
+        split_p(s[2 * kk], s[2 * kk + 1], dhi, dlo);
+        mma_pv<D, LD>(dq, dhi, dlo, kt, 16 * kk, lane);
+      }
+    }
+    __syncthreads();        // the tile is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  bf16* dqg = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = r0 + g + 8 * r;
+    if (t >= a.T) continue;
+    bf16* row = dqg + static_cast<long long>(t) * a.dq_st + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) = __floats2bfloat162_rn(
+          dq[n][2 * r] * a.scale, dq[n][2 * r + 1] * a.scale);
+    }
+  }
+}
+
+// bfloat16, dk/dv on mma.sync: a block of 4 warps per (b, kv head, 64
+// keys), 16 keys a warp; the block's K and V tiles stay in shared memory,
+// Q and dO come in double-buffered 32-query tiles (the group's heads in
+// ascending order, each head's tiles in order) by cp.async. Per tile:
+// S^T = K Q^T and dP^T = V dO^T, p and ds on the fragments, then
+// dv += (p_hi + p_lo)^T dO and dk += (ds_hi + ds_lo)^T Q.
+template <int D>
+__global__ void __launch_bounds__(kTiledWarps * 32)
+    flash_bwd_dkv_mma(const BArgs a) {
+  using C = BwdMma<D>;
+  constexpr int BK = C::BK, LD = C::LD, NS = BK / 8, ND = D / 8;
+  constexpr int KD = D / 16, CH = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);     // [kTileQ][LD]
+  bf16* vs = ks + kTileQ * LD;                       // [kTileQ][LD]
+  bf16* qs = vs + kTileQ * LD;                       // [2][BK][LD]
+  bf16* dos = qs + 2 * BK * LD;                      // [2][BK][LD]
+  float* lsb = reinterpret_cast<float*>(dos + 2 * BK * LD);   // [2][BK]
+  float* dlb = lsb + 2 * BK;                                  // [2][BK]
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * kTileQ;        // the first keys are the heaviest
+  const int G = a.H / a.KV;
+  const int off = a.S - a.T;
+  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb +
+                   kvh * a.k_sh;
+  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb +
+                   kvh * a.v_sh;
+  const float sc = a.scale * kLog2e;
+
+  for (int i = tid; i < kTileQ * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH, key = k0 + r;
+    const bool ok = key < a.S;
+    const long long kk = static_cast<long long>(key);
+    cp_async16(ks + r * LD + c * 8, ok ? kg + kk * a.k_ss + c * 8 : kg, ok);
+    cp_async16(vs + r * LD + c * 8, ok ? vg + kk * a.v_ss + c * 8 : vg, ok);
+  }
+  // the tiles: (head of the group, query tile) flattened, from the first
+  // query tile that holds a query seeing key k0
+  const int tbeg = a.causal ? (max(0, k0 - off) / BK) * BK : 0;
+  const int ntile = a.T > tbeg ? (a.T - tbeg + BK - 1) / BK : 0;
+  const int total = G * ntile;
+  auto load_q = [&](int n, int buf) {
+    const int h = kvh * G + n / ntile, t0 = tbeg + (n % ntile) * BK;
+    const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb +
+                     h * a.q_sh;
+    const bf16* dog = static_cast<const bf16*>(a.dout) + b * a.do_sb +
+                      h * a.do_sh;
+    bf16* qd = qs + buf * BK * LD;
+    bf16* dd = dos + buf * BK * LD;
+    for (int i = tid; i < BK * CH; i += blockDim.x) {
+      const int r = i / CH, c = i % CH, t = t0 + r;
+      const bool ok = t < a.T;
+      const long long tt = static_cast<long long>(t);
+      cp_async16(qd + r * LD + c * 8, ok ? qg + tt * a.q_st + c * 8 : qg,
+                 ok);
+      cp_async16(dd + r * LD + c * 8, ok ? dog + tt * a.do_st + c * 8 : dog,
+                 ok);
+    }
+    const long long row0 = (static_cast<long long>(b) * a.H + h) * a.T;
+    for (int i = tid; i < BK; i += blockDim.x) {
+      const bool ok = t0 + i < a.T;
+      lsb[buf * BK + i] = ok ? a.lse[row0 + t0 + i] * kLog2e : 0.0f;
+      dlb[buf * BK + i] = ok ? a.delta[row0 + t0 + i] : 0.0f;
+    }
+  };
+  if (total > 0) load_q(0, 0);
+  cp_async_commit();
+
+  const int kw = k0 + 16 * w;                 // the warp's first key
+  const bool active = kw < a.S;
+  const bool keys_full = kw + 16 <= a.S;
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  }
+  int buf = 0;
+  for (int n = 0; n < total; ++n, buf ^= 1) {
+    if (n + 1 < total) load_q(n + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();        // this tile (and, at the first, K and V)
+    const int t0 = tbeg + (n % ntile) * BK;
+    // a warp skips a tile none of whose queries sees its first key
+    if (active && (!a.causal || t0 + BK - 1 + off >= kw)) {
+      const bf16* qt = qs + buf * BK * LD;
+      const bf16* dt = dos + buf * BK * LD;
+      const float* L = lsb + buf * BK;
+      const float* Dl = dlb + buf * BK;
+      float st[NS][4], dpt[NS][4];
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.0f;
+        dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.0f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        unsigned ka[4], va[4];
+        load_a<LD>(ka, ks + 16 * w * LD, kk, lane);
+        load_a<LD>(va, vs + 16 * w * LD, kk, lane);
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {
+          mma_qk<LD>(st + j, ka, qt, 8 * j, kk, lane);
+          mma_qk<LD>(dpt + j, va, dt, 8 * j, kk, lane);
+        }
+      }
+      // every query of the tile sees every key of the warp
+      const bool full = keys_full && t0 + BK <= a.T &&
+                        (!a.causal || t0 + off >= kw + 15);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * j + 2 * tig + (e & 1);
+          const int key = kw + g + 8 * (e >> 1);
+          const bool ok = full || sees(a, t0 + qi, key);
+          const float p = ok ? exp2_approx(st[j][e] * sc - L[qi]) : 0.0f;
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - Dl[qi]);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        unsigned hi[4], lo[4];
+        split_p(st[2 * kk], st[2 * kk + 1], hi, lo);
+        mma_pv<D, LD>(dv, hi, lo, dt, 16 * kk, lane);
+        split_p(dpt[2 * kk], dpt[2 * kk + 1], hi, lo);
+        mma_pv<D, LD>(dk, hi, lo, qt, 16 * kk, lane);
+      }
+    }
+    __syncthreads();        // the tile is consumed before it is refilled
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  bf16* dkg = static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh;
+  bf16* dvg = static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = kw + g + 8 * r;
+    if (key >= a.S) continue;
+    bf16* krow = dkg + static_cast<long long>(key) * a.dk_ss + 2 * tig;
+    bf16* vrow = dvg + static_cast<long long>(key) * a.dv_ss + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * n) = __floats2bfloat162_rn(
+          dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * n) =
+          __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+int launch_bwd_d(const BArgs& a, cudaStream_t stream, bool bf) {
+  if (bf) {
+    using C = BwdMma<D>;
+    int e = set_smem(flash_bwd_dq_mma<D>, C::kSmemDq);
+    if (e != 0) return e;
+    e = set_smem(flash_bwd_dkv_mma<D>, C::kSmemDkv);
+    if (e != 0) return e;
+    flash_bwd_dq_mma<D><<<dim3(a.H, a.B, (a.T + kTileQ - 1) / kTileQ),
+                          kTiledWarps * 32, C::kSmemDq, stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    flash_bwd_dkv_mma<D><<<dim3(a.KV, a.B, (a.S + kTileQ - 1) / kTileQ),
+                           kTiledWarps * 32, C::kSmemDkv, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int smem_dq = (2 * kBK * (D + 1) + 2 * kBQ * D) *
+                      static_cast<int>(sizeof(float));
+  const int smem_dkv = smem_dq + 2 * kBK * static_cast<int>(sizeof(float));
+  int e = set_smem(flash_bwd_dq_f32<D>, smem_dq);
+  if (e != 0) return e;
+  e = set_smem(flash_bwd_dkv_f32<D>, smem_dkv);
+  if (e != 0) return e;
+  flash_bwd_dq_f32<D><<<dim3((a.T + kBQ - 1) / kBQ, a.H, a.B), kBQ * 32,
+                        smem_dq, stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkv_f32<D><<<dim3((a.S + kBQ - 1) / kBQ, a.KV, a.B), kBQ * 32,
+                         smem_dkv, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd(const BArgs* a, void* stream, bool bf) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a->D) {
+    case 16: return launch_bwd_d<16>(*a, s, bf);
+    case 32: return launch_bwd_d<32>(*a, s, bf);
+    case 64: return launch_bwd_d<64>(*a, s, bf);
+    case 128: return launch_bwd_d<128>(*a, s, bf);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" int flash_attention_f32(const FlashArgs* a, void* stream) {
@@ -992,3 +1627,14 @@ extern "C" int flash_attention_bf16(const FlashArgs* a, void* stream) {
 extern "C" int flash_attention_split_max_t() { return kSplitMaxT; }
 
 extern "C" int flash_attention_split_keys() { return kSplitKeys; }
+
+// The backward: dq, dk, dv, delta written; lse from the forward (a
+// launch with a non-null FlashArgs::lse).
+extern "C" int flash_attention_bwd_f32(const FlashBwdArgs* a, void* stream) {
+  return launch_bwd(a, stream, false);
+}
+
+extern "C" int flash_attention_bwd_bf16(const FlashBwdArgs* a,
+                                        void* stream) {
+  return launch_bwd(a, stream, true);
+}

@@ -46,6 +46,29 @@
 // CPU rsqrt), not the approximate rsqrtf; y = (x * inv) * scale, rounded
 // once to bfloat16 where x is bfloat16. tests/test_torch_support.py::
 // rmsnorm_in_k6_order spells the same order in torch.
+//
+// The backward (rmsnorm_bwd_*) stands for jax.grad through the norm
+// (src/repro/models/layers.py::norm_apply, whose Pallas kernel has no
+// backward): given dy, with g = dy * scale and float32 statistics,
+//   inv = 1 / sqrt(mean(x^2) + eps),  c = mean(g * x),
+//   dx = inv * g - (x * inv^3) * c          (in x's dtype),
+//   dscale = sum over rows of (dy * x) * inv (float32).
+// Bound: bytes (x and dy read once, dx written once). Two kernels, no
+// atomics, so the result is the same run to run (the trainer's
+// crash/restart is held bit for bit on the card):
+// * rmsnorm_bwd_rows: the grid cuts the rows into contiguous chunks of R,
+//   one chunk a block. The lanes keep the forward's plan (a G-lane group a
+//   row, vector v on lane v % G), so a lane owns the same columns in every
+//   row: it holds their scale in registers and adds its columns' dscale
+//   terms over its rows in row order. A wide row is the whole block and
+//   the block walks its chunk row by row; narrow rows go to the block's
+//   groups in turn (group i: rows i, i + groups, ...). Each row's two sums
+//   (of x^2, of g * x) run in the forward's order: lane slots in order,
+//   the xor butterfly, the warps in warp order. The block's groups then
+//   add their dscale partials in group order through shared memory and
+//   the block writes one float32 partial row [D].
+// * rmsnorm_bwd_reduce: one thread a column adds the blocks' partials in
+//   block order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -240,6 +263,220 @@ int launch(const T* x, const float* scale, T* y, long long N, int D, int G,
   return cudaErrorInvalidValue;
 }
 
+
+// ---------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------
+
+template <typename T, int VPT, bool VEC>
+__device__ __forceinline__ void load_row(const T* __restrict__ p, uint4* r,
+                                         int lane, int G, int nv, int D,
+                                         bool live) {
+  using El = Elem<T>;
+  constexpr int E = El::E;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int v = k * G + lane;
+    r[k] = make_uint4(0u, 0u, 0u, 0u);
+    if (live && v < nv) {
+      if (VEC) {
+        r[k] = __ldcs(reinterpret_cast<const uint4*>(p) + v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          if (v * E + e < D) El::put_raw(r[k], e, p + v * E + e);
+      }
+    }
+  }
+}
+
+// The sum of a (and of b) over the G lanes of a group (G <= 32: the xor
+// butterfly) or over the block (G > 32: each warp's butterfly, then the
+// warps in warp order through ws[2][kMaxWarps]).
+__device__ __forceinline__ void group_sum2(float* a, float* b, int G,
+                                           int tid, float (*ws)[kMaxWarps]) {
+  for (int off = (G < 32 ? G : 32) >> 1; off > 0; off >>= 1) {
+    *a = *a + __shfl_xor_sync(kFull, *a, off);
+    *b = *b + __shfl_xor_sync(kFull, *b, off);
+  }
+  if (G > 32) {
+    __syncthreads();    // the previous row's sums are read
+    if ((tid & 31) == 0) {
+      ws[0][tid >> 5] = *a;
+      ws[1][tid >> 5] = *b;
+    }
+    __syncthreads();
+    *a = ws[0][0];
+    *b = ws[1][0];
+    for (int w = 1; w < G / 32; ++w) {
+      *a = *a + ws[0][w];
+      *b = *b + ws[1][w];
+    }
+  }
+}
+
+template <typename T, int VPT, bool VEC>
+__global__ void __launch_bounds__(512)
+rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ scale,
+                 const T* __restrict__ dy, T* __restrict__ dx,
+                 float* __restrict__ part, long long N, int D, int G,
+                 int R, float eps) {
+  using El = Elem<T>;
+  constexpr int E = El::E;
+  __shared__ float ws[2][kMaxWarps];
+  extern __shared__ float gpart[];          // [groups][D] (narrow rows)
+  const int tid = threadIdx.x;
+  const int lane = G > 32 ? tid : (tid & (G - 1));
+  const int group = G > 32 ? 0 : tid / G;
+  const int groups = G > 32 ? 1 : blockDim.x / G;
+  const int nv = (D + E - 1) / E;
+  const long long r0 = static_cast<long long>(blockIdx.x) * R;
+  const long long r1 = min(r0 + R, N);
+
+  float sc[VPT][E], acc[VPT][E];
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int v = k * G + lane;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = v * E + e;
+      sc[k][e] = (v < nv && c < D) ? scale[c] : 0.0f;
+      acc[k][e] = 0.0f;
+    }
+  }
+  // every group runs the same number of rounds (the butterfly and the
+  // block's barriers take all lanes); a round past the chunk is dead
+  const long long rounds = (R + groups - 1) / groups;
+  for (long long i = 0; i < rounds; ++i) {
+    const long long row = r0 + i * groups + group;
+    const bool live = row < r1;
+    const long long off = (live ? row : 0) * D;
+    uint4 xr[VPT], gr[VPT];
+    load_row<T, VPT, VEC>(x + off, xr, lane, G, nv, D, live);
+    load_row<T, VPT, VEC>(dy + off, gr, lane, G, nv, D, live);
+    float ss = 0.0f, gx = 0.0f;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float f = El::get(xr[k], e);
+        ss = ss + f * f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        gx = gx + (El::get(gr[k], e) * sc[k][e]) * El::get(xr[k], e);
+      }
+    }
+    group_sum2(&ss, &gx, G, tid, ws);
+    const float inv = 1.0f / sqrtf(ss / static_cast<float>(D) + eps);
+    const float c = gx / static_cast<float>(D);
+    const float inv3 = (inv * inv) * inv;
+    if (!live) continue;
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int v = k * G + lane;
+      if (v >= nv) continue;
+      uint4 o = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float xf = El::get(xr[k], e), dyf = El::get(gr[k], e);
+        const float g = dyf * sc[k][e];
+        const float d = inv * g - (xf * inv3) * c;
+        acc[k][e] = acc[k][e] + (dyf * xf) * inv;
+        if (VEC) {
+          El::put(o, e, d);
+        } else if (v * E + e < D) {
+          El::store(dx + off + v * E + e, d);
+        }
+      }
+      if (VEC) __stcs(reinterpret_cast<uint4*>(dx + off) + v, o);
+    }
+  }
+  // the groups' partials in group order; a wide row's block has one group
+  float* out = part + static_cast<long long>(blockIdx.x) * D;
+  if (groups == 1) {
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int v = k * G + lane;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (v < nv && v * E + e < D) out[v * E + e] = acc[k][e];
+    }
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int v = k * G + lane;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (v < nv && v * E + e < D) gpart[group * D + v * E + e] = acc[k][e];
+  }
+  __syncthreads();
+  for (int c = tid; c < D; c += blockDim.x) {
+    float s = gpart[c];
+    for (int q = 1; q < groups; ++q) s = s + gpart[q * D + c];
+    out[c] = s;
+  }
+}
+
+__global__ void rmsnorm_bwd_reduce(const float* __restrict__ part, int P,
+                                   int D, float* __restrict__ dscale) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= D) return;
+  float s = part[c];
+  for (int b = 1; b < P; ++b) s = s + part[static_cast<long long>(b) * D + c];
+  dscale[c] = s;
+}
+
+template <typename T, int VPT>
+int launch_bwd_vpt(const T* x, const float* scale, const T* dy, T* dx,
+                   float* part, float* dscale, long long N, int D, int G,
+                   int R, float eps, int vec, cudaStream_t stream) {
+  const int threads = G > 32 ? G : kNarrowThreads;
+  const int groups = G > 32 ? 1 : kNarrowThreads / G;
+  const unsigned blocks = static_cast<unsigned>((N + R - 1) / R);
+  const int smem = groups > 1 ? groups * D * static_cast<int>(sizeof(float))
+                              : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        vec ? rmsnorm_bwd_rows<T, VPT, true> : rmsnorm_bwd_rows<T, VPT, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (vec)
+    rmsnorm_bwd_rows<T, VPT, true><<<blocks, threads, smem, stream>>>(
+        x, scale, dy, dx, part, N, D, G, R, eps);
+  else
+    rmsnorm_bwd_rows<T, VPT, false><<<blocks, threads, smem, stream>>>(
+        x, scale, dy, dx, part, N, D, G, R, eps);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  rmsnorm_bwd_reduce<<<(D + 255) / 256, 256, 0, stream>>>(
+      part, static_cast<int>(blocks), D, dscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// part: ceil(N / R) * D floats of scratch; dscale: D floats.
+template <typename T>
+int launch_bwd(const T* x, const float* scale, const T* dy, T* dx,
+               float* part, float* dscale, long long N, int D, int G,
+               int vpt, int R, float eps, int vec, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool ok = (G > 32 ? (G <= 512 && G % 32 == 0)
+                          : (G >= 1 && (G & (G - 1)) == 0)) && R >= 1;
+  if (!ok) return cudaErrorInvalidValue;
+#define K6B_VPT(n)                                                      \
+  if (vpt <= n)                                                         \
+    return launch_bwd_vpt<T, n>(x, scale, dy, dx, part, dscale, N, D, G, \
+                                R, eps, vec, s);
+  K6B_VPT(1) K6B_VPT(2) K6B_VPT(4) K6B_VPT(8)
+#undef K6B_VPT
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int rmsnorm_f32(const float* x, const float* scale, float* y,
@@ -253,4 +490,22 @@ extern "C" int rmsnorm_bf16(const __nv_bfloat16* x, const float* scale,
                             int vpt, float eps, int vec, int pre,
                             void* stream) {
   return launch(x, scale, y, N, D, G, vpt, eps, vec, pre, stream);
+}
+
+extern "C" int rmsnorm_bwd_f32(const float* x, const float* scale,
+                               const float* dy, float* dx, float* part,
+                               float* dscale, long long N, int D, int G,
+                               int vpt, int R, float eps, int vec,
+                               void* stream) {
+  return launch_bwd(x, scale, dy, dx, part, dscale, N, D, G, vpt, R, eps, vec,
+                    stream);
+}
+
+extern "C" int rmsnorm_bwd_bf16(const __nv_bfloat16* x, const float* scale,
+                                const __nv_bfloat16* dy, __nv_bfloat16* dx,
+                                float* part, float* dscale, long long N,
+                                int D, int G, int vpt, int R, float eps,
+                                int vec, void* stream) {
+  return launch_bwd(x, scale, dy, dx, part, dscale, N, D, G, vpt, R, eps, vec,
+                    stream);
 }

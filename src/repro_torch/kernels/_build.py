@@ -48,7 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"powertcp_step": 0, "theta_powertcp_step": 0,
             "powertcp_observe_step": 0, "theta_powertcp_observe_step": 0,
             "queue_arrivals": 0, "fused_tick_block": 0, "rmsnorm": 0,
-            "flash_attention": 0}
+            "rmsnorm_bwd": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0}
 
 _LIBS: dict = {}
 _COUNTERS: dict = {}

@@ -24,10 +24,22 @@ so bfloat16 q, k and v must start 16-byte aligned with strides that are
 multiples of 8 elements; the wrapper raises where they do not. float32
 keeps the scalar CUDA-core forms (tensor cores would mean TF32).
 
+For training, ``return_lse=True`` also returns each query row's float32
+log-sum-exp (the tiled forms serve every T then), and
+``flash_attention_bwd`` is the backward: two kernels, dq (one block per
+(b, head, 64 query rows), which also writes delta = rowsum(do * o)) then
+dk/dv (one block per (b, kv head, 64 keys), the group's heads and query
+tiles in a fixed order), in bfloat16 on ``mma.sync`` with p and ds split
+into bf16 halves, in float32 scalar; no float atomics, so the gradients
+are the same bits run to run. Causal without a window, or unmasked; head
+dims 16, 32, 64 and 128.
+
 This launches the CUDA kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to
-``kernels/ref.py::flash_attention_ref``. The kernel is held to that plain
-version at 2e-5 in float32 and 2e-2 in bfloat16.
+``kernels/ref.py::flash_attention_ref`` (``flash_attention_bwd_ref``). The
+kernel is held to that plain version at 2e-5 in float32 and 2e-2 in
+bfloat16; the backward at the same bars relative to the largest
+gradient.
 """
 from __future__ import annotations
 
@@ -48,60 +60,107 @@ class _Args(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in ("B", "H", "KV", "T", "S", "D",
                                                "causal", "window")]
                 + [("scale", ctypes.c_float),
-                   ("part", ctypes.c_void_p), ("count", ctypes.c_void_p)])
+                   ("part", ctypes.c_void_p), ("count", ctypes.c_void_p),
+                   ("lse", ctypes.c_void_p)])
 
 
-_SIGNATURES = {"flash_attention_f32": [ctypes.c_void_p, ctypes.c_void_p],
-               "flash_attention_bf16": [ctypes.c_void_p, ctypes.c_void_p],
+class _BwdArgs(ctypes.Structure):
+    """The backward's ``FlashBwdArgs`` (``csrc/flash_attention.cu``)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "o", "dout",
+                                                "lse", "delta", "dq", "dk",
+                                                "dv")]
+                + [(f"{t}_s{d}", _LL)
+                   for t in ("q", "k", "v", "o", "do", "dq", "dk", "dv")
+                   for d in "bhs"]
+                + [(n, ctypes.c_int) for n in ("B", "H", "KV", "T", "S", "D",
+                                               "causal")]
+                + [("scale", ctypes.c_float)])
+
+
+_P2 = [ctypes.c_void_p, ctypes.c_void_p]
+_SIGNATURES = {"flash_attention_f32": _P2, "flash_attention_bf16": _P2,
+               "flash_attention_bwd_f32": _P2, "flash_attention_bwd_bf16": _P2,
                "flash_attention_split_max_t": [],
                "flash_attention_split_keys": []}
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 HEAD_DIMS = (16,) + tuple(range(32, 257, 32))   # built in the .cu
+BWD_HEAD_DIMS = (16, 32, 64, 128)               # the backward's
 
 
-def flash_attention(q, k, v, *, causal=True, window=0):
-    """q: [B,H,T,D]; k, v: [B,KV,S,D] (H % KV == 0; D 16 or a multiple of
-    32 up to 256), one dtype (float32 or bfloat16), on the card, any strides
-    with a unit D stride. Returns [B,H,T,D] in q's dtype."""
-    what = "flash_attention"
+def _check(what, q, others, kv_shape):
+    """Raise unless ``others`` ({name: tensor}) match q's device and dtype,
+    k/v-like ones ``kv_shape`` and the rest q's shape."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, got "
                          f"{q.device}")
-    B, H, T, D = q.shape
-    _, KV, S, _ = k.shape
-    for name, x in (("k", k), ("v", v)):
+    for name, x in others.items():
+        want = kv_shape if name in ("k", "v") else tuple(q.shape)
         if x.device != q.device:
             raise ValueError(f"{what}: {name} is on {x.device}, not "
                              f"{q.device}")
-        if tuple(x.shape) != (B, KV, S, D):
+        if tuple(x.shape) != want:
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}, "
-                             f"not {(B, KV, S, D)}")
+                             f"not {want}")
         if x.dtype != q.dtype:
             raise TypeError(f"{what}: {name} has dtype {x.dtype}, not "
                             f"{q.dtype}")
     if q.dtype not in _ENTRY:
         raise TypeError(f"{what}: dtype {q.dtype}, not float32 or bfloat16")
+
+
+def _copyable(x) -> bool:
+    """bfloat16 is staged by ``cp.async``'s 16-byte copies: a 16-byte
+    aligned start and strides that are multiples of 8 elements."""
+    return x.dtype != torch.bfloat16 or not (
+        x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3]))
+
+
+def _check_strides(what, tensors):
+    """A unit D stride, and ``_copyable``."""
+    for name, x in tensors.items():
+        if x.stride(3) != 1:
+            raise ValueError(f"{what}: {name} is strided along D")
+        if not _copyable(x):
+            raise ValueError(f"{what}: bfloat16 {name} must start 16-byte "
+                             f"aligned with strides that are multiples of 8"
+                             f" elements (strides {tuple(x.stride())})")
+
+
+def _heads_inner(shape, dtype, device):
+    """An empty [B, X, T, D] view of a [B, T, X, D] tensor."""
+    B, X, T, D = shape
+    return torch.empty((B, T, X, D), dtype=dtype,
+                       device=device).permute(0, 2, 1, 3)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
+    """q: [B,H,T,D]; k, v: [B,KV,S,D] (H % KV == 0; D 16 or a multiple of
+    32 up to 256), one dtype (float32 or bfloat16), on the card, any strides
+    with a unit D stride. Returns [B,H,T,D] in q's dtype, and with
+    ``return_lse`` also the float32 log-sum-exp of each query row [B,H,T]
+    (what ``flash_attention_bwd`` takes)."""
+    what = "flash_attention"
+    B, H, T, D = q.shape
+    _, KV, S, _ = k.shape
+    _check(what, q, {"k": k, "v": v}, (B, KV, S, D))
     if KV == 0 or H % KV:
         raise ValueError(f"{what}: {H} query heads over {KV} kv heads")
     if D not in HEAD_DIMS:
         raise ValueError(f"{what}: head dim {D} is not built (16 or a "
                          f"multiple of 32 up to 256)")
-    out = torch.empty((B, T, H, D), dtype=q.dtype,
-                      device=q.device).permute(0, 2, 1, 3)
+    out = _heads_inner((B, H, T, D), q.dtype, q.device)
+    lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.stride(3) != 1:
-            raise ValueError(f"{what}: {name} is strided along D")
-        if q.dtype == torch.bfloat16 and (
-                x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:3])):
-            raise ValueError(f"{what}: bfloat16 {name} must start 16-byte "
-                             f"aligned with strides that are multiples of 8"
-                             f" elements (strides {tuple(x.stride())})")
+        return (out, lse) if return_lse else out
+    _check_strides(what, {"q": q, "k": k, "v": v})
     lib = _build.library("flash_attention", _SIGNATURES)
     part = count = None
-    if q.dtype == torch.bfloat16 and T <= lib.flash_attention_split_max_t():
+    if (q.dtype == torch.bfloat16 and lse is None
+            and T <= lib.flash_attention_split_max_t()):
         splits = max(1, -(-S // lib.flash_attention_split_keys()))
         part = torch.empty(B * KV * splits * H // KV * T * (D + 2),
                            dtype=torch.float32, device=q.device)
@@ -111,10 +170,68 @@ def flash_attention(q, k, v, *, causal=True, window=0):
                  *out.stride()[:3], B, H, KV, T, S, D, int(bool(causal)),
                  int(window), 1.0 / math.sqrt(D),
                  None if part is None else part.data_ptr(),
-                 None if count is None else count.data_ptr())
+                 None if count is None else count.data_ptr(),
+                 None if lse is None else lse.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, _ENTRY[q.dtype])(ctypes.byref(args), stream)
     _build.check(err, what)
     _build.LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _aligned(x):
+    """``x`` as the backward reads it: itself where its strides serve,
+    else a copy in the [B, T, X, D] layout (autograd may hand the output's
+    gradient over in any layout)."""
+    if x.stride(3) == 1 and _copyable(x):
+        return x
+    return x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
+    """The gradients (dq [B,H,T,D], dk and dv [B,KV,S,D], each laid out
+    [B, T or S, heads, D] in memory) of ``flash_attention(q, k, v)`` given
+    its output ``o``, its log-sum-exp ``lse`` (``return_lse=True``) and the
+    output's gradient ``do``, on the card. Causal without a window, or
+    unmasked; a window raises (the plain version covers it)."""
+    what = "flash_attention_bwd"
+    B, H, T, D = q.shape
+    _, KV, S, _ = k.shape
+    if causal and window > 0:
+        raise NotImplementedError(
+            f"{what}: sliding-window attention has no backward kernel yet "
+            f"(ROADMAP.md, Queue 1 item 15: local attention); "
+            f"kernels/ref.py::flash_attention_bwd_ref covers it")
+    _check(what, q, {"k": k, "v": v, "o": o, "do": do}, (B, KV, S, D))
+    if KV == 0 or H % KV:
+        raise ValueError(f"{what}: {H} query heads over {KV} kv heads")
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} is not built for the "
+                         f"backward {BWD_HEAD_DIMS}")
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or tuple(lse.shape) != (B, H, T)):
+        raise ValueError(f"{what}: lse must be float32 [{B}, {H}, {T}] on "
+                         f"{q.device}")
+    do = _aligned(do)
+    _check_strides(what, {"q": q, "k": k, "v": v, "o": o, "do": do})
+    lse = lse.contiguous()
+    dq = _heads_inner((B, H, T, D), q.dtype, q.device)
+    dk = _heads_inner((B, KV, S, D), q.dtype, q.device)
+    dv = _heads_inner((B, KV, S, D), q.dtype, q.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    lib = _build.library("flash_attention", _SIGNATURES)
+    args = _BwdArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    *(st for x in (q, k, v, o, do, dq, dk, dv)
+                      for st in x.stride()[:3]),
+                    B, H, KV, T, S, D, int(bool(causal)), 1.0 / math.sqrt(D))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, _BWD_ENTRY[q.dtype])(ctypes.byref(args), stream)
+    _build.check(err, what)
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -4,8 +4,18 @@ CUDA tensors go to the hand-written CUDA kernels, CPU tensors to their
 plain PyTorch versions (``kernels/ref.py``). The choice follows only the
 device of the tensors given: there is no switch, and no fallback — on a
 CUDA tensor a kernel that fails to build or launch raises.
+
+``flash_attention`` and ``rmsnorm`` carry gradients through
+``torch.autograd.Function``s (``_FlashAttention``, ``_RMSNorm``) when an
+input requires grad: forward and backward each dispatch on the device,
+the backward to K5's and K6's backward kernels on the card
+(``flash_attention_bwd``, ``rmsnorm_bwd``) and to their plain versions
+on the CPU. Without grad they call the forward alone, as the serve path
+always does.
 """
 from __future__ import annotations
+
+import torch
 
 from . import ref
 from . import flash_attention as _flash
@@ -62,9 +72,68 @@ def fused_tick_block(tick, carry, due_block, *, record=True, record_every=1):
                                     record_every=record_every)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K5 with its backward: the forward keeps the output and its
+    float32 log-sum-exp, the backward recomputes P from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if on_cuda(q):
+            o, lse = _flash.flash_attention(q, k, v, causal=causal,
+                                            window=window, return_lse=True)
+        else:
+            o, lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        args = (q, k, v, o, lse, do)
+        if on_cuda(q):
+            dq, dk, dv = _flash.flash_attention_bwd(
+                *args, causal=ctx.causal, window=ctx.window)
+        else:
+            dq, dk, dv = ref.flash_attention_bwd_ref(
+                *args, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+class _RMSNorm(torch.autograd.Function):
+    """K6 with its backward (rstd recomputed from x)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        if on_cuda(x):
+            y = _rmsnorm.rmsnorm(x, scale, eps=eps)
+        else:
+            y = ref.rmsnorm_ref(x, scale, eps=eps)
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        if on_cuda(x):
+            dx, dscale = _rmsnorm.rmsnorm_bwd(x, scale, dy, eps=ctx.eps)
+        else:
+            dx, dscale = ref.rmsnorm_bwd_ref(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, None
+
+
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def flash_attention(q, k, v, *, causal=True, window=0):
     """q: [B,H,T,D]; k, v: [B,KV,S,D]. K5 on CUDA tensors, the plain
-    attention on CPU tensors."""
+    attention on CPU tensors; differentiable (``_FlashAttention``) when an
+    input requires grad."""
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window)
     if on_cuda(q):
         return _flash.flash_attention(q, k, v, causal=causal, window=window)
     return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -72,7 +141,10 @@ def flash_attention(q, k, v, *, causal=True, window=0):
 
 def rmsnorm(x, scale, *, eps=1e-6):
     """RMSNorm over the last dim: K6 on CUDA tensors, the plain version on
-    CPU tensors."""
+    CPU tensors; differentiable (``_RMSNorm``) when an input requires
+    grad."""
+    if _wants_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
     if on_cuda(x):
         return _rmsnorm.rmsnorm(x, scale, eps=eps)
     return ref.rmsnorm_ref(x, scale, eps=eps)

@@ -12,6 +12,12 @@ carry leaf and record field (K4 adds the record sums ``w_sum`` and
 kernel to: the online softmax adds in another order and rescales), K6 at
 rtol 1e-5 in float32 and one bfloat16 ulp in bfloat16 (its square sum
 runs in its own fixed order).
+
+The backward passes of K5 and K6 (``flash_attention_bwd_ref``,
+``rmsnorm_bwd_ref``) stand for ``jax.grad`` through ``repro``'s plain
+attention and norm, which have no Pallas backward; their kernels are
+held to these at 2e-5 in float32 and 2e-2 in bfloat16, relative to the
+largest gradient (the sums run in other orders).
 """
 from __future__ import annotations
 
@@ -20,28 +26,83 @@ import math
 import torch
 
 
-def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None):
-    """q: [B,H,T,D]; k,v: [B,KV,S,D]; GQA via H % KV == 0 (query head h
-    reads kv head h // (H/KV)). float32 scores and softmax; the queries are
-    the last T of the S positions. Returns [B,H,T,D] in q's dtype."""
-    B, H, T, D = q.shape
-    KV, S = k.shape[1], k.shape[2]
-    G = H // KV
-    scale = scale if scale is not None else 1.0 / math.sqrt(D)
-    kk = k[:, :, None].expand(B, KV, G, S, D).reshape(B, H, S, D)
-    vv = v[:, :, None].expand(B, KV, G, S, D).reshape(B, H, S, D)
-    s = torch.einsum("bhtd,bhsd->bhts", q.float(), kk.float()) * scale
-    qi = torch.arange(T, device=q.device)[:, None]
-    kj = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((T, S), dtype=torch.bool, device=q.device)
+def _attention_mask(T, S, causal, window, device):
+    """[T, S]: query t (at position t + S - T) sees key j."""
+    qi = torch.arange(T, device=device)[:, None]
+    kj = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
     if causal:
         off = S - T          # queries are the last T positions of S
         mask &= kj <= qi + off
         if window > 0:
             mask &= kj > qi + off - window
+    return mask
+
+
+def _expand_kv(x, G):
+    """[B,KV,S,D] -> [B,KV*G,S,D], kv head h // G for query head h."""
+    B, KV, S, D = x.shape
+    return x[:, :, None].expand(B, KV, G, S, D).reshape(B, KV * G, S, D)
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=0, scale=None,
+                        return_lse=False):
+    """q: [B,H,T,D]; k,v: [B,KV,S,D]; GQA via H % KV == 0 (query head h
+    reads kv head h // (H/KV)). float32 scores and softmax; the queries are
+    the last T of the S positions. Returns [B,H,T,D] in q's dtype, and
+    with ``return_lse`` also the float32 log-sum-exp of each query row's
+    scaled, masked scores [B,H,T] (what the backward recomputes P from)."""
+    D = q.shape[-1]
+    G = q.shape[1] // k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = torch.einsum("bhtd,bhsd->bhts", q.float(),
+                     _expand_kv(k, G).float()) * scale
+    mask = _attention_mask(q.shape[2], k.shape[2], causal, window, q.device)
     s = torch.where(mask[None, None], s, -1e30)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhts,bhsd->bhtd", p, vv.float()).to(q.dtype)
+    out = torch.einsum("bhts,bhsd->bhtd", p,
+                       _expand_kv(v, G).float()).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def _sum_groups(x, KV):
+    """[B,KV*G,S,D] float32 -> [B,KV,S,D]: each kv head's G query heads
+    added in ascending head order."""
+    B, H, S, D = x.shape
+    x = x.reshape(B, KV, H // KV, S, D)
+    acc = x[:, :, 0]
+    for g in range(1, H // KV):
+        acc = acc + x[:, :, g]
+    return acc
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal=True, window=0,
+                            scale=None):
+    """The gradients (dq, dk, dv) of ``flash_attention_ref``'s output,
+    given its output ``o`` [B,H,T,D], its log-sum-exp ``lse`` [B,H,T] and
+    the output's gradient ``do`` [B,H,T,D]: P recomputed from the LSE,
+    delta = rowsum(do * o), ds = p * (dp - delta); dk and dv sum the G
+    query heads of each kv head in ascending head order. All in float32,
+    each gradient returned in its input's dtype."""
+    B, H, T, D = q.shape
+    KV = k.shape[1]
+    G = H // KV
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    qf, dof = q.float(), do.float()
+    kk, vv = _expand_kv(k, G).float(), _expand_kv(v, G).float()
+    s = torch.einsum("bhtd,bhsd->bhts", qf, kk) * scale
+    mask = _attention_mask(T, k.shape[2], causal, window, q.device)
+    p = torch.where(mask[None, None], torch.exp(s - lse.float()[..., None]),
+                    0.0)
+    dp = torch.einsum("bhtd,bhsd->bhts", dof, vv)
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kk) * scale
+    dk = _sum_groups(torch.einsum("bhts,bhtd->bhsd", ds, qf) * scale, KV)
+    dv = _sum_groups(torch.einsum("bhts,bhtd->bhsd", p, dof), KV)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def rmsnorm_ref(x, scale, eps=1e-6):
@@ -50,6 +111,26 @@ def rmsnorm_ref(x, scale, eps=1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x, scale, dy, eps=1e-6):
+    """The gradients (dx, dscale) of ``rmsnorm_ref`` given the output's
+    gradient ``dy``, with float32 statistics: inv = rsqrt(mean(x²)+eps),
+    g = dy·scale, dx = inv·g − x·inv³·mean(g·x) in x's dtype; dscale =
+    Σ_rows dy·x·inv in float32, the rows added one by one in row order,
+    returned in scale's dtype."""
+    D = x.shape[-1]
+    xf = x.float()
+    inv = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    dyf = dy.float()
+    g = dyf * scale.float()
+    c = torch.mean(g * xf, dim=-1, keepdim=True)
+    dx = inv * g - xf * (inv * inv * inv) * c
+    rows = (dyf * xf * inv).reshape(-1, D)
+    dscale = torch.zeros(D, dtype=torch.float32, device=x.device)
+    for r in rows:
+        dscale = dscale + r
+    return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 def powertcp_step_ref(q, qdot, mu, b, valid, tau, w, w_old, gs_prev,

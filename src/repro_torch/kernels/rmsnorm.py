@@ -8,11 +8,17 @@ few lanes of a warp per row for narrow ones; on a grid of at most one
 block per SM the scale is loaded with x. Bound by the bytes it moves
 (each element read once and written once).
 
+``rmsnorm_bwd`` is its backward (``csrc/rmsnorm.cu``: the gradient of x
+row by row, the scale's as float32 partials of contiguous row chunks
+added in chunk order by a second kernel, no atomics).
+
 This launches the CUDA kernel and takes CUDA tensors only;
-``kernels/ops.py`` sends CPU tensors to ``kernels/ref.py::rmsnorm_ref``.
-The kernel is held to that plain version at rtol 1e-5 in float32 and to
-one bfloat16 ulp in bfloat16, and bit for bit to its own sum order
-spelled in torch (``tests/test_torch_support.py::rmsnorm_in_k6_order``).
+``kernels/ops.py`` sends CPU tensors to ``kernels/ref.py::rmsnorm_ref``
+(``rmsnorm_bwd_ref``). The kernel is held to that plain version at rtol
+1e-5 in float32 and to one bfloat16 ulp in bfloat16, and bit for bit to
+its own sum order spelled in torch
+(``tests/test_torch_support.py::rmsnorm_in_k6_order``); the backward at
+2e-5 in float32 and 2e-2 in bfloat16, relative to the largest gradient.
 """
 from __future__ import annotations
 
@@ -24,9 +30,17 @@ from . import _build
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
+_BWD = [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P]
 _SIGNATURES = {"rmsnorm_f32": [_P, _P, _P, _L, _I, _I, _I, _F, _I, _I, _P],
-               "rmsnorm_bf16": [_P, _P, _P, _L, _I, _I, _I, _F, _I, _I, _P]}
+               "rmsnorm_bf16": [_P, _P, _P, _L, _I, _I, _I, _F, _I, _I, _P],
+               "rmsnorm_bwd_f32": _BWD, "rmsnorm_bwd_bf16": _BWD}
 _ENTRY = {torch.float32: "rmsnorm_f32", torch.bfloat16: "rmsnorm_bf16"}
+_BWD_ENTRY = {torch.float32: "rmsnorm_bwd_f32",
+              torch.bfloat16: "rmsnorm_bwd_bf16"}
+# the backward's widest plan (csrc/rmsnorm.cu instantiates vpt 1, 2, 4, 8)
+BWD_MAX_VPT = 8
+# the backward's row chunks: about this many blocks per SM
+BWD_BLOCKS_PER_SM = 2
 
 # rows at least this wide take a whole block; narrower rows share a warp
 WIDE = 1024
@@ -101,3 +115,58 @@ def rmsnorm(x, scale, *, eps=1e-6):
     _build.check(err, "rmsnorm")
     _build.LAUNCHES["rmsnorm"] += 1
     return y
+
+
+def bwd_rows_per_block(N: int, G: int, sms: int) -> int:
+    """The backward's chunk of rows a block: about ``BWD_BLOCKS_PER_SM``
+    blocks an SM, and at least a row for each of a narrow block's
+    groups."""
+    groups = 1 if G > 32 else NARROW_THREADS // G
+    return max(-(-N // (BWD_BLOCKS_PER_SM * sms)), groups, 1)
+
+
+def rmsnorm_bwd(x, scale, dy, *, eps=1e-6):
+    """The gradients (dx in x's dtype and shape, dscale in scale's dtype)
+    of ``rmsnorm(x, scale, eps=eps)`` given the output's gradient ``dy``
+    (x's shape and dtype), on the card."""
+    what = "rmsnorm_bwd"
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype not in _BWD_ENTRY:
+        raise TypeError(f"{what}: x has dtype {x.dtype}, not float32 or "
+                        f"bfloat16")
+    D = x.shape[-1]
+    if scale.device != x.device or tuple(scale.shape) != (D,):
+        raise ValueError(f"{what}: scale must be [{D}] on {x.device}, got "
+                         f"{tuple(scale.shape)} on {scale.device}")
+    if dy.device != x.device or dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"{what}: dy must match x ({tuple(x.shape)}, "
+                         f"{x.dtype}), got {tuple(dy.shape)}, {dy.dtype} on "
+                         f"{dy.device}")
+    x2, g2 = x.contiguous(), dy.contiguous()
+    s = scale.to(torch.float32).contiguous()
+    dx = torch.empty_like(x2)
+    N = x2.numel() // D if D else 0
+    if N == 0:
+        return dx, torch.zeros_like(scale)
+    G, vpt, E = plan(D, x2.element_size())
+    if vpt > BWD_MAX_VPT:
+        raise ValueError(f"{what}: rows of {D} elements are wider than the "
+                         f"backward holds ({512 * BWD_MAX_VPT * E})")
+    R = bwd_rows_per_block(N, G, _sm_count(x.device))
+    part = torch.empty((-(-N // R), D), dtype=torch.float32,
+                       device=x.device)
+    dscale = torch.empty(D, dtype=torch.float32, device=x.device)
+    vec = int(D % E == 0 and all(t.data_ptr() % 16 == 0
+                                 for t in (x2, g2, dx)))
+    lib = _build.library("rmsnorm", _SIGNATURES)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, _BWD_ENTRY[x.dtype])(
+            x2.data_ptr(), s.data_ptr(), g2.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), dscale.data_ptr(), N, D, G, vpt, R, eps, vec,
+            stream)
+    _build.check(err, what)
+    _build.LAUNCHES["rmsnorm_bwd"] += 1
+    return dx.reshape(x.shape), dscale.to(scale.dtype)

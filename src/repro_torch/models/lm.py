@@ -6,12 +6,24 @@ caches are stacked along a leading ``layers`` axis of length
 ``G = num_layers / len(pattern)``, and a Python loop over the groups
 takes the place of ``lax.scan``. Only the ``"attn"`` kind (pre-norm GQA
 causal self-attention + SwiGLU MLP) is ported; ``check_config`` rejects
-every configuration outside the slice, naming its ROADMAP item. There is
-no training path yet (item 15), so ``lm_forward`` takes no remat policy.
+every configuration outside the slice, naming its ROADMAP item.
+
+``lm_forward`` takes ``repro``'s remat policies, with
+``torch.utils.checkpoint`` (non-reentrant) in place of ``jax.checkpoint``
+around each pattern group: ``"none"``; ``"full"`` (only the groups'
+boundaries are kept, each group's forward runs again in the backward);
+``"dots"`` (a selective checkpoint that keeps the matrix products'
+outputs, as ``checkpoint_dots``); ``"nested"`` (sqrt(G) two-level: the
+outer segments' boundaries kept, each group inside recomputed under its
+own checkpoint). The policies change what is stored, not what is
+computed: losses and gradients are the same bits under all four.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .spec import ParamSpec, tree_map_specs
 from . import layers as L
@@ -95,15 +107,78 @@ def _apply_block(bp, x, cfg):
     return x + L.mlp_apply(bp["mlp"], L.norm_apply(bp["ln2"], x), cfg)
 
 
-def lm_forward(params, batch, cfg):
-    """Full-sequence forward -> logits [B, T, vocab] (float32).
-    ``batch``: dict with "tokens" [B,T] int."""
+REMAT_POLICIES = ("none", "full", "dots", "nested")
+
+# the matrix products whose outputs the "dots" policy keeps (the einsums
+# of models/layers.py reach these)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(fn, policy: str):
+    """``fn`` under ``torch.utils.checkpoint`` for ``policy`` ("full":
+    everything recomputed; "dots": the matrix products kept)."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def run(*args):
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def _nested_split(G: int) -> int:
+    """Outer length for sqrt(G) two-level remat (largest divisor <= sqrt)."""
+    best = 1
+    for d in range(1, int(G ** 0.5) + 1):
+        if G % d == 0:
+            best = d
+    return best
+
+
+def _run_blocks(blocks, x, cfg, remat: str = "full"):
+    """The pattern groups over ``x`` under a remat policy."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat {remat!r} is not one of {REMAT_POLICIES}")
+
+    def group(h, g):
+        gp = _group(blocks, g)
+        for j, kind in enumerate(cfg.pattern):
+            h = _apply_block(gp[f"b{j}_{kind}"], h, cfg)
+        return h
+
+    G = cfg.pattern_groups
+    if remat == "nested":
+        inner = G // _nested_split(G)
+        one = _checkpointed(group, "full")
+
+        def segment(h, o):
+            for g in range(o * inner, (o + 1) * inner):
+                h = one(h, g)
+            return h
+        outer = _checkpointed(segment, "full")
+        for o in range(G // inner):
+            x = outer(x, o)
+        return x
+    step = group if remat == "none" else _checkpointed(group, remat)
+    for g in range(G):
+        x = step(x, g)
+    return x
+
+
+def lm_forward(params, batch, cfg, remat: str = "full"):
+    """Training/prefill forward -> logits [B, T, vocab] (float32).
+    ``batch``: dict with "tokens" [B,T] int (and "labels", not read);
+    ``remat``: one of ``REMAT_POLICIES``."""
     check_config(cfg)
     x = L.embed_apply(params["embed"], _batch_tokens(batch), cfg)
-    for g in range(cfg.pattern_groups):
-        gp = _group(params["blocks"], g)
-        for j, kind in enumerate(cfg.pattern):
-            x = _apply_block(gp[f"b{j}_{kind}"], x, cfg)
+    x = _run_blocks(params["blocks"], x, cfg, remat)
     x = L.norm_apply(params["ln_f"], x)
     return L.unembed_apply(params["embed"], x, cfg)
 

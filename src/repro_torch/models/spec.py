@@ -8,6 +8,8 @@ that declaration come:
                           ``torch.Generator`` (its draws are not JAX's)
   * ``params_from_numpy`` the same tree from numpy arrays, key for key —
                           how the tests carry ``repro``'s params across
+  * ``opt_from_numpy``    the optimizer state likewise (``repro``'s
+                          ``OptState`` of numpy arrays)
   * ``num_params`` / ``num_bytes``
 
 The logical axes are kept for the sharded slices (ROADMAP.md, Queue 1
@@ -105,6 +107,17 @@ def params_from_numpy(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return _tensor(np.asarray(tree), dev)
+
+
+def opt_from_numpy(opt, device="cuda"):
+    """``repro``'s optimizer state as numpy arrays (``jax.tree.map(
+    np.asarray, opt)``: anything with ``step``, ``mu`` and ``nu``) as the
+    port's ``train.OptState`` on ``device``."""
+    from ..train.optim import OptState
+    dev = resolve_device(device)
+    return OptState(_tensor(np.asarray(opt.step), dev),
+                    params_from_numpy(opt.mu, dev),
+                    params_from_numpy(opt.nu, dev))
 
 
 def cache_from_numpy(tree, device="cuda"):

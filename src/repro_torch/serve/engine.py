@@ -30,10 +30,10 @@ def make_serve_step(cfg: ModelConfig):
     return serve_step
 
 
-def make_forward(cfg: ModelConfig):
+def make_forward(cfg: ModelConfig, remat: str = "none"):
     """Plain forward (no cache kept)."""
     def fwd(params, batch):
-        return lm_forward(params, batch, cfg)
+        return lm_forward(params, batch, cfg, remat=remat)
     return fwd
 
 

@@ -58,7 +58,12 @@ against the plain tick, and ``commsched``'s outer sync over a one-rank
 NCCL group against its one-process spelling;
 and the REDUCED qwen3-14b model on the
 card against the port on the CPU at the tight bar of
-``tests/test_torch_lm.py``. Every test takes the ``cuda_device``
+``tests/test_torch_lm.py``; the trainer's backward kernels, K5's
+``flash_attention_bwd`` and K6's ``rmsnorm_bwd``, against their plain
+versions (relative to the largest gradient: 2e-2 in bfloat16, 2e-5 in
+float32) and bit for bit against a second launch, the two
+``autograd.Function``s launching them on CUDA tensors, and one REDUCED
+train step on the card against the port on the CPU. Every test takes the ``cuda_device``
 fixture and skips without a card; this module imports neither JAX nor
 ``repro``, so it runs where only PyTorch is:
 
@@ -216,7 +221,8 @@ def test_megakernel_backend_launches_only_k4(cuda_device):
                   "powertcp_observe_step": 0,
                   "theta_powertcp_observe_step": 0,
                   "queue_arrivals": 0, "fused_tick_block": 63, "rmsnorm": 0,
-                  "flash_attention": 0}
+                  "rmsnorm_bwd": 0, "flash_attention": 0,
+                  "flash_attention_bwd": 0}
     assert sum(lc.values()) == 0
     torch.testing.assert_close(fg, fc, rtol=0, atol=0, equal_nan=True)
     torch.testing.assert_close(qg, qc, rtol=0, atol=0)
@@ -429,7 +435,8 @@ def test_batched_megakernel_launches(cuda_device, sequential):
                          "theta_powertcp_observe_step": 0,
                          "queue_arrivals": 0,
                          "fused_tick_block": 1250 if sequential else 625,
-                         "rmsnorm": 0, "flash_attention": 0}
+                         "rmsnorm": 0, "rmsnorm_bwd": 0,
+                         "flash_attention": 0, "flash_attention_bwd": 0}
     assert sum(out[2][1].values()) == 0
     torch.testing.assert_close(out[1][0], out[2][0], rtol=0, atol=0,
                                equal_nan=True)
@@ -1139,3 +1146,175 @@ def test_outer_sync_nccl_world_one(cuda_device):
                     + sup.sorted_leaves(got[2]), want[0] + want[1][0] + want[2]):
         assert torch.equal(g, w)
     assert sync.stats["max_in_flight"] == 2
+
+
+# -------------------------------------------------------------------------
+# the trainer: K5's and K6's backward kernels, the autograd Functions, a
+# REDUCED train step
+# -------------------------------------------------------------------------
+
+FLASH_BWD_SHAPES = [
+    # B, H, KV, T, S, D, causal, bf16
+    (1, 40, 8, 1024, 1024, 128, True, True),     # the training shape
+    (2, 4, 2, 32, 32, 16, True, True),           # REDUCED qwen3-14b
+    (2, 4, 2, 32, 32, 16, True, False),
+    (1, 4, 2, 100, 100, 64, True, False),
+    (1, 4, 2, 65, 129, 64, True, True),          # T < S
+    (1, 2, 2, 127, 63, 128, False, True),        # unmasked
+    (1, 2, 1, 129, 129, 128, True, False),
+    (2, 10, 2, 70, 70, 32, True, True),
+    (1, 2, 1, 3, 40, 128, True, True),           # T <= 4: the tiled form
+]
+
+
+def _flash_bwd_case(dev, B, H, KV, T, S, D, causal, bf16, seed=0):
+    """(q, k, v, o, lse, do) on ``dev``: o and lse from the plain forward."""
+    dt = torch.bfloat16 if bf16 else torch.float32
+    q, k, v, do = (torch.as_tensor(a, device=dev).to(dt)
+                   for a in sup.flash_bwd_inputs(B, H, KV, T, S, D, seed))
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal,
+                                     return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,S,D,causal,bf16", FLASH_BWD_SHAPES)
+def test_flash_attention_bwd_kernel(cuda_device, B, H, KV, T, S, D, causal,
+                                    bf16):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    args = _flash_bwd_case(cuda_device, B, H, KV, T, S, D, causal, bf16,
+                           seed=T + S)
+    got = flash_attention_bwd(*args, causal=causal)
+    want = ref.flash_attention_bwd_ref(*args, causal=causal)
+    again = flash_attention_bwd(*args, causal=causal)
+    bar = sup.BWD_BAR_BF16 if bf16 else sup.BWD_BAR_F32
+    for name, g, w, a in zip(("dq", "dk", "dv"), got, want, again):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert sup.rel_err(g, w) <= bar, (name, sup.rel_err(g, w))
+        torch.testing.assert_close(a, g, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_lse_and_window(cuda_device):
+    """The forward's log-sum-exp (bf16 and float32, T <= 4 included)
+    against the plain version's, its output bit for bit the forward's
+    without it where both take the tiled form (T > 4; at T <= 4 the LSE
+    takes the tiled form, held to the plain version); a window raises in
+    the backward."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    for T, S, bf16 in ((64, 64, True), (3, 40, True), (70, 90, False),
+                       (2, 9, False)):
+        q, k, v, o, lse, do = _flash_bwd_case(cuda_device, 2, 4, 2, T, S,
+                                              64, True, bf16)
+        out, got = flash_attention(q, k, v, return_lse=True)
+        torch.testing.assert_close(got, lse, rtol=1e-5, atol=1e-5)
+        if T > 4:
+            torch.testing.assert_close(out, flash_attention(q, k, v),
+                                       rtol=0, atol=0)
+        tol = 2e-2 if bf16 else 2e-5
+        torch.testing.assert_close(out.float(), o.float(), rtol=tol,
+                                   atol=tol)
+    with pytest.raises(NotImplementedError, match="local attention"):
+        flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(1024, 5120), (1024 * 40, 128),
+                                 (1024 * 8, 128), (64, 64), (7, 16),
+                                 (33, 200), (5, 5121)])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_rmsnorm_bwd_kernel(cuda_device, N, D, bf16):
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    x, s, dy = (torch.as_tensor(a, device=cuda_device)
+                for a in sup.rmsnorm_bwd_inputs(N, D, seed=N + D))
+    if bf16:
+        x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    got = rmsnorm_bwd(x, s, dy, eps=1e-6)
+    want = ref.rmsnorm_bwd_ref(x, s, dy, eps=1e-6)
+    again = rmsnorm_bwd(x, s, dy, eps=1e-6)
+    bar = sup.BWD_BAR_BF16 if bf16 else sup.BWD_BAR_F32
+    for name, g, w, a in zip(("dx", "dscale"), got, want, again):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert sup.rel_err(g, w) <= bar, (name, sup.rel_err(g, w))
+        torch.testing.assert_close(a, g, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [True, False])
+def test_autograd_functions_launch_the_backward_kernels(cuda_device, bf16):
+    """``ops.flash_attention`` and ``ops.rmsnorm`` on CUDA tensors that
+    require grad: one forward and one backward launch each, gradients
+    against the same Functions on the CPU; without grad, the forward
+    alone."""
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    dt = torch.bfloat16 if bf16 else torch.float32
+    bar = sup.BWD_BAR_BF16 if bf16 else sup.BWD_BAR_F32
+    q, k, v, do = (torch.as_tensor(a).to(dt)
+                   for a in sup.flash_bwd_inputs(2, 4, 2, 48, 48, 64, 1))
+    x, s, dy = (torch.as_tensor(a) for a in sup.rmsnorm_bwd_inputs(40, 128))
+    x, dy = x.to(dt), dy.to(dt)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        ins = [t.detach().to(dev).requires_grad_()
+               for t in (q, k, v, x, s)]
+        reset_launches()
+        o = ops.flash_attention(*ins[:3], causal=True)
+        y = ops.rmsnorm(ins[3], ins[4])
+        torch.autograd.backward((o, y), (do.to(dev), dy.to(dev)))
+        grads[str(dev)] = [t.grad.cpu() for t in ins]
+        launched = dict(LAUNCHES)
+    assert (launched["flash_attention"], launched["flash_attention_bwd"],
+            launched["rmsnorm"], launched["rmsnorm_bwd"]) == (1, 1, 1, 1)
+    for g, w in zip(grads[str(cuda_device)], grads["cpu"]):
+        assert sup.rel_err(g, w) <= bar
+    reset_launches()
+    with torch.no_grad():
+        ops.flash_attention(*(t.to(cuda_device) for t in (q, k, v)))
+    assert LAUNCHES["flash_attention"] == 1
+    assert LAUNCHES["flash_attention_bwd"] == 0
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_on_card_matches_cpu(cuda_device):
+    """REDUCED qwen3-14b, float32 compute, numpy params: the loss and
+    every gradient of one microbatch on the card (K5, K6 and their
+    backward kernels) against the port on the CPU (relative to each
+    leaf's largest gradient, 1e-4), then one train step's loss (1e-5)."""
+    import dataclasses
+    from repro_torch import configs, models
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import train_preset
+    from repro_torch.models.spec import _leaves
+    from repro_torch.train import (DataConfig, SyntheticData, init_opt,
+                                   make_train_step, xent_loss)
+    cfg = dataclasses.replace(configs.reduced_config("qwen3-14b"),
+                              compute_dtype="float32")
+    tcfg = dataclasses.replace(train_preset("qwen3_14b"), microbatch=2)
+    batch = SyntheticData(cfg, DataConfig(batch=4, seq=32)).batch_at(0)
+    tree = sup.numpy_params(models.lm_specs(cfg), 0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = models.params_from_numpy(tree, dev)
+        b = {n: torch.as_tensor(a, device=dev) for n, a in batch.items()}
+        for p in _leaves(params):
+            p.requires_grad_(True)
+        reset_launches()
+        loss = xent_loss(models.lm_forward(params, b, cfg, remat="full"),
+                         b["labels"], cfg)
+        loss.backward()
+        grads = [p.grad.cpu() for p in _leaves(params)]
+        launched = dict(LAUNCHES)
+        _, _, metrics = make_train_step(cfg, tcfg)(
+            params, init_opt(params, tcfg), b)
+        out[str(dev)] = (float(loss.detach()), grads,
+                         float(metrics["loss"]))
+    L = cfg.num_layers
+    assert launched["flash_attention"] == 2 * L
+    assert launched["flash_attention_bwd"] == L
+    assert launched["rmsnorm"] == 2 * 4 * L + 1
+    assert launched["rmsnorm_bwd"] == 4 * L + 1
+    (lc, gc, sc), (lg, gg, sg) = out["cpu"], out[str(cuda_device)]
+    assert abs(lc - lg) <= 1e-5 and abs(sc - sg) <= 1e-5
+    for g, w in zip(gg, gc):
+        assert sup.rel_err(g, w) <= 1e-4

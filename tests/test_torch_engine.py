@@ -236,7 +236,7 @@ def _imports(path):
 
 
 PORT_SUBPACKAGES = ("core", "kernels", "configs", "models", "serve",
-                    "commsched")
+                    "commsched", "train", "launch")
 
 
 @pytest.mark.parametrize("sub", PORT_SUBPACKAGES)

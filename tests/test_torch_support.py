@@ -1528,3 +1528,101 @@ def test_goldens_load():
         assert len(leg["q"]) == GOLDEN_STEPS
         assert len(leg["w_final"]) == len(leg["fct_us"]) == GOLDEN_FLOWS
         assert len(leg["w_sum"]) == GOLDEN_STEPS // 10
+
+
+# -------------------------------------------------------------------------
+# the trainer slice: the backward kernels' inputs and bars, numpy params,
+# the golden run's settings, the crash/restart mirror
+# -------------------------------------------------------------------------
+
+# the backward kernels against their plain versions: the largest absolute
+# difference over the largest absolute gradient (the forward's bars)
+BWD_BAR_BF16, BWD_BAR_F32 = 2e-2, 2e-5
+
+
+def flash_bwd_inputs(B, H, KV, T, S, D, seed=0):
+    """q [B,H,T,D], k/v [B,KV,S,D] and the output's gradient do [B,H,T,D],
+    float32 standard normal."""
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape).astype(np.float32)
+                 for shape in ((B, H, T, D), (B, KV, S, D), (B, KV, S, D),
+                               (B, H, T, D)))
+
+
+def rmsnorm_bwd_inputs(N, D, seed=0):
+    """x [N,D], scale [D] (``rmsnorm_inputs``) and dy [N,D], float32."""
+    x, s = rmsnorm_inputs(N, D, seed)
+    dy = np.random.default_rng(seed + 1).standard_normal((N, D))
+    return x, s, dy.astype(np.float32)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (float32)."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+
+
+def numpy_params(specs, seed):
+    """A parameter tree for ``specs`` (the port's ``lm_specs``: a tree of
+    dicts of ``ParamSpec``s, the same keys as ``repro``'s) drawn with numpy
+    from ``seed``, leaf by leaf in sorted-key order: standard normal times
+    the spec's scale, float32; ones, zeros and constants as declared. Both
+    packages start from it (``jax.tree.map(jnp.asarray, ...)``,
+    ``params_from_numpy``)."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if not isinstance(t, dict):
+            if t.init == "zeros":
+                return np.zeros(t.shape, np.float32)
+            if t.init == "ones":
+                return np.ones(t.shape, np.float32)
+            if t.init == "constant":
+                return np.full(t.shape, t.scale, np.float32)
+            return (rng.standard_normal(t.shape) * t.scale).astype(
+                np.float32)
+        return {k: walk(t[k]) for k in sorted(t)}
+    return walk(specs)
+
+
+# the golden run (``tests/golden/torch_port_train.json``, ``repro`` on the
+# CPU with float32 compute and its attention computed the K5 way): the
+# REDUCED qwen3-14b from ``numpy_params(..., TRAIN_PARAM_SEED)``, these
+# train and data settings, ``TRAIN_STEPS`` losses
+TRAIN_REF = os.path.join(HERE, "golden", "torch_port_train.json")
+TRAIN_TCFG = dict(microbatch=2, remat="full", lr=1e-2, warmup_steps=2,
+                  total_steps=20)
+TRAIN_DCFG = dict(batch=8, seq=32)
+TRAIN_STEPS = 10
+TRAIN_PARAM_SEED = 0
+# the port's losses against the golden's, absolute, on the CPU
+# (tests/test_torch_train.py) and on the card (chip_smoke.py phase 9c)
+TRAIN_LOSS_BAR = 1e-3
+
+
+def train_golden() -> dict:
+    with open(TRAIN_REF) as f:
+        return json.load(f)
+
+
+def crash_restart(train_driver, CrashInjected, cfg, tcfg, dcfg, ckpt_dir,
+                  device, steps=10, every=3, crash_at=5):
+    """``tests/test_fault_tolerance.py::test_crash_restart_bitwise`` for
+    the port on ``device``: an uninterrupted run, a run that crashes after
+    step ``crash_at`` with checkpoints every ``every`` steps, and the run
+    that resumes from them (each drawing its parameters from
+    ``tcfg.seed``). Returns (reference, resumed); raises if the crash did
+    not happen or the resumed run did not start from a checkpoint."""
+    ref = train_driver(cfg, tcfg, dcfg, steps=steps, device=device)
+    try:
+        train_driver(cfg, tcfg, dcfg, steps=steps, ckpt_dir=ckpt_dir,
+                     ckpt_every=every, crash_at=crash_at, device=device)
+    except CrashInjected:
+        pass
+    else:
+        raise AssertionError("crash_at did not crash the run")
+    resumed = train_driver(cfg, tcfg, dcfg, steps=steps, ckpt_dir=ckpt_dir,
+                           ckpt_every=every, device=device)
+    if resumed["start_step"] == 0:
+        raise AssertionError("the resumed run restored no checkpoint")
+    return ref, resumed
