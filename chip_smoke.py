@@ -176,7 +176,7 @@ exit, traceback) if anything in it is wrong:
    per flow). (i) Each of ``fncc``, ``pulser``, ``backpressure`` and
    ``pcc`` with both legs as one batch (a slot per flow of the larger
    leg): K4 with ``gate`` True and False bit for bit the plain tick and
-   the eager reference slot engine over the first 1 200 ticks (the
+   the eager reference slot engine over the first 800 ticks (the
    carry, the pause and sender-count rings included); (ii) the seven laws
    of ``run`` (the four, ``powertcp``, ``hpcc``, ``timely``) over each
    leg's whole run through ``simulate_slots_batch(backend="megakernel",
@@ -201,7 +201,7 @@ exit, traceback) if anything in it is wrong:
    ``anchor_impairments``' mixed regime (ToR -> host links oscillating
    down to 2.5 GB/s over 200 us, every other link ``netem(loss=0.01,
    jitter=1e-6)``) for ``powertcp``, ``hpcc`` and ``timely``: K4 bit for
-   bit the plain tick over the first 1 200 ticks (gate True; powertcp
+   bit the plain tick over the first 800 ticks (gate True; powertcp
    also False), then the whole run with ``repro``'s completion set and
    every FCT within rtol 1e-5 (``tests/golden/torch_port_impair.json``);
    (3) the four regimes (mixed, oscillate, lossy, clean) stacked as one
@@ -213,7 +213,7 @@ exit, traceback) if anything in it is wrong:
    11, 3 000 ticks, 56 slots for 52 flows, the mixed regime) for
    ``powertcp``, ``backpressure`` and ``pulser``, against ``repro``'s
    FCTs; (5) the eager padded and slot reference engines over the first
-   1 200 ticks of (2), every record field and FCT bit for bit K4's; (6)
+   800 ticks of (2), every record field and FCT bit for bit K4's; (6)
    K4 timed launch by launch over each run of (2)-(4) (CUDA events; the
    bound of every 4th launch from ``k4_cost``, the regime's read
    included), printed with the card's name and power limit;
@@ -311,21 +311,30 @@ exit, traceback) if anything in it is wrong:
    flight; wall seconds a sync and the bytes gathered;
 
 7. LM kernels: K5 ``flash_attention`` and K6 ``rmsnorm`` against their
-   plain PyTorch versions at the serve run's shapes (K5: prefill q
-   [4,40,512,128] over k/v [4,8,512,128], decode q [4,40,1,128] over the
-   first 513 and 543 positions of a [4,544,8,128] cache, read in place;
-   K6: the layer norms' [2048,5120] and [4,5120] rows, the qk-norms'
-   [81920,128], [16384,128] and [160,128]), K5 at 2e-2 and K6 within one
-   bfloat16 ulp; K5 also at the edges of its query tiles, key tiles and
-   decode splits (``test_torch_support.FLASH_EDGE_SHAPES``: T and S of
-   63-129, a window across a tile, decode at S = 1, below one split and
-   with a partial one, T = 2..4 over a GQA group of 5, D = 16 and 256),
-   and bit for bit against itself run twice at the serve shapes; then
-   each timed beside its plain version and one PyTorch
-   call for the same function (``F.scaled_dot_product_attention`` with
-   ``enable_gqa``, ``F.rms_norm``; the library yardstick, used nowhere in
-   the port; ``F.rms_norm`` takes the scale in bf16, as its fused path
-   needs, and is also timed with the same float32 scale K6 reads);
+   plain PyTorch versions at every shape the serve runs of phase 8 and 8b
+   give them, derived from each architecture's config (qwen3-14b and
+   ``SERVE_ARCHS``; inputs drawn on the card from a seed): K5 at the
+   prefill, q [4,H,512,D] over k/v [4,KV,512,D], and the decode, q
+   [4,H,1,D] over the first 513 and 543 positions of a [4,544,KV,D]
+   cache, read in place (H/KV/D 40/8/128, 16/16/256, 32/32/80, 128/8/128,
+   32/4/128, 24/8/64); K6 at each RMSNorm's rows (``norm_rows``: the
+   layer norms' [2048, d_model] and [4, d_model], the qk-norms' q and k
+   rows of head_dim, for prefill and decode; d_model 5 120, 3 072,
+   16 384, 2 048, 1 536; none for stablelm's layernorm), the scale in the
+   config's parameter dtype; K5 at 2e-2 and bit for bit against a second
+   run, K6 within one bfloat16 ulp, float32 within rtol 1e-5, both bit
+   for bit its order spelled in torch and a second run; K5 also at the
+   edges of its query tiles, key tiles and decode splits
+   (``test_torch_support.FLASH_EDGE_SHAPES``: T and S of 63-129, a window
+   across a tile, decode at S = 1, below one split and with a partial
+   one, T = 2..4 over a GQA group of 5, D = 16 and 256); then each timed
+   beside its plain version and one PyTorch call for the same function
+   (``F.scaled_dot_product_attention`` with ``enable_gqa``,
+   ``F.rms_norm``; the library yardstick, used nowhere in the port;
+   ``F.rms_norm`` takes the scale in bf16, as its fused path needs, and
+   is also timed with the same float32 scale K6 reads): K5 at qwen3-14b's
+   prefill and last decode shapes, and at every other architecture's
+   under ``arch_shapes`` (fewer replays), K6 at qwen3-14b's rows;
 8. serve: qwen3-14b at full width (40 layers, d_model 5120, float32
    params drawn on the card from a ``torch.Generator`` seeded 0) through
    ``repro_torch.serve.decode_loop``: 4 prompts of 512 tokens from a seed,
@@ -336,20 +345,40 @@ exit, traceback) if anything in it is wrong:
    logit finite, every token below the vocabulary. Prints the prefill
    time, ms per decode step, tokens/s and the peak device memory. The
    memory is freed before and after, so that the ~60 GB of params never
-   meet another phase's tensors.
+   meet another phase's tensors. (8b) The same for each of the other
+   architectures (``SERVE_ARCHS``), at full width with random weights
+   drawn on the card: gemma-7b (28 layers, float32, GeGLU, tied and
+   scaled embeddings, head dim 256), stablelm-3b (32 layers, float32,
+   layernorm, head dim 80), llama3-405b (bfloat16 as its config says,
+   cut to 4 of 126 layers), qwen3-moe-30b-a3b (float32, 128 experts
+   top-8, cut to 8 of 48) and granite-moe-3b-a800m (32 layers, float32,
+   40 experts top-8, tied, its vocab padded 49 155 -> 49 408), one after
+   another, each freed before the next, the serve run's prompts and
+   ``SERVE_ARCH_STEPS`` (16) greedy tokens: every logit finite, every token
+   below the true vocabulary, the launches zeroed before and read after,
+   K5 once a layer a forward and K6 as ``serve_expected_launches``
+   derives (none for stablelm's layernorm, two more a layer for the
+   qk-norm); the prefill s, ms a decode step, tokens/s and peak GB, the
+   card's name and power limit beside them.
 9. train: the one-card trainer (``repro_torch.train``). (9a) K5's and
    K6's backward kernels (``flash_attention_bwd``: dq, then dk/dv;
    ``rmsnorm_bwd``: row chunks, then their dscale partials in chunk
-   order) against their plain versions at the training shapes (K5 bwd:
-   q [1,40,1024,128] over k/v [1,8,1024,128], causal, bf16, o and the
-   LSE from K5's forward; a float32 case and the REDUCED model's head
-   dim 16; K6 bwd: [1024, 5120] and [40960, 128] rows, bf16 and float32),
-   within 2e-2 (bf16) / 2e-5 (float32) of the largest gradient and bit
-   for bit against a second launch; each timed (CUDA-graph replays)
-   beside its plain version and autograd of the PyTorch call
-   (``F.scaled_dot_product_attention(is_causal=True, enable_gqa=True)``,
-   ``F.rms_norm``: the backward alone, its kernels' device time from
-   ``torch.profiler``), with its bound. (9b) qwen3-14b at full width (d_model 5 120, 40 / 8 heads,
+   order) against their plain versions at the training shapes of
+   ``BWD_ARCHS`` (``train_kernel_shapes``, from each config and
+   ``train_preset``'s microbatch: K5 bwd q [1,H,1024,D] over k/v
+   [1,KV,1024,D], causal, bf16, o and the LSE from K5's forward, for
+   qwen3-14b (40/8/128), gemma-7b (16/16/256), qwen3-moe (32/4/128) and
+   stablelm-3b's head dim 80 (32/32/80); K6 bwd at each RMSNorm's rows,
+   [1024, d_model] and the qk-norms' [1024·H, 128] and [1024·KV, 128],
+   bf16 and float32) and at ``FLASH_BWD_EDGE`` (a float32 case and the
+   REDUCED models' head dim 16), within 2e-2 (bf16) / 2e-5 (float32) of
+   the largest gradient and bit for bit against a second launch; each
+   timed (CUDA-graph replays) beside its plain version and autograd of
+   the PyTorch call (``F.scaled_dot_product_attention(is_causal=True,
+   enable_gqa=True)``, ``F.rms_norm``: the backward alone, its kernels'
+   device time from ``torch.profiler``), with its bound: K5 bwd at each
+   architecture's shape (qwen3-14b's the row, the others under
+   ``arch_shapes``), K6 bwd at qwen3-14b's. (9b) qwen3-14b at full width (d_model 5 120, 40 / 8 heads,
    head_dim 128, d_ff 17 408, vocab 151 936), depth cut to
    ``TRAIN_LAYERS`` (4) of 40 layers, float32 params drawn on the card
    from ``tcfg.seed``, ``train_preset("qwen3_14b")`` (8 microbatches,
@@ -366,7 +395,21 @@ exit, traceback) if anything in it is wrong:
    its losses and every parameter; then float32 compute from
    ``numpy_params`` for 10 steps, the losses within
    ``sup.TRAIN_LOSS_BAR`` of ``tests/golden/torch_port_train.json``
-   (``repro`` on the CPU).
+   (``repro`` on the CPU). The REDUCED qwen3-moe's crash/resume too, bit
+   for bit in its losses, parameters and moments: the MoE combine and
+   the token gather's backward add in a fixed order. (9d) gemma-7b and
+   qwen3-moe-30b-a3b at full width, each cut to ``TRAIN_ARCH_LAYERS`` (2)
+   layers, float32, ``train_preset`` over the same data, 3 steps through
+   ``train_driver``, held as 9b is (losses finite, parameters moved,
+   launches as derived, peak under ``TRAIN_PEAK_GB``): K5 bwd at D = 256,
+   GeGLU and the tied, scaled embedding's gradient; the MoE's backward.
+   9b and 9d probe ``ln_f``, ``wq``, the embedding and the MLP's leaves
+   (the router and the experts' ``wg``, ``wu``, ``wd`` for a MoE; ``wu``
+   otherwise): each moved, and each one's first moment is nonzero after
+   the run (a gradient reached it; for a MoE in every expert's slice and
+   every router column).
+   Model TFLOP/s count 6 N tokens with N the parameters a token runs
+   through (k of E experts).
 
 ``--profile`` adds a phase after 6b: each main-path and 6b run under
 ``torch.profiler`` (the first 200 ticks of the eager runs, the whole
@@ -401,6 +444,8 @@ batch is one launch of B blocks that share nothing.
 
 It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms,
 and K5's and K6's backward kernels with 9b's launches of one step;
+K5's and K6's rows carry 8b's launches by architecture, and the LM
+kernels' rows 9d's launches of a step;
 the TPU form's main-path launches are 0; K4's entry carries each of its
 13 laws' phase-6c times under ``laws``, each Fig. 8 group's under
 ``fig8``, each feedback law's on each fat-tree leg under
@@ -2290,8 +2335,8 @@ def phase_fig8(torch, tc, kernels, sup, dev, smi):
 # -------------------------------------------------------------------------
 
 # ticks over which each feedback law's K4 run is held to the plain tick
-# and the eager reference slot engine
-FEEDBACK_CHECK_TICKS = 1200
+# and the eager reference slot engine (1 200 until the LM phases 8b and 9d were added)
+FEEDBACK_CHECK_TICKS = 800
 # a run's FCTs against repro's
 FEEDBACK_RTOL = 1e-5
 
@@ -2408,8 +2453,8 @@ def phase_feedback(torch, tc, kernels, sup, dev, smi):
 # -------------------------------------------------------------------------
 
 # ticks over which the impaired K4 runs are held to the plain tick and
-# the eager reference engines
-IMPAIR_CHECK_TICKS = 1200
+# the eager reference engines (1 200 until the LM phases 8b and 9d were added)
+IMPAIR_CHECK_TICKS = 800
 # a run's FCTs against repro's
 IMPAIR_RTOL = 1e-5
 
@@ -3867,21 +3912,59 @@ def free_memory(torch):
     torch.cuda.empty_cache()
 
 
+# 8b: the other architectures at full width, each depth-cut only where
+# its float32 (llama3-405b: bfloat16) parameters would not fit beside the
+# others' peak: (arch, layers or None for all)
+SERVE_ARCHS = (("gemma_7b", None), ("stablelm_3b", None),
+               ("llama3_405b", 4), ("qwen3_moe_30b_a3b", 8),
+               ("granite_moe_3b_a800m", None))
+# greedy tokens each (the serve run's prompts, half its tokens)
+SERVE_ARCH_STEPS = 16
+
+
+def arch_cfgs(archs):
+    """[(arch, full-width config)] for the architecture names ``archs``."""
+    from repro_torch import configs
+    return [(a, configs.get_config(a)) for a in archs]
+
+
+def norm_rows(cfg, rows):
+    """K6's (N, width) in a forward of ``cfg`` over ``rows`` tokens: the
+    layer norms' where the norm is RMSNorm (a layernorm is plain torch),
+    q's and k's with the qk-norm."""
+    out = {}
+    if cfg.norm == "rmsnorm":
+        out["ln"] = (rows, cfg.d_model)
+    if cfg.qk_norm:
+        out["q"] = (rows * cfg.num_heads, cfg.head_dim)
+        out["k"] = (rows * cfg.num_kv_heads, cfg.head_dim)
+    return out
+
+
+def card_normal(torch, dev, seed, *shapes):
+    """float32 standard normal tensors of ``shapes``, drawn on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(sh, generator=gen, device=dev) for sh in shapes)
+
+
 def phase_lm_kernels(torch, sup, dev):
-    """K5 and K6 against their plain versions at the serve run's shapes,
-    then timed beside the plain version and the PyTorch call for the same
-    function. Returns {name: row} for the kernels line (K5 at the prefill
-    shape with its decode shape under ``decode_*``; K6 at the prefill
-    layer norm's rows with the qk-norm's and the decode rows beside)."""
+    """K5 and K6 against their plain versions at the shapes the serve runs
+    give them (qwen3-14b's in phase 8, each of ``SERVE_ARCHS``' in 8b, all
+    derived from their configs), then timed beside the plain version and
+    the PyTorch call for the same function. Returns {name: row} for the
+    kernels line (K5 at qwen3-14b's prefill shape with its decode shape
+    under ``decode_*`` and the other architectures' under ``arch_shapes``;
+    K6 at the prefill layer norm's rows with the qk-norm's and the decode
+    rows beside)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref, rmsnorm
     bf = torch.bfloat16
-    B, H, KV, D = (sup.SERVE_BATCH, 40, 8, 128)
-    P, C = sup.SERVE_PROMPT, sup.SERVE_CACHE
+    B, P, C = sup.SERVE_BATCH, sup.SERVE_PROMPT, sup.SERVE_CACHE
+    archs = arch_cfgs(("qwen3_14b",) + tuple(a for a, _ in SERVE_ARCHS))
 
-    def flash_case(T, S, seed):
-        q, k, v = (torch.as_tensor(a, device=dev).to(bf) for a in
-                   sup.flash_inputs(B, H, KV, T, S, D, seed=seed))
+    def flash_case(T, S, seed, H, KV, D):
+        q, k, v = (a.to(bf) for a in card_normal(
+            torch, dev, seed, (B, H, T, D), (B, KV, S, D), (B, KV, S, D)))
         if T == 1:      # the decode reads the cache in place: [B,S,KV,D]
             cache = torch.zeros(B, C, KV, D, dtype=bf, device=dev)
             cache[:, :S] = k.permute(0, 2, 1, 3)
@@ -3889,23 +3972,27 @@ def phase_lm_kernels(torch, sup, dev):
             q = q.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
         return q, k, v
 
+    def dims(cfg):
+        return dict(H=cfg.num_heads, KV=cfg.num_kv_heads, D=cfg.head_dim)
+
     err = {"flash_attention": 0.0, "rmsnorm": 0.0}
     cases = {"prefill": (P, P), "decode_first": (1, P + 1),
              "decode": (1, C - 1)}
-    for tag, (T, S) in cases.items():
-        q, k, v = flash_case(T, S, seed=T + S)
-        got = flash_attention(q, k, v, causal=True)
-        want = ref.flash_attention_ref(q, k, v, causal=True)
-        again = flash_attention(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                                   atol=2e-2)
-        torch.testing.assert_close(again, got, rtol=0, atol=0)
-        e = float((got.float() - want.float()).abs().max())
-        err["flash_attention"] = max(err["flash_attention"], e)
-        log(f"[lm] flash_attention {tag} q {list(q.shape)} k/v "
-            f"{list(k.shape)}: max abs err {e!r} (rtol/atol 2e-2); "
-            f"bitwise equal to a second run")
+    for arch, cfg in archs:
+        for tag, (T, S) in cases.items():
+            q, k, v = flash_case(T, S, seed=T + S, **dims(cfg))
+            got = flash_attention(q, k, v, causal=True)
+            want = ref.flash_attention_ref(q, k, v, causal=True)
+            again = flash_attention(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)
+            torch.testing.assert_close(again, got, rtol=0, atol=0)
+            e = float((got.float() - want.float()).abs().max())
+            err["flash_attention"] = max(err["flash_attention"], e)
+            log(f"[lm] flash_attention {arch} {tag} q {list(q.shape)} k/v "
+                f"{list(k.shape)}: max abs err {e!r} (rtol/atol 2e-2); "
+                f"bitwise equal to a second run")
     for (Be, He, KVe, T, S, De, causal, window,
          _) in sup.FLASH_EDGE_SHAPES:
         q, k, v = (torch.as_tensor(a, device=dev).to(bf) for a in
@@ -3921,56 +4008,66 @@ def phase_lm_kernels(torch, sup, dev):
         log(f"[lm] flash_attention edge q {list(q.shape)} k/v "
             f"{list(k.shape)} causal {causal} window {window}: max abs err "
             f"{e!r} (rtol/atol 2e-2)")
-    norm_rows = {"ln prefill": B * P, "qk prefill": B * P * H,
-                 "k prefill": B * P * KV, "ln decode": B, "qk decode": B * H}
-    for tag, N in norm_rows.items():
-        Dn = 5120 if tag.startswith("ln") else D
-        x, s = (torch.as_tensor(a, device=dev)
-                for a in sup.rmsnorm_inputs(N, Dn, seed=N))
-        x32, x = x, x.to(bf)
-        got = rmsnorm(x, s, eps=1e-6)
-        want = ref.rmsnorm_ref(x, s, eps=1e-6)
-        again = rmsnorm(x, s, eps=1e-6)
-        spelled = sup.rmsnorm_in_k6_order(x, s, 1e-6)
-        got32 = rmsnorm(x32, s, eps=1e-6)
-        spelled32 = sup.rmsnorm_in_k6_order(x32, s, 1e-6)
-        torch.cuda.synchronize()
-        ulps = sup.bf16_ulps(got, want)
-        if ulps > 1.0:
-            raise AssertionError(f"rmsnorm {tag}: {ulps} bfloat16 ulps off")
-        torch.testing.assert_close(again, got, rtol=0, atol=0)
-        torch.testing.assert_close(got, spelled, rtol=0, atol=0)
-        torch.testing.assert_close(got32, ref.rmsnorm_ref(x32, s, eps=1e-6),
-                                   rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(got32, spelled32, rtol=0, atol=0)
-        e = float((got.float() - want.float()).abs().max())
-        err["rmsnorm"] = max(err["rmsnorm"], e)
-        log(f"[lm] rmsnorm {tag} [{N}, {Dn}]: max abs err {e!r}, "
-            f"{ulps!r} bfloat16 ulps (at most 1); float32 within rtol 1e-5; "
-            f"both bitwise equal to its order spelled in torch, bfloat16 to "
-            f"a second run")
+    for arch, cfg in archs:
+        sdt = getattr(torch, cfg.param_dtype)
+        for phase, n in (("prefill", B * P), ("decode", B)):
+            for tag, (N, Dn) in norm_rows(cfg, n).items():
+                x, s = card_normal(torch, dev, N + Dn, (N, Dn), (Dn,))
+                x32, x, s = x * 3.0, (x * 3.0).to(bf), (1.0 + 0.1 * s).to(sdt)
+                got = rmsnorm(x, s, eps=1e-6)
+                want = ref.rmsnorm_ref(x, s, eps=1e-6)
+                again = rmsnorm(x, s, eps=1e-6)
+                spelled = sup.rmsnorm_in_k6_order(x, s, 1e-6)
+                got32 = rmsnorm(x32, s, eps=1e-6)
+                spelled32 = sup.rmsnorm_in_k6_order(x32, s, 1e-6)
+                torch.cuda.synchronize()
+                what = f"rmsnorm {arch} {tag} {phase} [{N}, {Dn}]"
+                ulps = sup.bf16_ulps(got, want)
+                if ulps > 1.0:
+                    raise AssertionError(f"{what}: {ulps} bfloat16 ulps off")
+                torch.testing.assert_close(again, got, rtol=0, atol=0)
+                torch.testing.assert_close(got, spelled, rtol=0, atol=0)
+                torch.testing.assert_close(
+                    got32, ref.rmsnorm_ref(x32, s, eps=1e-6), rtol=1e-5,
+                    atol=1e-6)
+                torch.testing.assert_close(got32, spelled32, rtol=0, atol=0)
+                e = float((got.float() - want.float()).abs().max())
+                err["rmsnorm"] = max(err["rmsnorm"], e)
+                log(f"[lm] {what}, scale {cfg.param_dtype}: max abs err "
+                    f"{e!r}, {ulps!r} bfloat16 ulps (at most 1); float32 "
+                    f"within rtol 1e-5; both bitwise equal to its order "
+                    f"spelled in torch, bfloat16 to a second run")
 
-    rows = {}
-    for tag, (T, S) in (("", cases["prefill"]), ("decode_", cases["decode"])):
-        q, k, v = flash_case(T, S, seed=1)
+    def flash_timed(cfg, T, S, **reps):
+        q, k, v = flash_case(T, S, seed=1, **dims(cfg))
+        H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         nbytes, flops = flash_cost(B, H, KV, T, S, D)
         b, by = bound_ms(nbytes, flops, PEAK_BF16_S)
         lib = (lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)) if T == S else (
             lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True))
-        rows[tag] = dict(
+        return dict(
             shape=f"q [{B},{H},{T},{D}] k/v [{B},{KV},{S},{D}] bf16",
-            ms=graph_ms(torch, lambda: flash_attention(q, k, v)),
+            ms=graph_ms(torch, lambda: flash_attention(q, k, v), **reps),
             plain_ms=graph_ms(torch, lambda: ref.flash_attention_ref(
-                q, k, v)),
-            bound_ms=b, bound_by=by, library_ms=graph_ms(torch, lib))
-    k5 = dict(rows[""], max_abs_err=err["flash_attention"])
-    for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms"):
-        k5["decode_" + key] = rows["decode_"][key]
-    rows = {}
-    for tag, (N, Dn) in (("", (B * P, 5120)), ("qk_", (B * P * H, D)),
-                         ("decode_", (B, 5120))):
+                q, k, v), **reps),
+            bound_ms=b, bound_by=by, library_ms=graph_ms(torch, lib, **reps))
+
+    k5 = dict(flash_timed(archs[0][1], *cases["prefill"]),
+              max_abs_err=err["flash_attention"])
+    for key, val in flash_timed(archs[0][1], *cases["decode"]).items():
+        k5["decode_" + key] = val
+    k5["arch_shapes"] = {}
+    for arch, cfg in archs[1:]:
+        row = flash_timed(cfg, *cases["prefill"], reps=20, rounds=3)
+        for key, val in flash_timed(cfg, *cases["decode"], reps=20,
+                                    rounds=3).items():
+            row["decode_" + key] = val
+        k5["arch_shapes"][arch] = row
+    rows, q14 = {}, archs[0][1]
+    for tag, (N, Dn) in (("", (B * P, q14.d_model)),
+                         ("qk_", (B * P * q14.num_heads, q14.head_dim)),
+                         ("decode_", (B, q14.d_model))):
         x, s = (torch.as_tensor(a, device=dev)
                 for a in sup.rmsnorm_inputs(N, Dn, seed=1))
         x = x.to(bf)
@@ -4004,21 +4101,63 @@ def phase_lm_kernels(torch, sup, dev):
     return out
 
 
+def norms_per_layer(cfg):
+    """K6 launches a block makes in a forward: ln1 and ln2 where the norm
+    is RMSNorm (a layernorm is plain torch), and q_norm and k_norm with
+    the qk-norm."""
+    return 2 * (cfg.norm == "rmsnorm") + 2 * bool(cfg.qk_norm)
+
+
 def serve_expected_launches(cfg, forwards):
-    """Per forward: K5 once per layer, K6 for ln1, ln2, q_norm and k_norm
-    of each layer plus the final norm; no other kernel."""
+    """Per forward: K5 once per layer, K6 ``norms_per_layer`` times per
+    layer plus the final norm where it is RMSNorm; no other kernel."""
     L = cfg.num_layers
     return {"flash_attention": L * forwards,
-            "rmsnorm": (4 * L + 1) * forwards}
+            "rmsnorm": (norms_per_layer(cfg) * L
+                        + (cfg.norm == "rmsnorm")) * forwards}
 
 
 def phase_serve(torch, kernels, sup, dev, profile=False):
     """qwen3-14b at full width through ``decode_loop`` (see the module
     docstring). Returns (launches, summary)."""
-    from repro_torch import configs, models, serve
+    from repro_torch import configs
+    return serve_model(torch, kernels, sup, dev,
+                       configs.get_config("qwen3-14b"), "serve", profile)
+
+
+def phase_serve_archs(torch, kernels, sup, dev, smi):
+    """8b: ``decode_loop`` for each of ``SERVE_ARCHS`` at full width (see
+    the module docstring), each model freed before the next loads.
+    Returns {arch: (launches, summary)}."""
+    import dataclasses
+    from repro_torch import configs
+    out = {}
+    for arch, layers in SERVE_ARCHS:
+        cfg = configs.get_config(arch)
+        full = cfg.num_layers
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        launches, summ = serve_model(torch, kernels, sup, dev, cfg,
+                                     "serve 8b", steps=SERVE_ARCH_STEPS)
+        summ.update(layers=cfg.num_layers, of_layers=full)
+        log(f"[serve 8b] {cfg.name}: {cfg.num_layers} of {full} layers; "
+            f"{smi}")
+        out[arch] = (launches, summ)
+    return out
+
+
+def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
+                steps=None):
+    """One model at ``cfg`` through ``decode_loop``: random params drawn
+    on the card, the serve prompts, ``steps`` greedy tokens (the serve
+    run's ``SERVE_STEPS`` by default), launches zeroed before and read after
+    and held to ``serve_expected_launches``, every logit finite, every
+    token below the true vocabulary; the memory freed before and after.
+    Returns (launches, summary)."""
+    from repro_torch import models, serve
     free_memory(torch)
     torch.cuda.reset_peak_memory_stats()
-    cfg = configs.get_config("qwen3-14b")
+    steps = steps or sup.SERVE_STEPS
     specs = models.lm_specs(cfg)
     t0 = time.perf_counter()
     params = models.init_params(
@@ -4029,10 +4168,10 @@ def phase_serve(torch, kernels, sup, dev, profile=False):
     tv = cfg.true_vocab or cfg.vocab_size
     prompt = torch.randint(0, tv, (sup.SERVE_BATCH, sup.SERVE_PROMPT),
                            generator=gen, device=dev)
-    log(f"[serve] {cfg.name}: {models.num_params(specs)} params "
-        f"({models.num_bytes(specs) / 1e9:.2f} GB float32) drawn on the card"
-        f" in {init_s:.2f} s; prompts {list(prompt.shape)}, "
-        f"{sup.SERVE_STEPS} greedy tokens, cache {sup.SERVE_CACHE}")
+    log(f"[{tag}] {cfg.name}: {models.num_params(specs)} params "
+        f"({models.num_bytes(specs) / 1e9:.2f} GB {cfg.param_dtype}) drawn "
+        f"on the card in {init_s:.2f} s; prompts {list(prompt.shape)}, "
+        f"{steps} greedy tokens, cache {sup.SERVE_CACHE}")
 
     stamps, finite = [], []
 
@@ -4046,7 +4185,7 @@ def phase_serve(torch, kernels, sup, dev, profile=False):
         finite.clear()
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
-        toks = serve.decode_loop(params, cfg, prompt, sup.SERVE_STEPS,
+        toks = serve.decode_loop(params, cfg, prompt, steps,
                                  cache_len=sup.SERVE_CACHE,
                                  on_logits=on_logits)
         torch.cuda.synchronize()
@@ -4055,29 +4194,31 @@ def phase_serve(torch, kernels, sup, dev, profile=False):
     kernels.reset_launches()
     toks = run()
     launches = dict(kernels.LAUNCHES)
-    want = serve_expected_launches(cfg, sup.SERVE_STEPS)
-    for name, n in launches.items():
-        if n != want.get(name, 0):
-            raise AssertionError(f"serve: {name} launched {n} times, "
-                                 f"expected {want.get(name, 0)}")
-    if len(finite) != sup.SERVE_STEPS or not all(bool(f) for f in finite):
-        raise AssertionError("serve: non-finite logits")
-    if tuple(toks.shape) != (sup.SERVE_BATCH, sup.SERVE_STEPS) or not bool(
+    want = serve_expected_launches(cfg, steps)
+    for name in set(launches) | set(want):
+        if launches.get(name, 0) != want.get(name, 0):
+            raise AssertionError(f"{tag} {cfg.name}: {name} launched "
+                                 f"{launches.get(name, 0)} times, expected "
+                                 f"{want.get(name, 0)}")
+    if len(finite) != steps or not all(bool(f) for f in finite):
+        raise AssertionError(f"{tag} {cfg.name}: non-finite logits")
+    if tuple(toks.shape) != (sup.SERVE_BATCH, steps) or not bool(
             ((toks >= 0) & (toks < tv)).all()):
-        raise AssertionError(f"serve: tokens {toks.shape} outside "
-                             f"[0, {tv})")
-    steps = np.diff(stamps)
-    summ = dict(prefill_s=float(steps[0]),
-                decode_ms_per_step=float(steps[1:].mean() * 1e3),
-                decode_ms_min=float(steps[1:].min() * 1e3),
-                decode_ms_max=float(steps[1:].max() * 1e3),
+        raise AssertionError(f"{tag} {cfg.name}: tokens {toks.shape} "
+                             f"outside [0, {tv})")
+    gaps = np.diff(stamps)
+    summ = dict(prefill_s=float(gaps[0]),
+                decode_ms_per_step=float(gaps[1:].mean() * 1e3),
+                decode_ms_min=float(gaps[1:].min() * 1e3),
+                decode_ms_max=float(gaps[1:].max() * 1e3),
                 total_s=float(stamps[-1] - stamps[0]),
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches=launches)
     summ["decode_tokens_per_s"] = sup.SERVE_BATCH / (
         summ["decode_ms_per_step"] / 1e3)
-    summ["tokens_per_s"] = sup.SERVE_BATCH * sup.SERVE_STEPS / summ["total_s"]
-    log(f"[serve] prefill {summ['prefill_s']!r} s, decode "
+    summ["tokens_per_s"] = sup.SERVE_BATCH * steps / summ["total_s"]
+    summ["params"] = models.num_params(specs)
+    log(f"[{tag}] {cfg.name}: prefill {summ['prefill_s']!r} s, decode "
         f"{summ['decode_ms_per_step']!r} ms/step (min "
         f"{summ['decode_ms_min']!r}, max {summ['decode_ms_max']!r}), "
         f"{summ['decode_tokens_per_s']!r} tokens/s in decode, "
@@ -4121,11 +4262,18 @@ def phase_serve(torch, kernels, sup, dev, profile=False):
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_RUN_STEPS = 4, 8, 1024, 5
 # 9b asserts its peak device memory stays under this (GB)
 TRAIN_PEAK_GB = 75.0
-# 9a's shapes: K5 bwd (B, H, KV, T, S, D, bf16), causal; K6 bwd (N, D)
-FLASH_BWD_CASES = ((1, 40, 8, 1024, 1024, 128, True),
-                   (1, 4, 2, 128, 128, 64, False),
-                   (2, 4, 2, 32, 32, 16, True))
-NORM_BWD_ROWS = ((1024, 5120), (1024 * 40, 128))
+# 9d: the other architectures' training at full width, depth cut to
+# TRAIN_ARCH_LAYERS, TRAIN_ARCH_STEPS steps each
+TRAIN_ARCHS = ("gemma_7b", "qwen3_moe_30b_a3b")
+TRAIN_ARCH_LAYERS, TRAIN_ARCH_STEPS = 2, 3
+# 9a holds K5 bwd and K6 bwd at the training shapes of these
+# architectures (``train_kernel_shapes``): 9b's and 9d's, and
+# stablelm-3b's head dim 80, which trains on the CPU only
+BWD_ARCHS = ("qwen3_14b",) + TRAIN_ARCHS + ("stablelm_3b",)
+# and at two edges, (B, H, KV, T, S, D, bf16), causal: float32, and the
+# REDUCED models' head dim 16
+FLASH_BWD_EDGE = ((1, 4, 2, 128, 128, 64, False),
+                  (2, 4, 2, 32, 32, 16, True))
 
 
 def flash_bwd_cost(B, H, KV, T, S, D, itemsize=2):
@@ -4147,21 +4295,36 @@ def rmsnorm_bwd_cost(N, D, itemsize=2):
 
 def train_expected_launches(cfg, tcfg):
     """Per train step, from the code: per microbatch each layer's block
-    runs K5 once and K6 four times (ln1, ln2, q_norm, k_norm), twice
-    under remat "full" (the forward and its recompute in the backward),
-    and each of their backward kernels once; ``ln_f``, outside the
-    groups, K6 and its backward once."""
+    runs K5 once and K6 ``norms_per_layer`` times (ln1, ln2 where the norm
+    is RMSNorm, q_norm and k_norm with the qk-norm), twice under remat
+    "full" (the forward and its recompute in the backward), and each of
+    their backward kernels once; ``ln_f``, outside the groups, K6 and its
+    backward once where it is RMSNorm."""
     L, k = cfg.num_layers, max(tcfg.microbatch, 1)
     fwd = {"none": 1, "full": 2}[tcfg.remat]
+    n, f = norms_per_layer(cfg) * L, int(cfg.norm == "rmsnorm")
     return {"flash_attention": fwd * L * k, "flash_attention_bwd": L * k,
-            "rmsnorm": (fwd * 4 * L + 1) * k, "rmsnorm_bwd": (4 * L + 1) * k}
+            "rmsnorm": (fwd * n + f) * k, "rmsnorm_bwd": (n + f) * k}
+
+
+def train_kernel_shapes(arch, cfg):
+    """K5 bwd's (B, H, KV, T, S, D, bf16) and K6 bwd's {tag: (N, width)}
+    in a microbatch of ``cfg`` under ``train_preset(arch)`` over
+    DataConfig(TRAIN_BATCH, TRAIN_SEQ)."""
+    from repro_torch.launch import train_preset
+    B = TRAIN_BATCH // max(train_preset(arch).microbatch, 1)
+    return ((B, cfg.num_heads, cfg.num_kv_heads, TRAIN_SEQ, TRAIN_SEQ,
+             cfg.head_dim, cfg.compute_dtype == "bfloat16"),
+            norm_rows(cfg, B * TRAIN_SEQ))
 
 
 def phase_train_kernels(torch, sup, dev):
     """9a: K5's and K6's backward kernels against their plain versions at
-    the training shapes and bit for bit against a second launch, then
-    timed beside the plain version and autograd of the PyTorch call.
-    Returns {name: row} for the kernels line."""
+    the training shapes of ``BWD_ARCHS`` and at ``FLASH_BWD_EDGE``, and
+    bit for bit against a second launch, then timed beside the plain
+    version and autograd of the PyTorch call. Returns {name: row} for the
+    kernels line (qwen3-14b's shapes, the other architectures' K5 bwd
+    under ``arch_shapes``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -4169,11 +4332,16 @@ def phase_train_kernels(torch, sup, dev):
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
     err = {"flash_attention_bwd": 0.0, "rmsnorm_bwd": 0.0}
     rel = dict(err)
+    archs = arch_cfgs(BWD_ARCHS)
+    shapes = {arch: train_kernel_shapes(arch, cfg) for arch, cfg in archs}
     flash = {}
-    for i, (B, H, KV, T, S, D, bf16) in enumerate(FLASH_BWD_CASES):
+    for what, (B, H, KV, T, S, D, bf16) in (
+            [(a, sh[0]) for a, sh in shapes.items()]
+            + [("edge", c) for c in FLASH_BWD_EDGE]):
         dt = torch.bfloat16 if bf16 else torch.float32
-        q, k, v, do = (torch.as_tensor(a, device=dev).to(dt) for a in
-                       sup.flash_bwd_inputs(B, H, KV, T, S, D, seed=T + D))
+        q, k, v, do = (a.to(dt) for a in card_normal(
+            torch, dev, T + D, (B, H, T, D), (B, KV, S, D), (B, KV, S, D),
+            (B, H, T, D)))
         o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
         got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
         again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
@@ -4183,44 +4351,53 @@ def phase_train_kernels(torch, sup, dev):
         for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
             r = sup.rel_err(g, w)
             if not r <= bar:
-                raise AssertionError(f"flash_attention_bwd {name} "
+                raise AssertionError(f"flash_attention_bwd {what} {name} "
                                      f"{list(q.shape)}: {r} of the largest "
                                      f"gradient (bar {bar})")
             torch.testing.assert_close(a, g, rtol=0, atol=0)
             e = float((g.float() - w.float()).abs().max())
             err["flash_attention_bwd"] = max(err["flash_attention_bwd"], e)
             rel["flash_attention_bwd"] = max(rel["flash_attention_bwd"], r)
-            log(f"[train] flash_attention_bwd {name} q {list(q.shape)} k/v "
-                f"{list(k.shape)} {dt}: max abs err {e!r}, {r!r} of the "
-                f"largest gradient (bar {bar}); bitwise equal to a second "
-                f"launch")
-        if i == 0:          # the training shape, timed below
-            flash = dict(q=q, k=k, v=v, o=o, lse=lse, do=do)
-    norm = {}
-    for N, Dn in NORM_BWD_ROWS:
-        x, s, dy = (torch.as_tensor(a, device=dev)
-                    for a in sup.rmsnorm_bwd_inputs(N, Dn, seed=N))
-        for dt in (torch.bfloat16, torch.float32):
-            xd, dyd = x.to(dt), dy.to(dt)
-            got = rmsnorm_bwd(xd, s, dyd)
-            again = rmsnorm_bwd(xd, s, dyd)
-            want = ref.rmsnorm_bwd_ref(xd, s, dyd)
-            torch.cuda.synchronize()
-            bar = sup.BWD_BAR_BF16 if dt == torch.bfloat16 else \
-                sup.BWD_BAR_F32
-            for name, g, a, w in zip(("dx", "dscale"), got, again, want):
-                r = sup.rel_err(g, w)
-                if not r <= bar:
-                    raise AssertionError(f"rmsnorm_bwd {name} [{N}, {Dn}] "
-                                         f"{dt}: {r} (bar {bar})")
-                torch.testing.assert_close(a, g, rtol=0, atol=0)
-                e = float((g.float() - w.float()).abs().max())
-                err["rmsnorm_bwd"] = max(err["rmsnorm_bwd"], e)
-                rel["rmsnorm_bwd"] = max(rel["rmsnorm_bwd"], r)
-                log(f"[train] rmsnorm_bwd {name} [{N}, {Dn}] {dt}: max abs "
-                    f"err {e!r}, {r!r} of the largest gradient (bar {bar});"
-                    f" bitwise equal to a second launch")
-        norm[(N, Dn)] = (x.to(torch.bfloat16), s, dy.to(torch.bfloat16))
+            log(f"[train] flash_attention_bwd {what} {name} q "
+                f"{list(q.shape)} k/v {list(k.shape)} {dt}: max abs err "
+                f"{e!r}, {r!r} of the largest gradient (bar {bar}); bitwise "
+                f"equal to a second launch")
+        if what != "edge":                      # timed below
+            flash[what] = (q, k, v, o, lse, do)
+    norm, seen = {}, set()
+    for arch, cfg in archs:
+        for tag, (N, Dn) in shapes[arch][1].items():
+            if (N, Dn) in seen:
+                continue
+            seen.add((N, Dn))
+            x, s, dy = card_normal(torch, dev, N + Dn, (N, Dn), (Dn,),
+                                   (N, Dn))
+            x, s = x * 3.0, (1.0 + 0.1 * s).to(getattr(torch,
+                                                        cfg.param_dtype))
+            for dt in (torch.bfloat16, torch.float32):
+                xd, dyd = x.to(dt), dy.to(dt)
+                got = rmsnorm_bwd(xd, s, dyd)
+                again = rmsnorm_bwd(xd, s, dyd)
+                want = ref.rmsnorm_bwd_ref(xd, s, dyd)
+                torch.cuda.synchronize()
+                bar = sup.BWD_BAR_BF16 if dt == torch.bfloat16 else \
+                    sup.BWD_BAR_F32
+                for name, g, a, w in zip(("dx", "dscale"), got, again, want):
+                    r = sup.rel_err(g, w)
+                    if not r <= bar:
+                        raise AssertionError(
+                            f"rmsnorm_bwd {arch} {tag} {name} [{N}, {Dn}] "
+                            f"{dt}: {r} (bar {bar})")
+                    torch.testing.assert_close(a, g, rtol=0, atol=0)
+                    e = float((g.float() - w.float()).abs().max())
+                    err["rmsnorm_bwd"] = max(err["rmsnorm_bwd"], e)
+                    rel["rmsnorm_bwd"] = max(rel["rmsnorm_bwd"], r)
+                    log(f"[train] rmsnorm_bwd {arch} {tag} {name} [{N}, "
+                        f"{Dn}] {dt}: max abs err {e!r}, {r!r} of the "
+                        f"largest gradient (bar {bar}); bitwise equal to a "
+                        f"second launch")
+            if arch == "qwen3_14b" and tag in ("ln", "q"):     # timed below
+                norm[tag] = (x.to(torch.bfloat16), s, dy.to(torch.bfloat16))
 
     def autograd_ms(fn, ins, grads, reps=20):
         """Device time of the backward alone of ``fn(*ins)`` (its graph kept
@@ -4240,26 +4417,31 @@ def phase_train_kernels(torch, sup, dev):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    ) / reps / 1e3
 
-    f = flash
-    B, H, KV, T, S, D, _ = FLASH_BWD_CASES[0]
-    nbytes, flops = flash_bwd_cost(B, H, KV, T, S, D)
-    b, by = bound_ms(nbytes, flops, PEAK_BF16_S)
-    args = (f["q"], f["k"], f["v"], f["o"], f["lse"], f["do"])
-    k5 = dict(
-        shape=f"q [{B},{H},{T},{D}] k/v [{B},{KV},{S},{D}] bf16, causal",
-        ms=graph_ms(torch, lambda: flash_attention_bwd(*args)),
-        plain_ms=graph_ms(torch, lambda: ref.flash_attention_bwd_ref(*args),
-                          reps=10, rounds=3),
-        bound_ms=b, bound_by=by,
-        library_ms=autograd_ms(
-            lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True),
-            (f["q"], f["k"], f["v"]), f["do"]),
-        max_abs_err=err["flash_attention_bwd"],
-        max_rel_err=rel["flash_attention_bwd"])
+    def flash_timed(arch):
+        B, H, KV, T, S, D, _ = shapes[arch][0]
+        args = flash[arch]
+        nbytes, flops = flash_bwd_cost(B, H, KV, T, S, D)
+        b, by = bound_ms(nbytes, flops, PEAK_BF16_S)
+        return dict(
+            shape=f"q [{B},{H},{T},{D}] k/v [{B},{KV},{S},{D}] bf16, causal",
+            ms=graph_ms(torch, lambda: flash_attention_bwd(*args)),
+            plain_ms=graph_ms(torch,
+                              lambda: ref.flash_attention_bwd_ref(*args),
+                              reps=10, rounds=3),
+            bound_ms=b, bound_by=by,
+            library_ms=autograd_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True),
+                args[:3], args[5]))
+
+    k5 = dict(flash_timed("qwen3_14b"),
+              max_abs_err=err["flash_attention_bwd"],
+              max_rel_err=rel["flash_attention_bwd"],
+              arch_shapes={a: flash_timed(a) for a in BWD_ARCHS[1:]})
     rows = {}
-    for tag, (N, Dn) in zip(("", "qk_"), NORM_BWD_ROWS):
-        x, s, dy = norm[(N, Dn)]
+    for tag, key in (("", "ln"), ("qk_", "q")):
+        x, s, dy = norm[key]
+        N, Dn = x.shape
         nbytes, flops = rmsnorm_bwd_cost(N, Dn)
         b, by = bound_ms(nbytes, flops)
         rows[tag] = dict(
@@ -4300,29 +4482,79 @@ def _train_shares(torch, prof):
     return total, share, top
 
 
-def phase_train(torch, kernels, sup, dev, profile=False):
+def phase_train(torch, kernels, dev, profile=False):
     """9b: qwen3-14b at full width cut to TRAIN_LAYERS layers through
     ``train_driver`` (see the module docstring). Returns (launches of one
     step, summary)."""
+    return train_model(torch, kernels, dev, "qwen3_14b", TRAIN_LAYERS,
+                       TRAIN_RUN_STEPS, "9b", profile)
+
+
+def phase_train_archs(torch, kernels, dev, smi):
+    """9d: ``TRAIN_ARCHS`` through ``train_driver`` (see the module
+    docstring). Returns {arch: (launches of one step, summary)}."""
+    out = {}
+    for arch in TRAIN_ARCHS:
+        out[arch] = train_model(torch, kernels, dev, arch, TRAIN_ARCH_LAYERS,
+                                TRAIN_ARCH_STEPS, "9d")
+        log(f"[train] (9d) {arch}: {smi}")
+    return out
+
+
+def active_params(cfg, specs):
+    """Parameters a token runs through: all of them, but only k of E
+    experts in a MoE block."""
+    from repro_torch import models
+    n = models.num_params(specs)
+    if cfg.num_experts:
+        experts = sum(models.num_params(v) for blk in specs["blocks"].values()
+                      for k, v in blk["mlp"].items() if k != "router")
+        n -= experts * (1 - cfg.experts_per_token / cfg.num_experts)
+    return n
+
+
+def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
+                profile=False):
+    """One architecture at full width cut to ``layers`` layers through
+    ``train_driver`` with ``train_preset(arch)`` over
+    DataConfig(TRAIN_BATCH, TRAIN_SEQ), ``run_steps`` steps: every loss
+    finite, the parameters moved, each step's launches as derived, peak
+    memory under TRAIN_PEAK_GB. Returns (launches of one step,
+    summary)."""
     import dataclasses
     from repro_torch import configs, models
     from repro_torch.launch import train_preset
     from repro_torch.train import DataConfig, init_opt, train_driver
     free_memory(torch)
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(configs.get_config("qwen3-14b"),
-                              num_layers=TRAIN_LAYERS)
-    tcfg = train_preset("qwen3_14b")
+    full = configs.get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
+    tcfg = train_preset(arch)
     dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
     specs = models.lm_specs(cfg)
     n_params = models.num_params(specs)
+    n_active = active_params(cfg, specs)
     t0 = time.perf_counter()
     params = models.init_params(
         specs, torch.Generator(device=dev).manual_seed(tcfg.seed), dev)
     opt = init_opt(params, tcfg)
+    block = f"b0_{cfg.pattern[0]}"
+
+    # the leaves probed: a slice of each (moved), and their first moments
+    # after the run (a gradient reached them; for a MoE, every expert's
+    # slice of its weights and every router column)
+    mlp = ("router", "wg", "wu", "wd") if cfg.num_experts else ("wu",)
+    names = ["ln_f.scale", "attn.wq", "embed.embedding"] + [
+        f"mlp.{n}" for n in mlp]
+
+    def probed(tree):
+        blk = tree["blocks"][block]
+        return ([tree["ln_f"]["scale"], blk["attn"]["wq"],
+                 tree["embed"]["embedding"]] + [blk["mlp"][n] for n in mlp])
+
     def probe():
-        return (params["ln_f"]["scale"].clone(),
-                params["blocks"]["b0_attn"]["attn"]["wq"][0, :64].clone())
+        return [t[0, :64].clone() if t.dim() > 2 else t[:64].clone()
+                for t in probed(params)]
     before = probe()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -4338,31 +4570,47 @@ def phase_train(torch, kernels, sup, dev, profile=False):
     kernels.reset_launches()
     torch.cuda.synchronize()
     stamps.append(time.perf_counter())
-    out = train_driver(cfg, tcfg, dcfg, steps=TRAIN_RUN_STEPS, hooks=[hook],
+    out = train_driver(cfg, tcfg, dcfg, steps=run_steps, hooks=[hook],
                        params=params, opt=opt, device=dev)
     peak = torch.cuda.max_memory_allocated() / 1e9
     losses = out["losses"]
     for i, launched in enumerate(per_step):
-        for name, n in launched.items():
-            if n != want.get(name, 0):
-                raise AssertionError(f"train step {i}: {name} launched {n} "
-                                     f"times, expected {want.get(name, 0)}")
-    if len(losses) != TRAIN_RUN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"train: losses {losses}")
-    moved = [bool((a != b).any()) for a, b in zip(before, probe())]
-    if not all(moved):
-        raise AssertionError(f"train: parameters did not move ({moved}: "
-                             f"ln_f's scale, a row of wq)")
+        for name in set(launched) | set(want):
+            if launched.get(name, 0) != want.get(name, 0):
+                raise AssertionError(
+                    f"train {cfg.name} step {i}: {name} launched "
+                    f"{launched.get(name, 0)} times, expected "
+                    f"{want.get(name, 0)}")
+    if len(losses) != run_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"train {cfg.name}: losses {losses}")
+    moved = dict(zip(names, (bool((a != b).any())
+                             for a, b in zip(before, probe()))))
+    if not all(moved.values()):
+        raise AssertionError(f"train {cfg.name}: parameters did not move "
+                             f"({moved})")
+    reached = {}
+    for n, m in zip(names, probed(out["opt"].mu)):
+        if cfg.num_experts and n.startswith("mlp."):   # each expert, dim 2
+            ok = m.ne(0).movedim(2, 0).reshape(m.shape[2], -1).any(1).all()
+        else:
+            ok = m.ne(0).any()
+        reached[n] = bool(ok)
+    if not all(reached.values()):
+        raise AssertionError(f"train {cfg.name}: no gradient reached "
+                             f"{[n for n, r in reached.items() if not r]} "
+                             f"(first moments all zero)")
     if peak > TRAIN_PEAK_GB:
-        raise AssertionError(f"train: peak {peak} GB over {TRAIN_PEAK_GB}")
+        raise AssertionError(f"train {cfg.name}: peak {peak} GB over "
+                             f"{TRAIN_PEAK_GB}")
     steps = np.diff(stamps)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
     attn = 12 * cfg.head_dim * cfg.num_heads * pairs * TRAIN_BATCH \
         * cfg.num_layers
-    flops = 6 * n_params * tokens + attn
+    flops = 6 * n_active * tokens + attn
     steady = float(np.median(steps[1:]))
-    summ = dict(layers=cfg.num_layers, of_layers=40, params=n_params,
+    summ = dict(layers=cfg.num_layers, of_layers=full.num_layers,
+                params=n_params, active_params=n_active,
                 init_s=init_s, microbatch=tcfg.microbatch, remat=tcfg.remat,
                 batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
                 step_s=[float(x) for x in steps], steady_step_s=steady,
@@ -4370,15 +4618,18 @@ def phase_train(torch, kernels, sup, dev, profile=False):
                 model_tflop_per_step=flops / 1e12,
                 model_tflops=flops / steady / 1e12, peak_gb=peak,
                 launches_per_step=per_step[0])
-    log(f"[train] (9b) {cfg.name} at full width, {cfg.num_layers} of 40 "
-        f"layers ({n_params} params, drawn in {init_s:.2f} s), "
+    log(f"[train] ({tag}) {cfg.name} at full width, {cfg.num_layers} of "
+        f"{full.num_layers} layers ({n_params} params, {n_active!r} active a "
+        f"token, drawn in {init_s:.2f} s), "
         f"train_preset (microbatch {tcfg.microbatch}, remat {tcfg.remat}), "
         f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses {losses}; wall per step "
         f"{summ['step_s']} s (steady {steady!r} s: "
         f"{summ['tokens_per_s']!r} tokens/s, {summ['model_tflops']!r} "
         f"model TFLOP/s of {summ['model_tflop_per_step']!r} TFLOP a step); "
         f"peak {peak!r} GB; launches a step {per_step[0]} (as derived); "
-        f"parameters moved")
+        f"parameters moved and their first moments nonzero: {names}"
+        f"{' (every expert, every router column)' if cfg.num_experts else ''}"
+        )
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
         with prof_ctx(activities=[ProfilerActivity.CPU,
@@ -4402,8 +4653,9 @@ def phase_train(torch, kernels, sup, dev, profile=False):
 
 
 def phase_train_reduced(torch, sup, dev):
-    """9c: the REDUCED qwen3-14b on the card: crash and resume bit for bit
-    under deterministic algorithms, and the golden's losses."""
+    """9c: the REDUCED qwen3-14b and qwen3-moe on the card: crash and
+    resume bit for bit under deterministic algorithms; and qwen3-14b's
+    golden losses."""
     import dataclasses
     import tempfile
     from repro_torch import configs, models
@@ -4411,24 +4663,31 @@ def phase_train_reduced(torch, sup, dev):
     from repro_torch.models.spec import _leaves
     from repro_torch.train import (CrashInjected, DataConfig, init_opt,
                                    train_driver)
-    cfg = configs.reduced_config("qwen3-14b")
     tcfg = TrainConfig(**sup.TRAIN_TCFG)
     dcfg = DataConfig(**sup.TRAIN_DCFG)
     torch.use_deterministic_algorithms(True)
     try:
-        with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as d:
-            ref, res = sup.crash_restart(train_driver, CrashInjected, cfg,
-                                         tcfg, dcfg, d, dev)
-        start = res["start_step"]
-        if ref["losses"][start:] != res["losses"]:
-            raise AssertionError(f"9c: resumed losses {res['losses']} "
-                                 f"against {ref['losses'][start:]}")
-        for a, b in zip(_leaves(ref["params"]), _leaves(res["params"])):
-            torch.testing.assert_close(b, a, rtol=0, atol=0)
-        log(f"[train] (9c) {cfg.name} ({cfg.compute_dtype} compute) crash "
-            f"after step 5, resumed from step {start}: losses "
-            f"{res['losses']} and every parameter bitwise the uninterrupted "
-            f"run's, under torch.use_deterministic_algorithms(True)")
+        for arch in ("qwen3-14b", "qwen3_moe_30b_a3b"):
+            cfg = configs.reduced_config(arch)
+            with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as d:
+                ref, res = sup.crash_restart(train_driver, CrashInjected,
+                                             cfg, tcfg, dcfg, d, dev)
+            start = res["start_step"]
+            if ref["losses"][start:] != res["losses"]:
+                raise AssertionError(f"9c {cfg.name}: resumed losses "
+                                     f"{res['losses']} against "
+                                     f"{ref['losses'][start:]}")
+            for a, b in zip(_leaves(ref["params"]) + _leaves(ref["opt"].mu)
+                            + _leaves(ref["opt"].nu),
+                            _leaves(res["params"]) + _leaves(res["opt"].mu)
+                            + _leaves(res["opt"].nu)):
+                torch.testing.assert_close(b, a, rtol=0, atol=0)
+            log(f"[train] (9c) {cfg.name} ({cfg.compute_dtype} compute) "
+                f"crash after step 5, resumed from step {start}: losses "
+                f"{res['losses']}, every parameter and moment bitwise the "
+                f"uninterrupted run's, under "
+                f"torch.use_deterministic_algorithms(True)")
+        cfg = configs.reduced_config("qwen3-14b")
         gold = sup.train_golden()
         fcfg = dataclasses.replace(cfg, compute_dtype="float32")
         params = models.params_from_numpy(
@@ -4564,14 +4823,27 @@ def main():
     mark(f"[time] + serve: {time.perf_counter() - t0:.1f} s")
     for k in LM_KERNELS:
         launches[k] = serve_launches[k]
+    t8b = time.perf_counter()
+    archs = phase_serve_archs(torch, kernels, sup, dev, smi)
+    log("[serve 8b] " + json.dumps({"serve_archs": {
+        a: summ for a, (_, summ) in archs.items()}}))
+    for k in LM_KERNELS:
+        rows[k]["archs_launches"] = {a: n[k] for a, (n, _) in archs.items()}
+    mark(f"[time] 8b other architectures' serve: "
+         f"{time.perf_counter() - t8b:.1f} s")
     t9 = time.perf_counter()
     rows.update(phase_train_kernels(torch, sup, dev))
     mark(f"[time] 9a backward kernels: {time.perf_counter() - t9:.1f} s")
     t9b = time.perf_counter()
-    train_launches, train_summ = phase_train(torch, kernels, sup, dev,
-                                             profile)
+    train_launches, train_summ = phase_train(torch, kernels, dev, profile)
     log("[train] " + json.dumps({"train": train_summ}))
     mark(f"[time] 9b qwen3-14b train: {time.perf_counter() - t9b:.1f} s")
+    t9d = time.perf_counter()
+    train_archs = phase_train_archs(torch, kernels, dev, smi)
+    log("[train] " + json.dumps({"train_archs": {
+        a: summ for a, (_, summ) in train_archs.items()}}))
+    mark(f"[time] 9d other architectures' train: "
+         f"{time.perf_counter() - t9d:.1f} s")
     t9c = time.perf_counter()
     reduced = phase_train_reduced(torch, sup, dev)
     log("[train] " + json.dumps({"train_reduced": reduced}))
@@ -4582,6 +4854,9 @@ def main():
         launches[k] = train_launches[k]
     for k in LM_KERNELS:
         rows[k]["train_launches_per_step"] = train_launches[k]
+    for k in LM_KERNELS + TRAIN_KERNELS:
+        rows[k]["archs_train_launches_per_step"] = {
+            a: n[k] for a, (n, _) in train_archs.items()}
 
     for k in PATH_KERNELS:
         if launches[k] == 0:

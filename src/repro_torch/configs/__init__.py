@@ -1,5 +1,5 @@
 """Model, shape, mesh and training configuration (twin of
-``repro.configs``; the qwen3-14b entry of the registry)."""
+``repro.configs``; the registry's attn and moe architectures)."""
 from .base import MeshConfig, ModelConfig, SHAPES, ShapeConfig, TrainConfig
 from .registry import PORTED, canon, get_config, padded_vocab, reduced_config
 

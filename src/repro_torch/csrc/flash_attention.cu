@@ -10,8 +10,8 @@
 // seen. Scores s = (q . k) * scale, an online softmax with a float32
 // running max m, denominator l and accumulator, finalized as
 // acc / max(l, 1e-30) with masked probabilities zeroed, so a row whose
-// every key is masked gives 0 (as the TPU kernel does). Head dims 16 and
-// the multiples of 32 up to 256 are built. Every tensor may be strided
+// every key is masked gives 0 (as the TPU kernel does). Head dims 16, 80
+// and the multiples of 32 up to 256 are built. Every tensor may be strided
 // except along D (the wrapper passes element strides), so the model's
 // [B, T, H, D] activations and its [B, S, KV, D] cache are read in place.
 //
@@ -132,6 +132,12 @@ struct FlashArgs {
 // * dk/dv: one block per (b, kv head, key tile); it walks the group's G
 //   heads in ascending order and, for each, the query tiles in order,
 //   adding ds^T Q and p^T dO into registers.
+// Head dims 16, 32, 64, 80, 128 and 256 are built. At D = 256 a dk/dv
+// block would hold two 16 x 256 float32 accumulators a warp, 256 floats
+// a thread, over the 255-register limit: there each (b, kv head, key
+// tile) takes two blocks, one a half of dk's and dv's columns
+// (BwdMma::DS), each recomputing S^T and dP^T over all 256; the sums of
+// each column run in the same order either way.
 // Bound at the training shape (T = S = 1 024, D = 128, causal): about
 // 10 D flops per visible pair (five products) over the bytes of q, k, v,
 // o, do and the three gradients, ~1 300 flops a byte: the tensor cores.
@@ -1034,6 +1040,7 @@ int launch(const Args* a, void* stream, bool bf) {
     case 16: return launch_dtype<16>(*a, s, bf);
     case 32: return launch_dtype<32>(*a, s, bf);
     case 64: return launch_dtype<64>(*a, s, bf);
+    case 80: return launch_dtype<80>(*a, s, bf);
     case 96: return launch_dtype<96>(*a, s, bf);
     case 128: return launch_dtype<128>(*a, s, bf);
     case 160: return launch_dtype<160>(*a, s, bf);
@@ -1253,6 +1260,11 @@ template <int D>
 struct BwdMma {
   static constexpr int BK = 32;        // keys (dq) or queries (dk/dv) a tile
   static constexpr int LD = D + 8;     // shared row stride, as the forward's
+  // dk/dv columns a block accumulates (of D), and the blocks that share a
+  // key tile
+  static constexpr int DS = D > 128 ? 128 : D;
+  static constexpr int NSPLIT = D / DS;
+  static_assert(D % DS == 0, "the column split must cover every column");
   // dq: Q and dO [kTileQ][LD], K and V [2][BK][LD]; dk/dv: K and V
   // [kTileQ][LD], Q and dO [2][BK][LD], then lse and delta [2][BK] floats
   static constexpr int kSmemDq = (2 * kTileQ + 4 * BK) * LD * 2;
@@ -1416,12 +1428,13 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
 // Q and dO come in double-buffered 32-query tiles (the group's heads in
 // ascending order, each head's tiles in order) by cp.async. Per tile:
 // S^T = K Q^T and dP^T = V dO^T, p and ds on the fragments, then
-// dv += (p_hi + p_lo)^T dO and dk += (ds_hi + ds_lo)^T Q.
+// dv += (p_hi + p_lo)^T dO and dk += (ds_hi + ds_lo)^T Q over the block's
+// C::DS columns from c0.
 template <int D>
 __global__ void __launch_bounds__(kTiledWarps * 32)
     flash_bwd_dkv_mma(const BArgs a) {
   using C = BwdMma<D>;
-  constexpr int BK = C::BK, LD = C::LD, NS = BK / 8, ND = D / 8;
+  constexpr int BK = C::BK, LD = C::LD, NS = BK / 8, ND = C::DS / 8;
   constexpr int KD = D / 16, CH = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);     // [kTileQ][LD]
@@ -1432,7 +1445,8 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
   float* dlb = lsb + 2 * BK;                                  // [2][BK]
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int kvh = blockIdx.x / C::NSPLIT, b = blockIdx.y;
+  const int c0 = (blockIdx.x % C::NSPLIT) * C::DS;   // the block's columns
   const int k0 = blockIdx.z * kTileQ;        // the first keys are the heaviest
   const int G = a.H / a.KV;
   const int off = a.S - a.T;
@@ -1539,9 +1553,9 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
       for (int kk = 0; kk < BK / 16; ++kk) {
         unsigned hi[4], lo[4];
         split_p(st[2 * kk], st[2 * kk + 1], hi, lo);
-        mma_pv<D, LD>(dv, hi, lo, dt, 16 * kk, lane);
+        mma_pv<C::DS, LD>(dv, hi, lo, dt + c0, 16 * kk, lane);
         split_p(dpt[2 * kk], dpt[2 * kk + 1], hi, lo);
-        mma_pv<D, LD>(dk, hi, lo, qt, 16 * kk, lane);
+        mma_pv<C::DS, LD>(dk, hi, lo, qt + c0, 16 * kk, lane);
       }
     }
     __syncthreads();        // the tile is consumed before it is refilled
@@ -1554,8 +1568,8 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
   for (int r = 0; r < 2; ++r) {
     const int key = kw + g + 8 * r;
     if (key >= a.S) continue;
-    bf16* krow = dkg + static_cast<long long>(key) * a.dk_ss + 2 * tig;
-    bf16* vrow = dvg + static_cast<long long>(key) * a.dv_ss + 2 * tig;
+    bf16* krow = dkg + static_cast<long long>(key) * a.dk_ss + c0 + 2 * tig;
+    bf16* vrow = dvg + static_cast<long long>(key) * a.dv_ss + c0 + 2 * tig;
 #pragma unroll
     for (int n = 0; n < ND; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(krow + 8 * n) = __floats2bfloat162_rn(
@@ -1578,7 +1592,8 @@ int launch_bwd_d(const BArgs& a, cudaStream_t stream, bool bf) {
                           kTiledWarps * 32, C::kSmemDq, stream>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkv_mma<D><<<dim3(a.KV, a.B, (a.S + kTileQ - 1) / kTileQ),
+    flash_bwd_dkv_mma<D><<<dim3(a.KV * C::NSPLIT, a.B,
+                                (a.S + kTileQ - 1) / kTileQ),
                            kTiledWarps * 32, C::kSmemDkv, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
@@ -1604,7 +1619,9 @@ int launch_bwd(const BArgs* a, void* stream, bool bf) {
     case 16: return launch_bwd_d<16>(*a, s, bf);
     case 32: return launch_bwd_d<32>(*a, s, bf);
     case 64: return launch_bwd_d<64>(*a, s, bf);
+    case 80: return launch_bwd_d<80>(*a, s, bf);
     case 128: return launch_bwd_d<128>(*a, s, bf);
+    case 256: return launch_bwd_d<256>(*a, s, bf);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -32,7 +32,9 @@ dk/dv (one block per (b, kv head, 64 keys), the group's heads and query
 tiles in a fixed order), in bfloat16 on ``mma.sync`` with p and ds split
 into bf16 halves, in float32 scalar; no float atomics, so the gradients
 are the same bits run to run. Causal without a window, or unmasked; head
-dims 16, 32, 64 and 128.
+dims 16, 32, 64, 80, 128 and 256 (at 256 each key tile's dk and dv are
+split by columns over two blocks, which keeps a thread's accumulators in
+registers).
 
 This launches the CUDA kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to
@@ -86,8 +88,8 @@ _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
-HEAD_DIMS = (16,) + tuple(range(32, 257, 32))   # built in the .cu
-BWD_HEAD_DIMS = (16, 32, 64, 128)               # the backward's
+HEAD_DIMS = tuple(sorted((16, 80) + tuple(range(32, 257, 32))))  # the .cu's
+BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)      # the backward's
 
 
 def _check(what, q, others, kv_shape):
@@ -137,8 +139,8 @@ def _heads_inner(shape, dtype, device):
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
-    """q: [B,H,T,D]; k, v: [B,KV,S,D] (H % KV == 0; D 16 or a multiple of
-    32 up to 256), one dtype (float32 or bfloat16), on the card, any strides
+    """q: [B,H,T,D]; k, v: [B,KV,S,D] (H % KV == 0; D 16, 80 or a multiple
+    of 32 up to 256), one dtype (float32 or bfloat16), on the card, any strides
     with a unit D stride. Returns [B,H,T,D] in q's dtype, and with
     ``return_lse`` also the float32 log-sum-exp of each query row [B,H,T]
     (what ``flash_attention_bwd`` takes)."""
@@ -149,8 +151,8 @@ def flash_attention(q, k, v, *, causal=True, window=0, return_lse=False):
     if KV == 0 or H % KV:
         raise ValueError(f"{what}: {H} query heads over {KV} kv heads")
     if D not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {D} is not built (16 or a "
-                         f"multiple of 32 up to 256)")
+        raise ValueError(f"{what}: head dim {D} is not built "
+                         f"{HEAD_DIMS}")
     out = _heads_inner((B, H, T, D), q.dtype, q.device)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if return_lse else None)

@@ -1,5 +1,5 @@
 """Model zoo on PyTorch (twin of ``repro.models``): spec-declared params
-and the decoder-only LM, ``"attn"`` blocks only in this slice."""
+and the decoder-only LM, ``"attn"`` and ``"moe"`` blocks."""
 from .spec import (ParamSpec, cache_from_numpy, fan_in_normal, init_params,
                    is_spec, num_bytes, num_params, opt_from_numpy,
                    params_from_numpy, tree_map_specs)

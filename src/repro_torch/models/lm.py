@@ -1,12 +1,14 @@
 """Decoder-only language model (twin of ``repro.models.lm``, the ``"attn"``
-block kind).
+and ``"moe"`` block kinds).
 
 Layers are organized in *pattern groups* as in ``repro``: parameters and
 caches are stacked along a leading ``layers`` axis of length
 ``G = num_layers / len(pattern)``, and a Python loop over the groups
-takes the place of ``lax.scan``. Only the ``"attn"`` kind (pre-norm GQA
-causal self-attention + SwiGLU MLP) is ported; ``check_config`` rejects
-every configuration outside the slice, naming its ROADMAP item.
+takes the place of ``lax.scan``. Two kinds are ported: ``"attn"``
+(pre-norm GQA causal self-attention + gated MLP) and ``"moe"`` (the same
+attention + a mixture of experts), with either norm, either activation
+and tied, untied or scaled embeddings; ``check_config`` rejects every
+configuration outside them, naming its ROADMAP item.
 
 ``lm_forward`` takes ``repro``'s remat policies, with
 ``torch.utils.checkpoint`` (non-reentrant) in place of ``jax.checkpoint``
@@ -28,22 +30,23 @@ from torch.utils import checkpoint as _ckpt
 from .spec import ParamSpec, tree_map_specs
 from . import layers as L
 
-# what this slice serves, against ``repro``'s ModelConfig fields; any
-# other value is the business of a later slice (ROADMAP.md, Queue 1
-# item 15: MoE, SSM, RG-LRU, local ring, encoder-decoder, VLM, the other
-# configs)
-_SCOPE = {"norm": "rmsnorm", "act": "silu", "gated_mlp": True,
-          "tie_embeddings": False, "embed_scale": False, "learned_pos": False,
-          "enc_layers": 0, "num_image_tokens": 0}
+# what the port serves, against ``repro``'s ModelConfig fields (a field's
+# allowed values); any other value is the business of a later slice
+# (ROADMAP.md, Queue 1 item 15: SSM, RG-LRU, local ring, encoder-decoder,
+# VLM)
+KINDS = ("attn", "moe")
+_SCOPE = {"norm": ("rmsnorm", "layernorm"), "act": ("silu", "gelu"),
+          "gated_mlp": (True,), "learned_pos": (False,), "enc_layers": (0,),
+          "num_image_tokens": (0,)}
 
 
 def check_config(cfg):
     """Raise ``NotImplementedError`` for a configuration outside the
-    slice: block kinds other than ``"attn"`` or another norm, activation,
-    MLP, embedding or frontend."""
-    bad = [f"block kind {k!r}" for k in cfg.pattern if k != "attn"]
+    port: block kinds other than ``"attn"`` and ``"moe"``, or another
+    norm, activation, MLP, embedding or frontend."""
+    bad = [f"block kind {k!r}" for k in cfg.pattern if k not in KINDS]
     bad += [f"{f}={getattr(cfg, f)!r}" for f, v in _SCOPE.items()
-            if getattr(cfg, f) != v]
+            if getattr(cfg, f) not in v]
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} not ported to repro_torch yet "
@@ -55,12 +58,12 @@ def check_config(cfg):
 # --------------------------------------------------------------------------
 
 
-def block_specs(cfg):
+def block_specs(cfg, kind: str):
     dt = cfg.param_dtype
-    return {"ln1": L.norm_specs(cfg.d_model, dt),
+    return {"ln1": L.norm_specs(cfg.d_model, cfg.norm, dt),
             "attn": L.attn_specs(cfg),
-            "ln2": L.norm_specs(cfg.d_model, dt),
-            "mlp": L.mlp_specs(cfg)}
+            "ln2": L.norm_specs(cfg.d_model, cfg.norm, dt),
+            "mlp": L.moe_specs(cfg) if kind == "moe" else L.mlp_specs(cfg)}
 
 
 def _stack(specs, G: int):
@@ -72,12 +75,12 @@ def _stack(specs, G: int):
 def lm_specs(cfg):
     check_config(cfg)
     G = cfg.pattern_groups
-    group = {f"b{j}_{kind}": block_specs(cfg)
+    group = {f"b{j}_{kind}": block_specs(cfg, kind)
              for j, kind in enumerate(cfg.pattern)}
     return {
         "embed": L.embed_specs(cfg),
         "blocks": _stack(group, G),
-        "ln_f": L.norm_specs(cfg.d_model, cfg.param_dtype),
+        "ln_f": L.norm_specs(cfg.d_model, cfg.norm, cfg.param_dtype),
     }
 
 
@@ -102,9 +105,17 @@ def _batch_tokens(batch):
 # --------------------------------------------------------------------------
 
 
-def _apply_block(bp, x, cfg):
-    x = x + L.attn_forward(bp["attn"], L.norm_apply(bp["ln1"], x), cfg)
-    return x + L.mlp_apply(bp["mlp"], L.norm_apply(bp["ln2"], x), cfg)
+def _mlp(bp, x, kind, cfg):
+    """The block's MLP half: ``moe_apply`` for ``"moe"`` blocks, as
+    ``repro`` picks it."""
+    mlp = L.moe_apply if kind == "moe" else L.mlp_apply
+    return mlp(bp["mlp"], L.norm_apply(bp["ln2"], x, cfg.norm), cfg)
+
+
+def _apply_block(bp, x, kind, cfg):
+    x = x + L.attn_forward(bp["attn"], L.norm_apply(bp["ln1"], x, cfg.norm),
+                           cfg)
+    return x + _mlp(bp, x, kind, cfg)
 
 
 REMAT_POLICIES = ("none", "full", "dots", "nested")
@@ -150,7 +161,7 @@ def _run_blocks(blocks, x, cfg, remat: str = "full"):
     def group(h, g):
         gp = _group(blocks, g)
         for j, kind in enumerate(cfg.pattern):
-            h = _apply_block(gp[f"b{j}_{kind}"], h, cfg)
+            h = _apply_block(gp[f"b{j}_{kind}"], h, kind, cfg)
         return h
 
     G = cfg.pattern_groups
@@ -179,7 +190,7 @@ def lm_forward(params, batch, cfg, remat: str = "full"):
     check_config(cfg)
     x = L.embed_apply(params["embed"], _batch_tokens(batch), cfg)
     x = _run_blocks(params["blocks"], x, cfg, remat)
-    x = L.norm_apply(params["ln_f"], x)
+    x = L.norm_apply(params["ln_f"], x, cfg.norm)
     return L.unembed_apply(params["embed"], x, cfg)
 
 
@@ -188,18 +199,20 @@ def lm_forward(params, batch, cfg, remat: str = "full"):
 # --------------------------------------------------------------------------
 
 
-def _prefill_block(bp, x, cfg, new):
+def _prefill_block(bp, x, kind, cfg, new):
     """Returns x after the block; writes the block's keys and values into
-    the first T positions of ``new`` ({"k", "v"}: [B, cache_len, KV, Dh])
-    and zeros after them."""
-    y, (k, v) = L.attn_forward(bp["attn"], L.norm_apply(bp["ln1"], x), cfg,
+    the first T positions of ``new`` ({"k", "v"}: [B, cache_len, KV, Dh],
+    the same layout for ``"attn"`` and ``"moe"`` blocks) and zeros after
+    them."""
+    y, (k, v) = L.attn_forward(bp["attn"],
+                               L.norm_apply(bp["ln1"], x, cfg.norm), cfg,
                                return_kv=True)
     x = x + y
     T = k.shape[1]
     for n, t in (("k", k), ("v", v)):
         new[n][:, :T] = t
         new[n][:, T:] = 0
-    return x + L.mlp_apply(bp["mlp"], L.norm_apply(bp["ln2"], x), cfg)
+    return x + _mlp(bp, x, kind, cfg)
 
 
 def lm_prefill(params, batch, cfg, cache_len: int):
@@ -219,8 +232,8 @@ def lm_prefill(params, batch, cfg, cache_len: int):
         gp = _group(params["blocks"], g)
         for j, kind in enumerate(cfg.pattern):
             key = f"b{j}_{kind}"
-            x = _prefill_block(gp[key], x, cfg, _group(cache[key], g))
-    x = L.norm_apply(params["ln_f"], x)
+            x = _prefill_block(gp[key], x, kind, cfg, _group(cache[key], g))
+    x = L.norm_apply(params["ln_f"], x, cfg.norm)
     logits = L.unembed_apply(params["embed"], x[:, -1:], cfg)
     return logits, cache
 
@@ -230,12 +243,12 @@ def lm_prefill(params, batch, cfg, cache_len: int):
 # --------------------------------------------------------------------------
 
 
-def _decode_block(bp, x, cfg, cache, index):
+def _decode_block(bp, x, kind, cfg, cache, index):
     """Returns x after the block; the block's cache is updated in place."""
-    y, _, _ = L.attn_decode(bp["attn"], L.norm_apply(bp["ln1"], x),
+    y, _, _ = L.attn_decode(bp["attn"], L.norm_apply(bp["ln1"], x, cfg.norm),
                             cache["k"], cache["v"], index, cfg)
     x = x + y
-    return x + L.mlp_apply(bp["mlp"], L.norm_apply(bp["ln2"], x), cfg)
+    return x + _mlp(bp, x, kind, cfg)
 
 
 def lm_decode_step(params, token, cache, index, cfg):
@@ -249,6 +262,7 @@ def lm_decode_step(params, token, cache, index, cfg):
         gp = _group(params["blocks"], g)
         for j, kind in enumerate(cfg.pattern):
             key = f"b{j}_{kind}"
-            x = _decode_block(gp[key], x, cfg, _group(cache[key], g), index)
-    x = L.norm_apply(params["ln_f"], x)
+            x = _decode_block(gp[key], x, kind, cfg, _group(cache[key], g),
+                              index)
+    x = L.norm_apply(params["ln_f"], x, cfg.norm)
     return L.unembed_apply(params["embed"], x, cfg), cache

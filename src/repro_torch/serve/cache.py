@@ -1,5 +1,6 @@
 """Decode-cache declarations (twin of ``repro.serve.cache``, the full KV
-cache of ``"attn"`` blocks: [G, B, cache_len, KV, Dh] in bfloat16).
+cache of ``"attn"`` and ``"moe"`` blocks: [G, B, cache_len, KV, Dh] in
+bfloat16).
 
 The ring-buffer, recurrent and SSM caches come with their block kinds
 (ROADMAP.md, Queue 1 item 15).

@@ -18,11 +18,14 @@ once to float32. XLA folds its Python-scalar constants the same way:
 ``lr * (step + 1) / warmup`` is ``(step + 1) * float32(lr / warmup)``.
 ``b ** step`` is taken in float64 and rounded to float32, which equals
 XLA:CPU's float32 ``pow`` at every step probed (``torch.pow`` in float32
-is one ulp off at some). Two gaps remain, each a float32 ulp
-(ROADMAP.md, Queue 3): the cosine, taken in float64 and rounded, is one
-ulp off XLA's own at about 1% of steps; and ``global_norm`` adds each
-leaf's squares in PyTorch's order, not XLA's, so with the clip on its
-scale (and every update after it) can differ in the last bit.
+is one ulp off at some). The schedule's cosine is XLA:CPU's, which calls
+the C library's ``cosf``: ``_cosf`` spells glibc's algorithm (a
+reduction by pi/2 and a polynomial, in float64, rounded once), bit for
+bit XLA's where ``torch.cos`` in float32 or float64 is one ulp off at 5%
+or 1.3% of the inputs. One gap remains (ROADMAP.md, Queue 3):
+``global_norm`` adds each leaf's squares in PyTorch's order, not XLA's,
+so with the clip on its scale (and every update after it) can differ in
+the last bits.
 """
 from __future__ import annotations
 
@@ -78,6 +81,51 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+# glibc's float32 sin/cos constants (sysdeps/ieee754/flt-32/s_sincosf.h,
+# __sincosf_table[0]): 2^24 / (pi / 2), pi / 2, the cosine's c0..c4 and
+# the sine's s1..s3
+_HPI_INV = float.fromhex("0x1.45F306DC9C883p+23")
+_HPI = float.fromhex("0x1.921FB54442D18p0")
+_COS_C = (1.0, float.fromhex("-0x1.ffffffd0c621cp-2"),
+          float.fromhex("0x1.55553e1068f19p-5"),
+          float.fromhex("-0x1.6c087e89a359dp-10"),
+          float.fromhex("0x1.99343027bf8c3p-16"))
+_SIN_S = (float.fromhex("-0x1.555545995a603p-3"),
+          float.fromhex("0x1.1107605230bc4p-7"),
+          float.fromhex("-0x1.994eb3774cf24p-13"))
+
+
+def _cosf(y):
+    """cos of a float32 tensor, |y| < 120, as glibc's ``cosf`` computes it
+    (XLA:CPU's float32 cosine), every step in float64 and rounded to
+    float32 once: below 0.75 (glibc compares the top 12 bits against
+    pi/4's) the cosine polynomial of y; else xr = y - n pi/2 (n from the
+    fast rounding of y / (pi/2)) and, by n mod 4, cos(xr), -sin(xr),
+    -cos(xr) or sin(xr)."""
+    x = y.double()
+    a = y.abs()
+    n = ((x * _HPI_INV).trunc().long() + 0x800000) >> 24
+    xr = x - n.double() * _HPI
+
+    def cos_poly(u2):
+        u4 = u2 * u2
+        hi = _COS_C[3] + u2 * _COS_C[4]
+        lo = _COS_C[0] + u2 * _COS_C[1]
+        return (lo + u4 * _COS_C[2]) + (u4 * u2) * hi
+
+    def sin_poly(u, u2):
+        u3 = u * u2
+        s1 = _SIN_S[1] + u2 * _SIN_S[2]
+        return (u + u3 * _SIN_S[0]) + (u3 * u2) * s1
+
+    q = n & 3
+    neg = torch.where((q == 1) | (q == 2), -1.0, 1.0).double()
+    far = torch.where((n & 1) == 1, sin_poly(xr * neg, xr * xr),
+                      cos_poly(xr * xr) * neg)
+    out = torch.where(a < 0.75, cos_poly(x * x), far)
+    return torch.where(a < 2.0 ** -12, 1.0, out).float()
+
+
 def lr_schedule(step, cfg):
     """Warmup then cosine decay, float32, at the int32 tensor ``step``."""
     step = step.to(torch.float32)
@@ -85,8 +133,7 @@ def lr_schedule(step, cfg):
                                * _f32(1.0 / max(cfg.warmup_steps, 1)))
     prog = torch.clamp((step - float(cfg.warmup_steps)) * _f32(
         1.0 / max(cfg.total_steps - cfg.warmup_steps, 1)), 0.0, 1.0)
-    cos = _f32(0.5 * cfg.lr) * (1.0 + torch.cos(
-        (prog * _f32(math.pi)).double()).float())
+    cos = _f32(0.5 * cfg.lr) * (1.0 + _cosf(prog * _f32(math.pi)))
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 

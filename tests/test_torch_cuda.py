@@ -63,7 +63,10 @@ card against the port on the CPU at the tight bar of
 versions (relative to the largest gradient: 2e-2 in bfloat16, 2e-5 in
 float32) and bit for bit against a second launch, the two
 ``autograd.Function``s launching them on CUDA tensors, and one REDUCED
-train step on the card against the port on the CPU. Every test takes the ``cuda_device``
+train step on the card against the port on the CPU; K5 at head dim 80
+and its backward at 80 and 256, the other five REDUCED architectures on
+the card against the CPU, and the MoE layer bit for bit run to run.
+Every test takes the ``cuda_device``
 fixture and skips without a card; this module imports neither JAX nor
 ``repro``, so it runs where only PyTorch is:
 
@@ -820,6 +823,11 @@ FLASH_SHAPES = [
     (1, 2, 1, 4, 4, 32, True, 0, False),
     (4, 4, 2, 24, 24, 16, True, 0, True),          # REDUCED qwen3-14b
     (4, 4, 2, 1, 31, 16, True, 0, True),
+    (2, 32, 32, 128, 128, 80, True, 0, True),      # stablelm-3b, D = 80
+    (2, 32, 32, 1, 97, 80, True, 0, True),
+    (1, 4, 2, 3, 70, 80, True, 16, True),
+    (1, 4, 4, 70, 70, 80, True, 0, False),
+    (1, 2, 2, 2, 33, 80, False, 0, False),
 ] + sup.FLASH_EDGE_SHAPES
 
 
@@ -986,6 +994,90 @@ def _to_numpy(tree):
     if isinstance(tree, dict):
         return {k: _to_numpy(v) for k, v in tree.items()}
     return tree.numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama3_405b", "gemma_7b", "stablelm_3b",
+                                  "qwen3_moe_30b_a3b",
+                                  "granite_moe_3b_a800m"])
+def test_reduced_archs_on_card_match_cpu(cuda_device, arch):
+    """Each REDUCED architecture, float32 compute, numpy params: prefill +
+    4 teacher-forced decode steps on the card against the port on the
+    CPU (relative to the largest value, 1e-4), with K5 once a layer a
+    forward and K6 for the rmsnorm norms and the qk-norm (none for
+    stablelm's layernorm)."""
+    import dataclasses
+    from repro_torch import configs, models
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    cfg = dataclasses.replace(configs.reduced_config(arch),
+                              compute_dtype="float32")
+    tree = sup.numpy_params(models.lm_specs(cfg), 1)
+    rng = np.random.default_rng(1)
+    tv = cfg.true_vocab or cfg.vocab_size
+    prompt = torch.as_tensor(rng.integers(0, tv, (2, 20)))
+    toks = torch.as_tensor(rng.integers(0, tv, (2, 4)))
+    want = sup.lm_teacher_forced(models.params_from_numpy(tree, "cpu"), cfg,
+                                 prompt, toks, 32)
+    reset_launches()
+    got = sup.lm_teacher_forced(models.params_from_numpy(tree, cuda_device),
+                                cfg, prompt.to(cuda_device),
+                                toks.to(cuda_device), 32)
+    L = cfg.num_layers
+    norms = (2 * L + 1 if cfg.norm == "rmsnorm" else 0) + (
+        2 * L if cfg.qk_norm else 0)
+    assert LAUNCHES["flash_attention"] == 5 * L
+    assert LAUNCHES["rmsnorm"] == 5 * norms
+    for (what, g), (_, w) in zip(got, want):
+        assert sup.rel_err(g, w) <= 1e-4, what
+
+
+@pytest.mark.cuda
+def test_moe_combine_and_backward_are_the_same_run_to_run(cuda_device):
+    """The REDUCED qwen3-moe's MoE layer on the card (bfloat16, k = 8 of
+    16 experts, the capacity cut so that picks are dropped): its output
+    and the gradients of its input and weights bit for bit across three
+    runs (the combine and the token gather's backward add each token's k
+    rows in sort order, no atomics), and the combine against the port on
+    the CPU bit for bit given the same expert outputs."""
+    import dataclasses
+    from repro_torch import configs, models
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(configs.reduced_config("qwen3_moe_30b_a3b"),
+                              num_experts=16, experts_per_token=8,
+                              moe_capacity=0.5)
+    tree = sup.numpy_params(L.moe_specs(cfg), 2)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        (4, 64, cfg.d_model)).astype(np.float32))
+    w = torch.as_tensor(np.random.default_rng(4).standard_normal(
+        (4, 64, cfg.d_model)).astype(np.float32))
+    runs = []
+    for _ in range(3):
+        p = models.params_from_numpy(tree, cuda_device)
+        for t in p.values():
+            t.requires_grad_(True)
+        xi = x.to(cuda_device, torch.bfloat16).requires_grad_(True)
+        y = L.moe_apply(p, xi, cfg)
+        (y.float() * w.to(cuda_device)).sum().backward()
+        runs.append([y.detach(), xi.grad] + [p[k].grad for k in sorted(p)])
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
+    xf = x.reshape(-1, cfg.d_model).to(torch.bfloat16)
+    n, E, k = xf.shape[0], cfg.num_experts, cfg.experts_per_token
+    C = L.moe_capacity(cfg, n)
+    eid = torch.as_tensor(np.argsort(np.random.default_rng(5).random(
+        (n, E)), axis=-1)[:, :k].copy())
+    gate = torch.rand(n, k, generator=torch.Generator().manual_seed(6))
+    out = {}
+    for dev in ("cpu", cuda_device):
+        _, _, keep, dest, sg, rank = L._moe_dispatch(
+            xf.to(dev), eid.to(dev), gate.to(dev), E, k, C, torch.bfloat16)
+        y = torch.arange(E * C * cfg.d_model, dtype=torch.float32).reshape(
+            E * C, cfg.d_model).remainder(97).mul(0.013).to(torch.bfloat16)
+        out[str(dev)] = L._moe_combine(y.to(dev), keep, dest, sg, rank,
+                                       torch.bfloat16).cpu()
+        assert not bool(keep.all())
+    assert torch.equal(out[str(cuda_device)], out["cpu"])
 
 
 # the sharded engine's card checks: the paper leaf-spine's impaired pass
@@ -1164,6 +1256,11 @@ FLASH_BWD_SHAPES = [
     (1, 2, 1, 129, 129, 128, True, False),
     (2, 10, 2, 70, 70, 32, True, True),
     (1, 2, 1, 3, 40, 128, True, True),           # T <= 4: the tiled form
+    (1, 8, 8, 130, 130, 80, True, True),         # stablelm-3b, D = 80
+    (1, 4, 2, 65, 97, 80, True, False),
+    (1, 4, 4, 130, 130, 256, True, True),        # gemma-7b, D = 256
+    (1, 4, 2, 70, 70, 256, False, True),
+    (1, 2, 2, 65, 65, 256, True, False),
 ]
 
 

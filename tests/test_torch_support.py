@@ -1179,8 +1179,9 @@ def lm_teacher_forced(params, cfg, prompt, tokens, cache_len):
         logits, cache = lm_decode_step(params, tokens[:, i:i + 1], cache,
                                        P + i, cfg)
         out.append((f"decode {i} logits", logits.cpu()))
+    first = f"b0_{cfg.pattern[0]}"
     for n in ("k", "v"):
-        out.append((f"cache {n}", cache["b0_attn"][n].cpu()))
+        out.append((f"cache {n}", cache[first][n].cpu()))
     return out
 
 
@@ -1388,7 +1389,7 @@ def qwen3_layer_shapes():
     def walk(t):
         return tuple(t.shape) if is_spec(t) else {k: walk(v)
                                                   for k, v in t.items()}
-    return walk(block_specs(get_config("qwen3-14b")))
+    return walk(block_specs(get_config("qwen3-14b"), "attn"))
 
 
 def sorted_leaves(tree):

@@ -11,10 +11,9 @@ softmax) where the port's K5 path is compared, as in
 ``tests/test_torch_lm.py``. Bars:
 
 * **configs, presets, data**: equal, byte for byte.
-* **lr_schedule**: the warmup bit for bit ``repro``'s jitted schedule;
-  the cosine decay within lr 2^-22, an ulp of the cosine times 0.5 lr
-  and the product's rounding (XLA's ``cos`` is its own, one ulp off at
-  about 1% of steps, ROADMAP.md Queue 3; measured 2 ulps of the rate).
+* **lr_schedule**: bit for bit ``repro``'s jitted schedule, the cosine
+  decay included (XLA's float32 ``cos`` is the C library's ``cosf``,
+  which ``train/optim.py::_cosf`` spells).
 * **adamw_update** against ``repro``'s jitted update from the same
   state: with the clip off, float32 moments bit for bit, bfloat16 ones
   within one bfloat16 ulp, and the parameters within 3e-7 (XLA's fused
@@ -171,9 +170,7 @@ def test_lr_schedule_matches_jitted_repro(kw):
     want = np.asarray(jax.jit(jax.vmap(lambda s: j_lr(s, _jcfg(tc))))(
         jnp.asarray(steps)))
     got = ttrain.lr_schedule(torch.as_tensor(steps), tc).numpy()
-    warm = steps < tc.warmup_steps
-    np.testing.assert_array_equal(got[warm], want[warm])
-    np.testing.assert_allclose(got, want, rtol=0, atol=tc.lr * 2.0 ** -22)
+    np.testing.assert_array_equal(got, want)
 
 
 def _adam_state(tc, seed=1):
