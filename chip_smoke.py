@@ -327,14 +327,23 @@ exit, traceback) if anything in it is wrong:
    edges of its query tiles, key tiles and decode splits
    (``test_torch_support.FLASH_EDGE_SHAPES``: T and S of 63-129, a window
    across a tile, decode at S = 1, below one split and with a partial
-   one, T = 2..4 over a GQA group of 5, D = 16 and 256); then each timed
+   one, T = 2..4 over a GQA group of 5, D = 16 and 256), and at 8c's
+   local attention (recurrentgemma-2b, 10 heads over 1, D = 256): the
+   prefill q [2,10,4096,256] over k/v [2,1,4096,256] with its window of
+   2 048 (T past the window, so whole key tiles are skipped) and the ring
+   decode q [2,10,1,256] over the 2 048 slots of its ring read in place;
+   K6 also at 8c's rows ([8192, 2560] and [2, 2560], [4000, 768] and
+   [4, 768]); then each timed
    beside its plain version and one PyTorch call for the same function
    (``F.scaled_dot_product_attention`` with ``enable_gqa``,
    ``F.rms_norm``; the library yardstick, used nowhere in the port;
    ``F.rms_norm`` takes the scale in bf16, as its fused path needs, and
    is also timed with the same float32 scale K6 reads): K5 at qwen3-14b's
    prefill and last decode shapes, and at every other architecture's
-   under ``arch_shapes`` (fewer replays), K6 at qwen3-14b's rows;
+   under ``arch_shapes`` (fewer replays), 8c's two local shapes under
+   ``window_shapes`` (SDPA with the same mask as a boolean
+   ``attn_mask``; the bound counts only the pairs inside the window), K6
+   at qwen3-14b's rows;
 8. serve: qwen3-14b at full width (40 layers, d_model 5120, float32
    params drawn on the card from a ``torch.Generator`` seeded 0) through
    ``repro_torch.serve.decode_loop``: 4 prompts of 512 tokens from a seed,
@@ -359,7 +368,15 @@ exit, traceback) if anything in it is wrong:
    K5 once a layer a forward and K6 as ``serve_expected_launches``
    derives (none for stablelm's layernorm, two more a layer for the
    qk-norm); the prefill s, ms a decode step, tokens/s and peak GB, the
-   card's name and power limit beside them.
+   card's name and power limit beside them. (8c) The same for the
+   recurrent and state-space architectures (``RECURRENT_SERVE``), all
+   their layers, float32, 16 greedy tokens: recurrentgemma-2b (26
+   layers, 18 RG-LRU and 8 local, 2.67 B params; 2 prompts of 4 096,
+   past its window of 2 048, so the ring wraps in the prefill; K5 once a
+   local layer a forward, K6 twice a layer plus ``ln_f``) and mamba2-130m
+   (24 ``"ssm"`` layers; 4 prompts of 1 000 over four SSD chunks, the last
+   padded; no K5, K6 once a layer (ln1) plus ``ln_f``, its gated norm
+   plain torch).
 9. train: the one-card trainer (``repro_torch.train``). (9a) K5's and
    K6's backward kernels (``flash_attention_bwd``: dq, then dk/dv;
    ``rmsnorm_bwd``: row chunks, then their dscale partials in chunk
@@ -372,13 +389,21 @@ exit, traceback) if anything in it is wrong:
    [1024, d_model] and the qk-norms' [1024·H, 128] and [1024·KV, 128],
    bf16 and float32) and at ``FLASH_BWD_EDGE`` (a float32 case and the
    REDUCED models' head dim 16), within 2e-2 (bf16) / 2e-5 (float32) of
-   the largest gradient and bit for bit against a second launch; each
+   the largest gradient and bit for bit against a second launch; K5 bwd
+   with a sliding window at 9e's recurrentgemma-2b microbatch
+   (``window_bwd_shape``: q [1,10,4096,256] over k/v [1,1,4096,256],
+   window 2 048) and at ``test_torch_support.FLASH_BWD_WINDOW_SHAPES``
+   (T = S of 63-129, windows of 1, 17 and T - 1, D = 16 and 256, two in
+   float32), held the same way (``sup.bwd_errs``: a gradient that a
+   window of one makes zero is held to the scale of the others); each
    timed (CUDA-graph replays) beside its plain version and autograd of
    the PyTorch call (``F.scaled_dot_product_attention(is_causal=True,
    enable_gqa=True)``, ``F.rms_norm``: the backward alone, its kernels'
    device time from ``torch.profiler``), with its bound: K5 bwd at each
    architecture's shape (qwen3-14b's the row, the others under
-   ``arch_shapes``), K6 bwd at qwen3-14b's. (9b) qwen3-14b at full width (d_model 5 120, 40 / 8 heads,
+   ``arch_shapes``, recurrentgemma's windowed one under ``window_*``,
+   beside SDPA's backward with the same mask, timed between CUDA
+   events), K6 bwd at qwen3-14b's. (9b) qwen3-14b at full width (d_model 5 120, 40 / 8 heads,
    head_dim 128, d_ff 17 408, vocab 151 936), depth cut to
    ``TRAIN_LAYERS`` (4) of 40 layers, float32 params drawn on the card
    from ``tcfg.seed``, ``train_preset("qwen3_14b")`` (8 microbatches,
@@ -395,30 +420,42 @@ exit, traceback) if anything in it is wrong:
    its losses and every parameter; then float32 compute from
    ``numpy_params`` for 10 steps, the losses within
    ``sup.TRAIN_LOSS_BAR`` of ``tests/golden/torch_port_train.json``
-   (``repro`` on the CPU). The REDUCED qwen3-moe's crash/resume too, bit
-   for bit in its losses, parameters and moments: the MoE combine and
-   the token gather's backward add in a fixed order. (9d) gemma-7b and
+   (``repro`` on the CPU). The REDUCED qwen3-moe's and recurrentgemma's
+   crash/resume too, bit for bit in their losses, parameters and
+   moments: the MoE combine, the token gather's backward, K5's windowed
+   backward and the RG-LRU scan add in a fixed order. (9d) gemma-7b and
    qwen3-moe-30b-a3b at full width, each cut to ``TRAIN_ARCH_LAYERS`` (2)
    layers, float32, ``train_preset`` over the same data, 3 steps through
    ``train_driver``, held as 9b is (losses finite, parameters moved,
    launches as derived, peak under ``TRAIN_PEAK_GB``): K5 bwd at D = 256,
    GeGLU and the tied, scaled embedding's gradient; the MoE's backward.
-   9b and 9d probe ``ln_f``, ``wq``, the embedding and the MLP's leaves
-   (the router and the experts' ``wg``, ``wu``, ``wd`` for a MoE; ``wu``
-   otherwise): each moved, and each one's first moment is nonzero after
-   the run (a gradient reached it; for a MoE in every expert's slice and
-   every router column).
+   (9e) recurrentgemma-2b at full width cut to one pattern group (13 of
+   26 layers, 1.66 B params) on sequences of 4 096 (K5's windowed
+   backward at the model's shapes), and mamba2-130m whole (24 layers) on
+   sequences of 1 024 (four SSD chunks), float32, ``train_preset``
+   (8 microbatches, remat ``"full"``) over batches of 8, 3 steps, held as
+   9d is.
+   9b, 9d and 9e probe ``ln_f``, the embedding, and in the first block of
+   each kind ``wq`` (attention), ``w_a``, ``lam`` and ``conv_w``
+   (RG-LRU), ``in_proj``, ``a_log``, ``dt_bias`` and ``conv_w`` (SSD) and
+   the MLP's leaves (the router and the experts' ``wg``, ``wu``, ``wd``
+   for a MoE; ``wu`` otherwise): each moved, and each one's first moment
+   is nonzero after the run (a gradient reached it; for a MoE in every
+   expert's slice and every router column).
    Model TFLOP/s count 6 N tokens with N the parameters a token runs
-   through (k of E experts).
+   through (k of E experts), plus the attention's pairs (inside the
+   window for a local layer); the SSD's chunk products are not
+   counted.
 
 ``--profile`` adds a phase after 6b: each main-path and 6b run under
 ``torch.profiler`` (the first 200 ticks of the eager runs, the whole
 40 000 ticks of the megakernel runs), with the device time and device
 launches per tick, the device-busy share and the kernels that take the
-most device time; phase 8 runs the serve run a second time under
-``torch.profiler``, with K5's and K6's share of its device time; and 9b
-runs one more train step under it, with the shares of K5, K5 bwd, K6,
-K6 bwd, the casts and cuBLAS.
+most device time; phases 8 and 8c run each serve run a second time
+under ``torch.profiler``, with its device time, device launches and
+K5's and K6's share of its device time; and 9b and 9e run one more
+train step under it, with the shares of K5, K5 bwd, K6, K6 bwd, the
+casts and cuBLAS.
 
 The redesigned kernels (``src/repro_torch/csrc``): K3 is a split
 reduction over 64-row chunks of the incidence on a grid of 64-column
@@ -444,8 +481,9 @@ batch is one launch of B blocks that share nothing.
 
 It prints one ``{"kernels": [...]}`` line (K1-K6, K1/K2 in both forms,
 and K5's and K6's backward kernels with 9b's launches of one step;
-K5's and K6's rows carry 8b's launches by architecture, and the LM
-kernels' rows 9d's launches of a step;
+K5's and K6's rows carry 8b's and 8c's launches by architecture, and the
+LM kernels' rows 9d's and 9e's launches of a step, K5 bwd's row its
+windowed launches of a 9e step under ``window_launches_per_step``;
 the TPU form's main-path launches are 0; K4's entry carries each of its
 13 laws' phase-6c times under ``laws``, each Fig. 8 group's under
 ``fig8``, each feedback law's on each fat-tree leg under
@@ -653,13 +691,23 @@ def queue_cost(H, F, Q):
     return 4 * (H * F + H * F * Q + 3 * Q + 2 * Q), 2 * H * F * Q + 5 * Q
 
 
-def flash_cost(B, H, KV, T, S, D, itemsize=2):
+def visible_pairs(T, S, window=0):
+    """The query-key pairs causal attention computes, the queries at the
+    last T of S positions: query t sees keys (t + S - T - window, t + S -
+    T], all of them before it where ``window`` is 0."""
+    return sum(min(S, t + S - T + 1)
+               - (max(0, t + S - T - window + 1) if window > 0 else 0)
+               for t in range(T))
+
+
+def flash_cost(B, H, KV, T, S, D, itemsize=2, window=0):
     """K5, causal with the queries at the last T of S positions: q, k, v
-    read once and the output written once; 4·D flops (two products, each
-    a multiply and an add) per visible query-key pair."""
-    pairs = sum(min(S, t + S - T + 1) for t in range(T))
-    return (2 * B * H * T * D + 2 * B * KV * S * D) * itemsize, \
-        4 * B * H * D * pairs
+    read once and the output written once (with a window, only the keys
+    some query sees); 4·D flops (two products, each a multiply and an
+    add) per visible query-key pair (``visible_pairs``)."""
+    read = min(S, T + window - 1) if window > 0 else S
+    return (2 * B * H * T * D + 2 * B * KV * read * D) * itemsize, \
+        4 * B * H * D * visible_pairs(T, S, window)
 
 
 def rmsnorm_cost(N, D, itemsize=2):
@@ -3957,16 +4005,17 @@ def phase_lm_kernels(torch, sup, dev):
     K6 at the prefill layer norm's rows with the qk-norm's and the decode
     rows beside)."""
     import torch.nn.functional as F
+    from repro_torch import configs
     from repro_torch.kernels import flash_attention, ref, rmsnorm
     bf = torch.bfloat16
     B, P, C = sup.SERVE_BATCH, sup.SERVE_PROMPT, sup.SERVE_CACHE
     archs = arch_cfgs(("qwen3_14b",) + tuple(a for a, _ in SERVE_ARCHS))
 
-    def flash_case(T, S, seed, H, KV, D):
+    def flash_case(T, S, seed, H, KV, D, Bc=B, C=C):
         q, k, v = (a.to(bf) for a in card_normal(
-            torch, dev, seed, (B, H, T, D), (B, KV, S, D), (B, KV, S, D)))
+            torch, dev, seed, (Bc, H, T, D), (Bc, KV, S, D), (Bc, KV, S, D)))
         if T == 1:      # the decode reads the cache in place: [B,S,KV,D]
-            cache = torch.zeros(B, C, KV, D, dtype=bf, device=dev)
+            cache = torch.zeros(Bc, C, KV, D, dtype=bf, device=dev)
             cache[:, :S] = k.permute(0, 2, 1, 3)
             k = v = cache[:, :S].permute(0, 2, 1, 3)
             q = q.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
@@ -4008,35 +4057,66 @@ def phase_lm_kernels(torch, sup, dev):
         log(f"[lm] flash_attention edge q {list(q.shape)} k/v "
             f"{list(k.shape)} causal {causal} window {window}: max abs err "
             f"{e!r} (rtol/atol 2e-2)")
-    for arch, cfg in archs:
+    # 8c's local attention (recurrentgemma-2b): the prefill over its
+    # window, whole key tiles skipped (T > window), and the ring decode,
+    # one query over the ring's slots read in place, no mask
+    rg = configs.get_config("recurrentgemma_2b")
+    rg_b, rg_p = dict((a, (b, p)) for a, b, p in RECURRENT_SERVE)[
+        "recurrentgemma_2b"]
+    rg_dims = dims(rg)
+    win_cases = {"prefill": (rg_p, rg_p, rg.window),
+                 "ring decode": (1, rg.window, 0)}
+    for tag, (T, S, w) in win_cases.items():
+        q, k, v = flash_case(T, S, seed=T + S, Bc=rg_b, C=rg.window,
+                             **rg_dims)
+        got = flash_attention(q, k, v, causal=True, window=w)
+        want = ref.flash_attention_ref(q, k, v, causal=True, window=w)
+        again = flash_attention(q, k, v, causal=True, window=w)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+        e = float((got.float() - want.float()).abs().max())
+        err["flash_attention"] = max(err["flash_attention"], e)
+        log(f"[lm] flash_attention recurrentgemma_2b {tag} q "
+            f"{list(q.shape)} k/v {list(k.shape)} window {w}: max abs err "
+            f"{e!r} (rtol/atol 2e-2); bitwise equal to a second run")
+
+    def norm_check(arch, cfg, phase, n):
         sdt = getattr(torch, cfg.param_dtype)
+        for tag, (N, Dn) in norm_rows(cfg, n).items():
+            x, s = card_normal(torch, dev, N + Dn, (N, Dn), (Dn,))
+            x32, x, s = x * 3.0, (x * 3.0).to(bf), (1.0 + 0.1 * s).to(sdt)
+            got = rmsnorm(x, s, eps=1e-6)
+            want = ref.rmsnorm_ref(x, s, eps=1e-6)
+            again = rmsnorm(x, s, eps=1e-6)
+            spelled = sup.rmsnorm_in_k6_order(x, s, 1e-6)
+            got32 = rmsnorm(x32, s, eps=1e-6)
+            spelled32 = sup.rmsnorm_in_k6_order(x32, s, 1e-6)
+            torch.cuda.synchronize()
+            what = f"rmsnorm {arch} {tag} {phase} [{N}, {Dn}]"
+            ulps = sup.bf16_ulps(got, want)
+            if ulps > 1.0:
+                raise AssertionError(f"{what}: {ulps} bfloat16 ulps off")
+            torch.testing.assert_close(again, got, rtol=0, atol=0)
+            torch.testing.assert_close(got, spelled, rtol=0, atol=0)
+            torch.testing.assert_close(
+                got32, ref.rmsnorm_ref(x32, s, eps=1e-6), rtol=1e-5,
+                atol=1e-6)
+            torch.testing.assert_close(got32, spelled32, rtol=0, atol=0)
+            e = float((got.float() - want.float()).abs().max())
+            err["rmsnorm"] = max(err["rmsnorm"], e)
+            log(f"[lm] {what}, scale {cfg.param_dtype}: max abs err "
+                f"{e!r}, {ulps!r} bfloat16 ulps (at most 1); float32 "
+                f"within rtol 1e-5; both bitwise equal to its order "
+                f"spelled in torch, bfloat16 to a second run")
+
+    for arch, cfg in archs:
         for phase, n in (("prefill", B * P), ("decode", B)):
-            for tag, (N, Dn) in norm_rows(cfg, n).items():
-                x, s = card_normal(torch, dev, N + Dn, (N, Dn), (Dn,))
-                x32, x, s = x * 3.0, (x * 3.0).to(bf), (1.0 + 0.1 * s).to(sdt)
-                got = rmsnorm(x, s, eps=1e-6)
-                want = ref.rmsnorm_ref(x, s, eps=1e-6)
-                again = rmsnorm(x, s, eps=1e-6)
-                spelled = sup.rmsnorm_in_k6_order(x, s, 1e-6)
-                got32 = rmsnorm(x32, s, eps=1e-6)
-                spelled32 = sup.rmsnorm_in_k6_order(x32, s, 1e-6)
-                torch.cuda.synchronize()
-                what = f"rmsnorm {arch} {tag} {phase} [{N}, {Dn}]"
-                ulps = sup.bf16_ulps(got, want)
-                if ulps > 1.0:
-                    raise AssertionError(f"{what}: {ulps} bfloat16 ulps off")
-                torch.testing.assert_close(again, got, rtol=0, atol=0)
-                torch.testing.assert_close(got, spelled, rtol=0, atol=0)
-                torch.testing.assert_close(
-                    got32, ref.rmsnorm_ref(x32, s, eps=1e-6), rtol=1e-5,
-                    atol=1e-6)
-                torch.testing.assert_close(got32, spelled32, rtol=0, atol=0)
-                e = float((got.float() - want.float()).abs().max())
-                err["rmsnorm"] = max(err["rmsnorm"], e)
-                log(f"[lm] {what}, scale {cfg.param_dtype}: max abs err "
-                    f"{e!r}, {ulps!r} bfloat16 ulps (at most 1); float32 "
-                    f"within rtol 1e-5; both bitwise equal to its order "
-                    f"spelled in torch, bfloat16 to a second run")
+            norm_check(arch, cfg, phase, n)
+    for arch, rb, rp in RECURRENT_SERVE:
+        for phase, n in (("prefill", rb * rp), ("decode", rb)):
+            norm_check(arch, configs.get_config(arch), phase, n)
 
     def flash_timed(cfg, T, S, **reps):
         q, k, v = flash_case(T, S, seed=1, **dims(cfg))
@@ -4057,6 +4137,28 @@ def phase_lm_kernels(torch, sup, dev):
               max_abs_err=err["flash_attention"])
     for key, val in flash_timed(archs[0][1], *cases["decode"]).items():
         k5["decode_" + key] = val
+    def window_timed(tag):
+        T, S, w = win_cases[tag]
+        q, k, v = flash_case(T, S, seed=1, Bc=rg_b, C=rg.window, **rg_dims)
+        H, KV, D = rg.num_heads, rg.num_kv_heads, rg.head_dim
+        nbytes, flops = flash_cost(rg_b, H, KV, T, S, D, window=w)
+        b, by = bound_ms(nbytes, flops, PEAK_BF16_S)
+        mask = torch.ones(T, S, dtype=torch.bool, device=dev).tril(S - T)
+        if w:
+            mask = mask.triu(S - T - w + 1)
+        return dict(
+            shape=f"q [{rg_b},{H},{T},{D}] k/v [{rg_b},{KV},{S},{D}] bf16, "
+                  f"window {w}",
+            ms=graph_ms(torch, lambda: flash_attention(q, k, v, window=w)),
+            plain_ms=graph_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, window=w), reps=10, rounds=3),
+            bound_ms=b, bound_by=by,
+            library_ms=graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True), reps=20,
+                rounds=3))
+
+    k5["window_shapes"] = {f"recurrentgemma_2b {tag}": window_timed(tag)
+                           for tag in win_cases}
     k5["arch_shapes"] = {}
     for arch, cfg in archs[1:]:
         row = flash_timed(cfg, *cases["prefill"], reps=20, rounds=3)
@@ -4101,20 +4203,34 @@ def phase_lm_kernels(torch, sup, dev):
     return out
 
 
-def norms_per_layer(cfg):
-    """K6 launches a block makes in a forward: ln1 and ln2 where the norm
-    is RMSNorm (a layernorm is plain torch), and q_norm and k_norm with
-    the qk-norm."""
-    return 2 * (cfg.norm == "rmsnorm") + 2 * bool(cfg.qk_norm)
+ATTN_KINDS = ("attn", "moe", "local")
+
+
+def norms_per_layer(cfg, kind="attn"):
+    """K6 launches a block of ``kind`` makes in a forward: ln1, and ln2
+    but in an ``"ssm"`` block (which has no MLP), where the norm is
+    RMSNorm (a layernorm is plain torch, and so is mamba2's gated norm),
+    and q_norm and k_norm with the qk-norm in an attention block."""
+    return ((1 + (kind != "ssm")) * (cfg.norm == "rmsnorm")
+            + 2 * bool(cfg.qk_norm) * (kind in ATTN_KINDS))
+
+
+def layer_launches(cfg):
+    """(K5, K6) launches of one forward through the blocks: K5 once per
+    attention block (``"attn"``, ``"moe"``, ``"local"``), K6
+    ``norms_per_layer`` times per block; the final norm not counted."""
+    G = cfg.pattern_groups
+    return (G * sum(k in ATTN_KINDS for k in cfg.pattern),
+            G * sum(norms_per_layer(cfg, k) for k in cfg.pattern))
 
 
 def serve_expected_launches(cfg, forwards):
-    """Per forward: K5 once per layer, K6 ``norms_per_layer`` times per
-    layer plus the final norm where it is RMSNorm; no other kernel."""
-    L = cfg.num_layers
-    return {"flash_attention": L * forwards,
-            "rmsnorm": (norms_per_layer(cfg) * L
-                        + (cfg.norm == "rmsnorm")) * forwards}
+    """Per forward: K5 once per attention layer, K6 ``norms_per_layer``
+    times per layer plus the final norm where it is RMSNorm; no other
+    kernel."""
+    attn, norms = layer_launches(cfg)
+    return {"flash_attention": attn * forwards,
+            "rmsnorm": (norms + (cfg.norm == "rmsnorm")) * forwards}
 
 
 def phase_serve(torch, kernels, sup, dev, profile=False):
@@ -4146,18 +4262,51 @@ def phase_serve_archs(torch, kernels, sup, dev, smi):
     return out
 
 
+# 8c: the recurrent and state-space architectures at full width, all
+# their layers, (arch, batch, prompt): recurrentgemma-2b's prompts are
+# twice its window of 2 048, so its ring wraps in the prefill; mamba2's
+# span four SSD chunks of 256, the last one padded
+RECURRENT_SERVE = (("recurrentgemma_2b", 2, 4096), ("mamba2_130m", 4, 1000))
+RECURRENT_SERVE_STEPS = 16
+
+
+def phase_serve_recurrent(torch, kernels, sup, dev, smi, profile=False):
+    """8c: ``decode_loop`` for each of ``RECURRENT_SERVE`` at full width
+    (see the module docstring), each model freed before the next loads;
+    with ``profile``, each run a second time under ``torch.profiler``.
+    Returns {arch: (launches, summary)}."""
+    from repro_torch import configs
+    out = {}
+    for arch, batch, prompt in RECURRENT_SERVE:
+        cfg = configs.get_config(arch)
+        launches, summ = serve_model(
+            torch, kernels, sup, dev, cfg, "serve 8c", profile,
+            steps=RECURRENT_SERVE_STEPS, batch=batch, prompt_len=prompt,
+            cache_len=prompt + RECURRENT_SERVE_STEPS)
+        summ.update(layers=cfg.num_layers, of_layers=cfg.num_layers)
+        log(f"[serve 8c] {cfg.name}: all {cfg.num_layers} layers "
+            f"({cfg.pattern.count('local') * cfg.pattern_groups} local, "
+            f"window {cfg.window}); {smi}")
+        out[arch] = (launches, summ)
+    return out
+
+
 def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
-                steps=None):
+                steps=None, batch=None, prompt_len=None, cache_len=None):
     """One model at ``cfg`` through ``decode_loop``: random params drawn
-    on the card, the serve prompts, ``steps`` greedy tokens (the serve
-    run's ``SERVE_STEPS`` by default), launches zeroed before and read after
-    and held to ``serve_expected_launches``, every logit finite, every
-    token below the true vocabulary; the memory freed before and after.
-    Returns (launches, summary)."""
+    on the card, ``batch`` prompts of ``prompt_len`` tokens (the serve
+    run's by default), ``steps`` greedy tokens (its ``SERVE_STEPS`` by
+    default) over a cache of ``cache_len`` (its ``SERVE_CACHE``), launches
+    zeroed before and read after and held to ``serve_expected_launches``,
+    every logit finite, every token below the true vocabulary; the memory
+    freed before and after. Returns (launches, summary)."""
     from repro_torch import models, serve
     free_memory(torch)
     torch.cuda.reset_peak_memory_stats()
     steps = steps or sup.SERVE_STEPS
+    batch = batch or sup.SERVE_BATCH
+    prompt_len = prompt_len or sup.SERVE_PROMPT
+    cache_len = cache_len or sup.SERVE_CACHE
     specs = models.lm_specs(cfg)
     t0 = time.perf_counter()
     params = models.init_params(
@@ -4166,12 +4315,12 @@ def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
     init_s = time.perf_counter() - t0
     gen = torch.Generator(device=dev).manual_seed(1)
     tv = cfg.true_vocab or cfg.vocab_size
-    prompt = torch.randint(0, tv, (sup.SERVE_BATCH, sup.SERVE_PROMPT),
-                           generator=gen, device=dev)
+    prompt = torch.randint(0, tv, (batch, prompt_len), generator=gen,
+                           device=dev)
     log(f"[{tag}] {cfg.name}: {models.num_params(specs)} params "
         f"({models.num_bytes(specs) / 1e9:.2f} GB {cfg.param_dtype}) drawn "
         f"on the card in {init_s:.2f} s; prompts {list(prompt.shape)}, "
-        f"{steps} greedy tokens, cache {sup.SERVE_CACHE}")
+        f"{steps} greedy tokens, cache {cache_len}")
 
     stamps, finite = [], []
 
@@ -4186,8 +4335,7 @@ def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         toks = serve.decode_loop(params, cfg, prompt, steps,
-                                 cache_len=sup.SERVE_CACHE,
-                                 on_logits=on_logits)
+                                 cache_len=cache_len, on_logits=on_logits)
         torch.cuda.synchronize()
         return toks
 
@@ -4202,7 +4350,7 @@ def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
                                  f"{want.get(name, 0)}")
     if len(finite) != steps or not all(bool(f) for f in finite):
         raise AssertionError(f"{tag} {cfg.name}: non-finite logits")
-    if tuple(toks.shape) != (sup.SERVE_BATCH, steps) or not bool(
+    if tuple(toks.shape) != (batch, steps) or not bool(
             ((toks >= 0) & (toks < tv)).all()):
         raise AssertionError(f"{tag} {cfg.name}: tokens {toks.shape} "
                              f"outside [0, {tv})")
@@ -4214,9 +4362,10 @@ def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
                 total_s=float(stamps[-1] - stamps[0]),
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 launches=launches)
-    summ["decode_tokens_per_s"] = sup.SERVE_BATCH / (
-        summ["decode_ms_per_step"] / 1e3)
-    summ["tokens_per_s"] = sup.SERVE_BATCH * steps / summ["total_s"]
+    summ["decode_tokens_per_s"] = batch / (summ["decode_ms_per_step"] / 1e3)
+    summ["tokens_per_s"] = batch * steps / summ["total_s"]
+    summ.update(batch=batch, prompt=prompt_len, steps=steps,
+                cache_len=cache_len)
     summ["params"] = models.num_params(specs)
     log(f"[{tag}] {cfg.name}: prefill {summ['prefill_s']!r} s, decode "
         f"{summ['decode_ms_per_step']!r} ms/step (min "
@@ -4227,8 +4376,9 @@ def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
         f"first tokens {toks[:, :6].tolist()}")
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
-        with prof_ctx(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        # device activity alone: the host ops' trace (~10^5 events a
+        # mamba2 step) costs minutes to take and reduce
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
             run()
         avgs = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -4238,13 +4388,15 @@ def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
                  for k in ("flash_tiled_mma", "flash_split_mma",
                            "rmsnorm_kernel")}
         wall = stamps[-1] - stamps[0]
-        log(f"[profile] (g) serve: device {total / 1e3:.1f} ms of "
+        who = f"({tag}) {cfg.name}"
+        log(f"[profile] {who} serve: device {total / 1e3:.1f} ms of "
             f"{wall * 1e3:.1f} ms wall (busy share {total / 1e6 / wall!r}); "
+            f"{sum(e.count for e in avgs)} device launches; "
             f"share of device time: K5 prefill {share['flash_tiled_mma']!r},"
             f" K5 decode {share['flash_split_mma']!r}, K6 "
             f"{share['rmsnorm_kernel']!r}")
         for e in sorted(avgs, key=_self_device_us, reverse=True)[:10]:
-            log(f"[profile] (g)   {_self_device_us(e) / 1e3:9.3f} ms  "
+            log(f"[profile] {who}   {_self_device_us(e) / 1e3:9.3f} ms  "
                 f"{e.count:6d} calls  {e.key[:90]}")
     del params, prompt, toks
     free_memory(torch)
@@ -4266,6 +4418,15 @@ TRAIN_PEAK_GB = 75.0
 # TRAIN_ARCH_LAYERS, TRAIN_ARCH_STEPS steps each
 TRAIN_ARCHS = ("gemma_7b", "qwen3_moe_30b_a3b")
 TRAIN_ARCH_LAYERS, TRAIN_ARCH_STEPS = 2, 3
+# 9e: the recurrent and state-space architectures at full width, (arch,
+# layers, batch, seq): recurrentgemma-2b cut to one pattern group (13 of
+# 26 layers: 9 rec, 4 local) on sequences of 4 096, twice its window, so
+# that K5's windowed backward runs at the model's own shapes; mamba2-130m
+# whole on sequences of 1 024, four SSD chunks with the chunk recurrence
+# between them
+RECURRENT_TRAIN = (("recurrentgemma_2b", 13, 8, 4096),
+                   ("mamba2_130m", 24, 8, 1024))
+RECURRENT_TRAIN_STEPS = 3
 # 9a holds K5 bwd and K6 bwd at the training shapes of these
 # architectures (``train_kernel_shapes``): 9b's and 9d's, and
 # stablelm-3b's head dim 80, which trains on the CPU only
@@ -4276,14 +4437,14 @@ FLASH_BWD_EDGE = ((1, 4, 2, 128, 128, 64, False),
                   (2, 4, 2, 32, 32, 16, True))
 
 
-def flash_bwd_cost(B, H, KV, T, S, D, itemsize=2):
+def flash_bwd_cost(B, H, KV, T, S, D, itemsize=2, window=0):
     """K5's backward, causal with the queries at the last T of S: q, o, do
     and k, v read once, dq, dk, dv written once, the float32 LSE read;
     10·D flops (five products, each a multiply and an add) per visible
-    query-key pair: S and dP recomputed, dV, dK and dQ."""
-    pairs = sum(min(S, t + S - T + 1) for t in range(T))
+    query-key pair (``visible_pairs``, inside the window where there is
+    one): S and dP recomputed, dV, dK and dQ."""
     return ((4 * B * H * T * D + 4 * B * KV * S * D) * itemsize
-            + 4 * B * H * T), 10 * B * H * D * pairs
+            + 4 * B * H * T), 10 * B * H * D * visible_pairs(T, S, window)
 
 
 def rmsnorm_bwd_cost(N, D, itemsize=2):
@@ -4294,17 +4455,32 @@ def rmsnorm_bwd_cost(N, D, itemsize=2):
 
 
 def train_expected_launches(cfg, tcfg):
-    """Per train step, from the code: per microbatch each layer's block
-    runs K5 once and K6 ``norms_per_layer`` times (ln1, ln2 where the norm
-    is RMSNorm, q_norm and k_norm with the qk-norm), twice under remat
-    "full" (the forward and its recompute in the backward), and each of
-    their backward kernels once; ``ln_f``, outside the groups, K6 and its
-    backward once where it is RMSNorm."""
-    L, k = cfg.num_layers, max(tcfg.microbatch, 1)
+    """Per train step, from the code: per microbatch each attention
+    block runs K5 once and each block K6 ``norms_per_layer`` times (ln1,
+    ln2 where the norm is RMSNorm but in an ``"ssm"`` block, q_norm and
+    k_norm with the qk-norm), twice under remat "full" (the forward and
+    its recompute in the backward), and each of their backward kernels
+    once; ``ln_f``, outside the groups, K6 and its backward once where it
+    is RMSNorm."""
+    k = max(tcfg.microbatch, 1)
     fwd = {"none": 1, "full": 2}[tcfg.remat]
-    n, f = norms_per_layer(cfg) * L, int(cfg.norm == "rmsnorm")
-    return {"flash_attention": fwd * L * k, "flash_attention_bwd": L * k,
+    attn, n = layer_launches(cfg)
+    f = int(cfg.norm == "rmsnorm")
+    return {"flash_attention": fwd * attn * k,
+            "flash_attention_bwd": attn * k,
             "rmsnorm": (fwd * n + f) * k, "rmsnorm_bwd": (n + f) * k}
+
+
+def window_bwd_shape():
+    """K5 bwd's (B, H, KV, T, S, D, window, bf16) in a microbatch of 9e's
+    recurrentgemma-2b (``RECURRENT_TRAIN``) under its ``train_preset``."""
+    from repro_torch import configs
+    from repro_torch.launch import train_preset
+    arch, _, batch, seq = RECURRENT_TRAIN[0]
+    cfg = configs.get_config(arch)
+    B = batch // max(train_preset(arch).microbatch, 1)
+    return (B, cfg.num_heads, cfg.num_kv_heads, seq, seq, cfg.head_dim,
+            cfg.window, cfg.compute_dtype == "bfloat16")
 
 
 def train_kernel_shapes(arch, cfg):
@@ -4364,6 +4540,43 @@ def phase_train_kernels(torch, sup, dev):
                 f"equal to a second launch")
         if what != "edge":                      # timed below
             flash[what] = (q, k, v, o, lse, do)
+    # with a window: 9e's recurrentgemma-2b (``window_bwd_shape``) and the
+    # tiles' edges (``sup.FLASH_BWD_WINDOW_SHAPES``), each gradient
+    # relative to its largest value floored at 1e-3 of the three's
+    # largest (``sup.bwd_errs``: a window of one makes dq and dk zero)
+    win_shape = window_bwd_shape()
+    for what, (B, H, KV, T, S, D, w, bf16) in (
+            [("recurrentgemma_2b", win_shape)]
+            + [("window edge", c) for c in sup.FLASH_BWD_WINDOW_SHAPES]):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q, k, v, do = (a.to(dt) for a in card_normal(
+            torch, dev, T + D + w, (B, H, T, D), (B, KV, S, D),
+            (B, KV, S, D), (B, H, T, D)))
+        o, lse = flash_attention(q, k, v, causal=True, window=w,
+                                 return_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=w)
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                    window=w)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+                                           window=w)
+        torch.cuda.synchronize()
+        bar = sup.BWD_BAR_BF16 if bf16 else sup.BWD_BAR_F32
+        for name, g, a, wt, r in zip(("dq", "dk", "dv"), got, again, want,
+                                     sup.bwd_errs(got, want)):
+            if not r <= bar:
+                raise AssertionError(f"flash_attention_bwd {what} {name} "
+                                     f"{list(q.shape)} window {w}: {r} of "
+                                     f"its largest gradient (bar {bar})")
+            torch.testing.assert_close(a, g, rtol=0, atol=0)
+            e = float((g.float() - wt.float()).abs().max())
+            err["flash_attention_bwd"] = max(err["flash_attention_bwd"], e)
+            rel["flash_attention_bwd"] = max(rel["flash_attention_bwd"], r)
+            log(f"[train] flash_attention_bwd {what} {name} q "
+                f"{list(q.shape)} k/v {list(k.shape)} {dt} window {w}: max "
+                f"abs err {e!r}, {r!r} of its largest gradient (bar {bar}); "
+                f"bitwise equal to a second launch")
+        if what != "window edge":               # timed below
+            flash["window"] = (q, k, v, o, lse, do)
     norm, seen = {}, set()
     for arch, cfg in archs:
         for tag, (N, Dn) in shapes[arch][1].items():
@@ -4434,10 +4647,43 @@ def phase_train_kernels(torch, sup, dev):
                     q, k, v, is_causal=True, enable_gqa=True),
                 args[:3], args[5]))
 
+    def backward_ms(fn, ins, grads):
+        """The backward alone of ``fn(*ins)`` (its graph kept between
+        calls) between CUDA events, host time included (a few launches
+        against milliseconds of device time here): the profiler's capture
+        of SDPA's masked backward read anything from 0 to 2.2 ms across
+        runs."""
+        leaves = [t.detach().requires_grad_() for t in ins]
+        out = fn(*leaves)
+        return eager_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, grads, retain_graph=True), reps=10)
+
+    def window_timed():
+        B, H, KV, T, S, D, w, _ = win_shape
+        args = flash["window"]
+        nbytes, flops = flash_bwd_cost(B, H, KV, T, S, D, window=w)
+        b, by = bound_ms(nbytes, flops, PEAK_BF16_S)
+        mask = torch.ones(T, S, dtype=torch.bool, device=dev).tril(
+            S - T).triu(S - T - w + 1)
+        return dict(
+            window_shape=f"q [{B},{H},{T},{D}] k/v [{B},{KV},{S},{D}] bf16, "
+                         f"causal, window {w}",
+            window_ms=graph_ms(torch, lambda: flash_attention_bwd(
+                *args, causal=True, window=w)),
+            window_plain_ms=graph_ms(
+                torch, lambda: ref.flash_attention_bwd_ref(
+                    *args, causal=True, window=w), reps=3, rounds=3),
+            window_bound_ms=b, window_bound_by=by,
+            window_library_ms=backward_ms(
+                lambda q, k, v: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True),
+                args[:3], args[5]))
+
     k5 = dict(flash_timed("qwen3_14b"),
               max_abs_err=err["flash_attention_bwd"],
               max_rel_err=rel["flash_attention_bwd"],
               arch_shapes={a: flash_timed(a) for a in BWD_ARCHS[1:]})
+    k5.update(window_timed())
     rows = {}
     for tag, key in (("", "ln"), ("qk_", "q")):
         x, s, dy = norm[key]
@@ -4466,7 +4712,8 @@ def phase_train_kernels(torch, sup, dev):
 
 def _train_shares(torch, prof):
     """The share of a profiled train step's device time that K5, K5 bwd,
-    K6, K6 bwd, the dtype casts and cuBLAS take (by kernel name)."""
+    K6, K6 bwd, the dtype casts and cuBLAS take (by kernel name); with
+    the total, the ten largest items and the device launches."""
     devs = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(_self_device_us(e) for e in devs)
@@ -4479,7 +4726,7 @@ def _train_shares(torch, prof):
              for g, names in groups.items()}
     top = [(e.key[:90], _self_device_us(e) / 1e3, e.count)
            for e in sorted(devs, key=_self_device_us, reverse=True)[:10]]
-    return total, share, top
+    return total, share, top, sum(e.count for e in devs)
 
 
 def phase_train(torch, kernels, dev, profile=False):
@@ -4488,6 +4735,20 @@ def phase_train(torch, kernels, dev, profile=False):
     step, summary)."""
     return train_model(torch, kernels, dev, "qwen3_14b", TRAIN_LAYERS,
                        TRAIN_RUN_STEPS, "9b", profile)
+
+
+def phase_train_recurrent(torch, kernels, dev, smi, profile=False):
+    """9e: ``RECURRENT_TRAIN`` through ``train_driver`` (see the module
+    docstring); with ``profile``, one more step of each under
+    ``torch.profiler``. Returns {arch: (launches of one step,
+    summary)}."""
+    out = {}
+    for arch, layers, batch, seq in RECURRENT_TRAIN:
+        out[arch] = train_model(torch, kernels, dev, arch, layers,
+                                RECURRENT_TRAIN_STEPS, "9e", profile,
+                                batch=batch, seq=seq)
+        log(f"[train] (9e) {arch}: {smi}")
+    return out
 
 
 def phase_train_archs(torch, kernels, dev, smi):
@@ -4513,14 +4774,44 @@ def active_params(cfg, specs):
     return n
 
 
+# the leaves 9b, 9d and 9e probe in the first block of each kind (and
+# the MLP's, ``probed_leaves``)
+PROBE_LEAVES = {"attn": (("attn", "wq"),), "moe": (("attn", "wq"),),
+                "local": (("attn", "wq"),),
+                "rec": (("rec", "w_a"), ("rec", "lam"), ("rec", "conv_w")),
+                "ssm": (("ssm", "in_proj"), ("ssm", "a_log"),
+                        ("ssm", "dt_bias"), ("ssm", "conv_w"))}
+
+
+def probed_leaves(cfg):
+    """[(name, path)] of the leaves a train run probes: ``ln_f``'s scale,
+    the embedding, and in the first block of each kind its
+    ``PROBE_LEAVES`` and its MLP's (the router and the experts' ``wg``,
+    ``wu``, ``wd`` for a MoE, ``wu`` otherwise; an ``"ssm"`` block has
+    none)."""
+    out = [("ln_f.scale", ("ln_f", "scale")),
+           ("embed.embedding", ("embed", "embedding"))]
+    seen = set()
+    for j, kind in enumerate(cfg.pattern):
+        if kind in seen:
+            continue
+        seen.add(kind)
+        key = f"b{j}_{kind}"
+        paths = list(PROBE_LEAVES[kind])
+        if kind != "ssm":
+            paths += [("mlp", n) for n in (("router", "wg", "wu", "wd")
+                                           if kind == "moe" else ("wu",))]
+        out += [(".".join((key,) + p), ("blocks", key) + p) for p in paths]
+    return out
+
+
 def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
-                profile=False):
+                profile=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
     """One architecture at full width cut to ``layers`` layers through
     ``train_driver`` with ``train_preset(arch)`` over
-    DataConfig(TRAIN_BATCH, TRAIN_SEQ), ``run_steps`` steps: every loss
-    finite, the parameters moved, each step's launches as derived, peak
-    memory under TRAIN_PEAK_GB. Returns (launches of one step,
-    summary)."""
+    DataConfig(batch, seq), ``run_steps`` steps: every loss finite, the
+    parameters moved, each step's launches as derived, peak memory under
+    TRAIN_PEAK_GB. Returns (launches of one step, summary)."""
     import dataclasses
     from repro_torch import configs, models
     from repro_torch.launch import train_preset
@@ -4530,7 +4821,7 @@ def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
     full = configs.get_config(arch)
     cfg = dataclasses.replace(full, num_layers=layers)
     tcfg = train_preset(arch)
-    dcfg = DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    dcfg = DataConfig(batch=batch, seq=seq)
     specs = models.lm_specs(cfg)
     n_params = models.num_params(specs)
     n_active = active_params(cfg, specs)
@@ -4538,19 +4829,21 @@ def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
     params = models.init_params(
         specs, torch.Generator(device=dev).manual_seed(tcfg.seed), dev)
     opt = init_opt(params, tcfg)
-    block = f"b0_{cfg.pattern[0]}"
 
     # the leaves probed: a slice of each (moved), and their first moments
     # after the run (a gradient reached them; for a MoE, every expert's
     # slice of its weights and every router column)
-    mlp = ("router", "wg", "wu", "wd") if cfg.num_experts else ("wu",)
-    names = ["ln_f.scale", "attn.wq", "embed.embedding"] + [
-        f"mlp.{n}" for n in mlp]
+    leaves = probed_leaves(cfg)
+    names = [n for n, _ in leaves]
 
     def probed(tree):
-        blk = tree["blocks"][block]
-        return ([tree["ln_f"]["scale"], blk["attn"]["wq"],
-                 tree["embed"]["embedding"]] + [blk["mlp"][n] for n in mlp])
+        out = []
+        for _, path in leaves:
+            t = tree
+            for k in path:
+                t = t[k]
+            out.append(t)
+        return out
 
     def probe():
         return [t[0, :64].clone() if t.dim() > 2 else t[:64].clone()
@@ -4590,7 +4883,7 @@ def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
                              f"({moved})")
     reached = {}
     for n, m in zip(names, probed(out["opt"].mu)):
-        if cfg.num_experts and n.startswith("mlp."):   # each expert, dim 2
+        if cfg.num_experts and ".mlp." in n:      # each expert, dim 2
             ok = m.ne(0).movedim(2, 0).reshape(m.shape[2], -1).any(1).all()
         else:
             ok = m.ne(0).any()
@@ -4603,16 +4896,19 @@ def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
         raise AssertionError(f"train {cfg.name}: peak {peak} GB over "
                              f"{TRAIN_PEAK_GB}")
     steps = np.diff(stamps)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
-    attn = 12 * cfg.head_dim * cfg.num_heads * pairs * TRAIN_BATCH \
-        * cfg.num_layers
+    tokens = batch * seq
+    attn = 0
+    for kind in cfg.pattern:            # each attention layer's pairs
+        if kind in ATTN_KINDS:
+            pairs = visible_pairs(seq, seq, cfg.window * (kind == "local"))
+            attn += (12 * cfg.head_dim * cfg.num_heads * pairs * batch
+                     * cfg.pattern_groups)
     flops = 6 * n_active * tokens + attn
     steady = float(np.median(steps[1:]))
     summ = dict(layers=cfg.num_layers, of_layers=full.num_layers,
                 params=n_params, active_params=n_active,
                 init_s=init_s, microbatch=tcfg.microbatch, remat=tcfg.remat,
-                batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+                batch=batch, seq=seq, losses=losses,
                 step_s=[float(x) for x in steps], steady_step_s=steady,
                 tokens_per_s=tokens / steady,
                 model_tflop_per_step=flops / 1e12,
@@ -4622,7 +4918,7 @@ def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
         f"{full.num_layers} layers ({n_params} params, {n_active!r} active a "
         f"token, drawn in {init_s:.2f} s), "
         f"train_preset (microbatch {tcfg.microbatch}, remat {tcfg.remat}), "
-        f"batch {TRAIN_BATCH} x {TRAIN_SEQ}: losses {losses}; wall per step "
+        f"batch {batch} x {seq}: losses {losses}; wall per step "
         f"{summ['step_s']} s (steady {steady!r} s: "
         f"{summ['tokens_per_s']!r} tokens/s, {summ['model_tflops']!r} "
         f"model TFLOP/s of {summ['model_tflop_per_step']!r} TFLOP a step); "
@@ -4632,30 +4928,33 @@ def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
         )
     if profile:
         from torch.profiler import ProfilerActivity, profile as prof_ctx
-        with prof_ctx(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        # device activity alone: the host ops' trace (~10^5 events a
+        # mamba2 step) costs minutes to take and reduce
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
             t1 = time.perf_counter()
             train_driver(cfg, tcfg, dcfg, steps=1, params=out["params"],
                          opt=out["opt"], device=dev)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t1
-        total, share, top = _train_shares(torch, prof)
+        total, share, top, n_dev = _train_shares(torch, prof)
         summ.update(profile_device_ms=total / 1e3, profile_wall_s=wall,
-                    device_share=share)
-        log(f"[profile] (9b) train step: device {total / 1e3:.1f} ms of "
+                    device_share=share, profile_device_launches=n_dev)
+        who = f"({tag}) {cfg.name}"
+        log(f"[profile] {who} train step: device {total / 1e3:.1f} ms of "
             f"{wall * 1e3:.1f} ms wall (busy share {total / 1e6 / wall!r}); "
-            f"share of device time: {json.dumps(share)}")
+            f"{n_dev} device launches; share of device time: "
+            f"{json.dumps(share)}")
         for key, ms, n in top:
-            log(f"[profile] (9b)   {ms:9.3f} ms  {n:6d} calls  {key}")
+            log(f"[profile] {who}   {ms:9.3f} ms  {n:6d} calls  {key}")
     del params, opt, out, before
     free_memory(torch)
     return per_step[0], summ
 
 
 def phase_train_reduced(torch, sup, dev):
-    """9c: the REDUCED qwen3-14b and qwen3-moe on the card: crash and
-    resume bit for bit under deterministic algorithms; and qwen3-14b's
-    golden losses."""
+    """9c: the REDUCED qwen3-14b, qwen3-moe and recurrentgemma on the
+    card: crash and resume bit for bit under deterministic algorithms;
+    and qwen3-14b's golden losses."""
     import dataclasses
     import tempfile
     from repro_torch import configs, models
@@ -4667,7 +4966,7 @@ def phase_train_reduced(torch, sup, dev):
     dcfg = DataConfig(**sup.TRAIN_DCFG)
     torch.use_deterministic_algorithms(True)
     try:
-        for arch in ("qwen3-14b", "qwen3_moe_30b_a3b"):
+        for arch in ("qwen3-14b", "qwen3_moe_30b_a3b", "recurrentgemma_2b"):
             cfg = configs.reduced_config(arch)
             with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as d:
                 ref, res = sup.crash_restart(train_driver, CrashInjected,
@@ -4831,6 +5130,16 @@ def main():
         rows[k]["archs_launches"] = {a: n[k] for a, (n, _) in archs.items()}
     mark(f"[time] 8b other architectures' serve: "
          f"{time.perf_counter() - t8b:.1f} s")
+    t8c = time.perf_counter()
+    recurrent = phase_serve_recurrent(torch, kernels, sup, dev, smi,
+                                      profile)
+    log("[serve 8c] " + json.dumps({"serve_recurrent": {
+        a: summ for a, (_, summ) in recurrent.items()}}))
+    for k in LM_KERNELS:
+        rows[k]["recurrent_launches"] = {a: n[k]
+                                         for a, (n, _) in recurrent.items()}
+    mark(f"[time] 8c recurrent architectures' serve: "
+         f"{time.perf_counter() - t8c:.1f} s")
     t9 = time.perf_counter()
     rows.update(phase_train_kernels(torch, sup, dev))
     mark(f"[time] 9a backward kernels: {time.perf_counter() - t9:.1f} s")
@@ -4844,6 +5153,12 @@ def main():
         a: summ for a, (_, summ) in train_archs.items()}}))
     mark(f"[time] 9d other architectures' train: "
          f"{time.perf_counter() - t9d:.1f} s")
+    t9e = time.perf_counter()
+    train_rec = phase_train_recurrent(torch, kernels, dev, smi, profile)
+    log("[train] " + json.dumps({"train_recurrent": {
+        a: summ for a, (_, summ) in train_rec.items()}}))
+    mark(f"[time] 9e recurrent architectures' train: "
+         f"{time.perf_counter() - t9e:.1f} s")
     t9c = time.perf_counter()
     reduced = phase_train_reduced(torch, sup, dev)
     log("[train] " + json.dumps({"train_reduced": reduced}))
@@ -4857,6 +5172,10 @@ def main():
     for k in LM_KERNELS + TRAIN_KERNELS:
         rows[k]["archs_train_launches_per_step"] = {
             a: n[k] for a, (n, _) in train_archs.items()}
+        rows[k]["recurrent_train_launches_per_step"] = {
+            a: n.get(k, 0) for a, (n, _) in train_rec.items()}
+    rows["flash_attention_bwd"]["window_launches_per_step"] = \
+        train_rec["recurrentgemma_2b"][0]["flash_attention_bwd"]
 
     for k in PATH_KERNELS:
         if launches[k] == 0:

@@ -1,5 +1,6 @@
 """Model, shape, mesh and training configuration (twin of
-``repro.configs``; the registry's attn and moe architectures)."""
+``repro.configs``; the registry's architectures but the
+encoder-decoder and the VLM)."""
 from .base import MeshConfig, ModelConfig, SHAPES, ShapeConfig, TrainConfig
 from .registry import PORTED, canon, get_config, padded_vocab, reduced_config
 

@@ -1,15 +1,18 @@
 """Architecture registry (twin of ``repro.configs.registry``).
 
-Ported: every architecture of ``repro`` whose blocks are ``"attn"`` or
-``"moe"``: the dense qwen3-14b, llama3-405b, gemma-7b (GeGLU, tied and
-scaled embeddings, head dim 256) and stablelm-3b (layernorm, partial
-RoPE, head dim 80), and the mixture-of-experts qwen3-moe-30b-a3b and
-granite-moe-3b-a800m (tied embeddings, a padded vocab). Each runs K5
-flash attention; K6 rmsnorm serves the rmsnorm norms and the qk-norm
-(stablelm's layernorm is plain torch, so stablelm runs no K6). Asking for
-another architecture (recurrentgemma-2b, mamba2-130m, whisper-large-v3,
-phi3-vision-4.2b) raises ``NotImplementedError`` naming the ROADMAP item
-that brings it.
+Ported: every architecture of ``repro`` whose blocks are ``"attn"``,
+``"moe"``, ``"local"``, ``"rec"`` or ``"ssm"``: the dense qwen3-14b,
+llama3-405b, gemma-7b (GeGLU, tied and scaled embeddings, head dim 256)
+and stablelm-3b (layernorm, partial RoPE, head dim 80), the
+mixture-of-experts qwen3-moe-30b-a3b and granite-moe-3b-a800m (tied
+embeddings, a padded vocab), the hybrid recurrentgemma-2b (RG-LRU
+``"rec"`` blocks and sliding-window ``"local"`` attention with a ring
+cache) and the state-space mamba2-130m (``"ssm"`` blocks, the chunked
+SSD). Each attention runs K5 flash attention (mamba2 has none); K6
+rmsnorm serves the rmsnorm norms and the qk-norm (stablelm's layernorm
+and mamba2's gated norm are plain torch). Asking for another
+architecture (whisper-large-v3, phi3-vision-4.2b) raises
+``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import importlib
 from .base import ModelConfig
 
 PORTED = ("qwen3_14b", "llama3_405b", "gemma_7b", "stablelm_3b",
-          "qwen3_moe_30b_a3b", "granite_moe_3b_a800m")
+          "qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "recurrentgemma_2b",
+          "mamba2_130m")
 
 
 def canon(name: str) -> str:

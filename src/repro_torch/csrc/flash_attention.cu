@@ -122,16 +122,24 @@ struct FlashArgs {
 //   p = exp(s - lse) (0 where masked), delta = rowsum(do * o),
 //   ds = p * (dp - delta) with dp = do . v,
 //   dq = scale * ds K,  dk = scale * ds^T Q,  dv = p^T dO,
-// dk and dv summed over the G query heads of a kv head. Causal with no
-// window, or no mask at all (the wrapper raises for a window). Two
-// kernels, launched in this order on the stream, neither with a float
-// atomic, each sum in a fixed order (the same bits run to run):
+// dk and dv summed over the G query heads of a kv head. The forward's
+// masks: causal, causal with a sliding window w > 0 (query t sees keys
+// t + off - w < j <= t + off, off = S - T), or none. Two kernels,
+// launched in this order on the stream, neither with a float atomic,
+// each sum in a fixed order (the same bits run to run):
 // * dq: one block per (b, head, query tile); it first takes delta for its
 //   rows (written to a [B, H, T] buffer for the second kernel), then walks
-//   the key tiles in order, adding ds K into registers;
+//   in order the key tiles some row of the block sees (with a window,
+//   those of [t0 + off - w + 1, t1 + off] for its rows t0..t1), adding
+//   ds K into registers;
 // * dk/dv: one block per (b, kv head, key tile); it walks the group's G
-//   heads in ascending order and, for each, the query tiles in order,
-//   adding ds^T Q and p^T dO into registers.
+//   heads in ascending order and, for each, in order the query tiles
+//   that see some key of the tile (with a window, those of
+//   [j0 - off, j1 - off + w - 1] for its keys j0..j1), adding ds^T Q and
+//   p^T dO into registers.
+// Both skip a warp's share of a tile none of its rows (keys) sees, and
+// mask element by element only a tile that straddles an edge of a row's
+// (key's) visible range.
 // Head dims 16, 32, 64, 80, 128 and 256 are built. At D = 256 a dk/dv
 // block would hold two 16 x 256 float32 accumulators a warp, 256 floats
 // a thread, over the 255-register limit: there each (b, kv head, key
@@ -166,7 +174,7 @@ struct FlashBwdArgs {
   long long dk_sb, dk_sh, dk_ss;
   long long dv_sb, dv_sh, dv_ss;
   int B, H, KV, T, S, D;
-  int causal;
+  int causal, window;
   float scale;
 };
 
@@ -1057,14 +1065,31 @@ int launch(const Args* a, void* stream, bool bf) {
 
 using BArgs = FlashBwdArgs;
 
-// Query t (a row of T, at position t + S - T) sees key j.
-__device__ __forceinline__ bool sees(const BArgs& a, int t, int j) {
-  return t < a.T && j < a.S && (!a.causal || j <= t + (a.S - a.T));
+// Whether the mask has a sliding window.
+__device__ __forceinline__ bool windowed(const BArgs& a) {
+  return a.causal && a.window > 0;
 }
 
-// The keys [0, end) that query t sees (t < T).
+// Query t (a row of T, at position t + S - T) sees key j.
+__device__ __forceinline__ bool sees(const BArgs& a, int t, int j) {
+  if (t >= a.T || j >= a.S) return false;
+  if (!a.causal) return true;
+  const int pos = t + (a.S - a.T);
+  return j <= pos && (a.window <= 0 || j > pos - a.window);
+}
+
+// The keys [seen_beg, seen_end) that query t sees (t < T).
 __device__ __forceinline__ int seen_end(const BArgs& a, int t) {
   return a.causal ? max(0, min(a.S, t + (a.S - a.T) + 1)) : a.S;
+}
+__device__ __forceinline__ int seen_beg(const BArgs& a, int t) {
+  return windowed(a) ? max(0, t + (a.S - a.T) - a.window + 1) : 0;
+}
+
+// One past the last query that sees key j (j < S): with a window, the
+// queries from it on no longer reach back to j; without one, T.
+__device__ __forceinline__ int seeing_end(const BArgs& a, int j) {
+  return windowed(a) ? max(0, min(a.T, j - (a.S - a.T) + a.window)) : a.T;
 }
 
 // float32, dq: a block of kBQ warps per (b, head, kBQ query rows), a warp
@@ -1114,10 +1139,11 @@ __global__ void __launch_bounds__(kBQ * 32)
   }
   const int bhi = seen_end(a, min(q0 + kBQ, a.T) - 1);
   const int hi = row ? seen_end(a, t) : 0;
+  const int lo = row ? seen_beg(a, t) : 0;
   float acc[DPL];
 #pragma unroll
   for (int i = 0; i < DPL; ++i) acc[i] = 0.0f;
-  for (int k0 = 0; k0 < bhi; k0 += kBK) {
+  for (int k0 = (seen_beg(a, q0) / kBK) * kBK; k0 < bhi; k0 += kBK) {
     __syncthreads();    // the previous tile is consumed (and q is staged)
     for (int idx = threadIdx.x; idx < kBK * D; idx += blockDim.x) {
       const int r = idx / D, c = idx % D;
@@ -1127,7 +1153,7 @@ __global__ void __launch_bounds__(kBQ * 32)
       vs[r * (D + 1) + c] = ok ? vg[key * a.v_ss + c] : 0.0f;
     }
     __syncthreads();
-    if (!row || k0 >= hi) continue;                     // warp-uniform
+    if (!row || k0 >= hi || k0 + kBK <= lo) continue;  // warp-uniform
     const float* qr = qs + w * D;
     const float* dr = dos + w * D;
     const float* kr = ks + lane * (D + 1);
@@ -1189,6 +1215,9 @@ __global__ void __launch_bounds__(kBQ * 32)
   const bool key_ok = j < a.S;
   // the first query tile with a query that sees key k0
   const int tbeg = a.causal ? (max(0, k0 - (a.S - a.T)) / kBK) * kBK : 0;
+  // the queries after the last that sees the block's last key
+  const int tend = seeing_end(a, min(k0 + kBQ, a.S) - 1);
+  const int jend = key_ok ? seeing_end(a, j) : 0;
   float dk[DPL], dv[DPL];
 #pragma unroll
   for (int i = 0; i < DPL; ++i) dk[i] = dv[i] = 0.0f;
@@ -1199,7 +1228,7 @@ __global__ void __launch_bounds__(kBQ * 32)
     const float* dog = static_cast<const float*>(a.dout) + b * a.do_sb +
                        h * a.do_sh;
     const long long row0 = (static_cast<long long>(b) * a.H + h) * a.T;
-    for (int t0 = tbeg; t0 < a.T; t0 += kBK) {
+    for (int t0 = tbeg; t0 < tend; t0 += kBK) {
       __syncthreads();  // the previous tile is consumed (and k/v staged)
       for (int idx = threadIdx.x; idx < kBK * D; idx += blockDim.x) {
         const int r = idx / D, c = idx % D;
@@ -1214,7 +1243,7 @@ __global__ void __launch_bounds__(kBQ * 32)
         dls[i] = ok ? a.delta[row0 + t0 + i] : 0.0f;
       }
       __syncthreads();
-      if (!key_ok) continue;                            // warp-uniform
+      if (!key_ok || t0 >= jend) continue;              // warp-uniform
       const float* kr = kr_s + w * D;
       const float* vr = vr_s + w * D;
       const float* qr = qs + lane * (D + 1);
@@ -1324,7 +1353,8 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
                  ok);
     }
   };
-  load_kv(0, 0);
+  const int kbeg = (seen_beg(a, q0) / BK) * BK;
+  load_kv(kbeg, 0);
   cp_async_commit();
 
   // rows g and g + 8 of the warp: delta (a quarter of the row a lane of
@@ -1333,7 +1363,7 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
   const int r0 = q0 + 16 * w;
   const bool active = r0 < a.T;
   float dl[2], ls2[2];
-  int rhi[2];
+  int rlo[2], rhi[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = r0 + g + 8 * r;
@@ -1348,11 +1378,14 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
     dl[r] = quad_sum(part);
     ls2[r] = t < a.T ? a.lse[row0 + t] * kLog2e : 0.0f;
     rhi[r] = t < a.T ? seen_end(a, t) : 0;
+    rlo[r] = t < a.T ? seen_beg(a, t) : 0;
     if (tig == 0 && t < a.T) a.delta[row0 + t] = dl[r];
   }
   const int bhi = seen_end(a, min(q0 + kTileQ, a.T) - 1);
   const int hi_min = active ? seen_end(a, r0) : 0;
   const int hi_max = active ? seen_end(a, min(r0 + 15, a.T - 1)) : 0;
+  const int lo_min = active ? seen_beg(a, r0) : 0;
+  const int lo_max = active ? seen_beg(a, min(r0 + 15, a.T - 1)) : 0;
   const bool rows_full = r0 + 16 <= a.T;
 
   float dq[ND][4];
@@ -1361,12 +1394,12 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
     dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
   }
   int buf = 0;
-  for (int k0 = 0; k0 < bhi; k0 += BK, buf ^= 1) {
+  for (int k0 = kbeg; k0 < bhi; k0 += BK, buf ^= 1) {
     if (k0 + BK < bhi) load_kv(k0 + BK, buf ^ 1);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();        // this tile (and, at the first, Q and dO)
-    if (active && k0 < hi_max) {
+    if (active && k0 < hi_max && k0 + BK > lo_min) {
       const bf16* kt = ks + buf * BK * LD;
       const bf16* vt = vs + buf * BK * LD;
       float s[NS][4], dp[NS][4];
@@ -1386,14 +1419,14 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
           mma_qk<LD>(dp + j, da, vt, 8 * j, kk, lane);
         }
       }
-      const bool full = rows_full && k0 + BK <= hi_min;
+      const bool full = rows_full && k0 + BK <= hi_min && k0 >= lo_max;
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + 8 * j + 2 * tig + (e & 1);
           const int r = e >> 1;
-          const bool ok = full || key < rhi[r];
+          const bool ok = full || (key >= rlo[r] && key < rhi[r]);
           const float p = ok ? exp2_approx(s[j][e] * sc - ls2[r]) : 0.0f;
           s[j][e] = p * (dp[j][e] - dl[r]);
         }
@@ -1466,7 +1499,9 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
   // the tiles: (head of the group, query tile) flattened, from the first
   // query tile that holds a query seeing key k0
   const int tbeg = a.causal ? (max(0, k0 - off) / BK) * BK : 0;
-  const int ntile = a.T > tbeg ? (a.T - tbeg + BK - 1) / BK : 0;
+  // ... to the last query that sees the block's last key
+  const int tend = seeing_end(a, min(k0 + kTileQ, a.S) - 1);
+  const int ntile = tend > tbeg ? (tend - tbeg + BK - 1) / BK : 0;
   const int total = G * ntile;
   auto load_q = [&](int n, int buf) {
     const int h = kvh * G + n / ntile, t0 = tbeg + (n % ntile) * BK;
@@ -1511,8 +1546,10 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
     cp_async_wait<1>();
     __syncthreads();        // this tile (and, at the first, K and V)
     const int t0 = tbeg + (n % ntile) * BK;
-    // a warp skips a tile none of whose queries sees its first key
-    if (active && (!a.causal || t0 + BK - 1 + off >= kw)) {
+    // a warp skips a tile none of whose queries sees its first key, or
+    // (with a window) its last key
+    if (active && (!a.causal || t0 + BK - 1 + off >= kw) &&
+        (!windowed(a) || t0 + off - a.window < kw + 15)) {
       const bf16* qt = qs + buf * BK * LD;
       const bf16* dt = dos + buf * BK * LD;
       const float* L = lsb + buf * BK;
@@ -1536,7 +1573,8 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
       }
       // every query of the tile sees every key of the warp
       const bool full = keys_full && t0 + BK <= a.T &&
-                        (!a.causal || t0 + off >= kw + 15);
+                        (!a.causal || t0 + off >= kw + 15) &&
+                        (!windowed(a) || t0 + BK - 1 + off - a.window < kw);
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
 #pragma unroll

@@ -31,10 +31,12 @@ log-sum-exp (the tiled forms serve every T then), and
 dk/dv (one block per (b, kv head, 64 keys), the group's heads and query
 tiles in a fixed order), in bfloat16 on ``mma.sync`` with p and ds split
 into bf16 halves, in float32 scalar; no float atomics, so the gradients
-are the same bits run to run. Causal without a window, or unmasked; head
-dims 16, 32, 64, 80, 128 and 256 (at 256 each key tile's dk and dv are
-split by columns over two blocks, which keeps a thread's accumulators in
-registers).
+are the same bits run to run. The forward's masks (causal, with or
+without a sliding window, or none): with a window, the dq kernel walks
+only the key tiles its rows see and the dk/dv kernel only the query
+tiles that see its keys; head dims 16, 32, 64, 80, 128 and 256 (at 256
+each key tile's dk and dv are split by columns over two blocks, which
+keeps a thread's accumulators in registers).
 
 This launches the CUDA kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to
@@ -75,7 +77,7 @@ class _BwdArgs(ctypes.Structure):
                    for t in ("q", "k", "v", "o", "do", "dq", "dk", "dv")
                    for d in "bhs"]
                 + [(n, ctypes.c_int) for n in ("B", "H", "KV", "T", "S", "D",
-                                               "causal")]
+                                               "causal", "window")]
                 + [("scale", ctypes.c_float)])
 
 
@@ -195,16 +197,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     """The gradients (dq [B,H,T,D], dk and dv [B,KV,S,D], each laid out
     [B, T or S, heads, D] in memory) of ``flash_attention(q, k, v)`` given
     its output ``o``, its log-sum-exp ``lse`` (``return_lse=True``) and the
-    output's gradient ``do``, on the card. Causal without a window, or
-    unmasked; a window raises (the plain version covers it)."""
+    output's gradient ``do``, on the card; ``causal`` and ``window`` as
+    the forward took them."""
     what = "flash_attention_bwd"
     B, H, T, D = q.shape
     _, KV, S, _ = k.shape
-    if causal and window > 0:
-        raise NotImplementedError(
-            f"{what}: sliding-window attention has no backward kernel yet "
-            f"(ROADMAP.md, Queue 1 item 15: local attention); "
-            f"kernels/ref.py::flash_attention_bwd_ref covers it")
     _check(what, q, {"k": k, "v": v, "o": o, "do": do}, (B, KV, S, D))
     if KV == 0 or H % KV:
         raise ValueError(f"{what}: {H} query heads over {KV} kv heads")
@@ -230,7 +227,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                     *(st for x in (q, k, v, o, do, dq, dk, dv)
                       for st in x.stride()[:3]),
-                    B, H, KV, T, S, D, int(bool(causal)), 1.0 / math.sqrt(D))
+                    B, H, KV, T, S, D, int(bool(causal)), int(window),
+                    1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, _BWD_ENTRY[q.dtype])(ctypes.byref(args), stream)

@@ -1,5 +1,6 @@
-"""Transformer building blocks (twin of ``repro.models.layers``, the
-causal ``"attn"`` and ``"moe"`` blocks).
+"""Transformer building blocks (twin of ``repro.models.layers``: the
+causal ``"attn"`` and ``"moe"`` blocks and the sliding-window
+``"local"`` attention).
 
 Everything is a (specs, apply) pair over plain dicts of tensors. Numerics
 follow ``repro``: params in ``cfg.param_dtype``, each weight cast to
@@ -8,21 +9,22 @@ never kept), softmax and norms in float32.
 
 The two LM kernels sit where ``repro.kernels.ops`` says model code should
 call them: ``norm_apply`` and the qk-norm ``_rms`` go through
-``kernels.ops.rmsnorm`` (K6), and causal self-attention, in prefill and
-decode, through ``kernels.ops.flash_attention`` (K5). K5 keeps the scores
+``kernels.ops.rmsnorm`` (K6), and causal and sliding-window
+self-attention, in prefill and decode (the full cache and the local
+ring), through ``kernels.ops.flash_attention`` (K5). K5 keeps the scores
 and the softmax weights in float32 where ``repro``'s ``_sdpa`` rounds both
 to bfloat16, so the port's attention is the kernel's, not ``_sdpa``'s
 (the tests hold the two apart).
 
 The scope (rmsnorm and layernorm, SwiGLU and GeGLU, RoPE, tied, untied
-and scaled embeddings, causal self-attention, the mixture of experts'
-global dispatch) is checked once, in ``lm.check_config``; the branches of
-``repro``'s layers for other configurations (plain MLPs, learned-position
-embeddings, cross, bidirectional and ring-buffer attention, the MoE's
-per-shard dispatch) come with the slices that run them (ROADMAP.md,
-Queue 1 item 15). The mesh helpers (``constrain``, ``tp_proj_out``'s
-sharded branch) wait for the sharding slice (item 15b): ``tp_proj_out``
-is a plain product.
+and scaled embeddings, causal and sliding-window self-attention, the
+mixture of experts' global dispatch) is checked once, in
+``lm.check_config``; the branches of ``repro``'s layers for other
+configurations (plain MLPs, learned-position embeddings, cross and
+bidirectional attention, the MoE's per-shard dispatch) come with the
+slices that run them (ROADMAP.md, Queue 1 item 15). The mesh helpers
+(``constrain``, ``tp_proj_out``'s sharded branch) wait for the sharding
+slice (item 15b): ``tp_proj_out`` is a plain product.
 
 Where XLA:CPU rounds each operation of a ``repro`` expression to
 bfloat16, the port spells it op by op (``_silu``, ``_gelu``), with the
@@ -129,7 +131,7 @@ def rope(x, positions, frac: float = 1.0, theta: float = 10000.0):
 
 
 # --------------------------------------------------------------------------
-# Attention (GQA, causal)
+# Attention (GQA; causal / sliding-window)
 # --------------------------------------------------------------------------
 
 
@@ -166,23 +168,25 @@ def _heads_first(x):
     return x.permute(0, 2, 1, 3)
 
 
-def _flash(q, k, v):
+def _flash(q, k, v, window: int = 0):
     """Causal K5 on the model's layout: q [B,T,H,Dh], k/v [B,S,KV,Dh] ->
-    [B,T,H*Dh]. The kernel's output is laid out [B,T,H,Dh], so the reshape
-    is free."""
+    [B,T,H*Dh]; with ``window`` > 0 a query sees only the ``window`` last
+    positions up to its own. The kernel's output is laid out [B,T,H,Dh],
+    so the reshape is free."""
     B, T, H, Dh = q.shape
     out = ops.flash_attention(_heads_first(q), _heads_first(k),
-                              _heads_first(v), causal=True)
+                              _heads_first(v), causal=True, window=window)
     return out.permute(0, 2, 1, 3).reshape(B, T, H * Dh)
 
 
 def _sdpa(q, k, v, mask, cfg):
     """``repro``'s plain attention with its bfloat16 roundings (scaled q,
     scores and softmax weights in the compute dtype): q [B,T,H,Dh], k/v
-    [B,S,KV,Dh], mask broadcastable to [B,?,T,S]. The port's causal
-    attention runs K5 instead; this is kept for the mask kinds K5 does not
-    serve (cross, ring-buffer decode), which come with later slices
-    (ROADMAP.md, Queue 1 item 15)."""
+    [B,S,KV,Dh], mask broadcastable to [B,?,T,S]. The port's causal,
+    sliding-window and ring-buffer attention runs K5 instead; this is
+    kept for the mask kind K5 does not serve, the encoder-decoder's cross
+    attention, which comes with a later slice (ROADMAP.md, Queue 1 item
+    15e)."""
     B, T, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -198,31 +202,56 @@ def _sdpa(q, k, v, mask, cfg):
     return out.reshape(B, T, H * Dh)
 
 
-def attn_forward(p, x, cfg, return_kv: bool = False):
-    """Full-sequence causal self-attention (prefill) through K5."""
+def _window(cfg, kind: str) -> int:
+    """K5's window for a mask kind: ``cfg.window`` for ``"local"`` (keys
+    j > t - window, ``repro``'s ``_self_mask``), 0 (none) for
+    ``"causal"``."""
+    if kind not in ("causal", "local"):
+        raise NotImplementedError(
+            f"{kind!r} attention is not ported to repro_torch yet "
+            f"(ROADMAP.md, Queue 1 item 15e)")
+    return cfg.window if kind == "local" else 0
+
+
+def attn_forward(p, x, cfg, kind: str = "causal", return_kv: bool = False):
+    """Full-sequence self-attention (training / prefill) through K5,
+    causal or, for ``kind="local"``, sliding-window."""
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, pos)
-    y = tp_proj_out(_flash(q, k, v), p["wo"], cfg)
+    y = tp_proj_out(_flash(q, k, v, _window(cfg, kind)), p["wo"], cfg)
     if return_kv:
         return y, (k, v)
     return y
 
 
-def attn_decode(p, x, cache_k, cache_v, index: int, cfg):
-    """One-token decode. cache_[kv]: [B, S, KV, Dh]; ``index`` is the number
-    of tokens already in context (this token's position). The new k/v are
-    written into the cache at ``index`` in place (the caches are returned
-    too, as ``repro`` returns its updated copies). K5 reads the cache's
-    first ``index + 1`` positions causally, which masks what ``repro``'s
-    ``valid = sidx <= index`` masks."""
+def attn_decode(p, x, cache_k, cache_v, index: int, cfg,
+                kind: str = "causal"):
+    """One-token decode. cache_[kv]: [B, S, KV, Dh] (S = the full length,
+    or for ``kind="local"`` the ring's size); ``index`` is the number of
+    tokens already in context (this token's position). The new k/v are
+    written in place (the caches are returned too, as ``repro`` returns
+    its updated copies) at ``index``, or in the ring at ``index % S``.
+    K5 then reads the first ``n = min(index + 1, S)`` slots, every one of
+    them seen: in the full cache they are positions 0..index, which
+    ``repro``'s ``valid = sidx <= index`` keeps; in the ring, slot s holds
+    position ``index - ((index - s) mod S)``, which before the ring wraps
+    (index < S) is s for the slots up to index (the later ones are
+    ``repro``'s negative positions), and after it lies in
+    (index - S, index], inside the window since S <= window: ``repro``'s
+    ``valid`` keeps those same n slots. The order in which the slots are
+    read does not change the softmax's value, only the float32 order of
+    its sums."""
     index = int(index)
+    _window(cfg, kind)
     pos = torch.full((x.shape[0], 1), index, dtype=torch.int32,
                      device=x.device)
     q, k_new, v_new = _qkv(p, x, cfg, pos)
-    cache_k[:, index:index + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, index:index + 1] = v_new.to(cache_v.dtype)
-    out = _flash(q, cache_k[:, :index + 1].to(q.dtype),
-                 cache_v[:, :index + 1].to(q.dtype))
+    S = cache_k.shape[1]
+    slot = index % S if kind == "local" else index
+    cache_k[:, slot:slot + 1] = k_new.to(cache_k.dtype)
+    cache_v[:, slot:slot + 1] = v_new.to(cache_v.dtype)
+    n = min(index + 1, S)
+    out = _flash(q, cache_k[:, :n].to(q.dtype), cache_v[:, :n].to(q.dtype))
     y = torch.einsum("bte,ed->btd", out, p["wo"].to(_cd(cfg)))
     return y, cache_k, cache_v
 

@@ -1,14 +1,20 @@
-"""Decoder-only language model (twin of ``repro.models.lm``, the ``"attn"``
-and ``"moe"`` block kinds).
+"""Decoder-only language model (twin of ``repro.models.lm``, its
+decoder-only block kinds).
 
 Layers are organized in *pattern groups* as in ``repro``: parameters and
 caches are stacked along a leading ``layers`` axis of length
 ``G = num_layers / len(pattern)``, and a Python loop over the groups
-takes the place of ``lax.scan``. Two kinds are ported: ``"attn"``
-(pre-norm GQA causal self-attention + gated MLP) and ``"moe"`` (the same
-attention + a mixture of experts), with either norm, either activation
-and tied, untied or scaled embeddings; ``check_config`` rejects every
-configuration outside them, naming its ROADMAP item.
+takes the place of ``lax.scan``. Five kinds are ported:
+
+  attn   pre-norm GQA self-attention (causal) + gated MLP
+  moe    the same attention + a mixture of experts
+  local  sliding-window self-attention + gated MLP (a ring cache)
+  rec    RG-LRU recurrent block + gated MLP          (Griffin)
+  ssm    Mamba2 SSD mixer (no separate MLP)
+
+with either norm, either activation and tied, untied or scaled
+embeddings; ``check_config`` rejects every configuration outside them
+(the encoder-decoder and the VLM), naming its ROADMAP item.
 
 ``lm_forward`` takes ``repro``'s remat policies, with
 ``torch.utils.checkpoint`` (non-reentrant) in place of ``jax.checkpoint``
@@ -29,12 +35,13 @@ from torch.utils import checkpoint as _ckpt
 
 from .spec import ParamSpec, tree_map_specs
 from . import layers as L
+from . import rglru as R
+from . import ssm as S
 
 # what the port serves, against ``repro``'s ModelConfig fields (a field's
 # allowed values); any other value is the business of a later slice
-# (ROADMAP.md, Queue 1 item 15: SSM, RG-LRU, local ring, encoder-decoder,
-# VLM)
-KINDS = ("attn", "moe")
+# (ROADMAP.md, Queue 1 item 15e: encoder-decoder, VLM)
+KINDS = ("attn", "moe", "local", "rec", "ssm")
 _SCOPE = {"norm": ("rmsnorm", "layernorm"), "act": ("silu", "gelu"),
           "gated_mlp": (True,), "learned_pos": (False,), "enc_layers": (0,),
           "num_image_tokens": (0,)}
@@ -42,8 +49,8 @@ _SCOPE = {"norm": ("rmsnorm", "layernorm"), "act": ("silu", "gelu"),
 
 def check_config(cfg):
     """Raise ``NotImplementedError`` for a configuration outside the
-    port: block kinds other than ``"attn"`` and ``"moe"``, or another
-    norm, activation, MLP, embedding or frontend."""
+    port: block kinds other than ``KINDS``, or another norm, activation,
+    MLP, embedding or frontend."""
     bad = [f"block kind {k!r}" for k in cfg.pattern if k not in KINDS]
     bad += [f"{f}={getattr(cfg, f)!r}" for f, v in _SCOPE.items()
             if getattr(cfg, f) not in v]
@@ -60,10 +67,17 @@ def check_config(cfg):
 
 def block_specs(cfg, kind: str):
     dt = cfg.param_dtype
-    return {"ln1": L.norm_specs(cfg.d_model, cfg.norm, dt),
-            "attn": L.attn_specs(cfg),
-            "ln2": L.norm_specs(cfg.d_model, cfg.norm, dt),
-            "mlp": L.moe_specs(cfg) if kind == "moe" else L.mlp_specs(cfg)}
+    s = {"ln1": L.norm_specs(cfg.d_model, cfg.norm, dt)}
+    if kind in ("attn", "local", "moe"):
+        s["attn"] = L.attn_specs(cfg)
+    if kind == "rec":
+        s["rec"] = R.rglru_specs(cfg)
+    if kind == "ssm":
+        s["ssm"] = S.mamba_specs(cfg)
+    if kind != "ssm":
+        s["ln2"] = L.norm_specs(cfg.d_model, cfg.norm, dt)
+        s["mlp"] = L.moe_specs(cfg) if kind == "moe" else L.mlp_specs(cfg)
+    return s
 
 
 def _stack(specs, G: int):
@@ -105,17 +119,49 @@ def _batch_tokens(batch):
 # --------------------------------------------------------------------------
 
 
-def _mlp(bp, x, kind, cfg):
+def _add(x, y):
+    """The residual add: (x + y in the compute dtype, the sum the next norm
+    reads). XLA:CPU computes a bfloat16 sum that is only read back as
+    float32 in float32 (it allows excess precision), so inside one body of
+    ``repro``'s compiled layer scan (a pattern group) the norm after a
+    residual add reads the unrounded float32 sum of its two operands,
+    while the residual stream itself carries the rounded sum. The first
+    norm of a group reads the rounded carry (``xn`` None)."""
+    out = x + y
+    if out.dtype == torch.float32:
+        return out, out
+    return out, x.float() + y.float()
+
+
+def _norm(p, x, xn, cfg):
+    """The block's pre-norm of the residual stream: of ``xn`` (``_add``'s
+    float32 sum) where given, else of x; out in x's dtype."""
+    return L.norm_apply(p, x if xn is None else xn, cfg.norm).to(x.dtype)
+
+
+def _mlp(bp, x, xn, kind, cfg):
     """The block's MLP half: ``moe_apply`` for ``"moe"`` blocks, as
     ``repro`` picks it."""
     mlp = L.moe_apply if kind == "moe" else L.mlp_apply
-    return mlp(bp["mlp"], L.norm_apply(bp["ln2"], x, cfg.norm), cfg)
+    return mlp(bp["mlp"], _norm(bp["ln2"], x, xn, cfg), cfg)
 
 
-def _apply_block(bp, x, kind, cfg):
-    x = x + L.attn_forward(bp["attn"], L.norm_apply(bp["ln1"], x, cfg.norm),
-                           cfg)
-    return x + _mlp(bp, x, kind, cfg)
+def _attn_kind(kind: str) -> str:
+    """The attention mask of a block kind."""
+    return "local" if kind == "local" else "causal"
+
+
+def _apply_block(bp, x, xn, kind, cfg):
+    """One block over the residual stream (x, xn): returns the new pair."""
+    h = _norm(bp["ln1"], x, xn, cfg)
+    if kind == "ssm":
+        return _add(x, S.mamba_forward(bp["ssm"], h, cfg))
+    if kind == "rec":
+        y = R.rglru_forward(bp["rec"], h, cfg)
+    else:
+        y = L.attn_forward(bp["attn"], h, cfg, _attn_kind(kind))
+    x, xn = _add(x, y)
+    return _add(x, _mlp(bp, x, xn, kind, cfg))
 
 
 REMAT_POLICIES = ("none", "full", "dots", "nested")
@@ -160,8 +206,9 @@ def _run_blocks(blocks, x, cfg, remat: str = "full"):
 
     def group(h, g):
         gp = _group(blocks, g)
+        hn = None
         for j, kind in enumerate(cfg.pattern):
-            h = _apply_block(gp[f"b{j}_{kind}"], h, kind, cfg)
+            h, hn = _apply_block(gp[f"b{j}_{kind}"], h, hn, kind, cfg)
         return h
 
     G = cfg.pattern_groups
@@ -199,40 +246,90 @@ def lm_forward(params, batch, cfg, remat: str = "full"):
 # --------------------------------------------------------------------------
 
 
-def _prefill_block(bp, x, kind, cfg, new):
-    """Returns x after the block; writes the block's keys and values into
-    the first T positions of ``new`` ({"k", "v"}: [B, cache_len, KV, Dh],
-    the same layout for ``"attn"`` and ``"moe"`` blocks) and zeros after
-    them."""
-    y, (k, v) = L.attn_forward(bp["attn"],
-                               L.norm_apply(bp["ln1"], x, cfg.norm), cfg,
-                               return_kv=True)
-    x = x + y
-    T = k.shape[1]
-    for n, t in (("k", k), ("v", v)):
-        new[n][:, :T] = t
-        new[n][:, T:] = 0
-    return x + _mlp(bp, x, kind, cfg)
+def _ring_fill(buf, k):
+    """``repro``'s ``_ring_fill`` into ``buf`` [B, W, ...]: zeros, with the
+    last m = min(T, W) of k's T positions at their ring slots pos % W."""
+    W, T = buf.shape[1], k.shape[1]
+    m = min(T, W)
+    slot = torch.arange(T - m, T, device=k.device) % W
+    buf.zero_()
+    buf[:, slot] = k[:, T - m:]
+
+
+def _prefill_block(bp, x, xn, kind, cfg, new):
+    """Returns the residual stream (x, xn) after the block (``_add``);
+    writes the block's decode cache into ``new`` (``_new_cache``'s views
+    of group g): the keys and values into the first T positions of the
+    full cache and zeros after them, the last ``window`` keys and values
+    into the ring, the recurrent state and the conv tail of ``"rec"`` and
+    ``"ssm"`` blocks."""
+    h = _norm(bp["ln1"], x, xn, cfg)
+    if kind == "ssm":
+        y, st, cs = S.mamba_forward(bp["ssm"], h, cfg, return_state=True)
+        new["state"].copy_(st)
+        new["conv"].copy_(cs)
+        return _add(x, y)
+    if kind == "rec":
+        y, hs, cs = R.rglru_forward(bp["rec"], h, cfg, return_state=True)
+        new["h"].copy_(hs)
+        new["conv"].copy_(cs)
+    else:
+        y, (k, v) = L.attn_forward(bp["attn"], h, cfg, _attn_kind(kind),
+                                   return_kv=True)
+        T = k.shape[1]
+        for n, t in (("k", k), ("v", v)):
+            if kind == "local":
+                _ring_fill(new[n], t)
+            else:
+                new[n][:, :T] = t
+                new[n][:, T:] = 0
+    x, xn = _add(x, y)
+    return _add(x, _mlp(bp, x, xn, kind, cfg))
+
+
+def _new_cache(cfg, B: int, cache_len: int, dtype, device):
+    """The empty decode cache ``lm_prefill`` fills, in the dtypes
+    ``repro``'s prefill returns: keys and values [G, B, cache_len, KV, Dh]
+    (a ``"local"`` ring [G, B, window, KV, Dh], as ``repro``'s
+    ``_ring_fill`` makes it whatever the cache length), the RG-LRU state
+    ``h`` [G, B, d_rnn] in float32, the SSD ``state`` [G, B, H, P, N] and
+    the conv tails [G, B, k-1, channels] in the compute dtype ``dtype``."""
+    G = cfg.pattern_groups
+    cache = {}
+    for j, kind in enumerate(cfg.pattern):
+        if kind == "rec":
+            dr = cfg.d_rnn_eff
+            shapes = {"h": ((G, B, dr), torch.float32),
+                      "conv": ((G, B, cfg.rglru_conv - 1, dr), dtype)}
+        elif kind == "ssm":
+            d_in, H, N, conv_ch, _ = S.mamba_dims(cfg)
+            shapes = {"state": ((G, B, H, d_in // H, N), dtype),
+                      "conv": ((G, B, cfg.ssm_conv - 1, conv_ch), dtype)}
+        else:
+            S_len = cfg.window if kind == "local" else cache_len
+            kv = ((G, B, S_len, cfg.num_kv_heads, cfg.head_dim), dtype)
+            shapes = {"k": kv, "v": kv}
+        cache[f"b{j}_{kind}"] = {
+            n: torch.empty(shape, dtype=dt, device=device)
+            for n, (shape, dt) in shapes.items()}
+    return cache
 
 
 def lm_prefill(params, batch, cfg, cache_len: int):
     """Run the prompt, return (last-token logits [B,1,vocab], decode cache
-    {"b{j}_{kind}": {"k", "v": [G, B, cache_len, KV, Dh]}})."""
+    ``_new_cache``: {"b{j}_{kind}": its leaves with a leading G})."""
     check_config(cfg)
     tokens = _batch_tokens(batch)
     x = L.embed_apply(params["embed"], tokens, cfg)
     B, T = tokens.shape
-    G = cfg.pattern_groups
-    shape = (G, B, cache_len, cfg.num_kv_heads, cfg.head_dim)
-    cache = {f"b{j}_{kind}": {n: torch.empty(shape, dtype=x.dtype,
-                                             device=x.device)
-                              for n in ("k", "v")}
-             for j, kind in enumerate(cfg.pattern)}
-    for g in range(G):
+    cache = _new_cache(cfg, B, cache_len, x.dtype, x.device)
+    for g in range(cfg.pattern_groups):
         gp = _group(params["blocks"], g)
+        xn = None
         for j, kind in enumerate(cfg.pattern):
             key = f"b{j}_{kind}"
-            x = _prefill_block(gp[key], x, kind, cfg, _group(cache[key], g))
+            x, xn = _prefill_block(gp[key], x, xn, kind, cfg,
+                                   _group(cache[key], g))
     x = L.norm_apply(params["ln_f"], x, cfg.norm)
     logits = L.unembed_apply(params["embed"], x[:, -1:], cfg)
     return logits, cache
@@ -243,12 +340,26 @@ def lm_prefill(params, batch, cfg, cache_len: int):
 # --------------------------------------------------------------------------
 
 
-def _decode_block(bp, x, kind, cfg, cache, index):
-    """Returns x after the block; the block's cache is updated in place."""
-    y, _, _ = L.attn_decode(bp["attn"], L.norm_apply(bp["ln1"], x, cfg.norm),
-                            cache["k"], cache["v"], index, cfg)
-    x = x + y
-    return x + _mlp(bp, x, kind, cfg)
+def _decode_block(bp, x, xn, kind, cfg, cache, index):
+    """Returns the residual stream (x, xn) after the block (``_add``); the
+    block's cache is updated in place (each leaf keeps its dtype)."""
+    h = _norm(bp["ln1"], x, xn, cfg)
+    if kind == "ssm":
+        y, st, cs = S.mamba_decode(bp["ssm"], h, cfg, cache["state"],
+                                   cache["conv"])
+        cache["state"].copy_(st)
+        cache["conv"].copy_(cs)
+        return _add(x, y)
+    if kind == "rec":
+        y, hs, cs = R.rglru_decode(bp["rec"], h, cfg, cache["h"],
+                                   cache["conv"])
+        cache["h"].copy_(hs)
+        cache["conv"].copy_(cs)
+    else:
+        y, _, _ = L.attn_decode(bp["attn"], h, cache["k"], cache["v"], index,
+                                cfg, _attn_kind(kind))
+    x, xn = _add(x, y)
+    return _add(x, _mlp(bp, x, xn, kind, cfg))
 
 
 def lm_decode_step(params, token, cache, index, cfg):
@@ -260,9 +371,10 @@ def lm_decode_step(params, token, cache, index, cfg):
     x = L.embed_apply(params["embed"], token, cfg)
     for g in range(cfg.pattern_groups):
         gp = _group(params["blocks"], g)
+        xn = None
         for j, kind in enumerate(cfg.pattern):
             key = f"b{j}_{kind}"
-            x = _decode_block(gp[key], x, kind, cfg, _group(cache[key], g),
-                              index)
+            x, xn = _decode_block(gp[key], x, xn, kind, cfg,
+                                  _group(cache[key], g), index)
     x = L.norm_apply(params["ln_f"], x, cfg.norm)
     return L.unembed_apply(params["embed"], x, cfg), cache

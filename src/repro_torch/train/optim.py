@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models.rglru import _fma
 from ..models.spec import ParamSpec, _leaves, torch_dtype, tree_map_specs
 
 
@@ -157,14 +158,6 @@ def _bias_correction(b: float, step):
 
 # elements a chunk of a leaf updates at once
 CHUNK = 1 << 26
-
-
-def _fma(a, b, c):
-    """a * b + c rounded once to float32 (``a`` a float32 tensor, ``b`` a
-    float32 value or tensor, ``c`` a float32 tensor): the product of two
-    float32 values is exact in float64."""
-    return torch.add(a.double() * (b.double() if torch.is_tensor(b) else b),
-                     c.double()).float()
 
 
 @torch.no_grad()

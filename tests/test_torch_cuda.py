@@ -1296,8 +1296,9 @@ def test_flash_attention_lse_and_window(cuda_device):
     """The forward's log-sum-exp (bf16 and float32, T <= 4 included)
     against the plain version's, its output bit for bit the forward's
     without it where both take the tiled form (T > 4; at T <= 4 the LSE
-    takes the tiled form, held to the plain version); a window raises in
-    the backward."""
+    takes the tiled form, held to the plain version); with a window the
+    backward launches its kernel (one launch), held to the plain
+    version."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     for T, S, bf16 in ((64, 64, True), (3, 40, True), (70, 90, False),
@@ -1312,8 +1313,156 @@ def test_flash_attention_lse_and_window(cuda_device):
         tol = 2e-2 if bf16 else 2e-5
         torch.testing.assert_close(out.float(), o.float(), rtol=tol,
                                    atol=tol)
-    with pytest.raises(NotImplementedError, match="local attention"):
-        flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=4)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    q, k, v, _, _, do = _flash_bwd_case(cuda_device, 2, 4, 2, 70, 70, 64,
+                                        True, True)
+    o, lse = flash_attention(q, k, v, window=4, return_lse=True)
+    reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=4)
+    assert LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True,
+                                       window=4)
+    for g, w in zip(got, want):
+        assert sup.rel_err(g, w) <= sup.BWD_BAR_BF16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,S,D,window,bf16",
+                         sup.FLASH_BWD_WINDOW_SHAPES)
+def test_flash_attention_bwd_window_kernel(cuda_device, B, H, KV, T, S, D,
+                                           window, bf16):
+    """K5's backward with a sliding window (causal) against its plain
+    version at its tiles' edges (``sup.FLASH_BWD_WINDOW_SHAPES``), o and
+    lse from the windowed forward kernel, each gradient relative to its
+    largest value (``sup.bwd_errs``: floored at 1e-3 of the largest of
+    the three, since a window of one makes dq and dk zero), and bit for
+    bit a second launch."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    q, k, v, _, _, do = _flash_bwd_case(cuda_device, B, H, KV, T, S, D,
+                                        True, bf16, seed=T + window)
+    o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+    args = (q, k, v, o, lse, do)
+    got = flash_attention_bwd(*args, causal=True, window=window)
+    want = ref.flash_attention_bwd_ref(*args, causal=True, window=window)
+    again = flash_attention_bwd(*args, causal=True, window=window)
+    bar = sup.BWD_BAR_BF16 if bf16 else sup.BWD_BAR_F32
+    errs = sup.bwd_errs(got, want)
+    for name, g, w, a, e in zip(("dq", "dk", "dv"), got, want, again, errs):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert e <= bar, (name, e)
+        torch.testing.assert_close(a, g, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [3, 7, 8, 20])
+def test_ring_decode_through_k5(cuda_device, index):
+    """``attn_decode(kind="local")`` on the card (the REDUCED
+    recurrentgemma's window of 8 slots, bfloat16 compute) before, at and
+    past the ring's wrap: one K5 launch over the first min(index + 1, 8)
+    slots, the output against the port on the CPU (2e-2 of the largest)
+    and the new k/v written at slot index % 8."""
+    from repro_torch import configs, models
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import layers as L
+    cfg = configs.reduced_config("recurrentgemma_2b")
+    tree = sup.numpy_params(L.attn_specs(cfg), 2)
+    rng = np.random.default_rng(index)
+    x = rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32)
+    ring = rng.standard_normal((2, cfg.window, cfg.num_kv_heads,
+                                cfg.head_dim)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = models.params_from_numpy(tree, dev)
+        ck, cv = (torch.as_tensor(ring, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        reset_launches()
+        y, ck, cv = L.attn_decode(p, torch.as_tensor(x, device=dev), ck, cv,
+                                  index, cfg, "local")
+        out[str(dev)] = (y.float().cpu(), ck.float().cpu(), dict(LAUNCHES))
+    (yc, kc, _), (yg, kg, launched) = out["cpu"], out[str(cuda_device)]
+    assert launched["flash_attention"] == 1
+    assert sup.rel_err(yg, yc) <= 2e-2
+    slot = index % cfg.window
+    keep = [s for s in range(cfg.window) if s != slot]
+    torch.testing.assert_close(kg[:, keep], kc[:, keep], rtol=0, atol=0)
+    assert sup.rel_err(kg[:, slot], kc[:, slot]) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mamba2_130m"])
+def test_reduced_recurrent_archs_on_card_match_cpu(cuda_device, arch):
+    """The REDUCED recurrentgemma and mamba2, float32 compute, numpy
+    params: a prompt of 20 (past recurrentgemma's window of 8) + 4
+    teacher-forced decode steps on the card against the port on the CPU
+    (relative to the largest value, 1e-4; every cache leaf), with K5 once
+    a local layer a forward and K6 for ln1, ln2 (not in an ssm block) and
+    ln_f."""
+    import dataclasses
+    from repro_torch import configs, models
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    cfg = dataclasses.replace(configs.reduced_config(arch),
+                              compute_dtype="float32")
+    tree = sup.numpy_params(models.lm_specs(cfg), 1)
+    rng = np.random.default_rng(1)
+    tv = cfg.true_vocab or cfg.vocab_size
+    prompt = torch.as_tensor(rng.integers(0, tv, (2, 20)))
+    toks = torch.as_tensor(rng.integers(0, tv, (2, 4)))
+    want = sup.lm_teacher_forced(models.params_from_numpy(tree, "cpu"), cfg,
+                                 prompt, toks, 32)
+    reset_launches()
+    got = sup.lm_teacher_forced(models.params_from_numpy(tree, cuda_device),
+                                cfg, prompt.to(cuda_device),
+                                toks.to(cuda_device), 32)
+    G = cfg.pattern_groups
+    local = G * cfg.pattern.count("local")
+    norms = G * sum(1 if k == "ssm" else 2 for k in cfg.pattern) + 1
+    assert LAUNCHES["flash_attention"] == 5 * local
+    assert LAUNCHES["rmsnorm"] == 5 * norms
+    assert len(got) == len(want)
+    for (what, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        assert sup.rel_err(g, w) <= 1e-4, what
+
+
+@pytest.mark.cuda
+def test_reduced_recurrentgemma_train_step_on_card_matches_cpu(cuda_device):
+    """REDUCED recurrentgemma, float32 compute, numpy params, sequences of
+    32 (four of its windows): the loss and every gradient of one
+    microbatch on the card (K5 with its windowed backward, K6 and its
+    backward, the RG-LRU scan by autograd) against the port on the CPU
+    (relative to each leaf's largest gradient, 1e-4)."""
+    import dataclasses
+    from repro_torch import configs, models
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.spec import _leaves
+    from repro_torch.train import DataConfig, SyntheticData, xent_loss
+    cfg = dataclasses.replace(configs.reduced_config("recurrentgemma_2b"),
+                              compute_dtype="float32")
+    batch = SyntheticData(cfg, DataConfig(batch=2, seq=32)).batch_at(0)
+    tree = sup.numpy_params(models.lm_specs(cfg), 0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = models.params_from_numpy(tree, dev)
+        b = {n: torch.as_tensor(a, device=dev) for n, a in batch.items()}
+        for p in _leaves(params):
+            p.requires_grad_(True)
+        reset_launches()
+        loss = xent_loss(models.lm_forward(params, b, cfg, remat="full"),
+                         b["labels"], cfg)
+        loss.backward()
+        out[str(dev)] = (float(loss.detach()),
+                         [p.grad.cpu() for p in _leaves(params)],
+                         dict(LAUNCHES))
+    local = cfg.pattern_groups * cfg.pattern.count("local")
+    launched = out[str(cuda_device)][2]
+    assert launched["flash_attention"] == 2 * local
+    assert launched["flash_attention_bwd"] == local
+    assert launched["rmsnorm_bwd"] == 2 * cfg.num_layers + 1
+    (lc, gc, _), (lg, gg, _) = out["cpu"], out[str(cuda_device)]
+    assert abs(lc - lg) <= 1e-5
+    for g, w in zip(gg, gc):
+        assert sup.rel_err(g, w) <= 1e-4
 
 
 @pytest.mark.cuda

@@ -1063,6 +1063,16 @@ FLASH_EDGE_SHAPES = [
     (1, 10, 2, 4, 100, 256, True, 0, True),
 ]
 
+# B, H, KV, T, S, D, window, bf16: K5's backward with a sliding window
+# (causal, T = S): lengths around its tiles' edges (64 query rows or keys
+# a block, 32 a tile), windows of one key, of 17 and of T - 1, at head
+# dims 16 (GQA, H = 4 over KV = 2) and 256 (recurrentgemma's MQA, 10 over
+# 1, where dk and dv split their columns over two blocks); float32 twice
+FLASH_BWD_WINDOW_SHAPES = [
+    ((2, 4, 2) if D == 16 else (1, 10, 1)) + (T, T, D, w, True)
+    for T in (63, 65, 96, 129) for D in (16, 256) for w in (1, 17, T - 1)
+] + [(1, 4, 2, 129, 129, 16, 17, False), (1, 2, 1, 65, 65, 256, 64, False)]
+
 # keys per decode split of K5's split_mma (csrc/flash_attention.cu)
 K5_SPLIT_KEYS = 64
 
@@ -1169,7 +1179,7 @@ def rmsnorm_in_k6_order(x, scale, eps=1e-6):
 def lm_teacher_forced(params, cfg, prompt, tokens, cache_len):
     """The port's prefill of ``prompt`` [B,P], then one decode step per
     column of ``tokens`` [B,N] (teacher forced). Returns [(what, tensor on
-    the CPU)]: the logits of each forward and the first block's cache."""
+    the CPU)]: the logits of each forward and every leaf of the cache."""
     from repro_torch.models.lm import lm_decode_step, lm_prefill
     P = prompt.shape[1]
     out = []
@@ -1179,9 +1189,9 @@ def lm_teacher_forced(params, cfg, prompt, tokens, cache_len):
         logits, cache = lm_decode_step(params, tokens[:, i:i + 1], cache,
                                        P + i, cfg)
         out.append((f"decode {i} logits", logits.cpu()))
-    first = f"b0_{cfg.pattern[0]}"
-    for n in ("k", "v"):
-        out.append((f"cache {n}", cache[first][n].cpu()))
+    for key in sorted(cache):
+        for n in sorted(cache[key]):
+            out.append((f"cache {key} {n}", cache[key][n].cpu()))
     return out
 
 
@@ -1555,6 +1565,18 @@ def rmsnorm_bwd_inputs(N, D, seed=0):
     x, s = rmsnorm_inputs(N, D, seed)
     dy = np.random.default_rng(seed + 1).standard_normal((N, D))
     return x, s, dy.astype(np.float32)
+
+
+def bwd_errs(got, want):
+    """Each gradient's largest error over its largest plain value, the
+    latter floored at 1e-3 of the largest plain value of all of them: a
+    gradient that is zero in exact arithmetic (dq and dk under a window of
+    one key, where each query sees only itself) is held to the scale of
+    the others, not to its own rounding noise."""
+    top = max(float(w.float().abs().max()) for w in want)
+    return [float((g.float() - w.float()).abs().max()
+                  / max(float(w.float().abs().max()), 1e-3 * top, 1e-30))
+            for g, w in zip(got, want)]
 
 
 def rel_err(got, want) -> float:
