@@ -122,9 +122,9 @@ exit, traceback) if anything in it is wrong:
    the feedback-channel laws ``fncc``, ``pulser``, ``backpressure`` and
    ``pcc``) held
    bit for bit to the plain megakernel tick
-   over the first 3 launches and to the eager reference slot engine
+   over the first 2 launches and to the eager reference slot engine
    (``simulate_slots_batch``, ``backend="reference"``) over the first
-   ``FIG6_EAGER_TICKS`` (500) ticks (the final carry and the FCTs),
+   ``FIG6_EAGER_TICKS`` (250) ticks (the final carry and the FCTs),
    and timed over the whole
    run (every launch, CUDA events; the bound of every 4th launch counted
    from its data; the plain block at the middle launch, host clock, held
@@ -265,7 +265,8 @@ exit, traceback) if anything in it is wrong:
    ``SHARD16_PROFILE_TICKS`` (50) ticks (``torch.profiler``); (3) two
    gloo ranks
    on the one card (``shardcomm.spawn``; gloo's collectives staged
-   through the host): (1)'s impaired powertcp pass over its first
+   through the host; spawned once, ``gloo_ranks``, they then run 6i.4's
+   outer sync): (1)'s impaired powertcp pass over its first
    ``SHARD_SPAWN_TICKS`` (250) ticks, bit for bit K4 and (1)'s first
    250 ticks, and ``impair_fct.run``'s grid
    as a K4 sweep split over the two ranks (``run_sweep(devices=2)``),
@@ -304,8 +305,7 @@ exit, traceback) if anything in it is wrong:
    K4's wall and device time per tick; (4) ``commsched``'s outer sync of
    one qwen3-14b decoder layer at full width (330 311 936 float32
    parameters in 11 leaves, window 2) at world 1 over NCCL and over two
-   gloo ranks on the one card (``shardcomm.spawn``, host-staged
-   gathers): every leaf of the new anchor, error feedback and momentum
+   gloo ranks on the one card (6h.3's, host-staged gathers): every leaf of the new anchor, error feedback and momentum
    bit for bit the one-process spelling
    (``test_torch_support.outer_sync_spelled``), at most 2 gathers in
    flight; wall seconds a sync and the bytes gathered;
@@ -333,7 +333,13 @@ exit, traceback) if anything in it is wrong:
    2 048 (T past the window, so whole key tiles are skipped) and the ring
    decode q [2,10,1,256] over the 2 048 slots of its ring read in place;
    K6 also at 8c's rows ([8192, 2560] and [2, 2560], [4000, 768] and
-   [4, 768]); then each timed
+   [4, 768]); K5 at 8d's shapes (``encdec_flash_shapes``): phi3-vision's
+   causal prefill q [4,32,1024,96] and last decode step q [4,32,1,96]
+   over 1 039 positions, whisper's unmasked encoder q = k/v
+   [4,20,1500,64], cross prefill q [4,20,256,64] and cross decode q
+   [4,20,1,64] over its 1 500 frames (the decode's read in place from a
+   [4,1500,20,64] cache), each bit for bit a second run; K6 at
+   phi3-vision's rows ([4096, 3072], [4, 3072]); then each timed
    beside its plain version and one PyTorch call for the same function
    (``F.scaled_dot_product_attention`` with ``enable_gqa``,
    ``F.rms_norm``; the library yardstick, used nowhere in the port;
@@ -342,8 +348,9 @@ exit, traceback) if anything in it is wrong:
    prefill and last decode shapes, and at every other architecture's
    under ``arch_shapes`` (fewer replays), 8c's two local shapes under
    ``window_shapes`` (SDPA with the same mask as a boolean
-   ``attn_mask``; the bound counts only the pairs inside the window), K6
-   at qwen3-14b's rows;
+   ``attn_mask``; the bound counts only the pairs inside the window), 8d's
+   under ``encdec_shapes`` (the bound counts all T·S pairs where
+   unmasked), K6 at qwen3-14b's rows;
 8. serve: qwen3-14b at full width (40 layers, d_model 5120, float32
    params drawn on the card from a ``torch.Generator`` seeded 0) through
    ``repro_torch.serve.decode_loop``: 4 prompts of 512 tokens from a seed,
@@ -376,7 +383,17 @@ exit, traceback) if anything in it is wrong:
    local layer a forward, K6 twice a layer plus ``ln_f``) and mamba2-130m
    (24 ``"ssm"`` layers; 4 prompts of 1 000 over four SSD chunks, the last
    padded; no K5, K6 once a layer (ln1) plus ``ln_f``, its gated norm
-   plain torch).
+   plain torch). (8d) The same for the encoder-decoder and
+   vision-language architectures (``ENCDEC_SERVE``), all their layers,
+   float32, 16 greedy tokens, their frontends' embeddings drawn on the
+   card from a seed (``frontend_extras``) and handed to ``decode_loop``
+   as ``extras``: whisper-large-v3 (32 encoder + 32 decoder layers, 1.58 B
+   params; 4 prompts of 256 over ``enc_feats`` [4, 1500, 1280]; K5 once a
+   layer in the encoder, once in the prefill, and twice a decoder layer a
+   forward (self and cross), no K6: layernorm) and phi3-vision-4.2b (32
+   layers, 3.82 B params; 4 prompts of 1 024 whose first 576 positions
+   take ``img_embeds`` [4, 576, 3072]; K5 once a layer a forward, K6
+   twice a layer plus ``ln_f``).
 9. train: the one-card trainer (``repro_torch.train``). (9a) K5's and
    K6's backward kernels (``flash_attention_bwd``: dq, then dk/dv;
    ``rmsnorm_bwd``: row chunks, then their dscale partials in chunk
@@ -403,7 +420,13 @@ exit, traceback) if anything in it is wrong:
    architecture's shape (qwen3-14b's the row, the others under
    ``arch_shapes``, recurrentgemma's windowed one under ``window_*``,
    beside SDPA's backward with the same mask, timed between CUDA
-   events), K6 bwd at qwen3-14b's. (9b) qwen3-14b at full width (d_model 5 120, 40 / 8 heads,
+   events), K6 bwd at qwen3-14b's. K5 bwd also at 9f's shapes
+   (``encdec_bwd_shapes``, under ``encdec_shapes``: phi3-vision's q
+   [1,32,1024,96] causal, whisper's encoder [1,20,1500,64] and its
+   cross-attention q [1,20,448,64] over [1,20,1500,64] unmasked) and at
+   head dim 96's edges (``test_torch_support.FLASH_BWD_D96_SHAPES``: T
+   and S of 63-129, causal and unmasked, T < S and T > S, GQA, two in
+   float32), held and timed the same way. (9b) qwen3-14b at full width (d_model 5 120, 40 / 8 heads,
    head_dim 128, d_ff 17 408, vocab 151 936), depth cut to
    ``TRAIN_LAYERS`` (4) of 40 layers, float32 params drawn on the card
    from ``tcfg.seed``, ``train_preset("qwen3_14b")`` (8 microbatches,
@@ -415,15 +438,17 @@ exit, traceback) if anything in it is wrong:
    prints the wall per step, tokens/s, model TFLOP/s and peak GB. (9c)
    the REDUCED qwen3-14b (bf16 compute) under
    ``torch.use_deterministic_algorithms(True)`` (``CUBLAS_WORKSPACE_CONFIG``
-   set before the first cuBLAS call): a run that crashes after step 5,
+   set before the first cuBLAS call): a run that crashes after step 3,
    resumed from its checkpoint, bit for bit the uninterrupted run in
    its losses and every parameter; then float32 compute from
    ``numpy_params`` for 10 steps, the losses within
    ``sup.TRAIN_LOSS_BAR`` of ``tests/golden/torch_port_train.json``
-   (``repro`` on the CPU). The REDUCED qwen3-moe's and recurrentgemma's
-   crash/resume too, bit for bit in their losses, parameters and
-   moments: the MoE combine, the token gather's backward, K5's windowed
-   backward and the RG-LRU scan add in a fixed order. (9d) gemma-7b and
+   (``repro`` on the CPU). The REDUCED qwen3-moe's, recurrentgemma's and
+   whisper's crash/resume too, bit for bit in their losses, parameters
+   and moments: the MoE combine, the token gather's backward, K5's
+   windowed and unmasked backward, the encoder's gradients and the RG-LRU
+   scan add in a fixed order. Each crash/resume runs ``RESUME_STEPS`` (6)
+   steps, checkpoints every 2, the crash after step 3. (9d) gemma-7b and
    qwen3-moe-30b-a3b at full width, each cut to ``TRAIN_ARCH_LAYERS`` (2)
    layers, float32, ``train_preset`` over the same data, 3 steps through
    ``train_driver``, held as 9b is (losses finite, parameters moved,
@@ -431,29 +456,38 @@ exit, traceback) if anything in it is wrong:
    GeGLU and the tied, scaled embedding's gradient; the MoE's backward.
    (9e) recurrentgemma-2b at full width cut to one pattern group (13 of
    26 layers, 1.66 B params) on sequences of 4 096 (K5's windowed
-   backward at the model's shapes), and mamba2-130m whole (24 layers) on
-   sequences of 1 024 (four SSD chunks), float32, ``train_preset``
-   (8 microbatches, remat ``"full"``) over batches of 8, 3 steps, held as
-   9d is.
-   9b, 9d and 9e probe ``ln_f``, the embedding, and in the first block of
-   each kind ``wq`` (attention), ``w_a``, ``lam`` and ``conv_w``
+   backward at the model's shapes), and mamba2-130m cut to 6 of 24
+   layers on sequences of 1 024 (four SSD chunks, the chunk recurrence
+   between them), float32, ``train_preset`` (8 microbatches, remat
+   ``"full"``) over batches of 8, 3 steps, held as 9d is. (9f)
+   whisper-large-v3 whole (32 encoder and 32 decoder layers) on 8
+   sequences of 448 tokens over 8 × 1 500 frames, and phi3-vision-4.2b
+   at full width cut to 8 of 32 layers on 8 × 1 024 (the first 576 of
+   each image positions), float32, ``train_preset``, 3 steps, held as 9d
+   is: K5 bwd unmasked through the encoder and the cross-attention, at
+   head dim 96 through phi3-vision.
+   9b, 9d, 9e and 9f probe ``ln_f``, the embedding (and its learned
+   positions), an encoder's positions and its first block's ``wq``, and
+   in the first block of each kind ``wq`` (attention; and ``xattn``'s
+   ``wq`` and ``lnx`` in a ``"dec"`` block), ``w_a``, ``lam`` and ``conv_w``
    (RG-LRU), ``in_proj``, ``a_log``, ``dt_bias`` and ``conv_w`` (SSD) and
    the MLP's leaves (the router and the experts' ``wg``, ``wu``, ``wd``
    for a MoE; ``wu`` otherwise): each moved, and each one's first moment
    is nonzero after the run (a gradient reached it; for a MoE in every
    expert's slice and every router column).
    Model TFLOP/s count 6 N tokens with N the parameters a token runs
-   through (k of E experts), plus the attention's pairs (inside the
-   window for a local layer); the SSD's chunk products are not
-   counted.
+   through (k of E experts; not the learned position tables), 6 N_enc
+   frames for an encoder, plus 12·D·H a query-key pair (inside the
+   window for a local layer, all T·S where unmasked: the encoder's and
+   the cross-attention's); the SSD's chunk products are not counted.
 
 ``--profile`` adds a phase after 6b: each main-path and 6b run under
 ``torch.profiler`` (the first 200 ticks of the eager runs, the whole
 40 000 ticks of the megakernel runs), with the device time and device
 launches per tick, the device-busy share and the kernels that take the
-most device time; phases 8 and 8c run each serve run a second time
+most device time; phases 8, 8c and 8d run each serve run a second time
 under ``torch.profiler``, with its device time, device launches and
-K5's and K6's share of its device time; and 9b and 9e run one more
+K5's and K6's share of its device time; and 9b, 9e and 9f run one more
 train step under it, with the shares of K5, K5 bwd, K6, K6 bwd, the
 casts and cuBLAS.
 
@@ -691,23 +725,27 @@ def queue_cost(H, F, Q):
     return 4 * (H * F + H * F * Q + 3 * Q + 2 * Q), 2 * H * F * Q + 5 * Q
 
 
-def visible_pairs(T, S, window=0):
-    """The query-key pairs causal attention computes, the queries at the
-    last T of S positions: query t sees keys (t + S - T - window, t + S -
-    T], all of them before it where ``window`` is 0."""
+def visible_pairs(T, S, window=0, causal=True):
+    """The query-key pairs attention computes: unmasked, all T·S; causal,
+    the queries at the last T of S positions, query t sees keys (t + S -
+    T - window, t + S - T], all of them before it where ``window`` is
+    0."""
+    if not causal:
+        return T * S
     return sum(min(S, t + S - T + 1)
                - (max(0, t + S - T - window + 1) if window > 0 else 0)
                for t in range(T))
 
 
-def flash_cost(B, H, KV, T, S, D, itemsize=2, window=0):
-    """K5, causal with the queries at the last T of S positions: q, k, v
-    read once and the output written once (with a window, only the keys
-    some query sees); 4·D flops (two products, each a multiply and an
-    add) per visible query-key pair (``visible_pairs``)."""
-    read = min(S, T + window - 1) if window > 0 else S
+def flash_cost(B, H, KV, T, S, D, itemsize=2, window=0, causal=True):
+    """K5, causal with the queries at the last T of S positions, or
+    unmasked: q, k, v read once and the output written once (with a
+    window, only the keys some query sees); 4·D flops (two products,
+    each a multiply and an add) per visible query-key pair
+    (``visible_pairs``)."""
+    read = min(S, T + window - 1) if causal and window > 0 else S
     return (2 * B * H * T * D + 2 * B * KV * read * D) * itemsize, \
-        4 * B * H * D * visible_pairs(T, S, window)
+        4 * B * H * D * visible_pairs(T, S, window, causal)
 
 
 def rmsnorm_cost(N, D, itemsize=2):
@@ -1925,9 +1963,9 @@ def _self_device_us(evt) -> float:
 
 # ticks of phase 6c's checks against the eager reference slot engine (cut
 # with phase 6's eager runs to keep the script inside its time limit)
-FIG6_EAGER_TICKS = 500
+FIG6_EAGER_TICKS = 250
 # launches of the paper run over which K4 is held to its plain tick
-FIG6_PLAIN_LAUNCHES = 3
+FIG6_PLAIN_LAUNCHES = 2
 # every how many launches phase 6c's timing pass counts a launch's bound
 FIG6_BOUND_EVERY = 4
 
@@ -3249,11 +3287,23 @@ def shard_rank(group, ticks, ef):
     return run, sweep
 
 
+def gloo_ranks(group, shard_args, outer_args):
+    """The work of two gloo ranks sharing the card, spawned once for
+    phases 6h.3 and 6i.4 (a spawn's start-up is paid once):
+    ``shard_rank(group, *shard_args)``, then
+    ``test_torch_support.outer_sync_rank(group, *outer_args)``. Returns
+    both results."""
+    import test_torch_support as sup
+    return (shard_rank(group, *shard_args),
+            sup.outer_sync_rank(group, *outer_args))
+
+
 def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
     """Phase 6h: the sharded slot engine over ``torch.distributed`` (see
     the module docstring). ``paper_fct`` is phase 6f's K4 FCTs of the
     paper fabric's impaired pass by law, ``sweep_fct`` phase 6g's K4
-    sweep FCTs by point. Returns (launches, rows)."""
+    sweep FCTs by point. Returns (launches, rows, the outer sync's result
+    on 6h.3's gloo ranks for 6i.4)."""
     from repro_torch.core import fluid, shardcomm
     from repro_torch.core.shardslots import LAST_SHARDED
     t0 = time.perf_counter()
@@ -3422,12 +3472,14 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
         f"FCTs ({done} done) bitwise K4's; comm_census "
         f"{json.dumps(census)}; {smi}")
 
-    # (3) two gloo ranks on the one card
+    # (3) two gloo ranks on the one card, which also run 6i.4's outer sync
     c0 = time.perf_counter()
-    run, sweep = shardcomm.spawn(shard_rank, 2, (SHARD_SPAWN_TICKS, ef),
-                                 backend="gloo", device=dev)
+    (run, sweep), outer = shardcomm.spawn(
+        gloo_ranks, 2, ((SHARD_SPAWN_TICKS, ef),
+                        (sup.qwen3_layer_shapes(), OUTER_WINDOW,
+                         OUTER_SEEDS)), backend="gloo", device=dev)
     spawn_s = time.perf_counter() - c0
-    mark(f"[time] 6h.3 two gloo ranks, spawned: {spawn_s:.1f} s")
+    mark(f"[time] 6h.3 (and 6i.4) two gloo ranks, spawned: {spawn_s:.1f} s")
     st2, rec2 = run["state"], run["rec"]
     ccfg = pcfg._replace(steps=SHARD_SPAWN_TICKS)
     (kst, krec), _, c = timed_run(
@@ -3480,11 +3532,12 @@ def phase_shard(torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct):
         f"impair_fct.run's grid on K4 ({len(sweep['fct'])} points, {k4} K4 "
         f"launches on rank 0, wall {sweep['wall_s']:.3f} s): no fallback, "
         f"no failure, every point bitwise 6g's unsharded K4 sweep; spawn "
-        f"and both ranks' work {spawn_s:.1f} s; {smi}")
+        f"and both ranks' work (6i.4's outer sync too) {spawn_s:.1f} s; "
+        f"{smi}")
     torch.distributed.destroy_process_group()
     log("[shard] " + json.dumps({"shard": rows}))
     log(f"[shard] phase 6h: {time.perf_counter() - t0:.1f} s")
-    return launches, rows
+    return launches, rows, outer
 
 
 # -------------------------------------------------------------------------
@@ -3531,8 +3584,10 @@ def fct_checksum(sup, flows):
                                  flows.start.cpu().numpy())
 
 
-def phase_incast(torch, tc, kernels, sup, dev, smi):
-    """Phase 6i (see the module docstring). Returns (launches, rows)."""
+def phase_incast(torch, tc, kernels, sup, dev, smi, outer_two):
+    """Phase 6i (see the module docstring); ``outer_two`` is the outer
+    sync's result on 6h.3's two gloo ranks (``gloo_ranks``). Returns
+    (launches, rows)."""
     with open(sup.FIG4_REF) as f:
         ref = json.load(f)
     with open(sup.GENERATORS_REF) as f:
@@ -3832,24 +3887,19 @@ def phase_incast(torch, tc, kernels, sup, dev, smi):
         f"most {stats['max_in_flight']} gathers in flight; every leaf of "
         f"the anchor, error feedback and momentum bitwise the one-process "
         f"spelling; {smi}")
-    w0 = time.perf_counter()
-    two = shardcomm.spawn(sup.outer_sync_rank, 2,
-                          (shapes, OUTER_WINDOW, OUTER_SEEDS),
-                          backend="gloo", device=dev)
-    spawn_s = time.perf_counter() - w0
+    two = outer_two             # run on 6h.3's two gloo ranks
     if two["bad"] != [0, 0] or two["leaves"] != len(leaves) \
             or two["gathers"] != [len(leaves)] * 2 \
             or two["max_in_flight"] != [OUTER_WINDOW] * 2:
         raise AssertionError(f"6i.4 two gloo ranks: {two}")
     rows["outer_sync@2ranks-gloo"] = dict(
         params=nparam, leaves=len(leaves), window=OUTER_WINDOW,
-        wall_s=two["wall_s"], bytes=two["bytes"], spawn_s=spawn_s)
+        wall_s=two["wall_s"], bytes=two["bytes"])
     log(f"[incast] (6i.4) two gloo ranks on the card (host-staged "
-        f"gathers): {two['wall_s']:.3f} s a sync on rank 0, "
-        f"{two['bytes']} bytes gathered a rank, at most "
+        f"gathers; the ranks 6h.3 spawned): {two['wall_s']:.3f} s a sync "
+        f"on rank 0, {two['bytes']} bytes gathered a rank, at most "
         f"{OUTER_WINDOW} gathers in flight on each rank; each rank's "
-        f"result bitwise the spelling over both pods (spawn and both "
-        f"ranks' work {spawn_s:.1f} s); {smi}")
+        f"result bitwise the spelling over both pods; {smi}")
     mark(f"[time] 6i.4 outer sync: {time.perf_counter() - c0:.1f} s")
     log("[incast] " + json.dumps({"incast": rows}))
     log(f"[incast] phase 6i: {time.perf_counter() - t0:.1f} s")
@@ -3995,6 +4045,28 @@ def card_normal(torch, dev, seed, *shapes):
     return tuple(torch.randn(sh, generator=gen, device=dev) for sh in shapes)
 
 
+def encdec_flash_shapes():
+    """{tag: (config, B, T, S, causal)}: K5's shapes in 8d's serve runs
+    (``ENCDEC_SERVE``): phi3-vision's prefill over its prompt and its last
+    decode step (causal); whisper's encoder over its frames, its decoder's
+    cross-attention in the prefill and in a decode step over them
+    (unmasked)."""
+    from repro_torch import configs
+    out = {}
+    for arch, batch, prompt in ENCDEC_SERVE:
+        cfg = configs.get_config(arch)
+        if cfg.enc_layers:
+            F = cfg.enc_seq
+            out[f"{arch} encoder"] = (cfg, batch, F, F, False)
+            out[f"{arch} cross prefill"] = (cfg, batch, prompt, F, False)
+            out[f"{arch} cross decode"] = (cfg, batch, 1, F, False)
+        else:
+            out[f"{arch} prefill"] = (cfg, batch, prompt, prompt, True)
+            out[f"{arch} decode"] = (cfg, batch, 1,
+                                     prompt + ENCDEC_SERVE_STEPS - 1, True)
+    return out
+
+
 def phase_lm_kernels(torch, sup, dev):
     """K5 and K6 against their plain versions at the shapes the serve runs
     give them (qwen3-14b's in phase 8, each of ``SERVE_ARCHS``' in 8b, all
@@ -4081,6 +4153,25 @@ def phase_lm_kernels(torch, sup, dev):
         log(f"[lm] flash_attention recurrentgemma_2b {tag} q "
             f"{list(q.shape)} k/v {list(k.shape)} window {w}: max abs err "
             f"{e!r} (rtol/atol 2e-2); bitwise equal to a second run")
+    # 8d's attention (``encdec_flash_shapes``): phi3-vision's causal
+    # prefill and decode at head dim 96, whisper's unmasked encoder and
+    # cross-attention (the decode's cross keys read in place from the
+    # cache)
+    ed_cases = encdec_flash_shapes()
+    for tag, (cfg, Bc, T, S, causal) in ed_cases.items():
+        q, k, v = flash_case(T, S, seed=T + S, Bc=Bc, C=S, **dims(cfg))
+        got = flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        again = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+        e = float((got.float() - want.float()).abs().max())
+        err["flash_attention"] = max(err["flash_attention"], e)
+        log(f"[lm] flash_attention {tag} q {list(q.shape)} k/v "
+            f"{list(k.shape)} {'causal' if causal else 'unmasked'}: max abs "
+            f"err {e!r} (rtol/atol 2e-2); bitwise equal to a second run")
 
     def norm_check(arch, cfg, phase, n):
         sdt = getattr(torch, cfg.param_dtype)
@@ -4114,7 +4205,7 @@ def phase_lm_kernels(torch, sup, dev):
     for arch, cfg in archs:
         for phase, n in (("prefill", B * P), ("decode", B)):
             norm_check(arch, cfg, phase, n)
-    for arch, rb, rp in RECURRENT_SERVE:
+    for arch, rb, rp in RECURRENT_SERVE + ENCDEC_SERVE:
         for phase, n in (("prefill", rb * rp), ("decode", rb)):
             norm_check(arch, configs.get_config(arch), phase, n)
 
@@ -4159,6 +4250,28 @@ def phase_lm_kernels(torch, sup, dev):
 
     k5["window_shapes"] = {f"recurrentgemma_2b {tag}": window_timed(tag)
                            for tag in win_cases}
+
+    def encdec_timed(tag):
+        cfg, Bc, T, S, causal = ed_cases[tag]
+        q, k, v = flash_case(T, S, seed=1, Bc=Bc, C=S, **dims(cfg))
+        H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        nbytes, flops = flash_cost(Bc, H, KV, T, S, D, causal=causal)
+        b, by = bound_ms(nbytes, flops, PEAK_BF16_S)
+        full = causal and T == S        # else every key is seen
+        return dict(
+            shape=f"q [{Bc},{H},{T},{D}] k/v [{Bc},{KV},{S},{D}] bf16, "
+                  f"{'causal' if causal else 'unmasked'}",
+            ms=graph_ms(torch, lambda: flash_attention(q, k, v,
+                                                       causal=causal),
+                        reps=20, rounds=3),
+            plain_ms=graph_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, causal=causal), reps=5, rounds=3),
+            bound_ms=b, bound_by=by,
+            library_ms=graph_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=full, enable_gqa=True), reps=20,
+                rounds=3))
+
+    k5["encdec_shapes"] = {tag: encdec_timed(tag) for tag in ed_cases}
     k5["arch_shapes"] = {}
     for arch, cfg in archs[1:]:
         row = flash_timed(cfg, *cases["prefill"], reps=20, rounds=3)
@@ -4203,34 +4316,50 @@ def phase_lm_kernels(torch, sup, dev):
     return out
 
 
-ATTN_KINDS = ("attn", "moe", "local")
+ATTN_KINDS = ("attn", "moe", "local", "enc", "dec")
 
 
 def norms_per_layer(cfg, kind="attn"):
-    """K6 launches a block of ``kind`` makes in a forward: ln1, and ln2
-    but in an ``"ssm"`` block (which has no MLP), where the norm is
-    RMSNorm (a layernorm is plain torch, and so is mamba2's gated norm),
-    and q_norm and k_norm with the qk-norm in an attention block."""
-    return ((1 + (kind != "ssm")) * (cfg.norm == "rmsnorm")
+    """K6 launches a block of ``kind`` makes in a forward: ln1, ln2 but
+    in an ``"ssm"`` block (which has no MLP) and lnx in a ``"dec"`` block,
+    where the norm is RMSNorm (a layernorm is plain torch, and so is
+    mamba2's gated norm), and q_norm and k_norm with the qk-norm in a
+    self-attention (the cross-attention has none)."""
+    return ((1 + (kind != "ssm") + (kind == "dec")) * (cfg.norm == "rmsnorm")
             + 2 * bool(cfg.qk_norm) * (kind in ATTN_KINDS))
 
 
 def layer_launches(cfg):
-    """(K5, K6) launches of one forward through the blocks: K5 once per
-    attention block (``"attn"``, ``"moe"``, ``"local"``), K6
-    ``norms_per_layer`` times per block; the final norm not counted."""
+    """(K5, K6) launches of one forward through the decoder's blocks: K5
+    once per self-attention (``ATTN_KINDS``) and once more per
+    cross-attention (``"dec"``), K6 ``norms_per_layer`` times per block;
+    the final norm not counted."""
     G = cfg.pattern_groups
-    return (G * sum(k in ATTN_KINDS for k in cfg.pattern),
+    return (G * sum((k in ATTN_KINDS) + (k == "dec") for k in cfg.pattern),
             G * sum(norms_per_layer(cfg, k) for k in cfg.pattern))
 
 
+def encoder_launches(cfg):
+    """(K5, K6 in the blocks, K6 of its ``ln_f``) of one pass of an
+    encoder-decoder's encoder, which runs once a prefill (or a training
+    microbatch), not once a decode step: ``enc_layers`` ``"enc"`` blocks;
+    (0, 0, 0) for a decoder-only model."""
+    if not cfg.enc_layers:
+        return 0, 0, 0
+    return (cfg.enc_layers, cfg.enc_layers * norms_per_layer(cfg, "enc"),
+            int(cfg.norm == "rmsnorm"))
+
+
 def serve_expected_launches(cfg, forwards):
-    """Per forward: K5 once per attention layer, K6 ``norms_per_layer``
-    times per layer plus the final norm where it is RMSNorm; no other
+    """Per forward: K5 once per attention (self and cross), K6
+    ``norms_per_layer`` times per layer plus the final norm where it is
+    RMSNorm; once a run, the encoder's (``encoder_launches``); no other
     kernel."""
     attn, norms = layer_launches(cfg)
-    return {"flash_attention": attn * forwards,
-            "rmsnorm": (norms + (cfg.norm == "rmsnorm")) * forwards}
+    ea, en, ef = encoder_launches(cfg)
+    return {"flash_attention": attn * forwards + ea,
+            "rmsnorm": (norms + (cfg.norm == "rmsnorm")) * forwards + en
+            + ef}
 
 
 def phase_serve(torch, kernels, sup, dev, profile=False):
@@ -4291,15 +4420,65 @@ def phase_serve_recurrent(torch, kernels, sup, dev, smi, profile=False):
     return out
 
 
+# 8d: the encoder-decoder and vision-language architectures at full width,
+# all their layers, (arch, batch, prompt): whisper-large-v3's 256 decoder
+# tokens over the 1 500 frames of its encoder; phi3-vision's 1 024, the
+# first 576 of them image positions
+ENCDEC_SERVE = (("whisper_large_v3", 4, 256), ("phi3_vision_4_2b", 4, 1024))
+ENCDEC_SERVE_STEPS = 16
+
+
+def frontend_extras(torch, dev, cfg, batch, seed):
+    """The frontend stubs' embeddings an encoder-decoder or a
+    vision-language model takes (``enc_feats`` [batch, enc_seq, d],
+    ``img_embeds`` [batch, num_image_tokens, d]), float32 drawn on the
+    card from ``seed``."""
+    out = {}
+    if cfg.enc_layers:
+        out["enc_feats"], = card_normal(
+            torch, dev, seed, (batch, cfg.enc_seq, cfg.d_model))
+    if cfg.num_image_tokens:
+        out["img_embeds"], = card_normal(
+            torch, dev, seed + 1, (batch, cfg.num_image_tokens,
+                                   cfg.d_model))
+    return out
+
+
+def phase_serve_encdec(torch, kernels, sup, dev, smi, profile=False):
+    """8d: ``decode_loop`` for each of ``ENCDEC_SERVE`` at full width with
+    its frontend's embeddings (see the module docstring), each model
+    freed before the next loads; with ``profile``, each run a second time
+    under ``torch.profiler``. Returns {arch: (launches, summary)}."""
+    from repro_torch import configs
+    out = {}
+    for arch, batch, prompt in ENCDEC_SERVE:
+        cfg = configs.get_config(arch)
+        launches, summ = serve_model(
+            torch, kernels, sup, dev, cfg, "serve 8d", profile,
+            steps=ENCDEC_SERVE_STEPS, batch=batch, prompt_len=prompt,
+            cache_len=prompt + ENCDEC_SERVE_STEPS,
+            extras=frontend_extras(torch, dev, cfg, batch, 2))
+        summ.update(layers=cfg.num_layers, of_layers=cfg.num_layers,
+                    enc_layers=cfg.enc_layers)
+        log(f"[serve 8d] {cfg.name}: all {cfg.num_layers} layers"
+            f"{f' and {cfg.enc_layers} encoder layers' if cfg.enc_layers else ''}"
+            f", head dim {cfg.head_dim}; {smi}")
+        out[arch] = (launches, summ)
+    return out
+
+
 def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
-                steps=None, batch=None, prompt_len=None, cache_len=None):
+                steps=None, batch=None, prompt_len=None, cache_len=None,
+                extras=None):
     """One model at ``cfg`` through ``decode_loop``: random params drawn
     on the card, ``batch`` prompts of ``prompt_len`` tokens (the serve
     run's by default), ``steps`` greedy tokens (its ``SERVE_STEPS`` by
-    default) over a cache of ``cache_len`` (its ``SERVE_CACHE``), launches
-    zeroed before and read after and held to ``serve_expected_launches``,
-    every logit finite, every token below the true vocabulary; the memory
-    freed before and after. Returns (launches, summary)."""
+    default) over a cache of ``cache_len`` (its ``SERVE_CACHE``), the
+    prefill's other inputs ``extras`` ({name: tensor on the card}) where
+    given, launches zeroed before and read after and held to
+    ``serve_expected_launches``, every logit finite, every token below the
+    true vocabulary; the memory freed before and after. Returns
+    (launches, summary)."""
     from repro_torch import models, serve
     free_memory(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -4320,7 +4499,8 @@ def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
     log(f"[{tag}] {cfg.name}: {models.num_params(specs)} params "
         f"({models.num_bytes(specs) / 1e9:.2f} GB {cfg.param_dtype}) drawn "
         f"on the card in {init_s:.2f} s; prompts {list(prompt.shape)}, "
-        f"{steps} greedy tokens, cache {cache_len}")
+        f"{steps} greedy tokens, cache {cache_len}"
+        + "".join(f"; {k} {list(v.shape)}" for k, v in (extras or {}).items()))
 
     stamps, finite = [], []
 
@@ -4335,7 +4515,8 @@ def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         toks = serve.decode_loop(params, cfg, prompt, steps,
-                                 cache_len=cache_len, on_logits=on_logits)
+                                 cache_len=cache_len, extras=extras,
+                                 on_logits=on_logits)
         torch.cuda.synchronize()
         return toks
 
@@ -4398,7 +4579,7 @@ def serve_model(torch, kernels, sup, dev, cfg, tag, profile=False,
         for e in sorted(avgs, key=_self_device_us, reverse=True)[:10]:
             log(f"[profile] {who}   {_self_device_us(e) / 1e3:9.3f} ms  "
                 f"{e.count:6d} calls  {e.key[:90]}")
-    del params, prompt, toks
+    del params, prompt, toks, extras
     free_memory(torch)
     return launches, summ
 
@@ -4425,8 +4606,17 @@ TRAIN_ARCH_LAYERS, TRAIN_ARCH_STEPS = 2, 3
 # whole on sequences of 1 024, four SSD chunks with the chunk recurrence
 # between them
 RECURRENT_TRAIN = (("recurrentgemma_2b", 13, 8, 4096),
-                   ("mamba2_130m", 24, 8, 1024))
+                   ("mamba2_130m", 6, 8, 1024))
 RECURRENT_TRAIN_STEPS = 3
+# 9f: the encoder-decoder and vision-language architectures at full
+# width, (arch, decoder layers, batch, seq): whisper-large-v3 whole (32
+# encoder and 32 decoder layers) on 448 decoder tokens over its 1 500
+# frames; phi3-vision cut to 8 of 32 layers on 1 024 tokens, the first
+# 576 image positions, so that K5's backward runs at head dim 96 on the
+# model's own shape
+ENCDEC_TRAIN = (("whisper_large_v3", 32, 8, 448),
+                ("phi3_vision_4_2b", 8, 8, 1024))
+ENCDEC_TRAIN_STEPS = 3
 # 9a holds K5 bwd and K6 bwd at the training shapes of these
 # architectures (``train_kernel_shapes``): 9b's and 9d's, and
 # stablelm-3b's head dim 80, which trains on the CPU only
@@ -4437,14 +4627,16 @@ FLASH_BWD_EDGE = ((1, 4, 2, 128, 128, 64, False),
                   (2, 4, 2, 32, 32, 16, True))
 
 
-def flash_bwd_cost(B, H, KV, T, S, D, itemsize=2, window=0):
-    """K5's backward, causal with the queries at the last T of S: q, o, do
-    and k, v read once, dq, dk, dv written once, the float32 LSE read;
-    10·D flops (five products, each a multiply and an add) per visible
-    query-key pair (``visible_pairs``, inside the window where there is
-    one): S and dP recomputed, dV, dK and dQ."""
+def flash_bwd_cost(B, H, KV, T, S, D, itemsize=2, window=0, causal=True):
+    """K5's backward, causal with the queries at the last T of S, or
+    unmasked: q, o, do and k, v read once, dq, dk, dv written once, the
+    float32 LSE read; 10·D flops (five products, each a multiply and an
+    add) per visible query-key pair (``visible_pairs``, inside the window
+    where there is one, all T·S unmasked): S and dP recomputed, dV, dK
+    and dQ."""
     return ((4 * B * H * T * D + 4 * B * KV * S * D) * itemsize
-            + 4 * B * H * T), 10 * B * H * D * visible_pairs(T, S, window)
+            + 4 * B * H * T), \
+        10 * B * H * D * visible_pairs(T, S, window, causal)
 
 
 def rmsnorm_bwd_cost(N, D, itemsize=2):
@@ -4461,11 +4653,13 @@ def train_expected_launches(cfg, tcfg):
     k_norm with the qk-norm), twice under remat "full" (the forward and
     its recompute in the backward), and each of their backward kernels
     once; ``ln_f``, outside the groups, K6 and its backward once where it
-    is RMSNorm."""
+    is RMSNorm; an encoder's blocks and ``ln_f`` likewise, once a
+    microbatch (``encoder_launches``)."""
     k = max(tcfg.microbatch, 1)
     fwd = {"none": 1, "full": 2}[tcfg.remat]
     attn, n = layer_launches(cfg)
-    f = int(cfg.norm == "rmsnorm")
+    ea, en, ef = encoder_launches(cfg)
+    attn, n, f = attn + ea, n + en, int(cfg.norm == "rmsnorm") + ef
     return {"flash_attention": fwd * attn * k,
             "flash_attention_bwd": attn * k,
             "rmsnorm": (fwd * n + f) * k, "rmsnorm_bwd": (n + f) * k}
@@ -4494,6 +4688,29 @@ def train_kernel_shapes(arch, cfg):
             norm_rows(cfg, B * TRAIN_SEQ))
 
 
+def encdec_bwd_shapes():
+    """{name: (B, H, KV, T, S, D, causal, bf16)}: K5 bwd's shapes in a
+    microbatch of 9f (``ENCDEC_TRAIN`` under ``train_preset``): an
+    encoder's self-attention over its frames and its decoder's
+    cross-attention over them (unmasked); a decoder-only model's causal
+    self-attention."""
+    from repro_torch import configs
+    from repro_torch.launch import train_preset
+    out = {}
+    for arch, _, batch, seq in ENCDEC_TRAIN:
+        cfg = configs.get_config(arch)
+        B = batch // max(train_preset(arch).microbatch, 1)
+        H, KV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        bf16 = cfg.compute_dtype == "bfloat16"
+        if cfg.enc_layers:
+            F = cfg.enc_seq
+            out[f"{arch} encoder"] = (B, H, KV, F, F, D, False, bf16)
+            out[f"{arch} cross"] = (B, H, KV, seq, F, D, False, bf16)
+        else:
+            out[arch] = (B, H, KV, seq, seq, D, True, bf16)
+    return out
+
+
 def phase_train_kernels(torch, sup, dev):
     """9a: K5's and K6's backward kernels against their plain versions at
     the training shapes of ``BWD_ARCHS`` and at ``FLASH_BWD_EDGE``, and
@@ -4510,34 +4727,42 @@ def phase_train_kernels(torch, sup, dev):
     rel = dict(err)
     archs = arch_cfgs(BWD_ARCHS)
     shapes = {arch: train_kernel_shapes(arch, cfg) for arch, cfg in archs}
+    # (B, H, KV, T, S, D, causal, bf16) by name: the architectures'
+    # (causal), the edges, 9f's (``encdec_bwd_shapes``) and head dim 96's
+    # edges (``sup.FLASH_BWD_D96_SHAPES``)
+    bwd = {a: sh[0][:6] + (True,) + sh[0][6:] for a, sh in shapes.items()}
+    bwd.update(encdec_bwd_shapes())
+    edges = ([c[:6] + (True,) + c[6:] for c in FLASH_BWD_EDGE]
+             + list(sup.FLASH_BWD_D96_SHAPES))
     flash = {}
-    for what, (B, H, KV, T, S, D, bf16) in (
-            [(a, sh[0]) for a, sh in shapes.items()]
-            + [("edge", c) for c in FLASH_BWD_EDGE]):
+    for what, (B, H, KV, T, S, D, causal, bf16) in (
+            list(bwd.items()) + [("edge", c) for c in edges]):
         dt = torch.bfloat16 if bf16 else torch.float32
         q, k, v, do = (a.to(dt) for a in card_normal(
-            torch, dev, T + D, (B, H, T, D), (B, KV, S, D), (B, KV, S, D),
-            (B, H, T, D)))
-        o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
-        got = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-        again = flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+            torch, dev, T + S + D, (B, H, T, D), (B, KV, S, D),
+            (B, KV, S, D), (B, H, T, D)))
+        o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal)
         torch.cuda.synchronize()
         bar = sup.BWD_BAR_BF16 if bf16 else sup.BWD_BAR_F32
+        mask = "causal" if causal else "unmasked"
         for name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
             r = sup.rel_err(g, w)
             if not r <= bar:
                 raise AssertionError(f"flash_attention_bwd {what} {name} "
-                                     f"{list(q.shape)}: {r} of the largest "
-                                     f"gradient (bar {bar})")
+                                     f"{list(q.shape)} {mask}: {r} of the "
+                                     f"largest gradient (bar {bar})")
             torch.testing.assert_close(a, g, rtol=0, atol=0)
             e = float((g.float() - w.float()).abs().max())
             err["flash_attention_bwd"] = max(err["flash_attention_bwd"], e)
             rel["flash_attention_bwd"] = max(rel["flash_attention_bwd"], r)
             log(f"[train] flash_attention_bwd {what} {name} q "
-                f"{list(q.shape)} k/v {list(k.shape)} {dt}: max abs err "
-                f"{e!r}, {r!r} of the largest gradient (bar {bar}); bitwise "
-                f"equal to a second launch")
+                f"{list(q.shape)} k/v {list(k.shape)} {dt} {mask}: max abs "
+                f"err {e!r}, {r!r} of the largest gradient (bar {bar}); "
+                f"bitwise equal to a second launch")
         if what != "edge":                      # timed below
             flash[what] = (q, k, v, o, lse, do)
     # with a window: 9e's recurrentgemma-2b (``window_bwd_shape``) and the
@@ -4630,21 +4855,22 @@ def phase_train_kernels(torch, sup, dev):
                    if e.device_type == torch.autograd.DeviceType.CUDA
                    ) / reps / 1e3
 
-    def flash_timed(arch):
-        B, H, KV, T, S, D, _ = shapes[arch][0]
-        args = flash[arch]
-        nbytes, flops = flash_bwd_cost(B, H, KV, T, S, D)
+    def flash_timed(what):
+        B, H, KV, T, S, D, causal, _ = bwd[what]
+        args = flash[what]
+        nbytes, flops = flash_bwd_cost(B, H, KV, T, S, D, causal=causal)
         b, by = bound_ms(nbytes, flops, PEAK_BF16_S)
         return dict(
-            shape=f"q [{B},{H},{T},{D}] k/v [{B},{KV},{S},{D}] bf16, causal",
-            ms=graph_ms(torch, lambda: flash_attention_bwd(*args)),
-            plain_ms=graph_ms(torch,
-                              lambda: ref.flash_attention_bwd_ref(*args),
-                              reps=10, rounds=3),
+            shape=f"q [{B},{H},{T},{D}] k/v [{B},{KV},{S},{D}] bf16, "
+                  f"{'causal' if causal else 'unmasked'}",
+            ms=graph_ms(torch, lambda: flash_attention_bwd(
+                *args, causal=causal)),
+            plain_ms=graph_ms(torch, lambda: ref.flash_attention_bwd_ref(
+                *args, causal=causal), reps=10, rounds=3),
             bound_ms=b, bound_by=by,
             library_ms=autograd_ms(
                 lambda q, k, v: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True),
+                    q, k, v, is_causal=causal and T == S, enable_gqa=True),
                 args[:3], args[5]))
 
     def backward_ms(fn, ins, grads):
@@ -4682,7 +4908,8 @@ def phase_train_kernels(torch, sup, dev):
     k5 = dict(flash_timed("qwen3_14b"),
               max_abs_err=err["flash_attention_bwd"],
               max_rel_err=rel["flash_attention_bwd"],
-              arch_shapes={a: flash_timed(a) for a in BWD_ARCHS[1:]})
+              arch_shapes={a: flash_timed(a) for a in BWD_ARCHS[1:]},
+              encdec_shapes={w: flash_timed(w) for w in encdec_bwd_shapes()})
     k5.update(window_timed())
     rows = {}
     for tag, key in (("", "ln"), ("qk_", "q")):
@@ -4751,6 +4978,20 @@ def phase_train_recurrent(torch, kernels, dev, smi, profile=False):
     return out
 
 
+def phase_train_encdec(torch, kernels, dev, smi, profile=False):
+    """9f: ``ENCDEC_TRAIN`` through ``train_driver`` (see the module
+    docstring); with ``profile``, one more step of each under
+    ``torch.profiler``. Returns {arch: (launches of one step,
+    summary)}."""
+    out = {}
+    for arch, layers, batch, seq in ENCDEC_TRAIN:
+        out[arch] = train_model(torch, kernels, dev, arch, layers,
+                                ENCDEC_TRAIN_STEPS, "9f", profile,
+                                batch=batch, seq=seq)
+        log(f"[train] (9f) {arch}: {smi}")
+    return out
+
+
 def phase_train_archs(torch, kernels, dev, smi):
     """9d: ``TRAIN_ARCHS`` through ``train_driver`` (see the module
     docstring). Returns {arch: (launches of one step, summary)}."""
@@ -4762,11 +5003,25 @@ def phase_train_archs(torch, kernels, dev, smi):
     return out
 
 
+def encoder_params(specs):
+    """Parameters an encoder frame runs through: the encoder's, but its
+    position table (a lookup)."""
+    from repro_torch import models
+    enc = specs.get("encoder")
+    return models.num_params(enc) - models.num_params(enc["pos"]) if enc \
+        else 0
+
+
 def active_params(cfg, specs):
-    """Parameters a token runs through: all of them, but only k of E
+    """Parameters a decoder token runs through: all of them but the
+    encoder's and the learned position table (a lookup), and only k of E
     experts in a MoE block."""
     from repro_torch import models
     n = models.num_params(specs)
+    if "encoder" in specs:
+        n -= models.num_params(specs["encoder"])
+    if "pos" in specs["embed"]:
+        n -= models.num_params(specs["embed"]["pos"])
     if cfg.num_experts:
         experts = sum(models.num_params(v) for blk in specs["blocks"].values()
                       for k, v in blk["mlp"].items() if k != "router")
@@ -4778,6 +5033,7 @@ def active_params(cfg, specs):
 # the MLP's, ``probed_leaves``)
 PROBE_LEAVES = {"attn": (("attn", "wq"),), "moe": (("attn", "wq"),),
                 "local": (("attn", "wq"),),
+                "dec": (("attn", "wq"), ("xattn", "wq"), ("lnx", "scale")),
                 "rec": (("rec", "w_a"), ("rec", "lam"), ("rec", "conv_w")),
                 "ssm": (("ssm", "in_proj"), ("ssm", "a_log"),
                         ("ssm", "dt_bias"), ("ssm", "conv_w"))}
@@ -4785,12 +5041,19 @@ PROBE_LEAVES = {"attn": (("attn", "wq"),), "moe": (("attn", "wq"),),
 
 def probed_leaves(cfg):
     """[(name, path)] of the leaves a train run probes: ``ln_f``'s scale,
-    the embedding, and in the first block of each kind its
+    the embedding (and its learned positions), an encoder's positions and
+    its first block's ``wq``, and in the first block of each kind its
     ``PROBE_LEAVES`` and its MLP's (the router and the experts' ``wg``,
     ``wu``, ``wd`` for a MoE, ``wu`` otherwise; an ``"ssm"`` block has
     none)."""
     out = [("ln_f.scale", ("ln_f", "scale")),
            ("embed.embedding", ("embed", "embedding"))]
+    if cfg.learned_pos:
+        out.append(("embed.pos", ("embed", "pos")))
+    if cfg.enc_layers:
+        out += [("encoder.pos", ("encoder", "pos")),
+                ("encoder.b0_enc.attn.wq",
+                 ("encoder", "blocks", "b0_enc", "attn", "wq"))]
     seen = set()
     for j, kind in enumerate(cfg.pattern):
         if kind in seen:
@@ -4897,16 +5160,22 @@ def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
                              f"{TRAIN_PEAK_GB}")
     steps = np.diff(stamps)
     tokens = batch * seq
-    attn = 0
+    frames = cfg.enc_seq if cfg.enc_layers else 0
+    pairs = cfg.enc_layers * frames * frames    # the encoder's, unmasked
     for kind in cfg.pattern:            # each attention layer's pairs
         if kind in ATTN_KINDS:
-            pairs = visible_pairs(seq, seq, cfg.window * (kind == "local"))
-            attn += (12 * cfg.head_dim * cfg.num_heads * pairs * batch
-                     * cfg.pattern_groups)
-    flops = 6 * n_active * tokens + attn
+            pairs += cfg.pattern_groups * visible_pairs(
+                seq, seq, cfg.window * (kind == "local"))
+        if kind == "dec":               # the cross-attention's, unmasked
+            pairs += cfg.pattern_groups * seq * frames
+    n_enc = encoder_params(specs)
+    flops = (6 * n_active * tokens + 6 * n_enc * batch * frames
+             + 12 * cfg.head_dim * cfg.num_heads * pairs * batch)
     steady = float(np.median(steps[1:]))
     summ = dict(layers=cfg.num_layers, of_layers=full.num_layers,
                 params=n_params, active_params=n_active,
+                encoder_params=n_enc, enc_layers=cfg.enc_layers,
+                frames=frames,
                 init_s=init_s, microbatch=tcfg.microbatch, remat=tcfg.remat,
                 batch=batch, seq=seq, losses=losses,
                 step_s=[float(x) for x in steps], steady_step_s=steady,
@@ -4917,7 +5186,9 @@ def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
     log(f"[train] ({tag}) {cfg.name} at full width, {cfg.num_layers} of "
         f"{full.num_layers} layers ({n_params} params, {n_active!r} active a "
         f"token, drawn in {init_s:.2f} s), "
-        f"train_preset (microbatch {tcfg.microbatch}, remat {tcfg.remat}), "
+        + (f"{cfg.enc_layers} encoder layers ({n_enc} params a frame) over "
+           f"{frames} frames, " if cfg.enc_layers else "")
+        + f"train_preset (microbatch {tcfg.microbatch}, remat {tcfg.remat}), "
         f"batch {batch} x {seq}: losses {losses}; wall per step "
         f"{summ['step_s']} s (steady {steady!r} s: "
         f"{summ['tokens_per_s']!r} tokens/s, {summ['model_tflops']!r} "
@@ -4951,10 +5222,14 @@ def train_model(torch, kernels, dev, arch, layers, run_steps, tag,
     return per_step[0], summ
 
 
+# 9c's crash/resume: (steps, checkpoint every, crash after step)
+RESUME_STEPS, RESUME_EVERY, RESUME_CRASH = 6, 2, 3
+
+
 def phase_train_reduced(torch, sup, dev):
-    """9c: the REDUCED qwen3-14b, qwen3-moe and recurrentgemma on the
-    card: crash and resume bit for bit under deterministic algorithms;
-    and qwen3-14b's golden losses."""
+    """9c: the REDUCED qwen3-14b, qwen3-moe, recurrentgemma and whisper on
+    the card: crash and resume bit for bit under deterministic
+    algorithms; and qwen3-14b's golden losses."""
     import dataclasses
     import tempfile
     from repro_torch import configs, models
@@ -4966,11 +5241,14 @@ def phase_train_reduced(torch, sup, dev):
     dcfg = DataConfig(**sup.TRAIN_DCFG)
     torch.use_deterministic_algorithms(True)
     try:
-        for arch in ("qwen3-14b", "qwen3_moe_30b_a3b", "recurrentgemma_2b"):
+        for arch in ("qwen3-14b", "qwen3_moe_30b_a3b", "recurrentgemma_2b",
+                     "whisper_large_v3"):
             cfg = configs.reduced_config(arch)
             with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as d:
-                ref, res = sup.crash_restart(train_driver, CrashInjected,
-                                             cfg, tcfg, dcfg, d, dev)
+                ref, res = sup.crash_restart(
+                    train_driver, CrashInjected, cfg, tcfg, dcfg, d, dev,
+                    steps=RESUME_STEPS, every=RESUME_EVERY,
+                    crash_at=RESUME_CRASH)
             start = res["start_step"]
             if ref["losses"][start:] != res["losses"]:
                 raise AssertionError(f"9c {cfg.name}: resumed losses "
@@ -4982,7 +5260,9 @@ def phase_train_reduced(torch, sup, dev):
                             + _leaves(res["opt"].nu)):
                 torch.testing.assert_close(b, a, rtol=0, atol=0)
             log(f"[train] (9c) {cfg.name} ({cfg.compute_dtype} compute) "
-                f"crash after step 5, resumed from step {start}: losses "
+                f"{RESUME_STEPS} steps, checkpoints every {RESUME_EVERY}, "
+                f"crash after step {RESUME_CRASH}, resumed from step "
+                f"{start}: losses "
                 f"{res['losses']}, every parameter and moment bitwise the "
                 f"uninterrupted run's, under "
                 f"torch.use_deterministic_algorithms(True)")
@@ -5095,14 +5375,14 @@ def main():
         launches[k] += n
     rows["fused_tick_block"]["chunk"] = fault_rows
     mark(f"[time] + fault: {time.perf_counter() - t0:.1f} s")
-    shard_launches, shard_rows = phase_shard(torch, tc, kernels, sup, dev,
-                                             smi, paper_fct, sweep_fct)
+    shard_launches, shard_rows, outer_two = phase_shard(
+        torch, tc, kernels, sup, dev, smi, paper_fct, sweep_fct)
     for k, n in shard_launches.items():
         launches[k] += n
     rows["fused_tick_block"]["shard"] = shard_rows
     mark(f"[time] + shard: {time.perf_counter() - t0:.1f} s")
     incast_launches, incast_rows = phase_incast(torch, tc, kernels, sup, dev,
-                                                smi)
+                                                smi, outer_two)
     for k, n in incast_launches.items():
         launches[k] += n
     # K4's runs (HOMA and the outer sync run no kernel: their rows are in
@@ -5140,6 +5420,14 @@ def main():
                                          for a, (n, _) in recurrent.items()}
     mark(f"[time] 8c recurrent architectures' serve: "
          f"{time.perf_counter() - t8c:.1f} s")
+    t8d = time.perf_counter()
+    encdec = phase_serve_encdec(torch, kernels, sup, dev, smi, profile)
+    log("[serve 8d] " + json.dumps({"serve_encdec": {
+        a: summ for a, (_, summ) in encdec.items()}}))
+    for k in LM_KERNELS:
+        rows[k]["encdec_launches"] = {a: n[k] for a, (n, _) in encdec.items()}
+    mark(f"[time] 8d encoder-decoder and vision-language serve: "
+         f"{time.perf_counter() - t8d:.1f} s")
     t9 = time.perf_counter()
     rows.update(phase_train_kernels(torch, sup, dev))
     mark(f"[time] 9a backward kernels: {time.perf_counter() - t9:.1f} s")
@@ -5159,6 +5447,12 @@ def main():
         a: summ for a, (_, summ) in train_rec.items()}}))
     mark(f"[time] 9e recurrent architectures' train: "
          f"{time.perf_counter() - t9e:.1f} s")
+    t9f = time.perf_counter()
+    train_ed = phase_train_encdec(torch, kernels, dev, smi, profile)
+    log("[train] " + json.dumps({"train_encdec": {
+        a: summ for a, (_, summ) in train_ed.items()}}))
+    mark(f"[time] 9f encoder-decoder and vision-language train: "
+         f"{time.perf_counter() - t9f:.1f} s")
     t9c = time.perf_counter()
     reduced = phase_train_reduced(torch, sup, dev)
     log("[train] " + json.dumps({"train_reduced": reduced}))
@@ -5174,6 +5468,8 @@ def main():
             a: n[k] for a, (n, _) in train_archs.items()}
         rows[k]["recurrent_train_launches_per_step"] = {
             a: n.get(k, 0) for a, (n, _) in train_rec.items()}
+        rows[k]["encdec_train_launches_per_step"] = {
+            a: n.get(k, 0) for a, (n, _) in train_ed.items()}
     rows["flash_attention_bwd"]["window_launches_per_step"] = \
         train_rec["recurrentgemma_2b"][0]["flash_attention_bwd"]
 

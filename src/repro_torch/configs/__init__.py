@@ -1,6 +1,6 @@
 """Model, shape, mesh and training configuration (twin of
-``repro.configs``; the registry's architectures but the
-encoder-decoder and the VLM)."""
+``repro.configs``; all ten of the registry's architectures). The cells'
+input declarations are in ``configs.inputs``, as in ``repro``."""
 from .base import MeshConfig, ModelConfig, SHAPES, ShapeConfig, TrainConfig
 from .registry import PORTED, canon, get_config, padded_vocab, reduced_config
 

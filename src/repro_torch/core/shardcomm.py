@@ -43,6 +43,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .types import resolve_device
+
 _TIMEOUT = datetime.timedelta(seconds=600)
 
 
@@ -210,12 +212,14 @@ def _rank_main(rank, world, backend, device, store_path, result_path, fn,
 
 
 def spawn(fn, world: int, args: tuple = (), backend: Optional[str] = None,
-          device="cpu"):
+          device="cuda"):
     """Run ``fn(group, *args)`` on ``world`` ranks spawned on this host (all
-    on ``device``; the backend defaults to gloo on the CPU and NCCL on
-    CUDA) and return rank 0's result. ``fn`` must be importable by name
-    (a module-level function); the ranks start from a fresh interpreter
-    and import only what ``fn``'s module imports."""
+    on ``device``, the card unless the CPU is asked for; the backend
+    defaults to gloo on the CPU and NCCL on CUDA) and return rank 0's
+    result. ``fn`` must be importable by name (a module-level function);
+    the ranks start from a fresh interpreter and import only what
+    ``fn``'s module imports."""
+    device = resolve_device(device)
     backend = backend or _backend_for(device)
     with tempfile.TemporaryDirectory(prefix="repro_torch_shard_") as tmp:
         store_path = os.path.join(tmp, "store")

@@ -140,12 +140,16 @@ struct FlashArgs {
 // Both skip a warp's share of a tile none of its rows (keys) sees, and
 // mask element by element only a tile that straddles an edge of a row's
 // (key's) visible range.
-// Head dims 16, 32, 64, 80, 128 and 256 are built. At D = 256 a dk/dv
+// Head dims 16, 32, 64, 80, 96, 128 and 256 are built. At D = 256 a dk/dv
 // block would hold two 16 x 256 float32 accumulators a warp, 256 floats
 // a thread, over the 255-register limit: there each (b, kv head, key
 // tile) takes two blocks, one a half of dk's and dv's columns
 // (BwdMma::DS), each recomputing S^T and dP^T over all 256; the sums of
 // each column run in the same order either way.
+// At D = 96 a thread holds 2 x 12 x 4 = 96 dk/dv accumulators, between
+// D = 80's 80 and D = 128's 128: one block a key tile, as at both; its
+// shared rows are 104 elements (13 16-byte units, odd, so ldmatrix stays
+// free of bank conflicts), 53 248 bytes for dq and 53 760 for dk/dv.
 // Bound at the training shape (T = S = 1 024, D = 128, causal): about
 // 10 D flops per visible pair (five products) over the bytes of q, k, v,
 // o, do and the three gradients, ~1 300 flops a byte: the tensor cores.
@@ -1658,6 +1662,7 @@ int launch_bwd(const BArgs* a, void* stream, bool bf) {
     case 32: return launch_bwd_d<32>(*a, s, bf);
     case 64: return launch_bwd_d<64>(*a, s, bf);
     case 80: return launch_bwd_d<80>(*a, s, bf);
+    case 96: return launch_bwd_d<96>(*a, s, bf);
     case 128: return launch_bwd_d<128>(*a, s, bf);
     case 256: return launch_bwd_d<256>(*a, s, bf);
     default: return static_cast<int>(cudaErrorInvalidValue);

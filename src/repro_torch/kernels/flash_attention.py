@@ -34,7 +34,7 @@ into bf16 halves, in float32 scalar; no float atomics, so the gradients
 are the same bits run to run. The forward's masks (causal, with or
 without a sliding window, or none): with a window, the dq kernel walks
 only the key tiles its rows see and the dk/dv kernel only the query
-tiles that see its keys; head dims 16, 32, 64, 80, 128 and 256 (at 256
+tiles that see its keys; head dims 16, 32, 64, 80, 96, 128 and 256 (at 256
 each key tile's dk and dv are split by columns over two blocks, which
 keeps a thread's accumulators in registers).
 
@@ -91,7 +91,7 @@ _ENTRY = {torch.float32: "flash_attention_f32",
 _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
 HEAD_DIMS = tuple(sorted((16, 80) + tuple(range(32, 257, 32))))  # the .cu's
-BWD_HEAD_DIMS = (16, 32, 64, 80, 128, 256)      # the backward's
+BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)  # the backward's
 
 
 def _check(what, q, others, kv_shape):

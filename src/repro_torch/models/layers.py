@@ -1,6 +1,6 @@
-"""Transformer building blocks (twin of ``repro.models.layers``: the
-causal ``"attn"`` and ``"moe"`` blocks and the sliding-window
-``"local"`` attention).
+"""Transformer building blocks (twin of ``repro.models.layers``: causal,
+sliding-window, bidirectional and cross attention, the gated and plain
+MLPs, the mixture of experts, token and learned-position embeddings).
 
 Everything is a (specs, apply) pair over plain dicts of tensors. Numerics
 follow ``repro``: params in ``cfg.param_dtype``, each weight cast to
@@ -9,22 +9,18 @@ never kept), softmax and norms in float32.
 
 The two LM kernels sit where ``repro.kernels.ops`` says model code should
 call them: ``norm_apply`` and the qk-norm ``_rms`` go through
-``kernels.ops.rmsnorm`` (K6), and causal and sliding-window
-self-attention, in prefill and decode (the full cache and the local
-ring), through ``kernels.ops.flash_attention`` (K5). K5 keeps the scores
-and the softmax weights in float32 where ``repro``'s ``_sdpa`` rounds both
-to bfloat16, so the port's attention is the kernel's, not ``_sdpa``'s
-(the tests hold the two apart).
+``kernels.ops.rmsnorm`` (K6), and every attention through
+``kernels.ops.flash_attention`` (K5): causal, sliding-window and
+bidirectional self-attention and the decoder's cross-attention, in
+prefill and decode (the full cache, the local ring, the cached encoder
+keys). K5 keeps the scores and the softmax weights in float32 where
+``repro``'s ``_sdpa`` rounds both to bfloat16, so the port's attention
+is the kernel's, not ``_sdpa``'s (the tests hold the two apart).
 
-The scope (rmsnorm and layernorm, SwiGLU and GeGLU, RoPE, tied, untied
-and scaled embeddings, causal and sliding-window self-attention, the
-mixture of experts' global dispatch) is checked once, in
-``lm.check_config``; the branches of ``repro``'s layers for other
-configurations (plain MLPs, learned-position embeddings, cross and
-bidirectional attention, the MoE's per-shard dispatch) come with the
-slices that run them (ROADMAP.md, Queue 1 item 15). The mesh helpers
-(``constrain``, ``tp_proj_out``'s sharded branch) wait for the sharding
-slice (item 15b): ``tp_proj_out`` is a plain product.
+The mixture of experts' per-shard ``"local"`` dispatch and the mesh
+helpers (``constrain``, ``tp_proj_out``'s sharded branch) wait for the
+sharding slice (ROADMAP.md, Queue 1 item 15b): ``tp_proj_out`` is a
+plain product, as ``repro``'s is without a mesh.
 
 Where XLA:CPU rounds each operation of a ``repro`` expression to
 bfloat16, the port spells it op by op (``_silu``, ``_gelu``), with the
@@ -131,11 +127,11 @@ def rope(x, positions, frac: float = 1.0, theta: float = 10000.0):
 
 
 # --------------------------------------------------------------------------
-# Attention (GQA; causal / sliding-window)
+# Attention (GQA; causal / sliding-window / bidirectional / cross)
 # --------------------------------------------------------------------------
 
 
-def attn_specs(cfg):
+def attn_specs(cfg, cross: bool = False):
     d, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = cfg.param_dtype
     s = {
@@ -144,13 +140,15 @@ def attn_specs(cfg):
         "wv": fan_in_normal((d, KV, Dh), 0, dt, ("embed", "kv", "head_dim")),
         "wo": fan_in_normal((H * Dh, d), 0, dt, (None, "embed")),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         s["q_norm"] = ParamSpec((Dh,), dt, (None,), "ones")
         s["k_norm"] = ParamSpec((Dh,), dt, (None,), "ones")
     return s
 
 
 def _qkv(p, x, cfg, positions):
+    """q, k, v of self-attention over x, RoPE'd at ``positions`` unless
+    the model has learned positions (added to its embeddings instead)."""
     cd = _cd(cfg)
     q = torch.einsum("btd,dhk->bthk", x.to(cd), p["wq"].to(cd))
     k = torch.einsum("bsd,dhk->bshk", x.to(cd), p["wk"].to(cd))
@@ -158,8 +156,9 @@ def _qkv(p, x, cfg, positions):
     if "q_norm" in p:
         q = _rms(q, p["q_norm"])
         k = _rms(k, p["k_norm"])
-    q = rope(q, positions, cfg.rope_frac, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_frac, cfg.rope_theta)
+    if not cfg.learned_pos:
+        q = rope(q, positions, cfg.rope_frac, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_frac, cfg.rope_theta)
     return q, k, v
 
 
@@ -168,25 +167,26 @@ def _heads_first(x):
     return x.permute(0, 2, 1, 3)
 
 
-def _flash(q, k, v, window: int = 0):
-    """Causal K5 on the model's layout: q [B,T,H,Dh], k/v [B,S,KV,Dh] ->
-    [B,T,H*Dh]; with ``window`` > 0 a query sees only the ``window`` last
-    positions up to its own. The kernel's output is laid out [B,T,H,Dh],
-    so the reshape is free."""
+def _flash(q, k, v, causal: bool = True, window: int = 0):
+    """K5 on the model's layout: q [B,T,H,Dh], k/v [B,S,KV,Dh] ->
+    [B,T,H*Dh]; causal (the queries the last T of the S positions), with
+    ``window`` > 0 a query seeing only the ``window`` last positions up to
+    its own, or with ``causal=False`` every key. The kernel's output is
+    laid out [B,T,H,Dh], so the reshape is free."""
     B, T, H, Dh = q.shape
     out = ops.flash_attention(_heads_first(q), _heads_first(k),
-                              _heads_first(v), causal=True, window=window)
+                              _heads_first(v), causal=causal, window=window)
     return out.permute(0, 2, 1, 3).reshape(B, T, H * Dh)
 
 
 def _sdpa(q, k, v, mask, cfg):
     """``repro``'s plain attention with its bfloat16 roundings (scaled q,
     scores and softmax weights in the compute dtype): q [B,T,H,Dh], k/v
-    [B,S,KV,Dh], mask broadcastable to [B,?,T,S]. The port's causal,
-    sliding-window and ring-buffer attention runs K5 instead; this is
-    kept for the mask kind K5 does not serve, the encoder-decoder's cross
-    attention, which comes with a later slice (ROADMAP.md, Queue 1 item
-    15e)."""
+    [B,S,KV,Dh], mask broadcastable to [B,?,T,S]. Every attention of the
+    port runs K5 instead (causal, windowed, bidirectional, cross), with no
+    mask kind left for this: nothing on the model's path calls it. It
+    stays as the spelling of ``repro``'s roundings
+    (``tests/test_torch_lm.py`` holds it to ``repro``'s)."""
     B, T, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -202,26 +202,47 @@ def _sdpa(q, k, v, mask, cfg):
     return out.reshape(B, T, H * Dh)
 
 
-def _window(cfg, kind: str) -> int:
-    """K5's window for a mask kind: ``cfg.window`` for ``"local"`` (keys
-    j > t - window, ``repro``'s ``_self_mask``), 0 (none) for
-    ``"causal"``."""
-    if kind not in ("causal", "local"):
-        raise NotImplementedError(
-            f"{kind!r} attention is not ported to repro_torch yet "
-            f"(ROADMAP.md, Queue 1 item 15e)")
-    return cfg.window if kind == "local" else 0
+MASKS = ("causal", "local", "bidir")
+
+
+def _mask(cfg, kind: str):
+    """K5's (causal, window) for a mask kind of ``repro``'s
+    ``_self_mask``: ``"causal"`` (keys j <= t), ``"local"`` (and
+    j > t - ``cfg.window``), ``"bidir"`` (every key)."""
+    if kind not in MASKS:
+        raise ValueError(f"mask kind {kind!r} is not one of {MASKS}")
+    return kind != "bidir", (cfg.window if kind == "local" else 0)
 
 
 def attn_forward(p, x, cfg, kind: str = "causal", return_kv: bool = False):
-    """Full-sequence self-attention (training / prefill) through K5,
-    causal or, for ``kind="local"``, sliding-window."""
+    """Full-sequence self-attention (training / prefill) through K5 under
+    the mask ``kind`` (``MASKS``)."""
     pos = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _qkv(p, x, cfg, pos)
-    y = tp_proj_out(_flash(q, k, v, _window(cfg, kind)), p["wo"], cfg)
+    y = tp_proj_out(_flash(q, k, v, *_mask(cfg, kind)), p["wo"], cfg)
     if return_kv:
         return y, (k, v)
     return y
+
+
+def cross_attn_forward(p, x, enc_kv, cfg):
+    """Decoder cross-attention through K5, unmasked: every query sees
+    every encoder key; enc_kv = (k, v) [B,S,KV,Dh] from ``cross_kv`` (or
+    the decode cache). ``wo`` is a plain product, as in ``repro``."""
+    cd = _cd(cfg)
+    q = torch.einsum("btd,dhk->bthk", x.to(cd), p["wq"].to(cd))
+    k, v = (t.to(q.dtype) for t in enc_kv)
+    out = _flash(q, k, v, causal=False)
+    return torch.einsum("bte,ed->btd", out, p["wo"].to(cd))
+
+
+def cross_kv(p, enc_out, cfg):
+    """The cross-attention's keys and values [B,S,KV,Dh] of the encoder's
+    output, in the compute dtype (no RoPE, no qk-norm)."""
+    cd = _cd(cfg)
+    k = torch.einsum("bsd,dhk->bshk", enc_out.to(cd), p["wk"].to(cd))
+    v = torch.einsum("bsd,dhk->bshk", enc_out.to(cd), p["wv"].to(cd))
+    return k, v
 
 
 def attn_decode(p, x, cache_k, cache_v, index: int, cfg,
@@ -242,7 +263,7 @@ def attn_decode(p, x, cache_k, cache_v, index: int, cfg,
     read does not change the softmax's value, only the float32 order of
     its sums."""
     index = int(index)
-    _window(cfg, kind)
+    _mask(cfg, kind)
     pos = torch.full((x.shape[0], 1), index, dtype=torch.int32,
                      device=x.device)
     q, k_new, v_new = _qkv(p, x, cfg, pos)
@@ -257,15 +278,17 @@ def attn_decode(p, x, cache_k, cache_v, index: int, cfg,
 
 
 # --------------------------------------------------------------------------
-# Dense MLP (SwiGLU / GeGLU)
+# Dense MLP (SwiGLU / GeGLU / plain)
 # --------------------------------------------------------------------------
 
 
 def mlp_specs(cfg):
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.param_dtype
-    return {"wu": fan_in_normal((d, f), 0, dt, ("embed", "mlp")),
-            "wd": fan_in_normal((f, d), 0, dt, ("mlp", "embed")),
-            "wg": fan_in_normal((d, f), 0, dt, ("embed", "mlp"))}
+    s = {"wu": fan_in_normal((d, f), 0, dt, ("embed", "mlp")),
+         "wd": fan_in_normal((f, d), 0, dt, ("mlp", "embed"))}
+    if cfg.gated_mlp:
+        s["wg"] = fan_in_normal((d, f), 0, dt, ("embed", "mlp"))
+    return s
 
 
 def _silu(x):
@@ -296,10 +319,16 @@ def _act(x, act: str):
 
 
 def mlp_apply(p, x, cfg):
+    """The gated MLP (``act(x wg) * (x wu)``) where there is a ``wg``,
+    else the plain one (``act(x wu)``); then ``wd``."""
     cd = _cd(cfg)
     h = torch.einsum("btd,df->btf", x.to(cd), p["wu"].to(cd))
-    g = torch.einsum("btd,df->btf", x.to(cd), p["wg"].to(cd))
-    return tp_proj_out(_act(g, cfg.act) * h, p["wd"], cfg)
+    if "wg" in p:
+        g = torch.einsum("btd,df->btf", x.to(cd), p["wg"].to(cd))
+        h = _act(g, cfg.act) * h
+    else:
+        h = _act(h, cfg.act)
+    return tp_proj_out(h, p["wd"], cfg)
 
 
 # --------------------------------------------------------------------------
@@ -461,7 +490,8 @@ def moe_apply(p, x, cfg):
 
 
 # --------------------------------------------------------------------------
-# Embedding / unembedding (untied or tied, optionally sqrt(d)-scaled)
+# Embedding / unembedding (untied or tied, optionally sqrt(d)-scaled, with
+# or without learned positions)
 # --------------------------------------------------------------------------
 
 
@@ -472,16 +502,26 @@ def embed_specs(cfg):
     if not cfg.tie_embeddings:
         s["unembed"] = fan_in_normal((cfg.d_model, cfg.vocab_size), 0, dt,
                                      ("embed", "vocab"))
+    if cfg.learned_pos:
+        s["pos"] = ParamSpec((cfg.max_pos, cfg.d_model), dt,
+                             (None, "embed"), "normal", 0.02)
     return s
 
 
-def embed_apply(p, tokens, cfg):
+def embed_apply(p, tokens, cfg, pos0: int = 0):
     """The embedding rows in the compute dtype; gemma-style, times
     sqrt(d_model) taken in the compute dtype, as JAX rounds the Python
-    float (55.43 -> 55.5 in bfloat16 at d_model 3 072)."""
+    float (55.43 -> 55.5 in bfloat16 at d_model 3 072); with learned
+    positions, plus the rows of positions pos0 .. pos0 + T - 1 in the
+    compute dtype (pos0 clamped into the table, as ``dynamic_slice``
+    clamps it)."""
     x = p["embedding"][tokens.long()].to(_cd(cfg))
     if cfg.embed_scale:
         x = x * _const(float(np.sqrt(cfg.d_model)), x.dtype, x.device)
+    if cfg.learned_pos:
+        T = tokens.shape[1]
+        pos0 = min(max(int(pos0), 0), cfg.max_pos - T)
+        x = x + p["pos"][pos0:pos0 + T].to(x.dtype)
     return x
 
 

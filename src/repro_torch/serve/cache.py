@@ -1,14 +1,16 @@
 """Decode-cache declarations (twin of ``repro.serve.cache``).
 
 Cache kinds per block:
-  attn/moe      full KV cache        [G, B, cache_len, KV, Dh]
+  attn/moe/dec  full KV cache        [G, B, cache_len, KV, Dh]   (+xk/xv)
   local         ring-buffer KV       [G, B, min(window, cache_len), KV, Dh]
   rec           RG-LRU hidden (fp32) [G, B, d_rnn] + conv tail
   ssm           SSD state            [G, B, H, P, N] + conv tail
 
-declared in ``CACHE_DTYPE`` but the RG-LRU state. ``lm_prefill`` returns
-what ``repro``'s prefill returns instead: the ring at the window's size,
-and the caches in the compute dtype (``models.lm._new_cache``).
+with a ``"dec"`` block's cross keys and values ``xk``/``xv`` [G, B,
+enc_seq, KV, Dh], declared in ``CACHE_DTYPE`` but the RG-LRU state.
+``lm_prefill`` returns what ``repro``'s prefill returns instead: the
+ring at the window's size, the cross keys at the encoder's length, and
+the caches in the compute dtype (``models.lm._new_cache``).
 """
 from __future__ import annotations
 
@@ -40,13 +42,17 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int):
     c = {}
     for j, kind in enumerate(cfg.pattern):
         key = f"b{j}_{kind}"
-        if kind in ("attn", "moe", "local"):
+        if kind in ("attn", "moe", "local", "dec"):
             S = cache_len
             if kind == "local":
                 S = min(cfg.window, cache_len) or cache_len
             kv = ParamSpec((G, B, S, KV, Dh), CACHE_DTYPE, _kv_axes(KV, S),
                            "zeros")
             c[key] = {"k": kv, "v": kv}
+            if kind == "dec":
+                xkv = ParamSpec((G, B, cfg.enc_seq, KV, Dh), CACHE_DTYPE,
+                                _kv_axes(KV, cfg.enc_seq), "zeros")
+                c[key].update(xk=xkv, xv=xkv)
         elif kind == "rec":
             dr = cfg.d_rnn_eff
             c[key] = {

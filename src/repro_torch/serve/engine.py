@@ -43,14 +43,13 @@ def decode_loop(params, cfg: ModelConfig, prompt, steps: int,
                 extras: Optional[dict] = None, on_logits=None):
     """Greedy/sampled generation. prompt: [B, P] int. Returns [B, steps]
     int64: the token picked from the prefill's logits, then one per decode
-    step. ``on_logits(logits)``, if given, sees every step's logits."""
-    if extras:
-        raise NotImplementedError(
-            "extra batch inputs are not ported to repro_torch yet "
-            "(ROADMAP.md, Queue 1 item 15: encoder-decoder, VLM)")
+    step. ``on_logits(logits)``, if given, sees every step's logits.
+    ``extras``: the prefill batch's other inputs ("enc_feats",
+    "img_embeds")."""
     B, P = prompt.shape
     cache_len = cache_len or (P + steps)
-    logits, cache = lm_prefill(params, {"tokens": prompt}, cfg, cache_len)
+    batch = {"tokens": prompt, **(extras or {})}
+    logits, cache = lm_prefill(params, batch, cfg, cache_len)
     tv = cfg.true_vocab or cfg.vocab_size
 
     def pick(lg):

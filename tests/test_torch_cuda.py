@@ -65,7 +65,10 @@ float32) and bit for bit against a second launch, the two
 ``autograd.Function``s launching them on CUDA tensors, and one REDUCED
 train step on the card against the port on the CPU; K5 at head dim 80
 and its backward at 80 and 256, the other five REDUCED architectures on
-the card against the CPU, and the MoE layer bit for bit run to run.
+the card against the CPU, and the MoE layer bit for bit run to run;
+K5 at head dim 96 and its backward there (``FLASH_BWD_D96_SHAPES``),
+whisper's unmasked encoder and cross-attention shapes, and the REDUCED
+whisper and phi3-vision on the card against the CPU.
 Every test takes the ``cuda_device``
 fixture and skips without a card; this module imports neither JAX nor
 ``repro``, so it runs where only PyTorch is:
@@ -828,6 +831,13 @@ FLASH_SHAPES = [
     (1, 4, 2, 3, 70, 80, True, 16, True),
     (1, 4, 4, 70, 70, 80, True, 0, False),
     (1, 2, 2, 2, 33, 80, False, 0, False),
+    (2, 32, 32, 128, 128, 96, True, 0, True),      # phi3-vision, D = 96
+    (2, 32, 32, 1, 97, 96, True, 0, True),
+    (1, 4, 2, 70, 70, 96, True, 0, False),
+    (1, 4, 2, 65, 129, 96, False, 0, True),
+    (1, 20, 20, 1500, 1500, 64, False, 0, True),   # whisper's encoder
+    (4, 20, 20, 1, 1500, 64, False, 0, True),      # ... its cross decode
+    (2, 20, 20, 100, 1500, 64, False, 0, True),    # ... its cross prefill
 ] + sup.FLASH_EDGE_SHAPES
 
 
@@ -1261,7 +1271,10 @@ FLASH_BWD_SHAPES = [
     (1, 4, 4, 130, 130, 256, True, True),        # gemma-7b, D = 256
     (1, 4, 2, 70, 70, 256, False, True),
     (1, 2, 2, 65, 65, 256, True, False),
-]
+    (1, 32, 32, 1024, 1024, 96, True, True),     # phi3-vision, D = 96
+    (1, 20, 20, 1500, 1500, 64, False, True),    # whisper's encoder
+    (1, 20, 20, 448, 1500, 64, False, True),     # ... its cross-attention
+] + sup.FLASH_BWD_D96_SHAPES
 
 
 def _flash_bwd_case(dev, B, H, KV, T, S, D, causal, bf16, seed=0):
@@ -1423,6 +1436,90 @@ def test_reduced_recurrent_archs_on_card_match_cpu(cuda_device, arch):
     for (what, g), (_, w) in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, what
         assert sup.rel_err(g, w) <= 1e-4, what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper_large_v3", "phi3_vision_4_2b"])
+def test_reduced_encdec_archs_on_card_match_cpu(cuda_device, arch):
+    """The REDUCED whisper and phi3-vision, float32 compute, numpy params
+    and frontend embeddings: a prompt of 20 (phi3-vision's first 8 image
+    positions) + 4 teacher-forced decode steps on the card against the
+    port on the CPU (relative to the largest value, 1e-4; every cache
+    leaf, whisper's cross keys and values included), with K5 on every
+    self- and cross-attention (whisper's encoder once, in the prefill)
+    and K6 for phi3-vision's norms."""
+    import dataclasses
+    from repro_torch import configs, models
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    cfg = dataclasses.replace(configs.reduced_config(arch),
+                              compute_dtype="float32")
+    tree = sup.numpy_params(models.lm_specs(cfg), 1)
+    rng = np.random.default_rng(1)
+    tv = cfg.true_vocab or cfg.vocab_size
+    prompt = torch.as_tensor(rng.integers(0, tv, (2, 20)))
+    toks = torch.as_tensor(rng.integers(0, tv, (2, 4)))
+    extras = {}
+    if cfg.enc_layers:
+        extras["enc_feats"] = torch.as_tensor(rng.standard_normal(
+            (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    if cfg.num_image_tokens:
+        extras["img_embeds"] = torch.as_tensor(rng.standard_normal(
+            (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+    want = sup.lm_teacher_forced(models.params_from_numpy(tree, "cpu"), cfg,
+                                 prompt, toks, 32, extras)
+    reset_launches()
+    got = sup.lm_teacher_forced(
+        models.params_from_numpy(tree, cuda_device), cfg,
+        prompt.to(cuda_device), toks.to(cuda_device), 32,
+        {k: v.to(cuda_device) for k, v in extras.items()})
+    L = cfg.num_layers
+    dec = cfg.pattern.count("dec") * cfg.pattern_groups
+    assert LAUNCHES["flash_attention"] == 5 * (L + dec) + cfg.enc_layers
+    norms = 2 * L + 1 if cfg.norm == "rmsnorm" else 0
+    assert LAUNCHES["rmsnorm"] == 5 * norms
+    assert len(got) == len(want)
+    for (what, g), (_, w) in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, what
+        assert sup.rel_err(g, w) <= 1e-4, what
+
+
+@pytest.mark.cuda
+def test_reduced_whisper_train_step_on_card_matches_cpu(cuda_device):
+    """REDUCED whisper, float32 compute, numpy params, 24 decoder tokens
+    over its 16 frames: the loss and every gradient of one microbatch on
+    the card (K5's unmasked backward through the encoder and the
+    cross-attention, its causal one through the decoder) against the port
+    on the CPU (relative to each leaf's largest gradient, 1e-4)."""
+    import dataclasses
+    from repro_torch import configs, models
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.spec import _leaves
+    from repro_torch.train import DataConfig, SyntheticData, xent_loss
+    cfg = dataclasses.replace(configs.reduced_config("whisper_large_v3"),
+                              compute_dtype="float32")
+    batch = SyntheticData(cfg, DataConfig(batch=2, seq=24)).batch_at(0)
+    tree = sup.numpy_params(models.lm_specs(cfg), 0)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        params = models.params_from_numpy(tree, dev)
+        b = {n: torch.as_tensor(a, device=dev) for n, a in batch.items()}
+        for p in _leaves(params):
+            p.requires_grad_(True)
+        reset_launches()
+        loss = xent_loss(models.lm_forward(params, b, cfg, remat="full"),
+                         b["labels"], cfg)
+        loss.backward()
+        out[str(dev)] = (float(loss.detach()),
+                         [p.grad.cpu() for p in _leaves(params)],
+                         dict(LAUNCHES))
+    attn = 2 * cfg.num_layers + cfg.enc_layers      # self + cross, encoder
+    launched = out[str(cuda_device)][2]
+    assert launched["flash_attention"] == 2 * attn
+    assert launched["flash_attention_bwd"] == attn
+    (lc, gc, _), (lg, gg, _) = out["cpu"], out[str(cuda_device)]
+    assert abs(lc - lg) <= 1e-5
+    for g, w in zip(gg, gc):
+        assert sup.rel_err(g, w) <= 1e-4
 
 
 @pytest.mark.cuda

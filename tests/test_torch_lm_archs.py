@@ -72,7 +72,6 @@ from repro_torch.models.spec import _leaves  # noqa: E402
 
 ARCHS = ["llama3_405b", "gemma_7b", "stablelm_3b", "qwen3_moe_30b_a3b",
          "granite_moe_3b_a800m"]
-UNPORTED = ["whisper_large_v3", "phi3_vision_4_2b"]
 B, P, CACHE, DECODE_STEPS, GREEDY_STEPS = 2, 12, 24, 4, 8
 TIGHT_MAX, TIGHT_MEAN = sup.LM_TIGHT_MAX, sup.LM_TIGHT_MEAN
 F32_MAX = 1e-4
@@ -128,13 +127,6 @@ def test_configs_and_specs_match_repro(arch):
         assert _spec_table(j_cache_specs(jc, 2, 40), j_is_spec) == \
             _spec_table(tserve.cache_specs(tc, 2, 40), tmodels.is_spec)
     assert arch in tconfigs.PORTED
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_archs_still_raise(arch):
-    for get in (tconfigs.get_config, tconfigs.reduced_config):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            get(arch)
 
 
 def test_init_params_leaves_of_new_kinds():

@@ -539,18 +539,26 @@ def test_train_step_matches_jitted_repro(monkeypatch, arch, compute):
     """From the same numpy params and fresh optimizer state, one step of
     ``make_train_step`` against ``repro``'s jitted one (microbatch 2, remat
     "full"), held as ``tests/test_torch_lm_archs.py`` holds the other
-    architectures: loss, grad norm, lr and first moment within the bar
+    architectures (``hold_train_step``)."""
+    monkeypatch.setattr(JL, "_sdpa", sdpa_k5)
+    hold_train_step(arch, compute, TRAIN_SEQ[arch])
+
+
+def hold_train_step(arch, compute, seq):
+    """One step of ``make_train_step`` against ``repro``'s jitted one from
+    the same numpy params and fresh optimizer state, on ``SyntheticData``'s
+    batch of 4 sequences of ``seq`` tokens (``TRAIN_TCFG``: microbatch 2,
+    remat "full"): loss, grad norm, lr and first moment within the bar
     (1e-4 in float32 compute, ``LM_TIGHT_MAX`` in bfloat16); the
     parameters within it wherever Adam's denominator is above 100 eps,
     else within the step's range 2 lr (1 + weight decay); every leaf
-    moved."""
-    monkeypatch.setattr(JL, "_sdpa", sdpa_k5)
+    moved. ``repro``'s ``_sdpa`` is the caller's to patch."""
     jc, tc = _cfgs(arch, compute)
     tcfg = tconfigs.TrainConfig(**TRAIN_TCFG)
     jtcfg = jconfigs.TrainConfig(**TRAIN_TCFG)
     tree, jp, tp = _params(arch)
     batch = jtrain.SyntheticData(jc, jtrain.DataConfig(
-        batch=4, seq=TRAIN_SEQ[arch])).batch_at(3)
+        batch=4, seq=seq)).batch_at(3)
     jp2, jo, jm = jax.jit(jtrain.make_train_step(jc, jtcfg))(
         jp, jtrain.init_opt(jp, jtcfg),
         {n: jnp.asarray(x) for n, x in batch.items()})

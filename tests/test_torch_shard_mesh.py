@@ -242,7 +242,7 @@ def _same(got, want, what):
 def test_sharded_runs_bitmatch_unsharded(W):
     from repro_torch.core import shardcomm
     names = _names(W)
-    got = shardcomm.spawn(_rank_main, W, (names,))
+    got = shardcomm.spawn(_rank_main, W, (names,), device="cpu")
     for name in names:
         out, stats = got[name]
         _same(out, _reference(name), f"width {W} {name}")
@@ -272,4 +272,4 @@ def test_a_failing_rank_fails_the_run():
     with pytest.raises((torch.multiprocessing.ProcessRaisedException,
                         torch.multiprocessing.ProcessExitedException),
                        match="rank 1 fails|Connection|closed|reset"):
-        shardcomm.spawn(_failing_rank, 2)
+        shardcomm.spawn(_failing_rank, 2, device="cpu")

@@ -1073,6 +1073,22 @@ FLASH_BWD_WINDOW_SHAPES = [
     for T in (63, 65, 96, 129) for D in (16, 256) for w in (1, 17, T - 1)
 ] + [(1, 4, 2, 129, 129, 16, 17, False), (1, 2, 1, 65, 65, 256, 64, False)]
 
+# B, H, KV, T, S, D, causal, bf16: K5's backward at head dim 96
+# (phi3-vision's) around its tiles' edges (64 query rows or keys a block,
+# 32 a tile): T and S of 63, 65 and 129, causal and unmasked, T < S and
+# T > S, GQA 4 over 2; float32 twice
+FLASH_BWD_D96_SHAPES = [
+    (1, 4, 2, 63, 63, 96, True, True),
+    (1, 4, 2, 65, 65, 96, True, True),
+    (1, 4, 2, 129, 129, 96, True, True),
+    (1, 4, 2, 63, 129, 96, True, True),         # T < S
+    (1, 4, 2, 65, 129, 96, False, True),        # unmasked, T < S
+    (1, 4, 2, 129, 63, 96, False, True),        # unmasked, T > S
+    (2, 4, 4, 65, 65, 96, False, True),
+    (1, 4, 2, 65, 129, 96, True, False),
+    (1, 4, 2, 129, 65, 96, False, False),
+]
+
 # keys per decode split of K5's split_mma (csrc/flash_attention.cu)
 K5_SPLIT_KEYS = 64
 
@@ -1176,14 +1192,16 @@ def rmsnorm_in_k6_order(x, scale, eps=1e-6):
     return y.to(x.dtype).reshape(x.shape)
 
 
-def lm_teacher_forced(params, cfg, prompt, tokens, cache_len):
-    """The port's prefill of ``prompt`` [B,P], then one decode step per
-    column of ``tokens`` [B,N] (teacher forced). Returns [(what, tensor on
-    the CPU)]: the logits of each forward and every leaf of the cache."""
+def lm_teacher_forced(params, cfg, prompt, tokens, cache_len, extras=None):
+    """The port's prefill of ``prompt`` [B,P] (with the batch's other
+    inputs ``extras``), then one decode step per column of ``tokens``
+    [B,N] (teacher forced). Returns [(what, tensor on the CPU)]: the
+    logits of each forward and every leaf of the cache."""
     from repro_torch.models.lm import lm_decode_step, lm_prefill
     P = prompt.shape[1]
     out = []
-    logits, cache = lm_prefill(params, {"tokens": prompt}, cfg, cache_len)
+    logits, cache = lm_prefill(params, {"tokens": prompt, **(extras or {})},
+                               cfg, cache_len)
     out.append(("prefill logits", logits.cpu()))
     for i in range(tokens.shape[1]):
         logits, cache = lm_decode_step(params, tokens[:, i:i + 1], cache,
