@@ -395,9 +395,11 @@ exit, traceback) if anything in it is wrong:
    take ``img_embeds`` [4, 576, 3072]; K5 once a layer a forward, K6
    twice a layer plus ``ln_f``).
 9. train: the one-card trainer (``repro_torch.train``). (9a) K5's and
-   K6's backward kernels (``flash_attention_bwd``: dq, then dk/dv;
-   ``rmsnorm_bwd``: row chunks, then their dscale partials in chunk
-   order) against their plain versions at the training shapes of
+   K6's backward kernels (``flash_attention_bwd``: dq, then dk/dv over
+   chunks of the GQA group's heads, in bf16 on ``wgmma`` with operands by
+   TMA; ``rmsnorm_bwd``: one launch, row chunks, their dscale partials
+   added in chunk order by the last blocks) against their plain versions
+   at the training shapes of
    ``BWD_ARCHS`` (``train_kernel_shapes``, from each config and
    ``train_preset``'s microbatch: K5 bwd q [1,H,1024,D] over k/v
    [1,KV,1024,D], causal, bf16, o and the LSE from K5's forward, for
@@ -426,7 +428,13 @@ exit, traceback) if anything in it is wrong:
    cross-attention q [1,20,448,64] over [1,20,1500,64] unmasked) and at
    head dim 96's edges (``test_torch_support.FLASH_BWD_D96_SHAPES``: T
    and S of 63-129, causal and unmasked, T < S and T > S, GQA, two in
-   float32), held and timed the same way. (9b) qwen3-14b at full width (d_model 5 120, 40 / 8 heads,
+   float32), held and timed the same way. The bf16 K5 bwd also against
+   its order spelled in torch (``test_torch_support.flash_bwd_in_k5_order``
+   with the wrapper's head chunks, within ``sup.K5_ORDER_BAR``) at
+   qwen3-14b's, qwen3-moe's and whisper's cross-attention shapes and a
+   window edge (D = 256, window 17); K6 bwd bit for bit its order
+   (``rmsnorm_bwd_in_k6_order``) at every norm shape, both dtypes.
+   (9b) qwen3-14b at full width (d_model 5 120, 40 / 8 heads,
    head_dim 128, d_ff 17 408, vocab 151 936), depth cut to
    ``TRAIN_LAYERS`` (4) of 40 layers, float32 params drawn on the card
    from ``tcfg.seed``, ``train_preset("qwen3_14b")`` (8 microbatches,
@@ -4836,6 +4844,9 @@ def phase_train_kernels(torch, sup, dev):
                         f"second launch")
             if arch == "qwen3_14b" and tag in ("ln", "q"):     # timed below
                 norm[tag] = (x.to(torch.bfloat16), s, dy.to(torch.bfloat16))
+    order = flash_bwd_orders(torch, sup, dev, bwd, flash)
+    order_ok = norm_bwd_orders(torch, sup, dev, {
+        (N, Dn) for arch, _ in archs for N, Dn in shapes[arch][1].values()})
 
     def autograd_ms(fn, ins, grads, reps=20):
         """Device time of the backward alone of ``fn(*ins)`` (its graph kept
@@ -4908,6 +4919,7 @@ def phase_train_kernels(torch, sup, dev):
     k5 = dict(flash_timed("qwen3_14b"),
               max_abs_err=err["flash_attention_bwd"],
               max_rel_err=rel["flash_attention_bwd"],
+              max_order_err=order,
               arch_shapes={a: flash_timed(a) for a in BWD_ARCHS[1:]},
               encdec_shapes={w: flash_timed(w) for w in encdec_bwd_shapes()})
     k5.update(window_timed())
@@ -4927,7 +4939,7 @@ def phase_train_kernels(torch, sup, dev):
                 lambda x_, s_: F.rms_norm(x_, (Dn,), s_, 1e-6),
                 (x, s.to(torch.bfloat16)), dy))
     k6 = dict(rows[""], max_abs_err=err["rmsnorm_bwd"],
-              max_rel_err=rel["rmsnorm_bwd"])
+              max_rel_err=rel["rmsnorm_bwd"], order_bitwise=order_ok)
     for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms"):
         k6["qk_" + key] = rows["qk_"][key]
@@ -4935,6 +4947,70 @@ def phase_train_kernels(torch, sup, dev):
     for name, row in out.items():
         log(f"[train] time {name}: " + json.dumps(row))
     return out
+
+
+def flash_bwd_orders(torch, sup, dev, bwd, flash):
+    """K5's bf16 backward against ``sup.flash_bwd_in_k5_order`` (the
+    wrapper's chunks of the group's heads) at qwen3-14b's, qwen3-moe's and
+    whisper's cross-attention shapes (``bwd``, inputs from ``flash``) and
+    at a window edge (MQA, D = 256, window 17); raises past
+    ``sup.K5_ORDER_BAR`` of a gradient's largest value. Returns the
+    largest such error."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (bwd_heads_per_chunk,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    cases = [(w, bwd[w][:8], flash[w], 0) for w in (
+        "qwen3_14b", "qwen3_moe_30b_a3b", "whisper_large_v3 cross")]
+    B, H, KV, T, D, w = 1, 10, 1, 129, 256, 17
+    q, k, v, do = (a.to(torch.bfloat16) for a in card_normal(
+        torch, dev, T + D + w, (B, H, T, D), (B, KV, T, D), (B, KV, T, D),
+        (B, H, T, D)))
+    o, lse = flash_attention(q, k, v, window=w, return_lse=True)
+    cases.append(("window edge", (B, H, KV, T, T, D, True, True),
+                  (q, k, v, o, lse, do), w))
+    worst = 0.0
+    for what, (B, H, KV, T, S, D, causal, _), args, w in cases:
+        hpc = bwd_heads_per_chunk(B, H, KV, S, D, _build.sm_count(dev))
+        got = flash_attention_bwd(*args, causal=causal, window=w)
+        want = sup.flash_bwd_in_k5_order(*args, causal=causal, window=w,
+                                         hpc=hpc)
+        torch.cuda.synchronize()
+        for name, e in zip(("dq", "dk", "dv"), sup.bwd_errs(got, want)):
+            if not e <= sup.K5_ORDER_BAR:
+                raise AssertionError(
+                    f"flash_attention_bwd {what} {name}: {e} of the largest "
+                    f"gradient from its order spelled in torch (bar "
+                    f"{sup.K5_ORDER_BAR})")
+            worst = max(worst, e)
+            log(f"[train] flash_attention_bwd {what} {name} q "
+                f"{list(args[0].shape)} window {w}, heads {hpc} a chunk: "
+                f"{e!r} of the largest gradient from its order in torch "
+                f"(bar {sup.K5_ORDER_BAR})")
+    return worst
+
+
+def norm_bwd_orders(torch, sup, dev, shapes):
+    """K6's backward bit for bit ``sup.rmsnorm_bwd_in_k6_order`` (the
+    card's SM count) at each (N, D) of ``shapes``, bf16 and float32;
+    raises where it is not. Returns True."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    for N, Dn in sorted(shapes):
+        x, s, dy = card_normal(torch, dev, N + 2 * Dn, (N, Dn), (Dn,),
+                               (N, Dn))
+        x, s = x * 3.0, 1.0 + 0.1 * s
+        for dt in (torch.bfloat16, torch.float32):
+            got = rmsnorm_bwd(x.to(dt), s, dy.to(dt))
+            want = sup.rmsnorm_bwd_in_k6_order(x.to(dt), s, dy.to(dt),
+                                               sms=_build.sm_count(dev))
+            for name, g, w in zip(("dx", "dscale"), got, want):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"rmsnorm_bwd [{N}, {Dn}] {dt} {name}"
+                                         f" differs from its order in torch")
+            log(f"[train] rmsnorm_bwd [{N}, {Dn}] {dt}: dx and dscale bit "
+                f"for bit its order spelled in torch")
+    return True
 
 
 def _train_shares(torch, prof):

@@ -86,8 +86,11 @@
 // every T) also write each query row's float32 log-sum-exp, and the
 // backward kernels below (FlashBwdArgs) recompute P from it.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
 
 // The launch's arguments, passed by pointer from the wrapper (a ctypes
 // structure of the same layout). Outside the unnamed namespace so that
@@ -116,7 +119,7 @@ struct FlashArgs {
 // ---------------------------------------------------------------------
 //
 // Stands for jax.grad through the attention (the Pallas kernel has no
-// backward; src/repro/models/layers.py::_sdpa is what repro
+// backward; src/repro/models/layers.py:200, _sdpa, is what repro
 // differentiates). Given the forward's output o, its float32 log-sum-exp
 // lse [B, H, T] and the output's gradient do:
 //   p = exp(s - lse) (0 where masked), delta = rowsum(do * o),
@@ -132,29 +135,21 @@ struct FlashArgs {
 //   in order the key tiles some row of the block sees (with a window,
 //   those of [t0 + off - w + 1, t1 + off] for its rows t0..t1), adding
 //   ds K into registers;
-// * dk/dv: one block per (b, kv head, key tile); it walks the group's G
-//   heads in ascending order and, for each, in order the query tiles
-//   that see some key of the tile (with a window, those of
-//   [j0 - off, j1 - off + w - 1] for its keys j0..j1), adding ds^T Q and
-//   p^T dO into registers.
-// Both skip a warp's share of a tile none of its rows (keys) sees, and
-// mask element by element only a tile that straddles an edge of a row's
-// (key's) visible range.
-// Head dims 16, 32, 64, 80, 96, 128 and 256 are built. At D = 256 a dk/dv
-// block would hold two 16 x 256 float32 accumulators a warp, 256 floats
-// a thread, over the 255-register limit: there each (b, kv head, key
-// tile) takes two blocks, one a half of dk's and dv's columns
-// (BwdMma::DS), each recomputing S^T and dP^T over all 256; the sums of
-// each column run in the same order either way.
-// At D = 96 a thread holds 2 x 12 x 4 = 96 dk/dv accumulators, between
-// D = 80's 80 and D = 128's 128: one block a key tile, as at both; its
-// shared rows are 104 elements (13 16-byte units, odd, so ldmatrix stays
-// free of bank conflicts), 53 248 bytes for dq and 53 760 for dk/dv.
+// * dk/dv: one block per (b, kv head, key tile, chunk of the group's query
+//   heads); it walks its chunk's heads in ascending order and, for each,
+//   in order the query tiles that see some key of the tile (with a window,
+//   those of [j0 - off, j1 - off + w - 1] for its keys j0..j1), adding
+//   ds^T Q and p^T dO into registers; the chunks' float32 partials are
+//   added in chunk order by the last of the tile's blocks to finish.
+// Both mask element by element only a tile that straddles an edge of a
+// row's (key's) visible range.
 // Bound at the training shape (T = S = 1 024, D = 128, causal): about
 // 10 D flops per visible pair (five products) over the bytes of q, k, v,
 // o, do and the three gradients, ~1 300 flops a byte: the tensor cores.
-// bfloat16 runs on mma.sync as the forward does, p and ds split into bf16
-// halves (p_hi + p_lo), so each keeps ~16 bits of its float32 value;
+// bfloat16 runs on Hopper's wgmma (below: 64-row tiles a warpgroup,
+// operands by TMA, the group's heads spread over the SMs in chunks so
+// that every GQA ratio fills the card, P and dS rounded once to bf16, dq
+// recomputing S and dP: seven products per pair for the bound's five);
 // float32 runs scalar CUDA-core forms, a warp a query row (dq) or a key
 // row (dk/dv), lane j taking key (query) j of a 32-wide tile.
 
@@ -180,6 +175,12 @@ struct FlashBwdArgs {
   int B, H, KV, T, S, D;
   int causal, window;
   float scale;
+  // bf16 dk/dv: the query heads of a chunk, and where G / hpc > 1 the
+  // chunks' float32 partials ([chunks][units][2][64][min(D, 128)], units =
+  // B * KV * ceil(S / 64) * max(1, D / 128)) and `units` zeroed counters
+  int hpc;
+  float* part;
+  unsigned int* count;
 };
 
 namespace {
@@ -1289,83 +1290,358 @@ __global__ void __launch_bounds__(kBQ * 32)
   }
 }
 
+// ---------------------------------------------------------------------
+// bfloat16 backward on wgmma (Hopper's warpgroup products), operands by
+// TMA
+// ---------------------------------------------------------------------
+//
+// A block is one warpgroup (4 warps, 128 threads) that owns 64 rows of
+// every product (the wgmma's M): 64 query rows (dq) or 64 keys (dk/dv).
+// Its own tiles (Q and dO, or K and V) come in once; the tiles it walks
+// (K and V, or Q and dO) come in by TMA into a
+// ring of two stages, each completed by an mbarrier: thread 0 starts the
+// next tile's loads before the block computes on this one, and a block
+// barrier at the end of each tile hands the stage back. Every operand
+// tile sits in shared memory as 64-column chunks of 128-byte rows in
+// TMA's 128-byte swizzle (rows and columns past the tensor read 0), which
+// serves both as a K-major operand (S = Q K^T: the k steps walk D, 32
+// bytes at a time) and as an MN-major one (dq = dS K: the k steps walk
+// the rows, 2 048 bytes at a time; the chunks are LBO apart).
+// The score products S and dP run on wgmma with both operands in shared
+// memory, float32 accumulators in registers; P and dS are rounded once to
+// bf16 in the registers (the accumulator's fragment is the A fragment of
+// the next product) and the gradient products take them as A from
+// registers: seven products per visible pair in all (S and dP twice,
+// dq, dk, dv).
 template <int D>
-struct BwdMma {
-  static constexpr int BK = 32;        // keys (dq) or queries (dk/dv) a tile
-  static constexpr int LD = D + 8;     // shared row stride, as the forward's
-  // dk/dv columns a block accumulates (of D), and the blocks that share a
-  // key tile
-  static constexpr int DS = D > 128 ? 128 : D;
-  static constexpr int NSPLIT = D / DS;
+struct BwdWg {
+  static constexpr int CH = (D + 63) / 64;      // 64-column chunks a tile
+  static constexpr int KS = (D + 15) / 16;      // k steps of S and dP
+  static constexpr int DS = D > 128 ? 128 : D;  // dk/dv columns a block
+  static constexpr int NSPLIT = D / DS;         // blocks a key tile
+  static constexpr int NKV = (DS + 63) / 64 * 64;   // N of dk's and dv's
+  static constexpr int NQ = CH * 64;                // N of dq's
+  static constexpr int BK = D > 128 ? 32 : 64;      // keys a dq tile
+  static constexpr int TILE = 64 * 64 * 2;      // bytes of a 64-row chunk
+  // dq: Q, dO; two stages of K, V (BK rows); dk/dv: K, V; two stages of
+  // Q, dO; each + 3 mbarriers, and 1 024 bytes to align the base for the
+  // swizzle
+  static constexpr int kStageDq = 2 * CH * BK * 128;
+  static constexpr int kStageDkv = 2 * CH * TILE;
+  static constexpr int kSmemDq = 2 * CH * TILE + 2 * kStageDq + 1024 + 64;
+  static constexpr int kSmemDkv = 2 * CH * TILE + 2 * kStageDkv + 1024 + 64;
   static_assert(D % DS == 0, "the column split must cover every column");
-  // dq: Q and dO [kTileQ][LD], K and V [2][BK][LD]; dk/dv: K and V
-  // [kTileQ][LD], Q and dO [2][BK][LD], then lse and delta [2][BK] floats
-  static constexpr int kSmemDq = (2 * kTileQ + 4 * BK) * LD * 2;
-  static constexpr int kSmemDkv = kSmemDq + 4 * BK * 4;
 };
 
-// bfloat16, dq on mma.sync: a block of 4 warps per (b, head, 64 query
-// rows), 16 rows a warp; the block's Q and dO tiles stay in shared memory,
-// K and V come in double-buffered 32-key tiles by cp.async. Per tile:
-// S = Q K^T and dP = dO V^T on the tensor cores, p and ds on the
-// accumulator fragments, dq += (ds_hi + ds_lo) K.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_addr(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// The barrier's phase completes when its bytes have landed.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1, int c2,
+                                       int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Descriptors of a 128-byte-swizzled operand in shared memory: K-major
+// (8-row groups 1 024 bytes apart) and MN-major (the same, with the
+// 64-column chunks lbo bytes apart).
+__device__ __forceinline__ uint64_t desc_k(const bf16* p) {
+  return ((smem_addr(p) & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_mn(const bf16* p, unsigned lbo) {
+  return ((smem_addr(p) & 0x3FFFFu) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+// k step kk (16 columns of D) of a tile of `rows` rows, K-major.
+__device__ __forceinline__ uint64_t desc_kstep(const bf16* tile, int rows,
+                                               int kk) {
+  return desc_k(tile + (kk >> 2) * rows * 64 + (kk & 3) * 16);
+}
+
+// k step kk (rows 16 kk .. 16 kk + 15) of a tile of `rows` rows from its
+// chunk c, MN-major.
+__device__ __forceinline__ uint64_t desc_rstep(const bf16* tile, int rows,
+                                               int c, int kk) {
+  return desc_mn(tile + c * rows * 64 + kk * 16 * 64, rows * 128);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit_wait() {
+  asm volatile(
+      "wgmma.commit_group.sync.aligned;\n"
+      "wgmma.wait_group.sync.aligned 0;\n" ::
+          : "memory");
+}
+
+// Orders the compiler's use of accumulators after the products' wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) d[i] = 0.0f;
+}
+
+// The A fragment of k step kk of a 64-row accumulator, rounded to bf16:
+// columns 16 kk .. 16 kk + 15 of rows g and g + 8 of each warp's 16.
+template <int N>
+__device__ __forceinline__ void a_frag(const float (&d)[N], int kk,
+                                       unsigned (&a)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    a[j] = bits(__floats2bfloat162_rn(d[8 * kk + 2 * j],
+                                      d[8 * kk + 2 * j + 1]));
+  }
+}
+
+// D += A B, m64nNk16, bf16 in, float32 accumulate in d (N / 2 a thread):
+// wgmma_ss with A and B K-major in shared memory, wgmma_rs with A from
+// registers and B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const unsigned (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const unsigned (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const unsigned (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// The tensor maps of a launch (built by the host): q, do [B, T, H, D] and
+// k, v [B, S, KV, D] read in place as 4-d maps (D, rows, heads, B) with a
+// box of 64 columns by 64 rows (k and v: by BwdWg::BK rows for dq), 128-
+// byte swizzled.
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+// bfloat16, dq: a block per (b, head, 64 query rows), the heaviest tiles
+// first. Q and dO stay; K and V come in tiles of BK keys, in order over
+// the keys some row of the block sees. Per tile: S = Q K^T, dP = dO V^T,
+// p = 2^(s scale log2e - lse log2e) (0 where masked), ds = p (dp - delta),
+// dq += bf16(ds) K. Before its first tile the block takes delta =
+// rowsum(do * o) of its rows (each lane a quarter of a row in column
+// order, then the quad's butterfly) and writes it for the dk/dv kernel.
 template <int D>
-__global__ void __launch_bounds__(kTiledWarps * 32)
-    flash_bwd_dq_mma(const BArgs a) {
-  using C = BwdMma<D>;
-  constexpr int BK = C::BK, LD = C::LD, NS = BK / 8, ND = D / 8;
-  constexpr int KD = D / 16, CH = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);     // [kTileQ][LD]
-  bf16* dos = qs + kTileQ * LD;                      // [kTileQ][LD]
-  bf16* ks = dos + kTileQ * LD;                      // [2][BK][LD]
-  bf16* vs = ks + 2 * BK * LD;                       // [2][BK][LD]
+__global__ void __launch_bounds__(128)
+    flash_bwd_dq_wgmma(const __grid_constant__ BwdMaps m, const BArgs a) {
+  using C = BwdWg<D>;
+  constexpr int CH = C::CH, KS = C::KS, BK = C::BK, NQ = C::NQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(base);           // [CH][64][64]
+  bf16* dos = qs + CH * 64 * 64;                      // [CH][64][64]
+  unsigned char* stages = base + 2 * CH * C::TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + 2 * C::kStageDq);
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTileQ;   // heaviest first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 64;     // heaviest first
   const int kvh = h / (a.H / a.KV);
-  const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const int kbeg = (seen_beg(a, q0) / BK) * BK;
+  const int kend = seen_end(a, min(q0 + 64, a.T) - 1);
+  const int total = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
+  auto ks = [&](int s) {
+    return reinterpret_cast<bf16*>(stages + s * C::kStageDq);
+  };
+  auto vs = [&](int s) { return ks(s) + CH * BK * 64; };
+  auto load_kv = [&](int n) {
+    const int s = n & 1, k0 = kbeg + n * BK;
+    mbar_expect(bars + 1 + s, C::kStageDq);
+    for (int c = 0; c < CH; ++c) {
+      tma_4d(ks(s) + c * BK * 64, &m.k, bars + 1 + s, 64 * c, k0, kvh, b);
+      tma_4d(vs(s) + c * BK * 64, &m.v, bars + 1 + s, 64 * c, k0, kvh, b);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bars, 2 * CH * C::TILE);
+    for (int c = 0; c < CH; ++c) {
+      tma_4d(qs + c * 64 * 64, &m.q, bars, 64 * c, q0, h, b);
+      tma_4d(dos + c * 64 * 64, &m.dout, bars, 64 * c, q0, h, b);
+    }
+    if (total > 0) load_kv(0);
+  }
+
+  // rows g and g + 8 of the warp: delta, the log-sum-exp in log2 units,
+  // and the keys each sees
   const bf16* og = static_cast<const bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
   const bf16* dog = static_cast<const bf16*>(a.dout) + b * a.do_sb +
                     h * a.do_sh;
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb +
-                   kvh * a.k_sh;
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb +
-                   kvh * a.v_sh;
   const long long row0 = (static_cast<long long>(b) * a.H + h) * a.T;
-  const float sc = a.scale * kLog2e;
-
-  for (int i = tid; i < kTileQ * CH; i += blockDim.x) {
-    const int r = i / CH, c = i % CH, t = q0 + r;
-    const bool ok = t < a.T;
-    const long long tt = static_cast<long long>(t);
-    cp_async16(qs + r * LD + c * 8, ok ? qg + tt * a.q_st + c * 8 : qg, ok);
-    cp_async16(dos + r * LD + c * 8, ok ? dog + tt * a.do_st + c * 8 : dog,
-               ok);
-  }
-  auto load_kv = [&](int k0, int buf) {
-    bf16* kd = ks + buf * BK * LD;
-    bf16* vd = vs + buf * BK * LD;
-    for (int i = tid; i < BK * CH; i += blockDim.x) {
-      const int r = i / CH, c = i % CH, key = k0 + r;
-      const bool ok = key < a.S;
-      const long long kk = static_cast<long long>(key);
-      cp_async16(kd + r * LD + c * 8, ok ? kg + kk * a.k_ss + c * 8 : kg,
-                 ok);
-      cp_async16(vd + r * LD + c * 8, ok ? vg + kk * a.v_ss + c * 8 : vg,
-                 ok);
-    }
-  };
-  const int kbeg = (seen_beg(a, q0) / BK) * BK;
-  load_kv(kbeg, 0);
-  cp_async_commit();
-
-  // rows g and g + 8 of the warp: delta (a quarter of the row a lane of
-  // the quad, then the quad's butterfly), the log-sum-exp in log2 units,
-  // and the end of the keys each sees
   const int r0 = q0 + 16 * w;
-  const bool active = r0 < a.T;
   float dl[2], ls2[2];
   int rlo[2], rhi[2];
 #pragma unroll
@@ -1385,67 +1661,63 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
     rlo[r] = t < a.T ? seen_beg(a, t) : 0;
     if (tig == 0 && t < a.T) a.delta[row0 + t] = dl[r];
   }
-  const int bhi = seen_end(a, min(q0 + kTileQ, a.T) - 1);
-  const int hi_min = active ? seen_end(a, r0) : 0;
-  const int hi_max = active ? seen_end(a, min(r0 + 15, a.T - 1)) : 0;
-  const int lo_min = active ? seen_beg(a, r0) : 0;
-  const int lo_max = active ? seen_beg(a, min(r0 + 15, a.T - 1)) : 0;
   const bool rows_full = r0 + 16 <= a.T;
+  const int last = min(r0 + 15, a.T - 1);
+  const int hi_min = rows_full ? seen_end(a, r0) : 0;
+  const int lo_max = rows_full ? seen_beg(a, last) : 0;
+  const float sc = a.scale * kLog2e;
 
-  float dq[ND][4];
+  float dq[NQ / 2];
+  zero(dq);
+  mbar_wait(bars, 0);
+  for (int n = 0; n < total; ++n) {
+    const int s = n & 1, k0 = kbeg + n * BK;
+    if (tid == 0 && n + 1 < total) load_kv(n + 1);
+    mbar_wait(bars + 1 + s, (n >> 1) & 1);
+    float sa[BK / 2], dp[BK / 2];
+    zero(sa);
+    zero(dp);
+    reg_fence(sa);
+    reg_fence(dp);
+    wg_fence();
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
-    dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
-  }
-  int buf = 0;
-  for (int k0 = kbeg; k0 < bhi; k0 += BK, buf ^= 1) {
-    if (k0 + BK < bhi) load_kv(k0 + BK, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();        // this tile (and, at the first, Q and dO)
-    if (active && k0 < hi_max && k0 + BK > lo_min) {
-      const bf16* kt = ks + buf * BK * LD;
-      const bf16* vt = vs + buf * BK * LD;
-      float s[NS][4], dp[NS][4];
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_ss(sa, desc_kstep(qs, 64, kk), desc_kstep(ks(s), BK, kk));
+    }
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.0f;
-      }
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_ss(dp, desc_kstep(dos, 64, kk), desc_kstep(vs(s), BK, kk));
+    }
+    wg_commit_wait();
+    reg_fence(sa);
+    reg_fence(dp);
+    // the element mask only where the tile crosses an edge of some row's
+    // visible range
+    const bool full = rows_full && k0 + BK <= hi_min && k0 >= lo_max;
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        unsigned qa[4], da[4];
-        load_a<LD>(qa, qs + 16 * w * LD, kk, lane);
-        load_a<LD>(da, dos + 16 * w * LD, kk, lane);
+    for (int i = 0; i < BK / 8; ++i) {
 #pragma unroll
-        for (int j = 0; j < NS; j += 2) {
-          mma_qk<LD>(s + j, qa, kt, 8 * j, kk, lane);
-          mma_qk<LD>(dp + j, da, vt, 8 * j, kk, lane);
-        }
-      }
-      const bool full = rows_full && k0 + BK <= hi_min && k0 >= lo_max;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * tig + (e & 1);
-          const int r = e >> 1;
-          const bool ok = full || (key >= rlo[r] && key < rhi[r]);
-          const float p = ok ? exp2_approx(s[j][e] * sc - ls2[r]) : 0.0f;
-          s[j][e] = p * (dp[j][e] - dl[r]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        unsigned dhi[4], dlo[4];
-        split_p(s[2 * kk], s[2 * kk + 1], dhi, dlo);
-        mma_pv<D, LD>(dq, dhi, dlo, kt, 16 * kk, lane);
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * i + 2 * tig + (e & 1);
+        const int r = e >> 1;
+        const bool ok = full || (key >= rlo[r] && key < rhi[r]);
+        const float p = ok ? exp2_approx(sa[4 * i + e] * sc - ls2[r]) : 0.0f;
+        sa[4 * i + e] = ok ? p * (dp[4 * i + e] - dl[r]) : 0.0f;
       }
     }
-    __syncthreads();        // the tile is consumed before it is refilled
+    unsigned da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) a_frag(sa, kk, da[kk]);
+    reg_fence(dq);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_rs(dq, da[kk], desc_rstep(ks(s), BK, 0, kk));
+    }
+    wg_commit_wait();
+    reg_fence(dq);
+    __syncthreads();        // the stage is consumed before it is refilled
   }
-  cp_async_wait<0>();
-  if (!active) return;
   bf16* dqg = static_cast<bf16*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1453,192 +1725,313 @@ __global__ void __launch_bounds__(kTiledWarps * 32)
     if (t >= a.T) continue;
     bf16* row = dqg + static_cast<long long>(t) * a.dq_st + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * n) = __floats2bfloat162_rn(
-          dq[n][2 * r] * a.scale, dq[n][2 * r + 1] * a.scale);
+    for (int i = 0; i < NQ / 8; ++i) {
+      if (8 * i + 2 * tig < D) {
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * i) =
+            __floats2bfloat162_rn(dq[4 * i + 2 * r] * a.scale,
+                                  dq[4 * i + 2 * r + 1] * a.scale);
+      }
     }
   }
 }
 
-// bfloat16, dk/dv on mma.sync: a block of 4 warps per (b, kv head, 64
-// keys), 16 keys a warp; the block's K and V tiles stay in shared memory,
-// Q and dO come in double-buffered 32-query tiles (the group's heads in
-// ascending order, each head's tiles in order) by cp.async. Per tile:
-// S^T = K Q^T and dP^T = V dO^T, p and ds on the fragments, then
-// dv += (p_hi + p_lo)^T dO and dk += (ds_hi + ds_lo)^T Q over the block's
-// C::DS columns from c0.
+// bfloat16, dk/dv: a block per (b, kv head, column split, chunk of the
+// group's heads, 64 keys), the first keys (the most queries) first. K and
+// V stay; for each head of its chunk in ascending order, the query tiles
+// that see its keys come in in order (64 queries; each thread loads the
+// lse and delta of its 16 while they land). Per tile: S^T = K Q^T and
+// dP^T = V dO^T, p and ds on the accumulators, dv += bf16(p)^T dO and
+// dk += bf16(ds)^T Q over the block's columns. With one chunk the block writes dk (times scale) and
+// dv; with several, each writes its float32 partial sums, and the last
+// block of the key tile to finish (elected by a counter taken after
+// __threadfence; it resets the counter) adds the chunks in ascending
+// order and writes them, so the head sum runs in a fixed order.
 template <int D>
-__global__ void __launch_bounds__(kTiledWarps * 32)
-    flash_bwd_dkv_mma(const BArgs a) {
-  using C = BwdMma<D>;
-  constexpr int BK = C::BK, LD = C::LD, NS = BK / 8, ND = C::DS / 8;
-  constexpr int KD = D / 16, CH = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);     // [kTileQ][LD]
-  bf16* vs = ks + kTileQ * LD;                       // [kTileQ][LD]
-  bf16* qs = vs + kTileQ * LD;                       // [2][BK][LD]
-  bf16* dos = qs + 2 * BK * LD;                      // [2][BK][LD]
-  float* lsb = reinterpret_cast<float*>(dos + 2 * BK * LD);   // [2][BK]
-  float* dlb = lsb + 2 * BK;                                  // [2][BK]
+__global__ void __launch_bounds__(128)
+    flash_bwd_dkv_wgmma(const __grid_constant__ BwdMaps m, const BArgs a) {
+  using C = BwdWg<D>;
+  constexpr int CH = C::CH, KS = C::KS, NKV = C::NKV, DS = C::DS;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ unsigned elected;
+  unsigned char* base = align1024(smem_raw);
+  bf16* ks = reinterpret_cast<bf16*>(base);            // [CH][64][64]
+  bf16* vs = ks + CH * 64 * 64;                        // [CH][64][64]
+  unsigned char* stages = base + 2 * CH * C::TILE;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + 2 * C::kStageDkv);
   const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
-  const int kvh = blockIdx.x / C::NSPLIT, b = blockIdx.y;
-  const int c0 = (blockIdx.x % C::NSPLIT) * C::DS;   // the block's columns
-  const int k0 = blockIdx.z * kTileQ;        // the first keys are the heaviest
-  const int G = a.H / a.KV;
+  const int G = a.H / a.KV, NC = (G + a.hpc - 1) / a.hpc;
+  const int chunk = blockIdx.x % NC;
+  const int kvh = blockIdx.x / NC / C::NSPLIT;
+  const int split = blockIdx.x / NC % C::NSPLIT;
+  const int b = blockIdx.y, tile = blockIdx.z, k0 = 64 * tile;
+  const int c0 = split * DS;                     // the block's columns
+  const int h0 = kvh * G + chunk * a.hpc;
+  const int nh = min(a.hpc, G - chunk * a.hpc);
   const int off = a.S - a.T;
-  const bf16* kg = static_cast<const bf16*>(a.k) + b * a.k_sb +
-                   kvh * a.k_sh;
-  const bf16* vg = static_cast<const bf16*>(a.v) + b * a.v_sb +
-                   kvh * a.v_sh;
-  const float sc = a.scale * kLog2e;
-
-  for (int i = tid; i < kTileQ * CH; i += blockDim.x) {
-    const int r = i / CH, c = i % CH, key = k0 + r;
-    const bool ok = key < a.S;
-    const long long kk = static_cast<long long>(key);
-    cp_async16(ks + r * LD + c * 8, ok ? kg + kk * a.k_ss + c * 8 : kg, ok);
-    cp_async16(vs + r * LD + c * 8, ok ? vg + kk * a.v_ss + c * 8 : vg, ok);
-  }
-  // the tiles: (head of the group, query tile) flattened, from the first
-  // query tile that holds a query seeing key k0
-  const int tbeg = a.causal ? (max(0, k0 - off) / BK) * BK : 0;
-  // ... to the last query that sees the block's last key
-  const int tend = seeing_end(a, min(k0 + kTileQ, a.S) - 1);
-  const int ntile = tend > tbeg ? (tend - tbeg + BK - 1) / BK : 0;
-  const int total = G * ntile;
-  auto load_q = [&](int n, int buf) {
-    const int h = kvh * G + n / ntile, t0 = tbeg + (n % ntile) * BK;
-    const bf16* qg = static_cast<const bf16*>(a.q) + b * a.q_sb +
-                     h * a.q_sh;
-    const bf16* dog = static_cast<const bf16*>(a.dout) + b * a.do_sb +
-                      h * a.do_sh;
-    bf16* qd = qs + buf * BK * LD;
-    bf16* dd = dos + buf * BK * LD;
-    for (int i = tid; i < BK * CH; i += blockDim.x) {
-      const int r = i / CH, c = i % CH, t = t0 + r;
-      const bool ok = t < a.T;
-      const long long tt = static_cast<long long>(t);
-      cp_async16(qd + r * LD + c * 8, ok ? qg + tt * a.q_st + c * 8 : qg,
-                 ok);
-      cp_async16(dd + r * LD + c * 8, ok ? dog + tt * a.do_st + c * 8 : dog,
-                 ok);
-    }
-    const long long row0 = (static_cast<long long>(b) * a.H + h) * a.T;
-    for (int i = tid; i < BK; i += blockDim.x) {
-      const bool ok = t0 + i < a.T;
-      lsb[buf * BK + i] = ok ? a.lse[row0 + t0 + i] * kLog2e : 0.0f;
-      dlb[buf * BK + i] = ok ? a.delta[row0 + t0 + i] : 0.0f;
+  // the query tiles: from the first that holds a query seeing key k0 to
+  // the last query that sees the block's last key
+  const int tbeg = a.causal ? (max(0, k0 - off) / 64) * 64 : 0;
+  const int tend = seeing_end(a, min(k0 + 64, a.S) - 1);
+  const int ntile = tend > tbeg ? (tend - tbeg + 63) / 64 : 0;
+  const int total = nh * ntile;
+  auto qs = [&](int s) {
+    return reinterpret_cast<bf16*>(stages + s * C::kStageDkv);
+  };
+  auto dos = [&](int s) { return qs(s) + CH * 64 * 64; };
+  auto load_q = [&](int n) {
+    const int s = n & 1, h = h0 + n / ntile, t0 = tbeg + (n % ntile) * 64;
+    uint64_t* bar = bars + 1 + s;
+    mbar_expect(bar, C::kStageDkv);
+    for (int c = 0; c < CH; ++c) {
+      tma_4d(qs(s) + c * 64 * 64, &m.q, bar, 64 * c, t0, h, b);
+      tma_4d(dos(s) + c * 64 * 64, &m.dout, bar, 64 * c, t0, h, b);
     }
   };
-  if (total > 0) load_q(0, 0);
-  cp_async_commit();
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(bars, 2 * CH * C::TILE);
+    for (int c = 0; c < CH; ++c) {
+      tma_4d(ks + c * 64 * 64, &m.k, bars, 64 * c, k0, kvh, b);
+      tma_4d(vs + c * 64 * 64, &m.v, bars, 64 * c, k0, kvh, b);
+    }
+    if (total > 0) load_q(0);
+  }
 
   const int kw = k0 + 16 * w;                 // the warp's first key
-  const bool active = kw < a.S;
-  const bool keys_full = kw + 16 <= a.S;
-  float dk[ND][4], dv[ND][4];
+  const float sc = a.scale * kLog2e;
+  float dk[NKV / 2], dv[NKV / 2];
+  zero(dk);
+  zero(dv);
+  mbar_wait(bars, 0);
+  for (int n = 0; n < total; ++n) {
+    const int s = n & 1, t0 = tbeg + (n % ntile) * 64;
+    if (tid == 0 && n + 1 < total) load_q(n + 1);
+    // the lse (log2 units) and delta of this thread's queries 8 i + 2 tig
+    // + j, as L[2 i + j]
+    const long long row0 =
+        (static_cast<long long>(b) * a.H + h0 + n / ntile) * a.T;
+    float L[16], Dl[16];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) {
+    for (int j = 0; j < 16; ++j) {
+      const int t = t0 + 8 * (j >> 1) + 2 * tig + (j & 1);
+      L[j] = t < a.T ? a.lse[row0 + t] * kLog2e : 0.0f;
+      Dl[j] = t < a.T ? a.delta[row0 + t] : 0.0f;
+    }
+    mbar_wait(bars + 1 + s, (n >> 1) & 1);
+    float st[32], dpt[32];
+    zero(st);
+    zero(dpt);
+    reg_fence(st);
+    reg_fence(dpt);
+    wg_fence();
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
-  }
-  int buf = 0;
-  for (int n = 0; n < total; ++n, buf ^= 1) {
-    if (n + 1 < total) load_q(n + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();        // this tile (and, at the first, K and V)
-    const int t0 = tbeg + (n % ntile) * BK;
-    // a warp skips a tile none of whose queries sees its first key, or
-    // (with a window) its last key
-    if (active && (!a.causal || t0 + BK - 1 + off >= kw) &&
-        (!windowed(a) || t0 + off - a.window < kw + 15)) {
-      const bf16* qt = qs + buf * BK * LD;
-      const bf16* dt = dos + buf * BK * LD;
-      const float* L = lsb + buf * BK;
-      const float* Dl = dlb + buf * BK;
-      float st[NS][4], dpt[NS][4];
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_ss(st, desc_kstep(ks, 64, kk), desc_kstep(qs(s), 64, kk));
+    }
 #pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.0f;
-        dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.0f;
-      }
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_ss(dpt, desc_kstep(vs, 64, kk), desc_kstep(dos(s), 64, kk));
+    }
+    wg_commit_wait();
+    reg_fence(st);
+    reg_fence(dpt);
+    // every query of the tile sees every key of the warp
+    const bool full = kw + 16 <= a.S && t0 + 64 <= a.T &&
+                      (!a.causal || t0 + off >= kw + 15) &&
+                      (!windowed(a) || t0 + 63 + off - a.window < kw);
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        unsigned ka[4], va[4];
-        load_a<LD>(ka, ks + 16 * w * LD, kk, lane);
-        load_a<LD>(va, vs + 16 * w * LD, kk, lane);
+    for (int i = 0; i < 8; ++i) {
 #pragma unroll
-        for (int j = 0; j < NS; j += 2) {
-          mma_qk<LD>(st + j, ka, qt, 8 * j, kk, lane);
-          mma_qk<LD>(dpt + j, va, dt, 8 * j, kk, lane);
-        }
-      }
-      // every query of the tile sees every key of the warp
-      const bool full = keys_full && t0 + BK <= a.T &&
-                        (!a.causal || t0 + off >= kw + 15) &&
-                        (!windowed(a) || t0 + BK - 1 + off - a.window < kw);
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = 8 * j + 2 * tig + (e & 1);
-          const int key = kw + g + 8 * (e >> 1);
-          const bool ok = full || sees(a, t0 + qi, key);
-          const float p = ok ? exp2_approx(st[j][e] * sc - L[qi]) : 0.0f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - Dl[qi]);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        unsigned hi[4], lo[4];
-        split_p(st[2 * kk], st[2 * kk + 1], hi, lo);
-        mma_pv<C::DS, LD>(dv, hi, lo, dt + c0, 16 * kk, lane);
-        split_p(dpt[2 * kk], dpt[2 * kk + 1], hi, lo);
-        mma_pv<C::DS, LD>(dk, hi, lo, qt + c0, 16 * kk, lane);
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * i + 2 * tig + (e & 1), j = 2 * i + (e & 1);
+        const int key = kw + g + 8 * (e >> 1);
+        const bool ok = full || sees(a, t0 + qi, key);
+        const float p = ok ? exp2_approx(st[4 * i + e] * sc - L[j]) : 0.0f;
+        st[4 * i + e] = p;
+        dpt[4 * i + e] = ok ? p * (dpt[4 * i + e] - Dl[j]) : 0.0f;
       }
     }
-    __syncthreads();        // the tile is consumed before it is refilled
+    unsigned pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      a_frag(st, kk, pa[kk]);
+      a_frag(dpt, kk, da[kk]);
+    }
+    reg_fence(dv);
+    reg_fence(dk);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs(dv, pa[kk], desc_rstep(dos(s), 64, c0 / 64, kk));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs(dk, da[kk], desc_rstep(qs(s), 64, c0 / 64, kk));
+    }
+    wg_commit_wait();
+    reg_fence(dv);
+    reg_fence(dk);
+    __syncthreads();        // the stage is consumed before it is refilled
   }
-  cp_async_wait<0>();
-  if (!active) return;
-  bf16* dkg = static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh;
-  bf16* dvg = static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh;
+
+  const long long unit =
+      ((static_cast<long long>(b) * a.KV + kvh) * C::NSPLIT + split) *
+          gridDim.z + tile;
+  if (NC > 1) {
+    // this chunk's partials, [NC][units][2][64][DS] floats
+    const long long units =
+        static_cast<long long>(gridDim.y) * a.KV * C::NSPLIT * gridDim.z;
+    auto part = [&](int c) { return a.part + (c * units + unit) * 2 * 64 * DS; };
+    float* pk = part(chunk);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * w + g + 8 * r;
+#pragma unroll
+      for (int i = 0; i < NKV / 8; ++i) {
+        const int col = 8 * i + 2 * tig;
+        if (col < DS) {
+          *reinterpret_cast<float2*>(pk + row * DS + col) =
+              make_float2(dk[4 * i + 2 * r], dk[4 * i + 2 * r + 1]);
+          *reinterpret_cast<float2*>(pk + (64 + row) * DS + col) =
+              make_float2(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+        }
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) elected = atomicAdd(a.count + unit, 1u) == NC - 1u;
+    __syncthreads();
+    if (!elected) return;
+    __threadfence();
+    // the chunks in ascending order, this block's own from its registers
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * w + g + 8 * r;
+#pragma unroll
+      for (int i = 0; i < NKV / 8; ++i) {
+        const int col = 8 * i + 2 * tig;
+        if (col >= DS) continue;
+        float2 sk = make_float2(0.0f, 0.0f), sv = sk;
+        for (int c = 0; c < NC; ++c) {
+          float2 vk = make_float2(dk[4 * i + 2 * r], dk[4 * i + 2 * r + 1]);
+          float2 vv = make_float2(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+          if (c != chunk) {
+            const float* pc = part(c);
+            vk = __ldcg(reinterpret_cast<const float2*>(pc + row * DS + col));
+            vv = __ldcg(
+                reinterpret_cast<const float2*>(pc + (64 + row) * DS + col));
+          }
+          sk = c == 0 ? vk : make_float2(sk.x + vk.x, sk.y + vk.y);
+          sv = c == 0 ? vv : make_float2(sv.x + vv.x, sv.y + vv.y);
+        }
+        dk[4 * i + 2 * r] = sk.x;
+        dk[4 * i + 2 * r + 1] = sk.y;
+        dv[4 * i + 2 * r] = sv.x;
+        dv[4 * i + 2 * r + 1] = sv.y;
+      }
+    }
+    if (tid == 0) a.count[unit] = 0u;
+  }
+  bf16* dkg = static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh + c0;
+  bf16* dvg = static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh + c0;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int key = kw + g + 8 * r;
     if (key >= a.S) continue;
-    bf16* krow = dkg + static_cast<long long>(key) * a.dk_ss + c0 + 2 * tig;
-    bf16* vrow = dvg + static_cast<long long>(key) * a.dv_ss + c0 + 2 * tig;
+    bf16* krow = dkg + static_cast<long long>(key) * a.dk_ss + 2 * tig;
+    bf16* vrow = dvg + static_cast<long long>(key) * a.dv_ss + 2 * tig;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * n) = __floats2bfloat162_rn(
-          dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
-      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * n) =
-          __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+    for (int i = 0; i < NKV / 8; ++i) {
+      if (8 * i + 2 * tig >= DS) continue;
+      *reinterpret_cast<__nv_bfloat162*>(krow + 8 * i) = __floats2bfloat162_rn(
+          dk[4 * i + 2 * r] * a.scale, dk[4 * i + 2 * r + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(vrow + 8 * i) =
+          __floats2bfloat162_rn(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
     }
   }
 }
 
+// cuTensorMapEncodeTiled of libcuda, looked up at run time so that the
+// library links against the CUDA runtime alone.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr
+                          : reinterpret_cast<EncodeTiled>(
+                                dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// A bf16 [B, rows, heads, D] tensor (element strides sb, sr, sh; the D
+// stride 1) as a 4-d map with a box of 64 columns by box_rows rows.
+bool map_rows(CUtensorMap* map, const void* p, int B, int rows, int heads,
+              int D, long long sb, long long sr, long long sh, int box_rows) {
+  const cuuint64_t dim[4] = {static_cast<cuuint64_t>(D),
+                             static_cast<cuuint64_t>(rows),
+                             static_cast<cuuint64_t>(heads),
+                             static_cast<cuuint64_t>(B)};
+  const cuuint64_t stride[3] = {static_cast<cuuint64_t>(sr) * 2,
+                                static_cast<cuuint64_t>(sh) * 2,
+                                static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(p), dim, stride, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 launches: dq (which writes delta), then dk/dv.
+template <int D>
+int launch_bwd_wgmma(const BArgs& a, cudaStream_t stream) {
+  using C = BwdWg<D>;
+  if (encode_tiled() == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  BwdMaps mq, mkv;
+  bool ok = map_rows(&mq.q, a.q, a.B, a.T, a.H, D, a.q_sb, a.q_st, a.q_sh, 64) &&
+            map_rows(&mq.dout, a.dout, a.B, a.T, a.H, D, a.do_sb, a.do_st,
+                     a.do_sh, 64) &&
+            map_rows(&mq.k, a.k, a.B, a.S, a.KV, D, a.k_sb, a.k_ss, a.k_sh,
+                     C::BK) &&
+            map_rows(&mq.v, a.v, a.B, a.S, a.KV, D, a.v_sb, a.v_ss, a.v_sh,
+                     C::BK);
+  mkv = mq;
+  ok = ok &&
+       map_rows(&mkv.k, a.k, a.B, a.S, a.KV, D, a.k_sb, a.k_ss, a.k_sh, 64) &&
+       map_rows(&mkv.v, a.v, a.B, a.S, a.KV, D, a.v_sb, a.v_ss, a.v_sh, 64);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  int e = set_smem(flash_bwd_dq_wgmma<D>, C::kSmemDq);
+  if (e != 0) return e;
+  e = set_smem(flash_bwd_dkv_wgmma<D>, C::kSmemDkv);
+  if (e != 0) return e;
+  flash_bwd_dq_wgmma<D><<<dim3(a.H, a.B, (a.T + 63) / 64), 128, C::kSmemDq,
+                          stream>>>(mq, a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = a.H / a.KV, NC = (G + a.hpc - 1) / a.hpc;
+  flash_bwd_dkv_wgmma<D><<<dim3(a.KV * C::NSPLIT * NC, a.B, (a.S + 63) / 64),
+                           128, C::kSmemDkv, stream>>>(mkv, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D>
 int launch_bwd_d(const BArgs& a, cudaStream_t stream, bool bf) {
-  if (bf) {
-    using C = BwdMma<D>;
-    int e = set_smem(flash_bwd_dq_mma<D>, C::kSmemDq);
-    if (e != 0) return e;
-    e = set_smem(flash_bwd_dkv_mma<D>, C::kSmemDkv);
-    if (e != 0) return e;
-    flash_bwd_dq_mma<D><<<dim3(a.H, a.B, (a.T + kTileQ - 1) / kTileQ),
-                          kTiledWarps * 32, C::kSmemDq, stream>>>(a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    flash_bwd_dkv_mma<D><<<dim3(a.KV * C::NSPLIT, a.B,
-                                (a.S + kTileQ - 1) / kTileQ),
-                           kTiledWarps * 32, C::kSmemDkv, stream>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (bf) return launch_bwd_wgmma<D>(a, stream);
   const int smem_dq = (2 * kBK * (D + 1) + 2 * kBQ * D) *
                       static_cast<int>(sizeof(float));
   const int smem_dkv = smem_dq + 2 * kBK * static_cast<int>(sizeof(float));

@@ -48,27 +48,19 @@
 // rmsnorm_in_k6_order spells the same order in torch.
 //
 // The backward (rmsnorm_bwd_*) stands for jax.grad through the norm
-// (src/repro/models/layers.py::norm_apply, whose Pallas kernel has no
+// (src/repro/models/layers.py:124, norm_apply, whose Pallas kernel has no
 // backward): given dy, with g = dy * scale and float32 statistics,
 //   inv = 1 / sqrt(mean(x^2) + eps),  c = mean(g * x),
 //   dx = inv * g - (x * inv^3) * c          (in x's dtype),
 //   dscale = sum over rows of (dy * x) * inv (float32).
-// Bound: bytes (x and dy read once, dx written once). Two kernels, no
-// atomics, so the result is the same run to run (the trainer's
-// crash/restart is held bit for bit on the card):
-// * rmsnorm_bwd_rows: the grid cuts the rows into contiguous chunks of R,
-//   one chunk a block. The lanes keep the forward's plan (a G-lane group a
-//   row, vector v on lane v % G), so a lane owns the same columns in every
-//   row: it holds their scale in registers and adds its columns' dscale
-//   terms over its rows in row order. A wide row is the whole block and
-//   the block walks its chunk row by row; narrow rows go to the block's
-//   groups in turn (group i: rows i, i + groups, ...). Each row's two sums
-//   (of x^2, of g * x) run in the forward's order: lane slots in order,
-//   the xor butterfly, the warps in warp order. The block's groups then
-//   add their dscale partials in group order through shared memory and
-//   the block writes one float32 partial row [D].
-// * rmsnorm_bwd_reduce: one thread a column adds the blocks' partials in
-//   block order.
+// Bound: bytes (x and dy read once, dx written once). One launch, no
+// float atomics, so the result is the same run to run (the trainer's
+// crash/restart is held bit for bit on the card): row chunks a block,
+// the next row's loads started before this row's two sums so that memory
+// stays in flight, the blocks' float32 dscale partials added in block
+// order by the last blocks to finish, each a slice of the columns
+// (rmsnorm_bwd_kernel below). tests/test_torch_support.py::
+// rmsnorm_bwd_in_k6_order spells the same order in torch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,6 +71,8 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNarrowThreads = 256;
 constexpr int kMaxWarps = 16;  // G <= 512
+constexpr int kSegs = 8;       // runs of partials a dscale column is cut into
+constexpr int kBatch = 16;     // partials a lane loads before adding them
 
 template <typename T>
 struct Elem;
@@ -290,6 +284,31 @@ __device__ __forceinline__ void load_row(const T* __restrict__ p, uint4* r,
   }
 }
 
+// The scale of vector v (0 past the row): 16-byte loads where VEC, read
+// through L1, where every row's lanes find it.
+template <int E, bool VEC>
+__device__ __forceinline__ void load_scale(const float* __restrict__ scale,
+                                           int v, int nv, int D,
+                                           float (&s)[E]) {
+  if (VEC && v < nv) {
+    const float4* sp = reinterpret_cast<const float4*>(scale + v * E);
+#pragma unroll
+    for (int j = 0; j < E / 4; ++j) {
+      const float4 q = __ldg(sp + j);
+      s[4 * j] = q.x;
+      s[4 * j + 1] = q.y;
+      s[4 * j + 2] = q.z;
+      s[4 * j + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = v * E + e;
+      s[e] = (v < nv && c < D) ? __ldg(scale + c) : 0.0f;
+    }
+  }
+}
+
 // The sum of a (and of b) over the G lanes of a group (G <= 32: the xor
 // butterfly) or over the block (G > 32: each warp's butterfly, then the
 // warps in warp order through ws[2][kMaxWarps]).
@@ -315,15 +334,36 @@ __device__ __forceinline__ void group_sum2(float* a, float* b, int G,
   }
 }
 
+// One launch. The grid cuts the rows into contiguous chunks of R, one
+// chunk a block; the lanes keep the forward's plan, so a lane owns the
+// same columns in every row (their scale read through L1 where it is
+// used: in registers it would push the row buffers into local memory)
+// and adds its columns' dscale terms over its rows in row order. A wide row is the
+// whole block and the block walks its chunk row by row; narrow rows go to
+// the block's groups in turn (group i: rows i, i + groups, ...). Each
+// round starts the next round's loads of x and dy before this round's two
+// sums (of x^2, of g * x, in the forward's order: lane slots in order,
+// the xor butterfly, the warps in warp order), so a row's loads are in
+// flight while the previous row reduces. The block's groups add their
+// dscale partials in group order through shared memory and the block
+// writes one float32 partial row [D]. Then each block takes a ticket; the
+// last K to finish wait for the rest (K is at most half the blocks the
+// card holds at once, so the blocks still to run always find room) and
+// split the columns: a column's P partials are cut into kSegs runs of
+// blocks in order, a lane adds each run from +0.0 in block order (loading
+// kBatch at a time, so that many loads are in flight), and the runs are
+// added in run order. The last of the K resets the two counters.
 template <typename T, int VPT, bool VEC>
 __global__ void __launch_bounds__(512)
-rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ scale,
-                 const T* __restrict__ dy, T* __restrict__ dx,
-                 float* __restrict__ part, long long N, int D, int G,
-                 int R, float eps) {
+rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ part, float* __restrict__ dscale,
+                   unsigned* __restrict__ count, long long N, int D, int G,
+                   int R, int K, float eps) {
   using El = Elem<T>;
   constexpr int E = El::E;
   __shared__ float ws[2][kMaxWarps];
+  __shared__ unsigned ticket;
   extern __shared__ float gpart[];          // [groups][D] (narrow rows)
   const int tid = threadIdx.x;
   const int lane = G > 32 ? tid : (tid & (G - 1));
@@ -333,27 +373,33 @@ rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ scale,
   const long long r0 = static_cast<long long>(blockIdx.x) * R;
   const long long r1 = min(r0 + R, N);
 
-  float sc[VPT][E], acc[VPT][E];
+  float acc[VPT][E];
 #pragma unroll
   for (int k = 0; k < VPT; ++k) {
-    const int v = k * G + lane;
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int c = v * E + e;
-      sc[k][e] = (v < nv && c < D) ? scale[c] : 0.0f;
-      acc[k][e] = 0.0f;
-    }
+    for (int e = 0; e < E; ++e) acc[k][e] = 0.0f;
   }
   // every group runs the same number of rounds (the butterfly and the
   // block's barriers take all lanes); a round past the chunk is dead
   const long long rounds = (R + groups - 1) / groups;
+  uint4 xr[VPT], gr[VPT], xn[VPT], gn[VPT];
+  {
+    const long long row = r0 + group;
+    const long long off = (row < r1 ? row : 0) * D;
+    load_row<T, VPT, VEC>(x + off, xr, lane, G, nv, D, row < r1);
+    load_row<T, VPT, VEC>(dy + off, gr, lane, G, nv, D, row < r1);
+  }
   for (long long i = 0; i < rounds; ++i) {
     const long long row = r0 + i * groups + group;
     const bool live = row < r1;
     const long long off = (live ? row : 0) * D;
-    uint4 xr[VPT], gr[VPT];
-    load_row<T, VPT, VEC>(x + off, xr, lane, G, nv, D, live);
-    load_row<T, VPT, VEC>(dy + off, gr, lane, G, nv, D, live);
+    const bool more = i + 1 < rounds;
+    if (more) {
+      const long long nrow = row + groups;
+      const long long noff = (nrow < r1 ? nrow : 0) * D;
+      load_row<T, VPT, VEC>(x + noff, xn, lane, G, nv, D, nrow < r1);
+      load_row<T, VPT, VEC>(dy + noff, gn, lane, G, nv, D, nrow < r1);
+    }
     float ss = 0.0f, gx = 0.0f;
 #pragma unroll
     for (int k = 0; k < VPT; ++k) {
@@ -365,34 +411,46 @@ rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ scale,
     }
 #pragma unroll
     for (int k = 0; k < VPT; ++k) {
+      float sc[E];
+      load_scale<E, VEC>(scale, k * G + lane, nv, D, sc);
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        gx = gx + (El::get(gr[k], e) * sc[k][e]) * El::get(xr[k], e);
+        gx = gx + (El::get(gr[k], e) * sc[e]) * El::get(xr[k], e);
       }
     }
     group_sum2(&ss, &gx, G, tid, ws);
     const float inv = 1.0f / sqrtf(ss / static_cast<float>(D) + eps);
     const float c = gx / static_cast<float>(D);
     const float inv3 = (inv * inv) * inv;
-    if (!live) continue;
+    if (live) {
 #pragma unroll
-    for (int k = 0; k < VPT; ++k) {
-      const int v = k * G + lane;
-      if (v >= nv) continue;
-      uint4 o = make_uint4(0u, 0u, 0u, 0u);
+      for (int k = 0; k < VPT; ++k) {
+        const int v = k * G + lane;
+        if (v >= nv) continue;
+        float sc[E];
+        load_scale<E, VEC>(scale, v, nv, D, sc);
+        uint4 o = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float xf = El::get(xr[k], e), dyf = El::get(gr[k], e);
-        const float g = dyf * sc[k][e];
-        const float d = inv * g - (xf * inv3) * c;
-        acc[k][e] = acc[k][e] + (dyf * xf) * inv;
-        if (VEC) {
-          El::put(o, e, d);
-        } else if (v * E + e < D) {
-          El::store(dx + off + v * E + e, d);
+        for (int e = 0; e < E; ++e) {
+          const float xf = El::get(xr[k], e), dyf = El::get(gr[k], e);
+          const float g = dyf * sc[e];
+          const float d = inv * g - (xf * inv3) * c;
+          acc[k][e] = acc[k][e] + (dyf * xf) * inv;
+          if (VEC) {
+            El::put(o, e, d);
+          } else if (v * E + e < D) {
+            El::store(dx + off + v * E + e, d);
+          }
         }
+        if (VEC) __stcs(reinterpret_cast<uint4*>(dx + off) + v, o);
       }
-      if (VEC) __stcs(reinterpret_cast<uint4*>(dx + off) + v, o);
+    }
+    if (more) {
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        xr[k] = xn[k];
+        gr[k] = gn[k];
+      }
     }
   }
   // the groups' partials in group order; a wide row's block has one group
@@ -405,73 +463,125 @@ rmsnorm_bwd_rows(const T* __restrict__ x, const float* __restrict__ scale,
       for (int e = 0; e < E; ++e)
         if (v < nv && v * E + e < D) out[v * E + e] = acc[k][e];
     }
-    return;
+  } else {
+#pragma unroll
+    for (int k = 0; k < VPT; ++k) {
+      const int v = k * G + lane;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (v < nv && v * E + e < D) gpart[group * D + v * E + e] = acc[k][e];
+    }
+    __syncthreads();
+    for (int c = tid; c < D; c += blockDim.x) {
+      float s = gpart[c];
+      for (int q = 1; q < groups; ++q) s = s + gpart[q * D + c];
+      out[c] = s;
+    }
   }
-#pragma unroll
-  for (int k = 0; k < VPT; ++k) {
-    const int v = k * G + lane;
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (v < nv && v * E + e < D) gpart[group * D + v * E + e] = acc[k][e];
+
+  // dscale: the last K blocks add the partials
+  const unsigned P = gridDim.x;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    ticket = atomicAdd(count, 1u);
+    if (ticket + K >= P) {
+      while (*reinterpret_cast<volatile unsigned*>(count) < P) __nanosleep(64);
+    }
   }
   __syncthreads();
-  for (int c = tid; c < D; c += blockDim.x) {
-    float s = gpart[c];
-    for (int q = 1; q < groups; ++q) s = s + gpart[q * D + c];
-    out[c] = s;
+  if (ticket + K < P) return;
+  __threadfence();
+  const int j = static_cast<int>(ticket + K - P);   // 0 .. K - 1
+  const int per = (D + K - 1) / K;
+  const int cbeg = j * per, cend = min(D, cbeg + per);
+  const int seg = tid % kSegs;
+  const unsigned lo = P * seg / kSegs, hi = P * (seg + 1) / kSegs;
+  // all lanes of a warp run the same rounds (the shuffles take them all)
+  const int cols = blockDim.x / kSegs;
+  for (int base = cbeg; base < cend; base += cols) {
+    const int c = base + tid / kSegs;
+    float s = 0.0f;
+    if (c < cend) {
+      unsigned p = lo;
+      for (; p + kBatch <= hi; p += kBatch) {
+        float v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          v[u] = __ldcg(part + static_cast<long long>(p + u) * D + c);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) s = s + v[u];
+      }
+      for (; p < hi; ++p) {
+        s = s + __ldcg(part + static_cast<long long>(p) * D + c);
+      }
+    }
+    float t = s;
+#pragma unroll
+    for (int q = 1; q < kSegs; ++q) {
+      const float u = __shfl_down_sync(kFull, s, q);
+      t = t + u;
+    }
+    if (seg == 0 && c < cend) dscale[c] = t;
+  }
+  __syncthreads();
+  if (tid == 0 && atomicAdd(count + 1, 1u) == static_cast<unsigned>(K) - 1u) {
+    count[0] = 0u;
+    count[1] = 0u;
   }
 }
 
-__global__ void rmsnorm_bwd_reduce(const float* __restrict__ part, int P,
-                                   int D, float* __restrict__ dscale) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= D) return;
-  float s = part[c];
-  for (int b = 1; b < P; ++b) s = s + part[static_cast<long long>(b) * D + c];
-  dscale[c] = s;
-}
-
-template <typename T, int VPT>
-int launch_bwd_vpt(const T* x, const float* scale, const T* dy, T* dx,
-                   float* part, float* dscale, long long N, int D, int G,
-                   int R, float eps, int vec, cudaStream_t stream) {
+template <typename T, int VPT, bool VEC>
+int launch_bwd_kernel(const T* x, const float* scale, const T* dy, T* dx,
+                      float* part, float* dscale, unsigned* count,
+                      long long N, int D, int G, int R, float eps,
+                      cudaStream_t stream) {
+  const auto kernel = rmsnorm_bwd_kernel<T, VPT, VEC>;
   const int threads = G > 32 ? G : kNarrowThreads;
   const int groups = G > 32 ? 1 : kNarrowThreads / G;
-  const unsigned blocks = static_cast<unsigned>((N + R - 1) / R);
+  const long long blocks = (N + R - 1) / R;
   const int smem = groups > 1 ? groups * D * static_cast<int>(sizeof(float))
                               : 0;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        vec ? rmsnorm_bwd_rows<T, VPT, true> : rmsnorm_bwd_rows<T, VPT, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  if (vec)
-    rmsnorm_bwd_rows<T, VPT, true><<<blocks, threads, smem, stream>>>(
-        x, scale, dy, dx, part, N, D, G, R, eps);
-  else
-    rmsnorm_bwd_rows<T, VPT, false><<<blocks, threads, smem, stream>>>(
-        x, scale, dy, dx, part, N, D, G, R, eps);
-  const cudaError_t e = cudaGetLastError();
+  // the adding blocks: half of those the card holds at once
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      threads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  rmsnorm_bwd_reduce<<<(D + 255) / 256, 256, 0, stream>>>(
-      part, static_cast<int>(blocks), D, dscale);
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int K = static_cast<int>(
+      blocks < per_sm * sms / 2 ? blocks : max(1, per_sm * sms / 2));
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, stream>>>(
+      x, scale, dy, dx, part, dscale, count, N, D, G, R, K, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-// part: ceil(N / R) * D floats of scratch; dscale: D floats.
+// part: ceil(N / R) * D floats of scratch; dscale: D floats; count: two
+// zeroed counters (left zeroed).
 template <typename T>
 int launch_bwd(const T* x, const float* scale, const T* dy, T* dx,
-               float* part, float* dscale, long long N, int D, int G,
-               int vpt, int R, float eps, int vec, void* stream) {
+               float* part, float* dscale, unsigned* count, long long N, int D,
+               int G, int vpt, int R, float eps, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool ok = (G > 32 ? (G <= 512 && G % 32 == 0)
                           : (G >= 1 && (G & (G - 1)) == 0)) && R >= 1;
   if (!ok) return cudaErrorInvalidValue;
-#define K6B_VPT(n)                                                      \
-  if (vpt <= n)                                                         \
-    return launch_bwd_vpt<T, n>(x, scale, dy, dx, part, dscale, N, D, G, \
-                                R, eps, vec, s);
+#define K6B_VPT(n)                                                         \
+  if (vpt <= n)                                                            \
+    return vec ? launch_bwd_kernel<T, n, true>(x, scale, dy, dx, part,     \
+                                               dscale, count, N, D, G, R,  \
+                                               eps, s)                     \
+               : launch_bwd_kernel<T, n, false>(x, scale, dy, dx, part,    \
+                                                dscale, count, N, D, G, R, \
+                                                eps, s);
   K6B_VPT(1) K6B_VPT(2) K6B_VPT(4) K6B_VPT(8)
 #undef K6B_VPT
   return cudaErrorInvalidValue;
@@ -494,18 +604,18 @@ extern "C" int rmsnorm_bf16(const __nv_bfloat16* x, const float* scale,
 
 extern "C" int rmsnorm_bwd_f32(const float* x, const float* scale,
                                const float* dy, float* dx, float* part,
-                               float* dscale, long long N, int D, int G,
-                               int vpt, int R, float eps, int vec,
-                               void* stream) {
-  return launch_bwd(x, scale, dy, dx, part, dscale, N, D, G, vpt, R, eps, vec,
-                    stream);
+                               float* dscale, unsigned* count, long long N,
+                               int D, int G, int vpt, int R, float eps,
+                               int vec, void* stream) {
+  return launch_bwd(x, scale, dy, dx, part, dscale, count, N, D, G, vpt, R,
+                    eps, vec, stream);
 }
 
 extern "C" int rmsnorm_bwd_bf16(const __nv_bfloat16* x, const float* scale,
                                 const __nv_bfloat16* dy, __nv_bfloat16* dx,
-                                float* part, float* dscale, long long N,
-                                int D, int G, int vpt, int R, float eps,
-                                int vec, void* stream) {
-  return launch_bwd(x, scale, dy, dx, part, dscale, N, D, G, vpt, R, eps, vec,
-                    stream);
+                                float* part, float* dscale, unsigned* count,
+                                long long N, int D, int G, int vpt, int R,
+                                float eps, int vec, void* stream) {
+  return launch_bwd(x, scale, dy, dx, part, dscale, count, N, D, G, vpt, R,
+                    eps, vec, stream);
 }

@@ -16,7 +16,8 @@ would move the law kernels off them. The LM kernels (K5, K6) are built
 the same way.
 
 ``counters`` hands a kernel that combines across blocks its per-device
-block of zeroed election counters (the electing block resets its own).
+block of zeroed election counters (the electing block resets its own);
+``sm_count`` is a device's SM count, which the wrappers size grids by.
 
 ``LAUNCHES`` counts the launches of each kernel; a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that it
@@ -53,6 +54,7 @@ LAUNCHES = {"powertcp_step": 0, "theta_powertcp_step": 0,
 
 _LIBS: dict = {}
 _COUNTERS: dict = {}
+_SMS: dict = {}
 _LOCK = threading.Lock()
 
 
@@ -145,6 +147,15 @@ def counters(name: str, n: int, device) -> torch.Tensor:
         cnt = torch.zeros(max(n, 64), dtype=torch.int32, device=device)
         _COUNTERS[key] = cnt
     return cnt
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of CUDA ``device`` (cached)."""
+    key = str(device)
+    if key not in _SMS:
+        _SMS[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[key]
 
 
 def check(err: int, what: str) -> None:

@@ -26,17 +26,24 @@ keeps the scalar CUDA-core forms (tensor cores would mean TF32).
 
 For training, ``return_lse=True`` also returns each query row's float32
 log-sum-exp (the tiled forms serve every T then), and
-``flash_attention_bwd`` is the backward: two kernels, dq (one block per
-(b, head, 64 query rows), which also writes delta = rowsum(do * o)) then
-dk/dv (one block per (b, kv head, 64 keys), the group's heads and query
-tiles in a fixed order), in bfloat16 on ``mma.sync`` with p and ds split
-into bf16 halves, in float32 scalar; no float atomics, so the gradients
-are the same bits run to run. The forward's masks (causal, with or
-without a sliding window, or none): with a window, the dq kernel walks
-only the key tiles its rows see and the dk/dv kernel only the query
-tiles that see its keys; head dims 16, 32, 64, 80, 96, 128 and 256 (at 256
-each key tile's dk and dv are split by columns over two blocks, which
-keeps a thread's accumulators in registers).
+``flash_attention_bwd`` is the backward (``jax.grad`` through
+``repro/models/layers.py::_sdpa`` in ``repro``): two kernels, dq (one
+block per (b, head, 64 query rows), which also writes delta =
+rowsum(do * o)) then dk/dv (one block per (b, kv head, 64 keys, chunk of
+``bwd_heads_per_chunk`` of the group's query heads), in float32 scalar
+forms, and in bfloat16 on Hopper's ``wgmma`` with the operands brought in
+by TMA (a warpgroup a block owns 64 rows of every product; P and dS
+rounded once to bf16; dq recomputes S and dP). The chunks spread a GQA
+group over the SMs: each writes float32 partials of dk and dv to a
+scratch buffer (``torch.empty``) and the last block of the key tile to
+finish, elected by a cached counter, adds them in chunk order. No float
+atomics, so the gradients are the same bits run to run. The forward's
+masks (causal, with or without a sliding window, or none): the dq kernel
+walks only the key tiles its rows see and the dk/dv kernel only the
+query tiles that see its keys; head dims 16, 32, 64, 80, 96, 128 and 256
+(at 256 each key tile's dk and dv are split by columns over two blocks,
+which keeps a thread's accumulators in registers). TMA reads q, k, v and
+do in place under the same alignment as ``cp.async``.
 
 This launches the CUDA kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to
@@ -78,7 +85,8 @@ class _BwdArgs(ctypes.Structure):
                    for d in "bhs"]
                 + [(n, ctypes.c_int) for n in ("B", "H", "KV", "T", "S", "D",
                                                "causal", "window")]
-                + [("scale", ctypes.c_float)])
+                + [("scale", ctypes.c_float), ("hpc", ctypes.c_int),
+                   ("part", ctypes.c_void_p), ("count", ctypes.c_void_p)])
 
 
 _P2 = [ctypes.c_void_p, ctypes.c_void_p]
@@ -92,6 +100,8 @@ _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
 HEAD_DIMS = tuple(sorted((16, 80) + tuple(range(32, 257, 32))))  # the .cu's
 BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)  # the backward's
+# the bf16 dk/dv kernel: keys a block, and blocks an SM it aims for
+BWD_KEYS, BWD_WAVES = 64, 2
 
 
 def _check(what, q, others, kv_shape):
@@ -193,6 +203,22 @@ def _aligned(x):
     return x.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
 
 
+def bwd_units(B, KV, S, D):
+    """The bf16 dk/dv kernel's (b, kv head, column split, key tile)
+    units: its blocks a chunk of query heads."""
+    return B * KV * -(-S // BWD_KEYS) * max(1, D // 128)
+
+
+def bwd_heads_per_chunk(B, H, KV, S, D, sms):
+    """The query heads of a chunk of the bf16 dk/dv kernel: the group's G
+    heads cut into as few equal chunks as give about ``BWD_WAVES`` blocks
+    an SM (each chunk adds float32 partials to be summed), all G where the
+    units alone do."""
+    G = H // KV
+    chunks = min(G, max(1, -(-BWD_WAVES * sms // bwd_units(B, KV, S, D))))
+    return -(-G // chunks)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
     """The gradients (dq [B,H,T,D], dk and dv [B,KV,S,D], each laid out
     [B, T or S, heads, D] in memory) of ``flash_attention(q, k, v)`` given
@@ -222,13 +248,24 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=0):
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention", _SIGNATURES)
+    hpc, part, count = H // KV, None, None
+    if q.dtype == torch.bfloat16:
+        hpc = bwd_heads_per_chunk(B, H, KV, S, D, _build.sm_count(q.device))
+        chunks = -(-(H // KV) // hpc)
+        if chunks > 1:
+            units = bwd_units(B, KV, S, D)
+            part = torch.empty(chunks * units * 2 * BWD_KEYS * min(D, 128),
+                               dtype=torch.float32, device=q.device)
+            count = _build.counters("flash_attention_bwd", units, q.device)
     args = _BwdArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                     do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                     *(st for x in (q, k, v, o, do, dq, dk, dv)
                       for st in x.stride()[:3]),
                     B, H, KV, T, S, D, int(bool(causal)), int(window),
-                    1.0 / math.sqrt(D))
+                    1.0 / math.sqrt(D), hpc,
+                    None if part is None else part.data_ptr(),
+                    None if count is None else count.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, _BWD_ENTRY[q.dtype])(ctypes.byref(args), stream)

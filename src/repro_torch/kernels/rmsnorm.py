@@ -8,9 +8,12 @@ few lanes of a warp per row for narrow ones; on a grid of at most one
 block per SM the scale is loaded with x. Bound by the bytes it moves
 (each element read once and written once).
 
-``rmsnorm_bwd`` is its backward (``csrc/rmsnorm.cu``: the gradient of x
-row by row, the scale's as float32 partials of contiguous row chunks
-added in chunk order by a second kernel, no atomics).
+``rmsnorm_bwd`` is its backward (``jax.grad`` through
+``repro/models/layers.py::norm_apply`` in ``repro``; ``csrc/rmsnorm.cu``,
+one launch: the gradient of x row by row over contiguous row chunks, a
+block each, with the next row's loads in flight during this row's sums;
+the scale's as float32 partials of the chunks, added in chunk order by
+the last blocks to finish, no float atomics).
 
 This launches the CUDA kernel and takes CUDA tensors only;
 ``kernels/ops.py`` sends CPU tensors to ``kernels/ref.py::rmsnorm_ref``
@@ -18,7 +21,9 @@ This launches the CUDA kernel and takes CUDA tensors only;
 1e-5 in float32 and to one bfloat16 ulp in bfloat16, and bit for bit to
 its own sum order spelled in torch
 (``tests/test_torch_support.py::rmsnorm_in_k6_order``); the backward at
-2e-5 in float32 and 2e-2 in bfloat16, relative to the largest gradient.
+2e-5 in float32 and 2e-2 in bfloat16, relative to the largest gradient,
+and bit for bit to its order spelled in torch
+(``tests/test_torch_support.py::rmsnorm_bwd_in_k6_order``).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from . import _build
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_BWD = [_P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P]
+_BWD = [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _F, _I, _P]
 _SIGNATURES = {"rmsnorm_f32": [_P, _P, _P, _L, _I, _I, _I, _F, _I, _I, _P],
                "rmsnorm_bf16": [_P, _P, _P, _L, _I, _I, _I, _F, _I, _I, _P],
                "rmsnorm_bwd_f32": _BWD, "rmsnorm_bwd_bf16": _BWD}
@@ -41,6 +46,9 @@ _BWD_ENTRY = {torch.float32: "rmsnorm_bwd_f32",
 BWD_MAX_VPT = 8
 # the backward's row chunks: about this many blocks per SM
 BWD_BLOCKS_PER_SM = 2
+# the runs of blocks' partials a dscale column is added in (csrc/rmsnorm.cu
+# kSegs)
+BWD_SEGMENTS = 8
 
 # rows at least this wide take a whole block; narrower rows share a warp
 WIDE = 1024
@@ -70,17 +78,6 @@ def plan(D: int, itemsize: int):
     return G, vpt, E
 
 
-_SMS: dict = {}
-
-
-def _sm_count(device) -> int:
-    key = str(device)
-    if key not in _SMS:
-        _SMS[key] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return _SMS[key]
-
-
 def rmsnorm(x, scale, *, eps=1e-6):
     """x: [..., D] float32 or bfloat16 on the card (rows flattened to
     [N, D]); scale: [D], float32 or bfloat16 (widened exactly). Returns
@@ -105,7 +102,7 @@ def rmsnorm(x, scale, *, eps=1e-6):
     vec = int(D % E == 0 and all(t.data_ptr() % 16 == 0 for t in (x2, s, y)))
     # at most a block per SM: load the scale with x (see the source)
     blocks = N if G > 32 else -(-N // (NARROW_THREADS // G))
-    pre = int(blocks <= _sm_count(x.device))
+    pre = int(blocks <= _build.sm_count(x.device))
     lib = _build.library("rmsnorm", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -154,19 +151,20 @@ def rmsnorm_bwd(x, scale, dy, *, eps=1e-6):
     if vpt > BWD_MAX_VPT:
         raise ValueError(f"{what}: rows of {D} elements are wider than the "
                          f"backward holds ({512 * BWD_MAX_VPT * E})")
-    R = bwd_rows_per_block(N, G, _sm_count(x.device))
+    R = bwd_rows_per_block(N, G, _build.sm_count(x.device))
     part = torch.empty((-(-N // R), D), dtype=torch.float32,
                        device=x.device)
     dscale = torch.empty(D, dtype=torch.float32, device=x.device)
+    count = _build.counters("rmsnorm_bwd", 2, x.device)
     vec = int(D % E == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (x2, g2, dx)))
+                                 for t in (x2, s, g2, dx)))
     lib = _build.library("rmsnorm", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(lib, _BWD_ENTRY[x.dtype])(
             x2.data_ptr(), s.data_ptr(), g2.data_ptr(), dx.data_ptr(),
-            part.data_ptr(), dscale.data_ptr(), N, D, G, vpt, R, eps, vec,
-            stream)
+            part.data_ptr(), dscale.data_ptr(), count.data_ptr(), N, D, G,
+            vpt, R, eps, vec, stream)
     _build.check(err, what)
     _build.LAUNCHES["rmsnorm_bwd"] += 1
     return dx.reshape(x.shape), dscale.to(scale.dtype)

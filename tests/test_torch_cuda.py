@@ -1583,6 +1583,104 @@ def test_rmsnorm_bwd_kernel(cuda_device, N, D, bf16):
         torch.testing.assert_close(a, g, rtol=0, atol=0)
 
 
+# B, H, KV, T, S, D, causal, window: K5's bf16 backward against its order
+# spelled in torch: qwen3-14b's and qwen3-moe's groups split into chunks,
+# whisper's cross-attention (unmasked, T < S), partial tiles at D = 96 and
+# 80, MQA with a window at D = 256 (dk/dv split by columns), D = 16
+K5_ORDER_SHAPES = [
+    (1, 40, 8, 1024, 1024, 128, True, 0),
+    (1, 32, 4, 1024, 1024, 128, True, 0),
+    (1, 20, 20, 448, 1500, 64, False, 0),
+    (1, 4, 2, 65, 129, 96, True, 0),
+    (2, 4, 2, 63, 63, 80, True, 0),
+    (1, 10, 1, 129, 129, 256, True, 17),
+    (1, 8, 8, 130, 130, 16, True, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,S,D,causal,window", K5_ORDER_SHAPES)
+def test_flash_attention_bwd_kernel_is_its_order(cuda_device, B, H, KV, T,
+                                                 S, D, causal, window):
+    """The bf16 backward against ``sup.flash_bwd_in_k5_order`` with the
+    wrapper's chunks of the group's heads, at ``sup.K5_ORDER_BAR`` of each
+    gradient's largest value (``sup.bwd_errs``), one launch a call."""
+    from repro_torch.kernels import LAUNCHES, _build, reset_launches
+    from repro_torch.kernels.flash_attention import (bwd_heads_per_chunk,
+                                                     flash_attention,
+                                                     flash_attention_bwd)
+    q, k, v, _, _, do = _flash_bwd_case(cuda_device, B, H, KV, T, S, D,
+                                        causal, True, seed=T + D + window)
+    o, lse = flash_attention(q, k, v, causal=causal, window=window,
+                             return_lse=True)
+    reset_launches()
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    assert LAUNCHES["flash_attention_bwd"] == 1
+    hpc = bwd_heads_per_chunk(B, H, KV, S, D, _build.sm_count(cuda_device))
+    want = sup.flash_bwd_in_k5_order(q, k, v, o, lse, do, causal=causal,
+                                     window=window, hpc=hpc)
+    for name, e in zip(("dq", "dk", "dv"), sup.bwd_errs(got, want)):
+        assert e <= sup.K5_ORDER_BAR, (name, e)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D", [(1024, 5120), (1024 * 40, 128), (7, 16),
+                                 (33, 200), (5, 5121), (4096, 2048)])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_rmsnorm_bwd_kernel_is_its_order(cuda_device, N, D, bf16):
+    """K6's backward bit for bit its order spelled in torch
+    (``sup.rmsnorm_bwd_in_k6_order`` with the card's SM count), one launch
+    a call."""
+    from repro_torch.kernels import LAUNCHES, _build, reset_launches
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    x, s, dy = (torch.as_tensor(a, device=cuda_device)
+                for a in sup.rmsnorm_bwd_inputs(N, D, seed=N + D))
+    if bf16:
+        x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    reset_launches()
+    got = rmsnorm_bwd(x, s, dy, eps=1e-6)
+    assert LAUNCHES["rmsnorm_bwd"] == 1
+    want = sup.rmsnorm_bwd_in_k6_order(x, s, dy, 1e-6,
+                                       sms=_build.sm_count(cuda_device))
+    for name, g, w in zip(("dx", "dscale"), got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, msg=name)
+
+
+@pytest.mark.cuda
+def test_backward_kernels_use_wgmma_and_no_float_atomic(cuda_device):
+    """The compiled bf16 K5 backward kernels run Hopper's warpgroup
+    products (HGMMA in their SASS), and neither backward's kernels take a
+    float atomic (``cuobjdump -sass`` of the built libraries)."""
+    import re
+    import shutil
+    import subprocess
+    from repro_torch.kernels import _build
+    _build.build(("flash_attention", "rmsnorm"))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for lib, names, wgmma in (
+            ("flash_attention", ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
+                                 "flash_bwd_dq_f32", "flash_bwd_dkv_f32"),
+             ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")),
+            ("rmsnorm", ("rmsnorm_bwd_kernel",), ())):
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        seen = set()
+        for section in sass.split("Function : ")[1:]:
+            fname = section.split("\n", 1)[0]
+            name = next((n for n in names if n in fname), None)
+            if name is None:
+                continue
+            seen.add(name)
+            if name in wgmma:
+                assert "HGMMA" in section, fname
+            for line in section.splitlines():
+                assert not re.search(r"\b(ATOM|ATOMG|RED)\S*\.F(16|32|64)",
+                                     line), (fname, line)
+        assert seen == set(names), (lib, seen)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [True, False])
 def test_autograd_functions_launch_the_backward_kernels(cuda_device, bf16):

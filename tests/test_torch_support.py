@@ -1192,6 +1192,154 @@ def rmsnorm_in_k6_order(x, scale, eps=1e-6):
     return y.to(x.dtype).reshape(x.shape)
 
 
+def flash_bwd_in_k5_order(q, k, v, o, lse, do, *, causal=True, window=0,
+                          hpc=None):
+    """K5's bf16 backward (``csrc/flash_attention.cu``, the wgmma kernels)
+    spelled in float32 torch: delta = rowsum(do * o) as each lane of a
+    quad adds the columns c = lane mod 4 in order, then (p0 + p1) + (p2 +
+    p3); p = 2^(s (scale log2e) - lse log2e) (0 where masked), ds = p (dp
+    - delta), each rounded once to bf16 for the gradient products; dq over
+    tiles of BK keys (32 at D = 256, else 64) added in key order, times
+    scale; dk and dv of each chunk of ``hpc`` query heads (the wrapper's
+    ``bwd_heads_per_chunk``; all G by default) over its heads in ascending
+    order and each head's 64-query tiles in order, the chunks added in
+    ascending order, dk times scale. Every product within a tile is a
+    float32 einsum (the tensor cores' own order inside). q, do [B,H,T,D],
+    k, v [B,KV,S,D] (bf16 values), o [B,H,T,D], lse [B,H,T]; returns (dq,
+    dk, dv) rounded to bf16."""
+    B, H, T, D = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    G = H // KV
+    hpc = G if hpc is None else hpc
+    BK = 32 if D > 128 else 64
+    dev = q.device
+    f32 = torch.float32
+    qf, kf, vf, dof = (x.to(f32) for x in (q, k, v, do))
+    kk = kf[:, :, None].expand(B, KV, G, S, D).reshape(B, H, S, D)
+    vv = vf[:, :, None].expand(B, KV, G, S, D).reshape(B, H, S, D)
+    prod = dof * o.to(f32)
+    parts = []
+    for j in range(4):
+        acc = torch.zeros((B, H, T), dtype=f32, device=dev)
+        for c in range(j, D, 4):
+            acc = acc + prod[..., c]
+        parts.append(acc)
+    delta = (parts[0] + parts[1]) + (parts[2] + parts[3])
+    scale = torch.tensor(1.0 / math.sqrt(D), dtype=f32)
+    sc = scale * torch.tensor(1.4426950408889634, dtype=f32)
+    ls2 = lse.to(f32) * torch.tensor(1.4426950408889634, dtype=f32)
+    qi = torch.arange(T, device=dev)[:, None] + (S - T)
+    kj = torch.arange(S, device=dev)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kj <= qi
+        if window > 0:
+            mask &= kj > qi - window
+    s = torch.einsum("bhtd,bhsd->bhts", qf, kk)
+    dp = torch.einsum("bhtd,bhsd->bhts", dof, vv)
+    p = torch.where(mask, torch.exp2(s * sc - ls2[..., None]), 0.0)
+    ds = torch.where(mask, p * (dp - delta[..., None]), 0.0)
+    pb, dsb = (x.to(torch.bfloat16).to(f32) for x in (p, ds))
+    dq = torch.zeros((B, H, T, D), dtype=f32, device=dev)
+    for k0 in range(0, S, BK):
+        sl = slice(k0, k0 + BK)
+        dq = dq + torch.einsum("bhts,bhsd->bhtd", dsb[..., sl], kk[:, :, sl])
+    dk = dv = None
+    for c0 in range(0, G, hpc):
+        ck = torch.zeros((B, KV, S, D), dtype=f32, device=dev)
+        cv = torch.zeros_like(ck)
+        for g in range(c0, min(c0 + hpc, G)):
+            heads = torch.arange(KV, device=dev) * G + g
+            for t0 in range(0, T, 64):
+                sl = slice(t0, t0 + 64)
+                ck = ck + torch.einsum("bhts,bhtd->bhsd",
+                                       dsb[:, heads, sl], qf[:, heads, sl])
+                cv = cv + torch.einsum("bhts,bhtd->bhsd",
+                                       pb[:, heads, sl], dof[:, heads, sl])
+        dk = ck if dk is None else dk + ck
+        dv = cv if dv is None else dv + cv
+    bf = torch.bfloat16
+    return (dq * scale).to(bf), (dk * scale).to(bf), dv.to(bf)
+
+
+def rmsnorm_bwd_in_k6_order(x, scale, dy, eps=1e-6, sms=132):
+    """K6's backward (``csrc/rmsnorm.cu``, ``rmsnorm_bwd_kernel``) in
+    torch, in its order: each row's sums of x^2 and of (dy * scale) * x
+    as ``rmsnorm_in_k6_order`` takes the square sum (lane slots in order,
+    the xor butterfly, the warps in order), inv = 1 / sqrt(ss / D + eps),
+    c = gx / D, dx = inv * g - (x * (inv * inv) * inv) * c; dscale's
+    terms (dy * x) * inv added over each block's rows (``rmsnorm.
+    bwd_rows_per_block`` for ``sms`` SMs): each group of a narrow block
+    over its rows i, i + groups, ... in order from +0.0, the groups in
+    group order; then each column's block partials cut into
+    ``BWD_SEGMENTS`` runs, each added from +0.0 in block order, the runs
+    in run order. Elementwise float32 ops, so on the card too it rounds
+    as the kernel does. Returns (dx in x's dtype, dscale float32)."""
+    from repro_torch.kernels.rmsnorm import (BWD_SEGMENTS, NARROW_THREADS,
+                                             bwd_rows_per_block, plan)
+    D = x.shape[-1]
+    G, vpt, E = plan(D, x.element_size())
+    xf = x.reshape(-1, D).float()
+    gf = dy.reshape(-1, D).float()
+    N = xf.shape[0]
+    sf = scale.float()
+    pad = G * vpt * E - D
+
+    def lanes(v):
+        return torch.cat([v, v.new_zeros(N, pad)], 1).reshape(N, vpt, G, E)
+
+    def row_sum(terms):
+        acc = terms.new_zeros(N, G)
+        for k in range(vpt):
+            for e in range(E):
+                acc = acc + terms[:, k, :, e]
+        W = min(G, 32)
+        part = acc.reshape(N, G // W, W)
+        while part.shape[-1] > 1:
+            h = part.shape[-1] // 2
+            part = part[..., :h] + part[..., h:]
+        tot = part[:, 0, 0]
+        for w in range(1, G // W):
+            tot = tot + part[:, w, 0]
+        return tot
+
+    xl = lanes(xf)
+    ss = row_sum(xl * xl)
+    g = gf * sf
+    gx = row_sum(lanes(g) * xl)
+    Dt = torch.full_like(ss, D)
+    root = torch.sqrt(ss / Dt + eps)
+    inv = (torch.ones_like(root) / root)[:, None]
+    c = (gx / Dt)[:, None]
+    inv3 = (inv * inv) * inv
+    dx = inv * g - (xf * inv3) * c
+    terms = (gf * xf) * inv
+    groups = 1 if G > 32 else NARROW_THREADS // G
+    R = bwd_rows_per_block(N, G, sms)
+    P = -(-N // R)
+    rounds = -(-R // groups)
+    t = torch.cat([terms, terms.new_zeros(P * R - N, D)])
+    t = torch.cat([t.reshape(P, R, D),
+                   t.new_zeros(P, rounds * groups - R, D)], 1)
+    t = t.reshape(P, rounds, groups, D)
+    acc = t.new_zeros(P, groups, D)
+    for i in range(rounds):
+        acc = acc + t[:, i]
+    part = acc[:, 0]
+    for q in range(1, groups):
+        part = part + acc[:, q]
+    runs = []
+    for j in range(BWD_SEGMENTS):
+        r = part.new_zeros(D)
+        for b in range(P * j // BWD_SEGMENTS, P * (j + 1) // BWD_SEGMENTS):
+            r = r + part[b]
+        runs.append(r)
+    ds = runs[0]
+    for r in runs[1:]:
+        ds = ds + r
+    return dx.to(x.dtype).reshape(x.shape), ds
+
+
 def lm_teacher_forced(params, cfg, prompt, tokens, cache_len, extras=None):
     """The port's prefill of ``prompt`` [B,P] (with the batch's other
     inputs ``extras``), then one decode step per column of ``tokens``
@@ -1567,6 +1715,14 @@ def test_goldens_load():
 # the backward kernels against their plain versions: the largest absolute
 # difference over the largest absolute gradient (the forward's bars)
 BWD_BAR_BF16, BWD_BAR_F32 = 2e-2, 2e-5
+# K5's bf16 backward against its order spelled in torch
+# (``flash_bwd_in_k5_order``), on the card: not bit for bit, since the
+# tensor cores add inside a product in their own order and exp2 is MUFU's
+# approximation; the float32 sums then differ in their last bits, which
+# can move a gradient to the neighbouring bfloat16 value (at most 2^-7 =
+# 7.8e-3 of the largest gradient) or, rarely, move a p or ds to the next
+# bf16 value
+K5_ORDER_BAR = 1e-2
 
 
 def flash_bwd_inputs(B, H, KV, T, S, D, seed=0):

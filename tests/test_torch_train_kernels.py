@@ -10,6 +10,13 @@
 * ``rmsnorm_bwd_ref`` (float32 statistics, dscale summed over the rows in
   row order) against autograd of ``rmsnorm_ref`` and ``jax.grad`` of
   ``repro.kernels.ref.rmsnorm_ref``;
+* the bf16 K5 backward's and the K6 backward's sum orders spelled in
+  torch (``test_torch_support.flash_bwd_in_k5_order``,
+  ``rmsnorm_bwd_in_k6_order``: P and dS rounded once to bf16, dq's key
+  tiles, dk and dv over chunks of the group's heads; K6's row sums and
+  dscale's block runs) against the plain versions and ``jax.grad`` at the
+  same bars, and the kernels' sources: the bf16 backward on ``wgmma``,
+  no ``mma.sync`` and no float atomic in either backward;
 * ``ops.flash_attention`` and ``ops.rmsnorm`` with inputs that require
   grad go through ``_FlashAttention`` and ``_RMSNorm`` (on the CPU their
   forward and backward run the plain versions), and their gradients match
@@ -23,6 +30,9 @@ rounded to bfloat16, whose spacing is 2^-8 of a value, and autograd of
 the plain forward takes delta from the unrounded output; measured at
 most 6.9e-3).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -177,3 +187,89 @@ def test_ops_without_grad_are_the_plain_forward():
     with torch.no_grad():
         y = ops.rmsnorm(x, s.clone().requires_grad_())
     assert y.grad_fn is None and torch.equal(y, ref.rmsnorm_ref(x, s))
+
+
+# B, H, KV, T, S, D, causal, window, query heads a dk/dv chunk (None: the
+# whole group): FLASH_CASES, head dims 80, 96 and 256, a partial 64-row
+# tile, and groups split over several chunks
+K5_ORDER_CASES = [c + (None,) for c in FLASH_CASES] + [
+    (1, 4, 2, 20, 20, 80, True, 0, None),       # stablelm-3b's D = 80
+    (1, 4, 2, 33, 47, 96, True, 0, None),       # phi3-vision's D = 96
+    (1, 2, 1, 40, 40, 256, True, 0, None),      # D = 256: 32-key dq tiles
+    (1, 2, 1, 65, 65, 32, True, 0, None),       # T = 65: a partial tile
+    (1, 10, 2, 40, 40, 32, True, 0, 2),         # G = 5 in chunks of 2
+    (1, 8, 1, 70, 70, 16, True, 9, 3),          # MQA, a window, 3 chunks
+    (1, 6, 2, 30, 50, 16, False, 0, 1),         # unmasked, T < S
+]
+
+
+@pytest.mark.parametrize("B,H,KV,T,S,D,causal,window,hpc", K5_ORDER_CASES)
+def test_flash_bwd_in_k5_order(B, H, KV, T, S, D, causal, window, hpc):
+    (jq, jk, jv, jdo), (q, k, v, do) = _both(
+        sup.flash_bwd_inputs(B, H, KV, T, S, D, seed=T + S + D), jnp.bfloat16)
+    o, lse = ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     return_lse=True)
+    got = sup.flash_bwd_in_k5_order(q, k, v, o, lse, do, causal=causal,
+                                    window=window, hpc=hpc)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       window=window)
+    _, vjp = jax.vjp(lambda a, b, c: jref.flash_attention_ref(
+        a, b, c, causal=causal, window=window), jq, jk, jv)
+    jgrads = [torch.as_tensor(np.array(_np(j))) for j in vjp(jdo)]
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+    for name, e, j in zip(("dq", "dk", "dv"), sup.bwd_errs(got, want),
+                          sup.bwd_errs(got, jgrads)):
+        assert e <= BF16_BAR, (name, "plain", e)
+        assert j <= BF16_BAR, (name, "jax", j)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("N,D,sms", [(7, 16, 132), (40, 128, 132),
+                                     (3, 5120, 132), (33, 200, 132),
+                                     (300, 128, 4), (64, 2048, 4),
+                                     (5, 5121, 132)])
+def test_rmsnorm_bwd_in_k6_order(N, D, sms, dtype):
+    bar = F32_BAR if dtype == jnp.float32 else BF16_BAR
+    x, s, dy = sup.rmsnorm_bwd_inputs(N, D, seed=N + D)
+    (jx, jdy), (tx, tdy) = _both((x, dy), dtype)
+    ts = torch.as_tensor(s)
+    dx, ds = sup.rmsnorm_bwd_in_k6_order(tx, ts, tdy, 1e-6, sms=sms)
+    assert dx.dtype == tx.dtype and ds.dtype == torch.float32
+    want = ref.rmsnorm_bwd_ref(tx, ts, tdy, eps=1e-6)
+    _, vjp = jax.vjp(lambda a, b: jref.rmsnorm_ref(a, b, eps=1e-6), jx,
+                     jnp.asarray(s))
+    for name, g, w, j in zip(("dx", "dscale"), (dx, ds), want, vjp(jdy)):
+        assert _rel(g, w) <= bar, (name, "plain", _rel(g, w))
+        assert _rel(g, j) <= bar, (name, "jax", _rel(g, j))
+
+
+CSRC = Path(ref.__file__).resolve().parent.parent / "csrc"
+
+
+def _kernel_body(src, name):
+    """The text of ``__global__`` function ``name`` in ``src``."""
+    start = re.search(rf"\n\s*{name}\(", src).start()
+    return src[start:src.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("source,kernels,wgmma", [
+    ("flash_attention.cu", ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma"),
+     True),
+    ("rmsnorm.cu", ("rmsnorm_bwd_kernel",), False)])
+def test_backward_sources_use_wgmma_and_no_float_atomic(source, kernels,
+                                                         wgmma):
+    """The bf16 K5 backward computes its products with ``wgmma`` and no
+    ``mma.sync``; neither backward takes an atomic but on its integer
+    counters."""
+    src = (CSRC / source).read_text()
+    if wgmma:
+        assert "wgmma.mma_async" in src
+        assert "flash_bwd_dq_mma" not in src and "flash_bwd_dkv_mma" not in src
+    for name in kernels:
+        body = _kernel_body(src, name)
+        if wgmma:
+            assert "wgmma_ss(" in body and "wgmma_rs(" in body, name
+            assert "mma16816" not in body, name
+        for call in re.findall(r"atomic\w*\(([^,]*),", body):
+            assert "count" in call, (name, call)
